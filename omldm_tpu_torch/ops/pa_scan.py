@@ -1,0 +1,166 @@
+"""Fused per-record Passive-Aggressive scan: CUDA kernel + plain version.
+
+Counterpart of ``omldm_tpu/ops/pa_scan.py`` (the Pallas ``_pa_kernel``).
+The exact per-record PA update is sequential: each row's margin depends on
+the weights the previous row left. The kernel (``csrc/pa_scan.cu``) sweeps a
+whole micro-batch in one launch with the weight vector in shared memory;
+see the source for its design and what bounds it.
+
+``pa_scan_update`` launches the kernel for CUDA tensors and runs
+``pa_scan_reference`` -- the same function as a Python loop over rows --
+for CPU tensors. There is no fallback from one to the other: a CUDA tensor
+the kernel cannot take raises.
+
+The kernel is built with ``nvcc`` on first use, from the sources in the
+checkout, into ``build/omldm_tpu_torch/`` at the repository root, and bound
+with ``ctypes`` (a plain C interface: no PyTorch headers, seconds to build).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+_VARIANTS = {"PA": 0, "PA-I": 1}  # anything else is PA-II, as in the JAX kernel
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pa_scan.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "omldm_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: kernel launches made by :func:`pa_scan_update` (CUDA tensors only)
+launches = 0
+#: seconds the last build took (0.0 when a built library was reused)
+build_seconds = 0.0
+#: nvcc's output of the last build (register / shared-memory report)
+build_log = ""
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the pa_scan kernel needs the CUDA toolkit")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source content) and load the kernel library."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    src = _SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libpa_scan-{digest}.so"
+    build_seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"libpa_scan-{digest}.{os.getpid()}.tmp.so"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+            capture_output=True, text=True,
+        )
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{build_log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.omldm_pa_scan.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.omldm_pa_scan.restype = ctypes.c_int
+    lib.omldm_pa_scan_max_dim.argtypes = []
+    lib.omldm_pa_scan_max_dim.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def pa_scan_reference(
+    w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+    variant: str = "PA-I", C: float = 0.01,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the same sequential pass, one row at a time.
+
+    w[D], x[B, D], y[B], mask[B] -> (new_w[D], mean masked hinge)."""
+    w = w.to(torch.float32).clone()
+    x = x.to(torch.float32)
+    mask = mask.to(torch.float32)
+    ys = torch.where(y > 0, 1.0, -1.0).to(torch.float32)
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(x.shape[0]):
+        xi = x[i]
+        hinge = torch.clamp(1.0 - ys[i] * torch.dot(w, xi), min=0.0)
+        sq = torch.clamp(torch.dot(xi, xi), min=1e-12)
+        if variant == "PA":
+            tau = hinge / sq
+        elif variant == "PA-I":
+            tau = torch.clamp(hinge / sq, max=C)
+        else:
+            tau = hinge / (sq + 1.0 / (2.0 * C))
+        w = w + (tau * ys[i] * mask[i]) * xi
+        acc = acc + hinge * mask[i]
+    return w, acc / torch.clamp(mask.sum(), min=1.0)
+
+
+def pa_scan_update(
+    w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+    variant: str = "PA-I", C: float = 0.01,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential PA pass over a micro-batch.
+
+    w[D], x[B, D] (bias column already appended), y[B], mask[B] ->
+    (new_w[D], mean masked hinge as a 0-d tensor). CUDA tensors go through
+    the kernel, CPU tensors through :func:`pa_scan_reference`."""
+    if x.device.type == "cpu":
+        return pa_scan_reference(w, x, y, mask, variant, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"pa_scan_update: unsupported device {x.device}")
+    B, D = x.shape
+    for name, t, shape in (("w", w, (D,)), ("x", x, (B, D)), ("y", y, (B,)),
+                           ("mask", mask, (B,))):
+        if t.device != x.device:
+            raise ValueError(f"pa_scan_update: {name} on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"pa_scan_update: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"pa_scan_update: {name} shape {tuple(t.shape)} != {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"pa_scan_update: {name} must be contiguous")
+    lib = build()
+    if D > lib.omldm_pa_scan_max_dim():
+        raise ValueError(
+            f"pa_scan_update: D={D} exceeds the shared-memory limit "
+            f"({lib.omldm_pa_scan_max_dim()} floats)"
+        )
+    code = _VARIANTS.get(variant, 2)
+    inv2c = 1.0 / (2.0 * float(C)) if code == 2 else 0.0
+    w_out = torch.empty_like(w)
+    loss = torch.empty((1,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.omldm_pa_scan(
+            w.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            w_out.data_ptr(), loss.data_ptr(), B, D, code, float(C), inv2c,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"pa_scan kernel launch failed: CUDA error {rc}")
+    global launches
+    launches += 1
+    return w_out, loss.reshape(())

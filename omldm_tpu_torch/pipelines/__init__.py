@@ -1,0 +1,9 @@
+"""ML pipeline composition (the reference's mlAPI.pipelines.MLPipeline)."""
+
+from omldm_tpu_torch.pipelines.pipeline import (
+    MLPipeline,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+__all__ = ["MLPipeline", "state_from_numpy", "state_to_numpy"]

@@ -1,0 +1,6 @@
+"""Small shared utilities."""
+
+from omldm_tpu_torch.utils.counting import batch_valid_counts
+from omldm_tpu_torch.utils.tracing import StepTimer
+
+__all__ = ["batch_valid_counts", "StepTimer"]
