@@ -1,0 +1,349 @@
+"""Attention: plain references, and flash attention with hand-written CUDA kernels.
+
+Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
+``[B, L, H, Dh] -> [B, L, H, Dh]``:
+
+- ``mha_reference``        materialises the [Lq, Lk] scores; the tests' oracle.
+- ``online_softmax_sweep`` / ``blockwise_attention``
+                           flash-style online softmax over K/V blocks in
+                           plain torch (the per-device loop ring attention
+                           will reuse).
+- ``flash_attention``      the forward kernel (``csrc/flash_attention.cu``)
+                           on a CUDA tensor, its plain twin on a CPU tensor;
+                           returns the per-row logsumexp too.
+- ``flash_attention_bwd``  the dQ and dK/dV kernels on CUDA, their plain twin
+                           (P recomputed from the lse block by block, as the
+                           kernels do) on the CPU.
+- ``FlashAttention``       the ``torch.autograd.Function`` pairing them (the
+                           JAX package's ``_flash_diff`` custom VJP).
+- ``attention``            the entry point the transformer calls.
+
+A CUDA tensor the kernels cannot take (dtype, head width, layout) raises;
+nothing falls back to the plain version. Every kernel launch counts in
+:data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from omldm_tpu_torch.ops._build import KernelLibrary
+
+NEG_INF = -1e30
+
+#: kernel launches by name (CUDA tensors only)
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
+
+#: head widths the kernels are built for, by dtype
+KERNEL_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FWD, _DQ, _DKDV = 0, 1, 2
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.omldm_flash_attention.argtypes = (
+        [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_void_p] * 11
+    )
+    lib.omldm_flash_attention.restype = ctypes.c_int
+
+
+LIBRARY = KernelLibrary("flash_attention.cu", _configure)
+
+
+# ---------------------------------------------------------------------------
+# plain references
+# ---------------------------------------------------------------------------
+
+
+def _allowed(lq: int, lk: int, causal: bool, q_offset: int, kv_offset: int,
+             device) -> Optional[torch.Tensor]:
+    """[Lq, Lk] bool: which (query, key) pairs the causal mask keeps."""
+    if not causal:
+        return None
+    qi = q_offset + torch.arange(lq, device=device)[:, None]
+    ki = kv_offset + torch.arange(lk, device=device)[None, :]
+    return qi >= ki
+
+
+def mha_reference(q, k, v, causal: bool = False, q_offset: int = 0,
+                  kv_offset: int = 0) -> torch.Tensor:
+    """Plain softmax attention. q, k, v: [B, L, H, Dh]."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    keep = _allowed(q.shape[1], k.shape[1], causal, q_offset, kv_offset, q.device)
+    if keep is not None:
+        scores = scores.masked_fill(~keep, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def online_softmax_sweep(q32, k, v, carry, q_pos, kv_pos_start, causal=False,
+                         block_k: int = 256):
+    """Sweep ONE K/V chunk in key blocks, updating an online-softmax carry.
+
+    q32: [B, Lq, H, Dh] float32; k/v: [B, Lk, H, Dh]; carry is
+    ``(o [B,H,Lq,Dh], m [B,H,Lq], l [B,H,Lq])``; ``q_pos`` are absolute query
+    positions [Lq] and ``kv_pos_start`` the absolute position of key row 0.
+    Never materialises more than [.., Lq, block_k] scores."""
+    lk, dh = k.shape[1], q32.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    o, m, l = carry
+    for start in range(0, lk, block_k):
+        kb = k[:, start:start + block_k].float()
+        vb = v[:, start:start + block_k].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kb) * scale
+        if causal:
+            ki = kv_pos_start + start + torch.arange(kb.shape[1], device=s.device)
+            s = s.masked_fill(q_pos[:, None] < ki[None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # a row with every key masked so far must get zero weights
+        p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m_new[..., None]))
+        alpha = torch.exp(torch.clamp(m - m_new, max=0.0))
+        l = alpha * l + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    return o, m, l
+
+
+def blockwise_attention(q, k, v, causal: bool = False, block_k: int = 256,
+                        q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+    """Flash-style attention in plain torch: online softmax over K/V blocks.
+    q, k, v: [B, L, H, Dh] (Lk may differ from Lq)."""
+    b, lq, h, dh = q.shape
+    q32 = q.float()
+    q_pos = q_offset + torch.arange(lq, device=q.device)
+    o = torch.zeros((b, h, lq, dh), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, lq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, lq), dtype=torch.float32, device=q.device)
+    o, m, l = online_softmax_sweep(q32, k, v, (o, m, l), q_pos, kv_offset,
+                                   causal=causal, block_k=block_k)
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain twins of the kernels
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_reference(q, k, v, causal: bool = False, q_offset: int = 0,
+                              kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (out [B, Lq, H, Dh] in q's dtype,
+    lse [B*H, Lq, 1] float32). Scores and sums in float32 from the operands'
+    own values; P rounded to v's dtype before the P V product, as the kernel
+    rounds it. Materialises the [Lq, Lk] scores of every head at once."""
+    b, lq, h, dh = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    keep = _allowed(lq, k.shape[1], causal, q_offset, kv_offset, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float()) / l
+    lse = (m + torch.log(l)).reshape(b * h, lq, 1)
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal: bool = False,
+                                  q_offset: int = 0, kv_offset: int = 0,
+                                  block_k: int = 128):
+    """Plain version of the dQ and dK/dV kernels: P recomputed from the saved
+    lse one key block at a time, ``dS = P (dP - delta)``, float32 sums, P and
+    dS rounded to the operand dtype before their products. lse and delta:
+    [B*H, Lq] (a trailing unit axis is accepted). Returns dq, dk, dv in
+    [B, L, H, Dh] and the dtypes of q, k, v."""
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, dout))  # [B,H,L,D]
+    lse4 = lse.reshape(b, h, lq, 1).float()
+    delta4 = delta.reshape(b, h, lq, 1).float()
+    keep = _allowed(lq, lk, causal, q_offset, kv_offset, q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for k0 in range(0, lk, block_k):
+        kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (qf @ kb.transpose(-1, -2)) * scale
+        if keep is not None:
+            s = s.masked_fill(~keep[:, k0:k0 + block_k], NEG_INF)
+        p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse4))
+        dv[:, :, k0:k0 + block_k] = p.to(dout.dtype).float().transpose(-1, -2) @ dof
+        ds = p * (dof @ vb.transpose(-1, -2) - delta4)
+        dq += ds.to(k.dtype).float() @ kb
+        dk[:, :, k0:k0 + block_k] = (ds.to(q.dtype).float().transpose(-1, -2) @ qf) * scale
+    dq = dq * scale
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_kernel_inputs(fn: str, named) -> torch.dtype:
+    """Raise unless every tensor is one the kernels take: CUDA, one dtype of
+    float32/bfloat16, [B, L, H, Dh] with Dh in KERNEL_HEAD_DIMS[dtype], unit stride
+    on Dh and 16-byte aligned rows."""
+    dtype = named[0][1].dtype
+    device = named[0][1].device
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{fn}: dtype {dtype} is not float32 or bfloat16")
+    for name, t in named:
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} is {t.dtype}, q is {dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{fn}: {name} must be [B, L, H, Dh], got {tuple(t.shape)}")
+        if t.shape[-1] not in KERNEL_HEAD_DIMS[dtype]:
+            raise ValueError(f"{fn}: head width {t.shape[-1]} is not one of "
+                             f"{KERNEL_HEAD_DIMS[dtype]} for {dtype}")
+        align = 16 // t.element_size()
+        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                f"{fn}: {name} needs unit stride on Dh and 16-byte aligned rows "
+                f"(strides {t.stride()})")
+    return dtype
+
+
+def _launch(which, dtype, q, k, v, causal, q_offset, kv_offset, dout=None,
+            out=None, dq=None, dk=None, dv=None, lse=None, delta=None):
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    if b * h > 65535:
+        raise ValueError(f"flash attention: B*H = {b * h} exceeds the grid limit 65535")
+    lib = LIBRARY.load()
+    do = dout if dout is not None else q
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.omldm_flash_attention(
+            which, _DTYPE_CODES[dtype], dh, b, h, lq, lk, int(causal),
+            int(q_offset), int(kv_offset), 1.0 / math.sqrt(dh), strides,
+            ptr(q), ptr(k), ptr(v), ptr(dout), ptr(out), ptr(dq), ptr(dk),
+            ptr(dv), ptr(lse), ptr(delta), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash attention kernel {which} launch failed: CUDA error {rc}")
+
+
+def _check_device(fn: str, q: torch.Tensor) -> bool:
+    """True for CUDA (kernels), False for the CPU (plain twins); raises else."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    return True
+
+
+def flash_attention(q, k, v, causal: bool = False, q_offset: int = 0,
+                    kv_offset: int = 0, return_lse: bool = False):
+    """Flash attention forward. q: [B, Lq, H, Dh], k/v: [B, Lk, H, Dh] ->
+    out [B, Lq, H, Dh] (q's dtype) and, with ``return_lse``, the per-row
+    logsumexp [B*H, Lq, 1] float32. CUDA tensors run the forward kernel, CPU
+    tensors :func:`flash_attention_reference`."""
+    if not _check_device("flash_attention", q):
+        out, lse = flash_attention_reference(q, k, v, causal, q_offset, kv_offset)
+        return (out, lse) if return_lse else out
+    dtype = _check_kernel_inputs("flash_attention", [("q", q), ("k", k), ("v", v)])
+    b, lq, h, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit")
+    out = torch.empty((b, lq, h, dh), dtype=dtype, device=q.device)
+    lse = torch.empty((b * h, lq, 1), dtype=torch.float32, device=q.device)
+    _launch(_FWD, dtype, q, k, v, causal, q_offset, kv_offset, out=out, lse=lse)
+    launches["flash_fwd"] += 1
+    return (out, lse) if return_lse else out
+
+
+def _check_bwd_inputs(fn, q, k, v, dout, lse, delta) -> torch.dtype:
+    dtype = _check_kernel_inputs(fn, [("q", q), ("k", k), ("v", v), ("dout", dout)])
+    b, lq, h, _ = q.shape
+    if dout.shape != q.shape or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, dout {tuple(dout.shape)} do not fit")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.numel() != b * h * lq \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{fn}: {name} must be contiguous float32 [B*H, Lq] on {q.device}")
+    return dtype
+
+
+def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = False,
+                       q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+    """The dQ kernel (CUDA tensors only); see :func:`flash_attention_bwd`."""
+    dtype = _check_bwd_inputs("flash_attention_dq", q, k, v, dout, lse, delta)
+    dq = torch.empty(q.shape, dtype=dtype, device=q.device)
+    _launch(_DQ, dtype, q, k, v, causal, q_offset, kv_offset, dout=dout, dq=dq,
+            lse=lse, delta=delta)
+    launches["flash_dq"] += 1
+    return dq
+
+
+def flash_attention_dkdv(q, k, v, dout, lse, delta, causal: bool = False,
+                         q_offset: int = 0, kv_offset: int = 0):
+    """The dK/dV kernel (CUDA tensors only); see :func:`flash_attention_bwd`."""
+    dtype = _check_bwd_inputs("flash_attention_dkdv", q, k, v, dout, lse, delta)
+    dk = torch.empty(k.shape, dtype=dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=dtype, device=q.device)
+    _launch(_DKDV, dtype, q, k, v, causal, q_offset, kv_offset, dout=dout, dk=dk,
+            dv=dv, lse=lse, delta=delta)
+    launches["flash_dkdv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False,
+                        q_offset: int = 0, kv_offset: int = 0):
+    """Flash attention backward: (dq, dk, dv) from the forward's inputs, the
+    output cotangent ``dout`` [B, Lq, H, Dh], its ``lse`` and
+    ``delta = rowsum(dout * out)``, both float32 [B*H, Lq] (or [B*H, Lq, 1]).
+    CUDA tensors run the dQ and dK/dV kernels, CPU tensors
+    :func:`flash_attention_bwd_reference`."""
+    if not _check_device("flash_attention_bwd", q):
+        return flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal,
+                                             q_offset, kv_offset)
+    dq = flash_attention_dq(q, k, v, dout, lse, delta, causal, q_offset, kv_offset)
+    dk, dv = flash_attention_dkdv(q, k, v, dout, lse, delta, causal, q_offset, kv_offset)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, and the dQ and
+    dK/dV kernels recomputing P from the saved logsumexp (the JAX package's
+    ``_flash_diff``). On CPU tensors the plain twins stand in for both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, kv_offset: int):
+        out, lse = flash_attention(q, k, v, causal, q_offset, kv_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, q_offset, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        g = g.contiguous()  # autograd may hand over an expanded or strided cotangent
+        b, lq, h, _ = q.shape
+        # delta_i = rowsum(dO * O), in plain torch as the JAX package does
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq)
+        dq, dk, dv = flash_attention_bwd(q, k, v, g, lse, delta, *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def attention(q, k, v, causal: bool = False, q_offset: int = 0,
+              kv_offset: int = 0) -> torch.Tensor:
+    """The transformer's attention: :class:`FlashAttention` -- the kernels on
+    CUDA tensors, their plain twins on CPU tensors."""
+    return FlashAttention.apply(q, k, v, causal, q_offset, kv_offset)

@@ -12,74 +12,25 @@ for CPU tensors. There is no fallback from one to the other: a CUDA tensor
 the kernel cannot take raises.
 
 The kernel is built with ``nvcc`` on first use, from the sources in the
-checkout, into ``build/omldm_tpu_torch/`` at the repository root, and bound
-with ``ctypes`` (a plain C interface: no PyTorch headers, seconds to build).
+checkout, and bound with ``ctypes`` (``ops/_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
+from omldm_tpu_torch.ops._build import KernelLibrary
+
 _VARIANTS = {"PA": 0, "PA-I": 1}  # anything else is PA-II, as in the JAX kernel
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pa_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "omldm_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 #: kernel launches made by :func:`pa_scan_update` (CUDA tensors only)
 launches = 0
-#: seconds the last build took (0.0 when a built library was reused)
-build_seconds = 0.0
-#: nvcc's output of the last build (register / shared-memory report)
-build_log = ""
-_lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the pa_scan kernel needs the CUDA toolkit")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
-    global _lib, build_seconds, build_log
-    if _lib is not None:
-        return _lib
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libpa_scan-{digest}.so"
-    build_seconds = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"libpa_scan-{digest}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{build_log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+def _configure(lib: ctypes.CDLL) -> None:
     lib.omldm_pa_scan.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
@@ -87,8 +38,11 @@ def build() -> ctypes.CDLL:
     lib.omldm_pa_scan.restype = ctypes.c_int
     lib.omldm_pa_scan_max_dim.argtypes = []
     lib.omldm_pa_scan_max_dim.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+#: the kernel library, built from the checkout's source on first use; its
+#: ``build_seconds`` and ``build_log`` hold nvcc's time and report
+LIBRARY = KernelLibrary("pa_scan.cu", _configure)
 
 
 def pa_scan_reference(
@@ -142,7 +96,7 @@ def pa_scan_update(
             raise ValueError(f"pa_scan_update: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"pa_scan_update: {name} must be contiguous")
-    lib = build()
+    lib = LIBRARY.load()
     if D > lib.omldm_pa_scan_max_dim():
         raise ValueError(
             f"pa_scan_update: D={D} exceeds the shared-memory limit "

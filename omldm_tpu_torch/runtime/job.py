@@ -18,8 +18,6 @@ from __future__ import annotations
 import os
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
-import torch
-
 from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
@@ -32,6 +30,7 @@ from omldm_tpu_torch.runtime.responses import ResponseMerger
 from omldm_tpu_torch.runtime.spoke import Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
+from omldm_tpu_torch.utils.device import resolve_device
 
 # event stream names (the reference's Kafka topics)
 TRAINING_STREAM = "trainingData"
@@ -41,18 +40,6 @@ REQUEST_STREAM = "requests"
 # rows held for pipelines that have not been created yet, before the FIRST
 # deploy (the reference's recordBuffer cap, SpokeLogic.scala:31-35)
 PRE_CREATE_BACKLOG_CAP = 100_000
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA. Asking for CUDA without a usable card raises:
-    the port never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "StreamJob: CUDA requested but torch.cuda.is_available() is False "
-            "(pass device='cpu' to run on the CPU)"
-        )
-    return dev
 
 
 def unported_job_options(config: JobConfig) -> List[str]:
@@ -89,7 +76,7 @@ class StreamJob:
                 "omldm_tpu_torch does not port these JobConfig options yet: "
                 + ", ".join(missing)
             )
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "StreamJob")
         self.predictions: List[Prediction] = []
         self.responses: List[QueryResponse] = []
         self.performance: List[JobStatistics] = []
