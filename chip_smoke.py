@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
-  2. build       both kernel sources from omldm_tpu_torch/csrc/, one nvcc
-                 each, started together (pa_scan.cu, flash_attention.cu);
+  2. build       every kernel source in omldm_tpu_torch/csrc/, one nvcc
+                 each, started together (pa_scan.cu, flash_attention.cu,
+                 scatter_add.cu);
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
@@ -41,11 +42,32 @@ Phases (any failure raises and the script exits nonzero without a result):
                  n_layers x steps times; then greedy generate (no kernel);
  10. lm-parity   a small float32 config trained 3 steps on cuda and on cpu
                  from the same numpy parameters: parameters within
-                 LM_PARITY_ATOL, greedy tokens equal.
-With --profile DIR, after phase 10: the slice's stream under cProfile (host
-time by function) and torch.profiler (device busy time), then 4 LM steps
-under torch.profiler (device busy time, the flash kernels' share, the top
-kernels); tables are written into DIR.
+                 LM_PARITY_ATOL, greedy tokens equal;
+ 11. sparse-check the scatter_add kernel against its plain version on the
+                 card at (B, K) in SPARSE_CHECKS into D = 13 + 2^18 and the
+                 outer entry point at OUTER_CHECK (D = 2^20, C = 2), with
+                 uniform, duplicate-heavy (a pool of 64) and Criteo-shaped
+                 index draws, masked rows, pad slots and one out-of-range
+                 index: every element within scatter_limit;
+ 12. sparse-time device time a call (torch.profiler, median of 3 turns) of
+                 the kernel, its plain version and index_add_ at
+                 SPARSE_TIME_SHAPES, with the bound of each;
+ 13. sparse      StreamJob(parallelism=16, batch 256) on cuda: a sparse
+                 Create (PA-II, C 0.1, nFeatures 13 + 2^18, hashSpace 2^18,
+                 maxNnz 40, Asynchronous), SPARSE_RECORDS Criteo-shaped
+                 records (13 numerics, 26 hashed categoricals, a planted
+                 linear rule on the numerics), every tenth a forecast, a
+                 Query halfway; scatter_add launched once per fit, holdout
+                 accuracy > 0.6;
+ 14. sparse-parity the first --parity-records records of phase 13 on cuda
+                 and on cpu at parallelism 4, as phase 6;
+ 15. avazu       AVAZU_RECORDS records of 21 hashed categoricals into
+                 2^20 through a sparse Softmax (nClasses 2): the outer entry
+                 point launched once per fit.
+With --profile DIR, after phase 15: the slice's and the sparse stream's
+runs under cProfile (host time by function) and torch.profiler (device
+busy time), then 4 LM steps under torch.profiler (device busy time, the
+flash kernels' share, the top kernels); tables are written into DIR.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -159,10 +181,11 @@ def phase_setup(torch):
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
 
-def phase_build(pa_scan, attention):
+def phase_build(pa_scan, attention, sparse):
     """One nvcc per source, all started together, then waited for."""
     t0 = time.perf_counter()
-    libraries = [("pa_scan.cu", pa_scan.LIBRARY), ("flash_attention.cu", attention.LIBRARY)]
+    libraries = [("pa_scan.cu", pa_scan.LIBRARY), ("flash_attention.cu", attention.LIBRARY),
+                 ("scatter_add.cu", sparse.LIBRARY)]
     for _, lib in libraries:
         lib.start()
     for _, lib in libraries:
@@ -370,6 +393,9 @@ PROFILE_FUNCS = [
     ("on_forecast_batch (predict + read back)", "protocols/base.py", "on_forecast_batch"),
     ("emit prediction", "runtime/job.py", "_emit_prediction"),
     ("job.terminate", "runtime/job.py", "terminate"),
+    ("sync point: flat params to the host", "pipelines/pipeline.py", "get_flat_params"),
+    ("sync point: flat params to the device", "pipelines/pipeline.py", "set_flat_params"),
+    ("hub fold (Asynchronous PS)", "protocols/async_ps.py", "receive"),
 ]
 
 
@@ -378,8 +404,9 @@ def _dev_us(e):
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
 
-def phase_profile(torch, events, out_dir: Path):
-    """The slice's stream under cProfile, then under torch.profiler."""
+def phase_profile(torch, events, out_dir: Path, stream="slice"):
+    """A stream (``stream``: slice or sparse) under cProfile, then under
+    torch.profiler."""
     import cProfile
     import io
     import pstats
@@ -390,21 +417,21 @@ def phase_profile(torch, events, out_dir: Path):
     _, _, wall_c = _run_slice(torch, events)
     prof.disable()
     st = pstats.Stats(prof)
-    st.dump_stats(str(out_dir / "slice.pstats"))
+    st.dump_stats(str(out_dir / f"{stream}.pstats"))
     buf = io.StringIO()
     pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(60)
-    (out_dir / "slice_cprofile.txt").write_text(buf.getvalue())
+    (out_dir / f"{stream}_cprofile.txt").write_text(buf.getvalue())
     host = {}
     for (path, _, name), (_, _, tt, ct, _) in st.stats.items():
         for label, suffix, fname in PROFILE_FUNCS:
             if name == fname and path.endswith(suffix):
                 host[label] = host.get(label, 0.0) + ct
     top_self = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
-    log(f"profile: cProfile wall {wall_c:.3f} s (profiler overhead included); "
+    log(f"profile[{stream}]: cProfile wall {wall_c:.3f} s (profiler overhead included); "
         "cumulative host seconds by function:")
     for label, _, _ in PROFILE_FUNCS:
         log(f"  {label}: {host.get(label, 0.0):.3f}")
-    log("profile: top self time:")
+    log(f"profile[{stream}]: top self time:")
     for (path, line, name), (_, nc, tt, _, _) in top_self:
         log(f"  {tt:.3f} s self, {nc} calls: {Path(path).name}:{line} {name}")
 
@@ -413,7 +440,7 @@ def phase_profile(torch, events, out_dir: Path):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
         _, _, wall_t = _run_slice(torch, events)
     events_avg = tp.key_averages()
-    (out_dir / "slice_torch.txt").write_text(
+    (out_dir / f"{stream}_torch.txt").write_text(
         events_avg.table(sort_by="self_cpu_time_total", row_limit=40)
     )
 
@@ -421,13 +448,13 @@ def phase_profile(torch, events, out_dir: Path):
 
     kernels = [e for e in events_avg if e.device_type == DeviceType.CUDA]
     busy_s = sum(_dev_us(e) for e in kernels) / 1e6
-    log(f"profile: torch.profiler wall {wall_t:.3f} s (profiler overhead "
+    log(f"profile[{stream}]: torch.profiler wall {wall_t:.3f} s (profiler overhead "
         f"included); device busy {busy_s:.4f} s in {len(kernels)} kernel "
         f"names, {sum(e.count for e in kernels)} launches")
     for e in sorted(kernels, key=lambda e: -_dev_us(e))[:8]:
         log(f"  {_dev_us(e) / 1e3:.3f} ms, {e.count} launches: {e.key[:90]}")
     host_ops = sorted(events_avg, key=lambda e: -e.self_cpu_time_total)[:10]
-    log("profile: top host self time under torch.profiler:")
+    log(f"profile[{stream}]: top host self time under torch.profiler:")
     for e in host_ops:
         log(f"  {e.self_cpu_time_total / 1e6:.3f} s, {e.count} calls: {e.key[:90]}")
     return busy_s
@@ -800,6 +827,294 @@ def phase_lm_profile(torch, attention, trainer, out_dir: Path, seed):
     return busy, flash, wall
 
 
+# --- the sparse (padded-COO) path ------------------------------------------------
+
+CRITEO_HASH = 1 << 18
+CRITEO_DIM = 13 + CRITEO_HASH      # nFeatures: 13 numerics + the hashed space
+CRITEO_NNZ = 40                    # maxNnz: 39 active slots and one pad
+AVAZU_DIM = 1 << 20                # 21 categorical slots hashed into 2^20
+AVAZU_SLOTS = 21
+SPARSE_RECORDS, AVAZU_RECORDS = 100_000, 20_000  # phases 13 and 15
+# (B, K) into w[CRITEO_DIM + 1]: one record and a micro-batch of the slice
+# (K = maxNnz + the bias slot), and the experiment's 4096 x 39
+SPARSE_CHECKS = [(1, CRITEO_NNZ + 1), (256, CRITEO_NNZ + 1), (4096, 39)]
+# the outer entry point: (B, K, D, C) of a ragged Avazu Softmax batch
+OUTER_CHECK = (255, AVAZU_SLOTS + 1, AVAZU_DIM + 1, 2)
+# (name, B, K, D, C, draw): the experiment's shape, the slice's, the Avazu
+# Softmax's; the first two are also timed with other draws, for contention
+SPARSE_TIME_SHAPES = [
+    ("experiment", 4096, 39, CRITEO_DIM, 1, "uniform"),
+    ("slice", 256, CRITEO_NNZ + 1, CRITEO_DIM + 1, 1, "criteo"),
+    ("avazu", 256, AVAZU_SLOTS + 1, AVAZU_DIM + 1, 2, "avazu"),
+]
+CONTENTION_DRAWS = {"experiment": ("criteo", "pool64"), "slice": ("uniform",)}
+SPARSE_TIME_TURNS = 3
+
+
+def _scatter_inputs(torch, b, k, d, c, draw, seed, device="cuda"):
+    """w[d] (or [d, c]), idx[b, k] int32, coef[b] (or [b, c]), val[b, k] on
+    the card. ``draw``: "uniform" indices in [0, d); "pool64", every index
+    from a pool of 64; "criteo" and "avazu", the learners' layouts --
+    hashed slots in [13, d - 1) after 13 numeric slots at 0..12 in every
+    record (criteo) or in [0, d - 1) (avazu), then the bias slot d - 1 with
+    value 1; criteo's maxNnz = 40 holds its 39 active slots and one pad
+    slot (0, 0). Rows and pad slots are masked with zeros; index (0, 1)
+    lies past d, with a large update, and must be dropped."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    val = rng.randn(b, k)
+    if draw == "uniform":
+        idx = rng.randint(0, d, size=(b, k))
+    elif draw == "pool64":
+        idx = rng.choice(rng.randint(0, d, size=64), size=(b, k))
+    elif draw == "criteo":
+        idx = rng.randint(13, d - 1, size=(b, k))
+        idx[:, :13] = np.arange(13)
+        idx[:, -2], val[:, -2] = 0, 0.0       # the pad slot
+    else:
+        idx = rng.randint(0, d - 1, size=(b, k))
+    if draw in ("criteo", "avazu"):
+        idx[:, -1], val[:, -1] = d - 1, 1.0   # the bias slot
+    else:
+        idx[::3, -1], val[::3, -1] = 0, 0.0   # pad slots
+    cshape = (b,) if c == 1 else (b, c)
+    coef = rng.randn(*cshape) * 0.1
+    coef[rng.rand(b) < 0.2] = 0.0             # masked rows
+    if b > 8:
+        coef[-(b // 8):] = 0.0                # a ragged tail
+    coef[0] = 1.5
+    if k > 1:
+        idx[0, 1], val[0, 1] = d + 7, 1000.0  # out of range: dropped
+    w = rng.randn(*((d,) if c == 1 else (d, c)))
+    as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)  # noqa: E731
+    return (as_t(w, np.float32), as_t(idx, np.int32), as_t(coef, np.float32),
+            as_t(val, np.float32))
+
+
+def scatter_limit(torch, w, idx, coef, val):
+    """Per-element limit of |kernel - plain|: two float32 sums of the same
+    m + 1 terms (w and the m updates landing on the element) in other
+    orders differ by at most 2 m 2^-24 (|w| + sum |u|) -- the worst case of
+    recursive summation, so the sound kernel's atomics sit far inside it,
+    while one update lost or added anywhere with few duplicates does not."""
+    from omldm_tpu_torch.ops.sparse import sparse_scatter_add_reference
+
+    absu = sparse_scatter_add_reference(torch.zeros_like(w), idx, coef.abs(), val.abs())
+    ones = torch.ones_like(coef)
+    hits = sparse_scatter_add_reference(torch.zeros_like(w), idx, ones, torch.ones_like(val))
+    return 2.0 * (hits + 1.0) * 2.0 ** -24 * (w.abs() + absu)
+
+
+def phase_sparse_check(torch, sparse):
+    """The kernel (both entry points) against its plain version; returns the
+    largest |kernel - plain|."""
+    cases = [(b, k, CRITEO_DIM + 1 if k == CRITEO_NNZ + 1 else CRITEO_DIM, 1, draw)
+             for b, k in SPARSE_CHECKS for draw in ("uniform", "pool64", "criteo")]
+    cases += [(*OUTER_CHECK, draw) for draw in ("uniform", "pool64", "avazu")]
+    worst_abs = worst_ratio = 0.0
+    for n, (b, k, d, c, draw) in enumerate(cases):
+        w, idx, coef, val = _scatter_inputs(torch, b, k, d, c, draw, seed=100 + n)
+        if c == 1:
+            out = sparse.sparse_scatter_add(w, idx, coef, val)
+        else:
+            out = sparse.sparse_scatter_add_outer(w, idx, coef, val)
+        plain = sparse.sparse_scatter_add_reference(w, idx, coef, val)
+        limit = scatter_limit(torch, w, idx, coef, val)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"scatter_add output not finite at {(b, k, d, c, draw)}")
+        err = (out - plain).abs()
+        ratio = (err / limit).max().item()
+        worst_abs, worst_ratio = max(worst_abs, err.max().item()), max(worst_ratio, ratio)
+        log(f"sparse-check: {'scatter_add' if c == 1 else 'scatter_add_outer'} (B, K, D, C)="
+            f"{(b, k, d, c)} {draw}: max|d|={err.max().item():.3e}, largest |d|/limit {ratio:.3e}")
+        check(ratio <= 1.0, f"scatter_add disagrees with its plain version at {(b, k, d, c, draw)}: "
+              f"|d|/limit {ratio:.3e}")
+    log(f"sparse-check: {len(cases)} cases pass; largest |d| {worst_abs:.3e}; largest reading "
+        f"|d| / (2 (m+1) 2^-24 (|w| + sum|u|)) {worst_ratio:.3e} against the limit 1")
+    return worst_abs
+
+
+def scatter_bound_ms(b, k, d, c):
+    """Least time for the same work: idx, val and coef read once, w read and
+    written once, over 3.35 TB/s; the b k c products and adds over the float32
+    peak are far below it."""
+    nbytes = (2 * b * k + b * c + 2 * d * c) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * k * c / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_sparse_time(torch, sparse):
+    """Device time a call (torch.profiler, 100 calls after warm-up, median of
+    SPARSE_TIME_TURNS turns of kernel, plain, library) of the kernel, its
+    plain version and ``index_add`` (one PyTorch call, given the products u
+    precomputed: it does not count the [B, K] multiply), then the kernel
+    alone on other index draws of the same shape."""
+    import statistics
+
+    out = {}
+    for name, b, k, d, c, draw in SPARSE_TIME_SHAPES:
+        w, idx, coef, val = _scatter_inputs(torch, b, k, d, c, draw, seed=7)
+        idx[0, 1] = 0  # in range: index_add_ takes no out-of-range index
+        entry = sparse.sparse_scatter_add if c == 1 else sparse.sparse_scatter_add_outer
+        flat = idx.reshape(-1).long()
+        u = (coef[:, None] * val).reshape(-1) if c == 1 else \
+            (val[:, :, None] * coef[:, None, :]).reshape(b * k, c)
+        calls = {
+            "kernel": lambda: entry(w, idx, coef, val),
+            "plain": lambda: sparse.sparse_scatter_add_reference(w, idx, coef, val),
+            "library": lambda: torch.index_add(w, 0, flat, u),
+        }
+        turns = {key: [] for key in calls}
+        for _ in range(SPARSE_TIME_TURNS):
+            for key, fn in calls.items():
+                turns[key].append(_device_ms(torch, fn, 100))
+        times = {key: statistics.median(v) for key, v in turns.items()}
+        bound, by = scatter_bound_ms(b, k, d, c)
+        out[name] = {"ms": times["kernel"], "plain_ms": times["plain"], "bound_ms": bound,
+                     "bound_by": by, "library_ms": times["library"]}
+        log(f"sparse-time: {name} (B, K, D, C)={(b, k, d, c)} {draw}, median (min-max) of "
+            f"{SPARSE_TIME_TURNS} turns, device ms a call: " + "; ".join(
+                f"{key} {times[key]:.6f} ({min(v):.6f}-{max(v):.6f})" for key, v in turns.items())
+            + f"; bound {bound:.6f} ({by}), kernel at {bound / times['kernel']:.4f} of it")
+        for other in CONTENTION_DRAWS.get(name, ()):
+            w2, idx2, coef2, val2 = _scatter_inputs(torch, b, k, d, c, other, seed=7)
+            ms = statistics.median(_device_ms(torch, lambda: entry(w2, idx2, coef2, val2), 100)
+                                   for _ in range(SPARSE_TIME_TURNS))
+            out[f"{name}/{other}"] = ms
+            log(f"sparse-time: {name} (B, K, D, C)={(b, k, d, c)} {other}: kernel {ms:.6f} ms "
+                f"({ms / times['kernel']:.3f}x the {draw} draw)")
+    return out
+
+
+def criteo_events(n_records: int, seed: int, query_at: int | None, create: dict | None = None):
+    """Create + n_records Criteo-shaped records, every tenth a forecast, an
+    optional Query after record ``query_at``. A record: 13 numerics rounded
+    to 6 places, 26 categoricals f{j}_v{0..999}, a target from a planted
+    linear rule on the numerics (the generator of the JAX package's sparse
+    stream benchmark, benchmarks/run_benchmarks.py)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    w = rng.randn(13)
+    x = np.round(rng.randn(n_records, 13), 6)
+    y = (x @ w > 0).astype(np.float64)
+    cats = rng.randint(0, 1000, size=(n_records, 26))
+    create = create or {
+        "id": 0, "request": "Create",
+        "learner": {"name": "PA", "hyperParameters": {"C": 0.1, "variant": "PA-II"},
+                    "dataStructure": {"sparse": True, "nFeatures": CRITEO_DIM,
+                                      "hashSpace": CRITEO_HASH, "maxNnz": CRITEO_NNZ}},
+        "trainingConfiguration": {"protocol": "Asynchronous"},
+    }
+    events = [("requests", json.dumps(create))]
+    for i in range(n_records):
+        rec = {"numericalFeatures": x[i].tolist(),
+               "categoricalFeatures": [f"f{j}_v{v}" for j, v in enumerate(cats[i])]}
+        if i % 10 == 9:
+            events.append(("forecastingData", json.dumps(rec)))
+        else:
+            rec["target"] = float(y[i])
+            events.append(("trainingData", json.dumps(rec)))
+        if query_at is not None and i == query_at:
+            events.append(("requests", json.dumps({"id": 0, "request": "Query", "requestId": 1})))
+    return events
+
+
+def avazu_events(n_records: int, seed: int):
+    """Create (sparse Softmax, nClasses 2) + n_records records of 21 hashed
+    categorical slots (a vocabulary of 1000 a slot), every tenth a
+    forecast; the target is a planted rule: the sign of a sum of one hidden
+    weight per (slot, value)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    hidden = rng.randn(AVAZU_SLOTS, 1000)
+    cats = rng.randint(0, 1000, size=(n_records, AVAZU_SLOTS))
+    y = (hidden[np.arange(AVAZU_SLOTS), cats].sum(axis=1) > 0).astype(np.float64)
+    create = {
+        "id": 0, "request": "Create",
+        "learner": {"name": "Softmax", "hyperParameters": {"learningRate": 0.05, "nClasses": 2},
+                    "dataStructure": {"sparse": True, "nFeatures": AVAZU_DIM,
+                                      "hashSpace": AVAZU_DIM, "maxNnz": AVAZU_SLOTS}},
+        "trainingConfiguration": {"protocol": "Asynchronous"},
+    }
+    events = [("requests", json.dumps(create))]
+    for i in range(n_records):
+        rec = {"categoricalFeatures": [f"c{j}_v{v}" for j, v in enumerate(cats[i])]}
+        if i % 10 == 9:
+            events.append(("forecastingData", json.dumps(rec)))
+        else:
+            rec["target"] = float(y[i])
+            events.append(("trainingData", json.dumps(rec)))
+    return events
+
+
+def _run_sparse_stream(torch, sparse, events, entry, width, label):
+    """One sparse stream on cuda with the kernel counts set to 0 just
+    before; checks that ``entry`` launched once per fit and nothing else
+    launched; returns (launches, stats, wall seconds)."""
+    n_fore = sum(1 for s, _ in events if s == "forecastingData")
+    n_query = sum(1 for s, p in events if s == "requests" and '"Query"' in p)
+    for name in sparse.launches:
+        sparse.launches[name] = 0
+    job, report, wall = _run_slice(torch, events)
+    launches = dict(sparse.launches)
+    check(report is not None, f"{label}: the job emitted no JobStatistics")
+    check(not job.dead_letter.entries, f"{label}: quarantined {list(job.dead_letter.entries)[:1]}")
+    [stats] = report.statistics
+    fits = len(stats.learning_curve)
+    evaluations = (1 + n_query) * job.config.parallelism
+    fits_by_launches = stats.program_launches - stats.forecasts_served - evaluations
+    fit_s = sum(s.step_timer.total_ms for s in job.spokes) / 1e3
+    serve_s = sum(s.serve_timer.total_ms for s in job.spokes) / 1e3
+    log(f"{label}: " + json.dumps({
+        "records": len(events), "wall_s": wall, "records_per_s": len(events) / wall,
+        "fit_flush_s": fit_s, "serve_s": serve_s, "fits": fits, "launches": launches,
+        "fitted": stats.fitted, "score": stats.score,
+        "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+        "serveLatencyP99Ms": stats.serve_latency_p99_ms, "forecasts": n_fore,
+    }))
+    check(launches[entry] > 0, f"{label}: {entry} was never launched")
+    check(launches[entry] == fits == fits_by_launches,
+          f"{label}: {entry} launches {launches[entry]} != fits {fits} "
+          f"(programLaunches accounting: {fits_by_launches})")
+    check(all(n == 0 for name, n in launches.items() if name != entry),
+          f"{label}: another entry point launched: {launches}")
+    for pipe in _pipelines(job):
+        for t in pipe.state["params"].values():
+            check(t.device.type == job.device.type and bool(torch.isfinite(t).all()),
+                  f"{label}: a parameter is not finite or not on {job.device}")
+        check(pipe.state["params"][next(iter(pipe.state["params"]))].shape[0] == width + 1,
+              f"{label}: the model is not {width} + 1 rows wide")
+    check(len(job.predictions) == n_fore == stats.forecasts_served,
+          f"{label}: {len(job.predictions)} predictions for {n_fore} forecasting records")
+    check(all(p.value in (-1.0, 1.0) for p in job.predictions), f"{label}: a prediction is not a sign")
+    return launches[entry], job, stats, wall
+
+
+def phase_sparse(torch, sparse, events):
+    launches, job, stats, wall = _run_sparse_stream(
+        torch, sparse, events, "scatter_add", CRITEO_DIM, "sparse")
+    check(len(job.responses) == 1, f"sparse: {len(job.responses)} query responses, expected 1")
+    values = job.responses[0].learner["parameters"]["values"]
+    check(len(values) == CRITEO_DIM + 1, f"sparse: query returned {len(values)} parameters")
+    check(stats.score > 0.6, f"sparse: final holdout accuracy {stats.score} is not above chance")
+    log(f"sparse: {wall:.2f} s wall, {len(events) / wall:.0f} records/s, scatter_add launches "
+        f"{launches} (one a fit), score {stats.score:.4f}, serveLatencyP50Ms "
+        f"{stats.serve_latency_p50_ms:.4f}, serveLatencyP99Ms {stats.serve_latency_p99_ms:.4f}")
+    return launches, wall
+
+
+def phase_avazu(torch, sparse, events):
+    launches, _, stats, wall = _run_sparse_stream(
+        torch, sparse, events, "scatter_add_outer", AVAZU_DIM, "avazu")
+    log(f"avazu: {wall:.2f} s wall, {len(events) / wall:.0f} records/s, scatter_add_outer "
+        f"launches {launches} (one a fit), score {stats.score:.4f}")
+    return launches
+
+
 FLASH_SOURCES = {
     "flash_fwd": "omldm_tpu/ops/attention.py:269",
     "flash_dq": "omldm_tpu/ops/attention.py:450",
@@ -828,11 +1143,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    from omldm_tpu_torch.ops import attention, pa_scan
+    from omldm_tpu_torch.ops import attention, pa_scan, sparse
 
     t_start = time.perf_counter()
     phase_setup(torch)
-    phase_build(pa_scan, attention)
+    phase_build(pa_scan, attention, sparse)
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
     t0 = time.perf_counter()
@@ -845,10 +1160,20 @@ def main() -> int:
     flash_times = phase_flash_time(torch, attention)
     flash_launches, trainer = phase_lm(torch, attention, args.lm_steps, args.seed)
     phase_lm_parity(torch, args.seed)
+    scatter_err = phase_sparse_check(torch, sparse)
+    scatter_times = phase_sparse_time(torch, sparse)
+    t0 = time.perf_counter()
+    sparse_events = criteo_events(SPARSE_RECORDS, args.seed, query_at=SPARSE_RECORDS // 2)
+    log(f"sparse: generated {len(sparse_events)} events in {time.perf_counter() - t0:.2f} s")
+    scatter_launches, sparse_wall = phase_sparse(torch, sparse, sparse_events)
+    phase_parity(sparse_events[: args.parity_records + 1])
+    outer_launches = phase_avazu(torch, sparse, avazu_events(AVAZU_RECORDS, args.seed))
     if args.profile is not None:
-        busy_s = phase_profile(torch, events, args.profile)
-        log(f"profile: device busy {busy_s:.4f} s against the unprofiled "
-            f"slice's {wall:.3f} s wall: idle share {1.0 - busy_s / wall:.4f}")
+        for name, stream_events, unprofiled in (("slice", events, wall),
+                                                ("sparse", sparse_events, sparse_wall)):
+            busy_s = phase_profile(torch, stream_events, args.profile, name)
+            log(f"profile[{name}]: device busy {busy_s:.4f} s against the unprofiled "
+                f"stream's {unprofiled:.3f} s wall: idle share {1.0 - busy_s / unprofiled:.4f}")
         phase_lm_profile(torch, attention, trainer, args.profile, args.seed)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -873,6 +1198,17 @@ def main() -> int:
             "launches": flash_launches[name],
             "max_abs_err": flash_err[name],
             **flash_times[(b, lq, h, dh, name)],
+        })
+    for name, launched, shape in (("scatter_add", scatter_launches, "slice"),
+                                  ("scatter_add_outer", outer_launches, "avazu")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "omldm_tpu_torch/csrc/scatter_add.cu",
+            "replaces": "benchmarks/sparse_scatter_experiment.py:149",
+            "launches": launched,
+            "max_abs_err": scatter_err,
+            **scatter_times[shape],
         })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Online learners (ported so far: PA)."""
+"""Online learners (ported so far: PA, and the sparse PA, RegressorPA, SVM
+and Softmax)."""
 
 from omldm_tpu_torch.learners.base import Learner, append_bias, masked_mean, sign_labels
 from omldm_tpu_torch.learners.linear import PAClassifier
@@ -9,6 +10,7 @@ from omldm_tpu_torch.learners.registry import (
     is_valid_learner,
     make_learner,
 )
+from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 
 __all__ = [
     "Learner",
@@ -21,4 +23,5 @@ __all__ = [
     "SINGLE_LEARNER_ONLY",
     "is_valid_learner",
     "make_learner",
+    "SPARSE_LEARNERS",
 ]

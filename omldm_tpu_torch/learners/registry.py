@@ -1,4 +1,5 @@
-"""Learner registry. Ported so far: ``PA`` only.
+"""Learner registry. Ported so far: ``PA``, and the sparse (padded-COO)
+variants of ``PA``, ``RegressorPA``, ``SVM`` and ``Softmax``.
 
 Counterpart of ``omldm_tpu/learners/registry.py``. ``REFERENCE_LEARNERS``
 is the JAX package's full allowlist, kept so the control gate can tell a
@@ -12,6 +13,7 @@ from typing import Dict, Type
 from omldm_tpu_torch.api.requests import LearnerSpec
 from omldm_tpu_torch.learners.base import Learner
 from omldm_tpu_torch.learners.linear import PAClassifier
+from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 
 LEARNERS: Dict[str, Type[Learner]] = {
     "PA": PAClassifier,
@@ -33,5 +35,17 @@ def is_valid_learner(name: str) -> bool:
 
 def make_learner(spec: LearnerSpec) -> Learner:
     """Instantiate a learner from a request's LearnerSpec; raises KeyError on
-    names the port does not have (the control gate rejects them first)."""
+    names the port does not have (the control gate rejects them first).
+
+    ``dataStructure: {"sparse": true}`` selects the padded-COO variant: its
+    inputs are (idx, val) pairs and its updates gather/scatter over a dense
+    device weight vector."""
+    if spec.data_structure and spec.data_structure.get("sparse"):
+        cls = SPARSE_LEARNERS.get(spec.name)
+        if cls is None:
+            raise KeyError(
+                f"learner {spec.name!r} has no sparse variant "
+                f"(available: {sorted(SPARSE_LEARNERS)})"
+            )
+        return cls(spec.hyper_parameters, spec.data_structure)
     return LEARNERS[spec.name](spec.hyper_parameters, spec.data_structure)

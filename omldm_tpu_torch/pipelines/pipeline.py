@@ -5,6 +5,9 @@ or lifecycle attachments). One fit runs, in order: each scaler's statistics
 update, the transform with the UPDATED statistics, then the learner update
 -- the reference's per-record ``MLPipeline.pipePoint`` order.
 
+A sparse learner's input is the padded-COO pair ``(idx, val)``; the
+pipeline moves idx to the device as int32 and refuses preprocessors for it.
+
 The state ``{"preps": [...], "params": {...}, "fitted": int32,
 "cum_loss": float32}`` lives on the pipeline's ``torch.device``. Losses stay
 device tensors until a statistics poll reads them (``curve_slice``), so a
@@ -75,12 +78,23 @@ def state_to_numpy(state) -> dict:
     return _tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
-def _as_f32(a, device: torch.device) -> torch.Tensor:
+def _as_tensor(a, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Host->device boundary: everything the pipeline computes on is float32
-    (numpy float64 would otherwise stay float64 in torch)."""
+    (numpy float64 would otherwise stay float64 in torch), sparse indices
+    int32."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+        return a.to(device=device, dtype=dtype)
+    np_dtype = np.int32 if dtype == torch.int32 else np.float32
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype)).to(device)
+
+
+def _as_input(x, device: torch.device):
+    """A learner input on the device: a dense float32 batch, or a sparse
+    learner's padded-COO pair (idx int32, val float32)."""
+    if isinstance(x, tuple):
+        idx, val = x
+        return _as_tensor(idx, device, torch.int32), _as_tensor(val, device)
+    return _as_tensor(x, device)
 
 
 class MLPipeline:
@@ -100,6 +114,12 @@ class MLPipeline:
         self.preps: List[Preprocessor] = [
             make_preprocessor(p) for p in preprocessor_specs
         ]
+        if getattr(self.learner, "sparse", False) and self.preps:
+            raise ValueError(
+                "sparse learners consume raw (idx, val) batches; dense "
+                "preprocessors cannot apply -- drop preProcessors or use "
+                "the dense learner variant"
+            )
         self.per_record = per_record
         # called once per program launch this pipeline dispatches; feeds the
         # Statistics `programLaunches` counter
@@ -166,8 +186,8 @@ class MLPipeline:
         n = int(np.asarray(mask).sum())
         self._count_launch()
         self.state, loss = self._fit_impl(
-            self.state, _as_f32(x, self.device), _as_f32(y, self.device),
-            _as_f32(mask, self.device),
+            self.state, _as_input(x, self.device), _as_tensor(y, self.device),
+            _as_tensor(mask, self.device),
         )
         self._fitted_host += n
         self._curve.append((loss, self._fitted_host))
@@ -178,9 +198,9 @@ class MLPipeline:
         [T, B]``; returns the lazy [T] losses. Counted as ONE program launch,
         like the JAX package's single ``lax.scan`` program."""
         counts = batch_valid_counts(masks, valid_counts)
-        xs = _as_f32(xs, self.device)
-        ys = _as_f32(ys, self.device)
-        masks = _as_f32(masks, self.device)
+        xs = _as_tensor(xs, self.device)
+        ys = _as_tensor(ys, self.device)
+        masks = _as_tensor(masks, self.device)
         self._count_launch()
         losses = []
         for t in range(xs.shape[0]):
@@ -200,16 +220,16 @@ class MLPipeline:
     def predict(self, x) -> torch.Tensor:
         self._count_launch()
         st = self.state
-        x = _as_f32(x, self.device)
+        x = _as_input(x, self.device)
         return self.learner.predict(st["params"], self._transform(st["preps"], x))
 
     def evaluate(self, x, y, mask) -> Tuple[float, float]:
         """(mean loss, score) on a held-out set, without updating."""
         self._count_launch()
         st = self.state
-        z = self._transform(st["preps"], _as_f32(x, self.device))
-        y = _as_f32(y, self.device)
-        mask = _as_f32(mask, self.device)
+        z = self._transform(st["preps"], _as_input(x, self.device))
+        y = _as_tensor(y, self.device)
+        mask = _as_tensor(mask, self.device)
         loss = self.learner.loss(st["params"], z, y, mask)
         score = self.learner.score(st["params"], z, y, mask)
         return float(loss), float(score)

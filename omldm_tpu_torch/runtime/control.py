@@ -5,7 +5,9 @@ Counterpart of ``omldm_tpu/runtime/control.py`` (the reference's
 names against the allowlists, keeps the map of live pipelines, and routes
 Query to worker 0 only for single-learner models.
 
-The port's gate also rejects what the port cannot run yet -- learners,
+A sparse Create must name its width and a learner with a sparse variant,
+and takes no preprocessors (``validate_sparse``). The port's gate also
+rejects what the port cannot run yet -- learners,
 preprocessors and protocols not yet ported, and per-pipeline switches that
 arm a plane the port lacks -- with a reason that names it, so a request
 that would fail at deploy drops alone instead of killing the job.
@@ -21,6 +23,7 @@ from omldm_tpu_torch.learners.registry import (
     SINGLE_LEARNER_ONLY,
     is_valid_learner,
 )
+from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 from omldm_tpu_torch.preprocessors.registry import (
     REFERENCE_PREPROCESSORS,
     is_valid_preprocessor,
@@ -61,8 +64,22 @@ def unported_option(request: Request) -> Optional[str]:
             return f"comm.{key} (reliable channel) is not yet ported"
     if str(extra.get("engine", "")).lower() == "spmd":
         return "engine 'spmd' is not yet ported"
-    if (request.learner.data_structure or {}).get("sparse"):
-        return "sparse learners are not yet ported"
+    return None
+
+
+def validate_sparse(request: Request) -> Optional[str]:
+    """A sparse request must be deployable: one that passed the gate but
+    raised at SpokeNet construction would kill the whole job, not just
+    itself (the reference drops invalid requests, PipelineMap.scala:34,46)."""
+    ds = request.learner.data_structure or {}
+    if "nFeatures" not in ds:
+        # the wide hashed index space cannot be inferred from the first
+        # record (SparseVectorizer needs the model width)
+        return "sparse learners require dataStructure.nFeatures"
+    if request.learner.name not in SPARSE_LEARNERS:
+        return f"learner {request.learner.name!r} has no sparse variant"
+    if request.preprocessors:
+        return "sparse learners do not take preprocessors"
     return None
 
 
@@ -95,10 +112,16 @@ class PipelineManager:
 
     def _validate_spec(self, request: Request) -> Optional[str]:
         name = request.learner.name
-        if not is_valid_learner(name):
-            if name in REFERENCE_LEARNERS:
-                return f"learner {name!r} is not yet ported"
+        if name not in REFERENCE_LEARNERS:
             return f"unknown learner {name!r}"
+        if (request.learner.data_structure or {}).get("sparse"):
+            # the sparse variants pass on their own table, whether or not
+            # the dense learner of the same name is ported
+            err = validate_sparse(request)
+            if err is not None:
+                return err
+        elif not is_valid_learner(name):
+            return f"learner {name!r} is not yet ported"
         for p in request.preprocessors:
             if not is_valid_preprocessor(p.name):
                 if p.name in REFERENCE_PREPROCESSORS:

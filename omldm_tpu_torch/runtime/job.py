@@ -254,6 +254,10 @@ class StreamJob:
         None: deferred until the first data record arrives."""
         ds = request.learner.data_structure if request.learner else None
         if ds and "nFeatures" in ds:
+            if ds.get("sparse"):
+                # sparse widths are exact: hashSpace lives inside nFeatures
+                # and the dense hashDims knob does not apply to the COO path
+                return int(ds["nFeatures"])
             return int(ds["nFeatures"]) + int(
                 request.training_configuration.extra.get("hashDims", 0)
             )

@@ -7,7 +7,9 @@ hosted pipelines, the 20% holdout (counts 8 and 9 of each 0-9 cycle go to
 a sliding test set whose evicted points are trained,
 FlinkSpoke.scala:94-104), a poll marker every 100 training records,
 forecasts answered immediately, and records arriving before any pipeline
-buffered (SpokeLogic.scala:31-35). The serving, overload, lifecycle,
+buffered (SpokeLogic.scala:31-35). A sparse net (``dataStructure.sparse``)
+vectorizes each record into a padded-COO pair and batches pairs. The
+serving, overload, lifecycle,
 cohort, guard, telemetry, events, reliable-channel and packed-ingest
 branches are not ported.
 """
@@ -29,7 +31,13 @@ from omldm_tpu_torch.pipelines import MLPipeline
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
 from omldm_tpu_torch.runtime.databuffers import DataSet
 from omldm_tpu_torch.runtime.serving import ServeStats
-from omldm_tpu_torch.runtime.vectorizer import F32_MAX, MicroBatcher, Vectorizer
+from omldm_tpu_torch.runtime.vectorizer import (
+    F32_MAX,
+    MicroBatcher,
+    SparseMicroBatcher,
+    SparseVectorizer,
+    Vectorizer,
+)
 from omldm_tpu_torch.utils.tracing import StepTimer
 
 
@@ -84,8 +92,18 @@ class SpokeNet:
             tc.protocol, request.learner.name, n_workers
         )
         batch = int(tc.mini_batch_size or config.batch_size)
-        self.vectorizer = Vectorizer(dim, int(tc.extra.get("hashDims", 0)))
-        self.batcher = MicroBatcher(dim, batch)
+        ds = request.learner.data_structure or {}
+        self.sparse = bool(ds.get("sparse"))
+        if self.sparse:
+            # padded-COO featurization: dense slots + hashed categoricals in
+            # a wide index space (SparseVector parity,
+            # DataPointParser.scala:4,20-47)
+            max_nnz = int(ds.get("maxNnz", 64))
+            self.vectorizer = SparseVectorizer(dim, int(ds.get("hashSpace", 0)), max_nnz)
+            self.batcher = SparseMicroBatcher(max_nnz, batch)
+        else:
+            self.vectorizer = Vectorizer(dim, int(tc.extra.get("hashDims", 0)))
+            self.batcher = MicroBatcher(dim, batch)
         pipeline = create_pipeline(request, dim, device)
         self.node = make_worker_node(
             self.protocol, pipeline, worker_id, n_workers, tc, send
@@ -95,9 +113,8 @@ class SpokeNet:
         self.program_launches = 0
         pipeline.on_launch = self._note_launch
         self.serve_stats = ServeStats()
-        self.test_set: DataSet[Tuple[np.ndarray, float]] = DataSet(
-            config.test_set_size
-        )
+        # (x, y) points; x is a dense row or a sparse (idx, val) pair
+        self.test_set: DataSet[Tuple[Any, float]] = DataSet(config.test_set_size)
         self.holdout_count = 0
         # records arriving while this net is PAUSED (cooperative toggle,
         # FlinkSpoke.scala:127-131) buffer here and drain on resume
@@ -120,11 +137,14 @@ class SpokeNet:
         else:
             self.node.on_training_batch(*flushed)
 
-    def test_arrays(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    def test_arrays(self) -> Optional[Tuple[Any, np.ndarray, np.ndarray]]:
         if self.test_set.is_empty:
             return None
         pts = self.test_set.to_list()
-        x = np.stack([p[0] for p in pts])
+        if self.sparse:
+            x = (np.stack([p[0][0] for p in pts]), np.stack([p[0][1] for p in pts]))
+        else:
+            x = np.stack([p[0] for p in pts])
         y = np.asarray([p[1] for p in pts], np.float32)
         return x, y, np.ones((len(pts),), np.float32)
 
@@ -227,7 +247,7 @@ class Spoke:
             if self.config.test and self._poll_counter % self.config.poll_every == 0:
                 self._on_poll()
 
-    def _train(self, net: SpokeNet, x: np.ndarray, y: float) -> None:
+    def _train(self, net: SpokeNet, x, y: float) -> None:
         # float32 boundary clamp for the target (the features are clamped
         # by the vectorizer)
         y = min(max(float(y), -F32_MAX), F32_MAX)
@@ -243,12 +263,14 @@ class Spoke:
         if net.batcher.full:
             net.flush_batch()
 
-    def _serve(self, net: SpokeNet, inst: DataInstance, x: np.ndarray) -> None:
-        """One forecast as a one-row predict; reading the value back waits
-        for the device (one sync per forecast)."""
+    def _serve(self, net: SpokeNet, inst: DataInstance, x) -> None:
+        """One forecast as a one-row predict (a sparse record as the pair
+        ``(idx[None], val[None])``); reading the value back waits for the
+        device (one sync per forecast)."""
         t0 = time.perf_counter()
+        xb = (x[0][None], x[1][None]) if net.sparse else x[None]
         with self.serve_timer:
-            preds = net.node.on_forecast_batch(x[None])
+            preds = net.node.on_forecast_batch(xb)
         self._emit_prediction(Prediction(net.request.id, inst, float(preds[0])))
         net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
 

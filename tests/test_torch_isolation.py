@@ -3,8 +3,11 @@ CUDA unless asked for the CPU, and refuses what it has not ported yet."""
 
 import ast
 import json
+import os
+import re
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -44,6 +47,74 @@ def _imported_roots(path: Path):
 def test_no_jax_import_in_source(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "omldm_tpu"}, roots
+
+
+PACKAGE_FILES = sorted((ROOT / "omldm_tpu_torch").rglob("*.py"))
+# a path into the JAX package: "omldm_tpu" as a whole path component
+JAX_PACKAGE_PATH = re.compile(r"(^|[/\\])omldm_tpu([/\\]|$)")
+
+
+def _path_strings(path: Path):
+    """String constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docstrings.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docstrings:
+            yield node.value
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_path_into_the_jax_package(path):
+    """No port module names a file of the JAX package (its dispatch table
+    in particular): the port keeps its own copy of what it reads."""
+    bad = [s for s in _path_strings(path) if JAX_PACKAGE_PATH.search(s)]
+    assert not bad, bad
+
+
+def test_path_scan_catches_a_jax_package_path(tmp_path):
+    module = tmp_path / "m.py"
+    module.write_text('"""Reads omldm_tpu/ops/x.json."""\n'
+                      'T = os.path.join(ROOT, "omldm_tpu", "ops", "sparse_dispatch.json")\n'
+                      'U = "omldm_tpu_torch/ops/sparse_dispatch.json"\n')
+    assert [s for s in _path_strings(module) if JAX_PACKAGE_PATH.search(s)] == ["omldm_tpu"]
+
+
+def test_sparse_stream_opens_nothing_in_the_jax_package():
+    """A sparse stream on the CPU, its scatter dispatched through the
+    calibration table, under an audit hook that records every file opened:
+    none lies under omldm_tpu/."""
+    code = textwrap.dedent("""
+        import json, os, sys
+        opened = []
+        def hook(event, args):
+            if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+                opened.append(os.path.realpath(os.fsdecode(args[0])))
+        sys.addaudithook(hook)
+        from omldm_tpu_torch.config import JobConfig
+        from omldm_tpu_torch.runtime import StreamJob
+        create = {"id": 0, "request": "Create",
+                  "learner": {"name": "PA", "dataStructure": {
+                      "sparse": True, "nFeatures": 13 + 256, "hashSpace": 256, "maxNnz": 16}},
+                  "trainingConfiguration": {"protocol": "Asynchronous"}}
+        rows = [("trainingData", json.dumps({"numericalFeatures": [1.0] * 13,
+                 "categoricalFeatures": ["a%d" % i], "target": float(i % 2)}))
+                for i in range(64)]
+        job = StreamJob(JobConfig(parallelism=2, batch_size=8), device="cpu")
+        report = job.run([("requests", json.dumps(create))] + rows)
+        assert report.statistics[0].fitted > 0
+        assert any(p.endswith("sparse_dispatch.json") for p in opened), "table not read"
+        jax_pkg = os.path.realpath("omldm_tpu") + os.sep
+        bad = [p for p in opened if p.startswith(jax_pkg)]
+        assert not bad, bad
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "OMLDM_SPARSE_SCATTER"}
+    env.pop("OMLDM_SPARSE_SCATTER_TABLE", None)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=300)
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -273,3 +344,72 @@ def test_unknown_protocol_falls_back_to_asynchronous():
     assert not job.dead_letter.entries
     assert report.statistics[0].protocol == "Asynchronous"
     assert report.statistics[0].fitted > 0
+
+
+@pytest.mark.parametrize("phase", [
+    "phase_sparse_check", "phase_sparse_time", "phase_sparse", "phase_avazu",
+])
+def test_chip_smoke_has_the_sparse_phases(phase):
+    chip_smoke = _chip_smoke()
+    assert callable(getattr(chip_smoke, phase))
+    assert f"{phase}(" in (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+
+
+def test_chip_smoke_sparse_shapes():
+    """The kernel checks cover one record and a micro-batch of the Criteo
+    slice (K = maxNnz 40 + the bias slot), the experiment's 4096 x 39 and the
+    outer entry point at Avazu's width; the stream's Create is the Criteo
+    configuration."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.CRITEO_DIM == 13 + 2 ** 18
+    assert chip_smoke.SPARSE_CHECKS == [(1, 41), (256, 41), (4096, 39)]
+    assert chip_smoke.OUTER_CHECK == (255, 22, 2 ** 20 + 1, 2)
+    events = chip_smoke.criteo_events(40, seed=0, query_at=20)
+    create = json.loads(events[0][1])
+    assert create["learner"]["dataStructure"] == {
+        "sparse": True, "nFeatures": 13 + 2 ** 18, "hashSpace": 2 ** 18, "maxNnz": 40}
+    assert create["learner"]["hyperParameters"] == {"C": 0.1, "variant": "PA-II"}
+    data = [(s, json.loads(p)) for s, p in events[1:] if s != "requests"]
+    assert len(data) == 40 and [s for s, _ in data].count("forecastingData") == 4
+    assert all(s == "forecastingData" for s, _ in data[9::10])
+    rec = data[0][1]
+    assert len(rec["numericalFeatures"]) == 13 and len(rec["categoricalFeatures"]) == 26
+    assert rec["target"] in (0.0, 1.0) and rec["categoricalFeatures"][3].startswith("f3_v")
+    avazu = chip_smoke.avazu_events(20, seed=0)
+    assert json.loads(avazu[0][1])["learner"]["name"] == "Softmax"
+    assert len(json.loads(avazu[1][1])["categoricalFeatures"]) == 21
+
+
+def test_chip_smoke_scatter_bound():
+    """idx, val and coef read once, w read and written once, over 3.35 TB/s."""
+    chip_smoke = _chip_smoke()
+    d = 13 + 2 ** 18
+    ms, by = chip_smoke.scatter_bound_ms(4096, 39, d, 1)
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * 4096 * 39 + 4096 + 2 * d) * 4 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("draw", ["uniform", "pool64", "criteo"])
+def test_chip_smoke_scatter_tolerance(draw):
+    """The kernel-vs-plain limit passes the plain version against itself
+    with the updates summed in another order, and fails one update lost
+    (the out-of-range update applied would fail as well)."""
+    from omldm_tpu_torch.ops.sparse import sparse_scatter_add_reference
+
+    chip_smoke = _chip_smoke()
+    b, k, d = 64, 41, 13 + 2 ** 12 + 1
+    w, idx, coef, val = chip_smoke._scatter_inputs(torch, b, k, d, 1, draw, seed=3, device="cpu")
+    limit = chip_smoke.scatter_limit(torch, w, idx, coef, val)
+    plain = sparse_scatter_add_reference(w, idx, coef, val)
+    order = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    shuffled = sparse_scatter_add_reference(w, idx[order], coef[order], val[order])
+    assert ((shuffled - plain).abs() <= limit).all()
+    lost = val.clone()
+    row = int(torch.nonzero(coef)[1])  # a row the mask keeps, past row 0
+    lost[row, 2] = 0.0
+    dropped = sparse_scatter_add_reference(w, idx, coef, lost)
+    assert not ((dropped - plain).abs() <= limit).all()
+    wrapped = idx.clone()
+    wrapped[0, 1] = d - 1  # the out-of-range update clamped onto the last row
+    clamped = sparse_scatter_add_reference(w, wrapped, coef, val)
+    assert not ((clamped - plain).abs() <= limit).all()
