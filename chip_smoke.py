@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
   2. build       every kernel source in omldm_tpu_torch/csrc/, one nvcc
                  each, started together (pa_scan.cu, flash_attention.cu,
-                 scatter_add.cu);
+                 scatter_add.cu); each flash kernel's registers, spills and
+                 static shared memory from the -Xptxas -v log;
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
@@ -26,14 +27,19 @@ Phases (any failure raises and the script exits nonzero without a result):
                  and on cpu at parallelism 4, batch 256: >= 99% of predictions
                  equal, final parameters within rtol=2e-4, atol=2e-5;
   7. flash-check the flash forward, dQ and dK/dV kernels against their plain
-                 twins (run one (b, h) head at a time) on FLASH_CHECKS: out,
-                 dq, dk, dv within FLASH_TOL's relative L2 and per-element
-                 limits, lse absolute;
+                 twins (run one (b, h) head at a time) on FLASH_CHECKS (among
+                 them q, k and v as views into one packed [B, L, 3, H, Dh]
+                 projection, L shorter than one tile, dh 64 with ragged L,
+                 CTAs with no tile to sweep):
+                 out, dq, dk, dv within FLASH_TOL's relative L2 and
+                 per-element limits, lse absolute;
   8. flash-time  device time a call (torch.profiler) of each flash kernel,
                  its plain twin and the PyTorch library call
                  (scaled_dot_product_attention, forward and autograd
                  backward) at FLASH_TIME_SHAPES, median of 3 turns, with
-                 each kernel's bound;
+                 each kernel's bound, TFLOP/s, share of the bound and ratio
+                 to the library call, the dQ + dK/dV pair against the
+                 library's backward, and each wrapper's host time a call;
   9. lm          SeqTrainer on cuda at the LM's full width (LM_CONFIG: vocab
                  8192, d 512, 4 heads, 4 layers, d_ff 2048, bf16, loss chunk
                  1024, Adam 1e-3), context 1024, batch 8: one warm-up step,
@@ -102,6 +108,17 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(label: str) -> None:
+    """Logs the wall seconds since the previous lap: where the script's time
+    goes against its limit."""
+    now = time.perf_counter()
+    log(f"lap: {label} {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 # --- data -------------------------------------------------------------------
@@ -196,6 +213,41 @@ def phase_build(pa_scan, attention, sparse):
         for line in lib.build_log.splitlines():
             if line.strip():
                 log(f"  nvcc: {line.strip()}")
+    for kernel, info in ptxas_summary(attention.LIBRARY.build_log).items():
+        log(f"build: ptxas {kernel}: {info}")
+
+
+def ptxas_summary(build_log: str) -> dict:
+    """Registers, spills and static shared memory of each flash kernel
+    instance, from nvcc's -Xptxas -v report (names demangled by c++filt
+    where the machine has it)."""
+    import re
+    import shutil
+
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "flash_" not in name:
+            continue
+        info = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            info["spill_stores"], info["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            info["static_smem"] = int(m.group(1)) if m else 0
+    if out and shutil.which("c++filt"):
+        names = list(out)
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True).stdout.splitlines()
+        if len(plain) == len(names):
+            out = {p.replace("(anonymous namespace)::", ""): out[n] for p, n in zip(plain, names)}
+    return out
 
 
 def _kernel_inputs(torch, B, D, labels, seed):
@@ -471,7 +523,16 @@ FLASH_CHECKS = [
     ("q_offset256", 2, 512, 768, 4, 128, "bfloat16", 256, 0),
     ("masked_rows", 2, 256, 256, 4, 128, "bfloat16", 0, 100),
     ("f32", 2, 256, 256, 2, 64, "float32", 0, 0),
+    ("packed_qkv", 8, 1024, 1024, 4, 128, "bfloat16", 0, 0),
+    ("short48", 2, 48, 48, 4, 128, "bfloat16", 0, 0),
+    ("dh64_ragged", 2, 1000, 1000, 8, 64, "bfloat16", 0, 0),
+    # causal: the first 128-row Q tile sees no key and the last key tile no
+    # query, so both sm90 kernels have CTAs with nothing to sweep
+    ("kv_offset200", 1, 256, 256, 2, 128, "bfloat16", 0, 200),
 ]
+# cases whose q, k and v are views into one [B, L, 3, H, Dh] projection, as
+# the transformer hands them over
+FLASH_PACKED = {"packed_qkv"}
 # Each kernel output against its twin, per tensor: the relative L2 error
 # ||a - ref|| / ||ref||, and the worst element against its own size plus the
 # tensor's rms, max |a - ref| / (|ref| + rms(ref)); lse absolute. Limits: a
@@ -483,11 +544,15 @@ FLASH_TOL = {"bfloat16": (1e-2, 1e-1, 1e-5), "float32": (2e-6, 2e-5, 4e-6)}  # l
 FLASH_TIME_SHAPES = [(8, 1024, 4, 128), (2, 4096, 4, 128)]
 
 
-def _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed):
+def _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed, packed=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    mk = lambda l: torch.randn((b, l, h, dh), generator=g, device="cuda").to(dt)  # noqa: E731
-    return mk(lq), mk(lk), mk(lk), mk(lq)
+    mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)  # noqa: E731
+    if packed:  # transformer.py's qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        assert lq == lk
+        qkv = mk(b, lq, 3, h, dh)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mk(b, lq, h, dh)
+    return mk(b, lq, h, dh), mk(b, lk, h, dh), mk(b, lk, h, dh), mk(b, lq, h, dh)
 
 
 def _per_head(torch, fn, *tensors):
@@ -522,8 +587,11 @@ def phase_flash_check(torch, attention):
     n = 0
     for name, b, lq, lk, h, dh, dtype, qo, ko in FLASH_CHECKS:
         l2_tol, elem_tol, lse_atol = FLASH_TOL[dtype]
+        packed = name in FLASH_PACKED
         for causal in (False, True):
-            q, k, v, g = _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed=n)
+            q, k, v, g = _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed=n, packed=packed)
+            check(not packed or q.data_ptr() + h * dh * q.element_size() == k.data_ptr(),
+                  "the packed case's k is not a view into the qkv projection")
             out, lse = attention.flash_attention(q, k, v, causal, qo, ko, return_lse=True)
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
             dq, dk, dv = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
@@ -554,14 +622,15 @@ def phase_flash_check(torch, attention):
                   f"max|d|={lse_err:.3e}")
             worst["flash_fwd"] = max(worst["flash_fwd"], lse_err)
             readings[dtype][2] = max(readings[dtype][2], lse_err)
-            if name == "masked_rows" and causal:
+            if causal and ko > qo:  # rows 0 .. ko - qo - 1 see no key
                 rows = out[:, :ko - qo].float()
                 check(rows.abs().max().item() == 0.0 and dq[:, :ko - qo].abs().max().item() == 0.0,
                       "rows that see no key must have zero output and zero dq")
                 check(lse.reshape(b, h, lq)[:, :, :ko - qo].max().item() < attention.NEG_INF / 2,
                       "rows that see no key must have an lse near NEG_INF")
             log(f"flash-check: {name} {(b, lq, lk, h, dh)} {dtype} causal={causal} "
-                f"q_offset={qo} kv_offset={ko}: max|d|/relL2/element " + " ".join(
+                f"q_offset={qo} kv_offset={ko}{' packed' if packed else ''}: "
+                f"max|d|/relL2/element " + " ".join(
                     f"{w}={e}" for w, e in errs.items()) + f" lse={lse_err:.3e}")
             n += 1
             del q, k, v, g, out, lse, dq, dk, dv, p_out, p_lse, p_dq, p_dk, p_dv
@@ -581,14 +650,21 @@ def flash_errors(torch, a, ref):
             (d / (ref.abs() + rms.clamp_min(1e-30))).max().item())
 
 
+def flash_flops(kernel, b, lq, lk, h, dh, causal):
+    """The bf16 tensor-core operations of one call: 2 per multiply-add of
+    its products (forward 2, dQ 3, dK/dV 4), over the (query, key) pairs the
+    causal mask keeps."""
+    pairs = sum(min(lk, i + 1) for i in range(lq)) if causal else lq * lk
+    products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkdv": 4}[kernel]
+    return 2 * products * dh * pairs * b * h
+
+
 def flash_bound_ms(kernel, b, lq, lk, h, dh, causal):
     """Least time for the same work on this card: the larger of the bf16
     tensor-core operations over 989 TFLOP/s and the bytes (each input read
     once, each output written once) over 3.35 TB/s. Operations count only
     the (query, key) pairs the causal mask keeps."""
-    pairs = sum(min(lk, i + 1) for i in range(lq)) if causal else lq * lk
-    products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkdv": 4}[kernel]
-    flops = 2 * products * dh * pairs * b * h
+    flops = flash_flops(kernel, b, lq, lk, h, dh, causal)
     tile = b * h * dh * 2  # one bf16 [B, L, H, Dh] row set per position
     rows = b * h * lq * 4  # one f32 value per query row
     nbytes = {
@@ -621,6 +697,43 @@ def _device_ms(torch, fn, reps):
 
 
 FLASH_TIME_TURNS = 3
+
+
+def _launch_attrs(torch, fn):
+    """What the profiler recorded of each kernel one call of ``fn``
+    launches: {name: {grid, block, registers per thread, shared memory}},
+    read from its Chrome trace (the launch's own record: shared memory is
+    static plus dynamic, a CTA)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        tp.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+    keys = ("grid", "block", "registers per thread", "shared memory")
+    return {e["name"]: {k: e["args"][k] for k in keys if k in e.get("args", {})}
+            for e in events if e.get("cat") == "kernel"}
+
+
+def _host_us(torch, fn, batches=8, reps=50):
+    """Host microseconds a call of a wrapper (checks, allocation, tensor
+    maps, launch), the card's work left out (the queue never fills in
+    ``reps`` calls of these kernels): the least mean over ``batches``
+    batches, since the shared host only ever adds time."""
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / reps * 1e6
 
 
 def phase_flash_time(torch, attention):
@@ -663,19 +776,35 @@ def phase_flash_time(torch, attention):
         log(f"flash-time: at {(b, lq, h, dh)}, median (min-max) over {FLASH_TIME_TURNS} turns: "
             + "; ".join(f"{key} {times[key]:.6f} ({min(val):.6f}-{max(val):.6f})"
                         for key, val in turns.items()))
+        host = {name: _host_us(torch, calls[name][1]) for name in ("flash_fwd", "flash_dq",
+                                                                    "flash_dkdv")}
+        for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
+            for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
+                log(f"flash-time: {name} at {(b, lq, h, dh)} launches {kernel[:70]}: {attrs}")
         for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
             bound, by = flash_bound_ms(name, b, lq, lq, h, dh, True)
             bwd = name != "flash_fwd"
+            lib = times["lib_bwd" if bwd else "lib_fwd"]
             out[(b, lq, h, dh, name)] = {
                 "ms": times[name],
                 "plain_ms": times["plain_bwd" if bwd else "plain_fwd"],
                 "bound_ms": bound, "bound_by": by,
-                "library_ms": times["lib_bwd" if bwd else "lib_fwd"],
+                "library_ms": lib,
             }
+            tflops = flash_flops(name, b, lq, lq, h, dh, True) / (times[name] * 1e-3) / 1e12
             log(f"flash-time: {name} at {(b, lq, h, dh)}: kernel {times[name]:.6f} ms, "
-                f"bound {bound:.6f} ms ({by}), {bound / times[name]:.4f} of the bound; "
-                f"plain {out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library "
-                f"{out[(b, lq, h, dh, name)]['library_ms']:.6f} ms")
+                f"{tflops:.1f} TFLOP/s, bound {bound:.6f} ms ({by}), {bound / times[name]:.4f} "
+                f"of the bound; plain {out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library "
+                f"{lib:.6f} ms ({'SDPA backward, dQ+dK+dV' if bwd else 'SDPA forward'}), "
+                f"kernel / library {times[name] / lib:.3f}; host {host[name]:.1f} us a call")
+        for which, name in (("fwd", "flash_fwd"), ("dkdv", "flash_dkdv")):
+            states = [s for _, tiles in attention.sm90_tile_plan(which, lq, lq, True)
+                      for _, pair in tiles for s in pair]
+            log(f"flash-time: {name} at {(b, lq, h, dh)}: a head's warpgroup tiles "
+                + ", ".join(f"{s} {states.count(s)}" for s in ("full", "cut", "skip")))
+        pair = times["flash_dq"] + times["flash_dkdv"]
+        log(f"flash-time: backward pair dQ + dK/dV at {(b, lq, h, dh)}: {pair:.6f} ms against "
+            f"SDPA's backward {times['lib_bwd']:.6f} ms: {pair / times['lib_bwd']:.3f}x")
         del q, k, v, g, o, lse, delta, qt, kt, vt, gt, ot, calls
         torch.cuda.empty_cache()
     return out
@@ -1146,28 +1275,37 @@ def main() -> int:
     from omldm_tpu_torch.ops import attention, pa_scan, sparse
 
     t_start = time.perf_counter()
+    lap("start-up")
     phase_setup(torch)
     phase_build(pa_scan, attention, sparse)
+    lap("build")
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
+    lap("pa_scan check and time")
     t0 = time.perf_counter()
     events = make_events(args.records, args.seed, query_at=args.records // 2)
     log(f"slice: generated {len(events)} events ({args.records} training) "
         f"in {time.perf_counter() - t0:.2f} s")
     launches, wall = phase_slice(torch, pa_scan, events)
     phase_parity(events[: args.parity_records + 1])
+    lap("slice stream and parity")
     flash_err = phase_flash_check(torch, attention)
+    lap("flash check")
     flash_times = phase_flash_time(torch, attention)
+    lap("flash time")
     flash_launches, trainer = phase_lm(torch, attention, args.lm_steps, args.seed)
     phase_lm_parity(torch, args.seed)
+    lap("lm and lm-parity")
     scatter_err = phase_sparse_check(torch, sparse)
     scatter_times = phase_sparse_time(torch, sparse)
+    lap("sparse check and time")
     t0 = time.perf_counter()
     sparse_events = criteo_events(SPARSE_RECORDS, args.seed, query_at=SPARSE_RECORDS // 2)
     log(f"sparse: generated {len(sparse_events)} events in {time.perf_counter() - t0:.2f} s")
     scatter_launches, sparse_wall = phase_sparse(torch, sparse, sparse_events)
     phase_parity(sparse_events[: args.parity_records + 1])
     outer_launches = phase_avazu(torch, sparse, avazu_events(AVAZU_RECORDS, args.seed))
+    lap("sparse stream, parity and avazu")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):
@@ -1175,6 +1313,7 @@ def main() -> int:
             log(f"profile[{name}]: device busy {busy_s:.4f} s against the unprofiled "
                 f"stream's {unprofiled:.3f} s wall: idle share {1.0 - busy_s / unprofiled:.4f}")
         phase_lm_profile(torch, attention, trainer, args.profile, args.seed)
+        lap("profiles")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     main_shape = (256, N_FEATURES + 1)

@@ -24,12 +24,48 @@
 // and out, so its intensity is ~L/4 flops a byte, causal: the roofline
 // (989 TFLOP/s bf16 dense, 3.35 TB/s, balance ~295) calls it about balanced
 // at L = 1024 and operation-bound from L = 2048 on; the backward passes do
-// 1.5x and 2x the forward's products on a little more data. These first
-// versions use warp-level mma.sync tensor-core products (m16n8k16, bf16 in,
-// f32 accumulate) with plain synchronous tile copies; wgmma, TMA and warp
-// specialisation are later work.
+// 1.5x and 2x the forward's products on a little more data. Only warpgroup
+// wgmma reaches the tensor cores' rate, and only copies that run beside the
+// products keep them fed: that is the Hopper design. The mma.sync design
+// covers the widths, types and pass it does not.
 //
-// Design:
+// Hopper design (bfloat16 at Dh 64 and 128: the forward and dK/dV):
+//   - One CTA of three warpgroups. Warpgroup 0 is the producer: after
+//     setmaxnreg gives its registers away (24 a thread), one thread (in
+//     dK/dV one warp, which also stages each tile's lse and delta rows)
+//     keeps TMA tile loads in flight into a 2-stage ring of shared-memory
+//     stages, each completed on an mbarrier ("full"), and reuses a stage
+//     once both consumers have released it (an "empty" mbarrier).
+//     Warpgroups 1 and 2 are consumers (240 registers a thread) and run
+//     every product as wgmma with f32 accumulators in registers.
+//   - Tiles arrive by TMA from a 4-d tensor map over the strided [B, L, H, Dh]
+//     view (so q, k and v can be views into the packed qkv projection), in
+//     64-column boxes with the 128-byte swizzle (a Dh-128 tile is two boxes);
+//     rows past L arrive as zeros. The wgmma shared-memory descriptors
+//     describe that layout: K-major (Dh contiguous) for Q K^T-shaped
+//     products, MN-major (the transpose flag) where the same tile is the B
+//     operand of a product over its rows.
+//   - Forward: one CTA per (b*h, 128-row Q tile), each consumer owns 64 rows;
+//     Q is loaded once, K and V stream in 128-key tiles. S = Q K^T by SS
+//     wgmma (m64n128k16), online softmax in the accumulator registers, P
+//     rounded to bf16 in registers and O += P V by RS wgmma (V MN-major).
+//   - dK/dV: one CTA per (b*h, 128-key tile), each consumer owns 64 keys; K and
+//     V are loaded once and stay, Q, dO and the tile's lse/delta rows stream
+//     in 64-row tiles from first_q_tile_needed on. With keys as rows nothing
+//     is transposed in registers: S^T = K Q^T and dP^T = V dO^T (SS),
+//     P^T = exp(scale S^T - lse), dV += P^T dO (RS, dO MN-major),
+//     dS^T = P^T (dP^T - delta), dK += dS^T Q (RS, Q MN-major); dK is scaled
+//     by `scale` when it is stored.
+//   - The mask is applied only on tiles the causal diagonal, Lq or Lk cut; a
+//     consumer whose 64 rows (keys) lie wholly on the masked side of a tile
+//     releases it untouched, and whole tiles above the diagonal are never
+//     loaded (the JAX package's _causal_block_needed).
+//   - The grid's slow axis runs over the tiles, longest causal sweeps first,
+//     so the first wave holds the heaviest CTAs of every head.
+//
+// mma.sync design (float32 at Dh 32 and 64, bfloat16 at Dh 32, and the dQ
+// pass at every width): warp-level mma.sync m16n8k16 (bf16 in, f32
+// accumulate) with plain synchronous tile copies.
 //   - The TPU's sequential K grid axis becomes a loop inside the block. One
 //     CTA of 4 warps per (b*h, 64-row Q tile) in the forward and dQ passes,
 //     sweeping 64-key tiles; one CTA per (b*h, 64-key tile) in the dK/dV
@@ -39,26 +75,25 @@
 //     so fragment loads hit 32 distinct banks). S and dS never leave
 //     registers: an mma C fragment of two adjacent 8-column tiles is exactly
 //     the A fragment of the next product (P V, dS K, P^T dO, dS^T Q).
-//   - Whole tiles above the causal diagonal are never visited (the JAX
-//     package's _causal_block_needed); the TPU's lane-replicated m/l scratch
-//     and DMA-eliding index maps have no counterpart here.
-//   - Inputs are taken by strides ([B, L, H, Dh] with unit stride on Dh and
-//     16-byte aligned rows), so q, k and v can be views into the packed qkv
-//     projection without a copy. Outputs are contiguous [B, L, H, Dh]; lse
-//     and delta are contiguous f32 [B*H, Lq].
-//   - Rounding points follow the JAX kernels: scores, softmax statistics and
-//     every accumulator are f32; P is rounded to the operand type before the
-//     P V and P^T dO products, dS before the dS K and dS^T Q products.
 //   - float32 runs the same code with an exact f32 emulation of the
 //     m16n8k16 product (warp shuffles and FMAs), so the tensor-core path and
 //     the f32 path share every index and mask. It is there for parity
 //     checks at small sizes, not for speed.
-// Ragged Lq and Lk are handled by bounds checks: rows past the end load as
-// zeros, are masked, and are never stored.
+//   - Ragged Lq and Lk are handled by bounds checks: rows past the end load
+//     as zeros, are masked, and are never stored.
+//
+// Both designs: inputs by strides ([B, L, H, Dh] with unit stride on Dh and
+// 16-byte aligned rows); outputs contiguous [B, L, H, Dh]; lse and delta
+// contiguous f32 [B*H, Lq]. Rounding points follow the JAX kernels: scores,
+// softmax statistics and every accumulator are f32; P is rounded to the
+// operand type before the P V and P^T dO products, dS before the dS K and
+// dS^T Q products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -252,6 +287,12 @@ __device__ __forceinline__ void gemm_pb(float (&c)[DH / 8][4], const float (&pm)
 
 // ---- the rules all three kernels share --------------------------------------
 
+// Whether (query row, key col), both local to this call, is masked: past Lq
+// or Lk, or above the causal diagonal.
+__device__ __forceinline__ bool masked_out(int row, int col, const Params& p) {
+  return row >= p.Lq || col >= p.Lk || (p.causal && p.q_offset + row < p.kv_offset + col);
+}
+
 // The JAX package's _masked_scores: the scaled score of (query row, key col),
 // both local to this call, or NEG_INF where masked. Rows past Lq are masked
 // too (their results are never stored).
@@ -268,11 +309,11 @@ __device__ __forceinline__ float weight(float s, float m) {
 
 // The JAX package's _causal_block_needed, as loop bounds: how many K tiles a
 // Q tile starting at local row q0 visits ...
-__device__ __forceinline__ int k_tiles_needed(const Params& p, int q0, int block_q) {
-  const int n = (p.Lk + kBlockK - 1) / kBlockK;
+__device__ __forceinline__ int k_tiles_needed(const Params& p, int q0, int block_q, int block_k) {
+  const int n = (p.Lk + block_k - 1) / block_k;
   if (!p.causal) return n;
   const int last = p.q_offset + q0 + block_q - 1 - p.kv_offset;
-  return last < 0 ? 0 : min(n, last / kBlockK + 1);
+  return last < 0 ? 0 : min(n, last / block_k + 1);
 }
 
 // ... and the first Q tile a K tile starting at local key k0 visits.
@@ -358,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  const int n_k = k_tiles_needed(p, q0, kBlockQ);
+  const int n_k = k_tiles_needed(p, q0, kBlockQ, kBlockK);
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
@@ -445,7 +486,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
-  const int n_k = k_tiles_needed(p, q0, kBlockQ);
+  const int n_k = k_tiles_needed(p, q0, kBlockQ, kBlockK);
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();
@@ -532,45 +573,429 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
   store_rows<T, DH>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p.H, 1.f);
 }
 
+// ---- Hopper kernels: bfloat16 at Dh 64 and 128 ----------------------------------
+
+constexpr int kWarpgroup = 128;
+constexpr int kSm90Threads = 3 * kWarpgroup;  // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24 x 128 + 240 x 256 <= 65,536
+constexpr int kFwdM = 128, kFwdN = 128;  // forward: query rows per CTA, keys per tile
+constexpr int kBwdN = 128, kBwdM = 64;   // dK/dV: keys per CTA, query rows per tile
+constexpr int kStages = 2;               // ring depth of the streamed tiles
+constexpr int kBox = 128;                // bytes of one swizzled box row (64 bf16)
+constexpr int kConsumerWarps = 8;        // arrivals that release a stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Sm90Args {
+  CUtensorMap q, k, v, dout;
+  Params p;
+};
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The ROWS x DH tile at `tile` (DH / 64 swizzled halves of ROWS x 128 bytes)
+// as a wgmma operand whose reduction runs over DH: 16 columns from kk * 16,
+// rows from `row` on.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k_major(const unsigned char* tile, int row, int kk) {
+  return sm90::desc_sw128(tile + (kk / 4) * ROWS * kBox + row * kBox + (kk % 4) * 32, 16, 1024);
+}
+
+// The same tile as the B operand of a product whose reduction runs over its
+// rows (16 rows from kk * 16) and whose output columns are its DH columns.
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn_major(const unsigned char* tile, int kk) {
+  return sm90::desc_sw128(tile + kk * 16 * kBox, ROWS * kBox, 1024);
+}
+
+// The ROWS x DH tile of rows [row0, row0 + ROWS) of one (b, h) slice, as
+// DH / 64 TMA boxes completed on `bar` (which the caller armed for them).
+template <int ROWS, int DH>
+__device__ __forceinline__ void load_tile_tma(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int b,
+                                              int h, int row0) {
+#pragma unroll
+  for (int half = 0; half < DH / 64; ++half)
+    sm90::tma_load_4d(dst + half * ROWS * kBox, map, bar, half * 64, h, row0, b);
+}
+
+// Packs two accumulator chunks per 16 columns into wgmma A registers,
+// rounding to bf16: the rounding point of P and dS.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+}
+
+// Stores this thread's two rows (row0, row0 + 8) of a warpgroup's 64 x DH
+// accumulator, times `mul`, into a contiguous [B, L, H, DH] output.
+template <int DH>
+__device__ __forceinline__ void store_acc(bf16* out, const float (&c)[DH / 2], int b, int h, int row0, int L,
+                                          int H, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= L) continue;
+    bf16* dst = out + (((long long)b * L + row) * H + h) * DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) store_pair(dst + 8 * j, c[4 * j + 2 * r] * mul, c[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kSm90Threads, 1) flash_fwd_sm90_kernel(const __grid_constant__ Sm90Args args) {
+  constexpr uint32_t kQBytes = kFwdM * DH * 2, kKVBytes = kFwdN * DH * 2;
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sK = sQ + kQBytes;
+  unsigned char* sV = sK + kStages * kKVBytes;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + kStages * kKVBytes);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;  // longest causal sweeps first
+  const int n_k = k_tiles_needed(p, q0, kFwdM, kFwdN);
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full_k[s], 1);
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n_k > 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, kQBytes);
+      load_tile_tma<kFwdM, DH>(sQ, &args.q, bar_q, b, h, q0);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) sm90::mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full_k[s], kKVBytes);
+        load_tile_tma<kFwdN, DH>(sK + s * kKVBytes, &args.k, &full_k[s], b, h, kt * kFwdN);
+        sm90::mbar_arrive_expect_tx(&full_v[s], kKVBytes);
+        load_tile_tma<kFwdN, DH>(sV + s * kKVBytes, &args.v, &full_v[s], b, h, kt * kFwdN);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows r0 .. r0 + 63 of the CTA's tile
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3, t = lane & 3;
+  const int r0 = q0 + cw * 64;
+  const int row0 = r0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const float sl2 = p.scale * kLog2e;
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};  // running max of the raw scores, denominator
+
+  if (n_k > 0) sm90::mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kStages, k0 = kt * kFwdN;
+    const uint32_t phase = (kt / kStages) & 1;
+    sm90::mbar_wait(&full_k[s], phase);
+    if (p.causal && p.q_offset + r0 + 63 < p.kv_offset + k0) {  // every row above every key
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    float sc[kFwdN / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::Wgmma<kFwdN>::ss(sc, desc_k_major<kFwdM>(sQ, cw * 64, kk),
+                             desc_k_major<kFwdN>(sK + s * kKVBytes, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+
+    if (k0 + kFwdN > p.Lk || (p.causal && p.q_offset + r0 < p.kv_offset + k0 + kFwdN - 1)) {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (masked_out(row0 + 8 * (i >> 1), k0 + 8 * j + 2 * t + (i & 1), p)) sc[4 * j + i] = neg_inf();
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kFwdN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      const float mu = mx[r] == neg_inf() ? 0.f : mx[r];  // a row that has seen no key yet
+      alpha[r] = exp2f((m[r] - mu) * sl2);
+      ms[r] = mu * sl2;
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kFwdN / 2; ++i) {
+      sc[i] = exp2f(fmaf(sc[i], sl2, -ms[(i >> 1) & 1]));  // masked scores give exactly 0
+      rs[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[kFwdN / 16][4];
+    pack_a<kFwdN>(pa, sc);
+
+    sm90::mbar_wait(&full_v[s], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdN / 16; ++kk)
+      sm90::Wgmma<DH>::rs(o, pa[kk], desc_mn_major<kFwdN>(sV + s * kKVBytes, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(l[r], 1e-30f);
+    const int row = row0 + 8 * r;
+    if (t == 0 && row < p.Lq)
+      p.lse[(long long)bh * p.Lq + row] = m[r] == neg_inf() ? kNegInf : m[r] * p.scale + logf(den);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[4 * j + 2 * r] /= den;
+      o[4 * j + 2 * r + 1] /= den;
+    }
+  }
+  store_acc<DH>(static_cast<bf16*>(p.out), o, b, h, row0, p.Lq, p.H, 1.f);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kSm90Threads, 1) flash_dkdv_sm90_kernel(const __grid_constant__ Sm90Args args) {
+  constexpr uint32_t kKVBytes = kBwdN * DH * 2, kQBytes = kBwdM * DH * 2;
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align_1024(smem_raw);
+  unsigned char* sV = sK + kKVBytes;
+  unsigned char* sQ = sV + kKVBytes;
+  unsigned char* sDO = sQ + kStages * kQBytes;
+  float* sLse = reinterpret_cast<float*>(sDO + kStages * kQBytes);  // lse * log2(e), per stage
+  float* sDelta = sLse + kStages * kBwdM;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDelta + kStages * kBwdM);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kBwdN;  // the first key tiles have the longest causal sweeps
+  const int n_q = (p.Lq + kBwdM - 1) / kBwdM;
+  const int qt0 = first_q_tile_needed(p, k0, kBwdM);
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1 + 32);  // the TMA's arrival and the producer warp's lse/delta rows
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: warp 0
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (threadIdx.x < 32 && qt0 < n_q) {
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(bar_kv, 2 * kKVBytes);
+        load_tile_tma<kBwdN, DH>(sK, &args.k, bar_kv, b, h, k0);
+        load_tile_tma<kBwdN, DH>(sV, &args.v, bar_kv, b, h, k0);
+      }
+      for (int qt = qt0, i = 0; qt < n_q; ++qt, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) sm90::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
+          load_tile_tma<kBwdM, DH>(sQ + s * kQBytes, &args.q, &full[s], b, h, qt * kBwdM);
+          load_tile_tma<kBwdM, DH>(sDO + s * kQBytes, &args.dout, &full[s], b, h, qt * kBwdM);
+        }
+        for (int r = lane; r < kBwdM; r += 32) {
+          const int row = qt * kBwdM + r;
+          const bool in = row < p.Lq;
+          sLse[s * kBwdM + r] = in ? p.lse[(long long)bh * p.Lq + row] * kLog2e : 0.f;
+          sDelta[s * kBwdM + r] = in ? p.delta[(long long)bh * p.Lq + row] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns keys kw0 .. kw0 + 63 of the CTA's tile
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3, t = lane & 3;
+  const int kw0 = k0 + cw * 64;
+  const int key0 = kw0 + warp * 16 + (lane >> 2);  // this thread's keys: key0, key0 + 8
+  const float sl2 = p.scale * kLog2e;
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (qt0 < n_q) sm90::mbar_wait(bar_kv, 0);
+  for (int qt = qt0, it = 0; qt < n_q; ++qt, ++it) {
+    const int s = it % kStages, q0 = qt * kBwdM;
+    sm90::mbar_wait(&full[s], (it / kStages) & 1);
+    if (p.causal && p.q_offset + q0 + kBwdM - 1 < p.kv_offset + kw0) {  // every query above every key
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned char* q_tile = sQ + s * kQBytes;
+    const unsigned char* do_tile = sDO + s * kQBytes;
+    const float* lse2 = sLse + s * kBwdM;
+    const float* dlt = sDelta + s * kBwdM;
+
+    // S^T and dP^T: rows are this warpgroup's keys, columns the tile's queries
+    float st[kBwdM / 2], dpt[kBwdM / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::Wgmma<kBwdM>::ss(st, desc_k_major<kBwdN>(sK, cw * 64, kk), desc_k_major<kBwdM>(q_tile, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::Wgmma<kBwdM>::ss(dpt, desc_k_major<kBwdN>(sV, cw * 64, kk), desc_k_major<kBwdM>(do_tile, 0, kk),
+                             kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // S^T is done; dP^T may still run
+    sm90::fence_regs(st);
+
+    const bool cut = q0 + kBwdM > p.Lq || (p.causal && p.q_offset + q0 < p.kv_offset + kw0 + 63);
+#pragma unroll
+    for (int j = 0; j < kBwdM / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * j + 2 * t + (i & 1);
+        const float e = exp2f(fmaf(st[4 * j + i], sl2, -lse2[col]));
+        st[4 * j + i] = cut && masked_out(q0 + col, key0 + 8 * (i >> 1), p) ? 0.f : e;
+      }
+    uint32_t pa[kBwdM / 16][4];
+    pack_a<kBwdM>(pa, st);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdM / 16; ++kk) sm90::Wgmma<DH>::rs(dv, pa[kk], desc_mn_major<kBwdM>(do_tile, kk));
+    sm90::wgmma_commit();  // dV += P^T dO
+    sm90::wgmma_wait<1>();  // dP^T is done; dV may still run
+    sm90::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < kBwdM / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[4 * j + i] *= dpt[4 * j + i] - dlt[8 * j + 2 * t + (i & 1)];  // dS^T
+    sm90::wgmma_wait<0>();  // dV is done reading pa
+    sm90::fence_regs(dv);
+    pack_a<kBwdM>(pa, st);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdM / 16; ++kk) sm90::Wgmma<DH>::rs(dk, pa[kk], desc_mn_major<kBwdM>(q_tile, kk));
+    sm90::wgmma_commit();  // dK += dS^T Q
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+  store_acc<DH>(static_cast<bf16*>(p.dk), dk, b, h, key0, p.Lk, p.H, p.scale);
+  store_acc<DH>(static_cast<bf16*>(p.dv), dv, b, h, key0, p.Lk, p.H, 1.f);
+}
+
 // ---- host side --------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p, cudaStream_t stream) {
+template <typename Kernel, typename Arg>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Arg& arg, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(arg);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
-int run(int which, const Params& p, int BH, cudaStream_t stream) {
+int run_dq(const Params& p, int BH, cudaStream_t stream) {
+  constexpr size_t row = (DH + kPad) * sizeof(T);
+  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ;
+  return launch(flash_dq_kernel<T, DH>, dim3(n_q, BH), kThreads, (2 * kBlockQ + 2 * kBlockK) * row, p, stream);
+}
+
+// The mma.sync design, all three passes.
+template <typename T, int DH>
+int run_mma(int which, const Params& p, int BH, cudaStream_t stream) {
   constexpr size_t row = (DH + kPad) * sizeof(T);
   const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ, n_k = (p.Lk + kBlockK - 1) / kBlockK;
   switch (which) {
     case 0:
-      return launch(flash_fwd_kernel<T, DH>, dim3(n_q, BH), (kBlockQ + 2 * kBlockK) * row, p, stream);
+      return launch(flash_fwd_kernel<T, DH>, dim3(n_q, BH), kThreads, (kBlockQ + 2 * kBlockK) * row, p, stream);
     case 1:
-      return launch(flash_dq_kernel<T, DH>, dim3(n_q, BH), (2 * kBlockQ + 2 * kBlockK) * row, p, stream);
+      return run_dq<T, DH>(p, BH, stream);
     case 2:
-      return launch(flash_dkdv_kernel<T, DH>, dim3(n_k, BH),
+      return launch(flash_dkdv_kernel<T, DH>, dim3(n_k, BH), kThreads,
                     (2 * kBlockK + 2 * kBlockQB) * row + 2 * kBlockQB * sizeof(float), p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Head widths built: 32, 64, 128 in bf16; 32 and 64 in float32 (the f32
-// emulation at 128 spills and only lengthens the build).
-int run_dtype(int which, int dtype, int dh, const Params& p, int BH, cudaStream_t stream) {
+// The Hopper design for the forward and dK/dV (bf16); dQ stays on mma.sync.
+// The tensor maps are encoded here, on the host, for each call: they hold
+// the call's pointers and strides. A map cuTensorMapEncodeTiled refuses
+// returns its error and nothing is launched.
+template <int DH>
+int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
+  if (which == 1) return run_dq<bf16, DH>(p, B * p.H, stream);
+  if (which != 0 && which != 2) return (int)cudaErrorInvalidValue;
+  Sm90Args args;
+  args.p = p;
+  const bool fwd = which == 0;
+  const int q_rows = fwd ? kFwdM : kBwdM, kv_rows = fwd ? kFwdN : kBwdN;
+  int rc = sm90::make_tensor_map(&args.q, p.q, B, p.Lq, p.H, DH, p.q_sb, p.q_sl, p.q_sh, q_rows);
+  if (rc == 0) rc = sm90::make_tensor_map(&args.k, p.k, B, p.Lk, p.H, DH, p.k_sb, p.k_sl, p.k_sh, kv_rows);
+  if (rc == 0) rc = sm90::make_tensor_map(&args.v, p.v, B, p.Lk, p.H, DH, p.v_sb, p.v_sl, p.v_sh, kv_rows);
+  if (rc == 0 && !fwd)
+    rc = sm90::make_tensor_map(&args.dout, p.dout, B, p.Lq, p.H, DH, p.do_sb, p.do_sl, p.do_sh, q_rows);
+  if (rc != 0) return rc;
+  constexpr size_t kAlign = 1024, kBars = 8 * (1 + 3 * kStages);
+  if (fwd) {
+    constexpr size_t smem = kAlign + (size_t)(kFwdM + 2 * kStages * kFwdN) * DH * 2 + kBars;
+    const dim3 grid(B * p.H, (p.Lq + kFwdM - 1) / kFwdM);
+    return launch(flash_fwd_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
+  }
+  constexpr size_t smem =
+      kAlign + (size_t)(2 * kBwdN + 2 * kStages * kBwdM) * DH * 2 + 2 * kStages * kBwdM * sizeof(float) + kBars;
+  const dim3 grid(B * p.H, (p.Lk + kBwdN - 1) / kBwdN);
+  return launch(flash_dkdv_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
+}
+
+// Which design runs each (dtype, head width); the CPU tests pin this table
+// against KERNEL_HEAD_DIMS in ops/attention.py. Float32 at 128 is not built
+// (its exact mma emulation spills and only lengthens the build).
+int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t stream) {
   if (dtype == 1) {
     switch (dh) {
-      case 32: return run<bf16, 32>(which, p, BH, stream);
-      case 64: return run<bf16, 64>(which, p, BH, stream);
-      case 128: return run<bf16, 128>(which, p, BH, stream);
+      case 32: return run_mma<bf16, 32>(which, p, B * p.H, stream);
+      case 64: return run_sm90<64>(which, p, B, stream);
+      case 128: return run_sm90<128>(which, p, B, stream);
     }
   } else if (dtype == 0) {
     switch (dh) {
-      case 32: return run<float, 32>(which, p, BH, stream);
-      case 64: return run<float, 64>(which, p, BH, stream);
+      case 32: return run_mma<float, 32>(which, p, B * p.H, stream);
+      case 64: return run_mma<float, 64>(which, p, B * p.H, stream);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -601,7 +1026,7 @@ int omldm_flash_attention(int which, int dtype, int dh, int B, int H, int Lq, in
   p.do_sb = strides[9]; p.do_sl = strides[10]; p.do_sh = strides[11];
   p.H = H; p.Lq = Lq; p.Lk = Lk; p.causal = causal;
   p.q_offset = q_offset; p.kv_offset = kv_offset; p.scale = scale;
-  return run_dtype(which, dtype, dh, p, B * H, static_cast<cudaStream_t>(stream));
+  return run_dtype(which, dtype, dh, p, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

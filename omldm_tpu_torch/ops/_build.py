@@ -3,8 +3,8 @@
 Each kernel source under ``omldm_tpu_torch/csrc/`` has a plain C interface
 (no PyTorch headers, so a build takes seconds, not minutes). It is compiled
 for ``sm_90a`` into ``build/omldm_tpu_torch/`` at the repository root, named
-by a hash of the source and the flags, so a changed source is rebuilt and an
-unchanged one is reused.
+by a hash of the source, every shared header (``csrc/*.cuh``) and the flags,
+so a changed source or header is rebuilt and an unchanged one is reused.
 
 :meth:`KernelLibrary.start` launches ``nvcc`` in the background and
 :meth:`KernelLibrary.load` waits for it, so a caller can start every build
@@ -46,7 +46,8 @@ class KernelLibrary:
     """One source file, built once per content and loaded once per process.
 
     ``configure`` sets the ``argtypes``/``restype`` of the library's C
-    functions after it is loaded."""
+    functions after it is loaded. ``source`` is a file name under ``csrc/``
+    (or an absolute path)."""
 
     def __init__(self, source: str, configure: Callable[[ctypes.CDLL], None]):
         self.source = CSRC / source
@@ -61,10 +62,13 @@ class KernelLibrary:
         self._tmp: Optional[Path] = None
 
     def _target(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
+        """The library's path: a hash of the source, every header beside it
+        (a source may include any of them) and the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start(self) -> None:
         """Launch nvcc in the background unless the library is built."""

@@ -18,6 +18,10 @@ Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
                            JAX package's ``_flash_diff`` custom VJP).
 - ``attention``            the entry point the transformer calls.
 
+``KERNEL_DESIGNS`` says which of the two CUDA designs runs a (dtype, head
+width); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate on the host
+what the Hopper design's loops visit and which TMA tensor map it encodes.
+
 A CUDA tensor the kernels cannot take (dtype, head width, layout) raises;
 nothing falls back to the plain version. Every kernel launch counts in
 :data:`launches`.
@@ -40,6 +44,18 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
 
 #: head widths the kernels are built for, by dtype
 KERNEL_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+#: which design runs the forward and dK/dV for each (dtype, head width), as
+#: ``run_dtype`` in csrc/flash_attention.cu dispatches: "sm90" (TMA ring,
+#: warp-specialised wgmma) or "mma" (mma.sync, synchronous copies). dQ runs
+#: on "mma" everywhere.
+KERNEL_DESIGNS = {(torch.bfloat16, 32): "mma", (torch.bfloat16, 64): "sm90",
+                  (torch.bfloat16, 128): "sm90", (torch.float32, 32): "mma",
+                  (torch.float32, 64): "mma"}
+#: tiles of the sm90 design: forward (query rows a CTA, keys a tile), dK/dV
+#: (keys a CTA, query rows a tile); each CTA's two consumer warpgroups take
+#: half of its rows (keys) each
+SM90_FWD_TILE = (128, 128)
+SM90_DKDV_TILE = (128, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKDV = 0, 1, 2
 
@@ -211,7 +227,75 @@ def _check_kernel_inputs(fn: str, named) -> torch.dtype:
             raise ValueError(
                 f"{fn}: {name} needs unit stride on Dh and 16-byte aligned rows "
                 f"(strides {t.stride()})")
+        if KERNEL_DESIGNS[(dtype, t.shape[-1])] == "sm90":
+            try:
+                tensor_map_geometry(t)
+            except ValueError as err:
+                raise ValueError(f"{fn}: {name}: {err}") from None
     return dtype
+
+
+def tensor_map_geometry(t: torch.Tensor):
+    """The TMA tensor map the sm90 design encodes for a [B, L, H, Dh] view:
+    dimensions innermost first (Dh, H, L, B) and the byte strides of H, L
+    and B. Raises where cuTensorMapEncodeTiled would refuse the map (a
+    byte stride not a multiple of 16, or of 2^40 or more)."""
+    b, l, h, dh = t.shape
+    size = t.element_size()
+    strides = tuple(s * size for s in (t.stride(2), t.stride(1), t.stride(0)))
+    if t.stride(3) != 1 or any(s % 16 or s >= 1 << 40 for s in strides):
+        raise ValueError(f"a TMA tensor map needs unit stride on Dh and byte strides that are "
+                         f"multiples of 16 below 2^40, got {strides} bytes")
+    return (dh, h, l, b), strides
+
+
+def sm90_tile_plan(which: str, lq: int, lk: int, causal: bool, q_offset: int = 0,
+                   kv_offset: int = 0):
+    """The sm90 kernels' work for one (b, h) head, as their loops run it:
+    the CTAs in launch order along the grid's slow axis, each as (its tile,
+    [(tile of its sweep, (state of consumer 0, state of consumer 1)), ...]).
+    ``which``: "fwd" (CTAs over query tiles, sweeping key tiles; longest
+    causal sweeps first) or "dkdv" (CTAs over key tiles, sweeping query
+    tiles). A consumer's state on a tile: "skip" (its 64 rows or keys lie
+    wholly on the masked side: it releases the tile untouched), "cut" (it
+    applies the mask), "full" (no pair of it is masked: no mask)."""
+    if which == "fwd":
+        outer, inner = SM90_FWD_TILE
+        n_outer, n_inner = -(-lq // outer), -(-lk // inner)
+    elif which == "dkdv":
+        outer, inner = SM90_DKDV_TILE
+        n_outer, n_inner = -(-lk // outer), -(-lq // inner)
+    else:
+        raise ValueError(f"sm90_tile_plan: which is 'fwd' or 'dkdv', not {which!r}")
+    half = outer // 2
+    plan = []
+    order = range(n_outer - 1, -1, -1) if which == "fwd" else range(n_outer)
+    for o in order:
+        if which == "fwd":  # k_tiles_needed
+            last = q_offset + o * outer + outer - 1 - kv_offset
+            if not causal:
+                span = range(n_inner)
+            else:
+                span = range(0 if last < 0 else min(n_inner, last // inner + 1))
+        else:               # first_q_tile_needed
+            x = kv_offset + o * outer - q_offset
+            span = range(x // inner if causal and x > 0 else 0, n_inner)
+        tiles = []
+        for i in span:
+            states = []
+            for w in range(2):
+                if which == "fwd":
+                    r0, k0 = o * outer + w * half, i * inner
+                    skip = causal and q_offset + r0 + half - 1 < kv_offset + k0
+                    cut = k0 + inner > lk or (causal and q_offset + r0 < kv_offset + k0 + inner - 1)
+                else:
+                    q0, kw0 = i * inner, o * outer + w * half
+                    skip = causal and q_offset + q0 + inner - 1 < kv_offset + kw0
+                    cut = q0 + inner > lq or (causal and q_offset + q0 < kv_offset + kw0 + half - 1)
+                states.append("skip" if skip else "cut" if cut else "full")
+            tiles.append((i, tuple(states)))
+        plan.append((o, tiles))
+    return plan
 
 
 def _launch(which, dtype, q, k, v, causal, q_offset, kv_offset, dout=None,

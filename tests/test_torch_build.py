@@ -1,0 +1,111 @@
+"""The port's kernel builder (omldm_tpu_torch.ops._build) and what the flash
+attention source dispatches, checked on the CPU without nvcc.
+
+- A library's cache name hashes its source, every shared header of
+  ``csrc/`` and the nvcc flags, so a changed header or flag never reuses a
+  stale library.
+- ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches exactly the
+  (dtype, head width) pairs of ``KERNEL_HEAD_DIMS``, each to the design
+  ``KERNEL_DESIGNS`` names, and the source's sm90 tile sizes are the ones
+  ``sm90_tile_plan`` models.
+"""
+
+import re
+import shutil
+
+import pytest
+import torch
+
+from omldm_tpu_torch.ops import _build
+from omldm_tpu_torch.ops import attention as tatt
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of csrc/ in a tmp directory; nvcc must not be reached."""
+    def no_nvcc():
+        raise AssertionError("the cache name must not need nvcc")
+
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    return dst
+
+
+def _library(csrc, source="flash_attention.cu"):
+    return _build.KernelLibrary(str(csrc / source), lambda lib: None)
+
+
+def test_target_depends_on_content_not_location(csrc_copy):
+    assert _library(csrc_copy)._target() == _build.KernelLibrary(
+        "flash_attention.cu", lambda lib: None)._target()
+    assert _library(csrc_copy)._target().parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu", "pa_scan.cu", "scatter_add.cu"])
+def test_changed_header_changes_target(csrc_copy, source):
+    headers = sorted(csrc_copy.glob("*.cuh"))
+    assert headers, "csrc/ has no shared header"
+    before = _library(csrc_copy, source)._target()
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// one more line\n")
+    after = _library(csrc_copy, source)._target()
+    assert after != before and after.name.startswith(f"lib{source[:-3]}-")
+
+
+def test_new_header_changes_target(csrc_copy):
+    before = _library(csrc_copy)._target()
+    (csrc_copy / "extra.cuh").write_text("#pragma once\n")
+    assert _library(csrc_copy)._target() != before
+
+
+def test_changed_source_and_flags_change_target(csrc_copy, monkeypatch):
+    base = _library(csrc_copy)._target()
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    assert _library(csrc_copy)._target() != base
+    monkeypatch.undo()
+    assert _library(csrc_copy)._target() == base
+    src = csrc_copy / "flash_attention.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert _library(csrc_copy)._target() != base
+
+
+def _run_dtype_table():
+    """{(dtype code, head width): the run_* function run_dtype calls}."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("int run_dtype("):]
+    body = body[:body.index("\n}\n")]
+    table = {}
+    for code, block in re.findall(r"dtype == (\d)\) \{(.*?)\n  \}", body, re.S):
+        for dh, fn in re.findall(r"case (\d+): return (run_\w+)<", block):
+            table[(int(code), int(dh))] = fn
+    return table
+
+
+def test_dispatch_matches_kernel_head_dims_and_designs():
+    table = _run_dtype_table()
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    wanted = {(codes[dt], dh) for dt, dims in tatt.KERNEL_HEAD_DIMS.items() for dh in dims}
+    assert set(table) == wanted
+    fn_of = {"sm90": "run_sm90", "mma": "run_mma"}
+    for (dt, dh), design in tatt.KERNEL_DESIGNS.items():
+        assert table[(codes[dt], dh)] == fn_of[design], (dt, dh)
+    # the Hopper design is bf16 at 64 and 128 only; float32 keeps its exact emulation
+    assert {k for k, v in tatt.KERNEL_DESIGNS.items() if v == "sm90"} == {
+        (torch.bfloat16, 64), (torch.bfloat16, 128)}
+
+
+def test_sm90_keeps_dq_on_mma_and_never_falls_back():
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("int run_sm90("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (which == 1) return run_dq<bf16, DH>" in body
+    # the forward and dK/dV launch only the sm90 kernels: no PR-2 kernel here
+    assert "flash_fwd_sm90_kernel<DH>" in body and "flash_dkdv_sm90_kernel<DH>" in body
+    assert "flash_fwd_kernel<" not in body and "flash_dkdv_kernel<" not in body
+
+
+def test_source_tiles_match_the_plan():
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    consts = {name: int(val) for name, val in re.findall(r"\b(k(?:Fwd|Bwd)[MN]) = (\d+)", src)}
+    assert (consts["kFwdM"], consts["kFwdN"]) == tatt.SM90_FWD_TILE
+    assert (consts["kBwdN"], consts["kBwdM"]) == tatt.SM90_DKDV_TILE
