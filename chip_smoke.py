@@ -10,13 +10,21 @@ Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
   2. build       every kernel source in omldm_tpu_torch/csrc/, one nvcc
                  each, started together (pa_scan.cu, flash_attention.cu,
-                 scatter_add.cu); each flash kernel's registers, spills and
-                 static shared memory from the -Xptxas -v log;
+                 scatter_add.cu); each pa_scan and flash kernel's registers,
+                 spills and static shared memory from the -Xptxas -v log
+                 (the Hopper flash kernels must not spill);
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
                  and scattered zeros, labels in {0,1} and {-1,+1};
-  4. time        pa_scan and its plain version at (256,29) and (256,1025);
+  4. time        pa_scan at TIME_SHAPES: CUDA events over 1000 back-to-back
+                 calls (host work included once it exceeds the kernel), the
+                 host's own time a call, the device's busy time a call
+                 (torch.profiler, the launches' sum), the device span a call
+                 (first launch's start to last launch's end, from the same
+                 kind of trace) and a CUDA graph's time a call (events around
+                 replays of 100 captured calls: the launches and the gaps
+                 between them, no host work), beside its plain version;
   5. slice       StreamJob(parallelism=16, batch 256) on cuda: Create (PA-I,
                  StandardScaler, Asynchronous, perRecord), --records HIGGS-
                  shaped training records (28 features, a planted linear rule
@@ -93,7 +101,7 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 W_RTOL, W_ATOL, LOSS_ATOL = 2e-4, 2e-5, 1e-5
 CHECK_SHAPES = [(1, 29), (256, 29), (256, 1025), (255, 4097)]
-TIME_SHAPES = [(256, 29), (256, 1025)]
+TIME_SHAPES = [(256, 29), (256, 1025), (255, 4097)]
 N_FEATURES = 28  # HIGGS
 
 
@@ -213,14 +221,17 @@ def phase_build(pa_scan, attention, sparse):
         for line in lib.build_log.splitlines():
             if line.strip():
                 log(f"  nvcc: {line.strip()}")
-    for kernel, info in ptxas_summary(attention.LIBRARY.build_log).items():
-        log(f"build: ptxas {kernel}: {info}")
+    for lib, prefix in ((pa_scan.LIBRARY, "_kernel"), (attention.LIBRARY, "flash_")):
+        for kernel, info in ptxas_summary(lib.build_log, prefix).items():
+            log(f"build: ptxas {kernel}: {info}")
+            check("_sm90_kernel" not in kernel or info.get("spill_stores", 0) + info.get("spill_loads", 0) == 0,
+                  f"{kernel} spills: {info}")
 
 
-def ptxas_summary(build_log: str) -> dict:
-    """Registers, spills and static shared memory of each flash kernel
-    instance, from nvcc's -Xptxas -v report (names demangled by c++filt
-    where the machine has it)."""
+def ptxas_summary(build_log: str, prefix: str = "flash_") -> dict:
+    """Registers, spills and static shared memory of each kernel instance
+    whose name holds ``prefix``, from nvcc's -Xptxas -v report (names
+    demangled by c++filt where the machine has it)."""
     import re
     import shutil
 
@@ -230,7 +241,7 @@ def ptxas_summary(build_log: str) -> dict:
         if m:
             name = m.group(1)
             continue
-        if name is None or "flash_" not in name:
+        if name is None or prefix not in name:
             continue
         info = out.setdefault(name, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -312,10 +323,77 @@ def bound_ms(B, D):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _call_latency(torch, fn, reps):
+    """The device's time a call of ``fn`` with the gaps between its
+    launches: (the median span from a call's first kernel start to its last
+    kernel end in a torch.profiler trace of ``reps`` eager calls, the time a
+    call of a CUDA graph of ``reps`` captured calls, by events around 5
+    replays). Calls are told apart in the trace by launch order: every call
+    launches the same number of kernels."""
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):  # a session now and then comes back without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            tp.export_chrome_trace(str(trace))
+            kern = sorted((e for e in json.loads(trace.read_text()).get("traceEvents", [])
+                           if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+        if kern and len(kern) % reps == 0:
+            break
+        log(f"profile: session {attempt} traced {len(kern)} kernels for {reps} calls; "
+            f"profiling again")
+    check(kern and len(kern) % reps == 0,
+          f"torch.profiler traced {len(kern)} kernels for {reps} calls in 3 sessions")
+    per = len(kern) // reps
+    spans = [kern[i + per - 1]["ts"] + kern[i + per - 1]["dur"] - kern[i]["ts"]
+             for i in range(0, len(kern), per)]
+    span_ms = statistics.median(spans) / 1e3
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    graph_ms = start.elapsed_time(end) / (5 * reps)
+    del graph
+    return span_ms, graph_ms
+
+
 def phase_time(torch, pa_scan):
-    """Kernel ms from CUDA events over >= 1000 launches; plain ms over fewer.
-    Turns: kernel, plain, kernel, plain (the reported numbers are the
-    second of each)."""
+    """Kernel ms from CUDA events over 1000 back-to-back calls (once the
+    kernel is shorter than the wrapper's host work, this times the host),
+    plain ms over fewer, in turns kernel, plain, kernel, plain (the second
+    of each is reported); the host's time a call (``_host_us``); the
+    device's busy time a call (torch.profiler, 200 calls, median of 3
+    turns: the three launches' sum); then the time a call with the gaps
+    between its launches (``_call_latency``: the device span of an eager
+    call and a CUDA graph's time a call). The kernel's ``ms`` is the graph's
+    time a call: the launches and their gaps, without the host."""
+    import statistics
+
     out = {}
     for B, D in TIME_SHAPES:
         w0, x, y, mask = _kernel_inputs(torch, B, D, "01", seed=99)
@@ -325,12 +403,22 @@ def phase_time(torch, pa_scan):
         p1 = _time_ms(torch, plain, 10)
         k2 = _time_ms(torch, kern, 1000)
         p2 = _time_ms(torch, plain, 10)
+        host = _host_us(torch, kern)
+        parts = {}
+        dev = [_device_ms(torch, kern, 200, parts) for _ in range(3)]
+        d = statistics.median(dev)
+        span, graph = _call_latency(torch, kern, 200)
         b, by = bound_ms(B, D)
-        out[(B, D)] = {"ms": k2, "plain_ms": p2, "bound_ms": b, "bound_by": by}
-        log(f"time: pa_scan B={B} D+1={D}: kernel {k1:.6f} / {k2:.6f} ms, plain "
-            f"{p1:.4f} / {p2:.4f} ms, bound {b:.7f} ms ({by}-bound by the "
-            f"roofline; the chain of {B} dependent reductions bounds it in fact), "
+        out[(B, D)] = {"ms": graph, "plain_ms": p2, "bound_ms": b, "bound_by": by}
+        log(f"time: pa_scan B={B} D+1={D}: CUDA graph {graph:.6f} ms a call (launches and "
+            f"their gaps); eager device span {span:.6f} ms a call (median); device busy "
+            f"{d:.6f} ms a call (torch.profiler, {min(dev):.6f}-{max(dev):.6f} over 3 turns); "
+            f"events {k1:.6f} / {k2:.6f} ms; host {host:.1f} us a call; "
+            f"plain {p1:.4f} / {p2:.4f} ms, bound {b:.7f} ms ({by}-bound by the "
+            f"roofline; the chain of {B} dependent rows bounds it in fact), "
             f"library none")
+        log(f"time: pa_scan B={B} D+1={D}: its launches, device ms a call (last turn): " + "; ".join(
+            f"{name.split('(')[0]} {ms:.6f}" for name, ms in parts.items()))
     return out
 
 
@@ -677,22 +765,30 @@ def flash_bound_ms(kernel, b, lq, lk, h, dh, causal):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _device_ms(torch, fn, reps):
+def _device_ms(torch, fn, reps, by_name=None):
     """The card's busy time a call: every kernel, copy and memset that
     torch.profiler traces in ``reps`` calls after warm-up, over ``reps``;
-    host work and the gaps between launches are left out."""
+    host work and the gaps between launches are left out. A dict given as
+    ``by_name`` receives each kernel's ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(_dev_us(e) for e in tp.key_averages() if e.device_type == DeviceType.CUDA)
-    check(busy_us > 0, "torch.profiler traced no device time")
+    for attempt in range(3):  # a session now and then comes back without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in tp.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(_dev_us(e) for e in kernels)
+        if busy_us > 0:
+            break
+        log(f"profile: session {attempt} traced no device time; profiling again")
+    check(busy_us > 0, "torch.profiler traced no device time in 3 sessions")
+    if by_name is not None:
+        by_name.update({e.key: _dev_us(e) / 1e3 / reps for e in kernels})
     return busy_us / 1e3 / reps
 
 
@@ -700,7 +796,7 @@ FLASH_TIME_TURNS = 3
 
 
 def _launch_attrs(torch, fn):
-    """What the profiler recorded of each kernel one call of ``fn``
+    """What the profiler recorded of each kernel a call of ``fn``
     launches: {name: {grid, block, registers per thread, shared memory}},
     read from its Chrome trace (the launch's own record: shared memory is
     static plus dynamic, a CTA)."""
@@ -709,7 +805,8 @@ def _launch_attrs(torch, fn):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
-        fn()
+        for _ in range(3):  # a lone launch's record is sometimes missing from the trace
+            fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
@@ -767,9 +864,10 @@ def phase_flash_time(torch, attention):
                                                          retain_graph=True)),
         }
         turns = {key: [] for key in calls}
+        names = {key: {} for key in calls}  # kernel names each call launched
         for turn in range(FLASH_TIME_TURNS):
             for key, (reps, fn) in calls.items():
-                turns[key].append(_device_ms(torch, fn, reps))
+                turns[key].append(_device_ms(torch, fn, reps, names[key]))
             log(f"flash-time: turn {turn} at {(b, lq, h, dh)} bf16 causal, device ms a call: "
                 + " ".join(f"{key} {val[-1]:.6f}" for key, val in turns.items()))
         times = {key: statistics.median(val) for key, val in turns.items()}
@@ -781,6 +879,9 @@ def phase_flash_time(torch, attention):
         for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
             for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
                 log(f"flash-time: {name} at {(b, lq, h, dh)} launches {kernel[:70]}: {attrs}")
+            # bf16 at these widths runs the Hopper design for every pass
+            check(any(f"{name}_sm90_kernel" in kernel for kernel in names[name]),
+                  f"{name} at {(b, lq, h, dh)} launched {list(names[name])}, not {name}_sm90_kernel")
         for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
             bound, by = flash_bound_ms(name, b, lq, lq, h, dh, True)
             bwd = name != "flash_fwd"
@@ -797,7 +898,7 @@ def phase_flash_time(torch, attention):
                 f"of the bound; plain {out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library "
                 f"{lib:.6f} ms ({'SDPA backward, dQ+dK+dV' if bwd else 'SDPA forward'}), "
                 f"kernel / library {times[name] / lib:.3f}; host {host[name]:.1f} us a call")
-        for which, name in (("fwd", "flash_fwd"), ("dkdv", "flash_dkdv")):
+        for which, name in (("fwd", "flash_fwd"), ("dq", "flash_dq"), ("dkdv", "flash_dkdv")):
             states = [s for _, tiles in attention.sm90_tile_plan(which, lq, lq, True)
                       for _, pair in tiles for s in pair]
             log(f"flash-time: {name} at {(b, lq, h, dh)}: a head's warpgroup tiles "

@@ -1,9 +1,9 @@
 // Flash attention for Hopper: forward, dQ and dK/dV, CUDA C++ for sm_90a.
 //
 // Replaces the three TPU kernels of omldm_tpu/ops/attention.py:
-//   flash_fwd_kernel   <- _flash_kernel          (wrapper flash_attention_pallas)
-//   flash_dq_kernel    <- _flash_bwd_dq_kernel   (wrapper _flash_diff_bwd)
-//   flash_dkdv_kernel  <- _flash_bwd_dkdv_kernel (wrapper _flash_diff_bwd)
+//   flash_fwd_sm90_kernel,  flash_fwd_kernel  <- _flash_kernel          (wrapper flash_attention_pallas)
+//   flash_dq_sm90_kernel,   flash_dq_kernel   <- _flash_bwd_dq_kernel   (wrapper _flash_diff_bwd)
+//   flash_dkdv_sm90_kernel, flash_dkdv_kernel <- _flash_bwd_dkdv_kernel (wrapper _flash_diff_bwd)
 // on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (Dh = 32, 64 or 128 in bfloat16,
 // 32 or 64 in float32), with the causal mask on absolute positions q_offset + row >=
 // kv_offset + col, keys past Lk masked, and p = 0 wherever s <= NEG_INF / 2
@@ -27,9 +27,9 @@
 // 1.5x and 2x the forward's products on a little more data. Only warpgroup
 // wgmma reaches the tensor cores' rate, and only copies that run beside the
 // products keep them fed: that is the Hopper design. The mma.sync design
-// covers the widths, types and pass it does not.
+// covers the widths and types it does not.
 //
-// Hopper design (bfloat16 at Dh 64 and 128: the forward and dK/dV):
+// Hopper design (bfloat16 at Dh 64 and 128: all three passes):
 //   - One CTA of three warpgroups. Warpgroup 0 is the producer: after
 //     setmaxnreg gives its registers away (24 a thread), one thread (in
 //     dK/dV one warp, which also stages each tile's lse and delta rows)
@@ -56,6 +56,15 @@
 //     P^T = exp(scale S^T - lse), dV += P^T dO (RS, dO MN-major),
 //     dS^T = P^T (dP^T - delta), dK += dS^T Q (RS, Q MN-major); dK is scaled
 //     by `scale` when it is stored.
+//   - dQ: one CTA per (b*h, 128-row Q tile), each consumer owns 64 rows; Q
+//     and dO are loaded once (one mbarrier), K and V stream in 64-key tiles.
+//     S = Q K^T and dP = dO V^T go out back to back as SS wgmma (m64n64k16);
+//     P = exp2(S scale log2 e - lse log2 e) is computed while dP runs, then
+//     dS = P (dP - delta) overwrites S in registers, is rounded to bf16 as
+//     the A operand and dQ += dS K runs as RS wgmma (K MN-major); dQ is
+//     scaled by `scale` when it is stored. Each thread reads its two rows'
+//     lse and delta once. 64-key tiles keep dQ (Dh / 2 f32), S, dP (32
+//     each) and dS (16) under the 240 registers; 128-key tiles would not.
 //   - The mask is applied only on tiles the causal diagonal, Lq or Lk cut; a
 //     consumer whose 64 rows (keys) lie wholly on the masked side of a tile
 //     releases it untouched, and whole tiles above the diagonal are never
@@ -63,9 +72,9 @@
 //   - The grid's slow axis runs over the tiles, longest causal sweeps first,
 //     so the first wave holds the heaviest CTAs of every head.
 //
-// mma.sync design (float32 at Dh 32 and 64, bfloat16 at Dh 32, and the dQ
-// pass at every width): warp-level mma.sync m16n8k16 (bf16 in, f32
-// accumulate) with plain synchronous tile copies.
+// mma.sync design (float32 at Dh 32 and 64, bfloat16 at Dh 32, all three
+// passes): warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) with
+// plain synchronous tile copies.
 //   - The TPU's sequential K grid axis becomes a loop inside the block. One
 //     CTA of 4 warps per (b*h, 64-row Q tile) in the forward and dQ passes,
 //     sweeping 64-key tiles; one CTA per (b*h, 64-key tile) in the dK/dV
@@ -580,6 +589,7 @@ constexpr int kSm90Threads = 3 * kWarpgroup;  // producer warpgroup + two consum
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24 x 128 + 240 x 256 <= 65,536
 constexpr int kFwdM = 128, kFwdN = 128;  // forward: query rows per CTA, keys per tile
 constexpr int kBwdN = 128, kBwdM = 64;   // dK/dV: keys per CTA, query rows per tile
+constexpr int kDqM = 128, kDqN = 64;     // dQ: query rows per CTA, keys per tile
 constexpr int kStages = 2;               // ring depth of the streamed tiles
 constexpr int kBox = 128;                // bytes of one swizzled box row (64 bf16)
 constexpr int kConsumerWarps = 8;        // arrivals that release a stage
@@ -918,6 +928,124 @@ __global__ void __launch_bounds__(kSm90Threads, 1) flash_dkdv_sm90_kernel(const 
   store_acc<DH>(static_cast<bf16*>(p.dv), dv, b, h, key0, p.Lk, p.H, 1.f);
 }
 
+template <int DH>
+__global__ void __launch_bounds__(kSm90Threads, 1) flash_dq_sm90_kernel(const __grid_constant__ Sm90Args args) {
+  constexpr uint32_t kQBytes = kDqM * DH * 2, kKVBytes = kDqN * DH * 2;
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sDO = sQ + kQBytes;
+  unsigned char* sK = sDO + kQBytes;
+  unsigned char* sV = sK + kStages * kKVBytes;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + kStages * kKVBytes);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqM;  // longest causal sweeps first
+  const int n_k = k_tiles_needed(p, q0, kDqM, kDqN);
+  const int wg = threadIdx.x / kWarpgroup;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full_k[s], 1);
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n_k > 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, 2 * kQBytes);
+      load_tile_tma<kDqM, DH>(sQ, &args.q, bar_q, b, h, q0);
+      load_tile_tma<kDqM, DH>(sDO, &args.dout, bar_q, b, h, q0);
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) sm90::mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full_k[s], kKVBytes);
+        load_tile_tma<kDqN, DH>(sK + s * kKVBytes, &args.k, &full_k[s], b, h, kt * kDqN);
+        sm90::mbar_arrive_expect_tx(&full_v[s], kKVBytes);
+        load_tile_tma<kDqN, DH>(sV + s * kKVBytes, &args.v, &full_v[s], b, h, kt * kDqN);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows r0 .. r0 + 63 of the CTA's tile
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1, lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3, t = lane & 3;
+  const int r0 = q0 + cw * 64;
+  const int row0 = r0 + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const float sl2 = p.scale * kLog2e;
+  float lse2[2], delta[2];  // lse * log2(e) and delta of this thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] * kLog2e : 0.f;
+    delta[r] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
+  }
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+
+  if (n_k > 0) sm90::mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kStages, k0 = kt * kDqN;
+    const uint32_t phase = (kt / kStages) & 1;
+    sm90::mbar_wait(&full_k[s], phase);
+    if (p.causal && p.q_offset + r0 + 63 < p.kv_offset + k0) {  // every row above every key
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned char* k_tile = sK + s * kKVBytes;
+    // S = Q K^T and dP = dO V^T, issued back to back
+    float sc[kDqN / 2], dp[kDqN / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::Wgmma<kDqN>::ss(sc, desc_k_major<kDqM>(sQ, cw * 64, kk), desc_k_major<kDqN>(k_tile, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::mbar_wait(&full_v[s], phase);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::Wgmma<kDqN>::ss(dp, desc_k_major<kDqM>(sDO, cw * 64, kk),
+                            desc_k_major<kDqN>(sV + s * kKVBytes, 0, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // S is done; dP may still run
+    sm90::fence_regs(sc);
+
+    const bool cut = k0 + kDqN > p.Lk || (p.causal && p.q_offset + r0 < p.kv_offset + k0 + kDqN - 1);
+#pragma unroll
+    for (int j = 0; j < kDqN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = exp2f(fmaf(sc[4 * j + i], sl2, -lse2[i >> 1]));
+        sc[4 * j + i] = cut && masked_out(row0 + 8 * (i >> 1), k0 + 8 * j + 2 * t + (i & 1), p) ? 0.f : e;
+      }
+    sm90::wgmma_wait<0>();  // dP is done
+    sm90::fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < kDqN / 2; ++i) sc[i] *= dp[i] - delta[(i >> 1) & 1];  // dS
+    uint32_t da[kDqN / 16][4];
+    pack_a<kDqN>(da, sc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqN / 16; ++kk) sm90::Wgmma<DH>::rs(dq, da[kk], desc_mn_major<kDqN>(k_tile, kk));
+    sm90::wgmma_commit();  // dQ += dS K
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+  store_acc<DH>(static_cast<bf16*>(p.dq), dq, b, h, row0, p.Lq, p.H, p.scale);
+}
+
 // ---- host side --------------------------------------------------------------
 
 template <typename Kernel, typename Arg>
@@ -926,13 +1054,6 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Arg& arg, c
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(arg);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int DH>
-int run_dq(const Params& p, int BH, cudaStream_t stream) {
-  constexpr size_t row = (DH + kPad) * sizeof(T);
-  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ;
-  return launch(flash_dq_kernel<T, DH>, dim3(n_q, BH), kThreads, (2 * kBlockQ + 2 * kBlockK) * row, p, stream);
 }
 
 // The mma.sync design, all three passes.
@@ -944,7 +1065,7 @@ int run_mma(int which, const Params& p, int BH, cudaStream_t stream) {
     case 0:
       return launch(flash_fwd_kernel<T, DH>, dim3(n_q, BH), kThreads, (kBlockQ + 2 * kBlockK) * row, p, stream);
     case 1:
-      return run_dq<T, DH>(p, BH, stream);
+      return launch(flash_dq_kernel<T, DH>, dim3(n_q, BH), kThreads, (2 * kBlockQ + 2 * kBlockK) * row, p, stream);
     case 2:
       return launch(flash_dkdv_kernel<T, DH>, dim3(n_k, BH), kThreads,
                     (2 * kBlockK + 2 * kBlockQB) * row + 2 * kBlockQB * sizeof(float), p, stream);
@@ -952,29 +1073,33 @@ int run_mma(int which, const Params& p, int BH, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The Hopper design for the forward and dK/dV (bf16); dQ stays on mma.sync.
-// The tensor maps are encoded here, on the host, for each call: they hold
-// the call's pointers and strides. A map cuTensorMapEncodeTiled refuses
-// returns its error and nothing is launched.
+// The Hopper design, all three passes (bf16). The tensor maps are encoded
+// here, on the host, for each call: they hold the call's pointers and
+// strides. A map cuTensorMapEncodeTiled refuses returns its error and
+// nothing is launched.
 template <int DH>
 int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
-  if (which == 1) return run_dq<bf16, DH>(p, B * p.H, stream);
-  if (which != 0 && which != 2) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   Sm90Args args;
   args.p = p;
-  const bool fwd = which == 0;
-  const int q_rows = fwd ? kFwdM : kBwdM, kv_rows = fwd ? kFwdN : kBwdN;
+  const int q_rows = which == 0 ? kFwdM : which == 1 ? kDqM : kBwdM;
+  const int kv_rows = which == 0 ? kFwdN : which == 1 ? kDqN : kBwdN;
   int rc = sm90::make_tensor_map(&args.q, p.q, B, p.Lq, p.H, DH, p.q_sb, p.q_sl, p.q_sh, q_rows);
   if (rc == 0) rc = sm90::make_tensor_map(&args.k, p.k, B, p.Lk, p.H, DH, p.k_sb, p.k_sl, p.k_sh, kv_rows);
   if (rc == 0) rc = sm90::make_tensor_map(&args.v, p.v, B, p.Lk, p.H, DH, p.v_sb, p.v_sl, p.v_sh, kv_rows);
-  if (rc == 0 && !fwd)
+  if (rc == 0 && which != 0)
     rc = sm90::make_tensor_map(&args.dout, p.dout, B, p.Lq, p.H, DH, p.do_sb, p.do_sl, p.do_sh, q_rows);
   if (rc != 0) return rc;
   constexpr size_t kAlign = 1024, kBars = 8 * (1 + 3 * kStages);
-  if (fwd) {
+  if (which == 0) {
     constexpr size_t smem = kAlign + (size_t)(kFwdM + 2 * kStages * kFwdN) * DH * 2 + kBars;
     const dim3 grid(B * p.H, (p.Lq + kFwdM - 1) / kFwdM);
     return launch(flash_fwd_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
+  }
+  if (which == 1) {
+    constexpr size_t smem = kAlign + (size_t)(2 * kDqM + 2 * kStages * kDqN) * DH * 2 + 8 * (1 + 3 * kStages);
+    const dim3 grid(B * p.H, (p.Lq + kDqM - 1) / kDqM);
+    return launch(flash_dq_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
   }
   constexpr size_t smem =
       kAlign + (size_t)(2 * kBwdN + 2 * kStages * kBwdM) * DH * 2 + 2 * kStages * kBwdM * sizeof(float) + kBars;

@@ -44,17 +44,18 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
 
 #: head widths the kernels are built for, by dtype
 KERNEL_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
-#: which design runs the forward and dK/dV for each (dtype, head width), as
-#: ``run_dtype`` in csrc/flash_attention.cu dispatches: "sm90" (TMA ring,
-#: warp-specialised wgmma) or "mma" (mma.sync, synchronous copies). dQ runs
-#: on "mma" everywhere.
+#: which design runs all three passes (forward, dQ, dK/dV) for each (dtype,
+#: head width), as ``run_dtype`` in csrc/flash_attention.cu dispatches:
+#: "sm90" (TMA ring, warp-specialised wgmma) or "mma" (mma.sync,
+#: synchronous copies).
 KERNEL_DESIGNS = {(torch.bfloat16, 32): "mma", (torch.bfloat16, 64): "sm90",
                   (torch.bfloat16, 128): "sm90", (torch.float32, 32): "mma",
                   (torch.float32, 64): "mma"}
-#: tiles of the sm90 design: forward (query rows a CTA, keys a tile), dK/dV
-#: (keys a CTA, query rows a tile); each CTA's two consumer warpgroups take
-#: half of its rows (keys) each
+#: tiles of the sm90 design: forward and dQ (query rows a CTA, keys a
+#: tile), dK/dV (keys a CTA, query rows a tile); each CTA's two consumer
+#: warpgroups take half of its rows (keys) each
 SM90_FWD_TILE = (128, 128)
+SM90_DQ_TILE = (128, 64)
 SM90_DKDV_TILE = (128, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKDV = 0, 1, 2
@@ -254,24 +255,25 @@ def sm90_tile_plan(which: str, lq: int, lk: int, causal: bool, q_offset: int = 0
     """The sm90 kernels' work for one (b, h) head, as their loops run it:
     the CTAs in launch order along the grid's slow axis, each as (its tile,
     [(tile of its sweep, (state of consumer 0, state of consumer 1)), ...]).
-    ``which``: "fwd" (CTAs over query tiles, sweeping key tiles; longest
-    causal sweeps first) or "dkdv" (CTAs over key tiles, sweeping query
-    tiles). A consumer's state on a tile: "skip" (its 64 rows or keys lie
+    ``which``: "fwd" or "dq" (CTAs over query tiles, sweeping key tiles;
+    longest causal sweeps first) or "dkdv" (CTAs over key tiles, sweeping
+    query tiles). A consumer's state on a tile: "skip" (its 64 rows or keys lie
     wholly on the masked side: it releases the tile untouched), "cut" (it
     applies the mask), "full" (no pair of it is masked: no mask)."""
-    if which == "fwd":
-        outer, inner = SM90_FWD_TILE
+    by_query = which in ("fwd", "dq")
+    if by_query:
+        outer, inner = SM90_FWD_TILE if which == "fwd" else SM90_DQ_TILE
         n_outer, n_inner = -(-lq // outer), -(-lk // inner)
     elif which == "dkdv":
         outer, inner = SM90_DKDV_TILE
         n_outer, n_inner = -(-lk // outer), -(-lq // inner)
     else:
-        raise ValueError(f"sm90_tile_plan: which is 'fwd' or 'dkdv', not {which!r}")
+        raise ValueError(f"sm90_tile_plan: which is 'fwd', 'dq' or 'dkdv', not {which!r}")
     half = outer // 2
     plan = []
-    order = range(n_outer - 1, -1, -1) if which == "fwd" else range(n_outer)
+    order = range(n_outer - 1, -1, -1) if by_query else range(n_outer)
     for o in order:
-        if which == "fwd":  # k_tiles_needed
+        if by_query:  # k_tiles_needed
             last = q_offset + o * outer + outer - 1 - kv_offset
             if not causal:
                 span = range(n_inner)
@@ -284,7 +286,7 @@ def sm90_tile_plan(which: str, lq: int, lk: int, causal: bool, q_offset: int = 0
         for i in span:
             states = []
             for w in range(2):
-                if which == "fwd":
+                if by_query:
                     r0, k0 = o * outer + w * half, i * inner
                     skip = causal and q_offset + r0 + half - 1 < kv_offset + k0
                     cut = k0 + inner > lk or (causal and q_offset + r0 < kv_offset + k0 + inner - 1)

@@ -2,9 +2,11 @@
 
 Counterpart of ``omldm_tpu/ops/pa_scan.py`` (the Pallas ``_pa_kernel``).
 The exact per-record PA update is sequential: each row's margin depends on
-the weights the previous row left. The kernel (``csrc/pa_scan.cu``) sweeps a
-whole micro-batch in one launch with the weight vector in shared memory;
-see the source for its design and what bounds it.
+the weights the previous row left. The kernel (``csrc/pa_scan.cu``) runs it
+in Gram form -- margin_i = x_i . w0 + sum_{k<i} c_k (x_k . x_i) -- as three
+launches on the stream: the Gram matrix and x . w0 over many CTAs, the
+chain of scalar coefficients in one CTA, then w = w0 + X^T c; see the
+source for its design and what bounds it.
 
 ``pa_scan_update`` launches the kernel for CUDA tensors and runs
 ``pa_scan_reference`` -- the same function as a Python loop over rows --
@@ -31,13 +33,15 @@ launches = 0
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    lib.omldm_pa_scan.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.omldm_pa_scan.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     lib.omldm_pa_scan.restype = ctypes.c_int
-    lib.omldm_pa_scan_max_dim.argtypes = []
-    lib.omldm_pa_scan_max_dim.restype = ctypes.c_int
+    lib.omldm_pa_scan_max_rows.argtypes = []
+    lib.omldm_pa_scan_max_rows.restype = ctypes.c_int
+    lib.omldm_pa_scan_scratch_floats.argtypes = [ctypes.c_int]
+    lib.omldm_pa_scan_scratch_floats.restype = ctypes.c_longlong
 
 
 #: the kernel library, built from the checkout's source on first use; its
@@ -72,19 +76,8 @@ def pa_scan_reference(
     return w, acc / torch.clamp(mask.sum(), min=1.0)
 
 
-def pa_scan_update(
-    w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-    variant: str = "PA-I", C: float = 0.01,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact sequential PA pass over a micro-batch.
-
-    w[D], x[B, D] (bias column already appended), y[B], mask[B] ->
-    (new_w[D], mean masked hinge as a 0-d tensor). CUDA tensors go through
-    the kernel, CPU tensors through :func:`pa_scan_reference`."""
-    if x.device.type == "cpu":
-        return pa_scan_reference(w, x, y, mask, variant, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"pa_scan_update: unsupported device {x.device}")
+def _validate(w, x, y, mask, max_rows: int) -> Tuple[int, int]:
+    """(B, D) of a call the kernel takes; raises ValueError for any other."""
     B, D = x.shape
     for name, t, shape in (("w", w, (D,)), ("x", x, (B, D)), ("y", y, (B,)),
                            ("mask", mask, (B,))):
@@ -96,22 +89,47 @@ def pa_scan_update(
             raise ValueError(f"pa_scan_update: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"pa_scan_update: {name} must be contiguous")
+    if B > max_rows:
+        raise ValueError(f"pa_scan_update: B={B} exceeds the shared-memory limit "
+                         f"({max_rows} rows)")
+    return B, D
+
+
+def pa_scan_update(
+    w: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+    variant: str = "PA-I", C: float = 0.01,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential PA pass over a micro-batch.
+
+    w[D], x[B, D] (bias column already appended), y[B], mask[B] ->
+    (new_w[D], mean masked hinge as a 0-d tensor). CUDA tensors go through
+    the kernel, CPU tensors through :func:`pa_scan_reference`.
+
+    The kernel takes any D but at most ``omldm_pa_scan_max_rows()`` rows
+    (26,944: its chain keeps two floats a row in shared memory) and raises
+    for more. Each call allocates Bp^2 + 2 Bp + 1 floats of device scratch,
+    Bp = B rounded up to 32 (0.26 MB at B = 256, 2.9 GB at the limit), and
+    its Gram prologue does B^2 D / 2 FMAs."""
+    if x.device.type == "cpu":
+        return pa_scan_reference(w, x, y, mask, variant, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"pa_scan_update: unsupported device {x.device}")
     lib = LIBRARY.load()
-    if D > lib.omldm_pa_scan_max_dim():
-        raise ValueError(
-            f"pa_scan_update: D={D} exceeds the shared-memory limit "
-            f"({lib.omldm_pa_scan_max_dim()} floats)"
-        )
+    B, D = _validate(w, x, y, mask, lib.omldm_pa_scan_max_rows())
     code = _VARIANTS.get(variant, 2)
     inv2c = 1.0 / (2.0 * float(C)) if code == 2 else 0.0
     w_out = torch.empty_like(w)
-    loss = torch.empty((1,), dtype=torch.float32, device=x.device)
+    # the kernel's scratch (the Gram matrix and two rows, 16-byte aligned
+    # at the allocation's start), then the mean hinge
+    n = lib.omldm_pa_scan_scratch_floats(B)
+    buf = torch.empty((n + 1,), dtype=torch.float32, device=x.device)
+    loss = buf[n:]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.omldm_pa_scan(
             w.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            w_out.data_ptr(), loss.data_ptr(), B, D, code, float(C), inv2c,
-            stream,
+            w_out.data_ptr(), loss.data_ptr(), buf.data_ptr(), B, D, code,
+            float(C), inv2c, stream,
         )
     if rc != 0:
         raise RuntimeError(f"pa_scan kernel launch failed: CUDA error {rc}")

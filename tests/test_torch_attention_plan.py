@@ -1,4 +1,4 @@
-"""What the Hopper flash kernels visit, and the TMA tensor maps they encode,
+"""What the Hopper flash kernels (forward, dQ, dK/dV) visit, and the TMA tensor maps they encode,
 restated on the host (``sm90_tile_plan``, ``tensor_map_geometry`` in
 omldm_tpu_torch.ops.attention) and held to the JAX package's
 ``_causal_block_needed`` and to the mask by brute force.
@@ -42,12 +42,11 @@ def _masked(rows, cols, lq, lk, causal, qo, ko, check_rows, check_cols):
     return m
 
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_forward_plan(case, causal):
+def _check_query_major_plan(which, tile, case, causal):
+    """The forward and dQ plans: CTAs over query tiles, sweeping key tiles."""
     lq, lk, qo, ko = case
-    bq, bk = tatt.SM90_FWD_TILE
-    plan = tatt.sm90_tile_plan("fwd", lq, lk, causal, qo, ko)
+    bq, bk = tile
+    plan = tatt.sm90_tile_plan(which, lq, lk, causal, qo, ko)
     n_q, n_k = -(-lq // bq), -(-lk // bk)
     assert [o for o, _ in plan] == list(range(n_q - 1, -1, -1))
     for qt, tiles in plan:
@@ -67,6 +66,20 @@ def test_forward_plan(case, causal):
     if causal:
         lengths = [len(t) for _, t in plan]
         assert lengths == sorted(lengths, reverse=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_forward_plan(case, causal):
+    _check_query_major_plan("fwd", tatt.SM90_FWD_TILE, case, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_dq_plan(case, causal):
+    """dQ: 128-row Q tiles sweeping 64-key tiles; its rows past Lq are never
+    stored, so only keys past Lk and the diagonal cut a tile."""
+    _check_query_major_plan("dq", tatt.SM90_DQ_TILE, case, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -107,9 +120,19 @@ def test_plan_counts_at_the_lm_shape():
     assert sum(len(t) for _, t in dkdv) == 72
 
 
+def test_dq_plan_counts_at_the_lm_shape():
+    """(8, 1024, 4, 128) causal at the dQ tile (128 rows x 64 keys): 72 (Q
+    tile, key tile) pairs a head; 8 Q tiles each cut by the diagonal on
+    their last two key tiles, consumer 0 skipping the last one."""
+    dq = tatt.sm90_tile_plan("dq", 1024, 1024, True)
+    assert sum(len(t) for _, t in dq) == 72
+    states = [s for _, t in dq for _, pair in t for s in pair]
+    assert (states.count("full"), states.count("cut"), states.count("skip")) == (120, 16, 8)
+
+
 def test_plan_refuses_unknown_pass():
-    with pytest.raises(ValueError, match="fwd' or 'dkdv"):
-        tatt.sm90_tile_plan("dq", 64, 64, True)
+    with pytest.raises(ValueError, match="fwd', 'dq' or 'dkdv"):
+        tatt.sm90_tile_plan("bwd", 64, 64, True)
 
 
 @pytest.mark.parametrize("dh", [64, 128])

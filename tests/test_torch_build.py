@@ -6,7 +6,8 @@ attention source dispatches, checked on the CPU without nvcc.
   stale library.
 - ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches exactly the
   (dtype, head width) pairs of ``KERNEL_HEAD_DIMS``, each to the design
-  ``KERNEL_DESIGNS`` names, and the source's sm90 tile sizes are the ones
+  ``KERNEL_DESIGNS`` names, the Hopper dispatch launches a Hopper kernel for
+  each of the three passes, and the source's sm90 tile sizes are the ones
   ``sm90_tile_plan`` models.
 """
 
@@ -94,18 +95,24 @@ def test_dispatch_matches_kernel_head_dims_and_designs():
         (torch.bfloat16, 64), (torch.bfloat16, 128)}
 
 
-def test_sm90_keeps_dq_on_mma_and_never_falls_back():
+def test_sm90_launches_all_three_kernels_and_never_falls_back():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int run_sm90("):]
     body = body[:body.index("\n}\n")]
-    assert "if (which == 1) return run_dq<bf16, DH>" in body
-    # the forward and dK/dV launch only the sm90 kernels: no PR-2 kernel here
-    assert "flash_fwd_sm90_kernel<DH>" in body and "flash_dkdv_sm90_kernel<DH>" in body
-    assert "flash_fwd_kernel<" not in body and "flash_dkdv_kernel<" not in body
+    # which == 1 (dQ) launches the Hopper dQ kernel, as 0 and 2 launch theirs
+    dq = body[body.index("if (which == 1) {"):]
+    dq = dq[:dq.index("\n  }\n")]
+    assert "launch(flash_dq_sm90_kernel<DH>" in dq
+    for kernel in ("flash_fwd_sm90_kernel<DH>", "flash_dq_sm90_kernel<DH>", "flash_dkdv_sm90_kernel<DH>"):
+        assert kernel in body
+    # no mma.sync kernel is reachable from the Hopper dispatch
+    for kernel in ("flash_fwd_kernel<", "flash_dq_kernel<", "flash_dkdv_kernel<", "run_mma<", "run_dq<"):
+        assert kernel not in body, kernel
 
 
 def test_source_tiles_match_the_plan():
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    consts = {name: int(val) for name, val in re.findall(r"\b(k(?:Fwd|Bwd)[MN]) = (\d+)", src)}
+    consts = {name: int(val) for name, val in re.findall(r"\b(k(?:Fwd|Bwd|Dq)[MN]) = (\d+)", src)}
     assert (consts["kFwdM"], consts["kFwdN"]) == tatt.SM90_FWD_TILE
+    assert (consts["kDqM"], consts["kDqN"]) == tatt.SM90_DQ_TILE
     assert (consts["kBwdN"], consts["kBwdM"]) == tatt.SM90_DKDV_TILE
