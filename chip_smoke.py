@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits nonzero without a result):
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
-                 and scattered zeros, labels in {0,1} and {-1,+1};
+                 and scattered zeros, labels in {0,1} and {-1,+1}; then one
+                 batch of CHUNKED_CHECK's 28,000 rows, past the kernel's row
+                 limit, which the wrapper runs as two chunks;
   4. time        pa_scan at TIME_SHAPES: CUDA events over 1000 back-to-back
                  calls (host work included once it exceeds the kernel), the
                  host's own time a call, the device's busy time a call
@@ -62,23 +64,38 @@ Phases (any failure raises and the script exits nonzero without a result):
                  outer entry point at OUTER_CHECK (D = 2^20, C = 2), with
                  uniform, duplicate-heavy (a pool of 64) and Criteo-shaped
                  index draws, masked rows, pad slots and one out-of-range
-                 index: every element within scatter_limit;
- 12. sparse-time device time a call (torch.profiler, median of 3 turns) of
-                 the kernel, its plain version and index_add_ at
-                 SPARSE_TIME_SHAPES, with the bound of each;
- 13. sparse      StreamJob(parallelism=16, batch 256) on cuda: a sparse
+                 index, each entry point copying (its input left alone) and
+                 in place (on a clone, against the plain version in place):
+                 every element within scatter_limit; then three fits of a
+                 sparse PA-II (13 + 2^18) and a sparse Softmax (2^20)
+                 through MLPipeline.fit, which must launch the kernel once a
+                 fit and write into the donated weights' memory;
+ 12. sparse-time the kernel in place and in-place index_add_ at
+                 SPARSE_TIME_SHAPES (Criteo, uniform and pool-of-64 draws),
+                 as a CUDA graph of 200 calls and as device busy time a call
+                 (torch.profiler), median (min-max) of 3 turns; at the stream
+                 shapes also the plain version, the copying kernel and
+                 torch.index_add; an empty kernel's launch as the floor;
+                 the in-place bound (distinct touched rows) and the copying
+                 form's;
+ 13. calibrate   python -m omldm_tpu_torch.ops.sparse_calibrate --smoke on
+                 the card into a temporary table: a cuda section with every
+                 formulation measured (mxu skipped by its cap);
+ 14. sparse      StreamJob(parallelism=16, batch 256) on cuda: a sparse
                  Create (PA-II, C 0.1, nFeatures 13 + 2^18, hashSpace 2^18,
                  maxNnz 40, Asynchronous), SPARSE_RECORDS Criteo-shaped
                  records (13 numerics, 26 hashed categoricals, a planted
                  linear rule on the numerics), every tenth a forecast, a
-                 Query halfway; scatter_add launched once per fit, holdout
-                 accuracy > 0.6;
- 14. sparse-parity the first --parity-records records of phase 13 on cuda
+                 Query halfway; the formulation the calibration table picks
+                 there is logged (scatterImpl pinned to the kernel if it
+                 would launch none); scatter_add launched once per fit,
+                 holdout accuracy > 0.6;
+ 15. sparse-parity the first --parity-records records of phase 14 on cuda
                  and on cpu at parallelism 4, as phase 6;
- 15. avazu       AVAZU_RECORDS records of 21 hashed categoricals into
+ 16. avazu       AVAZU_RECORDS records of 21 hashed categoricals into
                  2^20 through a sparse Softmax (nClasses 2): the outer entry
                  point launched once per fit.
-With --profile DIR, after phase 15: the slice's and the sparse stream's
+With --profile DIR, after phase 16: the slice's and the sparse stream's
 runs under cProfile (host time by function) and torch.profiler (device
 busy time), then 4 LM steps under torch.profiler (device busy time, the
 flash kernels' share, the top kernels); tables are written into DIR.
@@ -101,6 +118,8 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 W_RTOL, W_ATOL, LOSS_ATOL = 2e-4, 2e-5, 1e-5
 CHECK_SHAPES = [(1, 29), (256, 29), (256, 1025), (255, 4097)]
+# a batch past the kernel's row limit (26,944): the wrapper runs two chunks
+CHUNKED_CHECK = (28_000, 29)
 TIME_SHAPES = [(256, 29), (256, 1025), (255, 4097)]
 N_FEATURES = 28  # HIGGS
 
@@ -296,7 +315,25 @@ def phase_check(torch, pa_scan):
                     n += 1
     log(f"check: {n} kernel-vs-plain cases pass; max|dw|={max_w:.3e} "
         f"max|dloss|={max_loss:.3e} (rtol={W_RTOL}, atol={W_ATOL}, loss {LOSS_ATOL})")
-    return max_w
+    B, D = CHUNKED_CHECK
+    limit = pa_scan.LIBRARY.load().omldm_pa_scan_max_rows()
+    check(B > limit, f"CHUNKED_CHECK B={B} is not past the row limit {limit}")
+    w0, x, y, mask = _kernel_inputs(torch, B, D, "pm1", seed=5)
+    before = pa_scan.launches
+    t0 = time.perf_counter()
+    kw, kl = pa_scan.pa_scan_update(w0, x, y, mask, "PA-II", 0.5)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    chunks = pa_scan.launches - before
+    pw, pl = pa_scan.pa_scan_reference(w0, x, y, mask, "PA-II", 0.5)
+    err_w = (kw - pw).abs().max().item()
+    err_l = abs(kl.item() - pl.item())
+    log(f"check: pa_scan B={B} D+1={D} past the row limit {limit}: {chunks} chunks "
+        f"({k_s:.3f} s with the first call's scratch), max|dw|={err_w:.3e} |dloss|={err_l:.3e}")
+    check(chunks == -(-B // limit), f"pa_scan ran {chunks} chunks for B={B}")
+    check(torch.allclose(kw, pw, rtol=W_RTOL, atol=W_ATOL) and err_l <= LOSS_ATOL,
+          f"pa_scan disagrees past the row limit: max|dw|={err_w} |dloss|={err_l}")
+    return max(max_w, err_w)
 
 
 def _time_ms(torch, fn, reps):
@@ -358,7 +395,14 @@ def _call_latency(torch, fn, reps):
     spans = [kern[i + per - 1]["ts"] + kern[i + per - 1]["dur"] - kern[i]["ts"]
              for i in range(0, len(kern), per)]
     span_ms = statistics.median(spans) / 1e3
+    return span_ms, _graph_ms(torch, fn, reps)
 
+
+def _graph_ms(torch, fn, reps, replays=5):
+    """The time a call of ``fn`` as a CUDA graph of ``reps`` captured calls,
+    by events around ``replays`` replays: its launches and the gaps between
+    them on the device, no host work (warmed up on a side stream first, as
+    capture wants)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -373,13 +417,12 @@ def _call_latency(torch, fn, reps):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(5):
+    for _ in range(replays):
         graph.replay()
     end.record()
     end.synchronize()
-    graph_ms = start.elapsed_time(end) / (5 * reps)
     del graph
-    return span_ms, graph_ms
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def phase_time(torch, pa_scan):
@@ -1064,20 +1107,26 @@ CRITEO_DIM = 13 + CRITEO_HASH      # nFeatures: 13 numerics + the hashed space
 CRITEO_NNZ = 40                    # maxNnz: 39 active slots and one pad
 AVAZU_DIM = 1 << 20                # 21 categorical slots hashed into 2^20
 AVAZU_SLOTS = 21
-SPARSE_RECORDS, AVAZU_RECORDS = 100_000, 20_000  # phases 13 and 15
+SPARSE_RECORDS, AVAZU_RECORDS = 100_000, 20_000  # phases 14 and 16
 # (B, K) into w[CRITEO_DIM + 1]: one record and a micro-batch of the slice
 # (K = maxNnz + the bias slot), and the experiment's 4096 x 39
 SPARSE_CHECKS = [(1, CRITEO_NNZ + 1), (256, CRITEO_NNZ + 1), (4096, 39)]
 # the outer entry point: (B, K, D, C) of a ragged Avazu Softmax batch
 OUTER_CHECK = (255, AVAZU_SLOTS + 1, AVAZU_DIM + 1, 2)
-# (name, B, K, D, C, draw): the experiment's shape, the slice's, the Avazu
-# Softmax's; the first two are also timed with other draws, for contention
+# (name, B, K, D, C, draw) timed in place: the slice's shape (Criteo draw,
+# then uniform), the experiment's (Criteo, uniform, a pool of 64) and the
+# Avazu Softmax's; the first of each name feeds the kernels line
 SPARSE_TIME_SHAPES = [
-    ("experiment", 4096, 39, CRITEO_DIM, 1, "uniform"),
     ("slice", 256, CRITEO_NNZ + 1, CRITEO_DIM + 1, 1, "criteo"),
+    ("slice", 256, CRITEO_NNZ + 1, CRITEO_DIM + 1, 1, "uniform"),
+    ("experiment", 4096, 39, CRITEO_DIM, 1, "criteo"),
+    ("experiment", 4096, 39, CRITEO_DIM, 1, "uniform"),
+    ("experiment", 4096, 39, CRITEO_DIM, 1, "pool64"),
     ("avazu", 256, AVAZU_SLOTS + 1, AVAZU_DIM + 1, 2, "avazu"),
 ]
-CONTENTION_DRAWS = {"experiment": ("criteo", "pool64"), "slice": ("uniform",)}
+# what the stream shapes also time: the plain version in place and the
+# copying forms (the kernel of PRs 3-5 and torch.index_add)
+SPARSE_TIME_FULL = {("slice", "criteo"), ("avazu", "avazu")}
 SPARSE_TIME_TURNS = 3
 
 
@@ -1137,53 +1186,142 @@ def scatter_limit(torch, w, idx, coef, val):
 
 
 def phase_sparse_check(torch, sparse):
-    """The kernel (both entry points) against its plain version; returns the
+    """The kernel (both entry points), copying and in place, against its
+    plain version; then the sparse learners through ``MLPipeline.fit`` on the
+    card, which must scatter into the donated w without a copy. Returns the
     largest |kernel - plain|."""
     cases = [(b, k, CRITEO_DIM + 1 if k == CRITEO_NNZ + 1 else CRITEO_DIM, 1, draw)
              for b, k in SPARSE_CHECKS for draw in ("uniform", "pool64", "criteo")]
     cases += [(*OUTER_CHECK, draw) for draw in ("uniform", "pool64", "avazu")]
     worst_abs = worst_ratio = 0.0
+    n_checks = 0
     for n, (b, k, d, c, draw) in enumerate(cases):
         w, idx, coef, val = _scatter_inputs(torch, b, k, d, c, draw, seed=100 + n)
-        if c == 1:
-            out = sparse.sparse_scatter_add(w, idx, coef, val)
-        else:
-            out = sparse.sparse_scatter_add_outer(w, idx, coef, val)
-        plain = sparse.sparse_scatter_add_reference(w, idx, coef, val)
+        entry = sparse.sparse_scatter_add if c == 1 else sparse.sparse_scatter_add_outer
+        name = "scatter_add" if c == 1 else "scatter_add_outer"
+        kept = w.clone()
         limit = scatter_limit(torch, w, idx, coef, val)
+        plain = sparse.sparse_scatter_add_reference(w, idx, coef, val)
+        plain_in = sparse.sparse_scatter_add_reference(w.clone(), idx, coef, val, inplace=True)
+        copied = entry(w, idx, coef, val)
+        w_in = w.clone()
+        check(entry(w_in, idx, coef, val, inplace=True) is w_in,
+              f"{name} in place did not return its w")
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"scatter_add output not finite at {(b, k, d, c, draw)}")
-        err = (out - plain).abs()
-        ratio = (err / limit).max().item()
-        worst_abs, worst_ratio = max(worst_abs, err.max().item()), max(worst_ratio, ratio)
-        log(f"sparse-check: {'scatter_add' if c == 1 else 'scatter_add_outer'} (B, K, D, C)="
-            f"{(b, k, d, c)} {draw}: max|d|={err.max().item():.3e}, largest |d|/limit {ratio:.3e}")
-        check(ratio <= 1.0, f"scatter_add disagrees with its plain version at {(b, k, d, c, draw)}: "
-              f"|d|/limit {ratio:.3e}")
-    log(f"sparse-check: {len(cases)} cases pass; largest |d| {worst_abs:.3e}; largest reading "
-        f"|d| / (2 (m+1) 2^-24 (|w| + sum|u|)) {worst_ratio:.3e} against the limit 1")
+        check(torch.equal(w, kept), f"{name} (copying) wrote into its input at {(b, k, d, c, draw)}")
+        for form, out, want in (("copy", copied, plain), ("in place", w_in, plain_in)):
+            check(bool(torch.isfinite(out).all()), f"{name} {form} output not finite at "
+                  f"{(b, k, d, c, draw)}")
+            err = (out - want).abs()
+            ratio = (err / limit).max().item()
+            worst_abs, worst_ratio = max(worst_abs, err.max().item()), max(worst_ratio, ratio)
+            n_checks += 1
+            log(f"sparse-check: {name} {form} (B, K, D, C)={(b, k, d, c)} {draw}: "
+                f"max|d|={err.max().item():.3e}, largest |d|/limit {ratio:.3e}")
+            check(ratio <= 1.0, f"{name} {form} disagrees with its plain version at "
+                  f"{(b, k, d, c, draw)}: |d|/limit {ratio:.3e}")
+    log(f"sparse-check: {n_checks} checks ({len(cases)} cases, copying and in place) pass; "
+        f"largest |d| {worst_abs:.3e}; largest reading |d| / (2 (m+1) 2^-24 (|w| + sum|u|)) "
+        f"{worst_ratio:.3e} against the limit 1")
+    _check_donated_fits(torch, sparse)
     return worst_abs
 
 
+def _check_donated_fits(torch, sparse):
+    """Three fits of a sparse PA-II pipeline at the Criteo width and of a
+    sparse Softmax at Avazu's, through ``MLPipeline.fit`` on the card: one
+    kernel launch a fit, the weights written where they lie (the same
+    memory after every fit), the flat parameters taken before a fit left
+    alone by it."""
+    import numpy as np
+
+    from omldm_tpu_torch.api.requests import LearnerSpec
+    from omldm_tpu_torch.pipelines import MLPipeline
+
+    for name, hp, width, k, entry, leaf in (
+        ("PA", {"C": 0.1, "variant": "PA-II"}, CRITEO_DIM, CRITEO_NNZ, "scatter_add", "w"),
+        ("Softmax", {"learningRate": 0.05, "nClasses": 2}, AVAZU_DIM, AVAZU_SLOTS,
+         "scatter_add_outer", "W"),
+    ):
+        ds = {"sparse": True, "nFeatures": width, "hashSpace": width - 13 if name == "PA" else width,
+              "maxNnz": k, "scatterImpl": "scatter"}
+        pipe = MLPipeline(LearnerSpec(name, hyper_parameters=hp, data_structure=ds), dim=width,
+                          device="cuda")
+        rng = np.random.RandomState(17)
+        ptr = pipe.state["params"][leaf].data_ptr()
+        before = sparse.launches[entry]
+        for _ in range(3):
+            idx = rng.randint(0, width, size=(256, k)).astype(np.int32)
+            val = rng.randn(256, k).astype(np.float32)
+            y = rng.randint(0, 2, size=256).astype(np.float32)
+            flat, _ = pipe.get_flat_params()
+            kept = flat.copy()
+            pipe.fit((idx, val), y, np.ones(256, np.float32))
+            torch.cuda.synchronize()
+            check(np.array_equal(flat, kept), f"sparse {name}: a fit changed flat params taken before it")
+        launched = sparse.launches[entry] - before
+        same = pipe.state["params"][leaf].data_ptr() == ptr
+        log(f"sparse-check: MLPipeline.fit, sparse {name} at {width} + 1: {launched} {entry} "
+            f"launches for 3 fits, weights {'written in place' if same else 'MOVED'}")
+        check(launched == 3, f"sparse {name}: {launched} {entry} launches for 3 fits")
+        check(same, f"sparse {name}: a donated fit did not write into its weights' memory")
+
+
 def scatter_bound_ms(b, k, d, c):
-    """Least time for the same work: idx, val and coef read once, w read and
-    written once, over 3.35 TB/s; the b k c products and adds over the float32
-    peak are far below it."""
+    """The copying form's least time, its earlier bound: idx, val and coef
+    read once, w read and written once, over 3.35 TB/s; the b k c products
+    and adds over the float32 peak are far below it."""
     nbytes = (2 * b * k + b * c + 2 * d * c) * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * b * k * c / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scatter_inplace_bound_ms(b, k, c, touched):
+    """The in-place work's least time: idx, val and coef read once, and each
+    of the ``touched`` distinct in-range elements of w that a nonzero update
+    lands on read and written once (C classes each), over 3.35 TB/s."""
+    nbytes = (2 * b * k + b * c + 2 * touched * c) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * k * c / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _touched(torch, w, idx, coef, val):
+    """Distinct in-range indices that at least one nonzero update lands on."""
+    d = w.shape[0]
+    u = coef[:, None] * val if coef.dim() == 1 else (val[:, :, None] * coef[:, None, :]).abs().amax(2)
+    live = (idx >= 0) & (idx < d) & (u != 0)
+    return int(torch.unique(idx[live]).numel())
+
+
 def phase_sparse_time(torch, sparse):
-    """Device time a call (torch.profiler, 100 calls after warm-up, median of
-    SPARSE_TIME_TURNS turns of kernel, plain, library) of the kernel, its
-    plain version and ``index_add`` (one PyTorch call, given the products u
-    precomputed: it does not count the [B, K] multiply), then the kernel
-    alone on other index draws of the same shape."""
+    """Each SPARSE_TIME_SHAPES case in SPARSE_TIME_TURNS turns: the kernel in
+    place and in-place ``index_add_`` (the same work in one PyTorch call,
+    given the products u precomputed) as a CUDA graph of 200 calls (events
+    around 5 replays: each call's launch and the gap before the next) and as
+    device busy time a call (torch.profiler, 100 calls: the launch alone);
+    at the stream shapes also the plain version in place, the copying
+    kernel (PRs 3-5's form) and ``torch.index_add``. An empty kernel's
+    launch, timed the same two ways, is the floor under one launch."""
     import statistics
 
-    out = {}
+    def timed(fn):
+        return _graph_ms(torch, fn, 200), _device_ms(torch, fn, 100)
+
+    def spread(v):
+        return f"{statistics.median(v):.6f} ({min(v):.6f}-{max(v):.6f})"
+
+    floor = {"graph": [], "busy": []}
+    for _ in range(SPARSE_TIME_TURNS):
+        g, b = timed(sparse.empty_launch)
+        floor["graph"].append(g)
+        floor["busy"].append(b)
+    floor_ms = {key: statistics.median(v) for key, v in floor.items()}
+    log(f"sparse-time: empty kernel launch (the floor of one launch), median (min-max) of "
+        f"{SPARSE_TIME_TURNS} turns: CUDA graph {spread(floor['graph'])} ms a call; "
+        f"device busy {spread(floor['busy'])} ms a call")
+    out = {"floor": floor_ms}
     for name, b, k, d, c, draw in SPARSE_TIME_SHAPES:
         w, idx, coef, val = _scatter_inputs(torch, b, k, d, c, draw, seed=7)
         idx[0, 1] = 0  # in range: index_add_ takes no out-of-range index
@@ -1191,39 +1329,90 @@ def phase_sparse_time(torch, sparse):
         flat = idx.reshape(-1).long()
         u = (coef[:, None] * val).reshape(-1) if c == 1 else \
             (val[:, :, None] * coef[:, None, :]).reshape(b * k, c)
+        w_kernel, w_plain, w_library = w.clone(), w.clone(), w.clone()
         calls = {
-            "kernel": lambda: entry(w, idx, coef, val),
-            "plain": lambda: sparse.sparse_scatter_add_reference(w, idx, coef, val),
-            "library": lambda: torch.index_add(w, 0, flat, u),
+            "kernel": lambda: entry(w_kernel, idx, coef, val, inplace=True),
+            "index_add_": lambda: w_library.index_add_(0, flat, u),
         }
-        turns = {key: [] for key in calls}
+        if (name, draw) in SPARSE_TIME_FULL:
+            calls.update({
+                "plain": lambda: sparse.sparse_scatter_add_reference(
+                    w_plain, idx, coef, val, inplace=True),
+                "copying kernel": lambda: entry(w, idx, coef, val),
+                "torch.index_add": lambda: torch.index_add(w, 0, flat, u),
+            })
+        turns = {key: {"graph": [], "busy": []} for key in calls}
         for _ in range(SPARSE_TIME_TURNS):
             for key, fn in calls.items():
-                turns[key].append(_device_ms(torch, fn, 100))
-        times = {key: statistics.median(v) for key, v in turns.items()}
-        bound, by = scatter_bound_ms(b, k, d, c)
-        out[name] = {"ms": times["kernel"], "plain_ms": times["plain"], "bound_ms": bound,
-                     "bound_by": by, "library_ms": times["library"]}
-        log(f"sparse-time: {name} (B, K, D, C)={(b, k, d, c)} {draw}, median (min-max) of "
-            f"{SPARSE_TIME_TURNS} turns, device ms a call: " + "; ".join(
-                f"{key} {times[key]:.6f} ({min(v):.6f}-{max(v):.6f})" for key, v in turns.items())
-            + f"; bound {bound:.6f} ({by}), kernel at {bound / times['kernel']:.4f} of it")
-        for other in CONTENTION_DRAWS.get(name, ()):
-            w2, idx2, coef2, val2 = _scatter_inputs(torch, b, k, d, c, other, seed=7)
-            ms = statistics.median(_device_ms(torch, lambda: entry(w2, idx2, coef2, val2), 100)
-                                   for _ in range(SPARSE_TIME_TURNS))
-            out[f"{name}/{other}"] = ms
-            log(f"sparse-time: {name} (B, K, D, C)={(b, k, d, c)} {other}: kernel {ms:.6f} ms "
-                f"({ms / times['kernel']:.3f}x the {draw} draw)")
+                g, bz = timed(fn)
+                turns[key]["graph"].append(g)
+                turns[key]["busy"].append(bz)
+        med = {key: {m: statistics.median(v) for m, v in t.items()} for key, t in turns.items()}
+        touched = _touched(torch, w, idx, coef, val)
+        bound, by = scatter_inplace_bound_ms(b, k, c, touched)
+        old_bound, _ = scatter_bound_ms(b, k, d, c)
+        kg = med["kernel"]["graph"]
+        log(f"sparse-time: {name} (B, K, D, C)={(b, k, d, c)} {draw}, ms a call, median "
+            f"(min-max) of {SPARSE_TIME_TURNS} turns: " + "; ".join(
+                f"{key} graph {spread(t['graph'])} busy {spread(t['busy'])}"
+                for key, t in turns.items())
+            + f"; in-place bound {bound:.7f} ({by}; {touched} distinct touched rows), copying "
+            f"form's bound {old_bound:.6f}; kernel at {bound / kg:.4f} of its bound by the graph, "
+            f"{kg / floor_ms['graph']:.3f}x an empty launch (busy "
+            f"{med['kernel']['busy'] / floor_ms['busy']:.3f}x); index_add_ / kernel "
+            f"{med['index_add_']['graph'] / kg:.3f} (graph), "
+            f"{med['index_add_']['busy'] / med['kernel']['busy']:.3f} (busy)")
+        out[(name, draw)] = med
+        if (name, draw) in SPARSE_TIME_FULL:
+            out[name] = {"ms": kg, "plain_ms": med["plain"]["graph"], "bound_ms": bound,
+                         "bound_by": by, "library_ms": med["index_add_"]["graph"]}
+    for name, b in (("slice", 256), ("experiment", 4096)):
+        base = out[(name, "uniform")]["kernel"]
+        for draw in ("criteo", "pool64"):
+            if (name, draw) in out:
+                t = out[(name, draw)]["kernel"]
+                log(f"sparse-time: {name} B={b}: the {draw} draw takes {t['graph'] / base['graph']:.3f}x "
+                    f"the uniform draw's time (graph), {t['busy'] / base['busy']:.3f}x (busy)")
     return out
 
 
-def criteo_events(n_records: int, seed: int, query_at: int | None, create: dict | None = None):
+def phase_calibrate(torch):
+    """The calibration CLI at --smoke on the card, into a temporary table
+    (never the committed one): a cuda section with every formulation
+    measured, or mxu skipped by its cap."""
+    import tempfile
+
+    from omldm_tpu_torch.ops import sparse_calibrate
+    from omldm_tpu_torch.ops.sparse import MXU_LANES, SCATTER_IMPLS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sparse_dispatch.json"
+        sparse_calibrate.main(["--smoke", "--out", str(out)])
+        table = json.loads(out.read_text())
+    section = table["backends"].get("cuda")
+    check(bool(section), "calibrate: no cuda section written")
+    grid = [(e["d"], e["batch"], e["nnz"]) for e in section["entries"]]
+    check(grid == sparse_calibrate.SMOKE_GRID, f"calibrate: grid {grid}")
+    for e in section["entries"]:
+        rates = e["rates_updates_per_sec"]
+        check(set(rates) == set(SCATTER_IMPLS), f"calibrate: formulations {sorted(rates)}")
+        for impl, rate in rates.items():
+            capped = impl == "mxu" and 2 * 2 * e["updates"] * (
+                -(-e["d"] // MXU_LANES) + MXU_LANES) > sparse_calibrate.MXU_BYTES_CAP
+            check((rate is None) == capped and (rate is None or rate > 0),
+                  f"calibrate: {impl} at {e['d']}: {rate}")
+    log(f"calibrate: cuda section of {len(section['entries'])} entries on {section['note']}: "
+        + "; ".join(f"d={e['d']} -> {e['winner']}" for e in section["entries"]))
+
+
+def criteo_events(n_records: int, seed: int, query_at: int | None, create: dict | None = None,
+                  scatter_impl: str | None = None):
     """Create + n_records Criteo-shaped records, every tenth a forecast, an
     optional Query after record ``query_at``. A record: 13 numerics rounded
     to 6 places, 26 categoricals f{j}_v{0..999}, a target from a planted
     linear rule on the numerics (the generator of the JAX package's sparse
-    stream benchmark, benchmarks/run_benchmarks.py)."""
+    stream benchmark, benchmarks/run_benchmarks.py). ``scatter_impl`` pins
+    the Create's scatter formulation (dataStructure.scatterImpl)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -1238,6 +1427,8 @@ def criteo_events(n_records: int, seed: int, query_at: int | None, create: dict 
                                       "hashSpace": CRITEO_HASH, "maxNnz": CRITEO_NNZ}},
         "trainingConfiguration": {"protocol": "Asynchronous"},
     }
+    if scatter_impl is not None:
+        create["learner"]["dataStructure"]["scatterImpl"] = scatter_impl
     events = [("requests", json.dumps(create))]
     for i in range(n_records):
         rec = {"numericalFeatures": x[i].tolist(),
@@ -1324,6 +1515,21 @@ def _run_sparse_stream(torch, sparse, events, entry, width, label):
     return launches[entry], job, stats, wall
 
 
+def stream_scatter_impl(sparse) -> str | None:
+    """The formulation the calibration table picks on the card at the
+    sparse stream's (D, updates) -- w[13 + 2^18 + 1], a batch of 256 x (40 +
+    the bias slot) -- logged; None when it launches scatter_add (scatter, or
+    segsum's final scatter), else "scatter", pinned so that the stream's
+    launch count reads the kernel."""
+    d, updates = CRITEO_DIM + 1, SLICE_CONFIG["batch_size"] * (CRITEO_NNZ + 1)
+    pick = sparse._resolve_impl(d, updates, None, "cuda")
+    pin = None if pick in ("scatter", "segsum") else "scatter"
+    log(f"sparse: the table picks {pick!r} at (D, updates)=({d}, {updates}) on the card"
+        + ("" if pin is None else f"; it launches no scatter_add, so the Create pins "
+           f"scatterImpl {pin!r} for the launch count"))
+    return pin
+
+
 def phase_sparse(torch, sparse, events):
     launches, job, stats, wall = _run_sparse_stream(
         torch, sparse, events, "scatter_add", CRITEO_DIM, "sparse")
@@ -1400,8 +1606,11 @@ def main() -> int:
     scatter_err = phase_sparse_check(torch, sparse)
     scatter_times = phase_sparse_time(torch, sparse)
     lap("sparse check and time")
+    phase_calibrate(torch)
+    lap("calibrate")
     t0 = time.perf_counter()
-    sparse_events = criteo_events(SPARSE_RECORDS, args.seed, query_at=SPARSE_RECORDS // 2)
+    sparse_events = criteo_events(SPARSE_RECORDS, args.seed, query_at=SPARSE_RECORDS // 2,
+                                  scatter_impl=stream_scatter_impl(sparse))
     log(f"sparse: generated {len(sparse_events)} events in {time.perf_counter() - t0:.2f} s")
     scatter_launches, sparse_wall = phase_sparse(torch, sparse, sparse_events)
     phase_parity(sparse_events[: args.parity_records + 1])

@@ -74,6 +74,8 @@ constexpr int kChainFixed = 4 * kRows * kRows + 4 * kRows;
 constexpr int kGramSmem = (kRingFloats > kPartFloats ? kRingFloats : kPartFloats) * (int)sizeof(float);
 // the H100's per-block shared memory limit (opt-in above 48 KB)
 constexpr int kSmemLimit = 232448;
+// devices whose opt-in is remembered (any further one opts in every call)
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -358,20 +360,27 @@ int omldm_pa_scan(const float* w0, const float* x, const float* y,
   float* G = scratch;
   float* base = G + (size_t)bp * bp;
   float* coef = base + bp;
-  static bool opted_in = false;
-  if (!opted_in) {  // the chain may take more than 48 KB of dynamic shared memory
-    cudaError_t err = cudaFuncSetAttribute(pa_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  // The chain may take more than 48 KB of dynamic shared memory. The
+  // opt-in belongs to each device's context, so it is made once a device
+  // (the wrapper makes the tensors' device current), and on every call on
+  // a device past the table.
+  static bool opted_in[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kMaxDevices || !opted_in[device]) {
+    err = cudaFuncSetAttribute(pa_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    if (device >= 0 && device < kMaxDevices) opted_in[device] = true;
   }
   if (n_blocks > 0) {
     pa_gram_kernel<<<n_blocks * (n_blocks + 1) / 2, kThreads, kGramSmem, s>>>(w0, x, G, base, B, D, bp);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const size_t chain_smem = (size_t)(kChainFixed + 2 * bp) * sizeof(float);
   pa_chain_kernel<<<1, kThreads, chain_smem, s>>>(G, base, y, mask, coef, loss_out, B, bp, variant, C, inv2c);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pa_update_kernel<<<(D + kUpdateCols - 1) / kUpdateCols, kThreads, 0, s>>>(w0, x, coef, w_out, B, D);
   return (int)cudaGetLastError();

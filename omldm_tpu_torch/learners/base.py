@@ -10,6 +10,12 @@ fixed-shape micro-batch ``(x[B, D], y[B], mask[B])``; masked-out rows
 - ``update`` is the mini-batch rule;
 - ``update_per_record`` is the exact one-record-at-a-time pass, by default a
   Python loop of B=1 updates (the JAX package's ``lax.scan``).
+
+Both leave their input ``params`` as they were, unless the caller passes
+``donate=True``: it then gives them up, and a learner may write into them
+(the pipeline's fit does, as the JAX package donates its state to every
+fit). The sparse learners use that to scatter into ``w`` without a copy;
+the others ignore it.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ class Learner:
         """Batched prediction: x[B, D] -> y_hat[B]."""
         raise NotImplementedError
 
-    def update(self, params: Params, x, y, mask) -> Tuple[Params, torch.Tensor]:
+    def update(self, params: Params, x, y, mask,
+               donate: bool = False) -> Tuple[Params, torch.Tensor]:
         """Mini-batch update; returns (new_params, mean loss over valid rows)."""
         raise NotImplementedError
 
@@ -49,11 +56,13 @@ class Learner:
         """Mean loss over valid rows without updating."""
         raise NotImplementedError
 
-    def update_per_record(self, params: Params, x, y, mask) -> Tuple[Params, torch.Tensor]:
+    def update_per_record(self, params: Params, x, y, mask,
+                          donate: bool = False) -> Tuple[Params, torch.Tensor]:
         """Exact per-record pass: the mini-batch rule on B=1 slices, in order."""
         losses = []
         for i in range(x.shape[0]):
-            params, loss = self.update(params, x[i : i + 1], y[i : i + 1], mask[i : i + 1])
+            params, loss = self.update(params, x[i : i + 1], y[i : i + 1], mask[i : i + 1],
+                                       donate)
             losses.append(loss)
         total = torch.clamp(mask.sum(), min=1.0)
         if not losses:

@@ -63,7 +63,7 @@ class PAClassifier(Learner):
         )
         return masked_mean(hinge, mask)
 
-    def update(self, params, x, y, mask):
+    def update(self, params, x, y, mask, donate=False):
         """Mini-batch PA: per-row tau from the shared weights, masked mean of
         the per-row updates applied once."""
         xb = append_bias(x)
@@ -75,7 +75,7 @@ class PAClassifier(Learner):
         new_w = params["w"] + (coef @ xb) / denom
         return {"w": new_w}, masked_mean(hinge, mask)
 
-    def update_per_record(self, params, x, y, mask):
+    def update_per_record(self, params, x, y, mask, donate=False):
         """Exact sequential pass through ``ops.pa_scan``."""
         new_w, loss = pa_scan_update(
             params["w"], append_bias(x).contiguous(), y.contiguous(),

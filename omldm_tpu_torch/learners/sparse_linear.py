@@ -7,7 +7,8 @@ pair ``(idx[B, K] int32, val[B, K] float32)`` instead of a dense ``[B, D]``.
 
 The weights stay dense on the device (``w[D+1]``, the bias row at index D);
 each record's forward is a K-row gather-dot and each update one scatter-add
-(ops/sparse.py: the CUDA kernel on the card). Update rules,
+(ops/sparse.py: the CUDA kernel on the card), into ``w`` itself when the
+caller donates the parameters (the pipeline's fit). Update rules,
 hyper-parameters, and loss/score semantics are the JAX package's.
 """
 
@@ -47,21 +48,24 @@ class SparseLinear(Learner):
         idx, val = append_bias_sparse(*x, params["w"].shape[0] - 1)
         return sparse_matvec(params["w"], idx, val), (idx, val)
 
-    def _scatter(self, w, idx, coef, val):
-        """Scatter dispatch; ``dataStructure.scatterImpl`` pins a
-        formulation per pipeline (see ops/sparse._resolve_impl)."""
+    def _scatter(self, w, idx, coef, val, inplace):
+        """Scatter dispatch, into ``w`` itself with ``inplace``;
+        ``dataStructure.scatterImpl`` pins a formulation per pipeline (see
+        ops/sparse._resolve_impl)."""
         return sparse_scatter_add_auto(
-            w, idx, coef, val, impl=self.ds.get("scatterImpl")
+            w, idx, coef, val, impl=self.ds.get("scatterImpl"), inplace=inplace
         )
 
-    def update_per_record(self, params, x, y, mask):
+    def update_per_record(self, params, x, y, mask, donate=False):
         """Exact per-record pass: the mini-batch rule on B=1 slices of each
-        leaf of the COO pair, in order."""
+        leaf of the COO pair, in order. Undonated, the first slice copies
+        ``w`` and the others write into that copy."""
         idx, val = x
         losses = []
         for i in range(idx.shape[0]):
             params, loss = self.update(
-                params, (idx[i : i + 1], val[i : i + 1]), y[i : i + 1], mask[i : i + 1]
+                params, (idx[i : i + 1], val[i : i + 1]), y[i : i + 1], mask[i : i + 1],
+                donate=donate or i > 0,
             )
             losses.append(loss)
         if not losses:
@@ -85,7 +89,7 @@ class SparsePAClassifier(SparseLinear):
         hinge = torch.clamp(1.0 - sign_labels(y) * margins, min=0.0)
         return masked_mean(hinge, mask)
 
-    def update(self, params, x, y, mask):
+    def update(self, params, x, y, mask, donate=False):
         variant = str(self.hp.get("variant", "PA-I"))
         C = float(self.hp.get("C", 0.01))
         margins, (idx, val) = self._margins(params, x)
@@ -94,7 +98,7 @@ class SparsePAClassifier(SparseLinear):
         tau = _pa_tau(hinge, sparse_sq_norm(val), variant, C)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = tau * ys * mask / denom
-        w = self._scatter(params["w"], idx, coef, val)
+        w = self._scatter(params["w"], idx, coef, val, donate)
         return {"w": w}, masked_mean(hinge, mask)
 
 
@@ -113,7 +117,7 @@ class SparsePARegressor(SparseLinear):
         margins, _ = self._margins(params, x)
         return masked_mean(torch.clamp((margins - y).abs() - eps, min=0.0), mask)
 
-    def update(self, params, x, y, mask):
+    def update(self, params, x, y, mask, donate=False):
         variant = str(self.hp.get("variant", "PA-I"))
         C = float(self.hp.get("C", 0.01))
         eps = float(self.hp.get("epsilon", 0.1))
@@ -123,7 +127,7 @@ class SparsePARegressor(SparseLinear):
         tau = _pa_tau(loss, sparse_sq_norm(val), variant, C)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = -torch.sign(err) * tau * mask / denom
-        w = self._scatter(params["w"], idx, coef, val)
+        w = self._scatter(params["w"], idx, coef, val, donate)
         return {"w": w}, masked_mean(loss, mask)
 
 
@@ -150,7 +154,7 @@ class SparseSVM(SparseLinear):
         hinge = torch.clamp(1.0 - sign_labels(y) * margins, min=0.0)
         return masked_mean(hinge, mask)
 
-    def update(self, params, x, y, mask):
+    def update(self, params, x, y, mask, donate=False):
         """Mini-batch pegasos: eta = 1/(lambda*t); w <- (1-eta*lambda)w +
         eta * mean_violators(y x). The decay is the only O(D) op."""
         lam = float(self.hp.get("lambda", 1e-4))
@@ -160,8 +164,8 @@ class SparseSVM(SparseLinear):
         viol = (hinge > 0).to(torch.float32) * mask
         eta = 1.0 / (lam * params["t"])
         denom = torch.clamp(mask.sum(), min=1.0)
-        w = params["w"] * (1.0 - eta * lam)
-        w = self._scatter(w, idx, eta * ys * viol / denom, val)
+        w = params["w"] * (1.0 - eta * lam)  # a new tensor: scatter into it
+        w = self._scatter(w, idx, eta * ys * viol / denom, val, True)
         return {"w": w, "t": params["t"] + 1.0}, masked_mean(hinge, mask)
 
 
@@ -199,7 +203,7 @@ class SparseSoftmax(SparseLinear):
         logits, _ = self._logits(params, x)
         return masked_mean(self._xent(logits, y), mask)
 
-    def update(self, params, x, y, mask):
+    def update(self, params, x, y, mask, donate=False):
         lr = float(self.hp.get("learningRate", 0.05))
         logits, (idx, val) = self._logits(params, x)
         k = logits.shape[1]
@@ -207,7 +211,7 @@ class SparseSoftmax(SparseLinear):
         grad = probs - torch.nn.functional.one_hot(self._classes(y, k), k).to(probs.dtype)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = -lr * grad * (mask / denom)[:, None]
-        W = sparse_scatter_add_outer(params["W"], idx, coef, val)
+        W = sparse_scatter_add_outer(params["W"], idx, coef, val, inplace=donate)
         return {"W": W}, masked_mean(self._xent(logits, y), mask)
 
     def score(self, params, x, y, mask):

@@ -76,8 +76,9 @@ def pa_scan_reference(
     return w, acc / torch.clamp(mask.sum(), min=1.0)
 
 
-def _validate(w, x, y, mask, max_rows: int) -> Tuple[int, int]:
-    """(B, D) of a call the kernel takes; raises ValueError for any other."""
+def _validate(w, x, y, mask) -> Tuple[int, int]:
+    """(B, D) of a call the kernel takes, in chunks of rows; raises
+    ValueError for any other."""
     B, D = x.shape
     for name, t, shape in (("w", w, (D,)), ("x", x, (B, D)), ("y", y, (B,)),
                            ("mask", mask, (B,))):
@@ -89,10 +90,28 @@ def _validate(w, x, y, mask, max_rows: int) -> Tuple[int, int]:
             raise ValueError(f"pa_scan_update: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"pa_scan_update: {name} must be contiguous")
-    if B > max_rows:
-        raise ValueError(f"pa_scan_update: B={B} exceeds the shared-memory limit "
-                         f"({max_rows} rows)")
     return B, D
+
+
+def pa_scan_chunked(step, w, x, y, mask, max_rows: int):
+    """The scan over B rows as consecutive chunks of at most ``max_rows``.
+
+    ``step(w, x, y, mask) -> (new_w, mean masked hinge)`` scans one chunk;
+    each chunk starts from the ``w`` the previous one left, which is exact,
+    since the scan is sequential. The loss is the masked mean over the
+    whole batch: each chunk's hinge sum (its mean times its mask count,
+    the count taken as at least 1 as the mean takes it) over the batch's
+    mask count -- not a mean of the chunks' means. One chunk is one call of
+    ``step`` as it is."""
+    B = x.shape[0]
+    if B <= max_rows:
+        return step(w, x, y, mask)
+    hinge_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r0 in range(0, B, max_rows):
+        rows = slice(r0, min(B, r0 + max_rows))
+        w, mean = step(w, x[rows], y[rows], mask[rows])
+        hinge_sum = hinge_sum + mean * torch.clamp(mask[rows].sum(), min=1.0)
+    return w, hinge_sum / torch.clamp(mask.sum(), min=1.0)
 
 
 def pa_scan_update(
@@ -106,33 +125,40 @@ def pa_scan_update(
     the kernel, CPU tensors through :func:`pa_scan_reference`.
 
     The kernel takes any D but at most ``omldm_pa_scan_max_rows()`` rows
-    (26,944: its chain keeps two floats a row in shared memory) and raises
-    for more. Each call allocates Bp^2 + 2 Bp + 1 floats of device scratch,
-    Bp = B rounded up to 32 (0.26 MB at B = 256, 2.9 GB at the limit), and
-    its Gram prologue does B^2 D / 2 FMAs."""
+    (26,944: its chain keeps two floats a row in shared memory); a larger
+    batch runs as consecutive chunks of that many rows
+    (:func:`pa_scan_chunked`), so any B is taken, as the JAX package's
+    ``lax.scan`` takes it. Each chunk allocates Bp^2 + 2 Bp + 1 floats of
+    device scratch, Bp = its rows rounded up to 32 (0.26 MB at B = 256,
+    2.9 GB at the limit), and its Gram prologue does Bp^2 D / 2 FMAs."""
     if x.device.type == "cpu":
         return pa_scan_reference(w, x, y, mask, variant, C)
     if x.device.type != "cuda":
         raise ValueError(f"pa_scan_update: unsupported device {x.device}")
     lib = LIBRARY.load()
-    B, D = _validate(w, x, y, mask, lib.omldm_pa_scan_max_rows())
+    _validate(w, x, y, mask)
     code = _VARIANTS.get(variant, 2)
     inv2c = 1.0 / (2.0 * float(C)) if code == 2 else 0.0
-    w_out = torch.empty_like(w)
-    # the kernel's scratch (the Gram matrix and two rows, 16-byte aligned
-    # at the allocation's start), then the mean hinge
-    n = lib.omldm_pa_scan_scratch_floats(B)
-    buf = torch.empty((n + 1,), dtype=torch.float32, device=x.device)
-    loss = buf[n:]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.omldm_pa_scan(
-            w.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            w_out.data_ptr(), loss.data_ptr(), buf.data_ptr(), B, D, code,
-            float(C), inv2c, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"pa_scan kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
-    return w_out, loss.reshape(())
+
+    def launch(w, x, y, mask):
+        B, D = x.shape
+        w_out = torch.empty_like(w)
+        # the kernel's scratch (the Gram matrix and two rows, 16-byte
+        # aligned at the allocation's start), then the mean hinge
+        n = lib.omldm_pa_scan_scratch_floats(B)
+        buf = torch.empty((n + 1,), dtype=torch.float32, device=x.device)
+        loss = buf[n:]
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.omldm_pa_scan(
+                w.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+                w_out.data_ptr(), loss.data_ptr(), buf.data_ptr(), B, D, code,
+                float(C), inv2c, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"pa_scan kernel launch failed: CUDA error {rc}")
+        global launches
+        launches += 1
+        return w_out, loss.reshape(())
+
+    return pa_scan_chunked(launch, w, x, y, mask, lib.omldm_pa_scan_max_rows())

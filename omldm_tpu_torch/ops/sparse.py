@@ -10,13 +10,19 @@ The scatter-add is the sparse learners' device work. ``sparse_scatter_add``
 and ``sparse_scatter_add_outer`` launch the CUDA kernel
 ``csrc/scatter_add.cu`` (the counterpart of the TPU kernel ``pallas_serial``
 in ``benchmarks/sparse_scatter_experiment.py``) for CUDA tensors and run
-``sparse_scatter_add_reference`` -- ``index_add_`` on a clone -- for CPU
-tensors. There is no fallback from one to the other: a CUDA tensor the
-kernel cannot take raises. Updates whose index lies outside [0, D) are
-dropped by both (the JAX scatter drops indices >= D and wraps negative ones;
-no producer of the port emits either). The gather-dot and the two other
+``sparse_scatter_add_reference`` -- ``index_add_`` -- for CPU tensors.
+There is no fallback from one to the other: a CUDA tensor the kernel cannot
+take raises. Updates whose index lies outside [0, D) are dropped by both
+(the JAX scatter drops indices >= D and wraps negative ones; the gate keeps
+the port's producers inside [0, D)). The gather-dot and the two other
 scatter formulations (``mxu``, ``segsum``) are plain PyTorch, as the JAX
 package leaves them to XLA.
+
+Every scatter formulation takes ``inplace``. By default it returns a new
+tensor and leaves ``w`` as it was; with ``inplace=True`` it writes into
+``w`` and returns it. The pipeline's fit gives the learner state up (as the
+JAX package donates its state to every fit), so on the main path the
+kernel updates ``w`` where it lies, without a copy.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.omldm_scatter_add.restype = ctypes.c_int
+    lib.omldm_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.omldm_empty_launch.restype = ctypes.c_int
 
 
 #: the kernel library, built from the checkout's source on first use
@@ -56,9 +64,11 @@ def sparse_matmat(W: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torc
 
 
 def sparse_scatter_add_reference(
-    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor
+    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
+    inplace: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``index_add_`` on a clone.
+    """Plain PyTorch version of the kernel: ``index_add_`` on a clone of
+    ``w``, or on ``w`` itself with ``inplace``.
 
     w[D] with coef[B], or W[D, C] with coef[B, C]; idx/val[B, K]. The
     update u = coef * val is rounded to float32 before it is added;
@@ -70,14 +80,15 @@ def sparse_scatter_add_reference(
     if w.dim() == 1:
         upd = torch.where(keep, (coef[:, None] * val).reshape(-1), 0.0)
     else:
-        upd = (val[:, :, None] * coef[:, None, :]).reshape(flat.shape[0], -1)
+        upd = (val[:, :, None] * coef[:, None, :]).reshape(flat.shape[0], w.shape[1])
         upd = torch.where(keep[:, None], upd, 0.0)
     safe = torch.where(keep, flat, 0)
-    return w.clone().index_add_(0, safe, upd)
+    return (w if inplace else w.clone()).index_add_(0, safe, upd)
 
 
-def _launch(entry: str, w, idx, coef, val) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch, count."""
+def _launch(entry: str, w, idx, coef, val, inplace: bool) -> torch.Tensor:
+    """Check what the kernel takes, allocate the output unless in place,
+    launch, count."""
     if w.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {w.device}")
     outer = entry == "scatter_add_outer"
@@ -100,9 +111,9 @@ def _launch(entry: str, w, idx, coef, val) -> torch.Tensor:
             raise ValueError(f"{entry}: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous")
-    out = torch.empty_like(w)
+    out = w if inplace else torch.empty_like(w)
     if b * k == 0:
-        return out.copy_(w)
+        return out if inplace else out.copy_(w)
     lib = LIBRARY.load()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -117,14 +128,25 @@ def _launch(entry: str, w, idx, coef, val) -> torch.Tensor:
 
 
 def sparse_scatter_add(
-    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor
+    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
+    inplace: bool = False,
 ) -> torch.Tensor:
     """w[idx[b, k]] += coef[b] * val[b, k] over the whole batch (duplicate
-    indices accumulate), as a new tensor. CUDA tensors go through the
-    kernel, CPU tensors through :func:`sparse_scatter_add_reference`."""
+    indices accumulate), as a new tensor or, with ``inplace``, into ``w``.
+    CUDA tensors go through the kernel, CPU tensors through
+    :func:`sparse_scatter_add_reference`."""
     if w.device.type == "cpu":
-        return sparse_scatter_add_reference(w, idx, coef, val)
-    return _launch("scatter_add", w, idx, coef, val)
+        return sparse_scatter_add_reference(w, idx, coef, val, inplace)
+    return _launch("scatter_add", w, idx, coef, val, inplace)
+
+
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current stream: the floor under
+    one launch, timed beside the scatter's bound (never on the main path)."""
+    lib = LIBRARY.load()
+    rc = lib.omldm_empty_launch(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 # lane width of the kron factorization below (the JAX package's MXU_LANES)
@@ -132,7 +154,8 @@ MXU_LANES = 512
 
 
 def sparse_scatter_add_mxu(
-    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor
+    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
+    inplace: bool = False,
 ) -> torch.Tensor:
     """The same scatter-add as one contraction of one-hot operands.
 
@@ -164,11 +187,13 @@ def sparse_scatter_add_mxu(
         delta = lhs.T @ rhs                                     # [R, C]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
-    return w + delta.reshape(-1)[:d]
+    delta = delta.reshape(-1)[:d]
+    return w.add_(delta) if inplace else w + delta
 
 
 def sparse_scatter_add_segsum(
-    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor
+    w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
+    inplace: bool = False,
 ) -> torch.Tensor:
     """The same scatter-add with duplicate indices pre-combined by a sort and
     a segment sum; the final scatter of one total per distinct index goes
@@ -179,7 +204,7 @@ def sparse_scatter_add_segsum(
     flat_idx = idx.reshape(-1)
     n = flat_idx.shape[0]
     if n == 0:
-        return w.clone()
+        return w if inplace else w.clone()
     u = (coef[:, None] * val).reshape(n).to(torch.float32)
     si, order = torch.sort(flat_idx, stable=True)
     su = u[order]
@@ -192,7 +217,7 @@ def sparse_scatter_add_segsum(
     run_idx = torch.where(real, run_idx, torch.zeros_like(run_idx))
     run_total = torch.where(real, run_total, torch.zeros_like(run_total))
     ones = torch.ones((n, 1), dtype=torch.float32, device=w.device)
-    return sparse_scatter_add(w, run_idx.reshape(n, 1).contiguous(), run_total, ones)
+    return sparse_scatter_add(w, run_idx.reshape(n, 1).contiguous(), run_total, ones, inplace)
 
 
 SCATTER_IMPLS = {
@@ -211,9 +236,9 @@ def _resolve_impl(d: int, n_updates: int, impl=None, backend: str = "cpu") -> st
     """Dispatch decision, in precedence order: the ``impl`` argument (from
     dataStructure.scatterImpl), the OMLDM_SPARSE_SCATTER env var, the
     port's calibration table (``ops/sparse_dispatch.json``, nearest (D,
-    updates) grid point for ``backend``), then ``"scatter"``. The table has
-    a ``cpu`` section and no ``cuda`` one, so on the card an uncalibrated
-    dispatch resolves to ``"scatter"``: the kernel."""
+    updates) grid point for ``backend``), then ``"scatter"``. The table's
+    ``cuda`` section, measured on an H100, picks ``"scatter"`` -- the
+    kernel -- at every grid point."""
     if impl:
         name = str(impl)
         if name not in SCATTER_IMPLS:
@@ -238,24 +263,25 @@ def _resolve_impl(d: int, n_updates: int, impl=None, backend: str = "cpu") -> st
 
 def sparse_scatter_add_auto(
     w: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
-    impl: str = None,
+    impl: str = None, inplace: bool = False,
 ) -> torch.Tensor:
     """Dispatch between the three scatter formulations; the backend name is
     the weight tensor's device type. See :func:`_resolve_impl`."""
     name = _resolve_impl(int(w.shape[0]), int(idx.numel()), impl, w.device.type)
-    return SCATTER_IMPLS[name](w, idx, coef, val)
+    return SCATTER_IMPLS[name](w, idx, coef, val, inplace)
 
 
 def sparse_scatter_add_outer(
-    W: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor
+    W: torch.Tensor, idx: torch.Tensor, coef: torch.Tensor, val: torch.Tensor,
+    inplace: bool = False,
 ) -> torch.Tensor:
     """W[idx[b, k], :] += val[b, k] * coef[b, :] for W[D, C] (the rank-1
-    per-record outer product of a multiclass gradient), as a new tensor.
-    CUDA tensors go through the kernel, CPU tensors through
-    :func:`sparse_scatter_add_reference`."""
+    per-record outer product of a multiclass gradient), as a new tensor or,
+    with ``inplace``, into ``W``. CUDA tensors go through the kernel, CPU
+    tensors through :func:`sparse_scatter_add_reference`."""
     if W.device.type == "cpu":
-        return sparse_scatter_add_reference(W, idx, coef, val)
-    return _launch("scatter_add_outer", W, idx, coef, val)
+        return sparse_scatter_add_reference(W, idx, coef, val, inplace)
+    return _launch("scatter_add_outer", W, idx, coef, val, inplace)
 
 
 def sparse_sq_norm(val: torch.Tensor) -> torch.Tensor:

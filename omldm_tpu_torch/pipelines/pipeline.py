@@ -9,7 +9,12 @@ A sparse learner's input is the padded-COO pair ``(idx, val)``; the
 pipeline moves idx to the device as int32 and refuses preprocessors for it.
 
 The state ``{"preps": [...], "params": {...}, "fitted": int32,
-"cum_loss": float32}`` lives on the pipeline's ``torch.device``. Losses stay
+"cum_loss": float32}`` lives on the pipeline's ``torch.device``. A fit
+gives the old state up, as the JAX package donates it
+(``jax.jit(fit_i, donate_argnums=0)``): the learner may write its new
+parameters into the old ones' memory (the sparse learners' scatter does).
+So nothing may hold a parameter tensor across a fit; what leaves the
+pipeline (``get_flat_params``) is a copy. Losses stay
 device tensors until a statistics poll reads them (``curve_slice``), so a
 fit never waits for the device. ``on_launch`` is called once per program
 the JAX package would launch (fit, fit_many, predict, evaluate), so
@@ -157,7 +162,7 @@ class MLPipeline:
         update = (
             self.learner.update_per_record if self.per_record else self.learner.update
         )
-        params, loss = update(state["params"], z, y, mask)
+        params, loss = update(state["params"], z, y, mask, donate=True)
         n = mask.sum().to(torch.int32)
         new_state = {
             "preps": new_preps,
@@ -171,7 +176,8 @@ class MLPipeline:
 
     def load_state(self, state) -> None:
         """Adopt a whole state (e.g. ``state_from_numpy`` of a JAX state),
-        host-side fitted counter included."""
+        host-side fitted counter included. The pipeline takes it over: a
+        later fit may write into its tensors."""
         self.state = state
         self._fitted_host = int(state["fitted"])
 

@@ -69,13 +69,30 @@ def unported_option(request: Request) -> Optional[str]:
 
 def validate_sparse(request: Request) -> Optional[str]:
     """A sparse request must be deployable: one that passed the gate but
-    raised at SpokeNet construction would kill the whole job, not just
-    itself (the reference drops invalid requests, PipelineMap.scala:34,46)."""
+    raised at SpokeNet construction or at its first fit would kill the whole
+    job, not just itself (the reference drops invalid requests,
+    PipelineMap.scala:34,46).
+
+    The hashed space lies inside the model's width, so ``hashSpace`` must lie
+    in [0, nFeatures]. A wider one gives the vectorizer a negative base, and
+    the indices it emits would fault the gather on the card. Here the port
+    differs from the JAX package on purpose: that package accepts such a
+    Create and trains a model of NaN margins without a word (``jnp.take``
+    fills out-of-range indices with NaN)."""
     ds = request.learner.data_structure or {}
     if "nFeatures" not in ds:
         # the wide hashed index space cannot be inferred from the first
         # record (SparseVectorizer needs the model width)
         return "sparse learners require dataStructure.nFeatures"
+    try:
+        n_features = int(ds["nFeatures"])
+        hash_space = int(ds.get("hashSpace", 0))
+    except (TypeError, ValueError):
+        return (f"dataStructure.nFeatures {ds['nFeatures']!r} and hashSpace "
+                f"{ds.get('hashSpace')!r} must be integers")
+    if not 0 <= hash_space <= n_features:
+        return (f"dataStructure.hashSpace {hash_space} must lie in [0, nFeatures "
+                f"{n_features}]: the hashed space is part of the model's width")
     if request.learner.name not in SPARSE_LEARNERS:
         return f"learner {request.learner.name!r} has no sparse variant"
     if request.preprocessors:

@@ -347,7 +347,8 @@ def test_unknown_protocol_falls_back_to_asynchronous():
 
 
 @pytest.mark.parametrize("phase", [
-    "phase_sparse_check", "phase_sparse_time", "phase_sparse", "phase_avazu",
+    "phase_sparse_check", "phase_sparse_time", "phase_calibrate", "phase_sparse",
+    "phase_avazu",
 ])
 def test_chip_smoke_has_the_sparse_phases(phase):
     chip_smoke = _chip_smoke()
@@ -387,6 +388,34 @@ def test_chip_smoke_scatter_bound():
     ms, by = chip_smoke.scatter_bound_ms(4096, 39, d, 1)
     assert by == "bytes"
     assert ms == pytest.approx((2 * 4096 * 39 + 4096 + 2 * d) * 4 / 3.35e12 * 1e3)
+
+
+def test_chip_smoke_inplace_scatter_bound():
+    """In place: idx, val and coef read once, and each distinct in-range row
+    that a nonzero update lands on read and written once (C classes)."""
+    chip_smoke = _chip_smoke()
+    w, idx, coef, val = chip_smoke._scatter_inputs(torch, 64, 41, 13 + 2 ** 12 + 1, 1, "criteo",
+                                                   seed=3, device="cpu")
+    touched = chip_smoke._touched(torch, w, idx, coef, val)
+    u = coef[:, None] * val
+    live = (idx >= 0) & (idx < w.shape[0]) & (u != 0)
+    assert touched == len(set(idx[live].tolist())) < 64 * 41
+    assert 13 + 1 <= touched  # the numerics and the bias are touched
+    ms, by = chip_smoke.scatter_inplace_bound_ms(64, 41, 1, touched)
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * 64 * 41 + 64 + 2 * touched) * 4 / 3.35e12 * 1e3)
+    W, idx2, coef2, val2 = chip_smoke._scatter_inputs(torch, 16, 22, 4097, 2, "avazu", seed=3,
+                                                      device="cpu")
+    coef2[3] = 0.0
+    assert chip_smoke._touched(torch, W, idx2, coef2, val2) == len(set(
+        idx2[(coef2.abs().amax(1)[:, None] * val2 != 0) & (idx2 < 4097)].tolist()))
+
+
+def test_chip_smoke_chunked_pa_scan_case():
+    """The chunked pa_scan check lies past the kernel's 26,944-row limit."""
+    chip_smoke = _chip_smoke()
+    b, d = chip_smoke.CHUNKED_CHECK
+    assert 26_944 < b < 2 * 26_944 and d == 29
 
 
 @pytest.mark.parametrize("draw", ["uniform", "pool64", "criteo"])

@@ -177,12 +177,77 @@ def test_unsupported_device_raises():
 
 
 def test_kernel_refuses_rows_not_width():
-    """The kernel takes any D but a bounded B; the refusal names rows."""
+    """The kernel takes any D and a bounded B. The wrapper's checks refuse
+    neither a wide D nor a long B: rows past the limit run as further
+    chunks (:func:`pa_scan.pa_scan_chunked`), each at most the limit."""
     x = torch.zeros((33, 70_000))
     w, y, m = torch.zeros(70_000), torch.zeros(33), torch.ones(33)
-    assert pa_scan._validate(w, x[:32], y[:32], m[:32], max_rows=32) == (32, 70_000)
-    with pytest.raises(ValueError, match=r"B=33 exceeds .*\(32 rows\)"):
-        pa_scan._validate(w, x, y, m, max_rows=32)
+    assert pa_scan._validate(w, x, y, m) == (33, 70_000)
+    with pytest.raises(ValueError, match="w shape"):
+        pa_scan._validate(w[:-1], x, y, m)
+    rows = []
+
+    def step(w, x, y, mask):
+        rows.append(x.shape[0])
+        return w, torch.zeros(())
+
+    pa_scan.pa_scan_chunked(step, w, x, y, m, max_rows=32)
+    assert rows == [32, 1]
+
+
+CHUNK_LIMIT = 7
+
+
+def _chunk_inputs(B, masking, seed):
+    w0, x, y, mask = _inputs(B, 6, masking == "scattered", "pm1", seed)
+    if masking == "chunk":   # the second chunk of 7 rows wholly masked
+        mask[CHUNK_LIMIT:2 * CHUNK_LIMIT] = 0.0
+    return w0, x, y, mask
+
+
+@pytest.mark.parametrize("variant", ["PA", "PA-I", "PA-II"])
+@pytest.mark.parametrize("B,masking", [(1, "none"), (7, "none"), (8, "scattered"),
+                                       (30, "scattered"), (30, "chunk")])
+def test_chunked_scan_matches_whole_batch(B, masking, variant):
+    """The scan in chunks of at most 7 rows, each chunk through the plain
+    version from the w the last one left, against the whole batch through
+    the plain version and through the Pallas kernel in interpret mode: w
+    and the masked mean hinge over the whole batch within the kernel
+    tolerances."""
+    w0, x, y, mask = _chunk_inputs(B, masking, seed=B * 31 + len(variant))
+    t = [torch.from_numpy(a) for a in (w0, x, y, mask)]
+
+    def step(w, x, y, mask):
+        return pa_scan.pa_scan_reference(w, x, y, mask, variant, 0.5)
+
+    cw, cl = pa_scan.pa_scan_chunked(step, *t, max_rows=CHUNK_LIMIT)
+    rw, rl = pa_scan.pa_scan_reference(*t, variant, 0.5)
+    jw, jl = jax_pa_scan(*(jnp.asarray(a) for a in (w0, x, y, mask)), variant=variant,
+                         C=0.5, interpret=True)
+    assert cl.shape == ()
+    for want_w, want_l in ((rw.numpy(), float(rl)), (np.asarray(jw), float(jl))):
+        np.testing.assert_allclose(cw.numpy(), want_w, rtol=W_RTOL, atol=W_ATOL)
+        assert abs(float(cl) - want_l) <= LOSS_ATOL
+    if masking == "chunk":
+        # a mean of the chunks' means would count the masked chunk's zero
+        means = [float(step(torch.from_numpy(w0), *(a[r:r + CHUNK_LIMIT] for a in t[1:]))[1])
+                 for r in range(0, B, CHUNK_LIMIT)]
+        assert abs(float(cl) - float(np.mean(means))) > LOSS_ATOL
+
+
+def test_chip_opt_in_is_per_device():
+    """The chain's shared-memory opt-in belongs to each device's context:
+    pa_scan.cu remembers it per device ordinal (cudaGetDevice before
+    cudaFuncSetAttribute), never once per process."""
+    import re
+    from pathlib import Path
+
+    src = (Path(pa_scan.__file__).resolve().parent.parent / "csrc" / "pa_scan.cu").read_text()
+    body = src[src.index("int omldm_pa_scan("):]
+    assert not re.search(r"static bool \w+ = ", body)
+    assert "static bool opted_in[kMaxDevices]" in body
+    assert body.index("cudaGetDevice(&device)") < body.index("cudaFuncSetAttribute(")
+    assert "opted_in[device] = true" in body
 
 
 def test_row_limit_matches_the_source():

@@ -145,3 +145,91 @@ def test_init_matches_jax(key):
 def test_no_sparse_variant_raises():
     with pytest.raises(KeyError, match="no sparse variant"):
         make_learner(LearnerSpec("ORR", data_structure={"sparse": True, "nFeatures": 8}))
+
+
+# --- donation: the pipeline's fit gives the state up; a direct call does not ---
+
+
+@pytest.mark.parametrize("per_record", [False, True])
+@pytest.mark.parametrize("key", list(SPECS))
+def test_update_leaves_its_input_params_unchanged(key, per_record):
+    """Called directly (no donation), an update returns new tensors and
+    leaves the ones it was given as they were."""
+    rng = np.random.RandomState(len(key) + 31 * per_record)
+    _, tl = _learners(key)
+    state = _state(key, rng)
+    x, y, mask = _batch(key, rng)
+    params = _torch(state)
+    fn = tl.update_per_record if per_record else tl.update
+    new, _ = fn(params, _x(x, torch.from_numpy), torch.from_numpy(y), torch.from_numpy(mask))
+    for k in state:
+        np.testing.assert_array_equal(params[k].numpy(), state[k], err_msg=k)
+        assert new[k].data_ptr() != params[k].data_ptr(), k
+        assert not np.array_equal(new[k].numpy(), state[k]), k
+
+
+@pytest.mark.parametrize("per_record", [False, True])
+@pytest.mark.parametrize("key", list(SPECS))
+def test_donated_update_writes_in_place(key, per_record):
+    """With ``donate=True`` the result equals the functional update's
+    exactly (the same sums in the same order), and the scatter wrote it into
+    the donated weight's memory (SVM's decay makes a new tensor first)."""
+    rng = np.random.RandomState(len(key) + 57 * per_record)
+    _, tl = _learners(key)
+    state = _state(key, rng)
+    x, y, mask = _batch(key, rng)
+    fn = tl.update_per_record if per_record else tl.update
+    args = (_x(x, torch.from_numpy), torch.from_numpy(y), torch.from_numpy(mask))
+    want, want_loss = fn(_torch(state), *args)
+    params = _torch(state)
+    leaf = "W" if "W" in state else "w"
+    ptr = params[leaf].data_ptr()
+    got, loss = fn(params, *args, donate=True)
+    for k in state:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+    assert float(loss) == float(want_loss)
+    assert (got[leaf].data_ptr() == ptr) == (SPECS[key][0] != "SVM")
+
+
+PIPELINE_KEYS = ["PA-II", "RegressorPA", "SVM", "Softmax2"]
+
+
+def _pipelines(key):
+    from omldm_tpu.pipelines import MLPipeline as JaxPipeline
+    from omldm_tpu_torch.pipelines import MLPipeline
+
+    name, hp = SPECS[key]
+    ds = {"sparse": True, "nFeatures": D}
+    return (JaxPipeline(JaxLearnerSpec(name, hyper_parameters=hp, data_structure=ds), dim=D),
+            MLPipeline(LearnerSpec(name, hyper_parameters=hp, data_structure=ds), dim=D,
+                       device="cpu"))
+
+
+@pytest.mark.parametrize("key", PIPELINE_KEYS)
+def test_pipeline_fits_in_place_and_match_jax(key):
+    """Six donated fits through MLPipeline.fit against the JAX pipeline
+    (whose jitted fit donates its state): parameters within the scatter
+    envelope of tests/test_torch_sparse_ops.py, losses within it; the
+    sparse scatter wrote every fit into the same memory; flat parameters
+    taken before a fit are a copy the fit leaves alone."""
+    from tests.test_torch_sparse_ops import SCATTER_TOL
+
+    jp, tp = _pipelines(key)
+    leaf = "W" if SPECS[key][0] == "Softmax" else "w"
+    ptr = tp.state["params"][leaf].data_ptr()
+    rng = np.random.RandomState(len(key) + 3)
+    for step in range(6):
+        x, y, mask = _batch(key, rng)
+        flat_before, _ = tp.get_flat_params()
+        kept = flat_before.copy()
+        jl = jp.fit(x, y, mask)
+        tl = tp.fit(x, y, mask)
+        np.testing.assert_allclose(float(tl), float(jl), **SCATTER_TOL)
+        np.testing.assert_array_equal(flat_before, kept)
+        jf, _ = jp.get_flat_params()
+        tf, _ = tp.get_flat_params()
+        np.testing.assert_allclose(tf, jf, **SCATTER_TOL, err_msg=f"fit {step}")
+        assert not np.array_equal(tf, flat_before)
+        if key != "SVM":
+            assert tp.state["params"][leaf].data_ptr() == ptr
+    assert tp.fitted == jp.fitted

@@ -152,18 +152,20 @@ def test_dispatch_precedence_env_and_config(monkeypatch):
 
 def test_dispatch_table_is_the_ports_copy(monkeypatch):
     """The port reads its own table: its cpu section is the JAX package's
-    (the same winner at every grid point), it has no cuda section, so a
-    CUDA weight resolves to the scatter kernel."""
+    (the same winner at every grid point), and its cuda section was
+    measured on the card by the port's own calibration; a CUDA weight
+    resolves by the cuda section, a CPU one by the cpu section."""
     monkeypatch.delenv("OMLDM_SPARSE_SCATTER", raising=False)
     monkeypatch.delenv(sparse_calibrate.ENV_TABLE, raising=False)
     path = Path(sparse_calibrate.table_path()).resolve()
     assert path.parent == ROOT / "omldm_tpu_torch" / "ops"
     ours = json.loads(path.read_text())["backends"]
     theirs = json.loads((ROOT / "omldm_tpu" / "ops" / "sparse_dispatch.json").read_text())
-    assert set(ours) == {"cpu"} and ours["cpu"] == theirs["backends"]["cpu"]
+    assert set(ours) == {"cpu", "cuda"} and ours["cpu"] == theirs["backends"]["cpu"]
     for e in ours["cpu"]["entries"]:
         assert tsp._resolve_impl(e["d"], e["updates"], backend="cpu") == e["winner"]
-        assert tsp._resolve_impl(e["d"], e["updates"], backend="cuda") == "scatter"
+    for e in ours["cuda"]["entries"]:
+        assert tsp._resolve_impl(e["d"], e["updates"], backend="cuda") == e["winner"]
     # at D = 2^20 and 40,960 updates the cpu table picks segsum
     assert tsp._resolve_impl(1 << 20, 40960, backend="cpu") == "segsum"
 
@@ -243,3 +245,50 @@ def test_plain_scatter_matches_pallas_serial_interpret(tmp_path):
     ref = data["w"].copy()
     np.add.at(ref, data["idx"], data["u"])
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("outer", [False, True])
+def test_inplace_plain_matches_jax(outer):
+    """The in-place plain version (``index_add_`` on w itself) against
+    ``w.at[idx].add`` in JAX, with duplicate indices, indices past D (dropped
+    by both), zero updates (masked rows, pad slots) and a zero-width batch:
+    it returns w itself, holding the result."""
+    c = 2 if outer else None
+    w, idx, coef, val = _inputs(300, 12, 7, 5, seed=21, c=c)
+    idx[1, 0], idx[5, 3] = 300, 1 << 20
+    coef[7] = 0.0
+    u = val[:, :, None] * (coef[:, None, :] if outer else coef[:, None, None])
+    keep = idx < 300
+    want = jnp.asarray(w if outer else w[:, None]).at[jnp.asarray(idx[keep])].add(
+        jnp.asarray(u[keep]))
+    want = np.asarray(want if outer else want[:, 0])
+    fn = tsp.sparse_scatter_add_outer if outer else tsp.sparse_scatter_add
+    tw = torch.from_numpy(w.copy())
+    got = fn(tw, *(torch.from_numpy(a) for a in (idx, coef, val)), inplace=True)
+    assert got is tw
+    np.testing.assert_allclose(tw.numpy(), want, **SCATTER_TOL)
+    # out-of-range and zero updates only: w stays exactly as it was
+    tw = torch.from_numpy(w.copy())
+    idx2 = np.full_like(idx, 300)
+    idx2[::2] = 4
+    coef2 = coef.copy()
+    coef2[::2] = 0.0
+    fn(tw, *(torch.from_numpy(a) for a in (idx2, coef2, val)), inplace=True)
+    np.testing.assert_array_equal(tw.numpy(), w)
+    empty = torch.zeros((0, 7), dtype=torch.int32)
+    zero_coef = torch.zeros((0, 2) if outer else (0,))
+    assert fn(tw, empty, zero_coef, torch.zeros((0, 7)), inplace=True) is tw
+
+
+@pytest.mark.parametrize("impl", ["scatter", "mxu", "segsum"])
+def test_every_formulation_writes_in_place(impl):
+    """``inplace=True`` on each formulation: w itself holds the same result
+    as the copying call, which leaves its input alone."""
+    w, idx, coef, val = _inputs(4096, 16, 9, 40, seed=13)
+    args = [torch.from_numpy(a) for a in (idx, coef, val)]
+    tw = torch.from_numpy(w.copy())
+    want = tsp.SCATTER_IMPLS[impl](tw, *args)
+    np.testing.assert_array_equal(tw.numpy(), w)
+    got = tsp.sparse_scatter_add_auto(tw, *args, impl=impl, inplace=True)
+    assert got is tw
+    np.testing.assert_array_equal(tw.numpy(), want.numpy())

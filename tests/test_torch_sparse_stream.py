@@ -207,6 +207,12 @@ def _create(learner="PA", ds=None, preps=()):
     (_create(learner="SVM", ds={}), "learner 'SVM' is not yet ported"),
     (_create(learner="RegressorPA", ds={"nFeatures": 8}), "learner 'RegressorPA' is not yet ported"),
     (_create(learner="Softmax", ds={"sparse": False}), "learner 'Softmax' is not yet ported"),
+    (_create(ds={"sparse": True, "nFeatures": 13, "hashSpace": 4096}),
+     "hashSpace 4096 must lie in [0, nFeatures 13]"),
+    (_create(ds={"sparse": True, "nFeatures": DIM, "hashSpace": -1}),
+     f"hashSpace -1 must lie in [0, nFeatures {DIM}]"),
+    (_create(ds={"sparse": True, "nFeatures": "wide", "hashSpace": 16}),
+     "must be integers"),
 ])
 def test_gate_refuses(request_json, reason):
     job = StreamJob(JobConfig(parallelism=2), device="cpu")
@@ -235,3 +241,44 @@ def test_sparse_create_wants_cuda_without_a_device():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamJob(JobConfig(parallelism=2)).run([("requests", _create())])
+
+
+def test_too_wide_hash_space_is_refused_and_the_stream_runs_on():
+    """A sparse Create whose hashSpace (4096) exceeds its nFeatures (13)
+    goes to the dead-letter sink, its reason naming both numbers, while a
+    valid sparse pipeline in the same stream keeps its parity with the JAX
+    StreamJob. The JAX package admits the wide Create and trains a model of
+    NaN margins beside the valid one (``jnp.take`` out of range); the port
+    refuses it on purpose, so only pipeline 0 is compared."""
+    events = make_events("PA", False, seed=5, n_train=600)
+    bad = json.loads(_create(ds={"sparse": True, "nFeatures": 13, "hashSpace": 4096,
+                                 "maxNnz": 40}))
+    bad["id"] = 1
+    events.insert(1, ("requests", json.dumps(bad)))
+    config = dict(parallelism=2, batch_size=BATCH, test_set_size=TEST_SET)
+    jax_job = JaxStreamJob(JaxJobConfig(**config))
+    jax_report = jax_job.run(events)
+    job = StreamJob(JobConfig(**config), device="cpu")
+    report = job.run(events)
+
+    [entry] = job.dead_letter.entries
+    assert entry["reason"] == "rejected_request"
+    assert "hashSpace 4096" in entry["detail"] and "nFeatures 13" in entry["detail"]
+    assert job.pipeline_manager.live_pipelines == [0]
+    assert sorted(s.pipeline for s in jax_report.statistics) == [0, 1]
+
+    jp = np.array([p.value for p in jax_job.predictions if p.mlp_id == 0])
+    tp = np.array([p.value for p in job.predictions])
+    assert all(p.mlp_id == 0 for p in job.predictions)
+    assert len(tp) == len(jp) == sum(1 for s, _ in events if s == "forecastingData")
+    assert int((tp != jp).sum()) <= 0.01 * len(tp)
+    [jr] = jax_job.responses  # the Query names pipeline 0
+    [tr] = job.responses
+    assert tr.mlp_id == jr.mlp_id == 0
+    np.testing.assert_allclose(tr.learner["parameters"]["values"],
+                               jr.learner["parameters"]["values"], rtol=2e-4, atol=2e-5)
+    [ts] = report.statistics
+    [js] = [s for s in jax_report.statistics if s.pipeline == 0]
+    assert ts.fitted == js.fitted and ts.forecasts_served == js.forecasts_served
+    assert abs(ts.score - js.score) <= 1.0 / TEST_SET + 1e-9
+    np.testing.assert_allclose(ts.learning_curve, js.learning_curve, rtol=0, atol=1e-4)
