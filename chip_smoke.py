@@ -95,10 +95,46 @@ Phases (any failure raises and the script exits nonzero without a result):
  16. avazu       AVAZU_RECORDS records of 21 hashed categoricals into
                  2^20 through a sparse Softmax (nClasses 2): the outer entry
                  point launched once per fit.
-With --profile DIR, after phase 16: the slice's and the sparse stream's
-runs under cProfile (host time by function) and torch.profiler (device
-busy time), then 4 LM steps under torch.profiler (device busy time, the
-flash kernels' share, the top kernels); tables are written into DIR.
+ 17. cli         phase 5's stream as files (the Create, naming its 28
+                 features, and the Query in a requests file; every training
+                 record and, inline at its position, every forecast marked
+                 "operation": "forecasting" in a training file) through
+                 python -m omldm_tpu_torch's main() in-process on cuda,
+                 --parallelism 16 --batchSize 256 --fastIngest true: the
+                 native parser (g++, built into build/omldm_tpu_torch/native/)
+                 must have built and taken every block of the training file
+                 (fast_ingest.blocks: no block through the Python codec);
+                 the Query answered once, before training; pa_scan launched
+                 once per per-record fit; one prediction a forecast; holdout
+                 accuracy > 0.6; every state tensor on cuda; records/s, p50/
+                 p99 forecast latency and programLaunches beside phase 5's;
+ 18. cli-parity  the first --parity-records records of phase 17's stream (a
+                 requests file with the Create alone) through the CLI three
+                 ways at parallelism 4, batch 256: the packed route on cuda
+                 and on cpu (one row a worker a block, --ingestBatch 4, so
+                 each worker takes its rows in the record route's order) and
+                 --fastIngest false on cuda; against the packed cuda run:
+                 the same predictions in the same order, >= 99% of values
+                 equal, final parameters within rtol=2e-4, atol=2e-5;
+ 19. serving     phase 17's files with --serving maxBatch=64,maxDelayMs=5,
+                 staleness=exact: as many predictions as phase 17, each
+                 worker's in phase 17's order (the interleaving across
+                 workers may move), >= 99% of values equal to phase 17's
+                 (the mismatch count is logged), pa_scan once per fit;
+                 serving launches (predicts), records/s and p50/p99 beside
+                 phase 17's;
+ 20. cli-sparse  phase 14's Criteo stream as files through the CLI with
+                 --serving on: the sparse Create takes the per-record route
+                 (no block through the dense parser) and the plane's sparse
+                 flush; scatter_add launched once per fit, holdout accuracy
+                 > 0.6; records/s beside phase 14's.
+With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
+cProfile, parsing on the main thread (host seconds by function: parse,
+the record route's vectorize, holdout, stage, fit, serve, the sink); then the slice's and the sparse
+stream's runs under cProfile (host time by function) and torch.profiler
+(device busy time), then 4 LM steps under torch.profiler (device busy
+time, the flash kernels' share, the top kernels); tables are written into
+DIR.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -109,6 +145,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1551,6 +1588,357 @@ def phase_avazu(torch, sparse, events):
     return launches
 
 
+# --- the CLI file route (phases 17-20) -----------------------------------------
+
+CLI_ARGS = ["--parallelism", str(SLICE_CONFIG["parallelism"]),
+            "--batchSize", str(SLICE_CONFIG["batch_size"])]
+PARITY_PARALLELISM = 4  # phase 6's
+# host functions the CLI profile reports: (label, file suffix, function name).
+# The profiled runs parse on the main thread (no prefetch thread): Python
+# 3.12's cProfile records every thread into one profile, which muddles the
+# cumulative times of the main thread's frames
+CLI_PROFILE_FUNCS = [
+    ("cli.main", "omldm_tpu_torch/__main__.py", "main"),
+    ("requests first", "omldm_tpu_torch/__main__.py", "_requests_first"),
+    ("parse: native blocks", "ops/native/loader.py", "_parse_region"),
+    ("parse: record route (JSON codec)", "api/data.py", "parse"),
+    ("vectorize (record route)", "runtime/vectorizer.py", "vectorize"),
+    ("job.process_packed_batch", "runtime/job.py", "process_packed_batch"),
+    ("spoke.handle_packed", "runtime/spoke.py", "handle_packed"),
+    ("holdout filter", "runtime/spoke.py", "_holdout_filter"),
+    ("stage (add_many)", "runtime/vectorizer.py", "add_many"),
+    ("fit: flush_batch (fits, sync points)", "runtime/spoke.py", "flush_batch"),
+    ("serve: immediate packed predicts", "runtime/spoke.py", "_serve_packed_baseline"),
+    ("serve: plane flushes", "runtime/serving.py", "_serve_solo"),
+    ("serve: plane emission", "runtime/serving.py", "_emit_entries"),
+    ("pipeline.predict", "pipelines/pipeline.py", "predict"),
+    ("sink: a JSON line a prediction", "omldm_tpu_torch/__main__.py", "__call__"),
+    ("job.terminate", "runtime/job.py", "terminate"),
+]
+
+
+def write_stream_files(events, out_dir: Path, tag: str):
+    """A StreamJob event list as the CLI's files: the data records in
+    stream order into the training file (a forecast inline, marked
+    "operation": "forecasting"), the requests into the requests file."""
+    train = out_dir / f"{tag}_train.jsonl"
+    reqs = out_dir / f"{tag}_requests.jsonl"
+    with open(train, "w") as t, open(reqs, "w") as r:
+        for stream, payload in events:
+            if stream == "requests":
+                r.write(payload + "\n")
+            elif stream == "forecastingData":
+                rec = json.loads(payload)
+                rec["operation"] = "forecasting"
+                t.write(json.dumps(rec) + "\n")
+            else:
+                t.write(payload + "\n")
+    return train, reqs
+
+
+def forecast_workers(events, parallelism):
+    """The worker each forecast goes to: data rows are dealt round-robin
+    from row 0 (the packed route and the record route alike); keyed by the
+    forecast's float32 features, as a prediction carries them."""
+    import numpy as np
+
+    out, r = {}, 0
+    for stream, payload in events:
+        if stream == "requests":
+            continue
+        if stream == "forecastingData":
+            key = tuple(np.float32(json.loads(payload)["numericalFeatures"]).tolist())
+            out[key] = r % parallelism
+        r += 1
+    return out
+
+
+def run_cli(torch, argv, out_dir: Path, tag: str, profile=None):
+    """``python -m omldm_tpu_torch`` in-process, its sinks under
+    ``out_dir``; returns (job, wall seconds, predictions read back). The job
+    is caught through ``build_job``."""
+    import omldm_tpu_torch.__main__ as cli
+
+    captured = {}
+    real = cli.build_job
+
+    def build_job(flags):
+        job, sinks = real(flags)
+        captured["job"] = job
+        return job, sinks
+
+    pred = out_dir / f"{tag}_pred.jsonl"
+    argv = [str(a) for a in argv] + [
+        "--predictionsOut", str(pred), "--responsesOut", str(out_dir / f"{tag}_resp.jsonl"),
+        "--performanceOut", str(out_dir / f"{tag}_perf.jsonl"),
+    ]
+    cli.build_job = build_job
+    try:
+        if profile is not None:
+            profile.enable()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if profile is not None:
+            profile.disable()
+    finally:
+        cli.build_job = real
+    check(rc == 0, f"{tag}: the CLI returned {rc}")
+    preds = [json.loads(line) for line in pred.read_text().splitlines()]
+    return captured["job"], wall, preds
+
+
+def _cli_counts(job):
+    """(stats, fits, serving launches, evaluations) of a CLI job: every
+    predict is timed by its spoke's serve timer, every fit adds a point to
+    the learning curve, and what is left of programLaunches evaluated."""
+    [stats] = job.performance[-1].statistics
+    fits = len(stats.learning_curve)
+    serves = sum(s.serve_timer.count for s in job.spokes)
+    return stats, fits, serves, stats.program_launches - fits - serves
+
+
+def _check_on_device(job, label):
+    for pipe in _pipelines(job):
+        tensors = [pipe.state["fitted"], pipe.state["cum_loss"]]
+        tensors += list(pipe.state["params"].values())
+        tensors += [t for s in pipe.state["preps"] for t in s.values()]
+        check(all(t.device.type == "cuda" for t in tensors),
+              f"{label}: a pipeline state tensor is not on cuda")
+
+
+def _by_worker(preds, workers):
+    """Each worker's predictions, in emission order: (features, value)."""
+    import numpy as np
+
+    out = {}
+    for p in preds:
+        key = tuple(np.float32(p["dataInstance"]["numericalFeatures"]).tolist())
+        out.setdefault(workers[key], []).append((key, p["value"]))
+    return out
+
+
+def phase_cli(torch, pa_scan, fast_ingest, events, out_dir: Path, slice_wall):
+    """Phase 5's stream as files through the CLI's packed route on cuda."""
+    from omldm_tpu_torch.ops.native import fast_parser_available, loader
+
+    n_fore = sum(1 for s, _ in events if s == "forecastingData")
+    p = SLICE_CONFIG["parallelism"]
+    # the Create names its width: the requests file is replayed before the
+    # training file, and a Query for a pipeline not deployed yet (width
+    # unknown) is dropped, in the JAX package as here
+    create = json.loads(events[0][1])
+    create["learner"]["dataStructure"] = {"nFeatures": N_FEATURES}
+    events = [("requests", json.dumps(create))] + events[1:]
+    train, reqs = write_stream_files(events, out_dir, "cli")
+    check(fast_parser_available(), f"cli: the native parser did not build:\n{loader.build_error}")
+    fast_ingest.blocks.update(native=0, python=0)
+    pa_scan.launches = 0
+    job, wall, preds = run_cli(torch, CLI_ARGS + ["--trainingData", train, "--requests", reqs,
+                                                  "--fastIngest", "true"], out_dir, "cli")
+    launches, blocks = pa_scan.launches, dict(fast_ingest.blocks)
+    stats, fits, serves, evaluations = _cli_counts(job)
+    log("cli: " + json.dumps({
+        "records": len(events), "wall_s": wall, "records_per_s": len(events) / wall,
+        "slice_records_per_s": len(events) / slice_wall, "speedup": slice_wall / wall,
+        "parser_blocks": blocks, "fits": fits, "pa_scan_launches": launches,
+        "serving_launches": serves, "evaluations": evaluations,
+        "programLaunches": stats.program_launches, "score": stats.score,
+        "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+        "serveLatencyP99Ms": stats.serve_latency_p99_ms, "forecasts": n_fore,
+    }))
+    check(blocks["native"] > 0 and blocks["python"] == 0,
+          f"cli: the training file did not all go through the native parser: {blocks}")
+    check(launches > 0, "cli: pa_scan was never launched")
+    check(launches == fits, f"cli: pa_scan launches {launches} != per-record fits {fits}")
+    check(evaluations == p, f"cli: {evaluations} evaluations, expected the terminate's {p} "
+          "(the Query came before training, on empty holdout sets)")
+    check(len(preds) == n_fore == stats.forecasts_served == serves,
+          f"cli: {len(preds)} predictions, {serves} predicts for {n_fore} forecasts")
+    check(all(q["value"] in (-1.0, 1.0) for q in preds), "cli: a prediction is not a sign")
+    check(stats.score > 0.6, f"cli: holdout accuracy {stats.score} is not above chance")
+    check([r.data_fitted for r in job.responses] == [0],
+          "cli: the Query was not answered once, before training")
+    _check_on_device(job, "cli")
+    return {"train": train, "requests": reqs, "wall": wall, "preds": preds, "stats": stats,
+            "records": len(events), "workers": forecast_workers(events, p)}
+
+
+def phase_cli_parity(torch, events, out_dir: Path):
+    """The first records of phase 5 through the CLI three ways; a requests
+    file with the Create alone (a Query would flush part-filled batches at
+    another point on the record route). The packed runs take one row a
+    worker a block, so their workers see their rows in the record route's
+    order (default 8192-row blocks reorder the Asynchronous pushes between
+    workers, as the reference's rebalance may)."""
+    import numpy as np
+
+    train, reqs = write_stream_files(events, out_dir, "parity")
+    base = ["--parallelism", PARITY_PARALLELISM, "--batchSize", SLICE_CONFIG["batch_size"],
+            "--trainingData", train, "--requests", reqs]
+    packed = ["--fastIngest", "true", "--ingestBatch", PARITY_PARALLELISM]
+    runs = {}
+    for tag, extra in (("packed-cuda", packed), ("record-cuda", ["--fastIngest", "false"]),
+                       ("packed-cpu", packed + ["--device", "cpu"])):
+        job, _, preds = run_cli(torch, base + extra, out_dir, f"parity_{tag}")
+        flats = [pipe.get_flat_params()[0] for pipe in _pipelines(job)]
+        feats = [np.float32(q["dataInstance"]["numericalFeatures"]).tolist() for q in preds]
+        runs[tag] = (feats, np.array([q["value"] for q in preds]), flats)
+    ref_feats, ref_vals, ref_flats = runs["packed-cuda"]
+    for tag in ("record-cuda", "packed-cpu"):
+        feats, vals, flats = runs[tag]
+        check(len(vals) == len(ref_vals) > 0 and feats == ref_feats,
+              f"cli-parity: {tag} emitted other predictions or another order")
+        mismatches = int((vals != ref_vals).sum())
+        err = max(float(np.abs(a - b).max()) for a, b in zip(flats, ref_flats))
+        log(f"cli-parity: packed-cuda vs {tag} on {len(events) - 1} records: prediction "
+            f"mismatches {mismatches}/{len(vals)}, final params max|d|={err:.3e}")
+        check(mismatches <= 0.01 * len(vals), f"cli-parity: {tag}: more than 1% differ")
+        for a, b in zip(flats, ref_flats):
+            check(np.allclose(a, b, rtol=W_RTOL, atol=W_ATOL),
+                  f"cli-parity: {tag}: final params differ: max|d|={np.abs(a - b).max()}")
+
+
+def phase_serving(torch, pa_scan, fast_ingest, cli, out_dir: Path):
+    """Phase 17's files with the serving plane armed job-wide (exact mode,
+    maxBatch 64, maxDelayMs 5)."""
+    fast_ingest.blocks.update(native=0, python=0)
+    pa_scan.launches = 0
+    job, wall, preds = run_cli(torch, CLI_ARGS + [
+        "--trainingData", cli["train"], "--requests", cli["requests"], "--fastIngest", "true",
+        "--serving", "maxBatch=64,maxDelayMs=5,staleness=exact"], out_dir, "serving")
+    launches, blocks = pa_scan.launches, dict(fast_ingest.blocks)
+    stats, fits, serves, evaluations = _cli_counts(job)
+    ref = cli["preds"]
+    # a worker's queue may flush after another worker's forecasts, so the
+    # order across workers may move; each worker's own order may not
+    same_global_order = [q["dataInstance"] for q in preds] == [q["dataInstance"] for q in ref]
+    mine, theirs = _by_worker(preds, cli["workers"]), _by_worker(ref, cli["workers"])
+    by_key = {k: v for rows in theirs.values() for k, v in rows}
+    mismatches = sum(v != by_key.get(k) for rows in mine.values() for k, v in rows)
+    log("serving: " + json.dumps({
+        "records": cli["records"], "wall_s": wall, "records_per_s": cli["records"] / wall,
+        "cli_records_per_s": cli["records"] / cli["wall"], "speedup_vs_cli": cli["wall"] / wall,
+        "serving_launches": serves, "cli_serving_launches": cli["stats"].forecasts_served,
+        "forecasts_per_launch": len(preds) / max(serves, 1), "fits": fits,
+        "pa_scan_launches": launches, "evaluations": evaluations,
+        "programLaunches": stats.program_launches,
+        "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+        "serveLatencyP99Ms": stats.serve_latency_p99_ms,
+        "cli_serveLatencyP50Ms": cli["stats"].serve_latency_p50_ms,
+        "cli_serveLatencyP99Ms": cli["stats"].serve_latency_p99_ms,
+        "value_mismatches": mismatches, "predictions": len(preds),
+        "same_global_order": same_global_order, "score": stats.score,
+    }))
+    check(blocks["native"] > 0 and blocks["python"] == 0,
+          f"serving: the training file did not all go through the native parser: {blocks}")
+    check(launches == fits > 0, f"serving: pa_scan launches {launches} != fits {fits}")
+    check(evaluations == SLICE_CONFIG["parallelism"],
+          f"serving: {evaluations} evaluations, expected {SLICE_CONFIG['parallelism']}")
+    check(len(preds) == len(ref) == stats.forecasts_served,
+          f"serving: {len(preds)} predictions against phase 17's {len(ref)}")
+    check(0 < serves < len(preds), f"serving: {serves} predicts for {len(preds)} forecasts")
+    check({w: [k for k, _ in v] for w, v in mine.items()}
+          == {w: [k for k, _ in v] for w, v in theirs.items()},
+          "serving: a worker's forecasts came out in another order than phase 17's")
+    log(f"serving: {mismatches}/{len(preds)} forecasts answered with another value than "
+        "phase 17's (same record, same worker)")
+    check(mismatches <= 0.01 * len(preds),
+          "serving: more than 1% of values differ from phase 17's")
+    _check_on_device(job, "serving")
+    return serves, mismatches
+
+
+def phase_cli_sparse(torch, sparse, fast_ingest, sparse_events, out_dir: Path, sparse_wall):
+    """Phase 14's Criteo stream as files through the CLI, serving armed: a
+    sparse Create takes the per-record route and the plane's sparse
+    flush."""
+    n_fore = sum(1 for s, _ in sparse_events if s == "forecastingData")
+    train, reqs = write_stream_files(sparse_events, out_dir, "cli_sparse")
+    fast_ingest.blocks.update(native=0, python=0)
+    for name in sparse.launches:
+        sparse.launches[name] = 0
+    job, wall, preds = run_cli(torch, CLI_ARGS + [
+        "--trainingData", train, "--requests", reqs, "--serving", "on"], out_dir, "cli_sparse")
+    launches, blocks = dict(sparse.launches), dict(fast_ingest.blocks)
+    stats, fits, serves, evaluations = _cli_counts(job)
+    log("cli-sparse: " + json.dumps({
+        "records": len(sparse_events), "wall_s": wall,
+        "records_per_s": len(sparse_events) / wall,
+        "sparse_records_per_s": len(sparse_events) / sparse_wall,
+        "speedup_vs_sparse": sparse_wall / wall, "fits": fits, "launches": launches,
+        "serving_launches": serves, "forecasts_per_launch": n_fore / max(serves, 1),
+        "evaluations": evaluations, "score": stats.score,
+        "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+        "serveLatencyP99Ms": stats.serve_latency_p99_ms, "forecasts": n_fore,
+    }))
+    check(blocks == {"native": 0, "python": 0},
+          f"cli-sparse: a sparse job went through the dense block parser: {blocks}")
+    check(all(net.sparse and net.serving is not None
+              for spoke in job.spokes for net in spoke.nets.values()),
+          "cli-sparse: the nets are not sparse and serving-armed")
+    check(launches["scatter_add"] == fits > 0,
+          f"cli-sparse: scatter_add launches {launches['scatter_add']} != fits {fits}")
+    check(all(n == 0 for name, n in launches.items() if name != "scatter_add"),
+          f"cli-sparse: another entry point launched: {launches}")
+    check(evaluations == SLICE_CONFIG["parallelism"],
+          f"cli-sparse: {evaluations} evaluations, expected {SLICE_CONFIG['parallelism']}")
+    # a worker meets a forecast every 160 records here, often past the 5 ms
+    # deadline: how many a flush serves is this run's measurement
+    check(len(preds) == n_fore == stats.forecasts_served and 0 < serves <= n_fore,
+          f"cli-sparse: {len(preds)} predictions in {serves} predicts for {n_fore} forecasts")
+    check(stats.score > 0.6, f"cli-sparse: holdout accuracy {stats.score} is not above chance")
+    for pipe in _pipelines(job):
+        for t in pipe.state["params"].values():
+            check(t.device.type == "cuda" and bool(torch.isfinite(t).all()),
+                  "cli-sparse: a parameter is not finite or not on cuda")
+    return train, reqs
+
+
+def phase_cli_profile(torch, cli, cli_sparse, out_dir: Path):
+    """Phases 17, 19 and 20's CLI runs under cProfile: host seconds by
+    function. The blocks are parsed on the main thread here (see
+    CLI_PROFILE_FUNCS), so the profiled runs have no parse-ahead."""
+    import cProfile
+    import io
+    import pstats
+
+    from omldm_tpu_torch.runtime import prefetch
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dense = ["--trainingData", cli["train"], "--requests", cli["requests"],
+             "--fastIngest", "true"]
+    sparse = ["--trainingData", cli_sparse[0], "--requests", cli_sparse[1]]
+    for tag, argv in (("cli", dense), ("cli_serving", dense + ["--serving", "on"]),
+                      ("cli_sparse", sparse + ["--serving", "on"])):
+        prof = cProfile.Profile()
+        real = prefetch.prefetch
+        prefetch.prefetch = lambda source, depth=2: iter(source)
+        try:
+            _, wall, _ = run_cli(torch, CLI_ARGS + argv, out_dir, f"profile_{tag}", profile=prof)
+        finally:
+            prefetch.prefetch = real
+        st = pstats.Stats(prof)
+        st.dump_stats(str(out_dir / f"{tag}.pstats"))
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(60)
+        (out_dir / f"{tag}_cprofile.txt").write_text(buf.getvalue())
+        host = {}
+        for (path, _, name), (_, _, _, ct, _) in st.stats.items():
+            for label, suffix, fname in CLI_PROFILE_FUNCS:
+                if name == fname and path.endswith(suffix):
+                    host[label] = host.get(label, 0.0) + ct
+        log(f"profile[{tag}]: cProfile wall {wall:.3f} s (profiler overhead included); "
+            "cumulative host seconds by function:")
+        for label, _, _ in CLI_PROFILE_FUNCS:
+            log(f"  {label}: {host.get(label, 0.0):.3f}")
+        top_self = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:12]
+        log(f"profile[{tag}]: top self time:")
+        for (path, line, name), (_, nc, tt, _, _) in top_self:
+            log(f"  {tt:.3f} s self, {nc} calls: {Path(path).name}:{line} {name}")
+
+
 FLASH_SOURCES = {
     "flash_fwd": "omldm_tpu/ops/attention.py:269",
     "flash_dq": "omldm_tpu/ops/attention.py:450",
@@ -1580,6 +1968,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(repo))
     from omldm_tpu_torch.ops import attention, pa_scan, sparse
+    from omldm_tpu_torch.runtime import fast_ingest
 
     t_start = time.perf_counter()
     lap("start-up")
@@ -1616,6 +2005,17 @@ def main() -> int:
     phase_parity(sparse_events[: args.parity_records + 1])
     outer_launches = phase_avazu(torch, sparse, avazu_events(AVAZU_RECORDS, args.seed))
     lap("sparse stream, parity and avazu")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cli_dir = Path(tmp)
+        cli = phase_cli(torch, pa_scan, fast_ingest, events, cli_dir, wall)
+        phase_cli_parity(torch, events[: args.parity_records + 1], cli_dir)
+        phase_serving(torch, pa_scan, fast_ingest, cli, cli_dir)
+        cli_sparse = phase_cli_sparse(torch, sparse, fast_ingest, sparse_events, cli_dir,
+                                      sparse_wall)
+        lap("cli, cli-parity, serving and cli-sparse")
+        if args.profile is not None:
+            phase_cli_profile(torch, cli, cli_sparse, args.profile)
+            lap("cli profiles")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):

@@ -1,0 +1,314 @@
+"""CLI entry point: ``python -m omldm_tpu_torch [--flag value ...]``.
+
+The port's counterpart of ``python -m omldm_tpu`` on its file and replay
+routes (the reference's ``Job.main``, Job.scala:110-171): parse ``--key
+value`` flags with ``ParameterTool.fromArgs`` semantics, build the sinks,
+assemble the job and run it. The job knobs take the JAX package's names
+(``JobConfig.from_args``).
+
+Sources (choose one style):
+
+- ``--trainingData path.jsonl`` / ``--forecastingData path.jsonl`` /
+  ``--requests path.jsonl`` -- JSON-lines file replay, round-robin
+  interleaved (the deterministic stand-in for stream union, Job.scala:70);
+  ``EOS`` marker lines are dropped and replay continues
+  (DataInstanceParser.scala:13-21). With a training file and only a
+  requests file beside it, the requests are replayed FIRST, as the JAX
+  package does, and the training file goes through the C++ bulk parser
+  (``--fastIngest auto|true|false``, blocks of ``--ingestBatch`` rows,
+  parsed ``--prefetchDepth`` blocks ahead on a thread). Sparse Creates take
+  the per-record route.
+- ``--events combined.jsonl`` -- one fully ordered file of ``{"stream":
+  "trainingData"|"forecastingData"|"requests", "data": {...}}`` lines.
+
+Sinks: ``--predictionsOut`` / ``--responsesOut`` / ``--performanceOut``
+write JSON lines to files (default: performance to stdout).
+
+``--device`` (default ``cuda``) is the port's own flag: without a card,
+CUDA raises. Flags of the JAX CLI whose route or knob the port does not
+have (Kafka, the multi-process fleet, supervised restarts, the profiler,
+the XLA compile cache, the sharded ingest plane, JAX-only ``JobConfig``
+fields) raise ``SystemExit`` naming the flag instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from omldm_tpu_torch.config import JobConfig
+from omldm_tpu_torch.runtime.ingest import file_events, interleave
+from omldm_tpu_torch.runtime.job import (
+    FORECASTING_STREAM,
+    PACKED_STREAM,
+    REQUEST_STREAM,
+    TRAINING_STREAM,
+    StreamJob,
+)
+
+_STREAMS = (TRAINING_STREAM, FORECASTING_STREAM, REQUEST_STREAM)
+
+# routes of the JAX CLI the port does not have: flag -> what it arms there
+UNPORTED_ROUTE_FLAGS = {
+    "kafkaBrokers": "the Kafka route",
+    "processes": "the multi-process fleet",
+    "processId": "the multi-process fleet",
+    "coordinator": "the multi-process fleet",
+    "supervise": "the multi-process fleet's supervisor",
+    "profileDir": "the JAX profiler trace",
+    "compileCache": "the XLA compile cache",
+    "compileCacheMinSecs": "the XLA compile cache",
+    "ingest": "the sharded ingest plane",
+}
+
+
+def parse_flags(argv: List[str]) -> Dict[str, str]:
+    """``--key value`` pairs -> dict (ParameterTool.fromArgs, Job.scala:114).
+    A flag without a value is treated as boolean true."""
+    flags: Dict[str, str] = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise SystemExit(f"expected --flag, got {arg!r}")
+        key = arg[2:]
+        if i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+            flags[key] = argv[i + 1]
+            i += 2
+        else:
+            flags[key] = "true"
+            i += 1
+    return flags
+
+
+def refuse_unported(flags: Dict[str, str]) -> None:
+    """SystemExit naming the first flag whose route the port lacks."""
+    for key, what in UNPORTED_ROUTE_FLAGS.items():
+        if key in flags:
+            raise SystemExit(f"--{key}: {what} is not ported to omldm_tpu_torch")
+    if int(flags.get("restartAttempts", "0")) > 0:
+        raise SystemExit(
+            "--restartAttempts: supervised recovery is not ported to omldm_tpu_torch"
+        )
+
+
+def combined_events(path: str) -> Iterator[Tuple[str, str]]:
+    """Replay a fully-ordered combined event file: each line is
+    ``{"stream": <topic>, "data": <record object or JSON string>}``."""
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            obj = json.loads(line)
+            stream = obj.get("stream")
+            if stream not in _STREAMS:
+                continue
+            data = obj.get("data")
+            yield (stream, data if isinstance(data, str) else json.dumps(data))
+
+
+class _FileSink:
+    def __init__(self, path: Optional[str], default=None):
+        self._f = open(path, "w") if path else default
+
+    def __call__(self, obj: Any) -> None:
+        if self._f is None:
+            return
+        payload = obj.to_json() if hasattr(obj, "to_json") else json.dumps(obj)
+        self._f.write(payload + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None and self._f not in (sys.stdout, sys.stderr):
+            self._f.close()
+
+
+def build_job(flags: Dict[str, str]) -> Tuple[StreamJob, List[_FileSink]]:
+    config = JobConfig.from_args(flags)
+    pred_sink = _FileSink(flags.get("predictionsOut"))
+    resp_sink = _FileSink(flags.get("responsesOut"))
+    perf_sink = _FileSink(flags.get("performanceOut"), default=sys.stdout)
+    sinks = [pred_sink, resp_sink, perf_sink]
+    try:
+        job = StreamJob(
+            config,
+            on_prediction=pred_sink,
+            on_response=resp_sink,
+            on_performance=perf_sink,
+            device=flags.get("device"),
+        )
+    except BaseException:
+        for sink in sinks:
+            sink.close()
+        raise
+    return job, sinks
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    flags = parse_flags(argv)
+    refuse_unported(flags)
+    job, sinks = build_job(flags)
+    try:
+        return _run(job, flags)
+    finally:
+        for sink in sinks:
+            sink.close()
+
+
+def _run(job: StreamJob, flags: Dict[str, str]) -> int:
+    if "events" in flags:
+        job.run(combined_events(flags["events"]))
+        return 0
+    _requests_first(job, flags)
+    packed = None
+    if TRAINING_STREAM in flags and flags.get("fastIngest", "auto") != "false":
+        packed = _packed_training_source(flags)
+    sources = []
+    for topic in _STREAMS:
+        if topic not in flags:
+            continue
+        if topic == TRAINING_STREAM and packed is not None:
+            sources.append(packed)
+        else:
+            sources.append(file_events(flags[topic], topic))
+    if not sources:
+        raise SystemExit(
+            "no sources: pass --trainingData/--forecastingData/--requests "
+            "<path.jsonl> or --events <combined.jsonl>"
+        )
+    job.run(interleave(*sources))
+    return 0
+
+
+def _requests_first(job: StreamJob, flags: Dict[str, str]) -> None:
+    """The JAX CLI's file route (``_try_fused_run``) replays the whole
+    requests file before the training file whenever the training file is
+    the only data source and the width can be pinned, deploys the Creates
+    at that width, and stashes the width for the packed route (a sparse
+    job instead takes the per-record route). Its fused and sharded halves
+    need the SPMD bridge; this is the half every job passes through, so
+    requests and responses keep the same place in the stream here."""
+    if TRAINING_STREAM not in flags:
+        return
+    if flags.get("fastIngest", "auto") == "false":
+        return
+    if flags.get("fusedIngest", "auto") == "false":
+        return
+    if any(t in flags for t in _STREAMS if t not in (TRAINING_STREAM, REQUEST_STREAM)):
+        return
+    spec = _stream_spec(flags)
+    sparse = False
+    if spec is None:
+        spec = _sparse_stream_spec(flags)
+        sparse = spec is not None
+    if spec is None:
+        return
+    if REQUEST_STREAM in flags:
+        for stream, line in file_events(flags[REQUEST_STREAM], REQUEST_STREAM):
+            job.process_event(stream, line)
+        # consumed here: the event route must not replay them again
+        del flags[REQUEST_STREAM]
+        if sparse:
+            # the dense packed batcher cannot feed a sparse job: the marker
+            # sends it down the per-record route
+            flags["__sparseStream__"] = "1"
+        else:
+            flags["__streamSpec__"] = f"{spec[0]},{spec[1]}"
+    job.ensure_deployed(spec[0])
+
+
+def _sparse_stream_spec(flags: Dict[str, str]) -> Optional[Tuple[int, int]]:
+    """(total feature width, 0) from the first SPARSE Create/Update."""
+    from omldm_tpu_torch.api.requests import Request, RequestType
+
+    if REQUEST_STREAM not in flags:
+        return None
+    try:
+        for _, line in file_events(flags[REQUEST_STREAM], REQUEST_STREAM):
+            req = Request.from_json(line)
+            if req is None or req.request not in (RequestType.CREATE, RequestType.UPDATE):
+                continue
+            ds = req.learner.data_structure if req.learner else None
+            if ds and ds.get("sparse") and "nFeatures" in ds:
+                return int(ds["nFeatures"]), 0
+            return None
+    except OSError:
+        return None
+    return None
+
+
+def _stream_spec(flags: Dict[str, str]) -> Optional[Tuple[int, int]]:
+    """(total feature width, hash_dims) for the packed route: from the first
+    Create/Update carrying nFeatures, else inferred from the first training
+    record (the reference sizes models lazily on the first record; the
+    packed batcher needs the width up front). None for a sparse job."""
+    from omldm_tpu_torch.api.data import DataInstance
+    from omldm_tpu_torch.api.requests import Request, RequestType
+    from omldm_tpu_torch.runtime.vectorizer import Vectorizer
+
+    if "__sparseStream__" in flags:
+        return None  # sparse pipelines featurize per record
+    if "__streamSpec__" in flags:  # resolved by _requests_first
+        dim, hash_dims = flags["__streamSpec__"].split(",")
+        return int(dim), int(hash_dims)
+    if REQUEST_STREAM in flags:
+        try:
+            for _, line in file_events(flags[REQUEST_STREAM], REQUEST_STREAM):
+                req = Request.from_json(line)
+                if req is None or req.request not in (
+                    RequestType.CREATE, RequestType.UPDATE
+                ):
+                    continue
+                hash_dims = int(req.training_configuration.extra.get("hashDims", 0))
+                ds = req.learner.data_structure if req.learner else None
+                if ds and ds.get("sparse"):
+                    # padded COO per record (SparseVectorizer): the dense
+                    # block parser cannot feed a wide hashed index space
+                    return None
+                if ds and "nFeatures" in ds:
+                    return int(ds["nFeatures"]) + hash_dims, hash_dims
+                # first Create without an explicit width: infer from data
+                for _, dline in file_events(flags[TRAINING_STREAM], TRAINING_STREAM):
+                    inst = DataInstance.from_json(dline)
+                    if inst is not None:
+                        return Vectorizer.infer_dim(inst, hash_dims), hash_dims
+                return None
+        except OSError:
+            return None
+    try:
+        for _, dline in file_events(flags[TRAINING_STREAM], TRAINING_STREAM):
+            inst = DataInstance.from_json(dline)
+            if inst is not None:
+                return Vectorizer.infer_dim(inst, 0), 0
+    except OSError:
+        return None
+    return None
+
+
+def _packed_training_source(flags: Dict[str, str]):
+    """The training file as PACKED_STREAM events: C++ bulk parse -> (x, y,
+    op) blocks, prefetched ahead of the device feed. None when the width
+    cannot be pinned or (in auto mode) the native parser is unavailable --
+    the caller then replays the file record by record."""
+    from omldm_tpu_torch.ops.native import fast_parser_available
+    from omldm_tpu_torch.runtime.fast_ingest import iter_file_batches
+    from omldm_tpu_torch.runtime.prefetch import prefetch
+
+    spec = _stream_spec(flags)
+    if spec is None:
+        return None
+    if flags.get("fastIngest", "auto") != "true" and not fast_parser_available():
+        return None
+    dim, hash_dims = spec
+    batches = iter_file_batches(
+        flags[TRAINING_STREAM], dim, int(flags.get("ingestBatch", "8192")), hash_dims,
+    )
+    depth = int(flags.get("prefetchDepth", "2"))
+    return ((PACKED_STREAM, b) for b in prefetch(batches, depth))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,11 +3,26 @@
 The port's copy of ``omldm_tpu/config.py``'s ``JobConfig``, keeping the
 fields the port reads. Per-pipeline configuration arrives at runtime inside
 ``Request.training_configuration`` (see omldm_tpu_torch.api.requests).
+
+``JobConfig.from_args`` builds a config from CLI flags as the JAX package
+does, with one difference: a flag naming a field of the JAX ``JobConfig``
+that the port does not have (``--meshShape``, ``--checkpointDir``, ...)
+raises ``SystemExit`` naming it, where the JAX package would honour it. The
+port must not quietly run without a knob the reference obeys.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
+
+# fields of the JAX package's JobConfig that the port does not have (a
+# literal copy: the port never imports that package)
+JAX_ONLY_FIELDS = (
+    "max_msg_params", "check_interval_ms", "checkpoint_dir", "checkpoint_keep",
+    "request_buffer_cap", "cohort_min", "cohort_impl", "liveness_stride",
+    "blackbox_path", "compute_dtype", "mesh_shape",
+)
 
 
 @dataclasses.dataclass
@@ -52,6 +67,11 @@ class JobConfig:
     # With a prediction/response sink attached, the in-memory lists are
     # mirrors trimmed (oldest first) beyond this many entries; <= 0 keeps all.
     emission_buffer_cap: int = 100_000
+    # Job-wide DEFAULT adaptive-batching serving spec (runtime/serving.py)
+    # for pipelines whose trainingConfiguration carries no "serving" table,
+    # e.g. "maxBatch=64,maxDelayMs=5", "relaxed" or "on". Empty: every
+    # forecast takes the immediate per-record predict.
+    serving: str = ""
 
     # --- planes of the JAX package the port does not have yet ---
     # Kept so a config written for omldm_tpu constructs here; arming any of
@@ -62,9 +82,62 @@ class JobConfig:
     chaos: str = ""
     cohort: str = "auto"
     cohort_shards: str = "off"
-    serving: str = ""
     lifecycle: str = ""
     overload: str = ""
     ingest: str = ""
     telemetry: str = ""
     events: str = ""
+
+    # Aliases mapping the reference's exact CLI flag names to the fields
+    # (FlinkLearning.scala:43-48, Job.scala:120, Checkpointing.scala:15-22).
+    _FLAG_ALIASES = {
+        "timeout": "timeout_ms",
+        "checkInterval": "check_interval_ms",
+        "stateBackend": "checkpoint_dir",
+        "jobName": "job_name",
+    }
+
+    @classmethod
+    def from_args(cls, args: Mapping[str, Any]) -> "JobConfig":
+        """Build a config from a flat string map (CLI-style), mirroring
+        ``ParameterTool.fromArgs`` (Job.scala:114). Accepts snake_case,
+        camelCase and the reference's own flag names (e.g. ``timeout``).
+        Keys that name no field are ignored, as in the JAX package; a key
+        naming a JAX-only field raises ``SystemExit``."""
+        cfg = cls()
+        args = dict(args)
+        # the bare --events CLI flag names the combined replay FILE
+        # (__main__.py), not the flight-recorder spec, which rides
+        # --flightRecorder
+        args.pop("events", None)
+        if "flightRecorder" in args:
+            args["events"] = args.pop("flightRecorder")
+        for name in JAX_ONLY_FIELDS:
+            aliases = [a for a, f in cls._FLAG_ALIASES.items() if f == name]
+            for key in (name, _camel(name), *aliases):
+                if key in args:
+                    raise SystemExit(
+                        f"--{key}: the JAX package's JobConfig.{name} is not "
+                        "ported to omldm_tpu_torch"
+                    )
+        for alias, field_name in cls._FLAG_ALIASES.items():
+            if alias in args and field_name not in args:
+                args[field_name] = args.pop(alias)
+        for field in dataclasses.fields(cls):
+            for key in (field.name, _camel(field.name)):
+                if key in args:
+                    raw = args[key]
+                    current = getattr(cfg, field.name)
+                    if isinstance(current, bool):
+                        value = str(raw).lower() in ("1", "true", "yes", "on")
+                    elif isinstance(current, int):
+                        value = int(raw)
+                    else:
+                        value = str(raw)
+                    setattr(cfg, field.name, value)
+        return cfg
+
+
+def _camel(snake: str) -> str:
+    head, *tail = snake.split("_")
+    return head + "".join(t.capitalize() for t in tail)

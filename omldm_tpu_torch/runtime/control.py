@@ -6,7 +6,8 @@ names against the allowlists, keeps the map of live pipelines, and routes
 Query to worker 0 only for single-learner models.
 
 A sparse Create must name its width and a learner with a sparse variant,
-and takes no preprocessors (``validate_sparse``). The port's gate also
+and takes no preprocessors (``validate_sparse``). A ``serving`` table must
+parse (``runtime.serving.validate_serving``): a bad one drops its request. The port's gate also
 rejects what the port cannot run yet -- learners,
 preprocessors and protocols not yet ported, and per-pipeline switches that
 arm a plane the port lacks -- with a reason that names it, so a request
@@ -30,10 +31,11 @@ from omldm_tpu_torch.preprocessors.registry import (
 )
 from omldm_tpu_torch.protocols.registry import PROTOCOLS, resolve_protocol
 from omldm_tpu_torch.runtime.messages import comm_dict
+from omldm_tpu_torch.runtime.serving import validate_serving
 
 # trainingConfiguration keys that arm a plane the port does not have
-UNPORTED_PIPELINE_PLANES = ("guard", "serving", "overload", "lifecycle",
-                            "telemetry", "events")
+UNPORTED_PIPELINE_PLANES = ("guard", "overload", "lifecycle", "telemetry",
+                            "events")
 # trainingConfiguration.comm keys of the reliable channel (not ported)
 RELIABILITY_KEYS = ("reliable", "quorum", "workerTimeoutMs", "windowSize",
                     "stallAfter")
@@ -150,6 +152,9 @@ class PipelineManager:
         protocol = resolve_protocol(tc.protocol, name, self.parallelism)
         if protocol not in PROTOCOLS:
             return f"protocol {protocol!r} is not yet ported"
+        err = validate_serving(tc)
+        if err is not None:
+            return err
         return unported_option(request)
 
     def apply(self, request: Request) -> None:

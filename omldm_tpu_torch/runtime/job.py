@@ -5,7 +5,9 @@ Counterpart of ``omldm_tpu/runtime/job.py`` (the reference's ``Job`` +
 forecasting records and requests in; predictions, merged query responses
 and the final ``JobStatistics`` out. The job consumes an ordered event
 iterable of ``(stream, payload)`` pairs and runs the termination protocol
-at stream end.
+at stream end. A ``PACKED_STREAM`` event carries a block of rows the native
+parser vectorized (``runtime.fast_ingest``), dealt to the spokes exactly as
+per-record events would be.
 
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
@@ -18,6 +20,8 @@ from __future__ import annotations
 import os
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
+
 from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
@@ -27,7 +31,8 @@ from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.hub import HubManager
 from omldm_tpu_torch.runtime.responses import ResponseMerger
-from omldm_tpu_torch.runtime.spoke import Spoke, _PauseBuffer
+from omldm_tpu_torch.runtime.serving import parse_serving_spec
+from omldm_tpu_torch.runtime.spoke import PACKED, Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
 from omldm_tpu_torch.utils.device import resolve_device
@@ -36,6 +41,8 @@ from omldm_tpu_torch.utils.device import resolve_device
 TRAINING_STREAM = "trainingData"
 FORECASTING_STREAM = "forecastingData"
 REQUEST_STREAM = "requests"
+# pre-vectorized (x, y, op) blocks from the bulk parser (fast_ingest)
+PACKED_STREAM = PACKED
 
 # rows held for pipelines that have not been created yet, before the FIRST
 # deploy (the reference's recordBuffer cap, SpokeLogic.scala:31-35)
@@ -45,8 +52,8 @@ PRE_CREATE_BACKLOG_CAP = 100_000
 def unported_job_options(config: JobConfig) -> List[str]:
     """The JobConfig options that arm a plane the port does not have yet."""
     names = [
-        name for name in ("serving", "overload", "lifecycle", "telemetry",
-                          "events", "ingest", "chaos")
+        name for name in ("overload", "lifecycle", "telemetry", "events",
+                          "ingest", "chaos")
         if getattr(config, name)
     ]
     if os.environ.get("OMLDM_CHAOS"):
@@ -76,6 +83,10 @@ class StreamJob:
                 "omldm_tpu_torch does not port these JobConfig options yet: "
                 + ", ".join(missing)
             )
+        # fail fast on a malformed job-wide serving default (a per-pipeline
+        # serving table is checked at the control gate and drops only its
+        # own request)
+        parse_serving_spec(self.config.serving)
         self.device = resolve_device(device, "StreamJob")
         self.predictions: List[Prediction] = []
         self.responses: List[QueryResponse] = []
@@ -102,6 +113,7 @@ class StreamJob:
                 on_poll=self.stats.mark_activity,
                 device=self.device,
                 note_wire=self._note_wire,
+                emit_predictions=self._emit_predictions,
             )
             for i in range(self.config.parallelism)
         ]
@@ -129,6 +141,16 @@ class StreamJob:
         self.predictions.append(pred)
         if self._on_prediction:
             self._on_prediction(pred)
+            self._trim_emission(self.predictions, "predictions_trimmed")
+
+    def _emit_predictions(self, preds: List[Prediction]) -> None:
+        """Bulk twin of :meth:`_emit_prediction` for the serving plane's
+        flushes: one extend per flush; sink callbacks still fire per
+        prediction, in order."""
+        self.predictions.extend(preds)
+        if self._on_prediction:
+            for pred in preds:
+                self._on_prediction(pred)
             self._trim_emission(self.predictions, "predictions_trimmed")
 
     def _emit_response(self, resp: QueryResponse) -> None:
@@ -193,6 +215,8 @@ class StreamJob:
                 if stream == FORECASTING_STREAM:
                     inst.operation = FORECASTING
                 self._handle_data(inst)
+        elif stream == PACKED_STREAM:
+            self.process_packed_batch(*payload)
 
     def _handle_request(self, request: Request) -> None:
         self.stats.mark_activity()
@@ -239,15 +263,24 @@ class StreamJob:
         hash_dims = int(request.training_configuration.extra.get("hashDims", 0))
         head = self._backlog.peek()  # oldest pre-create entry
         if head is not None:
-            return Vectorizer.infer_dim(head[1], hash_dims)
+            if head[0] == "inst":
+                return Vectorizer.infer_dim(head[1], hash_dims)
+            # packed rows already include any hashed-categorical region
+            return int(head[1][0].shape[1])
         for spoke in self.spokes:
             for inst in spoke.record_buffer:
                 return Vectorizer.infer_dim(inst, hash_dims)
+            packed_dim = spoke.buffered_packed_dim()
+            if packed_dim is not None:
+                return packed_dim
         return None
 
     def _replay_backlog(self) -> None:
-        for _, inst in self._backlog.drain():
-            self._handle_data(inst)
+        for entry in self._backlog.drain():
+            if entry[0] == "inst":
+                self._handle_data(entry[1])
+            else:
+                self.process_packed_batch(*entry[1])
 
     def _request_dim(self, request: Request) -> Optional[int]:
         """Feature dim from the request's dataStructure (nFeatures), else
@@ -293,6 +326,39 @@ class StreamJob:
         self._rr += 1
         spoke.handle_data(inst)
 
+    def process_packed_batch(self, x: np.ndarray, y: np.ndarray, op: np.ndarray) -> None:
+        """Bulk data path: pre-vectorized rows from the native parser
+        (``runtime.fast_ingest.PackedBatcher``). Rows are dealt exactly as
+        per-record events would be: a strided round-robin share a spoke,
+        continuing the ``_rr`` cycle, so packed and per-record events can
+        interleave."""
+        n = x.shape[0]
+        if n == 0 or self.stats.terminated:
+            return
+        self.stats.mark_activity()
+        if self._pending_creates:
+            pending, self._pending_creates = self._pending_creates, []
+            for request in pending:
+                self._deploy(request, int(x.shape[1]))
+        if not self._dims:
+            self._backlog.append((PACKED, (x, y, op), None, None))
+            return
+        p = len(self.spokes)
+        for w in range(p):
+            start = (w - self._rr) % p
+            if start < n:
+                self.spokes[w].handle_packed(x[start::p], y[start::p], op[start::p])
+        self._rr += n
+
+    def ensure_deployed(self, dim: int) -> None:
+        """Deploy any Create still waiting on a feature width: the CLI's
+        file route knows the width up front (flags, the Create, or the
+        file's first record) instead of from the first data record."""
+        if self._pending_creates:
+            pending, self._pending_creates = self._pending_creates, []
+            for request in pending:
+                self._deploy(request, dim)
+
     # --- run loop ---
 
     def run(
@@ -309,6 +375,17 @@ class StreamJob:
         if terminate_on_end and not self.stats.terminated:
             return self.terminate()
         return self.performance[-1] if self.performance else None
+
+    def check_silence(self, now: Optional[float] = None) -> Optional[JobStatistics]:
+        """Live-mode hook: the serving plane's deadline clock (a queued
+        forecast whose maxDelayMs elapses while the stream is silent must
+        not wait for the next record), then the termination probe once the
+        silence timeout elapsed (StatisticsOperator.scala:135-142)."""
+        for spoke in self.spokes:
+            spoke.poll_serving()
+        if self.stats.silence_exceeded(now):
+            return self.terminate()
+        return None
 
     def terminate(self) -> Optional[JobStatistics]:
         """The termination protocol: probe every worker, fold hub state,

@@ -8,10 +8,18 @@ a sliding test set whose evicted points are trained,
 FlinkSpoke.scala:94-104), a poll marker every 100 training records,
 forecasts answered immediately, and records arriving before any pipeline
 buffered (SpokeLogic.scala:31-35). A sparse net (``dataStructure.sparse``)
-vectorizes each record into a padded-COO pair and batches pairs. The
-serving, overload, lifecycle,
-cohort, guard, telemetry, events, reliable-channel and packed-ingest
-branches are not ported.
+vectorizes each record into a padded-COO pair and batches pairs.
+
+Two bulk routes sit beside the per-record one. ``handle_packed`` takes rows
+the native parser already vectorized (``runtime.fast_ingest``) and produces
+the same per-net state as feeding them one at a time: the same holdout
+cycle, batcher fill order and poll markers, each forecast served at its
+stream position. A serving-armed net (``trainingConfiguration.serving`` or
+``JobConfig.serving``) queues its forecasts in the adaptive-batching plane
+(``runtime.serving``) and answers them in batched predicts; in the default
+exact mode a queue flushes before any change to the net's model, so every
+answer equals the per-record path's. The overload, lifecycle, cohort,
+guard, telemetry, events and reliable-channel branches are not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +38,12 @@ from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.pipelines import MLPipeline
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
 from omldm_tpu_torch.runtime.databuffers import DataSet
-from omldm_tpu_torch.runtime.serving import ServeStats
+from omldm_tpu_torch.runtime.serving import (
+    ServeQueue,
+    ServeStats,
+    ServingPlane,
+    serving_config,
+)
 from omldm_tpu_torch.runtime.vectorizer import (
     F32_MAX,
     MicroBatcher,
@@ -39,6 +52,13 @@ from omldm_tpu_torch.runtime.vectorizer import (
     Vectorizer,
 )
 from omldm_tpu_torch.utils.tracing import StepTimer
+
+# width of the immediate-serving predict batch: a forecast is padded into
+# this many rows, and a serving flush into the power of two at or above its
+# queue (the JAX package fixes the shapes so its predict never recompiles)
+PREDICT_BATCH = 16
+# the pause and pre-create buffers' entry tag for a whole packed block
+PACKED = "__packed__"
 
 
 def create_pipeline(request: Request, dim: int, device) -> MLPipeline:
@@ -57,18 +77,49 @@ def create_pipeline(request: Request, dim: int, device) -> MLPipeline:
 
 
 class _PauseBuffer:
-    """Bounded hold buffer for records of a PAUSED net (cooperative toggle)
-    and the job's pre-create backlog: beyond the cap the OLDEST entries drop
-    (keep-newest eviction, SpokeLogic.scala:31-35)."""
+    """Bounded ROW-accounted hold buffer: records held while a net is
+    paused (cooperative toggle), the spoke's pre-creation packed buffer and
+    the job's pre-create backlog. Beyond the cap the OLDEST rows drop
+    (keep-newest eviction, SpokeLogic.scala:31-35); a packed block
+    (``entry[0] == PACKED``) counts and trims by its rows, any other entry
+    counts as one row."""
 
     def __init__(self, cap: int):
         self.cap = cap
         self._entries: Deque[tuple] = collections.deque()
+        self._rows = 0
+
+    def __len__(self) -> int:
+        return self._rows
+
+    @property
+    def is_empty(self) -> bool:
+        return not self._entries
+
+    @staticmethod
+    def _entry_rows(entry) -> int:
+        if entry[0] == PACKED:
+            return int(entry[1][0].shape[0])
+        return 1
 
     def append(self, entry: tuple) -> None:
         self._entries.append(entry)
-        while len(self._entries) > self.cap:
-            self._entries.popleft()
+        self._rows += self._entry_rows(entry)
+        while self._entries and self._rows > self.cap:
+            excess = self._rows - self.cap
+            head = self._entries[0]
+            n = self._entry_rows(head)
+            if n <= excess:
+                self._entries.popleft()
+                self._rows -= n
+            else:
+                px, py, pop = head[1]
+                self._entries[0] = (
+                    PACKED,
+                    (px[excess:].copy(), py[excess:].copy(), pop[excess:].copy()),
+                    None, None,
+                )
+                self._rows -= excess
 
     def peek(self):
         """Oldest held entry, or None."""
@@ -76,6 +127,7 @@ class _PauseBuffer:
 
     def drain(self) -> List[tuple]:
         entries, self._entries = list(self._entries), collections.deque()
+        self._rows = 0
         return entries
 
 
@@ -86,6 +138,7 @@ class SpokeNet:
                  dim: int, config: JobConfig, send, device,
                  timer: Optional[StepTimer] = None):
         self.request = request
+        self.dim = dim
         self._timer = timer
         tc = request.training_configuration
         self.protocol = resolve_protocol(
@@ -98,9 +151,11 @@ class SpokeNet:
             # padded-COO featurization: dense slots + hashed categoricals in
             # a wide index space (SparseVector parity,
             # DataPointParser.scala:4,20-47)
-            max_nnz = int(ds.get("maxNnz", 64))
-            self.vectorizer = SparseVectorizer(dim, int(ds.get("hashSpace", 0)), max_nnz)
-            self.batcher = SparseMicroBatcher(max_nnz, batch)
+            self.max_nnz = int(ds.get("maxNnz", 64))
+            self.vectorizer = SparseVectorizer(
+                dim, int(ds.get("hashSpace", 0)), self.max_nnz
+            )
+            self.batcher = SparseMicroBatcher(self.max_nnz, batch)
         else:
             self.vectorizer = Vectorizer(dim, int(tc.extra.get("hashDims", 0)))
             self.batcher = MicroBatcher(dim, batch)
@@ -113,6 +168,16 @@ class SpokeNet:
         self.program_launches = 0
         pipeline.on_launch = self._note_launch
         self.serve_stats = ServeStats()
+        # adaptive-batching serving (runtime/serving.py): when armed, this
+        # net's forecasts queue here and serve in batched predicts; None
+        # keeps the immediate per-record predict. The hosting Spoke attaches
+        # its plane at create time.
+        self.serving = serving_config(tc, config.serving)
+        self.serve_queue = ServeQueue()
+        self._plane: Optional[ServingPlane] = None
+        # padded predict scratch, reused by every serve path
+        self._scratch = None
+        self._scratch_dirty = 0
         # (x, y) points; x is a dense row or a sparse (idx, val) pair
         self.test_set: DataSet[Tuple[Any, float]] = DataSet(config.test_set_size)
         self.holdout_count = 0
@@ -127,7 +192,44 @@ class SpokeNet:
     def _note_launch(self) -> None:
         self.program_launches += 1
 
+    def predict_pad(self, n: int):
+        """A zeroed padded predict batch with >= ``n`` writable rows from
+        the net's scratch: ``[B', dim]`` (a sparse net: an ``(idx, val)``
+        pair), ``B'`` the power of two at or above ``n`` and at least
+        PREDICT_BATCH. Only the rows the previous use dirtied are zeroed
+        again; the caller fills rows ``[0, n)``. A predict is done reading
+        it when it returns (a synchronous host-to-device copy on a card),
+        so reuse is safe."""
+        b = PREDICT_BATCH
+        while b < n:
+            b <<= 1
+        if self.sparse:
+            if self._scratch is None or self._scratch[0].shape[0] < b:
+                self._scratch = (
+                    np.zeros((b, self.max_nnz), np.int32),
+                    np.zeros((b, self.max_nnz), np.float32),
+                )
+                self._scratch_dirty = 0
+            ib, vb = self._scratch
+            if self._scratch_dirty:
+                ib[: self._scratch_dirty] = 0
+                vb[: self._scratch_dirty] = 0.0
+            self._scratch_dirty = n
+            return ib[:b], vb[:b]
+        if self._scratch is None or self._scratch.shape[0] < b:
+            self._scratch = np.zeros((b, self.dim), np.float32)
+            self._scratch_dirty = 0
+        if self._scratch_dirty:
+            self._scratch[: self._scratch_dirty] = 0.0
+        self._scratch_dirty = n
+        return self._scratch[:b]
+
     def flush_batch(self) -> None:
+        if self.serving is not None and self.serve_queue.entries and len(self.batcher):
+            # this net's model is about to change (the pending rows will
+            # dispatch a fit): exact-mode serving drains the queue NOW with
+            # the pre-fit parameters; relaxed mode counts the chunk
+            self._plane.fence(self)
         flushed = self.batcher.flush()
         if flushed is None:
             return
@@ -164,6 +266,8 @@ class Spoke:
         # (network_id, hub_id, counter, value): an int for the additive
         # counters, a (p50, p99, p999) triple for serve_latency_ms
         note_wire: Optional[Callable[[int, int, str, Any], None]] = None,
+        # bulk twin of emit_prediction, one call per serving flush
+        emit_predictions: Optional[Callable[[List[Prediction]], None]] = None,
     ):
         self.worker_id = worker_id
         self.config = config
@@ -174,11 +278,18 @@ class Spoke:
         self.serve_timer = StepTimer("serve_flush", cap=65536)
         self._send_to_hub = send_to_hub
         self._emit_prediction = emit_prediction
+        self._emit_predictions = emit_predictions
         self._emit_response = emit_response
         self._on_poll = on_poll
         self._note_wire = note_wire
-        # pre-creation buffering (SpokeLogic.scala:31-35)
+        # the serving plane, created with the first serving-armed net; the
+        # flag gates every hot-path hook (one attribute read when unarmed)
+        self.serving_plane: Optional[ServingPlane] = None
+        self._any_serving = False
+        # pre-creation buffering (SpokeLogic.scala:31-35): records, and
+        # whole packed blocks under the same row cap
         self.record_buffer: DataSet[DataInstance] = DataSet(config.record_buffer_cap)
+        self._packed_buffer = _PauseBuffer(config.record_buffer_cap)
         self._poll_counter = 0
 
     # --- control path (FlinkSpoke.processElement2) ---
@@ -202,15 +313,42 @@ class Spoke:
             self._make_send(request.id), self.device, timer=self.step_timer,
         )
         self.nets[request.id] = net
+        if net.serving is not None:
+            net._plane = self._ensure_serving_plane()
         # drain buffered records (FlinkSpoke.scala:69-80)
         if len(self.record_buffer):
             buffered = self.record_buffer.to_list()
             self.record_buffer.clear()
             for inst in buffered:
                 self.handle_data(inst)
+        if not self._packed_buffer.is_empty:
+            for _op, block, _t, _i in self._packed_buffer.drain():
+                self.handle_packed(*block)
+
+    def _ensure_serving_plane(self) -> ServingPlane:
+        if self.serving_plane is None:
+            self.serving_plane = ServingPlane(
+                self._emit_prediction,
+                emit_predictions=self._emit_predictions,
+                timer=self.serve_timer,
+            )
+        self._any_serving = True
+        return self.serving_plane
+
+    def poll_serving(self) -> None:
+        """Serving-plane boundary tick: fill-triggered flushes and the
+        maxDelayMs deadline. Runs after every data event and from the job's
+        silence check; one flag read when no hosted net is armed."""
+        if self._any_serving:
+            self.serving_plane.maybe_fill_flush()
+            self.serving_plane.poll()
 
     def _delete(self, network_id: int) -> None:
-        self.nets.pop(network_id, None)
+        net = self.nets.pop(network_id, None)
+        if net is not None and net.serving is not None and net.serve_queue.entries:
+            # pending forecasts serve through the departing model first --
+            # the per-record path would have answered them already
+            self.serving_plane.flush_net(net)
         # a deleted net can no longer generate the hub RPCs that toggle its
         # siblings: resume + drain any survivor left paused
         for net in self.nets.values():
@@ -230,6 +368,7 @@ class Spoke:
         if not self.nets:
             self.record_buffer.append(inst)
             return
+        serve_entries: List[Tuple[SpokeNet, Any]] = []
         for net in list(self.nets.values()):
             x = net.vectorizer.vectorize(inst)
             if net.node.paused:
@@ -237,15 +376,265 @@ class Spoke:
                 held_inst = inst if inst.operation == FORECASTING else None
                 net.pause_buffer.append((inst.operation, x, inst.target, held_inst))
             elif inst.operation == FORECASTING:
-                self._serve(net, inst, x)
+                serve_entries.append((net, x))
             else:
                 self._train(net, x, 0.0 if inst.target is None else inst.target)
+        if serve_entries:
+            self._serve_many(inst, serve_entries)
+        self.poll_serving()
         if inst.operation != FORECASTING:
             # poll marker every 100 training records -- once per record, not
             # per hosted pipeline (FlinkSpoke.scala:83-89)
             self._poll_counter += 1
             if self.config.test and self._poll_counter % self.config.poll_every == 0:
                 self._on_poll()
+
+    # --- packed data path (bulk ingest: the native parser's rows, no
+    # per-record Python objects; semantics of handle_data on the same rows) ---
+
+    def handle_packed(self, x: np.ndarray, y: np.ndarray, op: np.ndarray) -> None:
+        """Bulk equivalent of handle_data for pre-vectorized rows.
+
+        ``x`` [n, W] float32, ``y`` [n] float32, ``op`` [n] uint8
+        (0 training, 1 forecasting). Produces the same per-net state as
+        feeding the rows one at a time (same holdout cycle, same batcher
+        fill order, same poll markers, forecasts served at their stream
+        position); pause (toggle) is honored at block granularity, and so
+        is cross-spoke protocol interleaving (the reference's Flink
+        rebalance gives no per-record cross-worker order either,
+        FlinkLearning.scala:83-88)."""
+        n = x.shape[0]
+        if n == 0:
+            return
+        if not self.nets:
+            # same keep-newest eviction as the per-record buffer
+            # (SpokeLogic.scala:31-35), row-accounted
+            self._packed_buffer.append((PACKED, (x, y, op), None, None))
+            return
+        f_idx = np.nonzero(op != 0)[0]
+        for net in list(self.nets.values()):
+            if net.node.paused:
+                # hold the whole block; drains via _drain_pause_buffer
+                net.pause_buffer.append((PACKED, (x, y, op), None, None))
+                continue
+            self._process_packed_for_net(net, x, y, f_idx)
+        self.poll_serving()
+        nt = n - int(f_idx.size)
+        if nt:
+            pc = self._poll_counter
+            self._poll_counter += nt
+            if self.config.test:
+                pe = self.config.poll_every
+                for _ in range(self._poll_counter // pe - pc // pe):
+                    self._on_poll()
+
+    def buffered_packed_dim(self) -> Optional[int]:
+        """Feature width of buffered pre-creation packed rows, if any."""
+        head = self._packed_buffer.peek()
+        if head is not None:
+            return int(head[1][0].shape[1])
+        return None
+
+    def _process_packed_for_net(self, net: SpokeNet, x, y, f_idx) -> None:
+        """One net's share of a packed block: serve each forecast at its
+        stream position (train the rows before it first), matching the
+        per-record order. A serving-armed dense net takes the bulk
+        span-admission walker instead."""
+        if self._process_packed_serving_bulk(net, x, y, f_idx):
+            return
+        n = x.shape[0]
+        prev = 0
+        for f in f_idx:
+            f = int(f)
+            if f > prev:
+                self._train_packed(net, x[prev:f], y[prev:f])
+            self._serve_packed(net, x, np.asarray([f]))
+            if self._any_serving:
+                self.serving_plane.maybe_fill_flush()
+            prev = f + 1
+        if prev < n:
+            self._train_packed(net, x[prev:], y[prev:])
+
+    def _process_packed_serving_bulk(self, net: SpokeNet, x, y, f_idx) -> bool:
+        """Serving-plane fast path for a dense serving-armed net: the
+        per-position serve loop collapses into span-wise bulk admission
+        between batcher-fill boundaries.
+
+        Exactness: a queued forecast's answer depends only on the
+        parameters at its flush, and the fence flushes the queue before any
+        fit dispatches, so admission order relative to the TRAINING rows
+        between two fills does not matter. The walker feeds training rows
+        in fill-sized chunks and, before each chunk, admits every forecast
+        positioned before the row that would complete the fill: a fence
+        the chunk triggers then flushes exactly the forecasts the
+        per-record path would have served before that fit. (With holdout
+        sampling the real fill lands at or after the chunk end: the bound
+        is conservative, never early.) Returns False when the net does not
+        qualify; the caller walks position by position."""
+        if f_idx.size == 0 or net.serving is None or net.sparse:
+            return False
+        plane = self.serving_plane
+        b0 = net.batcher.batch_size
+        n = x.shape[0]
+        t_mask = np.ones((n,), bool)
+        t_mask[f_idx] = False
+        t_idx = np.nonzero(t_mask)[0]
+        rows = self._adapt_width(x[f_idx], net.dim)
+
+        def admit(lo: int, hi: int) -> None:
+            # one enqueue clock per span (every row of it becomes servable
+            # now), then flush at once if the queue filled: flushing
+            # EARLIER than the fence is always exact
+            plane.admit_rows(net, rows[lo:hi], plane._clock())
+            plane.maybe_fill_flush()
+
+        fi = 0  # forecasts admitted so far (index into f_idx)
+        ti = 0  # training rows fed so far (index into t_idx)
+        while ti < t_idx.size:
+            room = max(b0 - len(net.batcher), 1)
+            chunk = t_idx[ti : ti + room]
+            ti += chunk.size
+            hi = fi + int(np.searchsorted(f_idx[fi:], int(chunk[-1])))
+            if hi > fi:
+                admit(fi, hi)
+                fi = hi
+            self._train_packed(net, x[chunk], y[chunk])
+        if fi < f_idx.size:
+            admit(fi, f_idx.size)
+        return True
+
+    @staticmethod
+    def _adapt_width(rows: np.ndarray, dim: int) -> np.ndarray:
+        """Pad/truncate packed rows to a net's feature width (nets created
+        with a different dim than the packed stream still train)."""
+        w = rows.shape[1]
+        if w == dim:
+            return rows
+        if w > dim:
+            return rows[:, :dim]
+        out = np.zeros((rows.shape[0], dim), np.float32)
+        out[:, :w] = rows
+        return out
+
+    @staticmethod
+    def _dense_rows_to_coo(rows: np.ndarray, max_nnz: int):
+        """Dense packed rows -> per-row padded COO (for sparse nets fed by
+        the dense bulk-ingest route; nonzeros beyond the budget truncate)."""
+        n = rows.shape[0]
+        idx = np.zeros((n, max_nnz), np.int32)
+        val = np.zeros((n, max_nnz), np.float32)
+        for i in range(n):
+            nz = np.nonzero(rows[i])[0][:max_nnz]
+            idx[i, : nz.size] = nz
+            val[i, : nz.size] = rows[i, nz]
+        return idx, val
+
+    def _holdout_filter(
+        self, net: SpokeNet, tx: np.ndarray, ty: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized 8-of-10 holdout split over a packed segment; evicted
+        test points re-enter the training flow at the slot of the row that
+        evicted them. Identity when test mode is off."""
+        if not self.config.test:
+            return tx, ty
+        n = tx.shape[0]
+        c = (net.holdout_count + np.arange(n)) % 10
+        net.holdout_count += n
+        test_mask = c >= 8
+        keep_idx = np.nonzero(~test_mask)[0]
+        ev_x: List[np.ndarray] = []
+        ev_y: List[float] = []
+        ev_pos: List[int] = []
+        for i in np.nonzero(test_mask)[0]:
+            evicted = net.test_set.append((tx[i].copy(), float(ty[i])))
+            if evicted is not None:
+                ev_x.append(evicted[0])
+                ev_y.append(evicted[1])
+                ev_pos.append(int(i))
+        if ev_pos:
+            pos = np.concatenate([keep_idx, np.asarray(ev_pos)])
+            order = np.argsort(pos, kind="stable")
+            tx = np.concatenate([tx[keep_idx], np.stack(ev_x)])[order]
+            ty = np.concatenate([ty[keep_idx], np.asarray(ev_y, np.float32)])[order]
+        else:
+            tx = tx[keep_idx]
+            ty = ty[keep_idx]
+        return tx, ty
+
+    def _train_packed(self, net: SpokeNet, tx: np.ndarray, ty: np.ndarray) -> None:
+        n = tx.shape[0]
+        if n == 0:
+            return
+        if net.sparse:
+            # the packed stream is dense-featured; sparse nets re-sparsify
+            # row by row (categorical-rich streams take the per-record
+            # route upstream, __main__._packed_training_source)
+            sidx, sval = self._dense_rows_to_coo(tx, net.max_nnz)
+            for i in range(n):
+                self._train(net, (sidx[i], sval[i]), float(ty[i]))
+            return
+        tx = self._adapt_width(tx, net.dim)
+        tx, ty = self._holdout_filter(net, tx, ty)
+        i = 0
+        total = tx.shape[0]
+        while i < total:
+            i += net.batcher.add_many(tx[i:], ty[i:])
+            if net.batcher.full:
+                net.flush_batch()
+
+    def _serve_packed(self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray) -> None:
+        if net.serving is not None:
+            self._queue_packed(net, x, f_idx)
+            return
+        self._serve_packed_baseline(net, x, f_idx)
+
+    def _serve_packed_baseline(
+        self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray
+    ) -> None:
+        """Immediate packed-route serving: PREDICT_BATCH rows a predict."""
+        if net.sparse:
+            sidx, sval = self._dense_rows_to_coo(x[f_idx], net.max_nnz)
+            for j in range(f_idx.size):
+                inst = DataInstance(
+                    numerical_features=x[int(f_idx[j])].tolist(),
+                    operation=FORECASTING,
+                )
+                self._serve(net, inst, (sidx[j], sval[j]))
+            return
+        rows = self._adapt_width(x[f_idx], net.dim)
+        for s in range(0, f_idx.size, PREDICT_BATCH):
+            chunk = rows[s : s + PREDICT_BATCH]
+            t0 = time.perf_counter()
+            xb = net.predict_pad(chunk.shape[0])
+            xb[: chunk.shape[0]] = chunk
+            with self.serve_timer:
+                preds = net.node.on_forecast_batch(xb)
+            for j in range(chunk.shape[0]):
+                inst = DataInstance(
+                    numerical_features=chunk[j].tolist(), operation=FORECASTING,
+                )
+                self._emit_prediction(Prediction(net.request.id, inst, float(preds[j])))
+            lat = (time.perf_counter() - t0) * 1000.0
+            for _ in range(chunk.shape[0]):
+                net.serve_stats.note(lat)
+
+    def _queue_packed(self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray) -> None:
+        """Admit packed-route forecast rows into the net's serving queue.
+        Dense rows defer the DataInstance to emission; sparse rows carry it
+        (its features are the pre-COO dense row)."""
+        plane = self.serving_plane
+        if net.sparse:
+            sidx, sval = self._dense_rows_to_coo(x[f_idx], net.max_nnz)
+            for j in range(f_idx.size):
+                inst = DataInstance(
+                    numerical_features=x[int(f_idx[j])].tolist(),
+                    operation=FORECASTING,
+                )
+                plane.admit(net, inst, (sidx[j], sval[j]))
+            return
+        rows = self._adapt_width(x[f_idx], net.dim)
+        for j in range(rows.shape[0]):
+            plane.admit(net, None, rows[j])
 
     def _train(self, net: SpokeNet, x, y: float) -> None:
         # float32 boundary clamp for the target (the features are clamped
@@ -264,15 +653,34 @@ class Spoke:
             net.flush_batch()
 
     def _serve(self, net: SpokeNet, inst: DataInstance, x) -> None:
-        """One forecast as a one-row predict (a sparse record as the pair
-        ``(idx[None], val[None])``); reading the value back waits for the
-        device (one sync per forecast)."""
+        """One forecast as a padded predict (a sparse record as an
+        ``(idx, val)`` pair); reading the value back waits for the device
+        (one sync per forecast)."""
         t0 = time.perf_counter()
-        xb = (x[0][None], x[1][None]) if net.sparse else x[None]
+        if net.sparse:
+            ib, vb = net.predict_pad(1)
+            ib[0], vb[0] = x
+            xb = (ib, vb)
+        else:
+            xb = net.predict_pad(1)
+            xb[0] = x
         with self.serve_timer:
             preds = net.node.on_forecast_batch(xb)
         self._emit_prediction(Prediction(net.request.id, inst, float(preds[0])))
         net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
+
+    def _serve_many(self, inst: DataInstance, entries) -> None:
+        """Serve one forecast record to many nets: serving-armed nets queue
+        it, the others answer at once, in the nets' order. (The JAX package
+        also gangs cohort members and routes canaries here.)"""
+        for net, x in entries:
+            if net.serving is not None:
+                self.serving_plane.admit(net, inst, x)
+        for net, x in entries:
+            if net.serving is None:
+                self._serve(net, inst, x)
+        if self._any_serving:
+            self.serving_plane.maybe_fill_flush()
 
     # --- query / termination (FlinkSpoke.scala:136-171) ---
 
@@ -288,6 +696,10 @@ class Spoke:
         """Evaluate on the holdout set and emit QueryResponse fragments --
         one per <= max_param_bucket_size model-parameter bucket
         (FlinkNetwork.scala:48-149,151-240)."""
+        if net.serving is not None and net.serve_queue.entries:
+            # pending forecasts emit BEFORE the response, as the
+            # per-record path would have
+            self.serving_plane.flush_net(net)
         net.flush_batch()
         test = net.test_arrays()
         if test is not None:
@@ -347,7 +759,8 @@ class Spoke:
     def handle_terminate_probe(self) -> None:
         """Termination probe: flush + evaluate every net, emit responseId -1
         fragments (FlinkSpoke.scala:136-138) and let worker nodes push final
-        state. Paused nets resume and drain first."""
+        state. Paused nets resume and drain first; the serving plane's
+        queues are empty afterwards."""
         for net in list(self.nets.values()):
             if net.node.paused:
                 net.node.paused = False
@@ -355,12 +768,18 @@ class Spoke:
             net.flush_batch()
             net.node.on_flush()
             self.emit_query_response(net, TERMINATION_RESPONSE_ID)
+        if self.serving_plane is not None:
+            self.serving_plane.flush_all()
 
     def receive_from_hub(self, network_id: int, hub_id: int, op: str,
                          payload: Any) -> None:
         net = self.nets.get(network_id)
         if net is None:
             return
+        if net.serving is not None and net.serve_queue.entries:
+            # a hub payload may replace this net's model: exact-mode
+            # serving drains the queue with the parameters before it
+            self.serving_plane.fence(net)
         net.node.deliver(op, payload, hub_id)
         # cooperative multi-pipeline fairness: every hub RPC for one net
         # TOGGLES the others (FlinkSpoke.scala:127-131); a net that just
@@ -373,8 +792,18 @@ class Spoke:
                 self._drain_pause_buffer(other)
 
     def _drain_pause_buffer(self, net: SpokeNet) -> None:
+        if net.pause_buffer.is_empty:
+            return
         for operation, x, target, inst in net.pause_buffer.drain():
-            if operation == FORECASTING:
-                self._serve(net, inst, x)
+            if operation == PACKED:
+                px, py, pop = x
+                self._process_packed_for_net(net, px, py, np.nonzero(pop != 0)[0])
+            elif operation == FORECASTING:
+                if net.serving is not None:
+                    self.serving_plane.admit(net, inst, x)
+                else:
+                    self._serve(net, inst, x)
             else:
                 self._train(net, x, 0.0 if target is None else target)
+        if self._any_serving:
+            self.serving_plane.maybe_fill_flush()

@@ -118,6 +118,9 @@ class SparseMicroBatcher:
         self._y = np.zeros((batch_size,), np.float32)
         self._n = 0
 
+    def __len__(self) -> int:
+        return self._n
+
     @property
     def full(self) -> bool:
         return self._n >= self.batch_size
@@ -154,6 +157,9 @@ class MicroBatcher:
         self._y = np.zeros((batch_size,), np.float32)
         self._n = 0
 
+    def __len__(self) -> int:
+        return self._n
+
     @property
     def full(self) -> bool:
         return self._n >= self.batch_size
@@ -162,6 +168,16 @@ class MicroBatcher:
         self._x[self._n] = x
         self._y[self._n] = y
         self._n += 1
+
+    def add_many(self, x: np.ndarray, y: np.ndarray) -> int:
+        """Bulk-add up to the remaining capacity; returns #rows taken.
+        Callers loop: take, flush when full, repeat with the rest."""
+        take = min(self.batch_size - self._n, x.shape[0])
+        if take > 0:
+            self._x[self._n : self._n + take] = x[:take]
+            self._y[self._n : self._n + take] = y[:take]
+            self._n += take
+        return take
 
     def flush(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Return the padded (x, y, mask) batch and reset; None if empty."""

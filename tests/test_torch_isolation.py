@@ -26,6 +26,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, omldm_tpu_torch, omldm_tpu_torch.runtime.job\n"
         "import omldm_tpu_torch.models, omldm_tpu_torch.parallel\n"
+        "import omldm_tpu_torch.__main__, omldm_tpu_torch.ops.native\n"
+        "import omldm_tpu_torch.runtime.fast_ingest, omldm_tpu_torch.runtime.prefetch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'omldm_tpu' or m.startswith('omldm_tpu.')]\n"
         "assert not bad, bad\n"
@@ -259,7 +261,7 @@ def test_chip_smoke_copy_task_stream():
 
 
 @pytest.mark.parametrize("option", [
-    {"serving": "on"}, {"overload": "on"}, {"lifecycle": "on"},
+    {"overload": "on"}, {"lifecycle": "on"},
     {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
     {"chaos": "seed=1,drop=0.1"}, {"checkpointing": True}, {"cohort": "on"},
     {"cohort_shards": "auto"},
@@ -309,7 +311,8 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
     (_create(preps=("MinMaxScaler",)), "preprocessor 'MinMaxScaler' is not yet ported"),
     (_create(protocol="Synchronous"), "protocol 'Synchronous' is not yet ported"),
     (_create(guard=True), "guard"),
-    (_create(serving={"maxBatch": 8}), "serving"),
+    (_create(serving={"maxBatch": 0}), "serving.maxBatch must be >= 1"),
+    (_create(serving={"maxBatch": 8, "nope": 1}), "unknown serving knob"),
     (_create(comm={"codec": "topk"}), "codec"),
     (_create(comm={"reliable": True}), "reliable"),
     (_create(engine="spmd"), "spmd"),
@@ -321,6 +324,56 @@ def test_control_gate_rejects_unported(request_json, reason):
     assert entry["reason"] == "rejected_request"
     assert reason in entry["detail"]
     assert job.pipeline_manager.live_pipelines == []
+
+
+def test_serving_plane_is_ported():
+    """A serving table and the job-wide serving default are admitted; a bad
+    job-wide default fails at construction, as in the JAX package."""
+    job = StreamJob(JobConfig(parallelism=2, serving="maxBatch=8"), device="cpu")
+    job.run([("requests", _create(serving={"maxBatch": 4}))])
+    assert job.pipeline_manager.live_pipelines == [0] and not job.dead_letter.entries
+    with pytest.raises(ValueError, match="staleness"):
+        StreamJob(JobConfig(serving="staleness=eventual"), device="cpu")
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--meshShape", "dp=2,hub=1"], "meshShape"),
+    (["--checkpointDir", "ckpt"], "checkpointDir"),
+    (["--stateBackend", "ckpt"], "stateBackend"),
+    (["--checkInterval", "100"], "checkInterval"),
+    (["--computeDtype", "bfloat16"], "computeDtype"),
+    (["--maxMsgParams", "2000"], "maxMsgParams"),
+    (["--cohortMin", "4"], "cohortMin"),
+    (["--blackboxPath", "bb"], "blackboxPath"),
+    (["--kafkaBrokers", "localhost:9092"], "kafkaBrokers"),
+    (["--processes", "2"], "processes"),
+    (["--processId", "0"], "processId"),
+    (["--coordinator", "localhost:1234"], "coordinator"),
+    (["--supervise"], "supervise"),
+    (["--restartAttempts", "2"], "restartAttempts"),
+    (["--profileDir", "prof"], "profileDir"),
+    (["--compileCache", "off"], "compileCache"),
+    (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
+    (["--ingest", "shards=2"], "ingest"),
+])
+def test_cli_refuses_unported_flags(argv, flag, tmp_path):
+    """A CLI flag whose route or knob the port lacks raises SystemExit
+    naming it, before any job is built (the JAX CLI would honour it)."""
+    from omldm_tpu_torch.__main__ import main
+
+    train = tmp_path / "t.jsonl"
+    train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
+    with pytest.raises(SystemExit, match=flag):
+        main(["--trainingData", str(train), "--device", "cpu", *argv])
+
+
+def test_cli_accepts_zero_restart_attempts(tmp_path):
+    from omldm_tpu_torch.__main__ import main
+
+    train = tmp_path / "t.jsonl"
+    train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
+    assert main(["--trainingData", str(train), "--device", "cpu", "--restartAttempts", "0",
+                 "--performanceOut", str(tmp_path / "perf.jsonl")]) == 0
 
 
 def test_parallelism_one_forces_an_unported_protocol():
@@ -379,6 +432,42 @@ def test_chip_smoke_sparse_shapes():
     avazu = chip_smoke.avazu_events(20, seed=0)
     assert json.loads(avazu[0][1])["learner"]["name"] == "Softmax"
     assert len(json.loads(avazu[1][1])["categoricalFeatures"]) == 21
+
+
+@pytest.mark.parametrize("phase", [
+    "phase_cli", "phase_cli_parity", "phase_serving", "phase_cli_sparse", "phase_cli_profile",
+])
+def test_chip_smoke_has_the_cli_phases(phase):
+    chip_smoke = _chip_smoke()
+    assert callable(getattr(chip_smoke, phase))
+    assert f"{phase}(" in (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+
+
+def test_cli_profile_functions_exist():
+    """Every function the CLI profile reports is defined where it says."""
+    chip_smoke = _chip_smoke()
+    for label, suffix, name in chip_smoke.CLI_PROFILE_FUNCS:
+        path = ROOT / suffix if suffix.startswith("omldm_tpu_torch/") else (
+            ROOT / "omldm_tpu_torch" / suffix)
+        assert f"def {name}(" in path.read_text(), label
+
+
+def test_chip_smoke_stream_files(tmp_path):
+    """Phase 17's files: requests in the requests file, every data record in
+    stream order in the training file with the forecasts marked inline; the
+    forecasts' workers follow the round-robin deal from row 0."""
+    chip_smoke = _chip_smoke()
+    events = chip_smoke.make_events(45, seed=0, query_at=20)
+    train, reqs = chip_smoke.write_stream_files(events, tmp_path, "t")
+    assert [json.loads(line)["request"] for line in reqs.read_text().splitlines()] == \
+        ["Create", "Query"]
+    rows = [json.loads(line) for line in train.read_text().splitlines()]
+    data = [json.loads(p) for s, p in events if s != "requests"]
+    assert len(rows) == len(data) == 50
+    assert [r.get("operation", "training") for r in rows] == \
+        ["forecasting" if i % 10 == 9 else "training" for i in range(50)]
+    workers = chip_smoke.forecast_workers(events, 16)
+    assert sorted(workers.values()) == sorted(i % 16 for i in range(9, 50, 10))
 
 
 def test_chip_smoke_scatter_bound():
