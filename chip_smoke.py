@@ -128,9 +128,43 @@ Phases (any failure raises and the script exits nonzero without a result):
                  (no block through the dense parser) and the plane's sparse
                  flush; scatter_add launched once per fit, holdout accuracy
                  > 0.6; records/s beside phase 14's.
+ 21. learners    StreamJob on cuda, fed as protocol_comparison.py feeds it
+                 (blocks of 8,192 packed rows, every tenth a forecast), one
+                 run each of LEARNER_RUNS: BASELINE configs 1 (Softmax, lr
+                 0.05, StandardScaler, 28 features), 2 (ORR, lambda 1,
+                 StandardScaler, 90 features, a regression target) and 4
+                 (SVM, lambda 1e-4, rffDim 512, gamma 0.5, 18 features), at
+                 parallelism 1 (CentralizedTraining) and batch 4096; the
+                 bench job's Softmax under Synchronous at parallelism 16,
+                 batch 4096; RegressorPA (perRecord), NN at its defaults,
+                 MultiClassPA (3 classes), K-means (k 2) and HT (both
+                 forced onto SingleLearner), PA behind MinMaxScaler and
+                 behind PolynomialFeatures (28 -> 434 wide) at parallelism
+                 16, batch 256: records/s, score
+                 (above SCORE_FLOORS), programLaunches; every state tensor
+                 on cuda, HT's tree on the host;
+ 22. protocols   protocol_comparison.py's host section: PA (C 1.0), 28
+                 features, parallelism 16, batch 256, testSetSize 64,
+                 syncEvery 4, 50,000 records through process_packed_batch,
+                 once per protocol (all 8): records/s, score, bytesShipped,
+                 modelsShipped, numOfBlocks; then Synchronous with
+                 perRecord (pa_scan once per fit) and phase 14's sparse
+                 PA-II under Synchronous, 20,000 records (scatter_add once
+                 per fit);
+ 23. protocol-parity the first --parity-records rows of each phase-22
+                 protocol run and each phase-21 learner run at parallelism
+                 4, batch 256, on cuda and on cpu: integer statistics
+                 equal, >= 99% of predictions (the emitted ones and every
+                 pipeline's on 512 probe rows) equal (regression values
+                 within rtol 1e-3, atol 1e-3), parameters within W_RTOL,
+                 W_ATOL (ORR's statistics: within W_RTOL of their largest
+                 magnitude, PARITY_SCALED says why).
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
-the record route's vectorize, holdout, stage, fit, serve, the sink); then the slice's and the sparse
+the record route's vectorize, holdout, stage, fit, serve, the sink); after
+phase 23: the HOST_PLANE_PROFILES runs of phases 21 and 22 under cProfile
+and torch.profiler (host seconds by function, device busy time and the
+idle share against the unprofiled run); then the slice's and the sparse
 stream's runs under cProfile (host time by function) and torch.profiler
 (device busy time), then 4 LM steps under torch.profiler (device busy
 time, the flash kernels' share, the top kernels); tables are written into
@@ -503,7 +537,10 @@ def phase_time(torch, pa_scan):
 
 
 def _pipelines(job):
-    return [net.pipeline for spoke in job.spokes for net in spoke.nets.values()]
+    """The workers' pipelines and a SingleLearner hub's."""
+    pipes = [net.pipeline for spoke in job.spokes for net in spoke.nets.values()]
+    return pipes + [h.node.pipeline for h in job.hub_manager.hubs.values()
+                    if getattr(h.node, "pipeline", None) is not None]
 
 
 SLICE_CONFIG = dict(parallelism=16, batch_size=256)
@@ -1699,15 +1736,6 @@ def _cli_counts(job):
     return stats, fits, serves, stats.program_launches - fits - serves
 
 
-def _check_on_device(job, label):
-    for pipe in _pipelines(job):
-        tensors = [pipe.state["fitted"], pipe.state["cum_loss"]]
-        tensors += list(pipe.state["params"].values())
-        tensors += [t for s in pipe.state["preps"] for t in s.values()]
-        check(all(t.device.type == "cuda" for t in tensors),
-              f"{label}: a pipeline state tensor is not on cuda")
-
-
 def _by_worker(preds, workers):
     """Each worker's predictions, in emission order: (features, value)."""
     import numpy as np
@@ -1760,7 +1788,7 @@ def phase_cli(torch, pa_scan, fast_ingest, events, out_dir: Path, slice_wall):
     check(stats.score > 0.6, f"cli: holdout accuracy {stats.score} is not above chance")
     check([r.data_fitted for r in job.responses] == [0],
           "cli: the Query was not answered once, before training")
-    _check_on_device(job, "cli")
+    _check_placement(torch, job, "cli")
     return {"train": train, "requests": reqs, "wall": wall, "preds": preds, "stats": stats,
             "records": len(events), "workers": forecast_workers(events, p)}
 
@@ -1846,7 +1874,7 @@ def phase_serving(torch, pa_scan, fast_ingest, cli, out_dir: Path):
         "phase 17's (same record, same worker)")
     check(mismatches <= 0.01 * len(preds),
           "serving: more than 1% of values differ from phase 17's")
-    _check_on_device(job, "serving")
+    _check_placement(torch, job, "serving")
     return serves, mismatches
 
 
@@ -1939,6 +1967,404 @@ def phase_cli_profile(torch, cli, cli_sparse, out_dir: Path):
             log(f"  {tt:.3f} s self, {nc} calls: {Path(path).name}:{line} {name}")
 
 
+# --- the learners and protocols of the host plane (phases 21-23) ---------------
+
+# (name, learner, preprocessors, trainingConfiguration, parallelism, batch,
+# records, data kind, width): BASELINE
+# configs 1, 2 and 4 (benchmarks/run_benchmarks.py:95-130; one pipeline, so
+# parallelism 1, their batch 4096), the bench job's Softmax under
+# Synchronous (:857-877; engine left at host), then every other learner and
+# preprocessor at the reference's parallelism 16.
+LEARNER_RUNS = [
+    ("config1_softmax", {"name": "Softmax",
+                         "hyperParameters": {"learningRate": 0.05, "nClasses": 2}},
+     ["StandardScaler"], {}, 1, 4096, 100_000, "higgs", 28),
+    ("config2_orr", {"name": "ORR", "hyperParameters": {"lambda": 1.0}},
+     ["StandardScaler"], {}, 1, 4096, 100_000, "regression", 90),
+    ("config4_rff_svm", {"name": "SVM", "hyperParameters": {"lambda": 1e-4},
+                         "dataStructure": {"rffDim": 512, "gamma": 0.5}},
+     [], {}, 1, 4096, 100_000, "binary", 18),
+    ("bench_softmax_sync", {"name": "Softmax",
+                            "hyperParameters": {"learningRate": 0.05, "nClasses": 2}},
+     [], {"protocol": "Synchronous"}, 16, 4096, 400_000, "binary", 28),
+    ("regressor_pa", {"name": "RegressorPA", "hyperParameters": {"C": 0.1, "epsilon": 0.1}},
+     [], {"perRecord": True}, 16, 256, 20_000, "regression", 28),
+    ("nn", {"name": "NN"}, [], {}, 16, 256, 50_000, "nonlinear", 28),
+    ("multiclass_pa", {"name": "MultiClassPA", "hyperParameters": {"nClasses": 3}},
+     [], {}, 16, 256, 50_000, "multi3", 28),
+    ("kmeans", {"name": "K-means", "hyperParameters": {"k": 2}},
+     [], {}, 16, 256, 50_000, "clusters", 28),
+    ("ht", {"name": "HT"}, [], {}, 16, 256, 50_000, "axis", 28),
+    ("minmax_pa", {"name": "PA", "hyperParameters": {"C": 0.1}},
+     ["MinMaxScaler"], {}, 16, 256, 50_000, "binary", 28),
+    ("poly2_pa", {"name": "PA", "hyperParameters": {"C": 0.1}},
+     [("PolynomialFeatures", {"degree": 2})], {}, 16, 256, 50_000, "binary", 28),
+]
+# each run's holdout score must reach this (chance: 0.5 binary, 0.33 for
+# three classes; ORR and K-means score minus the RMS error). The RFF SVM has
+# none: pegasos at lambda 1e-4 takes ~22 steps of 4096 rows here, too few to
+# leave chance; phase 23 and the CPU tests hold its values instead.
+SCORE_FLOORS = {"config2_orr": -1.0, "regressor_pa": -0.8, "kmeans": -8.0,
+                "multiclass_pa": 0.5, "config4_rff_svm": 0.0}
+# protocol_comparison.py's host section (:87-130, defaults :1650-1653)
+PROTOCOL_ORDER = ("Asynchronous", "Synchronous", "SSP", "EASGD", "GM", "FGM",
+                  "CentralizedTraining", "SingleLearner")
+PROTOCOL_RUN = dict(records=50_000, parallelism=16, batch=256, test_set_size=64, sync_every=4)
+PROTOCOL_SPARSE_RECORDS = 20_000
+PACKED_CHUNK = 8192  # protocol_comparison.py's block of rows
+
+
+def learner_data(kind: str, n: int, width: int, seed: int):
+    """(x float32 [n, width], y float32 [n]) from a planted rule: kinds
+    "higgs" (phase 5's HIGGS-shaped rows), "binary" (a linear rule),
+    "nonlinear" (a linear rule plus a product term), "regression" (a linear
+    target of unit scale plus noise of 0.5), "multi3" (the argmax of three
+    linear scores), "clusters" (two Gaussian blobs), "axis" (a threshold on
+    one feature)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    if kind == "higgs":
+        x, y = higgs_like(n, rng)
+        return x.astype(np.float32), y.astype(np.float32)
+    x = rng.randn(n, width)
+    w = rng.randn(width)
+    if kind == "binary":
+        y = x @ w > 0
+    elif kind == "nonlinear":
+        y = x @ w + 2.0 * x[:, 0] * x[:, 1] > 0
+    elif kind == "regression":
+        y = x @ w / np.sqrt(width) + 0.5 * rng.randn(n)
+    elif kind == "multi3":
+        y = np.argmax(x @ rng.randn(width, 3), axis=1)
+    elif kind == "clusters":
+        centre = rng.randn(2, width) * 3.0
+        y = rng.randint(0, 2, n)
+        x = x + centre[y]
+    else:  # axis
+        y = x[:, 3] > 0.2
+    return x.astype(np.float32), np.asarray(y, np.float32)
+
+
+def _create(learner: dict, preps, tc: dict, width: int) -> dict:
+    learner = dict(learner)
+    learner["dataStructure"] = dict(learner.get("dataStructure", {}), nFeatures=width)
+    return {
+        "id": 0, "request": "Create", "learner": learner,
+        "preProcessors": [{"name": p} if isinstance(p, str) else
+                          {"name": p[0], "hyperParameters": p[1]} for p in preps],
+        "trainingConfiguration": tc,
+    }
+
+
+def run_packed(torch, create: dict, x, y, op, parallelism: int, batch: int, test_set_size: int,
+               device="cuda"):
+    """One StreamJob fed as protocol_comparison.py feeds it: the Create,
+    then blocks of PACKED_CHUNK pre-vectorized rows, then termination.
+    Returns (job, report, wall seconds)."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    job = StreamJob(JobConfig(parallelism=parallelism, batch_size=batch,
+                              test_set_size=test_set_size), device=device)
+    t0 = time.perf_counter()
+    job.process_event("requests", json.dumps(create))
+    for i in range(0, x.shape[0], PACKED_CHUNK):
+        job.process_packed_batch(x[i : i + PACKED_CHUNK], y[i : i + PACKED_CHUNK],
+                                 op[i : i + PACKED_CHUNK])
+    report = job.terminate()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return job, report, time.perf_counter() - t0
+
+
+def _check_placement(torch, job, label):
+    """Every tensor of every pipeline state on the job's device, except a
+    host-side learner's (HT): its pipeline lives on the host and its model
+    holds no tensor."""
+    from omldm_tpu_torch.pipelines.pipeline import _leaves
+
+    for pipe in _pipelines(job):
+        tensors = [pipe.state["fitted"], pipe.state["cum_loss"]]
+        tensors += [t for s in pipe.state["preps"] for t in _leaves(s)]
+        params = _leaves(pipe.state["params"])
+        if pipe.learner.host_side:
+            check(pipe.device.type == "cpu" and all(t.device.type == "cpu" for t in tensors)
+                  and not any(isinstance(p, torch.Tensor) for p in params),
+                  f"{label}: the host-side model is not on the host")
+            continue
+        tensors += params
+        check(all(t.device.type == job.device.type for t in tensors),
+              f"{label}: a pipeline state tensor is not on {job.device}")
+        check(all(bool(torch.isfinite(t).all()) for t in params if t.is_floating_point()),
+              f"{label}: a parameter is not finite")
+
+
+def _forecast_ops(n: int):
+    import numpy as np
+
+    op = np.zeros((n,), np.uint8)
+    op[9::10] = 1  # every tenth record a forecast
+    return op
+
+
+def phase_learners(torch, seed):
+    """Phase 21: each learner run on cuda; returns {name: summary}."""
+    import numpy as np
+
+    out = {}
+    for name, learner, preps, tc, par, batch, n, kind, width in LEARNER_RUNS:
+        x, y = learner_data(kind, n, width, seed)
+        op = _forecast_ops(n)
+        create = _create(learner, preps, tc, width)
+        job, report, wall = run_packed(torch, create, x, y, op, par, batch, 256)
+        label = f"learners[{name}]"
+        check(report is not None and not job.dead_letter.entries,
+              f"{label}: no statistics or a refusal: {list(job.dead_letter.entries)[:1]}")
+        [stats] = report.statistics
+        _check_placement(torch, job, label)
+        n_fore = int(op.sum())
+        preds = np.array([p.value for p in job.predictions])
+        check(len(preds) == n_fore == stats.forecasts_served,
+              f"{label}: {len(preds)} predictions for {n_fore} forecasts")
+        check(bool(np.isfinite(preds).all()), f"{label}: a prediction is not finite")
+        floor = SCORE_FLOORS.get(name, 0.6)
+        check(stats.fitted > 0.7 * n and np.isfinite(stats.score) and stats.score > floor,
+              f"{label}: fitted {stats.fitted}, score {stats.score} (floor {floor})")
+        out[name] = {
+            "protocol": stats.protocol, "parallelism": par, "batch": batch, "records": n,
+            "wall_s": wall, "records_per_s": n / wall, "score": stats.score,
+            "fitted": stats.fitted, "programLaunches": stats.program_launches,
+            "bytesShipped": stats.bytes_shipped,
+            "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+        }
+        log(f"learners: {name}: " + json.dumps(out[name]))
+    return out
+
+
+def protocol_stream(records: int):
+    """protocol_comparison.py's stream: 28 features from RandomState(0), the
+    labels of a planted rule from RandomState(42), all training."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    w = np.random.RandomState(42).randn(28)
+    x = rng.randn(records, 28).astype(np.float32)
+    return x, (x @ w > 0).astype(np.float32)
+
+
+def _protocol_create(protocol: str, per_record: bool = False) -> dict:
+    tc = {"protocol": protocol, "syncEvery": PROTOCOL_RUN["sync_every"]}
+    if per_record:
+        tc["perRecord"] = True
+    return _create({"name": "PA", "hyperParameters": {"C": 1.0}}, [], tc, 28)
+
+
+def phase_protocols(torch, pa_scan, sparse, seed, scatter_impl):
+    """Phase 22: the eight protocols on protocol_comparison.py's stream,
+    then pa_scan under Synchronous (perRecord) and scatter_add under
+    Synchronous (the sparse Create of phase 14); returns (rows, pa_scan
+    launches, scatter_add launches)."""
+    import numpy as np
+
+    r = PROTOCOL_RUN
+    x, y = protocol_stream(r["records"])
+    op = np.zeros((r["records"],), np.uint8)
+    # untimed warm-up, as protocol_comparison.py runs one
+    warm = min(r["parallelism"] * r["batch"] * 4, r["records"])
+    run_packed(torch, _protocol_create(PROTOCOL_ORDER[0]), x[:warm], y[:warm], op[:warm],
+               r["parallelism"], r["batch"], r["test_set_size"])
+    rows = {}
+    for protocol in PROTOCOL_ORDER:
+        job, report, wall = run_packed(torch, _protocol_create(protocol), x, y, op,
+                                       r["parallelism"], r["batch"], r["test_set_size"])
+        [stats] = report.statistics
+        check(stats.protocol == protocol, f"protocols: {protocol} resolved to {stats.protocol}")
+        _check_placement(torch, job, f"protocols[{protocol}]")
+        check(stats.fitted > 0.9 * r["records"] and stats.score > 0.8,
+              f"protocols[{protocol}]: fitted {stats.fitted}, score {stats.score}")
+        rows[protocol] = {
+            "records_per_s": r["records"] / wall, "wall_s": wall, "score": stats.score,
+            "fitted": stats.fitted, "bytesShipped": stats.bytes_shipped,
+            "modelsShipped": stats.models_shipped, "numOfBlocks": stats.num_of_blocks,
+            "programLaunches": stats.program_launches,
+        }
+        log(f"protocols: {protocol}: " + json.dumps(rows[protocol]))
+
+    pa_scan.launches = 0
+    job, report, wall = run_packed(torch, _protocol_create("Synchronous", per_record=True),
+                                   x, y, op, r["parallelism"], r["batch"], r["test_set_size"])
+    launches = pa_scan.launches
+    [stats] = report.statistics
+    fits = len(stats.learning_curve)
+    log(f"protocols: Synchronous perRecord: {r['records'] / wall:.0f} records/s, pa_scan "
+        f"launches {launches}, fits {fits}, score {stats.score:.4f}")
+    check(launches == fits > 0, f"protocols: pa_scan launches {launches} != per-record fits {fits}")
+
+    create = {
+        "id": 0, "request": "Create",
+        "learner": {"name": "PA", "hyperParameters": {"C": 0.1, "variant": "PA-II"},
+                    "dataStructure": {"sparse": True, "nFeatures": CRITEO_DIM,
+                                      "hashSpace": CRITEO_HASH, "maxNnz": CRITEO_NNZ}},
+        "trainingConfiguration": {"protocol": "Synchronous"},
+    }
+    events = criteo_events(PROTOCOL_SPARSE_RECORDS, seed, None, create=create,
+                           scatter_impl=scatter_impl)
+    # a Synchronous worker blocked on its round chains its backlog into one
+    # fit_many (one programLaunch, one fit a batch), so the fits are read
+    # from the learning curve alone
+    for name in sparse.launches:
+        sparse.launches[name] = 0
+    job, report, wall = _run_slice(torch, events)
+    scatter = dict(sparse.launches)
+    [stats] = report.statistics
+    fits = len(stats.learning_curve)
+    log(f"protocols: sparse Synchronous: {len(events) / wall:.0f} records/s, launches "
+        f"{scatter}, fits {fits}, score {stats.score:.4f}")
+    check(scatter["scatter_add"] == fits > 0
+          and all(n == 0 for k, n in scatter.items() if k != "scatter_add"),
+          f"protocols: sparse Synchronous: launches {scatter} against {fits} fits")
+    _check_placement(torch, job, "protocols[sparse Synchronous]")
+    check(stats.protocol == "Synchronous" and stats.score > 0.6
+          and len(job.predictions) == stats.forecasts_served > 0,
+          f"protocols: sparse Synchronous: {stats.protocol}, score {stats.score}")
+    return rows, launches, scatter["scatter_add"]
+
+
+# runs whose parameters are held to W_RTOL times their largest magnitude
+# instead of W_RTOL/W_ATOL entry by entry, and why: ORR's parameters are
+# the sums A = lambda*I + sum x x^T and b = sum y x over every row a worker
+# saw; summed in another order (cuBLAS against the CPU), an entry that
+# cancels to near zero keeps the rounding of partial sums thousands wide
+# (the JAX package's own tests hold ORR's statistics to rtol 1e-4 and its
+# solve to 1e-3).
+PARITY_SCALED = {"config2_orr"}
+
+
+def _parity_run(torch, create, x, y, op, test_set_size, device):
+    import numpy as np
+
+    job, report, _ = run_packed(torch, create, x, y, op, 4, 256, test_set_size, device)
+    [stats] = report.statistics
+    probe = x[:512]
+    flats, probes = [], []
+    for pipe in _pipelines(job):
+        probes.append(pipe.predict(probe).cpu().numpy())
+        if not pipe.learner.host_side:
+            flats.append(pipe.get_flat_params()[0])
+    preds = np.array([p.value for p in job.predictions] + [v for p in probes for v in p])
+    return stats, preds, flats
+
+
+def phase_protocol_parity(torch, seed, records: int):
+    """Phase 23: the first ``records`` rows of each phase-22 protocol run and
+    of each phase-21 learner run at parallelism 4, on cuda and on cpu."""
+    import numpy as np
+
+    x_p, y_p = protocol_stream(records)
+    runs = [(p, _protocol_create(p), x_p, y_p, np.zeros((records,), np.uint8),
+             PROTOCOL_RUN["test_set_size"], False) for p in PROTOCOL_ORDER]
+    for name, learner, preps, tc, _, _, _, kind, width in LEARNER_RUNS:
+        x, y = learner_data(kind, records, width, seed)
+        runs.append((name, _create(learner, preps, tc, width), x, y, _forecast_ops(records), 256,
+                     kind == "regression"))
+    worst = {}
+    for name, create, x, y, op, tss, regression in runs:
+        (sc, pc, fc), (sp, pp, fp) = (_parity_run(torch, create, x, y, op, tss, d)
+                                      for d in ("cuda", "cpu"))
+        dc, dp = sc.to_dict(), sp.to_dict()
+        ints = [k for k, v in dp.items() if isinstance(v, int) and not isinstance(v, bool)]
+        check([dc[k] for k in ints] == [dp[k] for k in ints],
+              f"protocol-parity[{name}]: integer statistics differ: "
+              + str({k: (dc[k], dp[k]) for k in ints if dc[k] != dp[k]}))
+        check(len(pc) == len(pp) > 0, f"protocol-parity[{name}]: prediction counts differ")
+        if regression:
+            mismatches = int((~np.isclose(pc, pp, rtol=1e-3, atol=1e-3)).sum())
+        else:
+            mismatches = int((pc != pp).sum())
+        err = max((float(np.abs(a - b).max()) for a, b in zip(fc, fp)), default=0.0)
+        worst[name] = (mismatches, len(pc), err)
+        log(f"protocol-parity: {name}: {records} records, fitted {dp['fitted']}, "
+            f"bytesShipped {dp['bytesShipped']}, prediction mismatches {mismatches}/{len(pc)}, "
+            f"params max|d|={err:.3e}")
+        check(mismatches <= 0.01 * len(pc), f"protocol-parity[{name}]: > 1% of predictions differ")
+        for a, b in zip(fc, fp):
+            close = (float(np.abs(a - b).max()) <= W_RTOL * float(np.abs(b).max())
+                     if name in PARITY_SCALED else np.allclose(a, b, rtol=W_RTOL, atol=W_ATOL))
+            check(close, f"protocol-parity[{name}]: params differ: max|d|={np.abs(a - b).max()}")
+    return worst
+
+
+# host functions the host-plane profile reports: (label, file suffix, function name)
+HOST_PLANE_PROFILE_FUNCS = [
+    ("packed deal (job.process_packed_batch)", "runtime/job.py", "process_packed_batch"),
+    ("holdout split", "runtime/spoke.py", "_holdout_filter"),
+    ("flush_batch (fits, sync points)", "runtime/spoke.py", "flush_batch"),
+    ("pipeline.fit", "pipelines/pipeline.py", "fit"),
+    ("pipeline.predict", "pipelines/pipeline.py", "predict"),
+    ("sync point: flat params to the host", "pipelines/pipeline.py", "get_flat_params"),
+    ("sync point: flat params to the device", "pipelines/pipeline.py", "set_flat_params"),
+    ("hub receive", "runtime/hub.py", "receive"),
+    ("terminate", "runtime/job.py", "terminate"),
+]
+# (label, phase-21 run or phase-22 protocol) profiled after phase 23
+HOST_PLANE_PROFILES = ["Synchronous", "GM", "SingleLearner", "nn", "ht", "config2_orr"]
+
+
+def phase_host_plane_profile(torch, seed, rows, out_dir: Path):
+    """Phase 21 and 22 runs under cProfile (host seconds by function) and
+    torch.profiler (device busy time against the unprofiled run's wall:
+    the idle share)."""
+    import cProfile
+    import io
+    import pstats
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = {name: run for name, *run in LEARNER_RUNS}
+    r = PROTOCOL_RUN
+    for label in HOST_PLANE_PROFILES:
+        if label in runs:
+            learner, preps, tc, par, batch, n, kind, width = runs[label]
+            x, y = learner_data(kind, n, width, seed)
+            args = (_create(learner, preps, tc, width), x, y, _forecast_ops(n), par, batch, 256)
+        else:
+            x, y = protocol_stream(r["records"])
+            args = (_protocol_create(label), x, y, np.zeros((r["records"],), np.uint8),
+                    r["parallelism"], r["batch"], r["test_set_size"])
+        prof = cProfile.Profile()
+        prof.enable()
+        _, _, wall_c = run_packed(torch, *args)
+        prof.disable()
+        st = pstats.Stats(prof)
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(60)
+        (out_dir / f"host_plane_{label}_cprofile.txt").write_text(buf.getvalue())
+        host = {}
+        for (path, _, name), (_, _, _, ct, _) in st.stats.items():
+            for hl, suffix, fname in HOST_PLANE_PROFILE_FUNCS:
+                if name == fname and path.endswith(suffix):
+                    host[hl] = host.get(hl, 0.0) + ct
+        log(f"profile[{label}]: cProfile wall {wall_c:.3f} s; cumulative host seconds: "
+            + "; ".join(f"{hl} {host.get(hl, 0.0):.3f}" for hl, _, _ in HOST_PLANE_PROFILE_FUNCS))
+        for (path, line, name), (_, nc, tt, _, _) in sorted(
+                st.stats.items(), key=lambda kv: -kv[1][2])[:6]:
+            log(f"  {tt:.3f} s self, {nc} calls: {Path(path).name}:{line} {name}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            _, _, wall_t = run_packed(torch, *args)
+        kernels = [e for e in tp.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_s = sum(_dev_us(e) for e in kernels) / 1e6
+        wall = rows[label]["wall_s"]
+        log(f"profile[{label}]: device busy {busy_s:.4f} s in {sum(e.count for e in kernels)} "
+            f"launches against the unprofiled run's {wall:.3f} s wall: idle share "
+            f"{1.0 - busy_s / wall:.4f}; top kernels: " + "; ".join(
+                f"{_dev_us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}"
+                for e in sorted(kernels, key=lambda e: -_dev_us(e))[:4]))
+
+
 FLASH_SOURCES = {
     "flash_fwd": "omldm_tpu/ops/attention.py:269",
     "flash_dq": "omldm_tpu/ops/attention.py:450",
@@ -2016,6 +2442,22 @@ def main() -> int:
         if args.profile is not None:
             phase_cli_profile(torch, cli, cli_sparse, args.profile)
             lap("cli profiles")
+    learner_rows = phase_learners(torch, args.seed)
+    lap("learners")
+    protocol_rows, sync_pa_launches, sync_scatter_launches = phase_protocols(
+        torch, pa_scan, sparse, args.seed, stream_scatter_impl(sparse))
+    lap("protocols")
+    phase_protocol_parity(torch, args.seed, args.parity_records)
+    lap("protocol-parity")
+    log("host-plane: " + json.dumps({
+        "learners": learner_rows, "protocols": protocol_rows,
+        "pa_scan_launches_sync_per_record": sync_pa_launches,
+        "scatter_add_launches_sync_sparse": sync_scatter_launches,
+    }))
+    if args.profile is not None:
+        phase_host_plane_profile(torch, args.seed, {**learner_rows, **protocol_rows},
+                                 args.profile)
+        lap("host-plane profiles")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):

@@ -1,11 +1,20 @@
-"""Online learners (ported so far: PA, and the sparse PA, RegressorPA, SVM
-and Softmax)."""
+"""Online learners: the reference's allowlist plus Softmax, and the sparse
+variants of PA, RegressorPA, SVM and Softmax."""
 
 from omldm_tpu_torch.learners.base import Learner, append_bias, masked_mean, sign_labels
-from omldm_tpu_torch.learners.linear import PAClassifier
+from omldm_tpu_torch.learners.hoeffding_tree import HoeffdingTree
+from omldm_tpu_torch.learners.kmeans import KMeans
+from omldm_tpu_torch.learners.linear import (
+    ORR,
+    PAClassifier,
+    PARegressor,
+    RFFSVM,
+    SoftmaxClassifier,
+)
+from omldm_tpu_torch.learners.multiclass_pa import MultiClassPA
+from omldm_tpu_torch.learners.nn import NeuralNetwork
 from omldm_tpu_torch.learners.registry import (
     LEARNERS,
-    REFERENCE_LEARNERS,
     SINGLE_LEARNER_ONLY,
     is_valid_learner,
     make_learner,
@@ -17,9 +26,16 @@ __all__ = [
     "append_bias",
     "masked_mean",
     "sign_labels",
+    "HoeffdingTree",
+    "KMeans",
+    "MultiClassPA",
+    "NeuralNetwork",
+    "ORR",
     "PAClassifier",
+    "PARegressor",
+    "RFFSVM",
+    "SoftmaxClassifier",
     "LEARNERS",
-    "REFERENCE_LEARNERS",
     "SINGLE_LEARNER_ONLY",
     "is_valid_learner",
     "make_learner",

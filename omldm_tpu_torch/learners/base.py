@@ -1,8 +1,9 @@
 """Learner interface: stateless online learners over explicit parameters.
 
 Counterpart of ``omldm_tpu/learners/base.py``. A learner instance holds only
-hyper-parameters; its parameters are a dict of tensors passed in and
-returned, so the interface stays functional:
+hyper-parameters; its parameters are a tree of tensors (dicts, lists and
+tuples; most learners: one dict) passed in and returned, so the interface
+stays functional:
 ``update(params, x, y, mask) -> (params, loss)``. The unit of work is a
 fixed-shape micro-batch ``(x[B, D], y[B], mask[B])``; masked-out rows
 (padding of ragged batches) contribute nothing to the update or the loss.
@@ -24,7 +25,9 @@ from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
-# A learner's parameters: a dict of tensors.
+from omldm_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+
+# A learner's parameters: a tree (dicts, lists, tuples) of tensors.
 Params = Any
 
 
@@ -33,6 +36,9 @@ class Learner:
     name: str = ""
     #: "classification" | "regression" | "clustering"
     task: str = "classification"
+    #: True for a learner whose model is a mutable host structure (HT): the
+    #: pipeline keeps its state and updates on the host
+    host_side: bool = False
 
     def __init__(self, hyper_parameters: Optional[Mapping[str, Any]] = None,
                  data_structure: Optional[Mapping[str, Any]] = None):
@@ -79,11 +85,11 @@ class Learner:
         return -torch.sqrt(masked_mean((preds - y) ** 2, mask))
 
     def merge(self, params_list):
-        """Average parameter dicts (the hub's model average)."""
+        """Average parameter trees leaf by leaf (the hub's model average);
+        dicts, lists and tuples nest."""
         n = float(len(params_list))
-        return {
-            k: sum(p[k] for p in params_list) / n for k in params_list[0]
-        }
+        leaves = zip(*(tree_leaves(p) for p in params_list))
+        return tree_unflatten(params_list[0], [sum(ls) / n for ls in leaves])
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -103,3 +109,48 @@ def append_bias(x: torch.Tensor) -> torch.Tensor:
     folded into the weight vector)."""
     ones = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
     return torch.cat([x, ones], dim=1)
+
+
+# --- class-label helpers --------------------------------------------------
+# A stream labelled {-1, +1} reaches the multiclass learners, and so can any
+# label outside [0, K). torch's one_hot and gather raise on such labels (on
+# the card, a device-side assert that ends the CUDA context), so these build
+# the JAX package's values from comparisons and masked selects instead:
+# ``jax.nn.one_hot`` gives a zero row, ``jnp.take_along_axis`` wraps
+# [-K, -1] and fills NaN beyond, ``.at[i, y].set`` wraps [-K, -1] and drops
+# beyond.
+
+
+def class_ids(y: torch.Tensor) -> torch.Tensor:
+    """Float targets as integer class ids, truncated toward zero (JAX's
+    ``y.astype(jnp.int32)``)."""
+    return y.to(torch.int64)
+
+
+def one_hot(yi: torch.Tensor, k: int, dtype=torch.float32) -> torch.Tensor:
+    """[B, K] one-hot rows; an id outside [0, K) gives a zero row."""
+    return (yi[:, None] == torch.arange(k, device=yi.device)).to(dtype)
+
+
+def _wrapped(yi: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(index clamped into [0, K), whether the id named a column): ids in
+    [-K, -1] wrap to K + id, as JAX normalises negative indices."""
+    idx = torch.where(yi < 0, yi + k, yi)
+    valid = (idx >= 0) & (idx < k)
+    return idx.clamp(0, k - 1), valid
+
+
+def take_class(values: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
+    """values[i, yi[i]] with ``jnp.take_along_axis``'s out-of-range rule:
+    NaN where the id names no column."""
+    idx, valid = _wrapped(yi, values.shape[1])
+    taken = values.gather(1, idx[:, None])[:, 0]
+    return torch.where(valid, taken, torch.full_like(taken, float("nan")))
+
+
+def set_class(values: torch.Tensor, yi: torch.Tensor, fill: float) -> torch.Tensor:
+    """``values.at[arange(B), yi].set(fill)``: an id that names no column
+    leaves its row as it was."""
+    idx, valid = _wrapped(yi, values.shape[1])
+    hit = one_hot(idx, values.shape[1], torch.bool) & valid[:, None]
+    return values.masked_fill(hit, fill)

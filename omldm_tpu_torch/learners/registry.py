@@ -1,9 +1,8 @@
-"""Learner registry. Ported so far: ``PA``, and the sparse (padded-COO)
-variants of ``PA``, ``RegressorPA``, ``SVM`` and ``Softmax``.
+"""Learner registry: the reference's allowlist (PA, RegressorPA, ORR,
+SVM, MultiClassPA, K-means, NN, HT) plus Softmax, and the sparse
+(padded-COO) variants of PA, RegressorPA, SVM and Softmax.
 
-Counterpart of ``omldm_tpu/learners/registry.py``. ``REFERENCE_LEARNERS``
-is the JAX package's full allowlist, kept so the control gate can tell a
-learner that is not ported yet from an unknown one.
+Counterpart of ``omldm_tpu/learners/registry.py``.
 """
 
 from __future__ import annotations
@@ -12,17 +11,31 @@ from typing import Dict, Type
 
 from omldm_tpu_torch.api.requests import LearnerSpec
 from omldm_tpu_torch.learners.base import Learner
-from omldm_tpu_torch.learners.linear import PAClassifier
+from omldm_tpu_torch.learners.hoeffding_tree import HoeffdingTree
+from omldm_tpu_torch.learners.kmeans import KMeans
+from omldm_tpu_torch.learners.linear import (
+    ORR,
+    PAClassifier,
+    PARegressor,
+    RFFSVM,
+    SoftmaxClassifier,
+)
+from omldm_tpu_torch.learners.multiclass_pa import MultiClassPA
+from omldm_tpu_torch.learners.nn import NeuralNetwork
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 
 LEARNERS: Dict[str, Type[Learner]] = {
     "PA": PAClassifier,
+    "RegressorPA": PARegressor,
+    "ORR": ORR,
+    "SVM": RFFSVM,
+    "MultiClassPA": MultiClassPA,
+    "K-means": KMeans,
+    "NN": NeuralNetwork,
+    "HT": HoeffdingTree,
+    # extension beyond the reference allowlist
+    "Softmax": SoftmaxClassifier,
 }
-
-REFERENCE_LEARNERS = frozenset({
-    "PA", "RegressorPA", "ORR", "SVM", "MultiClassPA", "K-means", "NN", "HT",
-    "Softmax",
-})
 
 # Learners the reference forces onto the SingleLearner protocol
 # (FlinkSpoke.scala:203-210).
@@ -35,7 +48,7 @@ def is_valid_learner(name: str) -> bool:
 
 def make_learner(spec: LearnerSpec) -> Learner:
     """Instantiate a learner from a request's LearnerSpec; raises KeyError on
-    names the port does not have (the control gate rejects them first).
+    unknown names (the control gate rejects them first).
 
     ``dataStructure: {"sparse": true}`` selects the padded-COO variant: its
     inputs are (idx, val) pairs and its updates gather/scatter over a dense

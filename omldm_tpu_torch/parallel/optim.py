@@ -1,9 +1,18 @@
-"""Adam for the sequence trainers, in the JAX package's state layout.
+"""Optimizers in the JAX package's state layouts.
 
-Counterpart of ``omldm_tpu/parallel/optim.py``: the same bias-corrected
-update and the same ``{"mu", "nu", "count"}`` tree (moments shaped like the
-parameters, an int32 step count), so a JAX optimizer state carries across.
-The count stays a device tensor: the step never reads it back to the host.
+- ``adam_update``: the sequence trainers' Adam, counterpart of
+  ``omldm_tpu/parallel/optim.py``: the same bias-corrected update and the
+  same ``{"mu", "nu", "count"}`` tree (moments shaped like the parameters,
+  an int32 step count), so a JAX optimizer state carries across.
+- ``optax_adam_update`` and ``trace_update``: the NN learner's optimizers,
+  a copy of the arithmetic of ``optax.adam`` (``scale_by_adam``, then the
+  learning rate) and ``optax.sgd`` (``trace``, then the learning rate),
+  operation for operation. Their states are optax's, as trees whose leaves
+  come in optax's order: ``({"count", "mu", "nu"}, ())`` and
+  ``({"trace"}, ())``, the ``()`` standing for optax's leafless
+  ``EmptyState``. ``optax.sgd`` builds its trace even at momentum 0.
+
+Step counts stay device tensors: a step never reads them back to the host.
 """
 
 from __future__ import annotations
@@ -49,3 +58,57 @@ def adam_update(params: Any, grads: Any, opt: Dict[str, Any], lr: float,
         "nu": tree_unflatten(params, nu),
         "count": count,
     }
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def optax_adam_init(params: Any) -> Tuple[Dict[str, Any], tuple]:
+    """``optax.adam(lr).init(params)``: zero moments and a zero int32 count."""
+    device = tree_leaves(params)[0].device
+    return ({
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "mu": tree_map(torch.zeros_like, params),
+        "nu": tree_map(torch.zeros_like, params),
+    }, ())
+
+
+@torch.no_grad()
+def optax_adam_update(params: Any, grads: Any, state, lr: float, b1: float = 0.9,
+                      b2: float = 0.999, eps: float = 1e-8) -> Tuple[Any, tuple]:
+    """One ``optax.adam`` step and ``optax.apply_updates``; returns (new
+    params, new state), the inputs left as they were."""
+    adam, empty = state
+    p, g = tree_leaves(params), tree_leaves(grads)
+    mu = [(1 - b1) * gi + b1 * m for gi, m in zip(g, tree_leaves(adam["mu"]))]
+    nu = [(1 - b2) * (gi * gi) + b2 * v for gi, v in zip(g, tree_leaves(adam["nu"]))]
+    count = adam["count"]
+    count = torch.where(count < INT32_MAX, count + 1, count)  # safe_increment
+    c = count.to(torch.float32)
+    bc1 = 1 - torch.pow(b1, c)
+    bc2 = 1 - torch.pow(b2, c)
+    new_p = [
+        pi + (-lr) * ((m / bc1) / (torch.sqrt(v / bc2) + eps))
+        for pi, m, v in zip(p, mu, nu)
+    ]
+    return tree_unflatten(params, new_p), ({
+        "count": count,
+        "mu": tree_unflatten(params, mu),
+        "nu": tree_unflatten(params, nu),
+    }, empty)
+
+
+def trace_init(params: Any) -> Tuple[Dict[str, Any], tuple]:
+    """``optax.sgd(lr, momentum).init(params)``: a zero trace."""
+    return ({"trace": tree_map(torch.zeros_like, params)}, ())
+
+
+@torch.no_grad()
+def trace_update(params: Any, grads: Any, state, lr: float,
+                 decay: float) -> Tuple[Any, tuple]:
+    """One ``optax.sgd(lr, momentum=decay)`` step and ``apply_updates``."""
+    tr, empty = state
+    p, g = tree_leaves(params), tree_leaves(grads)
+    new_t = [gi + decay * t for gi, t in zip(g, tree_leaves(tr["trace"]))]
+    new_p = [pi + (-lr) * t for pi, t in zip(p, new_t)]
+    return tree_unflatten(params, new_p), ({"trace": tree_unflatten(params, new_t)}, empty)

@@ -19,6 +19,12 @@ device tensors until a statistics poll reads them (``curve_slice``), so a
 fit never waits for the device. ``on_launch`` is called once per program
 the JAX package would launch (fit, fit_many, predict, evaluate), so
 ``Statistics.programLaunches`` counts the same thing in both packages.
+
+A host-side learner (HT: ``Learner.host_side``) keeps the whole state on
+the host whatever the pipeline's device, as the JAX package runs it
+un-jitted: its tree is a Python structure, and its preprocessors' states
+stay CPU tensors. Its ``fit_many`` is a loop of fits, each counted as a
+launch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,8 +64,18 @@ def _rebuild(tree, leaves_iter):
 
 
 def _tree_map(fn, tree):
+    """``fn`` over the leaves of a state tree. A NamedTuple (optax's
+    ``ScaleByAdamState``, ``TraceState``, ``EmptyState``) maps to the
+    port's layout for it: a dict of its fields, ``()`` when it has none.
+    Sorted keys give ``_leaves``' order, so the fields must already come
+    in sorted order for the leaf order to survive (optax's do)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
+    fields = getattr(tree, "_fields", None)
+    if isinstance(tree, tuple) and fields is not None:
+        if list(fields) != sorted(fields):
+            raise ValueError(f"{type(tree).__name__} fields {fields} are not in sorted order")
+        return {f: _tree_map(fn, getattr(tree, f)) for f in fields} if fields else ()
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
@@ -67,7 +83,8 @@ def _tree_map(fn, tree):
 
 def state_from_numpy(tree, device) -> dict:
     """A JAX pipeline state as numpy arrays -> the port's state on ``device``.
-    Floating leaves become float32 (JAX keeps them float32 with x64 off)."""
+    Floating leaves become float32 (JAX keeps them float32 with x64 off);
+    an NN's optax state takes the port's layout (``_tree_map``)."""
 
     def to_tensor(a):
         a = np.asarray(a)
@@ -114,8 +131,8 @@ class MLPipeline:
         per_record: bool = False,
         device="cpu",
     ):
-        self.device = torch.device(device)
         self.learner: Learner = make_learner(learner_spec)
+        self.device = torch.device("cpu" if self.learner.host_side else device)
         self.preps: List[Preprocessor] = [
             make_preprocessor(p) for p in preprocessor_specs
         ]
@@ -163,6 +180,8 @@ class MLPipeline:
             self.learner.update_per_record if self.per_record else self.learner.update
         )
         params, loss = update(state["params"], z, y, mask, donate=True)
+        if self.learner.host_side:
+            loss = torch.as_tensor(loss, dtype=torch.float32)
         n = mask.sum().to(torch.int32)
         new_state = {
             "preps": new_preps,
@@ -203,6 +222,8 @@ class MLPipeline:
         """Train on T staged micro-batches ``xs: [T, B, D]``, ``ys/masks:
         [T, B]``; returns the lazy [T] losses. Counted as ONE program launch,
         like the JAX package's single ``lax.scan`` program."""
+        if self.learner.host_side:
+            return torch.stack([self.fit(x, y, m) for x, y, m in zip(xs, ys, masks)])
         counts = batch_valid_counts(masks, valid_counts)
         xs = _as_tensor(xs, self.device)
         ys = _as_tensor(ys, self.device)
@@ -227,7 +248,8 @@ class MLPipeline:
         self._count_launch()
         st = self.state
         x = _as_input(x, self.device)
-        return self.learner.predict(st["params"], self._transform(st["preps"], x))
+        preds = self.learner.predict(st["params"], self._transform(st["preps"], x))
+        return torch.as_tensor(preds)  # a host-side learner answers in numpy
 
     def evaluate(self, x, y, mask) -> Tuple[float, float]:
         """(mean loss, score) on a held-out set, without updating."""

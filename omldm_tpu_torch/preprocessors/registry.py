@@ -1,9 +1,7 @@
-"""Preprocessor registry. Ported so far: ``StandardScaler`` only.
+"""Preprocessor registry: the reference allowlist ``PolynomialFeatures,
+StandardScaler, MinMaxScaler`` (PipelineMap.scala:67).
 
 Counterpart of ``omldm_tpu/preprocessors/registry.py``.
-``REFERENCE_PREPROCESSORS`` is the reference allowlist
-(PipelineMap.scala:67), kept so the control gate can tell a preprocessor
-that is not ported yet from an unknown one.
 """
 
 from __future__ import annotations
@@ -12,15 +10,17 @@ from typing import Dict, Type
 
 from omldm_tpu_torch.api.requests import PreprocessorSpec
 from omldm_tpu_torch.preprocessors.base import Preprocessor
-from omldm_tpu_torch.preprocessors.transforms import StandardScaler
+from omldm_tpu_torch.preprocessors.transforms import (
+    MinMaxScaler,
+    PolynomialFeatures,
+    StandardScaler,
+)
 
 PREPROCESSORS: Dict[str, Type[Preprocessor]] = {
+    "PolynomialFeatures": PolynomialFeatures,
     "StandardScaler": StandardScaler,
+    "MinMaxScaler": MinMaxScaler,
 }
-
-REFERENCE_PREPROCESSORS = frozenset(
-    {"PolynomialFeatures", "StandardScaler", "MinMaxScaler"}
-)
 
 
 def is_valid_preprocessor(name: str) -> bool:

@@ -1,9 +1,11 @@
 """Protocol node interfaces: worker (spoke-side) and hub (PS-side).
 
 Counterpart of ``omldm_tpu/protocols/base.py`` on its default route: the
-transport codec, the model-integrity guard, the reliable channel and the
-flight recorder are not ported, so their hooks are gone rather than
-unarmed. Nodes are plain Python objects exchanging in-process messages
+transport codec, the model-integrity guard, worker liveness and quorum,
+the reliable channel and the flight recorder are not ported, so their
+hooks are gone rather than unarmed. Without liveness every worker stays
+active: ``active_workers`` is every worker and ``round_target`` their
+count. Nodes are plain Python objects exchanging in-process messages
 through ``send``/``reply``/``broadcast`` callables. A worker node wraps an
 ``MLPipeline`` replica; a hub node owns the protocol's global state and the
 per-pipeline ``Statistics``.
@@ -49,6 +51,16 @@ class WorkerNode:
     def deliver(self, op: str, payload: Any, hub_id: int = 0) -> None:
         """Receive boundary for hub messages (Spoke.receive_from_hub)."""
         self.receive(op, payload, hub_id)
+
+    def on_start(self) -> None:
+        """Called once after creation (GM and FGM anchor their drift
+        baseline at the initial model)."""
+
+    def on_model_seeded(self) -> None:
+        """The caller replaced this node's pipeline state wholesale (a
+        loaded state): protocols that snapshot a drift baseline re-anchor
+        here, or the seeded params would register as drift from the init
+        estimate."""
 
     def on_training_batch(self, x, y, mask) -> Optional[Any]:
         """Consume one micro-batch; returns the (lazy) loss or None if the
@@ -142,5 +154,16 @@ class HubNode:
         (FlinkHub.scala:101-116)."""
         self.stats.extend_curve(slices)
 
+    def active_workers(self) -> range:
+        """Worker ids a barrier counts: all of them (no liveness here)."""
+        return range(self.n_workers)
+
+    def round_target(self) -> int:
+        """Contributions a barrier needs to release."""
+        return self.n_workers
+
     def receive(self, worker_id: int, op: str, payload: Any) -> None:
         raise NotImplementedError
+
+    def on_terminate(self) -> None:
+        """Final chance to fold state into stats before the job report."""

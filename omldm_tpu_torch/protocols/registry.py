@@ -1,11 +1,9 @@
-"""Protocol registry. Ported so far: ``Asynchronous`` only.
+"""Protocol registry: the 8 protocol keys -> (worker, hub) node classes.
 
 Counterpart of ``omldm_tpu/protocols/registry.py``, with the reference's
 forcing rules (MLNodeGenerator.scala:20-76, FlinkSpoke.scala:203-215):
 HT and K-means force ``SingleLearner``, parallelism 1 forces
 ``CentralizedTraining``, and unknown keys fall back to ``Asynchronous``.
-A resolved protocol that is not in ``PROTOCOLS`` is rejected at the
-control gate as not yet ported.
 """
 
 from __future__ import annotations
@@ -19,15 +17,32 @@ from omldm_tpu_torch.protocols.async_ps import (
     AsynchronousWorker,
 )
 from omldm_tpu_torch.protocols.base import HubNode, WorkerNode
+from omldm_tpu_torch.protocols.centralized import (
+    CentralizedMLServer,
+    ForwardingWorker,
+    SimplePS,
+    SingleWorker,
+)
+from omldm_tpu_torch.protocols.easgd import EASGDParameterServer, EASGDWorker
+from omldm_tpu_torch.protocols.fgm import FGMParameterServer, FGMWorker
+from omldm_tpu_torch.protocols.gm import GMParameterServer, GMWorker
+from omldm_tpu_torch.protocols.sync import (
+    SSPParameterServer,
+    SSPWorker,
+    SynchronousParameterServer,
+    SynchronousWorker,
+)
 
 PROTOCOLS: Dict[str, Tuple[Type[WorkerNode], Type[HubNode]]] = {
+    "CentralizedTraining": (SingleWorker, SimplePS),
+    "SingleLearner": (ForwardingWorker, CentralizedMLServer),
     "Asynchronous": (AsynchronousWorker, AsynchronousParameterServer),
+    "Synchronous": (SynchronousWorker, SynchronousParameterServer),
+    "SSP": (SSPWorker, SSPParameterServer),
+    "EASGD": (EASGDWorker, EASGDParameterServer),
+    "GM": (GMWorker, GMParameterServer),
+    "FGM": (FGMWorker, FGMParameterServer),
 }
-
-REFERENCE_PROTOCOLS = frozenset({
-    "CentralizedTraining", "SingleLearner", "Asynchronous", "Synchronous",
-    "SSP", "EASGD", "GM", "FGM",
-})
 
 
 def resolve_protocol(requested: str, learner_name: str, parallelism: int) -> str:
@@ -37,7 +52,7 @@ def resolve_protocol(requested: str, learner_name: str, parallelism: int) -> str
         return "SingleLearner"
     if parallelism == 1 and requested != "SingleLearner":
         return "CentralizedTraining"
-    if requested not in REFERENCE_PROTOCOLS:
+    if requested not in PROTOCOLS:
         return "Asynchronous"
     return requested
 

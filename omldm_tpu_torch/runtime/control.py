@@ -5,12 +5,14 @@ Counterpart of ``omldm_tpu/runtime/control.py`` (the reference's
 names against the allowlists, keeps the map of live pipelines, and routes
 Query to worker 0 only for single-learner models.
 
-A sparse Create must name its width and a learner with a sparse variant,
-and takes no preprocessors (``validate_sparse``). A ``serving`` table must
-parse (``runtime.serving.validate_serving``): a bad one drops its request. The port's gate also
-rejects what the port cannot run yet -- learners,
-preprocessors and protocols not yet ported, and per-pipeline switches that
-arm a plane the port lacks -- with a reason that names it, so a request
+Every learner, preprocessor and protocol of the JAX package's host engine
+is admitted. A sparse Create must name its width and a learner with a
+sparse variant, and takes no preprocessors (``validate_sparse``). A
+``serving`` table must parse (``runtime.serving.validate_serving``): a bad
+one drops its request. The port's gate also rejects what the port cannot
+run yet -- the SPMD engine, the transport codec, the reliable channel, and
+per-pipeline switches that arm a plane the port lacks (guard, overload,
+lifecycle, telemetry, events) -- with a reason that names it, so a request
 that would fail at deploy drops alone instead of killing the job.
 """
 
@@ -19,17 +21,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestType
-from omldm_tpu_torch.learners.registry import (
-    REFERENCE_LEARNERS,
-    SINGLE_LEARNER_ONLY,
-    is_valid_learner,
-)
+from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY, is_valid_learner
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
-from omldm_tpu_torch.preprocessors.registry import (
-    REFERENCE_PREPROCESSORS,
-    is_valid_preprocessor,
-)
-from omldm_tpu_torch.protocols.registry import PROTOCOLS, resolve_protocol
+from omldm_tpu_torch.preprocessors.registry import is_valid_preprocessor
 from omldm_tpu_torch.runtime.messages import comm_dict
 from omldm_tpu_torch.runtime.serving import validate_serving
 
@@ -105,8 +99,7 @@ def validate_sparse(request: Request) -> Optional[str]:
 class PipelineManager:
     """Validates and routes control requests; parallelism-1 by design."""
 
-    def __init__(self, parallelism: int = 16) -> None:
-        self.parallelism = parallelism
+    def __init__(self) -> None:
         self.node_map: Dict[int, Request] = {}
 
     def validate(self, request: Request) -> Optional[str]:
@@ -131,27 +124,18 @@ class PipelineManager:
 
     def _validate_spec(self, request: Request) -> Optional[str]:
         name = request.learner.name
-        if name not in REFERENCE_LEARNERS:
+        if not is_valid_learner(name):
             return f"unknown learner {name!r}"
         if (request.learner.data_structure or {}).get("sparse"):
-            # the sparse variants pass on their own table, whether or not
-            # the dense learner of the same name is ported
             err = validate_sparse(request)
             if err is not None:
                 return err
-        elif not is_valid_learner(name):
-            return f"learner {name!r} is not yet ported"
         for p in request.preprocessors:
             if not is_valid_preprocessor(p.name):
-                if p.name in REFERENCE_PREPROCESSORS:
-                    return f"preprocessor {p.name!r} is not yet ported"
                 return f"unknown preprocessor {p.name!r}"
         tc = request.training_configuration
         if tc.hub_parallelism < 1:
             return "HubParallelism must be >= 1"
-        protocol = resolve_protocol(tc.protocol, name, self.parallelism)
-        if protocol not in PROTOCOLS:
-            return f"protocol {protocol!r} is not yet ported"
         err = validate_serving(tc)
         if err is not None:
             return err

@@ -4,8 +4,9 @@ Counterpart of ``omldm_tpu/runtime/hub.py`` (the reference's ``FlinkHub`` +
 ``HubLogic``, FlinkHub.scala:25-197) on its default route: one instance per
 (networkId, hubId); worker messages arriving before hub creation are cached
 (FlinkHub.scala:70-87) and drained after creation; each hub keeps its
-pipeline's ``Statistics``. The reliable channel, the hub-side
-SingleLearner model and cohort gang averaging are not ported.
+pipeline's ``Statistics``. A SingleLearner hub holds the pipeline's one
+model, on the job's device (FlinkHub.scala:128-153). The reliable channel
+and cohort gang averaging are not ported.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from omldm_tpu_torch.api.requests import Request
 from omldm_tpu_torch.api.stats import Statistics
 from omldm_tpu_torch.config import JobConfig
+from omldm_tpu_torch.protocols.centralized import CentralizedMLServer
 from omldm_tpu_torch.protocols.registry import make_hub_node, resolve_protocol
 from omldm_tpu_torch.runtime.databuffers import DataSet
 from omldm_tpu_torch.runtime.messages import payload_size
+from omldm_tpu_torch.runtime.spoke import create_pipeline
 
 
 class Hub:
@@ -28,9 +31,11 @@ class Hub:
         network_id: int,
         hub_id: int,
         request: Request,
+        dim: int,
         config: JobConfig,
         reply: Callable,       # (worker_id, op, payload)
         broadcast: Callable,   # (op, payload)
+        device,
     ):
         self.network_id = network_id
         self.hub_id = hub_id
@@ -44,6 +49,15 @@ class Hub:
         )
         # stats carry the resolved protocol, not the requested one
         self.node.stats.protocol = self.protocol
+        if isinstance(self.node, CentralizedMLServer):
+            # SingleLearner: the central model, seeded from the request id
+            # as the workers' replicas are
+            self.node.attach_pipeline(create_pipeline(request, dim, device))
+            # hub-side fits are program launches too
+            stats = self.node.stats
+            self.node.pipeline.on_launch = (
+                lambda: stats.update_stats(program_launches=1)
+            )
 
     def receive(self, worker_id: int, op: str, payload: Any) -> None:
         """Worker->hub receive boundary: count the bytes that crossed the
@@ -54,19 +68,23 @@ class Hub:
     def statistics(self) -> Statistics:
         return self.node.stats
 
+    def on_terminate(self) -> None:
+        self.node.on_terminate()
+
 
 class HubManager:
     """Routes worker->hub traffic; caches messages that beat hub creation
     (FlinkHub.scala:70-87)."""
 
-    def __init__(self, config: JobConfig, reply_to_spoke: Callable):
+    def __init__(self, config: JobConfig, reply_to_spoke: Callable, device):
         self.config = config
+        self.device = device
         self.hubs: Dict[Tuple[int, int], Hub] = {}
         # (network_id, hub_id, worker_id, op, payload)
         self._reply_to_spoke = reply_to_spoke
         self._pre_creation: Dict[Tuple[int, int], DataSet] = {}
 
-    def create_hub(self, request: Request, hub_id: int) -> Hub:
+    def create_hub(self, request: Request, hub_id: int, dim: int) -> Hub:
         key = (request.id, hub_id)
         if key in self.hubs:
             return self.hubs[key]
@@ -79,7 +97,8 @@ class HubManager:
             for w in range(self.config.parallelism):
                 self._reply_to_spoke(net_id, hub_id, w, op, payload)
 
-        hub = Hub(net_id, hub_id, request, self.config, reply, broadcast)
+        hub = Hub(net_id, hub_id, request, dim, self.config, reply, broadcast,
+                  self.device)
         self.hubs[key] = hub
         cached = self._pre_creation.pop(key, None)
         if cached is not None:
@@ -116,3 +135,7 @@ class HubManager:
         for s in stats[1:]:
             merged = merged.merge(s)
         return merged
+
+    def on_terminate(self) -> None:
+        for hub in self.hubs.values():
+            hub.on_terminate()

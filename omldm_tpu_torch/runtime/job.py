@@ -94,7 +94,7 @@ class StreamJob:
         self._on_prediction = on_prediction
         self._on_response = on_response
         self._on_performance = on_performance
-        self.pipeline_manager = PipelineManager(self.config.parallelism)
+        self.pipeline_manager = PipelineManager()
         self.stats = StatisticsCollector(self.config, self._emit_performance)
         self.dead_letter = DeadLetterSink(
             path=self.config.dead_letter_path,
@@ -102,7 +102,7 @@ class StreamJob:
             request_stream=REQUEST_STREAM,
         )
         self.response_merger = ResponseMerger(self._emit_response)
-        self.hub_manager = HubManager(self.config, self._reply_to_spoke)
+        self.hub_manager = HubManager(self.config, self._reply_to_spoke, self.device)
         self.spokes: List[Spoke] = [
             Spoke(
                 worker_id=i,
@@ -306,7 +306,7 @@ class StreamJob:
         for spoke in self.spokes:
             spoke.handle_request(request, dim)
         for h in range(request.training_configuration.hub_parallelism):
-            self.hub_manager.create_hub(request, h)
+            self.hub_manager.create_hub(request, h, dim)
         self._replay_backlog()
 
     def _handle_data(self, inst: DataInstance) -> None:
@@ -395,6 +395,7 @@ class StreamJob:
         self.stats.probe_fired = True
         for spoke in self.spokes:
             spoke.handle_terminate_probe()
+        self.hub_manager.on_terminate()
         # quarantined-record count, mirrored into every pipeline's report
         nq = self.dead_letter.record_count
         for net_id in self.pipeline_manager.live_pipelines:

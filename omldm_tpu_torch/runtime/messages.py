@@ -17,6 +17,8 @@ import numpy as np
 # RPC operation names
 OP_PUSH = "push"            # worker -> PS: model/gradient contribution
 OP_UPDATE = "update"        # PS -> worker: new global model
+OP_PULL = "pull"            # PS -> worker: send your model (GM/FGM)
+OP_ZETA = "zeta"            # GM/FGM safe-zone traffic
 
 
 def payload_size(payload: Any) -> int:

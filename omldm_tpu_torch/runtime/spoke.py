@@ -313,6 +313,7 @@ class Spoke:
             self._make_send(request.id), self.device, timer=self.step_timer,
         )
         self.nets[request.id] = net
+        net.node.on_start()
         if net.serving is not None:
             net._plane = self._ensure_serving_plane()
         # drain buffered records (FlinkSpoke.scala:69-80)
@@ -725,9 +726,10 @@ class Spoke:
         qstats = net.node.query_stats()
 
         # model parameter buckets (termination probes skip the payload:
-        # responseId -1 fragments only feed statistics)
+        # responseId -1 fragments only feed statistics; a host-side model
+        # has no flat vector)
         chunks: List[Optional[np.ndarray]] = [None]
-        if response_id != TERMINATION_RESPONSE_ID:
+        if response_id != TERMINATION_RESPONSE_ID and not net.pipeline.learner.host_side:
             flat, _ = net.pipeline.get_flat_params()
             bucket = self.config.max_param_bucket_size
             chunks = [

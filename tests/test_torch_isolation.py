@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, runs on
-CUDA unless asked for the CPU, and refuses what it has not ported yet."""
+"""The port stands alone: it imports neither JAX, optax nor the JAX package,
+runs on CUDA unless asked for the CPU, and refuses what it has not ported
+yet."""
 
 import ast
 import json
@@ -28,8 +29,9 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.models, omldm_tpu_torch.parallel\n"
         "import omldm_tpu_torch.__main__, omldm_tpu_torch.ops.native\n"
         "import omldm_tpu_torch.runtime.fast_ingest, omldm_tpu_torch.runtime.prefetch\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'omldm_tpu' or m.startswith('omldm_tpu.')]\n"
+        "import omldm_tpu_torch.learners, omldm_tpu_torch.preprocessors\n"
+        "import omldm_tpu_torch.protocols, omldm_tpu_torch.runtime.hub\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -48,7 +50,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "omldm_tpu"}, roots
+    assert not roots & {"jax", "jaxlib", "optax", "omldm_tpu"}, roots
 
 
 PACKAGE_FILES = sorted((ROOT / "omldm_tpu_torch").rglob("*.py"))
@@ -306,10 +308,16 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
 
 
 @pytest.mark.parametrize("request_json,reason", [
-    (_create(learner="ORR"), "learner 'ORR' is not yet ported"),
+    (_create(overload={"shedHigh": 0.9}), "trainingConfiguration.overload is not yet ported"),
     (_create(learner="Nope"), "unknown learner"),
-    (_create(preps=("MinMaxScaler",)), "preprocessor 'MinMaxScaler' is not yet ported"),
-    (_create(protocol="Synchronous"), "protocol 'Synchronous' is not yet ported"),
+    (_create(lifecycle="on"), "trainingConfiguration.lifecycle is not yet ported"),
+    (_create(telemetry={"sloMs": 5}), "trainingConfiguration.telemetry is not yet ported"),
+    (_create(events=True), "trainingConfiguration.events is not yet ported"),
+    (_create(preps=("Whitener",)), "unknown preprocessor 'Whitener'"),
+    (_create(comm={"quorum": 3}), "comm.quorum (reliable channel)"),
+    (_create(comm={"workerTimeoutMs": 500}), "comm.workerTimeoutMs (reliable channel)"),
+    (_create(comm={"windowSize": 8}), "comm.windowSize (reliable channel)"),
+    (_create(comm={"stallAfter": 8}), "comm.stallAfter (reliable channel)"),
     (_create(guard=True), "guard"),
     (_create(serving={"maxBatch": 0}), "serving.maxBatch must be >= 1"),
     (_create(serving={"maxBatch": 8, "nope": 1}), "unknown serving knob"),
@@ -377,9 +385,64 @@ def test_cli_accepts_zero_restart_attempts(tmp_path):
 
 
 def test_parallelism_one_forces_an_unported_protocol():
-    job = StreamJob(JobConfig(parallelism=1), device="cpu")
-    job.run([("requests", _create())])
-    assert "CentralizedTraining" in job.dead_letter.entries[0]["detail"]
+    """Parallelism 1 forces CentralizedTraining, which the port now runs."""
+    rows = [
+        ("trainingData", json.dumps({"numericalFeatures": [float(i % 3), 1.0],
+                                     "target": float(i % 2)}))
+        for i in range(40)
+    ]
+    job = StreamJob(JobConfig(parallelism=1, batch_size=8), device="cpu")
+    report = job.run([("requests", _create(protocol="Synchronous"))] + rows)
+    assert not job.dead_letter.entries
+    assert report.statistics[0].protocol == "CentralizedTraining"
+    assert report.statistics[0].fitted > 0
+
+
+LEARNER_SPECS = [
+    ("PA", {}), ("RegressorPA", {}), ("ORR", {}), ("SVM", {"rffDim": 8}),
+    ("MultiClassPA", {}), ("K-means", {}), ("NN", {"hiddenLayers": [4]}), ("HT", {}),
+    ("Softmax", {}),
+]
+
+
+@pytest.mark.parametrize("name,ds", LEARNER_SPECS, ids=[n for n, _ in LEARNER_SPECS])
+@pytest.mark.parametrize("preps", [(), ("MinMaxScaler",), ("PolynomialFeatures",)],
+                         ids=["none", "minmax", "poly"])
+def test_control_gate_admits_every_learner_and_preprocessor(name, ds, preps):
+    """Every learner of the JAX package's host engine, alone and behind each
+    preprocessor, is admitted and trains on the CPU."""
+    create = json.loads(_create(learner=name, preps=preps, protocol="Synchronous"))
+    create["learner"]["dataStructure"] = ds
+    rows = [
+        ("trainingData", json.dumps({"numericalFeatures": [float(i % 3), 1.0, -0.5],
+                                     "target": float(i % 2)}))
+        for i in range(48)
+    ]
+    job = StreamJob(JobConfig(parallelism=2, batch_size=8), device="cpu")
+    report = job.run([("requests", json.dumps(create))] + rows)
+    assert not job.dead_letter.entries, job.dead_letter.entries
+    expected = "SingleLearner" if name in ("HT", "K-means") else "Synchronous"
+    assert report.statistics[0].protocol == expected
+    assert report.statistics[0].fitted > 0
+
+
+@pytest.mark.parametrize("protocol", ["CentralizedTraining", "SingleLearner", "Asynchronous",
+                                      "Synchronous", "SSP", "EASGD", "GM", "FGM"])
+def test_control_gate_admits_every_protocol(protocol):
+    job = StreamJob(JobConfig(parallelism=2), device="cpu")
+    job.run([("requests", _create(protocol=protocol))])
+    assert not job.dead_letter.entries
+    assert job.pipeline_manager.live_pipelines == [0]
+
+
+@pytest.mark.parametrize("request_type", ["Shadow", "Promote", "Rollback"])
+def test_control_gate_rejects_lifecycle_requests(request_type):
+    job = StreamJob(JobConfig(parallelism=2), device="cpu")
+    job.run([("requests", _create()),
+             ("requests", json.dumps({"id": 0, "request": request_type,
+                                      "learner": {"name": "PA"}}))])
+    [entry] = job.dead_letter.entries
+    assert "(model lifecycle) is not yet ported" in entry["detail"]
 
 
 def test_unknown_protocol_falls_back_to_asynchronous():
@@ -531,3 +594,45 @@ def test_chip_smoke_scatter_tolerance(draw):
     wrapped[0, 1] = d - 1  # the out-of-range update clamped onto the last row
     clamped = sparse_scatter_add_reference(w, wrapped, coef, val)
     assert not ((clamped - plain).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("phase", [
+    "phase_learners", "phase_protocols", "phase_protocol_parity", "phase_host_plane_profile",
+])
+def test_chip_smoke_has_the_host_plane_phases(phase):
+    chip_smoke = _chip_smoke()
+    assert callable(getattr(chip_smoke, phase))
+    assert f"{phase}(" in (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+
+
+def test_chip_smoke_host_plane_runs():
+    """Phase 21 runs BASELINE configs 1, 2 and 4 at their published shapes
+    and every learner and preprocessor; phase 22 runs the protocol
+    comparison's host section on its stream; every learner run's data has
+    the run's width and a forecast every tenth row."""
+    from omldm_tpu_torch.learners.registry import LEARNERS
+    from omldm_tpu_torch.preprocessors import PolynomialFeatures
+
+    chip_smoke = _chip_smoke()
+    runs = {r[0]: r[1:] for r in chip_smoke.LEARNER_RUNS}
+    learner, preps, tc, par, batch, _, _, width = runs["config1_softmax"]
+    assert (learner["hyperParameters"], preps, par, batch, width) == (
+        {"learningRate": 0.05, "nClasses": 2}, ["StandardScaler"], 1, 4096, 28)
+    assert runs["config2_orr"][0]["hyperParameters"] == {"lambda": 1.0}
+    assert runs["config2_orr"][-1] == 90
+    assert runs["config4_rff_svm"][0]["dataStructure"] == {"rffDim": 512, "gamma": 0.5}
+    assert runs["config4_rff_svm"][-1] == 18
+    assert runs["bench_softmax_sync"][2:5] == ({"protocol": "Synchronous"}, 16, 4096)
+    assert PolynomialFeatures().out_dim(runs["poly2_pa"][-1]) == 434
+    assert {r[1]["name"] for r in chip_smoke.LEARNER_RUNS} == set(LEARNERS)
+    assert set(chip_smoke.PROTOCOL_ORDER) == {
+        "CentralizedTraining", "SingleLearner", "Asynchronous", "Synchronous", "SSP", "EASGD",
+        "GM", "FGM"}
+    assert chip_smoke.PROTOCOL_RUN == dict(records=50_000, parallelism=16, batch=256,
+                                           test_set_size=64, sync_every=4)
+    x, y = chip_smoke.protocol_stream(10)
+    assert x.shape == (10, 28) and set(y.tolist()) <= {0.0, 1.0}
+    for name, (learner, preps, tc, par, batch, n, kind, width) in runs.items():
+        x, y = chip_smoke.learner_data(kind, 20, width, seed=0)
+        assert x.shape == (20, width) and y.shape == (20,), name
+    assert chip_smoke._forecast_ops(20).tolist() == [0] * 9 + [1] + [0] * 9 + [1]

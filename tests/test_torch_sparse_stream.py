@@ -204,9 +204,9 @@ def _create(learner="PA", ds=None, preps=()):
     (_create(learner="ORR"), "learner 'ORR' has no sparse variant"),
     (_create(learner="K-means"), "learner 'K-means' has no sparse variant"),
     (_create(learner="Nope"), "unknown learner 'Nope'"),
-    (_create(learner="SVM", ds={}), "learner 'SVM' is not yet ported"),
-    (_create(learner="RegressorPA", ds={"nFeatures": 8}), "learner 'RegressorPA' is not yet ported"),
-    (_create(learner="Softmax", ds={"sparse": False}), "learner 'Softmax' is not yet ported"),
+    (_create(learner="NN"), "learner 'NN' has no sparse variant"),
+    (_create(learner="MultiClassPA"), "learner 'MultiClassPA' has no sparse variant"),
+    (_create(preps=("PolynomialFeatures",)), "do not take preprocessors"),
     (_create(ds={"sparse": True, "nFeatures": 13, "hashSpace": 4096}),
      "hashSpace 4096 must lie in [0, nFeatures 13]"),
     (_create(ds={"sparse": True, "nFeatures": DIM, "hashSpace": -1}),
