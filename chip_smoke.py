@@ -159,12 +159,45 @@ Phases (any failure raises and the script exits nonzero without a result):
                  within rtol 1e-3, atol 1e-3), parameters within W_RTOL,
                  W_ATOL (ORR's statistics: within W_RTOL of their largest
                  magnitude, PARITY_SCALED says why).
+ 24. bench       the bench.py route: run_benchmarks.py's _make_e2e_job
+                 (Softmax, lr 0.05, 2 classes, 28 features, Synchronous on
+                 the SPMD engine, stageChain 32, parallelism 1, batch 4096)
+                 on --bench-records (1,000,000) lines of _gen_stream_file's
+                 shape from --seed, written before timing: the overlapped
+                 fused route (StreamJob.run_file_fused), the serial fused
+                 route and the host alone (the trainer stubbed: t_host,
+                 best of 3), each to the trained parameters read back;
+                 records/s, the idle share and kernels a stage under
+                 torch.profiler; the same file through the CPU: statistics,
+                 512 probe predictions equal, parameters within W_RTOL,
+                 W_ATOL; the fused route
+                 taken (no packed block, every stage from the dispatch
+                 thread); a line in bench.py's JSON schema (backend cuda);
+ 25. spmd        protocol_comparison.py's SPMD section (run_one(engine=
+                 "spmd"): PA C 1.0, 28 features, parallelism 16, batch
+                 256, syncEvery 4, stageChain 4, 50,000 records, after an
+                 untimed warm-up): the 6 protocols' records/s, score,
+                 bytesShipped, modelsShipped, numOfBlocks; Synchronous
+                 perRecord (pa_scan once a worker a step) and phase 14's
+                 sparse PA-II (scatter_add once a step) through the fused
+                 COO line loop and the multithreaded block route;
+ 26. spmd-parity SPMDTrainer on Mesh(8, 2) (8 workers as a leading axis,
+                 hub 2) on cuda and on cpu, the 6 protocols x Softmax,
+                 perRecord PA and sparse PA-II at Criteo width, 12 steps of
+                 the same batches (SSP at staleness 1 refuses some):
+                 sync_count, bytes_shipped, collective_bytes_physical,
+                 worker_clocks and fitted equal, parameters within W_RTOL,
+                 W_ATOL; pa_scan 8 launches a step, scatter_add one; then
+                 the bench job's first 20,000 rows on both: 512 probe
+                 predictions and the statistics equal.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
 phase 23: the HOST_PLANE_PROFILES runs of phases 21 and 22 under cProfile
 and torch.profiler (host seconds by function, device busy time and the
-idle share against the unprofiled run); then the slice's and the sparse
+idle share against the unprofiled run); after phase 26: the bench job's
+serial fused route under cProfile (host seconds by function:
+BENCH_PROFILE_FUNCS); then the slice's and the sparse
 stream's runs under cProfile (host time by function) and torch.profiler
 (device busy time), then 4 LM steps under torch.profiler (device busy
 time, the flash kernels' share, the top kernels); tables are written into
@@ -287,13 +320,15 @@ def phase_setup(torch):
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return card
 
 
 def phase_build(pa_scan, attention, sparse):
@@ -1636,7 +1671,7 @@ PARITY_PARALLELISM = 4  # phase 6's
 # cumulative times of the main thread's frames
 CLI_PROFILE_FUNCS = [
     ("cli.main", "omldm_tpu_torch/__main__.py", "main"),
-    ("requests first", "omldm_tpu_torch/__main__.py", "_requests_first"),
+    ("requests first, fused route", "omldm_tpu_torch/__main__.py", "_try_fused_run"),
     ("parse: native blocks", "ops/native/loader.py", "_parse_region"),
     ("parse: record route (JSON codec)", "api/data.py", "parse"),
     ("vectorize (record route)", "runtime/vectorizer.py", "vectorize"),
@@ -2365,6 +2400,571 @@ def phase_host_plane_profile(torch, seed, rows, out_dir: Path):
                 for e in sorted(kernels, key=lambda e: -_dev_us(e))[:4]))
 
 
+# --- the SPMD engine: the bench.py route, its protocols, card against CPU -------
+
+# benchmarks/run_benchmarks.py:_make_e2e_job (:857-877) and bench_e2e_stream
+# (:883): Softmax (lr 0.05, 2 classes), 28 features, Synchronous on the SPMD
+# engine, stageChain 32, parallelism 1, batch 4096, 1,000,000 records
+BENCH_RECORDS = 1_000_000
+BENCH_JOB = dict(parallelism=1, batch=4096, chain=32, dim=28)
+BENCH_PARITY_ROWS = 20_000
+BENCH_BASELINE = 100_000.0  # bench.py's vs_baseline divisor
+BENCH_METRIC = ("e2e streaming train throughput, JSON bytes -> trained params "
+                "(measured double-buffered overlapped run)")
+# benchmarks/protocol_comparison.py:run_one(engine="spmd") (:86-135)
+SPMD_RUN = dict(records=50_000, parallelism=16, batch=256, test_set_size=64, sync_every=4,
+                chain=4)
+SPMD_PROTOCOLS = ("Synchronous", "EASGD", "GM", "FGM", "Asynchronous", "SSP")
+SPMD_MESH = (8, 2)  # the JAX engine's 8-device CPU mesh, hub 2, as a leading axis
+SPMD_CHECK = dict(steps=12, batch=256)
+
+
+def _bench_lines(rows) -> str:
+    """JSON lines of _gen_stream_file's shape from an array of rows of dim
+    features and the target (a worker of write_bench_stream's pool)."""
+    dim = rows.shape[1] - 1
+    rows = rows.tolist()
+    line = ('{"numericalFeatures": [' + ", ".join(["%.6f"] * dim)
+            + '], "target": %.1f, "operation": "training"}')
+    return "\n".join(line % tuple(r) for r in rows) + "\n"
+
+
+def write_bench_stream(path: Path, n: int, seed: int, dim: int = 28) -> int:
+    """The lines of run_benchmarks.py's _gen_stream_file (:769): ``dim``
+    standard normals rounded to 6 places, the {0, 1} target of a planted
+    linear rule, "operation": "training"; drawn from RandomState(seed) in
+    chunks of 20,000 rows, as that generator draws them. The text is
+    formatted by a pool of processes, one a core up to 8, and written in
+    order. Returns the file's bytes."""
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    w = rng.randn(dim)
+    chunks = []
+    for start in range(0, n, 20_000):
+        x = np.round(rng.randn(min(20_000, n - start), dim), 6)
+        chunks.append(np.concatenate([x, (x @ w > 0)[:, None]], axis=1))
+    workers = max(1, min(8, os.cpu_count() or 1, len(chunks)))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool, open(path, "w") as f:
+        for text in pool.imap(_bench_lines, chunks):
+            f.write(text)
+    return path.stat().st_size
+
+
+def _bench_job(device):
+    """_make_e2e_job's job on ``device``: (job, bridge)."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    b = BENCH_JOB
+    create = {
+        "id": 0, "request": "Create",
+        "learner": {"name": "Softmax", "hyperParameters": {"learningRate": 0.05, "nClasses": 2},
+                    "dataStructure": {"nFeatures": b["dim"]}},
+        "preProcessors": [],
+        "trainingConfiguration": {"protocol": "Synchronous", "engine": "spmd",
+                                  "extra": {"stageChain": b["chain"]}},
+    }
+    job = StreamJob(JobConfig(parallelism=b["parallelism"], batch_size=b["batch"]), device=device)
+    job.process_event("requests", json.dumps(create))
+    [bridge] = job.spmd_bridges.values()
+    return job, bridge
+
+
+class _NopTrainer:
+    """The bench's device stub (run_benchmarks.py:919-965): t_host is the
+    fused ingest with every launch taken out."""
+    fitted = 0
+
+    def step_many_dense(self, *a, **k):
+        pass
+
+    def step(self, *a, **k):
+        pass
+
+    def predict(self, x):
+        import numpy as np
+
+        return np.zeros(x.shape[0])
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bench_run(torch, path: Path, device: str, route: str):
+    """One timed bench run: the job built, then the file through
+    ``route`` (``fused``: StreamJob.run_file_fused, which takes the
+    overlapped route for Synchronous; ``serial``: the bridge's serial
+    ingest_file), the stage drained and the trained parameters read back,
+    which ends the timing. Returns (job, bridge, wall s, counts): the
+    step_many_dense calls (stages), the calls made off the main thread (the
+    dispatch thread's), the single steps (tails) and the packed blocks."""
+    import threading
+
+    job, bridge = _bench_job(device)
+    tr = bridge.trainer
+    counts = {"stages": 0, "stages_off_main": 0, "steps": 0, "packed_blocks": 0}
+    many, step, packed = tr.step_many_dense, tr.step, job.process_packed_batch
+
+    def count_many(*a, **k):
+        counts["stages"] += 1
+        counts["stages_off_main"] += threading.current_thread() is not threading.main_thread()
+        return many(*a, **k)
+
+    def count_step(*a, **k):
+        counts["steps"] += 1
+        return step(*a, **k)
+
+    def count_packed(*a, **k):
+        counts["packed_blocks"] += 1
+        return packed(*a, **k)
+
+    tr.step_many_dense, tr.step, job.process_packed_batch = count_many, count_step, count_packed
+    check(job.fused_file_bridge() is bridge, f"bench[{route}]: the job does not qualify for "
+          "the fused route")
+    t0 = time.perf_counter()
+    if route == "fused":
+        check(job.run_file_fused(str(path)), "bench: run_file_fused refused the job")
+    else:
+        bridge.ingest_file(str(path))
+    bridge.flush()
+    tr.global_flat_params()
+    _sync(torch, device)
+    return job, bridge, time.perf_counter() - t0, counts
+
+
+def _bench_probe(path: Path, rows: int = 512):
+    """The first ``rows`` records' features of a bench file."""
+    import numpy as np
+
+    with open(path) as f:
+        return np.array([json.loads(line)["numericalFeatures"] for _, line in zip(range(rows), f)],
+                        np.float32)
+
+
+def _bench_outcome(job, bridge, probe):
+    """A finished bench run's (statistics, probe predictions, flat
+    parameters); terminates the job."""
+    preds = bridge.trainer.predict(probe)
+    [stats] = job.terminate().statistics
+    return stats, preds, bridge.trainer.global_flat_params()
+
+
+def _check_bench_parity(label, card, cpu) -> float:
+    """One bench job's outcome on the card against the CPU's: predictions
+    equal, statistics equal (the score within 1e-4, wall-clock fields left
+    out), parameters within W_RTOL, W_ATOL. Returns the parameters'
+    max|d|."""
+    import numpy as np
+
+    (sa, pa, fa), (sb, pb, fb) = card, cpu
+    sa, sb = sa.to_dict(), sb.to_dict()
+    check(np.array_equal(pa, pb), f"{label}: {int((pa != pb).sum())} of {len(pa)} predictions "
+          "differ on the card and the CPU")
+    diff = {k: (sa[k], sb[k]) for k in sb
+            if isinstance(sb[k], (int, float)) and not isinstance(sb[k], bool)
+            and (sa[k] != sb[k] if isinstance(sb[k], int) else abs(sa[k] - sb[k]) > 1e-4)
+            and "Ms" not in k and "Seconds" not in k}
+    check(not diff, f"{label}: statistics differ on the card and the CPU: {diff}")
+    err = float(np.abs(fa - fb).max())
+    check(np.allclose(fa, fb, rtol=W_RTOL, atol=W_ATOL), f"{label}: params max|d|={err:.3e}")
+    return err
+
+
+def phase_bench(torch, seed, records, tmp: Path, card: str, device="cuda"):
+    """Phase 24: the bench.py route on the card; returns the bench file's
+    path and a summary."""
+    import numpy as np
+
+    path = tmp / "bench.jsonl"
+    t0 = time.perf_counter()
+    n_bytes = write_bench_stream(path, records, seed)
+    log(f"bench: wrote {records} records ({n_bytes} bytes) in {time.perf_counter() - t0:.2f} s "
+        "(untimed)")
+    warm = tmp / "bench_warm.jsonl"
+    write_bench_stream(warm, 3 * BENCH_JOB["chain"] * BENCH_JOB["batch"], seed + 1)
+    # untimed warm-up: the native parser's build, first launches, the allocator
+    for route in ("fused", "serial"):
+        job, _, _, _ = _bench_run(torch, warm, device, route)
+        job.terminate()
+
+    job, bridge, wall_over, counts = _bench_run(torch, path, device, "fused")
+    probe = _bench_probe(path)
+    outcome = _bench_outcome(job, bridge, probe)
+    stats = outcome[0]
+    check(counts["packed_blocks"] == 0, "bench: the packed route ran")
+    check(counts["stages"] > 0 and counts["stages_off_main"] == counts["stages"],
+          f"bench: the overlapped route did not dispatch the stages: {counts}")
+    check(stats.protocol == "Synchronous" and stats.score > 0.9,
+          f"bench: protocol {stats.protocol}, score {stats.score}")
+    fitted = bridge.trainer.fitted
+    job_s, bridge_s, wall_serial, counts_s = _bench_run(torch, path, device, "serial")
+    job_s.terminate()
+    check(counts_s["stages_off_main"] == 0 and bridge_s.trainer.fitted == fitted,
+          f"bench: the serial route: {counts_s}, fitted {bridge_s.trainer.fitted} vs {fitted}")
+
+    # t_host: the serial fused ingest with the device stubbed, a warm pass,
+    # then the best of 3 (the bench's definition)
+    job_h, bridge_h = _bench_job(device)
+    bridge_h.trainer = _NopTrainer()
+    host = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        bridge_h.ingest_file(str(path))
+        bridge_h.flush()
+        if i:
+            host.append(time.perf_counter() - t0)
+    t_host = min(host)
+
+    # the same file on the CPU: the card's run must give its statistics,
+    # its predictions on the file's first 512 records and its parameters
+    if device == "cuda":
+        job_c, bridge_c, _, _ = _bench_run(torch, path, "cpu", "fused")
+        err = _check_bench_parity("bench", outcome, _bench_outcome(job_c, bridge_c, probe))
+        log(f"bench: the card against the CPU on all {records} records: statistics equal, "
+            f"{len(probe)} probe predictions equal, params max|d|={err:.3e}")
+
+    summary = {
+        "records": records, "bytes": n_bytes, "fitted": fitted, "score": stats.score,
+        "records_per_s_overlapped": records / wall_over, "wall_overlapped_s": wall_over,
+        "records_per_s_serial": records / wall_serial, "wall_serial_s": wall_serial,
+        "records_per_s_host": records / t_host, "t_host_s": t_host,
+        "host_samples_s": host, "stages": counts["stages"], "tail_steps": counts["steps"],
+        "bytesShipped": stats.bytes_shipped, "modelsShipped": stats.models_shipped,
+        "numOfBlocks": stats.num_of_blocks,
+    }
+    if device == "cuda":
+        summary.update(_bench_device_profile(torch, path, wall_over, bridge))
+    log("bench: " + json.dumps(summary))
+    print(json.dumps({
+        "metric": BENCH_METRIC,
+        "value": round(records / wall_over, 1),
+        "unit": "examples/sec",
+        "vs_baseline": round(records / wall_over / BENCH_BASELINE, 3),
+        "backend": device,
+        "device": card,
+        "records": records,
+        "serial_examples_per_sec": round(records / wall_serial, 1),
+        "host_examples_per_sec": round(records / t_host, 1),
+        "idle_share": summary.get("idle_share"),
+    }), flush=True)
+    return path, summary
+
+
+def _bench_device_profile(torch, path: Path, wall_over: float, bridge):
+    """The overlapped run again under torch.profiler: device busy time, the
+    idle share against the unprofiled run's wall, kernels a run; then one
+    stage (a step_many_dense call of the bench's shape) alone: its kernel
+    launches."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_launches(events):
+        return sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset")))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        job, _, wall_prof, counts = _bench_run(torch, path, "cuda", "fused")
+    job.terminate()
+    avg = tp.key_averages()
+    busy_s = sum(_dev_us(e) for e in avg if e.device_type == DeviceType.CUDA) / 1e6
+    check(busy_s > 0, "bench: torch.profiler traced no device time")
+    b = BENCH_JOB
+    xs = np.zeros((b["chain"], 1, b["batch"], b["dim"]), np.float32)
+    ys = np.zeros((b["chain"], 1, b["batch"]), np.float32)
+    tr = bridge.trainer
+    tr.step_many_dense(xs, ys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as ts:
+        tr.step_many_dense(xs, ys)
+        torch.cuda.synchronize()
+    per_stage = kernel_launches(ts.key_averages())
+    top = sorted((e for e in avg if e.device_type == DeviceType.CUDA), key=lambda e: -_dev_us(e))
+    log("bench: top device time under torch.profiler: " + "; ".join(
+        f"{_dev_us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}" for e in top[:6]))
+    return {
+        "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall_over,
+        "profiled_wall_s": wall_prof, "kernels_in_run": kernel_launches(avg),
+        "kernel_launches_per_stage": per_stage,
+        "kernel_launches_per_step": per_stage / b["chain"],
+    }
+
+
+def _spmd_create(protocol: str, per_record: bool = False) -> dict:
+    r = SPMD_RUN
+    tc = {"protocol": protocol, "syncEvery": r["sync_every"], "engine": "spmd",
+          "stageChain": r["chain"]}
+    if per_record:
+        tc["perRecord"] = True
+    return _create({"name": "PA", "hyperParameters": {"C": 1.0}}, [], tc, 28)
+
+
+def phase_spmd_protocols(torch, pa_scan, sparse, seed, tmp: Path, device="cuda"):
+    """Phase 25: protocol_comparison.py's SPMD section, then perRecord PA
+    (pa_scan) and phase 14's sparse PA-II (scatter_add) on the engine;
+    returns (rows, pa_scan launches, scatter_add launches by route)."""
+    import numpy as np
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    r = SPMD_RUN
+    x, y = protocol_stream(r["records"])
+    op = np.zeros((r["records"],), np.uint8)
+    warm = min(r["parallelism"] * r["batch"] * 4, r["records"])
+    run_packed(torch, _spmd_create(SPMD_PROTOCOLS[0]), x[:warm], y[:warm], op[:warm],
+               r["parallelism"], r["batch"], r["test_set_size"], device)
+    rows = {}
+    for protocol in SPMD_PROTOCOLS:
+        job, report, wall = run_packed(torch, _spmd_create(protocol), x, y, op, r["parallelism"],
+                                       r["batch"], r["test_set_size"], device)
+        [stats] = report.statistics
+        check(0 in job.spmd_bridges and stats.protocol == protocol,
+              f"spmd[{protocol}]: not on the SPMD engine")
+        check(stats.fitted > 0.9 * r["records"] and stats.score > 0.8,
+              f"spmd[{protocol}]: fitted {stats.fitted}, score {stats.score}")
+        rows[protocol] = {
+            "records_per_s": r["records"] / wall, "wall_s": wall, "score": stats.score,
+            "fitted": stats.fitted, "bytesShipped": stats.bytes_shipped,
+            "modelsShipped": stats.models_shipped, "numOfBlocks": stats.num_of_blocks,
+            "workers": job.spmd_bridges[0].dp,
+        }
+        log(f"spmd: {protocol}: " + json.dumps(rows[protocol]))
+
+    pa_scan.launches = 0
+    job, report, wall = run_packed(torch, _spmd_create("Synchronous", per_record=True), x, y, op,
+                                   r["parallelism"], r["batch"], r["test_set_size"], device)
+    pa_launches = pa_scan.launches
+    [stats] = report.statistics
+    steps = len(stats.learning_curve) * job.spmd_bridges[0].dp
+    log(f"spmd: Synchronous perRecord: {r['records'] / wall:.0f} records/s, pa_scan launches "
+        f"{pa_launches}, worker-steps {steps}, score {stats.score:.4f}")
+    if device == "cuda":
+        check(pa_launches == steps > 0,
+              f"spmd: pa_scan launches {pa_launches} != worker-steps {steps}")
+
+    create = {
+        "id": 0, "request": "Create",
+        "learner": {"name": "PA", "hyperParameters": {"C": 0.1, "variant": "PA-II"},
+                    "dataStructure": {"sparse": True, "nFeatures": CRITEO_DIM,
+                                      "hashSpace": CRITEO_HASH, "maxNnz": CRITEO_NNZ}},
+        "trainingConfiguration": {"protocol": "Synchronous", "engine": "spmd"},
+    }
+    events = criteo_events(PROTOCOL_SPARSE_RECORDS, seed, None, create=create)
+    train, _ = write_stream_files(events, tmp, "spmd_sparse")
+    n_fore = sum(1 for s, _ in events if s == "forecastingData")
+    scatter = {}
+    # parserThreads 1: the fused COO line loop; 0 (auto, one a core up to
+    # 8): the multithreaded block parse of padded-COO rows and the C stager
+    for route, threads in (("fused", 1), ("blocks", 0)):
+        tc = dict(create["trainingConfiguration"], parserThreads=threads)
+        job = StreamJob(JobConfig(**SLICE_CONFIG), device=device)
+        job.process_event("requests", json.dumps(dict(create, trainingConfiguration=tc)))
+        bridge = job.fused_file_bridge()
+        check(bridge is not None and bridge.supports_overlapped_ingest(),
+              f"spmd sparse[{route}]: the job does not take the overlapped fused route")
+        for name in sparse.launches:
+            sparse.launches[name] = 0
+        t0 = time.perf_counter()
+        check(job.run_file_fused(str(train)), f"spmd sparse[{route}]: run_file_fused refused")
+        report = job.terminate()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        launched = dict(sparse.launches)
+        [stats] = report.statistics
+        steps = len(stats.learning_curve)
+        log(f"spmd: sparse Synchronous [{route}]: {len(events) / wall:.0f} records/s, launches "
+            f"{launched}, steps {steps}, score {stats.score:.4f}, forecasts "
+            f"{len(job.predictions)}")
+        check(len(job.predictions) == n_fore and stats.score > 0.6,
+              f"spmd sparse[{route}]: {len(job.predictions)} predictions, score {stats.score}")
+        if device == "cuda":
+            check(launched["scatter_add"] == steps > 0 and launched["scatter_add_outer"] == 0,
+                  f"spmd sparse[{route}]: launches {launched} against {steps} steps")
+        scatter[route] = launched["scatter_add"]
+        rows[f"sparse_{route}"] = {"records_per_s": len(events) / wall, "score": stats.score,
+                                   "steps": steps, "scatter_add": launched["scatter_add"]}
+    return rows, pa_launches, scatter
+
+
+def _spmd_check_batches(kind: str, seed: int):
+    """SPMD_CHECK steps of [dp, B] batches for the card-vs-CPU run: ragged
+    masks, a worker idle on some steps, and on a quarter of the steps every
+    worker but 0 idle (so SSP refuses a batch now and then)."""
+    import numpy as np
+
+    dp = SPMD_MESH[0]
+    b = SPMD_CHECK["batch"]
+    rng = np.random.RandomState(seed)
+    out = []
+    for t in range(SPMD_CHECK["steps"]):
+        m = np.ones((dp, b), np.float32)
+        m[:, rng.randint(b // 2, b + 1):] = 0.0
+        if t % 4 == 3:
+            m[1:] = 0.0
+        elif t % 3 == 1:
+            m[t % dp] = 0.0
+        if kind == "sparse":
+            x = (rng.randint(0, CRITEO_DIM, size=(dp, b, CRITEO_NNZ)).astype(np.int32),
+                 rng.randn(dp, b, CRITEO_NNZ).astype(np.float32))
+            y = (x[1][:, :, 0] > 0).astype(np.float32)
+        else:
+            xd = rng.randn(dp, b, N_FEATURES).astype(np.float32)
+            x, y = xd, (xd.sum(-1) > 0).astype(np.float32)
+        out.append((x, y, m))
+    return out
+
+
+SPMD_CHECK_LEARNERS = {
+    "softmax": ({"name": "Softmax", "hyperParameters": {"learningRate": 0.05, "nClasses": 2}},
+                False, "dense"),
+    "pa_per_record": ({"name": "PA", "hyperParameters": {"C": 1.0}}, True, "dense"),
+    "sparse_pa2": ({"name": "PA", "hyperParameters": {"C": 0.1, "variant": "PA-II"},
+                    "dataStructure": {"sparse": True, "nFeatures": CRITEO_DIM,
+                                      "hashSpace": CRITEO_HASH, "maxNnz": CRITEO_NNZ,
+                                      "scatterImpl": "scatter"}}, False, "sparse"),
+}
+
+
+def phase_spmd_parity(torch, pa_scan, sparse, seed, bench_path: Path, tmp: Path,
+                      devices=("cuda", "cpu")):
+    """Phase 26: SPMDTrainer on an explicit Mesh(8, 2) leading axis on the
+    card and on the CPU, the 6 protocols x 3 learners on the same batches;
+    then the bench job's first BENCH_PARITY_ROWS rows on both. Returns the
+    kernels' launches on the card's runs."""
+    import numpy as np
+
+    from omldm_tpu_torch.api.requests import LearnerSpec, TrainingConfiguration
+    from omldm_tpu_torch.parallel.mesh import Mesh
+    from omldm_tpu_torch.parallel.spmd import SPMDTrainer
+
+    dp, hub = SPMD_MESH
+    launches = {"pa_scan": 0, "scatter_add": 0}
+    worst = 0.0
+    for label, (learner, per_record, kind) in SPMD_CHECK_LEARNERS.items():
+        batches = _spmd_check_batches(kind, seed)
+        dim = CRITEO_DIM if kind == "sparse" else N_FEATURES
+        for protocol in SPMD_PROTOCOLS:
+            # staleness 1 makes SSP refuse a batch after each step where
+            # worker 0 alone had rows; threshold 0.05 lets GM and FGM fire
+            tc = TrainingConfiguration(protocol=protocol, per_record=per_record,
+                                       extra={"syncEvery": 2, "threshold": 0.05,
+                                              "staleness": 1})
+            trainers = {}
+            for d in devices:
+                pa_scan.launches = 0
+                for name in sparse.launches:
+                    sparse.launches[name] = 0
+                t = SPMDTrainer(LearnerSpec(learner["name"],
+                                            hyper_parameters=learner["hyperParameters"],
+                                            data_structure=learner.get("dataStructure")),
+                                dim=dim, protocol=protocol, mesh=Mesh(dp, hub, d),
+                                training_configuration=tc, batch_size=SPMD_CHECK["batch"])
+                for x, y, m in batches:
+                    t.step(x, y, m)
+                    acc = t.last_accepted()
+                    for w in np.nonzero(~acc)[0]:
+                        t.note_requeued(int(m[w].sum()))
+                _sync(torch, d)
+                if d == "cuda":
+                    launches["pa_scan"] += pa_scan.launches
+                    launches["scatter_add"] += sparse.launches["scatter_add"]
+                    steps = len(batches)
+                    want = {"pa_scan": steps * dp if per_record else 0,
+                            "scatter_add": steps if kind == "sparse" else 0}
+                    got = {"pa_scan": pa_scan.launches, "scatter_add": sparse.launches["scatter_add"]}
+                    check(got == want, f"spmd-parity[{label}, {protocol}]: launches {got}, "
+                          f"expected {want}")
+                trainers[d] = t
+            a, b = (trainers[d] for d in devices)
+            ints = {
+                "sync_count": (a.sync_count(), b.sync_count()),
+                "bytes_shipped": (a.bytes_shipped(), b.bytes_shipped()),
+                "collective_bytes_physical": (a.collective_bytes_physical(),
+                                              b.collective_bytes_physical()),
+                "worker_clocks": (a.worker_clocks().tolist(), b.worker_clocks().tolist()),
+                "fitted": (a.fitted, b.fitted),
+            }
+            check(all(u == v for u, v in ints.values()),
+                  f"spmd-parity[{label}, {protocol}]: counters differ: {ints}")
+            pa = a._flat(a.state["params"]).cpu().numpy()
+            pb = b._flat(b.state["params"]).cpu().numpy()
+            err = float(np.abs(pa - pb).max())
+            worst = max(worst, err)
+            check(np.allclose(pa, pb, rtol=W_RTOL, atol=W_ATOL),
+                  f"spmd-parity[{label}, {protocol}]: params max|d|={err:.3e}")
+            log(f"spmd-parity: {label} {protocol} dp {dp} hub {hub}: syncs {ints['sync_count'][0]}, "
+                f"bytesShipped {ints['bytes_shipped'][0]}, clocks {ints['worker_clocks'][0]}, "
+                f"fitted {ints['fitted'][0]}, params max|d|={err:.3e}")
+
+    # the bench job's first rows on the card and on the CPU
+    head = tmp / "bench_head.jsonl"
+    with open(bench_path) as src, open(head, "w") as dst:
+        for _, line in zip(range(BENCH_PARITY_ROWS), src):
+            dst.write(line)
+    probe = _bench_probe(head)
+    results = []
+    for d in devices:
+        job, bridge, _, _ = _bench_run(torch, head, d, "fused")
+        results.append(_bench_outcome(job, bridge, probe))
+    err = _check_bench_parity("spmd-parity[bench]", *results)
+    sa, sb = results[0][0].to_dict(), results[1][0].to_dict()
+    log(f"spmd-parity: bench job, first {BENCH_PARITY_ROWS} rows: fitted {sb['fitted']}, "
+        f"score {sb['score']:.4f} / {sa['score']:.4f}, 512 probe predictions equal, params "
+        f"max|d|={err:.3e}; the trainers' worst params max|d|={worst:.3e}")
+    return launches
+
+
+# host functions the bench-route profile reports: (label, file suffix, function name)
+BENCH_PROFILE_FUNCS = [
+    ("fused loop (C parse, holdout, stage; Python cursors)", "runtime/spmd_bridge.py",
+     "_fused_consume"),
+    ("C parse_stage calls", "ops/native/loader.py", "parse_stage"),
+    ("stage launches (_launch)", "runtime/spmd_bridge.py", "_launch"),
+    ("upload (SPMDTrainer._to_device)", "parallel/spmd.py", "_to_device"),
+    ("fleet steps (_step_impl)", "parallel/spmd.py", "_step_impl"),
+    ("learner updates (_local_update)", "parallel/spmd.py", "_local_update"),
+    ("flat and collective (_flat, _ps_allreduce, _unflat)", "parallel/spmd.py", "_flat"),
+    ("read back (global_flat_params)", "parallel/spmd.py", "global_flat_params"),
+]
+
+
+def phase_bench_profile(torch, path: Path, out_dir: Path):
+    """The bench job's serial fused route under cProfile (the main thread
+    alone: Python 3.12's cProfile folds every thread into one profile):
+    host seconds by function."""
+    import cProfile
+    import io
+    import pstats
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof = cProfile.Profile()
+    prof.enable()
+    job, _, wall, _ = _bench_run(torch, path, "cuda", "serial")
+    prof.disable()
+    job.terminate()
+    st = pstats.Stats(prof)
+    st.dump_stats(str(out_dir / "bench.pstats"))
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(60)
+    (out_dir / "bench_cprofile.txt").write_text(buf.getvalue())
+    host = {}
+    for (fpath, _, name), (_, _, _, ct, _) in st.stats.items():
+        for label, suffix, fname in BENCH_PROFILE_FUNCS:
+            if name == fname and fpath.endswith(suffix):
+                host[label] = host.get(label, 0.0) + ct
+    log(f"profile[bench]: cProfile wall {wall:.3f} s (serial route, profiler overhead "
+        "included); cumulative host seconds by function:")
+    for label, _, _ in BENCH_PROFILE_FUNCS:
+        log(f"  {label}: {host.get(label, 0.0):.3f}")
+
+
 FLASH_SOURCES = {
     "flash_fwd": "omldm_tpu/ops/attention.py:269",
     "flash_dq": "omldm_tpu/ops/attention.py:450",
@@ -2378,6 +2978,7 @@ def main() -> int:
     parser.add_argument("--records", type=int, default=100_000)
     parser.add_argument("--parity-records", type=int, default=5_000)
     parser.add_argument("--lm-steps", type=int, default=8)
+    parser.add_argument("--bench-records", type=int, default=BENCH_RECORDS)
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR")
     args = parser.parse_args()
 
@@ -2398,7 +2999,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     lap("start-up")
-    phase_setup(torch)
+    card = phase_setup(torch)
     phase_build(pa_scan, attention, sparse)
     lap("build")
     max_err = phase_check(torch, pa_scan)
@@ -2458,6 +3059,25 @@ def main() -> int:
         phase_host_plane_profile(torch, args.seed, {**learner_rows, **protocol_rows},
                                  args.profile)
         lap("host-plane profiles")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
+        spmd_dir = Path(tmp)
+        bench_path, bench = phase_bench(torch, args.seed, args.bench_records, spmd_dir, card)
+        lap("bench")
+        spmd_rows, spmd_pa_launches, spmd_scatter = phase_spmd_protocols(
+            torch, pa_scan, sparse, args.seed, spmd_dir)
+        lap("spmd protocols")
+        spmd_parity_launches = phase_spmd_parity(torch, pa_scan, sparse, args.seed, bench_path,
+                                                 spmd_dir)
+        lap("spmd-parity")
+        log("spmd: " + json.dumps({
+            "bench": bench, "protocols": spmd_rows,
+            "pa_scan_launches_spmd_per_record": spmd_pa_launches,
+            "scatter_add_launches_spmd_sparse": spmd_scatter,
+            "launches_card_vs_cpu_dp8": spmd_parity_launches,
+        }))
+        if args.profile is not None:
+            phase_bench_profile(torch, bench_path, args.profile)
+            lap("bench profile")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):
@@ -2475,6 +3095,11 @@ def main() -> int:
         "source": "omldm_tpu_torch/csrc/pa_scan.cu",
         "replaces": "omldm_tpu/ops/pa_scan.py:27",
         "launches": launches,
+        "launches_by_path": {
+            "stream": launches,
+            "spmd_per_record": spmd_pa_launches,
+            "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan"],
+        },
         "max_abs_err": max_err,
         **times[main_shape],
         "library_ms": None,
@@ -2501,6 +3126,11 @@ def main() -> int:
             "max_abs_err": scatter_err,
             **scatter_times[shape],
         })
+    kernels[-2]["launches_by_path"] = {
+        "sparse_stream": scatter_launches,
+        **{f"spmd_sparse_{route}": n for route, n in spmd_scatter.items()},
+        "spmd_card_vs_cpu_dp8": spmd_parity_launches["scatter_add"],
+    }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,10 +14,13 @@ Sources (choose one style):
   ``EOS`` marker lines are dropped and replay continues
   (DataInstanceParser.scala:13-21). With a training file and only a
   requests file beside it, the requests are replayed FIRST, as the JAX
-  package does, and the training file goes through the C++ bulk parser
-  (``--fastIngest auto|true|false``, blocks of ``--ingestBatch`` rows,
-  parsed ``--prefetchDepth`` blocks ahead on a thread). Sparse Creates take
-  the per-record route.
+  package does. When they leave one pipeline, on the SPMD engine
+  (``engine: spmd``), the training file goes through the fused C parse ->
+  holdout -> stage loop (``StreamJob.run_file_fused``; ``--fusedIngest
+  false`` opts out), dense or sparse. Otherwise it goes through the C++
+  bulk parser (``--fastIngest auto|true|false``, blocks of
+  ``--ingestBatch`` rows, parsed ``--prefetchDepth`` blocks ahead on a
+  thread); sparse Creates then take the per-record route.
 - ``--events combined.jsonl`` -- one fully ordered file of ``{"stream":
   "trainingData"|"forecastingData"|"requests", "data": {...}}`` lines.
 
@@ -162,7 +165,8 @@ def _run(job: StreamJob, flags: Dict[str, str]) -> int:
     if "events" in flags:
         job.run(combined_events(flags["events"]))
         return 0
-    _requests_first(job, flags)
+    if _try_fused_run(job, flags):
+        return 0
     packed = None
     if TRAINING_STREAM in flags and flags.get("fastIngest", "auto") != "false":
         packed = _packed_training_source(flags)
@@ -183,29 +187,31 @@ def _run(job: StreamJob, flags: Dict[str, str]) -> int:
     return 0
 
 
-def _requests_first(job: StreamJob, flags: Dict[str, str]) -> None:
-    """The JAX CLI's file route (``_try_fused_run``) replays the whole
-    requests file before the training file whenever the training file is
-    the only data source and the width can be pinned, deploys the Creates
-    at that width, and stashes the width for the packed route (a sparse
-    job instead takes the per-record route). Its fused and sharded halves
-    need the SPMD bridge; this is the half every job passes through, so
-    requests and responses keep the same place in the stream here."""
+def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
+    """The fastest file route, as the JAX CLI's: whenever the training file
+    is the only data source and the width can be pinned, replay the whole
+    requests file first, deploy the Creates at that width, and -- when the
+    job then holds one pipeline, on the SPMD engine -- consume the training
+    file through the fused C loop (``StreamJob.run_file_fused``) and
+    terminate: True. Otherwise the requests stay processed, the width is
+    stashed for the packed route (a sparse job takes the per-record route
+    instead), and the event loop resumes: False. The JAX CLI's sharded
+    ingest branch is refused at the flags (``--ingest``)."""
     if TRAINING_STREAM not in flags:
-        return
+        return False
     if flags.get("fastIngest", "auto") == "false":
-        return
+        return False
     if flags.get("fusedIngest", "auto") == "false":
-        return
+        return False
     if any(t in flags for t in _STREAMS if t not in (TRAINING_STREAM, REQUEST_STREAM)):
-        return
+        return False
     spec = _stream_spec(flags)
     sparse = False
     if spec is None:
         spec = _sparse_stream_spec(flags)
         sparse = spec is not None
     if spec is None:
-        return
+        return False
     if REQUEST_STREAM in flags:
         for stream, line in file_events(flags[REQUEST_STREAM], REQUEST_STREAM):
             job.process_event(stream, line)
@@ -218,6 +224,11 @@ def _requests_first(job: StreamJob, flags: Dict[str, str]) -> None:
         else:
             flags["__streamSpec__"] = f"{spec[0]},{spec[1]}"
     job.ensure_deployed(spec[0])
+    if job.fused_file_bridge() is None:
+        return False  # requests stay processed; the packed route resumes
+    job.run_file_fused(flags[TRAINING_STREAM])
+    job.terminate()
+    return True
 
 
 def _sparse_stream_spec(flags: Dict[str, str]) -> Optional[Tuple[int, int]]:
@@ -251,7 +262,7 @@ def _stream_spec(flags: Dict[str, str]) -> Optional[Tuple[int, int]]:
 
     if "__sparseStream__" in flags:
         return None  # sparse pipelines featurize per record
-    if "__streamSpec__" in flags:  # resolved by _requests_first
+    if "__streamSpec__" in flags:  # resolved by _try_fused_run
         dim, hash_dims = flags["__streamSpec__"].split(",")
         return int(dim), int(hash_dims)
     if REQUEST_STREAM in flags:

@@ -8,8 +8,10 @@ pair ``(idx[B, K] int32, val[B, K] float32)`` instead of a dense ``[B, D]``.
 The weights stay dense on the device (``w[D+1]``, the bias row at index D);
 each record's forward is a K-row gather-dot and each update one scatter-add
 (ops/sparse.py: the CUDA kernel on the card), into ``w`` itself when the
-caller donates the parameters (the pipeline's fit). Update rules,
-hyper-parameters, and loss/score semantics are the JAX package's.
+caller donates the parameters (the pipeline's fit). The SPMD engine
+updates its dp workers at once (``fleet_update``): one scatter for all of
+them. Update rules, hyper-parameters, and loss/score semantics are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ class SparseLinear(Learner):
     """Shared plumbing: dense ``w[D+1]`` (bias row at index D), sparse x."""
 
     sparse = True
+    #: the parameter leaf the update scatters into
+    weight_key = "w"
 
     def init(self, dim: int, generator: Optional[torch.Generator] = None,
              device: Optional[torch.device] = None) -> Params:
@@ -55,6 +59,54 @@ class SparseLinear(Learner):
         return sparse_scatter_add_auto(
             w, idx, coef, val, impl=self.ds.get("scatterImpl"), inplace=inplace
         )
+
+    def _update_terms(self, params, x, y, mask):
+        """One mini-batch update up to its scatter: ``(params, idx, coef,
+        val, loss, fresh)``. ``params`` holds the new leaves, the weight leaf
+        (``weight_key``) as it stands before the scatter; ``fresh`` says that
+        leaf is a new tensor the update owns, which the scatter may write
+        into whatever the caller donated."""
+        raise NotImplementedError
+
+    def update(self, params, x, y, mask, donate=False):
+        params, idx, coef, val, loss, fresh = self._update_terms(params, x, y, mask)
+        key = self.weight_key
+        params[key] = self._scatter(params[key], idx, coef, val, donate or fresh)
+        return params, loss
+
+    def fleet_update(self, params, x, y, mask):
+        """The mini-batch update of dp workers at once, their scatters in ONE
+        launch. ``params`` leaves are ``[dp, ...]`` and given up, as to
+        :meth:`update` with ``donate``; ``x`` is ``(idx, val)`` of shape
+        ``[dp, B, K]``, ``y`` and ``mask`` ``[dp, B]``. Returns the new
+        ``[dp, ...]`` leaves and the ``[dp]`` losses.
+
+        Each worker's terms come from its own rows, as in :meth:`update`.
+        The dp weight leaves are then one ``[dp * R, ...]`` tensor, and
+        worker i's indices are offset by ``i * R``. Every index lies in
+        [0, R): the features inside the model's width (the control gate's
+        ``validate_sparse`` keeps ``hashSpace`` inside ``nFeatures``) and
+        the bias at R - 1. So no worker's update lands in another's rows,
+        and the one scatter equals dp scatters."""
+        key = self.weight_key
+        dp = y.shape[0]
+        rows_of = [{k: v[i] for k, v in params.items()} for i in range(dp)]
+        terms = [
+            self._update_terms(rows_of[i], (x[0][i], x[1][i]), y[i], mask[i])
+            for i in range(dp)
+        ]
+        weights = params[key]
+        if any(t[0][key] is not r[key] for t, r in zip(terms, rows_of)):
+            weights = torch.stack([t[0][key] for t in terms])
+        weights = weights.contiguous()
+        rows = weights.shape[1]
+        idx = torch.cat([t[1] + i * rows for i, t in enumerate(terms)])
+        coef = torch.cat([t[2] for t in terms])
+        val = torch.cat([t[3] for t in terms])
+        self._scatter(weights.view(dp * rows, *weights.shape[2:]), idx, coef, val, True)
+        new = {k: torch.stack([t[0][k] for t in terms]) for k in params if k != key}
+        new[key] = weights
+        return new, torch.stack([t[4] for t in terms])
 
     def update_per_record(self, params, x, y, mask, donate=False):
         """Exact per-record pass: the mini-batch rule on B=1 slices of each
@@ -89,7 +141,7 @@ class SparsePAClassifier(SparseLinear):
         hinge = torch.clamp(1.0 - sign_labels(y) * margins, min=0.0)
         return masked_mean(hinge, mask)
 
-    def update(self, params, x, y, mask, donate=False):
+    def _update_terms(self, params, x, y, mask):
         variant = str(self.hp.get("variant", "PA-I"))
         C = float(self.hp.get("C", 0.01))
         margins, (idx, val) = self._margins(params, x)
@@ -98,8 +150,7 @@ class SparsePAClassifier(SparseLinear):
         tau = _pa_tau(hinge, sparse_sq_norm(val), variant, C)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = tau * ys * mask / denom
-        w = self._scatter(params["w"], idx, coef, val, donate)
-        return {"w": w}, masked_mean(hinge, mask)
+        return {"w": params["w"]}, idx, coef, val, masked_mean(hinge, mask), False
 
 
 class SparsePARegressor(SparseLinear):
@@ -117,7 +168,7 @@ class SparsePARegressor(SparseLinear):
         margins, _ = self._margins(params, x)
         return masked_mean(torch.clamp((margins - y).abs() - eps, min=0.0), mask)
 
-    def update(self, params, x, y, mask, donate=False):
+    def _update_terms(self, params, x, y, mask):
         variant = str(self.hp.get("variant", "PA-I"))
         C = float(self.hp.get("C", 0.01))
         eps = float(self.hp.get("epsilon", 0.1))
@@ -127,8 +178,7 @@ class SparsePARegressor(SparseLinear):
         tau = _pa_tau(loss, sparse_sq_norm(val), variant, C)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = -torch.sign(err) * tau * mask / denom
-        w = self._scatter(params["w"], idx, coef, val, donate)
-        return {"w": w}, masked_mean(loss, mask)
+        return {"w": params["w"]}, idx, coef, val, masked_mean(loss, mask), False
 
 
 class SparseSVM(SparseLinear):
@@ -154,7 +204,7 @@ class SparseSVM(SparseLinear):
         hinge = torch.clamp(1.0 - sign_labels(y) * margins, min=0.0)
         return masked_mean(hinge, mask)
 
-    def update(self, params, x, y, mask, donate=False):
+    def _update_terms(self, params, x, y, mask):
         """Mini-batch pegasos: eta = 1/(lambda*t); w <- (1-eta*lambda)w +
         eta * mean_violators(y x). The decay is the only O(D) op."""
         lam = float(self.hp.get("lambda", 1e-4))
@@ -165,8 +215,8 @@ class SparseSVM(SparseLinear):
         eta = 1.0 / (lam * params["t"])
         denom = torch.clamp(mask.sum(), min=1.0)
         w = params["w"] * (1.0 - eta * lam)  # a new tensor: scatter into it
-        w = self._scatter(w, idx, eta * ys * viol / denom, val, True)
-        return {"w": w, "t": params["t"] + 1.0}, masked_mean(hinge, mask)
+        new = {"w": w, "t": params["t"] + 1.0}
+        return new, idx, eta * ys * viol / denom, val, masked_mean(hinge, mask), True
 
 
 class SparseSoftmax(SparseLinear):
@@ -175,6 +225,7 @@ class SparseSoftmax(SparseLinear):
 
     name = "Softmax"
     task = "classification"
+    weight_key = "W"
 
     def init(self, dim: int, generator: Optional[torch.Generator] = None,
              device: Optional[torch.device] = None) -> Params:
@@ -203,7 +254,10 @@ class SparseSoftmax(SparseLinear):
         logits, _ = self._logits(params, x)
         return masked_mean(self._xent(logits, y), mask)
 
-    def update(self, params, x, y, mask, donate=False):
+    def _scatter(self, W, idx, coef, val, inplace):
+        return sparse_scatter_add_outer(W, idx, coef, val, inplace=inplace)
+
+    def _update_terms(self, params, x, y, mask):
         lr = float(self.hp.get("learningRate", 0.05))
         logits, (idx, val) = self._logits(params, x)
         k = logits.shape[1]
@@ -211,8 +265,8 @@ class SparseSoftmax(SparseLinear):
         grad = probs - torch.nn.functional.one_hot(self._classes(y, k), k).to(probs.dtype)
         denom = torch.clamp(mask.sum(), min=1.0)
         coef = -lr * grad * (mask / denom)[:, None]
-        W = sparse_scatter_add_outer(params["W"], idx, coef, val, inplace=donate)
-        return {"W": W}, masked_mean(self._xent(logits, y), mask)
+        loss = masked_mean(self._xent(logits, y), mask)
+        return {"W": params["W"]}, idx, coef, val, loss, False
 
     def score(self, params, x, y, mask):
         logits, _ = self._logits(params, x)

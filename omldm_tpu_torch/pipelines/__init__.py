@@ -2,8 +2,9 @@
 
 from omldm_tpu_torch.pipelines.pipeline import (
     MLPipeline,
+    fleet_state_from_numpy,
     state_from_numpy,
     state_to_numpy,
 )
 
-__all__ = ["MLPipeline", "state_from_numpy", "state_to_numpy"]
+__all__ = ["MLPipeline", "fleet_state_from_numpy", "state_from_numpy", "state_to_numpy"]

@@ -9,7 +9,8 @@ A sparse learner's input is the padded-COO pair ``(idx, val)``; the
 pipeline moves idx to the device as int32 and refuses preprocessors for it.
 
 The state ``{"preps": [...], "params": {...}, "fitted": int32,
-"cum_loss": float32}`` lives on the pipeline's ``torch.device``. A fit
+"cum_loss": float32}`` lives on the pipeline's ``torch.device``: CUDA
+unless the caller asks for the CPU (without a card, CUDA raises). A fit
 gives the old state up, as the JAX package donates it
 (``jax.jit(fit_i, donate_argnums=0)``): the learner may write its new
 parameters into the old ones' memory (the sparse learners' scatter does).
@@ -39,7 +40,7 @@ from omldm_tpu_torch.learners.base import Learner
 from omldm_tpu_torch.learners.registry import make_learner
 from omldm_tpu_torch.preprocessors.base import Preprocessor
 from omldm_tpu_torch.preprocessors.registry import make_preprocessor
-from omldm_tpu_torch.utils import batch_valid_counts
+from omldm_tpu_torch.utils import batch_valid_counts, resolve_device
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -95,6 +96,27 @@ def state_from_numpy(tree, device) -> dict:
     return _tree_map(to_tensor, tree)
 
 
+def fleet_state_from_numpy(tree, trainer) -> dict:
+    """A JAX ``SPMDTrainer`` state as numpy arrays (``jax.device_get``;
+    leaves ``[dp, hub, ...]``) -> the port's fleet state, leaves ``[dp,
+    ...]`` on ``trainer``'s device: hub slot 0 is kept (the hub shards of a
+    worker hold the same values), an NN's optax state takes the port's
+    layout as in :func:`state_from_numpy`. Load it with
+    ``trainer.load_state``."""
+    dp = trainer.dp
+
+    def to_tensor(a):
+        a = np.asarray(a)
+        if a.shape[:1] != (dp,) or a.ndim < 2:
+            raise ValueError(f"fleet leaf of shape {a.shape} is not [dp={dp}, hub, ...]")
+        a = a[:, 0]
+        if np.issubdtype(a.dtype, np.floating):
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(trainer.device)
+
+    return _tree_map(to_tensor, tree)
+
+
 def state_to_numpy(state) -> dict:
     """The port's pipeline state -> numpy arrays (the JAX state's layout)."""
     return _tree_map(lambda t: t.detach().cpu().numpy(), state)
@@ -129,10 +151,11 @@ class MLPipeline:
         dim: int = 0,
         generator: Optional[torch.Generator] = None,
         per_record: bool = False,
-        device="cpu",
+        device=None,
     ):
         self.learner: Learner = make_learner(learner_spec)
-        self.device = torch.device("cpu" if self.learner.host_side else device)
+        self.device = (torch.device("cpu") if self.learner.host_side
+                       else resolve_device(device, "MLPipeline"))
         self.preps: List[Preprocessor] = [
             make_preprocessor(p) for p in preprocessor_specs
         ]

@@ -9,11 +9,14 @@ Every learner, preprocessor and protocol of the JAX package's host engine
 is admitted. A sparse Create must name its width and a learner with a
 sparse variant, and takes no preprocessors (``validate_sparse``). A
 ``serving`` table must parse (``runtime.serving.validate_serving``): a bad
-one drops its request. The port's gate also rejects what the port cannot
-run yet -- the SPMD engine, the transport codec, the reliable channel, and
-per-pipeline switches that arm a plane the port lacks (guard, overload,
-lifecycle, telemetry, events) -- with a reason that names it, so a request
-that would fail at deploy drops alone instead of killing the job.
+one drops its request. A Create for the SPMD engine (``engine: spmd``)
+that the engine hosts must name a feed dtype it takes and, under SSP, a
+staleness bound of at least 1 (``validate_spmd``); the JAX package raises
+on both at deploy. The port's gate also rejects what the port cannot run
+yet -- the transport codec, the reliable channel, and per-pipeline switches
+that arm a plane the port lacks (guard, overload, lifecycle, telemetry,
+events) -- with a reason that names it, so a request that would fail at
+deploy drops alone instead of killing the job.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestTyp
 from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY, is_valid_learner
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 from omldm_tpu_torch.preprocessors.registry import is_valid_preprocessor
-from omldm_tpu_torch.runtime.messages import comm_dict
+from omldm_tpu_torch.runtime.messages import comm_codec_name, comm_dict
 from omldm_tpu_torch.runtime.serving import validate_serving
+from omldm_tpu_torch.runtime.spmd_bridge import spmd_engine_requested, spmd_engine_supported
 
 # trainingConfiguration keys that arm a plane the port does not have
 UNPORTED_PIPELINE_PLANES = ("guard", "overload", "lifecycle", "telemetry",
@@ -52,14 +56,32 @@ def unported_option(request: Request) -> Optional[str]:
         if _armed(extra.get(key)):
             return f"trainingConfiguration.{key} is not yet ported"
     comm = comm_dict(tc)
-    codec = str(comm.get("codec", extra.get("codec", "none")) or "none").lower()
+    codec = comm_codec_name(tc)
     if codec != "none":
         return f"comm.codec {codec!r} is not yet ported"
     for key in RELIABILITY_KEYS:
         if key in comm:
             return f"comm.{key} (reliable channel) is not yet ported"
-    if str(extra.get("engine", "")).lower() == "spmd":
-        return "engine 'spmd' is not yet ported"
+    return None
+
+
+def validate_spmd(request: Request) -> Optional[str]:
+    """A Create the SPMD engine will host must be deployable there: the
+    bridge and the trainer raise at deploy on a feed dtype other than
+    float32 or float16, and on an SSP staleness bound below 1 (a bound of 0
+    refuses every batch)."""
+    if not (spmd_engine_requested(request) and spmd_engine_supported(request)):
+        return None
+    tc = request.training_configuration
+    feed = str(tc.extra.get("feedDtype", "float32"))
+    if feed not in ("float32", "float16"):
+        return f"engine 'spmd': feedDtype must be float32|float16, got {feed!r}"
+    try:
+        staleness = int(tc.extra.get("staleness", 3))
+    except (TypeError, ValueError):
+        return f"engine 'spmd': staleness {tc.extra.get('staleness')!r} must be an integer"
+    if tc.protocol == "SSP" and staleness < 1:
+        return f"engine 'spmd': SSP staleness must be >= 1, got {staleness}"
     return None
 
 
@@ -137,6 +159,9 @@ class PipelineManager:
         if tc.hub_parallelism < 1:
             return "HubParallelism must be >= 1"
         err = validate_serving(tc)
+        if err is not None:
+            return err
+        err = validate_spmd(request)
         if err is not None:
             return err
         return unported_option(request)

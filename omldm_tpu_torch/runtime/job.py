@@ -1,13 +1,19 @@
 """StreamJob: assembles spokes, hubs, control plane, statistics and sinks.
 
 Counterpart of ``omldm_tpu/runtime/job.py`` (the reference's ``Job`` +
-``FlinkLearning``, Job.scala:28-171) on its host-plane route: training and
-forecasting records and requests in; predictions, merged query responses
-and the final ``JobStatistics`` out. The job consumes an ordered event
-iterable of ``(stream, payload)`` pairs and runs the termination protocol
-at stream end. A ``PACKED_STREAM`` event carries a block of rows the native
-parser vectorized (``runtime.fast_ingest``), dealt to the spokes exactly as
+``FlinkLearning``, Job.scala:28-171): training and forecasting records and
+requests in; predictions, merged query responses and the final
+``JobStatistics`` out. The job consumes an ordered event iterable of
+``(stream, payload)`` pairs and runs the termination protocol at stream
+end. A ``PACKED_STREAM`` event carries a block of rows the native parser
+vectorized (``runtime.fast_ingest``), dealt to the spokes exactly as
 per-record events would be.
+
+A pipeline deploys on the host plane (spokes and hubs) or, when its
+``trainingConfiguration`` sets ``{"engine": "spmd"}`` with a protocol and
+learner the engine hosts, on an ``SPMDBridge`` (``runtime.spmd_bridge``),
+which sees every record. A job whose one pipeline is on that engine can
+take a training file through the fused C ingest (``run_file_fused``).
 
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
@@ -17,8 +23,9 @@ not have yet raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Any, Callable, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +39,11 @@ from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.hub import HubManager
 from omldm_tpu_torch.runtime.responses import ResponseMerger
 from omldm_tpu_torch.runtime.serving import parse_serving_spec
+from omldm_tpu_torch.runtime.spmd_bridge import (
+    make_spmd_bridge,
+    spmd_engine_requested,
+    spmd_engine_supported,
+)
 from omldm_tpu_torch.runtime.spoke import PACKED, Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
@@ -125,6 +137,8 @@ class StreamJob:
         # data that arrives before ANY pipeline is deployed, replayed through
         # the normal routing on the first deploy
         self._backlog = _PauseBuffer(PRE_CREATE_BACKLOG_CAP)
+        # pipelines deployed on the SPMD engine instead of the host plane
+        self.spmd_bridges: Dict[int, Any] = {}
 
     # --- sinks ---
 
@@ -243,6 +257,7 @@ class StreamJob:
             for spoke in self.spokes:
                 spoke.handle_request(request, 0)
             self.hub_manager.delete_network(request.id)
+            self.spmd_bridges.pop(request.id, None)
             self._dims.pop(request.id, None)
             self._pending_creates = [
                 r for r in self._pending_creates if r.id != request.id
@@ -252,6 +267,12 @@ class StreamJob:
                 # admitted but not deployed yet: no worker hosts it
                 return
             rid = request.request_id if request.request_id is not None else 0
+            bridge = self.spmd_bridges.get(request.id)
+            if bridge is not None:
+                # the fleet is one logical model: a single fragment set
+                self.response_merger.expect(rid, 1)
+                bridge.emit_query_response(rid)
+                return
             targets = self.pipeline_manager.query_targets(
                 request, self.config.parallelism
             )
@@ -298,11 +319,26 @@ class StreamJob:
 
     def _deploy(self, request: Request, dim: int) -> None:
         """Create the pipeline on every worker and its hub shard(s)
-        (PipelineMap.scala:54-57, FlinkSpoke.scala:220-222)."""
+        (PipelineMap.scala:54-57, FlinkSpoke.scala:220-222), or on the SPMD
+        engine when the request asks for it and the engine hosts it."""
+        use_spmd = spmd_engine_requested(request) and spmd_engine_supported(request)
         if request.id in self._dims:
-            # an Update tears down the previous deployment
+            # an Update tears down the previous deployment, on either plane
             self.hub_manager.delete_network(request.id)
+            self.spmd_bridges.pop(request.id, None)
+            if use_spmd:
+                # clear the stale host-plane nets when switching planes
+                delete = dataclasses.replace(request, request=RequestType.DELETE)
+                for spoke in self.spokes:
+                    spoke.handle_request(delete, 0)
         self._dims[request.id] = dim
+        if use_spmd:
+            self.spmd_bridges[request.id] = make_spmd_bridge(
+                request, dim, self.config, self._emit_prediction,
+                self._route_response_fragment, self.device,
+            )
+            self._replay_backlog()
+            return
         for spoke in self.spokes:
             spoke.handle_request(request, dim)
         for h in range(request.training_configuration.hub_parallelism):
@@ -325,6 +361,10 @@ class StreamJob:
         spoke = self.spokes[self._rr % len(self.spokes)]
         self._rr += 1
         spoke.handle_data(inst)
+        # SPMD-engine pipelines see every record (the bridge spreads them
+        # across its workers)
+        for bridge in self.spmd_bridges.values():
+            bridge.handle_data(inst)
 
     def process_packed_batch(self, x: np.ndarray, y: np.ndarray, op: np.ndarray) -> None:
         """Bulk data path: pre-vectorized rows from the native parser
@@ -349,6 +389,8 @@ class StreamJob:
             if start < n:
                 self.spokes[w].handle_packed(x[start::p], y[start::p], op[start::p])
         self._rr += n
+        for bridge in self.spmd_bridges.values():
+            bridge.handle_batch(x, y, op)
 
     def ensure_deployed(self, dim: int) -> None:
         """Deploy any Create still waiting on a feature width: the CLI's
@@ -358,6 +400,36 @@ class StreamJob:
             pending, self._pending_creates = self._pending_creates, []
             for request in pending:
                 self._deploy(request, dim)
+
+    def fused_file_bridge(self):
+        """The single SPMD bridge qualifying for the fused C file ingest, or
+        None. The fused route bypasses the per-event loop, so it is taken
+        only when that loop would have nothing else to do: exactly one
+        deployed pipeline, on the SPMD engine, and no pending work."""
+        if self._pending_creates or self._backlog or self.stats.terminated:
+            return None
+        if len(self.spmd_bridges) != 1:
+            return None
+        if any(net_id not in self.spmd_bridges for net_id in self._dims):
+            return None  # host-plane pipelines also consume the stream
+        bridge = next(iter(self.spmd_bridges.values()))
+        return bridge if bridge.supports_fused_ingest() else None
+
+    def run_file_fused(self, path: str) -> bool:
+        """Consume a JSON-lines training file through the fused C ingest.
+        Returns False when the job does not qualify (callers fall back to
+        the packed event route). A pipeline that is not SSP-paced takes the
+        double-buffered route: the parse thread fills stage k+1 while the
+        dispatch thread trains stage k, with results bit-identical to the
+        serial loop."""
+        bridge = self.fused_file_bridge()
+        if bridge is None:
+            return False
+        if bridge.supports_overlapped_ingest():
+            bridge.ingest_file_overlapped(path, on_chunk=self.stats.mark_activity)
+        else:
+            bridge.ingest_file(path, on_chunk=self.stats.mark_activity)
+        return True
 
     # --- run loop ---
 
@@ -395,9 +467,15 @@ class StreamJob:
         self.stats.probe_fired = True
         for spoke in self.spokes:
             spoke.handle_terminate_probe()
-        self.hub_manager.on_terminate()
         # quarantined-record count, mirrored into every pipeline's report
         nq = self.dead_letter.record_count
+        for bridge in self.spmd_bridges.values():
+            bridge.handle_terminate_probe()
+            bridge_stats = bridge.network_statistics()
+            if nq:
+                bridge_stats.update_stats(records_quarantined=nq)
+            self.stats.add_hub_statistics(bridge.request.id, bridge_stats)
+        self.hub_manager.on_terminate()
         for net_id in self.pipeline_manager.live_pipelines:
             merged = self.hub_manager.network_statistics(net_id)
             if merged is not None:

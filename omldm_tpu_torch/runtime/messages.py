@@ -51,3 +51,10 @@ def comm_dict(tc) -> dict:
     """The ``trainingConfiguration.comm`` table (empty when absent)."""
     extra = getattr(tc, "extra", None) or {}
     return extra.get("comm") or {}
+
+
+def comm_codec_name(tc) -> str:
+    """The pipeline's transport codec (``comm.codec``, a flat ``codec``
+    accepted too), ``"none"`` by default."""
+    extra = getattr(tc, "extra", None) or {}
+    return str(comm_dict(tc).get("codec", extra.get("codec", "none")) or "none").lower()

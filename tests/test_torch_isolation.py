@@ -31,6 +31,9 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.fast_ingest, omldm_tpu_torch.runtime.prefetch\n"
         "import omldm_tpu_torch.learners, omldm_tpu_torch.preprocessors\n"
         "import omldm_tpu_torch.protocols, omldm_tpu_torch.runtime.hub\n"
+        "import omldm_tpu_torch.parallel.spmd, omldm_tpu_torch.parallel.mesh\n"
+        "import omldm_tpu_torch.runtime.spmd_bridge, omldm_tpu_torch.ops.codec\n"
+        "import omldm_tpu_torch.runtime.databuffers\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -162,6 +165,21 @@ def test_default_device_is_cuda():
             StreamJob()
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamJob(device="cuda")
+
+
+def test_pipeline_default_device_is_cuda():
+    """MLPipeline with no device wants CUDA and, without a card, raises as
+    StreamJob() does; a host-side learner (HT) stays on the host."""
+    from omldm_tpu_torch.api.requests import LearnerSpec
+    from omldm_tpu_torch.pipelines import MLPipeline
+
+    if torch.cuda.is_available():
+        assert MLPipeline(LearnerSpec("PA"), dim=3).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="MLPipeline: CUDA requested"):
+            MLPipeline(LearnerSpec("PA"), dim=3)
+    assert MLPipeline(LearnerSpec("PA"), dim=3, device="cpu").device.type == "cpu"
+    assert MLPipeline(LearnerSpec("HT"), dim=3).device.type == "cpu"
 
 
 def test_seq_trainer_default_device_is_cuda():
@@ -323,7 +341,8 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
     (_create(serving={"maxBatch": 8, "nope": 1}), "unknown serving knob"),
     (_create(comm={"codec": "topk"}), "codec"),
     (_create(comm={"reliable": True}), "reliable"),
-    (_create(engine="spmd"), "spmd"),
+    (_create(engine="spmd", feedDtype="float64"), "engine 'spmd': feedDtype"),
+    (_create(engine="spmd", protocol="SSP", staleness=0), "SSP staleness must be >= 1"),
 ])
 def test_control_gate_rejects_unported(request_json, reason):
     job = StreamJob(JobConfig(parallelism=2), device="cpu")
@@ -636,3 +655,49 @@ def test_chip_smoke_host_plane_runs():
         x, y = chip_smoke.learner_data(kind, 20, width, seed=0)
         assert x.shape == (20, width) and y.shape == (20,), name
     assert chip_smoke._forecast_ops(20).tolist() == [0] * 9 + [1] + [0] * 9 + [1]
+
+
+@pytest.mark.parametrize("phase", [
+    "phase_bench", "phase_spmd_protocols", "phase_spmd_parity", "phase_bench_profile",
+])
+def test_chip_smoke_has_the_spmd_phases(phase):
+    chip_smoke = _chip_smoke()
+    assert callable(getattr(chip_smoke, phase))
+    assert f"{phase}(" in (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+
+
+def test_chip_smoke_bench_stream_is_the_benchmarks(tmp_path):
+    """Phase 24's file is byte for byte run_benchmarks.py's _gen_stream_file
+    at the same seed (its pool formats the chunks that generator draws)."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    try:
+        from run_benchmarks import _gen_stream_file
+    finally:
+        sys.path.remove(str(ROOT / "benchmarks"))
+    chip_smoke = _chip_smoke()
+    ours, theirs = tmp_path / "ours.jsonl", tmp_path / "theirs.jsonl"
+    n = 20_000 + 37  # two chunks, the second one short
+    assert chip_smoke.write_bench_stream(ours, n, seed=5) == _gen_stream_file(
+        str(theirs), n, 28, seed=5)
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_chip_smoke_spmd_shapes():
+    """Phase 24 runs _make_e2e_job's job, phase 25 run_one(engine="spmd")'s,
+    phase 26 the JAX engine's 8-worker mesh with hub 2; each phase-26
+    learner is one the engine hosts, the sparse one at Criteo width with
+    the scatter pinned, so the card's kernel meets index_add_ on the CPU."""
+    from omldm_tpu_torch.parallel.spmd import SPMD_PROTOCOLS
+
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.BENCH_RECORDS == 1_000_000
+    assert chip_smoke.BENCH_JOB == dict(parallelism=1, batch=4096, chain=32, dim=28)
+    assert chip_smoke.SPMD_RUN == dict(records=50_000, parallelism=16, batch=256,
+                                       test_set_size=64, sync_every=4, chain=4)
+    assert tuple(chip_smoke.SPMD_PROTOCOLS) == SPMD_PROTOCOLS
+    assert chip_smoke.SPMD_MESH == (8, 2)
+    create = chip_smoke._spmd_create("SSP", per_record=True)
+    tc = create["trainingConfiguration"]
+    assert (tc["engine"], tc["stageChain"], tc["syncEvery"], tc["perRecord"]) == ("spmd", 4, 4, True)
+    ds = chip_smoke.SPMD_CHECK_LEARNERS["sparse_pa2"][0]["dataStructure"]
+    assert (ds["nFeatures"], ds["scatterImpl"]) == (chip_smoke.CRITEO_DIM, "scatter")
