@@ -187,9 +187,46 @@ Phases (any failure raises and the script exits nonzero without a result):
                  the same batches (SSP at staleness 1 refuses some):
                  sync_count, bytes_shipped, collective_bytes_physical,
                  worker_clocks and fitted equal, parameters within W_RTOL,
-                 W_ATOL; pa_scan 8 launches a step, scatter_add one; then
-                 the bench job's first 20,000 rows on both: 512 probe
-                 predictions and the statistics equal.
+                 W_ATOL; perRecord PA one batched pa_scan launch a step
+                 for the 8 workers (pa_scan_update_batched), scatter_add
+                 one; then the bench job's first 20,000 rows on both: 512
+                 probe predictions and the statistics equal.
+ 27. batched-check pa_scan_update_batched (C scans in one launch
+                 sequence: member on the grid's y axis, a chain CTA a
+                 member) against its plain version at BATCHED_SHAPES
+                 (C, B, D+1) = (64, 256, 29), (8, 256, 1025), (3, 255,
+                 4097), PA-I and PA-II, and a 5-member call whose member 2
+                 has an all-zero mask (it keeps w0 bitwise); BATCHED_GROUPED_
+                 CHECK, 96 members at B = 16,384 whose scratch (103 GB)
+                 passes the card's memory: launches over member groups,
+                 the peak inside the wrapper's budget, every member held
+                 to its single scan, two to the plain version; its time as a
+                 CUDA graph against C single pa_scan calls as a CUDA graph,
+                 device busy time, host time, the plain version, the bound;
+ 28. multi-tenant MT_RUN: 64 same-spec Creates (PA-I, C 0.01, perRecord,
+                 Synchronous, every other one serving-armed) at
+                 parallelism 2, dim 28, 50,000 HIGGS-shaped rows through
+                 the packed route, every tenth a forecast, with cohorts
+                 auto (vmap; one cohort of 64 a spoke, one batched pa_scan
+                 launch a gang step, no solo pa_scan; every forecast
+                 answered by every tenant); then the first 5,000 rows
+                 with cohorts auto and off (one pa_scan a tenant a fit),
+                 held to each other by the JAX package's rule for
+                 schedules that differ (each net's forecasts all served,
+                 holdout scores within 0.05), and each again
+                 under torch.profiler: the device's idle share (busy over
+                 the unprofiled run's wall); then those rows on the CPU
+                 (map) against the card's cohort run (vmap): each net's
+                 predictions in order, >= 99% equal, parameters within
+                 W_RTOL, W_ATOL (scaled by their largest magnitude),
+                 fitted equal; records/s, launches, gang launches and
+                 predicts on a "multi-tenant:" JSON line;
+ 29. specs       every dense spec of the reference's cohort tests (PA,
+                 PA perRecord, RegressorPA, ORR, SVM, MultiClassPA, NN,
+                 Softmax) at 8 members, 2,000 rows, parallelism 1: cohort
+                 on (vmap) on the card against solo on the CPU (one worker:
+                 the same schedule), held as phase 28 holds card against
+                 CPU (regression predictions within rtol 1e-3, atol 1e-3).
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -202,6 +239,10 @@ stream's runs under cProfile (host time by function) and torch.profiler
 (device busy time), then 4 LM steps under torch.profiler (device busy
 time, the flash kernels' share, the top kernels); tables are written into
 DIR.
+With --ab-pa-scan SRC, after the build: the one-scan kernel against SRC
+(another checkout's omldm_tpu_torch/csrc/pa_scan.cu, e.g. a parent commit
+unpacked with git archive) as CUDA graphs at TIME_SHAPES in alternating
+turns, then exit.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2845,7 +2886,7 @@ def phase_spmd_parity(torch, pa_scan, sparse, seed, bench_path: Path, tmp: Path,
     from omldm_tpu_torch.parallel.spmd import SPMDTrainer
 
     dp, hub = SPMD_MESH
-    launches = {"pa_scan": 0, "scatter_add": 0}
+    launches = {"pa_scan": 0, "pa_scan_batched": 0, "scatter_add": 0}
     worst = 0.0
     for label, (learner, per_record, kind) in SPMD_CHECK_LEARNERS.items():
         batches = _spmd_check_batches(kind, seed)
@@ -2858,7 +2899,7 @@ def phase_spmd_parity(torch, pa_scan, sparse, seed, bench_path: Path, tmp: Path,
                                               "staleness": 1})
             trainers = {}
             for d in devices:
-                pa_scan.launches = 0
+                pa_scan.launches = pa_scan.batched_launches = 0
                 for name in sparse.launches:
                     sparse.launches[name] = 0
                 t = SPMDTrainer(LearnerSpec(learner["name"],
@@ -2874,11 +2915,15 @@ def phase_spmd_parity(torch, pa_scan, sparse, seed, bench_path: Path, tmp: Path,
                 _sync(torch, d)
                 if d == "cuda":
                     launches["pa_scan"] += pa_scan.launches
+                    launches["pa_scan_batched"] += pa_scan.batched_launches
                     launches["scatter_add"] += sparse.launches["scatter_add"]
                     steps = len(batches)
-                    want = {"pa_scan": steps * dp if per_record else 0,
+                    # per-record workers scan in ONE batched launch a step
+                    want = {"pa_scan": 0, "pa_scan_batched": steps if per_record else 0,
                             "scatter_add": steps if kind == "sparse" else 0}
-                    got = {"pa_scan": pa_scan.launches, "scatter_add": sparse.launches["scatter_add"]}
+                    got = {"pa_scan": pa_scan.launches,
+                           "pa_scan_batched": pa_scan.batched_launches,
+                           "scatter_add": sparse.launches["scatter_add"]}
                     check(got == want, f"spmd-parity[{label}, {protocol}]: launches {got}, "
                           f"expected {want}")
                 trainers[d] = t
@@ -2965,6 +3010,505 @@ def phase_bench_profile(torch, path: Path, out_dir: Path):
         log(f"  {label}: {host.get(label, 0.0):.3f}")
 
 
+# --- the multi-tenant cohort engine ---------------------------------------------
+
+# (members C, rows B, width D + 1) of the batched pa_scan's check and time;
+# (64, 256, 29) is the multi-tenant stream's gang step
+BATCHED_SHAPES = [(64, 256, 29), (8, 256, 1025), (3, 255, 4097)]
+# a 5-member call whose member 2 has an all-zero mask: it keeps w0 bitwise
+BATCHED_ZERO_CHECK = (5, 256, 29)
+# 96 members at B = 16,384: their Gram matrices (1.07 GB each) would take
+# 103 GB at once, past the card's 80 GB; the wrapper launches them in
+# groups under SCRATCH_BUDGET_FLOATS (3 a launch). Member 40 (the second
+# of a group) has an all-zero mask.
+BATCHED_GROUPED_CHECK = (96, 16_384, 29, 40)
+# phase 28: 64 same-spec PA perRecord tenants (PA-I, C 0.01) under
+# Synchronous at parallelism 2, dim 28 (the bench job's width), every tenth
+# record a forecast, serving armed on every other tenant
+MT_RUN = dict(nets=64, records=50_000, parallelism=2, batch=256, test_set_size=64,
+              prefix_records=5_000)
+MT_LEARNER = {"name": "PA", "hyperParameters": {"C": 0.01, "variant": "PA-I"}}
+MT_SERVING = {"maxBatch": 64, "maxDelayMs": 5}
+# phase 29: every dense spec of the reference's cohort tests, 8 members
+COHORT_SPECS = [
+    ("PA", {"C": 1.0}, False, "binary"),
+    ("PA", {"C": 1.0}, True, "binary"),
+    ("RegressorPA", {"C": 0.1, "epsilon": 0.1}, False, "regression"),
+    ("ORR", {"lambda": 1.0}, False, "regression"),
+    ("SVM", {}, False, "binary"),
+    ("MultiClassPA", {"C": 1.0, "nClasses": 3}, False, "multi3"),
+    ("NN", {"hidden": 8}, False, "binary"),
+    ("Softmax", {"learningRate": 0.05, "nClasses": 2}, False, "binary"),
+]
+SPECS_RUN = dict(members=8, records=2_000, parallelism=1, batch=64, test_set_size=32)
+
+
+def _batched_inputs(torch, C, B, D, seed, zero_member=None):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((C, B, D), generator=g)
+    x[..., -1] = 1.0
+    w0 = torch.randn((C, D), generator=g) * 0.1
+    y = torch.randint(0, 2, (C, B), generator=g).float()
+    mask = (torch.rand((C, B), generator=g) > 0.2).float()
+    if zero_member is not None:
+        mask[zero_member] = 0.0
+    return [t.cuda().contiguous() for t in (w0, x, y, mask)]
+
+
+def _time_once(torch, fn):
+    """Events around one call (the plain versions take seconds a call, and
+    run torch ops the card has already run)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def batched_bound_ms(C, B, D):
+    """``bound_ms`` of C independent scans."""
+    t_bytes = C * (B * D + 2 * B + D + D + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * C * B * D / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_batched(torch, pa_scan):
+    """Phase 27: pa_scan_update_batched against its plain version (a loop of
+    pa_scan_reference over members) at BATCHED_SHAPES, variants PA-I and
+    PA-II, and BATCHED_ZERO_CHECK's all-zero member; then its time as a
+    CUDA graph against C single pa_scan_update calls as a CUDA graph, its
+    device busy time, the plain version once, the bound."""
+    max_w = max_l = 0.0
+    for C, B, D in BATCHED_SHAPES:
+        for variant in ("PA-I", "PA-II"):
+            w0, x, y, mask = _batched_inputs(torch, C, B, D, seed=C + B + D)
+            kw, kl = pa_scan.pa_scan_update_batched(w0, x, y, mask, variant, 0.5)
+            pw, pl = pa_scan.pa_scan_batched_reference(w0, x, y, mask, variant, 0.5)
+            torch.cuda.synchronize()
+            err_w = (kw - pw).abs().max().item()
+            err_l = (kl - pl).abs().max().item()
+            check(torch.allclose(kw, pw, rtol=W_RTOL, atol=W_ATOL) and err_l <= LOSS_ATOL,
+                  f"pa_scan_batched disagrees at C={C} B={B} D={D} {variant}: "
+                  f"max|dw|={err_w} max|dloss|={err_l}")
+            max_w, max_l = max(max_w, err_w), max(max_l, err_l)
+    C, B, D = BATCHED_ZERO_CHECK
+    w0, x, y, mask = _batched_inputs(torch, C, B, D, seed=17, zero_member=2)
+    kw, kl = pa_scan.pa_scan_update_batched(w0, x, y, mask, "PA-I", 0.01)
+    pw, pl = pa_scan.pa_scan_batched_reference(w0, x, y, mask, "PA-I", 0.01)
+    torch.cuda.synchronize()
+    check(torch.equal(kw[2], w0[2]) and float(kl[2]) == 0.0,
+          "pa_scan_batched: the all-zero-mask member did not keep its w bitwise")
+    check(torch.allclose(kw, pw, rtol=W_RTOL, atol=W_ATOL)
+          and (kl - pl).abs().max().item() <= LOSS_ATOL,
+          "pa_scan_batched disagrees on the 5-member call")
+    log(f"batched-check: {2 * len(BATCHED_SHAPES) + 1} kernel-vs-plain cases pass; "
+        f"max|dw|={max_w:.3e} max|dloss|={max_l:.3e} (rtol={W_RTOL}, atol={W_ATOL}, loss "
+        f"{LOSS_ATOL}); the all-zero member of {C} kept w0 bitwise")
+    max_w = max(max_w, _check_grouped(torch, pa_scan))
+
+    out = {}
+    for C, B, D in BATCHED_SHAPES:
+        w0, x, y, mask = _batched_inputs(torch, C, B, D, seed=99)
+        batched = lambda: pa_scan.pa_scan_update_batched(w0, x, y, mask, "PA-I", 0.01)  # noqa: E731
+
+        def singles():
+            for m in range(C):
+                pa_scan.pa_scan_update(w0[m], x[m], y[m], mask[m], "PA-I", 0.01)
+
+        plain = lambda: pa_scan.pa_scan_batched_reference(w0, x, y, mask, "PA-I", 0.01)  # noqa: E731
+        reps = max(2, 400 // C)
+        g1 = _graph_ms(torch, batched, reps)
+        s1 = _graph_ms(torch, singles, reps)
+        g2 = _graph_ms(torch, batched, reps)
+        s2 = _graph_ms(torch, singles, reps)
+        busy = _device_ms(torch, batched, 20)
+        host = _host_us(torch, batched)
+        p = _time_once(torch, plain)
+        b, by = batched_bound_ms(C, B, D)
+        out[(C, B, D)] = {"ms": g2, "plain_ms": p, "bound_ms": b, "bound_by": by}
+        log(f"batched-time: pa_scan_batched C={C} B={B} D+1={D}: CUDA graph {g2:.6f} ms a "
+            f"call (turns {g1:.6f} / {g2:.6f}); {C} single pa_scan calls as a CUDA graph "
+            f"{s2:.6f} ms (turns {s1:.6f} / {s2:.6f}), ratio {s2 / g2:.2f}x; device busy "
+            f"{busy:.6f} ms a call; host {host:.1f} us a call; plain {p:.1f} ms; bound "
+            f"{b:.7f} ms ({by}-bound by the roofline; the chain of {B} dependent rows "
+            f"bounds each member in fact, one CTA a member); library none")
+    return max(max_w, max_l), out
+
+
+def _check_grouped(torch, pa_scan):
+    """BATCHED_GROUPED_CHECK: one batched call whose members' scratch
+    would not fit the card at once runs as launches over member groups,
+    its peak memory inside the budget; every member held to a single scan
+    of its own (the one-scan kernels), the first and last to the plain
+    version, the all-zero member to w0 bitwise. Returns the worst |dw|."""
+    C, B, D, zero = BATCHED_GROUPED_CHECK
+    w0, x, y, mask = _batched_inputs(torch, C, B, D, seed=23, zero_member=zero)
+    per = pa_scan.LIBRARY.load().omldm_pa_scan_scratch_floats(B)
+    groups = pa_scan.member_groups(C, per)
+    whole = C * per * 4
+    check(whole > torch.cuda.get_device_properties(0).total_memory,
+          f"BATCHED_GROUPED_CHECK's scratch ({whole / 1e9:.1f} GB) fits the card at once")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = pa_scan.batched_launches
+    t0 = time.perf_counter()
+    kw, kl = pa_scan.pa_scan_update_batched(w0, x, y, mask, "PA-I", 0.01)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launched = pa_scan.batched_launches - before
+    check(launched == len(groups) > 1,
+          f"pa_scan_batched ran {launched} launches for {len(groups)} member groups")
+    budget = pa_scan.SCRATCH_BUDGET_FLOATS * 4
+    check(peak <= budget + (C * D + C) * 4 + (1 << 20),
+          f"pa_scan_batched peaked at {peak / 1e9:.2f} GB, past its {budget / 1e9:.2f} GB budget")
+    check(torch.equal(kw[zero], w0[zero]) and float(kl[zero]) == 0.0,
+          "pa_scan_batched (grouped): the all-zero-mask member did not keep its w bitwise")
+    worst = 0.0
+    for m in range(C):
+        if m == zero:
+            continue
+        sw, sl = pa_scan.pa_scan_update(w0[m], x[m], y[m], mask[m], "PA-I", 0.01)
+        err = (kw[m] - sw).abs().max().item()
+        check(torch.allclose(kw[m], sw, rtol=W_RTOL, atol=W_ATOL)
+              and abs(float(kl[m]) - float(sl)) <= LOSS_ATOL,
+              f"pa_scan_batched (grouped) member {m} disagrees with its single scan: "
+              f"max|dw|={err}")
+        worst = max(worst, err)
+    plain_err = 0.0
+    for m in (0, C - 1):
+        pw, pl = pa_scan.pa_scan_reference(w0[m], x[m], y[m], mask[m], "PA-I", 0.01)
+        err = (kw[m] - pw).abs().max().item()
+        check(torch.allclose(kw[m], pw, rtol=W_RTOL, atol=W_ATOL)
+              and abs(float(kl[m]) - float(pl)) <= LOSS_ATOL,
+              f"pa_scan_batched (grouped) member {m} disagrees with the plain version: "
+              f"max|dw|={err}")
+        plain_err = max(plain_err, err)
+    log(f"batched-check: C={C} B={B} D+1={D}: {whole / 1e9:.1f} GB of scratch at once, run "
+        f"as {launched} launches of at most {groups[0][1] - groups[0][0]} members in "
+        f"{secs:.3f} s, peak {peak / 1e9:.2f} GB (budget {budget / 1e9:.2f} GB); every "
+        f"member against its single scan max|dw|={worst:.3e}, members 0 and {C - 1} "
+        f"against the plain version max|dw|={plain_err:.3e}; member {zero} kept w0 bitwise")
+    return max(worst, plain_err)
+
+
+def phase_ab_pa_scan(torch, pa_scan, src: Path):
+    """--ab-pa-scan SRC: this checkout's one-scan kernel against another
+    checkout's (SRC: its omldm_tpu_torch/csrc/pa_scan.cu) in one process, a
+    call as a CUDA graph of 200 calls at TIME_SHAPES, in turns this, other,
+    other, this, this, other (the best of each reported), and their outputs
+    compared. Returns {shape: (this ms, other ms)}."""
+    import ctypes
+
+    from omldm_tpu_torch.ops._build import KernelLibrary
+
+    def configure(lib):
+        lib.omldm_pa_scan.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.omldm_pa_scan.restype = ctypes.c_int
+        lib.omldm_pa_scan_max_rows.argtypes = []
+        lib.omldm_pa_scan_max_rows.restype = ctypes.c_int
+        lib.omldm_pa_scan_scratch_floats.argtypes = [ctypes.c_int]
+        lib.omldm_pa_scan_scratch_floats.restype = ctypes.c_longlong
+
+    libs = {"this": pa_scan.LIBRARY, "other": KernelLibrary(str(src.resolve()), configure)}
+    libs["other"].load()
+    log(f"ab: other kernel {src} built in {libs['other'].build_seconds:.1f} s")
+    out = {}
+    try:
+        for B, D in TIME_SHAPES:
+            w0, x, y, mask = _kernel_inputs(torch, B, D, "01", seed=99)
+            kern = lambda: pa_scan.pa_scan_update(w0, x, y, mask, "PA-I", 0.01)  # noqa: E731
+            turns = {"this": [], "other": []}
+            res = {}
+            for name in ("this", "other", "other", "this", "this", "other"):
+                pa_scan.LIBRARY = libs[name]
+                turns[name].append(_graph_ms(torch, kern, 200))
+                res[name] = kern()
+            diff = (res["this"][0] - res["other"][0]).abs().max().item()
+            out[(B, D)] = (min(turns["this"]), min(turns["other"]))
+            log(f"ab: pa_scan B={B} D+1={D}: this {out[(B, D)][0]:.6f} ms, other "
+                f"{out[(B, D)][1]:.6f} ms a call as a CUDA graph (best of 3; turns this "
+                + " / ".join(f"{t:.6f}" for t in turns["this"]) + ", other "
+                + " / ".join(f"{t:.6f}" for t in turns["other"])
+                + f"); this / other {out[(B, D)][0] / out[(B, D)][1]:.4f}; outputs max|dw| "
+                f"{diff:.3e}")
+    finally:
+        pa_scan.LIBRARY = libs["this"]
+    return out
+
+
+def mt_stream(records: int, seed: int):
+    """Phase 28's rows: HIGGS-shaped (28 features), every tenth a forecast."""
+    import numpy as np
+
+    x, y = learner_data("higgs", records, N_FEATURES, seed)
+    return x, y, _forecast_ops(records)
+
+
+def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_record=True,
+            serving=True, run=MT_RUN, protocol="Synchronous"):
+    """``nets`` same-spec Creates (every other one serving-armed), then the
+    rows in packed blocks of PACKED_CHUNK, then termination. Returns (job,
+    report, wall seconds)."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    job = StreamJob(JobConfig(parallelism=run["parallelism"], batch_size=run["batch"],
+                              test_set_size=run["test_set_size"], cohort=cohort),
+                    device=device)
+    t0 = time.perf_counter()
+    for pid in range(nets):
+        tc = {"protocol": protocol, "perRecord": per_record}
+        if serving and pid % 2:
+            tc["serving"] = MT_SERVING
+        create = _create(learner, (), tc, x.shape[1])
+        create["id"] = pid
+        job.process_event("requests", json.dumps(create))
+    for i in range(0, x.shape[0], PACKED_CHUNK):
+        job.process_packed_batch(x[i : i + PACKED_CHUNK], y[i : i + PACKED_CHUNK],
+                                 op[i : i + PACKED_CHUNK])
+    report = job.terminate()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return job, report, time.perf_counter() - t0
+
+
+def _by_net(preds):
+    out = {}
+    for p in preds:
+        out.setdefault(p.mlp_id, []).append(p.value)
+    return out
+
+
+def _compare_jobs(label, a, b, min_equal=0.99, regression=False):
+    """Two runs of one multi-tenant job: the same forecasts a net in the
+    same order, >= ``min_equal`` of the values equal (a regression within
+    rtol 1e-3, atol 1e-3), every net's final flat parameters within W_RTOL,
+    W_ATOL and its fitted count equal. Returns (mismatches, forecasts,
+    worst params max|d|)."""
+    import numpy as np
+
+    (ja, ra), (jb, rb) = a, b
+    pa, pb = _by_net(ja.predictions), _by_net(jb.predictions)
+    check(pa.keys() == pb.keys(), f"{label}: the nets that forecast differ")
+    mism = total = 0
+    for k in pa:
+        check(len(pa[k]) == len(pb[k]), f"{label}: net {k} has {len(pa[k])} / {len(pb[k])} "
+              "predictions")
+        va, vb = np.asarray(pa[k]), np.asarray(pb[k])
+        if regression:
+            mism += int((~np.isclose(va, vb, rtol=1e-3, atol=1e-3)).sum())
+        else:
+            mism += int((va != vb).sum())
+        total += va.size
+    check(total > 0 and mism <= (1.0 - min_equal) * total,
+          f"{label}: {mism} of {total} predictions differ")
+    sa = {s.pipeline: s for s in ra.statistics}
+    sb = {s.pipeline: s for s in rb.statistics}
+    check(sa.keys() == sb.keys(), f"{label}: the reports' pipelines differ")
+    for k in sa:
+        check(sa[k].fitted == sb[k].fitted, f"{label}: net {k} fitted {sa[k].fitted} / "
+              f"{sb[k].fitted}")
+    worst = 0.0
+    fa = {(w, k): net.pipeline.get_flat_params()[0] for w, s in enumerate(ja.spokes)
+          for k, net in s.nets.items()}
+    for w, s in enumerate(jb.spokes):
+        for k, net in s.nets.items():
+            pb_flat = net.pipeline.get_flat_params()[0]
+            pa_flat = fa[(w, k)]
+            scale = max(1.0, float(np.abs(pa_flat).max()))
+            err = float(np.abs(pa_flat - pb_flat).max())
+            worst = max(worst, err / scale)
+            check(np.allclose(pa_flat, pb_flat, rtol=W_RTOL, atol=W_ATOL * scale),
+                  f"{label}: worker {w} net {k} params max|d|={err:.3e}")
+    return mism, total, worst
+
+
+def _quality_parity(label, a, b):
+    """Cohort on against cohort off at parallelism > 1: the gang replaces
+    the cooperative pause toggle, so the two schedules batch and sync
+    differently and are held to the JAX package's own rule for this case
+    (tests/test_cohort.py TestMultiWorkerParity): each net's holdout score
+    within 0.05 and its forecasts all served. (Not fitted: with cohorts
+    off, a toggle at termination can resume a net after its final push,
+    and what it fits then reaches no statistic.) Returns (prediction
+    mismatches, forecasts, worst score gap, fitted of each run)."""
+    import numpy as np
+
+    (ja, ra), (jb, rb) = a, b
+    pa, pb = _by_net(ja.predictions), _by_net(jb.predictions)
+    check({k: len(v) for k, v in pa.items()} == {k: len(v) for k, v in pb.items()},
+          f"{label}: the forecasts served a net differ")
+    mism = sum(int((np.asarray(pa[k]) != np.asarray(pb[k])).sum()) for k in pa)
+    total = sum(len(v) for v in pa.values())
+    sa = {s.pipeline: s for s in ra.statistics}
+    sb = {s.pipeline: s for s in rb.statistics}
+    check(sa.keys() == sb.keys(), f"{label}: the reports' pipelines differ")
+    gap = max(abs(sa[k].score - sb[k].score) for k in sa)
+    check(gap <= 0.05, f"{label}: a net's holdout score differs by {gap:.4f}")
+    fitted = (sum(s.fitted for s in sa.values()), sum(s.fitted for s in sb.values()))
+    return mism, total, gap, fitted
+
+
+def _busy_s(torch, fn):
+    """Device busy seconds (torch.profiler: every kernel, copy and memset)
+    while ``fn`` runs; the device's activity alone is traced (the host's
+    ops would cost minutes to aggregate on these runs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in tp.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    check(busy > 0, "torch.profiler traced no device time")
+    return busy
+
+
+def _mt_counts(pa_scan):
+    from omldm_tpu_torch.runtime import cohort as cohort_mod
+
+    return {"pa_scan": pa_scan.launches, "pa_scan_batched": pa_scan.batched_launches,
+            "gang_launches": cohort_mod.gang_launches, "gang_steps": cohort_mod.gang_steps,
+            "gang_predicts": cohort_mod.gang_predicts}
+
+
+def _mt_reset(pa_scan):
+    from omldm_tpu_torch.runtime import cohort as cohort_mod
+
+    pa_scan.launches = pa_scan.batched_launches = 0
+    cohort_mod.gang_launches = cohort_mod.gang_steps = cohort_mod.gang_predicts = 0
+
+
+def _mt_checked(torch, pa_scan, x, y, op, mode, label):
+    """One MT_RUN job on the card, counted and checked: every forecast
+    answered by every tenant; with cohorts, one vmap cohort of all tenants
+    a spoke and one batched pa_scan launch a gang step (no solo launch);
+    without, one pa_scan launch a fit. Returns (job, report, wall, counts,
+    fits)."""
+    r = MT_RUN
+    _mt_reset(pa_scan)
+    job, report, wall = _mt_job(torch, x, y, op, "cuda", mode, r["nets"])
+    counts = _mt_counts(pa_scan)
+    stats = report.statistics
+    check(len(stats) == r["nets"], f"{label}: {len(stats)} reports")
+    fits = sum(len(s.learning_curve) for s in stats)
+    check(len(job.predictions) == int(op.sum()) * r["nets"],
+          f"{label}: {len(job.predictions)} predictions for {int(op.sum())} forecasts x "
+          f"{r['nets']} tenants")
+    if mode == "auto":
+        cohorts = [c for s in job.spokes for c in s.cohorts.cohorts.values()]
+        check(len(cohorts) == r["parallelism"] and all(
+            c.n_active == r["nets"] and c.use_vmap for c in cohorts),
+            f"{label}: expected one vmap cohort of {r['nets']} a spoke")
+        check(counts["pa_scan"] == 0 and counts["pa_scan_batched"] == counts["gang_steps"] > 0,
+              f"{label}: launches {counts}: one batched pa_scan a gang step")
+    else:
+        # a toggle can resume a net after its final push at termination,
+        # so its last fits may miss the learning curve: at least one
+        # launch a curve point
+        check(counts["pa_scan_batched"] == 0 and counts["pa_scan"] >= fits > 0,
+              f"{label}: launches {counts}, fits {fits}")
+    scores = [s.score for s in stats]
+    check(min(scores) > 0.6, f"{label}: holdout accuracy {min(scores):.3f}")
+    log(f"{label}: {x.shape[0]} records, {r['nets']} tenants: {x.shape[0] / wall:.1f} "
+        f"records/s ({wall:.3f} s), fits {fits}, launches {json.dumps(counts)}, "
+        f"programLaunches {sum(s.program_launches for s in stats)}, score "
+        f"{min(scores):.4f}-{max(scores):.4f}")
+    return job, report, wall, counts, fits
+
+
+def phase_multi_tenant(torch, pa_scan, seed):
+    """Phase 28: MT_RUN's 64 tenants on the card. The whole stream with
+    cohorts auto (vmap: one batched pa_scan launch a gang step, the main
+    path's counts); then the first prefix_records rows with cohorts auto
+    and off (one pa_scan launch a tenant a fit), held to each other, and
+    each again under torch.profiler for the device's idle share (busy over
+    the unprofiled run's wall); then the same rows through the CPU (map)
+    against the card's cohort run (vmap). Returns the main run's
+    pa_scan_batched launches."""
+    r = MT_RUN
+    x, y, op = mt_stream(r["records"], seed)
+    main = _mt_checked(torch, pa_scan, x, y, op, "auto", "multi-tenant[cohort]")
+
+    n = r["prefix_records"]
+    px, py, pop = x[:n], y[:n], op[:n]
+    runs = {mode: _mt_checked(torch, pa_scan, px, py, pop, mode, f"multi-tenant[{label}, {n}]")
+            for mode, label in (("auto", "cohort"), ("off", "solo"))}
+    mism, total, gap, fitted = _quality_parity("multi-tenant[cohort vs solo]",
+                                               runs["auto"][:2], runs["off"][:2])
+    log(f"multi-tenant: first {n} records, cohort vs solo on the card: every net's "
+        f"forecasts served, holdout scores within {gap:.4f}; {mism} of {total} predictions "
+        f"differ (the solo run's pause toggle answers a held forecast later); fitted "
+        f"{fitted[0]} / {fitted[1]}")
+    idle = {}
+    for mode in ("auto", "off"):
+        busy = _busy_s(torch, lambda: _mt_job(torch, px, py, pop, "cuda", mode, r["nets"]))
+        idle[mode] = 1.0 - busy / runs[mode][2]
+        log(f"multi-tenant[{mode}]: first {n} records under torch.profiler: device busy "
+            f"{busy:.4f} s against the unprofiled {runs[mode][2]:.3f} s: idle share "
+            f"{idle[mode]:.4f}")
+
+    cpu = _mt_job(torch, px, py, pop, "cpu", "auto", r["nets"])
+    check(all(not c.use_vmap for s in cpu[0].spokes for c in s.cohorts.cohorts.values()),
+          "multi-tenant: the CPU job's cohorts should map")
+    mism, total, worst = _compare_jobs("multi-tenant[cuda vs cpu]", runs["auto"][:2], cpu[:2])
+    log(f"multi-tenant: first {n} records, cuda (vmap) vs cpu (map): {mism} of {total} "
+        f"predictions differ, params max|d| (relative) {worst:.3e}, fitted equal; cpu "
+        f"{cpu[2]:.2f} s")
+    auto, off = runs["auto"], runs["off"]
+    line = {
+        "records": r["records"], "tenants": r["nets"],
+        "records_per_s": {"cohort": r["records"] / main[2],
+                          f"cohort_first_{r['prefix_records']}": r["prefix_records"] / auto[2],
+                          f"solo_first_{r['prefix_records']}": r["prefix_records"] / off[2]},
+        "idle_share": {"cohort": idle["auto"], "solo": idle["off"],
+                       "over_records": r["prefix_records"]},
+        "launches": {"cohort": main[3], f"solo_first_{r['prefix_records']}": off[3]},
+        "fits": {"cohort": main[4], f"solo_first_{r['prefix_records']}": off[4]},
+        "pa_launches_per_gang_step": {"cohort": 1, "solo": r["nets"]},
+    }
+    log("multi-tenant: " + json.dumps(line))
+    return main[3]["pa_scan_batched"]
+
+
+def phase_cohort_specs(torch, pa_scan, seed):
+    """Phase 29: every dense spec of COHORT_SPECS at 8 members, 2,000 rows,
+    cohort on (vmap) on the card against cohort off (solo) on the CPU.
+    Returns the card runs' pa_scan_batched launches."""
+    r = SPECS_RUN
+    batched = 0
+    for name, hp, per_record, kind in COHORT_SPECS:
+        x, y = learner_data(kind, r["records"], N_FEATURES, seed)
+        op = _forecast_ops(r["records"])
+        learner = {"name": name, "hyperParameters": hp}
+        pa_scan.batched_launches = 0
+        card = _mt_job(torch, x, y, op, "cuda", "on", r["members"], learner=learner,
+                       per_record=per_record, serving=False, run=r, protocol="Asynchronous")
+        batched += pa_scan.batched_launches
+        cohorts = [c for s in card[0].spokes for c in s.cohorts.cohorts.values()]
+        check(len(cohorts) == 1 and cohorts[0].n_active == r["members"] and cohorts[0].use_vmap,
+              f"specs[{name}]: expected one vmap cohort of {r['members']}")
+        check(pa_scan.batched_launches > 0 if per_record and name == "PA"
+              else pa_scan.batched_launches == 0,
+              f"specs[{name}]: pa_scan_batched launches {pa_scan.batched_launches}")
+        cpu = _mt_job(torch, x, y, op, "cpu", "off", r["members"], learner=learner,
+                      per_record=per_record, serving=False, run=r, protocol="Asynchronous")
+        mism, total, worst = _compare_jobs(f"specs[{name}]", card[:2], cpu[:2],
+                                           regression=kind == "regression")
+        log(f"specs: {name}{' perRecord' if per_record else ''}: {r['members']} members, "
+            f"card cohort {r['records'] / card[2]:.0f} records/s vs cpu solo: {mism} of "
+            f"{total} predictions differ, params max|d| (relative) {worst:.3e}")
+    return batched
+
+
 FLASH_SOURCES = {
     "flash_fwd": "omldm_tpu/ops/attention.py:269",
     "flash_dq": "omldm_tpu/ops/attention.py:450",
@@ -2980,6 +3524,9 @@ def main() -> int:
     parser.add_argument("--lm-steps", type=int, default=8)
     parser.add_argument("--bench-records", type=int, default=BENCH_RECORDS)
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR")
+    parser.add_argument("--ab-pa-scan", type=Path, default=None, metavar="SRC",
+                        help="time the one-scan kernel against SRC (another checkout's "
+                             "pa_scan.cu), then exit")
     args = parser.parse_args()
 
     import torch
@@ -3002,6 +3549,11 @@ def main() -> int:
     card = phase_setup(torch)
     phase_build(pa_scan, attention, sparse)
     lap("build")
+    if args.ab_pa_scan is not None:
+        ab = phase_ab_pa_scan(torch, pa_scan, args.ab_pa_scan)
+        log(json.dumps({"ab_pa_scan": {f"{b}x{d}": {"this_ms": t, "other_ms": o}
+                                       for (b, d), (t, o) in ab.items()}}))
+        return 0
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
     lap("pa_scan check and time")
@@ -3078,6 +3630,12 @@ def main() -> int:
         if args.profile is not None:
             phase_bench_profile(torch, bench_path, args.profile)
             lap("bench profile")
+    batched_err, batched_times = phase_batched(torch, pa_scan)
+    lap("batched pa_scan check and time")
+    mt_launches = phase_multi_tenant(torch, pa_scan, args.seed)
+    lap("multi-tenant")
+    specs_launches = phase_cohort_specs(torch, pa_scan, args.seed)
+    lap("cohort specs")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):
@@ -3104,6 +3662,21 @@ def main() -> int:
         **times[main_shape],
         "library_ms": None,
     }]
+    kernels.append({
+        "name": "pa_scan_batched",
+        "route": "cuda",
+        "source": "omldm_tpu_torch/csrc/pa_scan.cu",
+        "replaces": "omldm_tpu/ops/pa_scan.py:27",
+        "launches": mt_launches,
+        "launches_by_path": {
+            "multi_tenant": mt_launches,
+            "cohort_specs": specs_launches,
+            "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan_batched"],
+        },
+        "max_abs_err": batched_err,
+        **batched_times[BATCHED_SHAPES[0]],
+        "library_ms": None,
+    })
     b, lq, h, dh = FLASH_TIME_SHAPES[0]  # the LM slice's shape
     for name, replaces in FLASH_SOURCES.items():
         kernels.append({

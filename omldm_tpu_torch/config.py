@@ -20,7 +20,7 @@ from typing import Any, Mapping
 # literal copy: the port never imports that package)
 JAX_ONLY_FIELDS = (
     "max_msg_params", "check_interval_ms", "checkpoint_dir", "checkpoint_keep",
-    "request_buffer_cap", "cohort_min", "cohort_impl", "liveness_stride",
+    "request_buffer_cap", "liveness_stride",
     "blackbox_path", "compute_dtype", "mesh_shape",
 )
 
@@ -73,15 +73,25 @@ class JobConfig:
     # forecast takes the immediate per-record predict.
     serving: str = ""
 
+    # --- cohort execution engine (runtime/cohort.py) ---
+    # "off" | "auto" (gang same-spec dense pipelines once cohort_min are
+    # live on a spoke) | "on" (from one pipeline).
+    cohort: str = "auto"
+    cohort_min: int = 8
+    # the JAX package's choice of member iteration: accepted so its configs
+    # and flags construct here, and ignored -- the port's cohorts vmap on
+    # the card and map on the CPU (runtime.cohort.CohortEngine)
+    cohort_impl: str = "auto"
+    # tenant-axis device sharding; a value that resolves to one device is
+    # admitted, more than one raises (runtime.cohort.resolve_cohort_shards)
+    cohort_shards: str = "off"
+
     # --- planes of the JAX package the port does not have yet ---
     # Kept so a config written for omldm_tpu constructs here; arming any of
     # them makes StreamJob raise NotImplementedError naming the option
-    # (runtime.job.unported_job_options). "auto" cohort runs per pipeline,
-    # which the JAX package pins as bit-identical to "off".
+    # (runtime.job.unported_job_options).
     checkpointing: bool = False
     chaos: str = ""
-    cohort: str = "auto"
-    cohort_shards: str = "off"
     lifecycle: str = ""
     overload: str = ""
     ingest: str = ""

@@ -47,7 +47,20 @@
 // chain does not depend on D. The margin's rounding order differs from a
 // D-wide dot on the current w: base_i, then up to B - 1 Gram terms, each a
 // D-term dot; w's from the per-row update's (segment sums).
-// Faster designs (many pipelines per launch, one CTA each) are later work.
+//
+// Members: omldm_pa_scan_batched runs C independent scans (C pipelines of a
+// cohort, or C data-parallel workers) in the same three launches. The
+// member index is blockIdx.y of every grid: the prologue and epilogue
+// grids gain a y extent of C, and the chain is one CTA a member, so C
+// chains run side by side on the SMs instead of one after another. Member
+// m reads w0[m], x[m], y[m], mask[m] and its own scratch block (m times
+// omldm_pa_scan_scratch_floats(B) floats in), and writes w_out[m] and
+// loss[m]. A member whose mask is all zero keeps w0 bitwise (the chain
+// leaves its mask count in its scratch for the epilogue), as the JAX
+// cohort's select keeps an all-masked member's state. The three kernels'
+// bodies are shared; the member kernels (pa_*_members_kernel) only offset
+// the pointers by blockIdx.y and keep the all-zero member, so
+// omldm_pa_scan's kernels hold no member arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +89,13 @@ constexpr int kGramSmem = (kRingFloats > kPartFloats ? kRingFloats : kPartFloats
 constexpr int kSmemLimit = 232448;
 // devices whose opt-in is remembered (any further one opts in every call)
 constexpr int kMaxDevices = 64;
+
+__host__ __device__ __forceinline__ int padded_rows(int B) { return (B + kRows - 1) / kRows * kRows; }
+
+// Floats of scratch one member takes: G (Bp x Bp), then base and coef (Bp
+// each). A multiple of 64 floats, so every member's block stays 16-byte
+// aligned.
+__host__ __device__ __forceinline__ size_t member_floats(int Bp) { return (size_t)Bp * Bp + 2 * (size_t)Bp; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -136,9 +156,8 @@ __device__ __forceinline__ void store_chunk(float* slot, const float (&v)[kPerTh
 // tile over every 8th column of a chunk; lane t owns the 8 x 4 block of rows
 // k from 8 (t / 8) and i from 4 (t % 8): three 16-byte loads a column for
 // 32 FMAs.
-__global__ void __launch_bounds__(kThreads) pa_gram_kernel(const float* __restrict__ w0,
-                                                           const float* __restrict__ x, float* __restrict__ G,
-                                                           float* __restrict__ base, int B, int D, int Bp) {
+__device__ __forceinline__ void gram_tile(const float* __restrict__ w0, const float* __restrict__ x,
+                                          float* __restrict__ G, float* __restrict__ base, int B, int D, int Bp) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = (lane >> 3) * 8, i0 = (lane & 7) * 4;
@@ -199,6 +218,24 @@ __global__ void __launch_bounds__(kThreads) pa_gram_kernel(const float* __restri
   }
 }
 
+// One scan: its few tiles want the registers for the column sweep.
+__global__ void __launch_bounds__(kThreads) pa_gram_kernel(const float* __restrict__ w0,
+                                                           const float* __restrict__ x, float* __restrict__ G,
+                                                           float* __restrict__ base, int B, int D, int Bp) {
+  gram_tile(w0, x, G, base, B, D, Bp);
+}
+
+// Member blockIdx.y of a batch; registers for two CTAs an SM (the members'
+// tiles fill the SMs twice over).
+__global__ void __launch_bounds__(kThreads, 2) pa_gram_members_kernel(const float* __restrict__ w0,
+                                                                      const float* __restrict__ x,
+                                                                      float* __restrict__ scratch, int B, int D,
+                                                                      int Bp) {
+  const size_t member = blockIdx.y;
+  float* G = scratch + member * member_floats(Bp);
+  gram_tile(w0 + member * D, x + member * B * (size_t)D, G, G + (size_t)Bp * Bp, B, D, Bp);
+}
+
 // The tiles of G the chain of block `blk` reads, into shared memory by
 // cp.async from the threads `first` .. `first + count - 1`: its diagonal tile
 // and the tile of the next block's rows, as gt[tile][k][i] (zeros where
@@ -220,13 +257,14 @@ __device__ __forceinline__ void stage_block(float* gt, float* ym, const float* G
   cp_async_commit();
 }
 
-// 2. The chain; writes coef[Bp] (c_k, 0 past B) and the mean hinge.
-__global__ void __launch_bounds__(kThreads, 1) pa_chain_kernel(const float* __restrict__ G,
-                                                               const float* __restrict__ base,
-                                                               const float* __restrict__ y,
-                                                               const float* __restrict__ mask,
-                                                               float* __restrict__ coef, float* __restrict__ loss_out,
-                                                               int B, int Bp, int variant, float C, float inv2c) {
+// 2. The chain; writes coef[Bp] (c_k, 0 past B) and the mean hinge; with
+// kCount, also the mask count into base[0] (read by the member epilogue;
+// base is dead by then).
+template <bool kCount>
+__device__ __forceinline__ void chain(const float* __restrict__ G, float* __restrict__ base,
+                                      const float* __restrict__ y, const float* __restrict__ mask,
+                                      float* __restrict__ coef, float* __restrict__ loss_out, int B, int Bp,
+                                      int variant, float C, float inv2c) {
   extern __shared__ __align__(16) float smem[];
   float* tiles = smem;                    // [2 blocks][2 tiles][kRows][kRows]
   float* rows = tiles + 4 * kRows * kRows;  // [2 blocks][y, mask][kRows]
@@ -300,16 +338,40 @@ __global__ void __launch_bounds__(kThreads, 1) pa_chain_kernel(const float* __re
   if (warp == 0) {
     hsum = warp_sum(hsum);
     msum = warp_sum(msum);
-    if (lane == 0) loss_out[0] = hsum / fmaxf(msum, 1.f);
+    if (lane == 0) {
+      loss_out[0] = hsum / fmaxf(msum, 1.f);
+      if (kCount && Bp > 0) base[0] = msum;  // every thread read base before the first barrier
+    }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) pa_chain_kernel(const float* __restrict__ G,
+                                                               const float* __restrict__ base,
+                                                               const float* __restrict__ y,
+                                                               const float* __restrict__ mask,
+                                                               float* __restrict__ coef, float* __restrict__ loss_out,
+                                                               int B, int Bp, int variant, float C, float inv2c) {
+  chain<false>(G, const_cast<float*>(base), y, mask, coef, loss_out, B, Bp, variant, C, inv2c);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pa_chain_members_kernel(float* __restrict__ scratch,
+                                                                       const float* __restrict__ y,
+                                                                       const float* __restrict__ mask,
+                                                                       float* __restrict__ loss_out, int B, int Bp,
+                                                                       int variant, float C, float inv2c) {
+  const size_t member = blockIdx.y;
+  float* G = scratch + member * member_floats(Bp);
+  float* base = G + (size_t)Bp * Bp;
+  chain<true>(G, base, y + member * B, mask + member * B, base + Bp, loss_out + member, B, Bp, variant, C, inv2c);
+}
+
 // 3. w = w0 + sum_k c_k x_k: thread (segment s, column j) sums its rows in
-// order; the segment sums are added to w0 in order.
-__global__ void __launch_bounds__(kThreads) pa_update_kernel(const float* __restrict__ w0,
-                                                             const float* __restrict__ x,
-                                                             const float* __restrict__ coef,
-                                                             float* __restrict__ w_out, int B, int D) {
+// order; the segment sums are added to w0 in order. With kKeep (members),
+// a member with no masked-in row (the chain's `count`) keeps w0 as it is.
+template <bool kKeep>
+__device__ __forceinline__ void update(const float* __restrict__ w0, const float* __restrict__ x,
+                                       const float* __restrict__ coef, const float* __restrict__ count,
+                                       float* __restrict__ w_out, int B, int D) {
   __shared__ float part[kSegments][kUpdateCols];
   const int col = threadIdx.x % kUpdateCols, seg = threadIdx.x / kUpdateCols;
   const int j = blockIdx.x * kUpdateCols + col;
@@ -324,13 +386,30 @@ __global__ void __launch_bounds__(kThreads) pa_update_kernel(const float* __rest
   __syncthreads();
   if (seg == 0 && j < D) {
     float w = w0[j];
+    if (!kKeep || (B > 0 && count[0] > 0.f)) {
 #pragma unroll
-    for (int q = 0; q < kSegments; ++q) w += part[q][col];
+      for (int q = 0; q < kSegments; ++q) w += part[q][col];
+    }
     w_out[j] = w;
   }
 }
 
-int padded_rows(int B) { return (B + kRows - 1) / kRows * kRows; }
+__global__ void __launch_bounds__(kThreads) pa_update_kernel(const float* __restrict__ w0,
+                                                             const float* __restrict__ x,
+                                                             const float* __restrict__ coef,
+                                                             float* __restrict__ w_out, int B, int D) {
+  update<false>(w0, x, coef, nullptr, w_out, B, D);
+}
+
+__global__ void __launch_bounds__(kThreads) pa_update_members_kernel(const float* __restrict__ w0,
+                                                                     const float* __restrict__ x,
+                                                                     const float* __restrict__ scratch,
+                                                                     float* __restrict__ w_out, int B, int D,
+                                                                     int Bp) {
+  const size_t member = blockIdx.y;
+  const float* base = scratch + member * member_floats(Bp) + (size_t)Bp * Bp;
+  update<true>(w0 + member * D, x + member * B * (size_t)D, base + Bp, base, w_out + member * D, B, D);
+}
 
 }  // namespace
 
@@ -339,12 +418,9 @@ extern "C" {
 // Largest B the chain kernel's shared memory takes (two floats a row).
 int omldm_pa_scan_max_rows() { return (kSmemLimit / (int)sizeof(float) - kChainFixed) / 2 / kRows * kRows; }
 
-// Floats of device scratch a call with B rows needs: G (Bp x Bp), base and
-// coef (Bp each), Bp = B rounded up to 32.
-long long omldm_pa_scan_scratch_floats(int B) {
-  const long long bp = padded_rows(B);
-  return bp * bp + 2 * bp;
-}
+// Floats of device scratch a call with B rows needs, a member: G (Bp x
+// Bp), base and coef (Bp each), Bp = B rounded up to 32.
+long long omldm_pa_scan_scratch_floats(int B) { return (long long)member_floats(padded_rows(B)); }
 
 // Launches the scan's three kernels on `stream`; returns cudaGetLastError()
 // of the first launch that fails (0 on success). Pointers are device
@@ -383,6 +459,44 @@ int omldm_pa_scan(const float* w0, const float* x, const float* y,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   pa_update_kernel<<<(D + kUpdateCols - 1) / kUpdateCols, kThreads, 0, s>>>(w0, x, coef, w_out, B, D);
+  return (int)cudaGetLastError();
+}
+
+// Launches the member kernels for `members` independent scans on `stream`;
+// returns cudaGetLastError() of the first launch that fails (0 on
+// success). Pointers are device pointers to contiguous float32 arrays:
+// w0[C, D], x[C, B, D], y[C, B], mask[C, B], w_out[C, D], loss_out[C],
+// scratch[C * omldm_pa_scan_scratch_floats(B)] (16-byte aligned).
+int omldm_pa_scan_batched(const float* w0, const float* x, const float* y,
+                          const float* mask, float* w_out, float* loss_out, float* scratch,
+                          int members, int B, int D, int variant, float C, float inv2c, void* stream) {
+  if (D < 1 || B < 0 || B > omldm_pa_scan_max_rows() || members < 1 || members > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bp = padded_rows(B), n_blocks = bp / kRows;
+  // the member chain's own opt-in, as the one-scan chain's
+  static bool opted_in[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kMaxDevices || !opted_in[device]) {
+    err = cudaFuncSetAttribute(pa_chain_members_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    if (device >= 0 && device < kMaxDevices) opted_in[device] = true;
+  }
+  if (n_blocks > 0) {
+    pa_gram_members_kernel<<<dim3(n_blocks * (n_blocks + 1) / 2, members), kThreads, kGramSmem, s>>>(
+        w0, x, scratch, B, D, bp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t chain_smem = (size_t)(kChainFixed + 2 * bp) * sizeof(float);
+  pa_chain_members_kernel<<<dim3(1, members), kThreads, chain_smem, s>>>(scratch, y, mask, loss_out, B, bp,
+                                                                         variant, C, inv2c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pa_update_members_kernel<<<dim3((D + kUpdateCols - 1) / kUpdateCols, members), kThreads, 0, s>>>(
+      w0, x, scratch, w_out, B, D, bp);
   return (int)cudaGetLastError();
 }
 

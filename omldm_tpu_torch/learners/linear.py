@@ -31,7 +31,7 @@ from omldm_tpu_torch.learners.base import (
     sign_labels,
     take_class,
 )
-from omldm_tpu_torch.ops.pa_scan import pa_scan_update
+from omldm_tpu_torch.ops.pa_scan import pa_scan_op
 
 
 def _pa_tau(loss: torch.Tensor, sq_norm: torch.Tensor, variant: str, C: float) -> torch.Tensor:
@@ -89,10 +89,11 @@ class PAClassifier(Learner):
         return {"w": new_w}, masked_mean(hinge, mask)
 
     def update_per_record(self, params, x, y, mask, donate=False):
-        """Exact sequential pass through ``ops.pa_scan``."""
-        new_w, loss = pa_scan_update(
+        """Exact sequential pass through ``ops.pa_scan`` (its custom op:
+        ``torch.func.vmap`` over pipelines makes it one batched launch)."""
+        new_w, loss = pa_scan_op(
             params["w"], append_bias(x).contiguous(), y.contiguous(),
-            mask.contiguous(), variant=self._variant(), C=self._C(),
+            mask.contiguous(), self._variant(), self._C(),
         )
         return {"w": new_w}, loss
 

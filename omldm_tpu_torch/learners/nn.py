@@ -1,7 +1,8 @@
 """Neural-network learner (``NN``): an MLP trained online with mini-batches.
 
 Counterpart of ``omldm_tpu/learners/nn.py``: the forward pass, its gradient
-by ``torch.autograd``, and optax's Adam or SGD arithmetic
+by ``torch.func.grad_and_value`` (a function transform, so a cohort's
+``torch.func.vmap`` over pipelines composes with it), and optax's Adam or SGD arithmetic
 (``parallel.optim``). The parameters are ``{"layers": [{"W", "b"}, ...],
 "opt": <optimizer state>}``; the flat vector the protocols ship carries the
 optimizer state too, in ``ravel_pytree``'s order: every layer's ``W`` and
@@ -110,17 +111,16 @@ class NeuralNetwork(Learner):
 
     def update(self, params, x, y, mask, donate=False):
         layers = params["layers"]
-        leaves = tree_leaves(layers)
-        with torch.enable_grad():
-            live = [t.detach().requires_grad_(True) for t in leaves]
-            loss = self._nll(tree_unflatten(layers, live), x, y, mask)
-            grads = tree_unflatten(layers, torch.autograd.grad(loss, live))
+        grads, loss = torch.func.grad_and_value(
+            lambda live: self._nll(tree_unflatten(layers, live), x, y, mask)
+        )(tree_leaves(layers))
+        grads = tree_unflatten(layers, grads)
         if self._sgd():
             new_layers, opt = trace_update(layers, grads, params["opt"], self._lr(),
                                            float(self.hp.get("momentum", 0.0)))
         else:
             new_layers, opt = optax_adam_update(layers, grads, params["opt"], self._lr())
-        return {"layers": new_layers, "opt": opt}, loss.detach()
+        return {"layers": new_layers, "opt": opt}, loss
 
     def score(self, params, x, y, mask):
         preds = self.predict(params, x)

@@ -22,11 +22,14 @@ from omldm_tpu_torch.models.transformer import (
     tree_leaves,
 )
 from omldm_tpu_torch.ops.attention import NEG_INF
+from omldm_tpu_torch.utils.device import resolve_device
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: Optional[int] = None,
-                  device="cpu") -> Dict[str, Any]:
-    """Per-layer K/V buffers [B, max_len, H, Dh] and the current length."""
+                  device=None) -> Dict[str, Any]:
+    """Per-layer K/V buffers [B, max_len, H, Dh] and the current length, on
+    ``device``: CUDA unless the caller asks for the CPU."""
+    device = resolve_device(device, "init_kv_cache")
     max_len = max_len or cfg.max_len
     shape = (batch, max_len, cfg.n_heads, cfg.d_model // cfg.n_heads)
     return {

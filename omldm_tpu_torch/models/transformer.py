@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from omldm_tpu_torch.ops.attention import attention
+from omldm_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,10 +66,13 @@ def _dense(gen, fan_in, fan_out, device):
 
 
 def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
-                     device="cpu") -> Dict[str, Any]:
+                     device=None) -> Dict[str, Any]:
     """Float32 parameter tree with the JAX package's names, shapes and
-    distributions (drawn from ``generator``, so not its values)."""
+    distributions (drawn from ``generator``, so not its values), on
+    ``device``: CUDA unless the caller asks for the CPU (without a card,
+    CUDA raises)."""
     check_ported(cfg)
+    device = resolve_device(device, "init_transformer")
     d = cfg.d_model
     assert d % cfg.n_heads == 0
     params: Dict[str, Any] = {
@@ -124,9 +128,11 @@ def tree_unflatten(tree, leaves):
     return build(tree)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """A JAX parameter tree (numpy leaves, as ``jax.device_get`` gives it)
-    as float32 tensors on ``device``."""
+    as float32 tensors on ``device``: CUDA unless the caller asks for the
+    CPU."""
+    device = resolve_device(device, "params_from_numpy")
     return tree_map(
         lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=device), tree)
 

@@ -243,15 +243,31 @@ class SPMDTrainer:
 
     # --- the step ---
 
+    def _worker_update(self, params, preps, x, y, mask):
+        """One worker's preprocessor and per-record learner update."""
+        z = x
+        new_preps = []
+        for prep, s in zip(self.preps, preps):
+            s = prep.update(s, z, mask)
+            new_preps.append(s)
+            z = prep.transform(s, z)
+        p, loss = self.learner.update_per_record(params, z, y, mask, donate=True)
+        return p, new_preps, loss
+
     def _local_update(self, params, preps, x, y, mask):
         """Every worker's preprocessor and learner update on its own batch:
         ``(params, preps, loss [dp])``. One worker runs on views of the
         state; a sparse fleet scatters once for all workers
-        (``fleet_update``); otherwise a loop over the workers."""
+        (``fleet_update``); a dense per-record fleet is ``torch.func.vmap``
+        of one worker's update over dp (PA's scan then launches its
+        batched kernel once for every worker); otherwise a loop over the
+        workers."""
         learner = self.learner
         if self.dp > 1 and self.sparse and not self.per_record:
             new, loss = learner.fleet_update(params, x, y, mask)
             return new, preps, loss
+        if self.dp > 1 and self.per_record and not self.sparse:
+            return torch.func.vmap(self._worker_update)(params, preps, x, y, mask)
         update = learner.update_per_record if self.per_record else learner.update
         outs = []
         for i in range(self.dp):

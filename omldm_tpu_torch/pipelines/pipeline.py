@@ -1,7 +1,7 @@
 """MLPipeline: preprocessors + learner as one training step.
 
-Counterpart of ``omldm_tpu/pipelines/pipeline.py`` (without cohort, guard
-or lifecycle attachments). One fit runs, in order: each scaler's statistics
+Counterpart of ``omldm_tpu/pipelines/pipeline.py`` (without guard or
+lifecycle attachments). One fit runs, in order: each scaler's statistics
 update, the transform with the UPDATED statistics, then the learner update
 -- the reference's per-record ``MLPipeline.pipePoint`` order.
 
@@ -20,6 +20,15 @@ device tensors until a statistics poll reads them (``curve_slice``), so a
 fit never waits for the device. ``on_launch`` is called once per program
 the JAX package would launch (fit, fit_many, predict, evaluate), so
 ``Statistics.programLaunches`` counts the same thing in both packages.
+
+A pipeline attached to a cohort (``runtime.cohort``, the multi-tenant
+gang engine) hands its state to the cohort's stacked ``[C, ...]`` tree:
+``fit``/``fit_many`` stage their batches for the cohort's next gang launch
+and return a lazy loss, ``predict`` and ``evaluate`` read the member's
+state after the pending launch, ``state`` reads and writes go through the
+cohort's checkout, and the flat parameters are the member's row of the
+cohort's one-launch ``[C, P]`` flat matrix. ``cache_key`` (the JAX key's
+fields) decides which pipelines may share a cohort.
 
 A host-side learner (HT: ``Learner.host_side``) keeps the whole state on
 the host whatever the pipeline's device, as the JAX package runs it
@@ -41,6 +50,15 @@ from omldm_tpu_torch.learners.registry import make_learner
 from omldm_tpu_torch.preprocessors.base import Preprocessor
 from omldm_tpu_torch.preprocessors.registry import make_preprocessor
 from omldm_tpu_torch.utils import batch_valid_counts, resolve_device
+
+
+def _freeze(obj):
+    """Recursively hashable form of hyper-parameter structures."""
+    if isinstance(obj, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(v) for v in obj)
+    return obj
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -141,6 +159,24 @@ def _as_input(x, device: torch.device):
     return _as_tensor(x, device)
 
 
+def unravel_fn(params, device) -> Callable[[np.ndarray], dict]:
+    """The inverse of flattening ``params`` (a tree shaped like one
+    pipeline's parameters) in ``ravel_pytree`` order: a float32 vector ->
+    a new tree on ``device``, each leaf cast back to its dtype."""
+    specs = [(t.shape, t.dtype) for t in _leaves(params)]
+
+    def unravel(vec) -> dict:
+        vec = torch.from_numpy(np.array(vec, dtype=np.float32)).to(device)
+        out, pos = [], 0
+        for shape, dtype in specs:
+            size = int(np.prod(shape, dtype=np.int64))
+            out.append(vec[pos : pos + size].reshape(shape).to(dtype))
+            pos += size
+        return _rebuild(params, iter(out))
+
+    return unravel
+
+
 class MLPipeline:
     """One online-ML pipeline: a chain of preprocessors and a learner."""
 
@@ -174,7 +210,23 @@ class MLPipeline:
         for p in self.preps:
             d = p.out_dim(d)
             dims.append(d)
-        self.state = {
+        # cohort co-hosting (runtime.cohort): while attached, the cohort
+        # owns the state (stacked with its same-spec siblings) and `_state`
+        # is None; detached, `_state` is the state
+        self._cohort = None
+        self._slot = -1
+        # pipelines with equal keys run the same step program, so they may
+        # share a cohort (the JAX key; its guard field is always False here)
+        self.cache_key = None if self.learner.host_side else (
+            type(self.learner).__name__,
+            _freeze(self.learner.hp),
+            _freeze(self.learner.ds),
+            tuple((type(p).__name__, _freeze(p.hp)) for p in self.preps),
+            dim,
+            per_record,
+            False,
+        )
+        self._state = {
             "preps": [p.init(di, self.device) for p, di in zip(self.preps, dims)],
             "params": self.learner.init(d, generator, self.device),
             "fitted": torch.zeros((), dtype=torch.int32, device=self.device),
@@ -216,6 +268,23 @@ class MLPipeline:
 
     # --- public API ---
 
+    @property
+    def state(self):
+        """The state tree. Detached: the pipeline's own. Attached to a
+        cohort: the member's checked-out state -- the SAME dict until the
+        next gang launch writes it back, so in-place edits (merge_from, a
+        SingleLearner hub's model swap) land in the stacked tree."""
+        if self._cohort is not None:
+            return self._cohort.checkout(self._slot)
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        if self._cohort is not None:
+            self._cohort.set_member_state(self._slot, value)
+        else:
+            self._state = value
+
     def load_state(self, state) -> None:
         """Adopt a whole state (e.g. ``state_from_numpy`` of a JAX state),
         host-side fitted counter included. The pipeline takes it over: a
@@ -232,11 +301,14 @@ class MLPipeline:
         should be host-originated: its valid count feeds the host-side
         fitted counter without a device sync."""
         n = int(np.asarray(mask).sum())
-        self._count_launch()
-        self.state, loss = self._fit_impl(
-            self.state, _as_input(x, self.device), _as_tensor(y, self.device),
-            _as_tensor(mask, self.device),
-        )
+        if self._cohort is not None:
+            loss = self._cohort.stage_fit(self._slot, x, y, mask)
+        else:
+            self._count_launch()
+            self._state, loss = self._fit_impl(
+                self._state, _as_input(x, self.device), _as_tensor(y, self.device),
+                _as_tensor(mask, self.device),
+            )
         self._fitted_host += n
         self._curve.append((loss, self._fitted_host))
         return loss
@@ -248,18 +320,10 @@ class MLPipeline:
         if self.learner.host_side:
             return torch.stack([self.fit(x, y, m) for x, y, m in zip(xs, ys, masks)])
         counts = batch_valid_counts(masks, valid_counts)
-        xs = _as_tensor(xs, self.device)
-        ys = _as_tensor(ys, self.device)
-        masks = _as_tensor(masks, self.device)
-        self._count_launch()
-        losses = []
-        for t in range(xs.shape[0]):
-            self.state, loss = self._fit_impl(self.state, xs[t], ys[t], masks[t])
-            losses.append(loss)
-        losses = (
-            torch.stack(losses) if losses
-            else torch.zeros((0,), dtype=torch.float32, device=self.device)
-        )
+        if self._cohort is not None:
+            losses = self._cohort.stage_fit_many(self._slot, xs, ys, masks)
+        else:
+            losses = self._fit_many_solo(xs, ys, masks)
         fitted_after = []
         for c in counts:
             self._fitted_host += c
@@ -267,17 +331,37 @@ class MLPipeline:
         self._curve.append((losses, fitted_after))
         return losses
 
-    def predict(self, x) -> torch.Tensor:
+    def _fit_many_solo(self, xs, ys, masks) -> torch.Tensor:
+        xs = _as_tensor(xs, self.device)
+        ys = _as_tensor(ys, self.device)
+        masks = _as_tensor(masks, self.device)
         self._count_launch()
-        st = self.state
+        losses = []
+        for t in range(xs.shape[0]):
+            self._state, loss = self._fit_impl(self._state, xs[t], ys[t], masks[t])
+            losses.append(loss)
+        if not losses:
+            return torch.zeros((0,), dtype=torch.float32, device=self.device)
+        return torch.stack(losses)
+
+    def _read_state(self):
+        """The state a predict or evaluate reads: a cohort member's after
+        its pending gang launch."""
+        if self._cohort is not None:
+            return self._cohort.peek_state(self._slot)
+        return self._state
+
+    def predict(self, x) -> torch.Tensor:
+        st = self._read_state()
+        self._count_launch()
         x = _as_input(x, self.device)
         preds = self.learner.predict(st["params"], self._transform(st["preps"], x))
         return torch.as_tensor(preds)  # a host-side learner answers in numpy
 
     def evaluate(self, x, y, mask) -> Tuple[float, float]:
         """(mean loss, score) on a held-out set, without updating."""
+        st = self._read_state()
         self._count_launch()
-        st = self.state
         z = self._transform(st["preps"], _as_input(x, self.device))
         y = _as_tensor(y, self.device)
         mask = _as_tensor(mask, self.device)
@@ -285,22 +369,49 @@ class MLPipeline:
         score = self.learner.score(st["params"], z, y, mask)
         return float(loss), float(score)
 
+    def settle_deferred(self) -> None:
+        """Run this member's deferred post-launch protocol action now (it
+        forces the pending gang launch). Blocking protocol workers call
+        this before their ``waiting`` check, so a deferred sync point that
+        sets ``waiting`` shows where the undeferred path would set it."""
+        if self._cohort is not None and self._cohort.has_deferred(self._slot):
+            self._cohort.launch()
+
+    def defer_after_launch(self, cb: Callable[[], None]) -> bool:
+        """Cohort hook for protocol sync points: with a staged gang fit
+        pending, run ``cb`` right after the gang launch instead of now
+        (which would force a launch for this member alone). Returns False
+        -- act now -- when detached or nothing is staged."""
+        if self._cohort is not None and self._cohort.has_staged(self._slot):
+            self._cohort.after_launch(self._slot, cb)
+            return True
+        return False
+
     @property
     def fitted(self) -> int:
         return self._fitted_host
 
     @property
     def cumulative_loss(self) -> float:
-        return float(self.state["cum_loss"])
+        if self._cohort is not None:
+            return self._cohort.member_cum_loss(self._slot)
+        return float(self._state["cum_loss"])
 
     def curve_slice(self) -> List[Tuple[float, int]]:
         """Drain the learning-curve points accumulated since the last call.
-        The lazy losses come to the host in ONE copy."""
+        The lazy losses come to the host in ONE copy (a cohort member's
+        staged losses: one copy a gang launch)."""
         fresh = self._curve
         self._curve = []
         if not fresh:
             return []
-        values = torch.cat([loss.reshape(-1) for loss, _ in fresh]).tolist()
+        parts = [
+            loss.as_tensor() if hasattr(loss, "as_tensor") else loss
+            for loss, _ in fresh
+        ]
+        if len({t.device for t in parts}) > 1:
+            parts = [t.cpu() for t in parts]
+        values = torch.cat([t.reshape(-1) for t in parts]).tolist()
         fitted: List[int] = []
         for _, f in fresh:
             fitted.extend(f if isinstance(f, list) else [f])
@@ -309,31 +420,24 @@ class MLPipeline:
     def _unravel_fn(self) -> Callable[[np.ndarray], dict]:
         """Inverse of the flattening in :meth:`get_flat_params` for the
         current parameter structure (one host->device copy per call)."""
-        params = self.state["params"]
-        specs = [(t.shape, t.dtype) for t in _leaves(params)]
-        device = self.device
-
-        def unravel(vec) -> dict:
-            vec = torch.from_numpy(np.array(vec, dtype=np.float32)).to(device)
-            out, pos = [], 0
-            for shape, dtype in specs:
-                size = int(np.prod(shape, dtype=np.int64))
-                out.append(vec[pos : pos + size].reshape(shape).to(dtype))
-                pos += size
-            return _rebuild(params, iter(out))
-
-        return unravel
+        return unravel_fn(self.state["params"], self.device)
 
     def get_flat_params(self) -> Tuple[np.ndarray, Callable[[np.ndarray], dict]]:
         """Learner params as one float32 vector in ``ravel_pytree`` order
         (hub messages and query responses carry it), plus its inverse. The
-        vector is a writable host copy: protocol code mutates shards."""
-        leaves = _leaves(self.state["params"])
+        vector is a writable host copy: protocol code mutates shards. A
+        cohort member reads its row of the cohort's flat matrix."""
+        if self._cohort is not None:
+            return self._cohort.member_flat(self._slot)
+        leaves = _leaves(self._state["params"])
         flat = torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
         return np.array(flat.cpu().numpy()), self._unravel_fn()
 
     def set_flat_params(self, flat: np.ndarray) -> None:
-        self.state["params"] = self._unravel_fn()(flat)
+        if self._cohort is not None:
+            self._cohort.set_member_flat(self._slot, flat)
+            return
+        self._state["params"] = self._unravel_fn()(flat)
 
     def merge_from(self, others: Sequence["MLPipeline"]) -> None:
         """Merge parallel pipeline copies: learner params and scaler states."""

@@ -3,7 +3,10 @@
 Counterpart of ``omldm_tpu/protocols/base.py`` on its default route: the
 transport codec, the model-integrity guard, worker liveness and quorum,
 the reliable channel and the flight recorder are not ported, so their
-hooks are gone rather than unarmed. Without liveness every worker stays
+hooks are gone rather than unarmed. The cohort engine's hooks are here: a
+worker that consumes its batch at once says so
+(``consumes_batch_synchronously``), and a hub may stage its round average
+on the job's ``GangAverager`` (``HubNode.gang``). Without liveness every worker stays
 active: ``active_workers`` is every worker and ``round_target`` their
 count. Nodes are plain Python objects exchanging in-process messages
 through ``send``/``reply``/``broadcast`` callables. A worker node wraps an
@@ -32,6 +35,11 @@ BroadcastFn = Callable[[str, Any], None]
 
 class WorkerNode:
     """Spoke-side protocol node wrapping a local pipeline replica."""
+
+    # True for a node whose on_training_batch fits (or stages) the batch
+    # before it returns, keeping no reference to it: the spoke may then
+    # hand a cohort member zero-copy views of its batcher
+    consumes_batch_synchronously = False
 
     def __init__(
         self,
@@ -115,6 +123,11 @@ class HubNode:
         # protocol call sites through count_shipped)
         self._reply_raw = reply
         self._broadcast_raw = broadcast
+        # cohort gang averaging (runtime.cohort.GangAverager): set by the
+        # HubManager when the job arms cohorts; a protocol that averages
+        # rounds (SynchronousParameterServer) stages its completed rounds
+        # on it while a window is open. None: every round averages inline
+        self.gang = None
         self.reply = self._reply_ship
         self.broadcast = self._broadcast_ship
 

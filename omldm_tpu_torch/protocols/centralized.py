@@ -29,6 +29,8 @@ class SingleWorker(WorkerNode):
     """Trains locally; ships params + curve slices to the PS every
     ``syncEvery`` batches (default 4) for statistics and query parity."""
 
+    consumes_batch_synchronously = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.sync_every = int(self.config.extra.get("syncEvery", 4))
@@ -47,7 +49,9 @@ class SingleWorker(WorkerNode):
         loss = self.pipeline.fit(x, y, mask)
         self._batches += 1
         if self._batches % self.sync_every == 0:
-            self._push_state()
+            # a staged cohort fit: push after the gang launch
+            if not self.pipeline.defer_after_launch(self._push_state):
+                self._push_state()
         return loss
 
     def on_flush(self) -> None:

@@ -1,7 +1,7 @@
 """Shared machinery for parameter-exchanging protocol workers.
 
 Counterpart of ``omldm_tpu/protocols/common.py`` without the reliable
-channel's stall watchdog and resync hooks and the cohort deferral hooks.
+channel's stall watchdog and resync hooks.
 ``SyncingWorker`` gives flat-param access, a sync cadence (``syncEvery``
 batches), blocking semantics (a worker waiting for the PS buffers incoming
 batches) and curve/fitted piggybacking on pushes.
@@ -31,6 +31,11 @@ def shard_slice(h: int, size: int, n_hubs: int) -> slice:
 
 
 class SyncingWorker(WorkerNode):
+    # a batch that does not wait fits into the replica before returning; a
+    # waiting worker holds its batches, which then own their arrays (the
+    # spoke hands views only to a worker that is not waiting)
+    consumes_batch_synchronously = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.sync_every = int(self.config.extra.get("syncEvery", 4))
@@ -88,6 +93,10 @@ class SyncingWorker(WorkerNode):
     # --- training path with blocking support ---
 
     def on_training_batch(self, x, y, mask) -> Optional[Any]:
+        # a sync point deferred past the last gang launch may set
+        # `waiting`: run it first, so this batch blocks where the
+        # undeferred path would block it
+        self.pipeline.settle_deferred()
         if self.waiting:
             if len(self._blocked) < MAX_BLOCKED_BATCHES:
                 self._blocked.append((x, y, mask))
@@ -95,7 +104,10 @@ class SyncingWorker(WorkerNode):
         loss = self.pipeline.fit(x, y, mask)
         self._batches += 1
         if self._batches % self.sync_every == 0:
-            self.on_sync_point()
+            # a staged cohort fit: the sync point (which reads the model
+            # after the fit) runs right after the gang launch
+            if not self.pipeline.defer_after_launch(self.on_sync_point):
+                self.on_sync_point()
         return loss
 
     def drain_blocked(self) -> None:

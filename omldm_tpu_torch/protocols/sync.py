@@ -1,7 +1,9 @@
 """Synchronous (BSP) and stale-synchronous (SSP) parameter servers.
 
 Counterpart of ``omldm_tpu/protocols/sync.py`` without liveness
-retirement and cohort gang averaging (MLNodeGenerator.scala:20-76):
+retirement (MLNodeGenerator.scala:20-76). A Synchronous round that
+completes while the job's cohort gang-averaging window is open averages
+with the other hubs' rounds of that window (``runtime.cohort.GangAverager``):
 
 - Synchronous: a worker that reaches its sync point blocks (buffers
   incoming batches) until the PS has collected a contribution from every
@@ -72,13 +74,21 @@ class SynchronousParameterServer(HubNode):
         if len(self._round) >= self.round_target():
             stacked = np.stack(list(self._round.values()))
             self._round.clear()
-            self.global_params = stacked.mean(axis=0)
-            self.count_shipped(
-                self.global_params,
-                n_dest=self.n_workers,
-                models=self.n_workers if self.hub_id == 0 else 0,
-            )
-            self.broadcast(OP_UPDATE, self.global_params)
+            if self.gang is not None and self.gang.active:
+                # cohort gang averaging: the rounds that complete in this
+                # event window average together, one stacked reduction
+                self.gang.stage(self, stacked)
+            else:
+                self._finish_round(stacked.mean(axis=0))
+
+    def _finish_round(self, averaged: np.ndarray) -> None:
+        self.global_params = averaged
+        self.count_shipped(
+            self.global_params,
+            n_dest=self.n_workers,
+            models=self.n_workers if self.hub_id == 0 else 0,
+        )
+        self.broadcast(OP_UPDATE, self.global_params)
 
     def on_terminate(self) -> None:
         # release any round stuck behind a straggler that quiesced

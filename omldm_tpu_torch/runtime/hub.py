@@ -5,8 +5,11 @@ Counterpart of ``omldm_tpu/runtime/hub.py`` (the reference's ``FlinkHub`` +
 (networkId, hubId); worker messages arriving before hub creation are cached
 (FlinkHub.scala:70-87) and drained after creation; each hub keeps its
 pipeline's ``Statistics``. A SingleLearner hub holds the pipeline's one
-model, on the job's device (FlinkHub.scala:128-153). The reliable channel
-and cohort gang averaging are not ported.
+model, on the job's device (FlinkHub.scala:128-153). With cohorts armed
+(``JobConfig.cohort`` ``auto`` or ``on``) every shard gets the manager's
+``GangAverager``, so same-protocol shards whose rounds complete in one
+event window average in one stacked reduction. The reliable channel is not
+ported.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from omldm_tpu_torch.api.stats import Statistics
 from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.protocols.centralized import CentralizedMLServer
 from omldm_tpu_torch.protocols.registry import make_hub_node, resolve_protocol
+from omldm_tpu_torch.runtime.cohort import GangAverager
 from omldm_tpu_torch.runtime.databuffers import DataSet
 from omldm_tpu_torch.runtime.messages import payload_size
 from omldm_tpu_torch.runtime.spoke import create_pipeline
@@ -83,6 +87,12 @@ class HubManager:
         # (network_id, hub_id, worker_id, op, payload)
         self._reply_to_spoke = reply_to_spoke
         self._pre_creation: Dict[Tuple[int, int], DataSet] = {}
+        # cohort gang averaging: same-cohort PS shards stage completed
+        # rounds inside a job event window and average in one stacked
+        # [M, W, P] reduction (the per-hub mean, bitwise)
+        self.gang: Optional[GangAverager] = (
+            GangAverager() if str(config.cohort).lower() in ("auto", "on") else None
+        )
 
     def create_hub(self, request: Request, hub_id: int, dim: int) -> Hub:
         key = (request.id, hub_id)
@@ -99,6 +109,7 @@ class HubManager:
 
         hub = Hub(net_id, hub_id, request, dim, self.config, reply, broadcast,
                   self.device)
+        hub.node.gang = self.gang
         self.hubs[key] = hub
         cached = self._pre_creation.pop(key, None)
         if cached is not None:

@@ -15,6 +15,11 @@ learner the engine hosts, on an ``SPMDBridge`` (``runtime.spmd_bridge``),
 which sees every record. A job whose one pipeline is on that engine can
 take a training file through the fused C ingest (``run_file_fused``).
 
+With cohorts armed (``JobConfig.cohort``), each event is processed inside
+the hubs' gang-averaging window (``runtime.cohort.GangAverager``), so the
+Synchronous rounds of a cohort's pipelines that complete on one event
+average in one stacked reduction at its end.
+
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
 host without a card raises. A ``JobConfig`` that arms a plane the port does
@@ -23,17 +28,21 @@ not have yet raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import sys
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
 from omldm_tpu_torch.api.stats import JobStatistics
 from omldm_tpu_torch.config import JobConfig
+from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.hub import HubManager
@@ -60,6 +69,14 @@ PACKED_STREAM = PACKED
 # deploy (the reference's recordBuffer cap, SpokeLogic.scala:31-35)
 PRE_CREATE_BACKLOG_CAP = 100_000
 
+# Python frames the cooperative pause toggle may nest a net of a spoke: a
+# hub reply resumes a paused net, whose drained records reach a sync point
+# whose reply resumes the next, about 18 frames a net (Synchronous, 8 to
+# 64 nets), so the interpreter's default limit of 1,000 stops a spoke of
+# ~56 nets that do not gang. The JAX package nests the same way and stops
+# there; the job lets the limit grow with the nets it hosts instead.
+TOGGLE_FRAMES_PER_NET = 64
+
 
 def unported_job_options(config: JobConfig) -> List[str]:
     """The JobConfig options that arm a plane the port does not have yet."""
@@ -72,10 +89,6 @@ def unported_job_options(config: JobConfig) -> List[str]:
         names.append("chaos (OMLDM_CHAOS)")
     if config.checkpointing:
         names.append("checkpointing")
-    if str(config.cohort).lower() == "on":
-        names.append("cohort='on'")
-    if str(config.cohort_shards).lower() != "off":
-        names.append(f"cohort_shards={config.cohort_shards!r}")
     return names
 
 
@@ -100,6 +113,8 @@ class StreamJob:
         # own request)
         parse_serving_spec(self.config.serving)
         self.device = resolve_device(device, "StreamJob")
+        # a cohort_shards past one device raises here, before any spoke
+        resolve_cohort_shards(self.config, self.device)
         self.predictions: List[Prediction] = []
         self.responses: List[QueryResponse] = []
         self.performance: List[JobStatistics] = []
@@ -139,6 +154,7 @@ class StreamJob:
         self._backlog = _PauseBuffer(PRE_CREATE_BACKLOG_CAP)
         # pipelines deployed on the SPMD engine instead of the host plane
         self.spmd_bridges: Dict[int, Any] = {}
+        self._in_event = False  # inside _toggle_stack
 
     # --- sinks ---
 
@@ -205,9 +221,59 @@ class StreamJob:
 
     # --- event handling ---
 
+    @contextlib.contextmanager
+    def _toggle_stack(self):
+        """Raise the interpreter's recursion limit by TOGGLE_FRAMES_PER_NET
+        frames a net of the fullest spoke while the job handles an event
+        (the toggle's nesting), and restore it after."""
+        nets = max((len(s.nets) for s in self.spokes), default=0)
+        if self._in_event or nets < 2:
+            yield
+            return
+        old = sys.getrecursionlimit()
+        self._in_event = True
+        sys.setrecursionlimit(old + TOGGLE_FRAMES_PER_NET * nets)
+        try:
+            yield
+        finally:
+            sys.setrecursionlimit(old)
+            self._in_event = False
+
     def process_event(self, stream: str, payload: Any) -> None:
         if self.stats.terminated:
             return
+        gang = self.hub_manager.gang
+        with self._toggle_stack():
+            if gang is None or not self._any_cohorts():
+                # no live cohort: rounds average inline
+                self._process_event_inner(stream, payload)
+            else:
+                # gang-averaging window: the PS rounds that complete while
+                # this event is processed average together at its exit
+                with gang.window():
+                    self._process_event_inner(stream, payload)
+
+    def _any_cohorts(self) -> bool:
+        return any(s.cohorts is not None and s.cohorts.cohorts for s in self.spokes)
+
+    def tenant_topology(self) -> dict:
+        """Where the co-hosted tenants run: the device count, the widest
+        tenant-mesh shard count (1: the port runs a cohort on one device)
+        and each live cohort's active members a shard."""
+        topo = {
+            "devices": torch.cuda.device_count() if self.device.type == "cuda" else 1,
+            "cohort_shards": 1,
+            "placement": [],
+        }
+        for spoke in self.spokes:
+            if spoke.cohorts is None:
+                continue
+            for cohort in spoke.cohorts.cohorts.values():
+                topo["cohort_shards"] = max(topo["cohort_shards"], cohort.n_shards)
+                topo["placement"].append(cohort.shard_placement())
+        return topo
+
+    def _process_event_inner(self, stream: str, payload: Any) -> None:
         if stream == REQUEST_STREAM:
             if isinstance(payload, Request):
                 request = payload
@@ -371,7 +437,18 @@ class StreamJob:
         (``runtime.fast_ingest.PackedBatcher``). Rows are dealt exactly as
         per-record events would be: a strided round-robin share a spoke,
         continuing the ``_rr`` cycle, so packed and per-record events can
-        interleave."""
+        interleave. Callers may call this directly, not only through
+        :meth:`process_event`, so the gang-averaging window opens here too
+        (it counts its depth: nested, it flushes at the outer exit)."""
+        gang = self.hub_manager.gang
+        with self._toggle_stack():
+            if gang is None or not self._any_cohorts():
+                self._process_packed_inner(x, y, op)
+            else:
+                with gang.window():
+                    self._process_packed_inner(x, y, op)
+
+    def _process_packed_inner(self, x: np.ndarray, y: np.ndarray, op: np.ndarray) -> None:
         n = x.shape[0]
         if n == 0 or self.stats.terminated:
             return
@@ -465,8 +542,9 @@ class StreamJob:
         if self.stats.terminated:
             return self.performance[-1] if self.performance else None
         self.stats.probe_fired = True
-        for spoke in self.spokes:
-            spoke.handle_terminate_probe()
+        with self._toggle_stack():
+            for spoke in self.spokes:
+                spoke.handle_terminate_probe()
         # quarantined-record count, mirrored into every pipeline's report
         nq = self.dead_letter.record_count
         for bridge in self.spmd_bridges.values():

@@ -20,10 +20,10 @@ flushes when:
 
 Per-record latency clocks (enqueue -> emit) feed the ``forecastsServed`` and
 serving-latency fields of ``Statistics``; emission keeps stream order per
-net. The port flushes each net on its own: the JAX package's cohort gang
-flush (one ``[C, B]`` launch across co-hosted tenants) waits for the cohort
-engine. Unset (the default), no queue object exists and every forecast
-takes the immediate per-record predict path.
+net. A flush takes the net's cohort group: every pending net attached to
+the same cohort (``runtime.cohort``) is served by ONE ``[C, B]`` gang
+predict (``Cohort.predict_rows``). Unset (the default), no queue object
+exists and every forecast takes the immediate per-record predict path.
 """
 
 from __future__ import annotations
@@ -289,16 +289,17 @@ class ServingPlane:
     # --- flush triggers --------------------------------------------------
 
     def maybe_fill_flush(self) -> None:
-        """Record-boundary fill check: flush every queue at/over its
-        maxBatch. Deferred to the boundary (not done at admit), where the
-        JAX package aligns a cohort's queues for one gang launch."""
+        """Record-boundary fill check: flush every group holding a queue
+        at/over its maxBatch. Deferred to the boundary (not done at admit)
+        so every member of a cohort has admitted the same stream position
+        before the gang launch."""
         if not self._fill:
             return
         self._fill = False
         for net in list(self._pending.values()):
             q = net.serve_queue
             if q.entries and q.n_rows >= net.serving.max_batch:
-                self._flush(net)
+                self.flush_group(self._group(net))
 
     def poll(self, now: Optional[float] = None) -> None:
         """Deadline check: flush queues whose oldest entry aged past
@@ -310,46 +311,90 @@ class ServingPlane:
         for net in list(self._pending.values()):
             q = net.serve_queue
             if q.entries and (now - q.t_oldest) * 1000.0 >= net.serving.max_delay_ms:
-                self._flush(net)
+                self.flush_group(self._group(net))
 
     def fence(self, net, chunks: int = 1) -> None:
         """``net``'s model is about to change (a fit is about to stage or
         dispatch, a hub payload is about to be delivered). Exact mode:
         serve the queue NOW, with the pre-change params — this is the
         bit-identity trigger. Relaxed mode: let up to ``staleChunks``
-        such changes pass before flushing."""
+        such changes pass before flushing.
+
+        The flush takes the whole cohort group: a sibling's non-empty queue
+        means (by the fence rule) its model has not changed since its
+        oldest enqueue, so serving it early is what the per-record path
+        would give -- and when cohort members fence in lockstep (the gang
+        fit loop), the first member's fence serves every queue in ONE
+        predict launch instead of C."""
         q = net.serve_queue
         if not q.entries:
             return
         cfg = net.serving
         if cfg.staleness == "exact" or q.chunks >= cfg.stale_chunks:
-            self._flush(net)
+            self.flush_group(self._group(net))
         else:
             q.chunks += chunks
 
     def flush_net(self, net) -> None:
-        """Serve one net's queue now -- the flush for Delete and query
+        """Serve one net's queue alone -- the flush for Delete and query
         responses, where exactly one net must drain."""
         if net.serve_queue.entries:
-            self._flush(net)
+            self.flush_group([net])
 
     def flush_all(self) -> None:
         """Terminate barrier: serve everything still queued."""
         while self._pending:
-            self._flush(next(iter(self._pending.values())))
+            net = next(iter(self._pending.values()))
+            self.flush_group(self._group(net))
 
     # --- flush execution -------------------------------------------------
 
-    def _flush(self, net) -> None:
-        """One batched predict launch over ``net``'s queue; FIFO emission.
-        (The JAX package flushes a cohort's queues together here, in one
-        gang launch; the port flushes each net on its own.)"""
-        q = net.serve_queue
-        entries, q.entries = q.entries, []
-        n_rows, q.n_rows = q.n_rows, 0
-        q.chunks = 0
-        self._pending.pop(net.request.id, None)
-        self._serve_solo(net, entries, n_rows)
+    def _group(self, net) -> List[Any]:
+        """The gang-flush unit: every pending net attached to the same
+        cohort (their queues fill in lockstep), or the net alone."""
+        cohort = getattr(net.pipeline, "_cohort", None)
+        if cohort is None:
+            return [net]
+        return [
+            n for n in self._pending.values()
+            if getattr(n.pipeline, "_cohort", None) is cohort
+        ] or [net]
+
+    def flush_group(self, nets: List[Any]) -> None:
+        """ONE padded predict launch for the gang-eligible members of a
+        cohort group (``Cohort.predict_rows`` over ``[C, B]`` rows), one
+        batched solo launch for each other net; emission is FIFO a net."""
+        gang: List[Tuple[Any, List[tuple], int]] = []
+        solo: List[Tuple[Any, List[tuple], int]] = []
+        cohort = None
+        for net in nets:
+            q = net.serve_queue
+            if not q.entries:
+                continue
+            entries, q.entries = q.entries, []
+            n_rows, q.n_rows = q.n_rows, 0
+            q.chunks = 0
+            self._pending.pop(net.request.id, None)
+            if net.gang_predict_ok():
+                cohort = net.pipeline._cohort
+                gang.append((net, entries, n_rows))
+            else:
+                solo.append((net, entries, n_rows))
+        if len(gang) == 1:
+            # a lone member gains nothing from the stacked predict
+            solo.append(gang.pop())
+        if gang:
+            width = max(n for _, _, n in gang)
+            rows = []
+            for net, entries, _n in gang:
+                xb = net.predict_pad(width)
+                self._fill_pad(xb, entries)
+                rows.append((net.pipeline._slot, xb))
+            preds = cohort.predict_rows(rows)
+            for (net, entries, n_rows), (slot, _) in zip(gang, rows):
+                self._emit_entries(net, entries, n_rows, preds[slot])
+        for net, entries, n_rows in solo:
+            self._serve_solo(net, entries, n_rows)
 
     @staticmethod
     def _fill_pad(xb: np.ndarray, entries: List[tuple]) -> None:
@@ -374,6 +419,10 @@ class ServingPlane:
         else:
             xb = net.predict_pad(n_rows)
             self._fill_pad(xb, entries)
+        cohort = getattr(net.pipeline, "_cohort", None)
+        if cohort is not None:
+            # launch staged gang fits OUTSIDE the serve timer
+            cohort.launch()
         if self._timer is not None:
             with self._timer:
                 preds = net.node.on_forecast_batch(xb)

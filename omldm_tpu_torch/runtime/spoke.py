@@ -18,8 +18,16 @@ stream position. A serving-armed net (``trainingConfiguration.serving`` or
 ``JobConfig.serving``) queues its forecasts in the adaptive-batching plane
 (``runtime.serving``) and answers them in batched predicts; in the default
 exact mode a queue flushes before any change to the net's model, so every
-answer equals the per-record path's. The overload, lifecycle, cohort,
-guard, telemetry, events and reliable-channel branches are not ported.
+answer equals the per-record path's.
+
+With cohorts armed (``JobConfig.cohort``, ``runtime.cohort``) the spoke's
+``CohortEngine`` gangs its same-spec dense nets: their fits stage and
+launch together at the end of each record and each packed block (the gang
+barrier), packed blocks walk the members in lockstep, and forecasts to
+several members are answered by one gang predict. Attached nets are
+exempt from the cooperative pause toggle: gang lockstep is their fairness.
+The overload, lifecycle, guard, telemetry, events and reliable-channel
+branches are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
 from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.pipelines import MLPipeline
+from omldm_tpu_torch.protocols.base import WorkerNode
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
+from omldm_tpu_torch.runtime.cohort import CohortEngine
 from omldm_tpu_torch.runtime.databuffers import DataSet
 from omldm_tpu_torch.runtime.serving import (
     ServeQueue,
@@ -192,6 +202,16 @@ class SpokeNet:
     def _note_launch(self) -> None:
         self.program_launches += 1
 
+    def gang_predict_ok(self) -> bool:
+        """Gang serving bypasses ``node.on_forecast_batch`` with the same
+        predict batched over the cohort: only for attached dense nets whose
+        node keeps the base behaviour (predict with the local model)."""
+        return (
+            not self.sparse
+            and self.pipeline._cohort is not None
+            and type(self.node).on_forecast_batch is WorkerNode.on_forecast_batch
+        )
+
     def predict_pad(self, n: int):
         """A zeroed padded predict batch with >= ``n`` writable rows from
         the net's scratch: ``[B', dim]`` (a sparse net: an ``(idx, val)``
@@ -230,10 +250,23 @@ class SpokeNet:
             # dispatch a fit): exact-mode serving drains the queue NOW with
             # the pre-fit parameters; relaxed mode counts the chunk
             self._plane.fence(self)
+        if self.pipeline._cohort is not None:
+            # a deferred sync point may set `waiting`: settle it before the
+            # view-or-copy choice, or a blocking node could hold VIEWS
+            self.pipeline.settle_deferred()
+            if self.node.consumes_batch_synchronously and not getattr(
+                    self.node, "waiting", False):
+                # the staged fit copies the rows into the gang buffers at
+                # once, so the batcher may hand out views; the gang launch
+                # times itself (Cohort._run_staged)
+                flushed = self.batcher.flush_views()
+                if flushed is not None:
+                    self.node.on_training_batch(*flushed)
+                return
         flushed = self.batcher.flush()
         if flushed is None:
             return
-        if self._timer is not None:
+        if self._timer is not None and self.pipeline._cohort is None:
             with self._timer:
                 self.node.on_training_batch(*flushed)
         else:
@@ -291,6 +324,11 @@ class Spoke:
         self.record_buffer: DataSet[DataInstance] = DataSet(config.record_buffer_cap)
         self._packed_buffer = _PauseBuffer(config.record_buffer_cap)
         self._poll_counter = 0
+        # the cohort engine (JobConfig.cohort); None when off, and every
+        # route below then takes the solo path
+        engine = CohortEngine(config, device, timer=self.step_timer,
+                              serve_timer=self.serve_timer)
+        self.cohorts: Optional[CohortEngine] = engine if engine.enabled else None
 
     # --- control path (FlinkSpoke.processElement2) ---
 
@@ -316,6 +354,15 @@ class Spoke:
         net.node.on_start()
         if net.serving is not None:
             net._plane = self._ensure_serving_plane()
+        if self.cohorts is not None:
+            self.cohorts.consider(net.pipeline)
+            # pooled pipelines may attach on a LATER create (the auto
+            # threshold); attached nets are exempt from the pause toggle,
+            # so one caught paused would never resume: release it now
+            for other in self.nets.values():
+                if other.pipeline._cohort is not None and other.node.paused:
+                    other.node.paused = False
+                    self._drain_pause_buffer(other)
         # drain buffered records (FlinkSpoke.scala:69-80)
         if len(self.record_buffer):
             buffered = self.record_buffer.to_list()
@@ -350,6 +397,10 @@ class Spoke:
             # pending forecasts serve through the departing model first --
             # the per-record path would have answered them already
             self.serving_plane.flush_net(net)
+        if net is not None and self.cohorts is not None:
+            # cohort churn: the member's slot frees for reuse; the
+            # survivors keep their slots
+            self.cohorts.retire(net.pipeline)
         # a deleted net can no longer generate the hub RPCs that toggle its
         # siblings: resume + drain any survivor left paused
         for net in self.nets.values():
@@ -382,6 +433,8 @@ class Spoke:
                 self._train(net, x, 0.0 if inst.target is None else inst.target)
         if serve_entries:
             self._serve_many(inst, serve_entries)
+        # gang barrier: launch every cohort's staged fits for this record
+        self._flush_cohorts()
         self.poll_serving()
         if inst.operation != FORECASTING:
             # poll marker every 100 training records -- once per record, not
@@ -413,12 +466,24 @@ class Spoke:
             self._packed_buffer.append((PACKED, (x, y, op), None, None))
             return
         f_idx = np.nonzero(op != 0)[0]
+        gang_nets: List[SpokeNet] = []
         for net in list(self.nets.values()):
             if net.node.paused:
                 # hold the whole block; drains via _drain_pause_buffer
                 net.pause_buffer.append((PACKED, (x, y, op), None, None))
                 continue
+            if net.pipeline._cohort is not None:
+                # cohort members advance in LOCKSTEP below, so same-cohort
+                # flushes stage into shared gang launches (each net's row
+                # order, holdout cycle and flush points are its solo ones)
+                gang_nets.append(net)
+                continue
             self._process_packed_for_net(net, x, y, f_idx)
+        if len(gang_nets) == 1:
+            self._process_packed_for_net(gang_nets[0], x, y, f_idx)
+        elif gang_nets:
+            self._process_packed_gang(gang_nets, x, y, f_idx)
+        self._flush_cohorts()
         self.poll_serving()
         nt = n - int(f_idx.size)
         if nt:
@@ -441,7 +506,7 @@ class Spoke:
         stream position (train the rows before it first), matching the
         per-record order. A serving-armed dense net takes the bulk
         span-admission walker instead."""
-        if self._process_packed_serving_bulk(net, x, y, f_idx):
+        if self._process_packed_serving_bulk([net], x, y, f_idx):
             return
         n = x.shape[0]
         prev = 0
@@ -456,9 +521,10 @@ class Spoke:
         if prev < n:
             self._train_packed(net, x[prev:], y[prev:])
 
-    def _process_packed_serving_bulk(self, net: SpokeNet, x, y, f_idx) -> bool:
-        """Serving-plane fast path for a dense serving-armed net: the
-        per-position serve loop collapses into span-wise bulk admission
+    def _process_packed_serving_bulk(self, nets: List[SpokeNet], x, y, f_idx) -> bool:
+        """Serving-plane fast path for a packed block when EVERY net is
+        dense and serving-armed, with equal batch size and fill (lockstep):
+        the per-position serve loop collapses into span-wise bulk admission
         between batcher-fill boundaries.
 
         Exactness: a queued forecast's answer depends only on the
@@ -470,36 +536,49 @@ class Spoke:
         the chunk triggers then flushes exactly the forecasts the
         per-record path would have served before that fit. (With holdout
         sampling the real fill lands at or after the chunk end: the bound
-        is conservative, never early.) Returns False when the net does not
+        is conservative, never early.) Returns False when the nets do not
         qualify; the caller walks position by position."""
-        if f_idx.size == 0 or net.serving is None or net.sparse:
+        if f_idx.size == 0 or not nets:
             return False
+        b0 = nets[0].batcher.batch_size
+        fill0 = len(nets[0].batcher)
+        for net in nets:
+            if (net.serving is None or net.sparse or net.batcher.batch_size != b0
+                    or len(net.batcher) != fill0):
+                return False
         plane = self.serving_plane
-        b0 = net.batcher.batch_size
         n = x.shape[0]
         t_mask = np.ones((n,), bool)
         t_mask[f_idx] = False
         t_idx = np.nonzero(t_mask)[0]
-        rows = self._adapt_width(x[f_idx], net.dim)
+        rows_cache: Dict[int, np.ndarray] = {}
 
         def admit(lo: int, hi: int) -> None:
             # one enqueue clock per span (every row of it becomes servable
-            # now), then flush at once if the queue filled: flushing
-            # EARLIER than the fence is always exact
-            plane.admit_rows(net, rows[lo:hi], plane._clock())
+            # now), then flush at once if a queue filled: flushing EARLIER
+            # than the fence is always exact
+            now = plane._clock()
+            for net in nets:
+                rows = rows_cache.get(net.dim)
+                if rows is None:
+                    rows = rows_cache[net.dim] = self._adapt_width(x[f_idx], net.dim)
+                plane.admit_rows(net, rows[lo:hi], now)
             plane.maybe_fill_flush()
 
         fi = 0  # forecasts admitted so far (index into f_idx)
         ti = 0  # training rows fed so far (index into t_idx)
         while ti < t_idx.size:
-            room = max(b0 - len(net.batcher), 1)
+            room = max(b0 - len(nets[0].batcher), 1)
             chunk = t_idx[ti : ti + room]
             ti += chunk.size
             hi = fi + int(np.searchsorted(f_idx[fi:], int(chunk[-1])))
             if hi > fi:
                 admit(fi, hi)
                 fi = hi
-            self._train_packed(net, x[chunk], y[chunk])
+            if len(nets) == 1:
+                self._train_packed(nets[0], x[chunk], y[chunk])
+            else:
+                self._train_packed_gang(nets, x[chunk], y[chunk])
         if fi < f_idx.size:
             admit(fi, f_idx.size)
         return True
@@ -603,6 +682,7 @@ class Spoke:
                 self._serve(net, inst, (sidx[j], sval[j]))
             return
         rows = self._adapt_width(x[f_idx], net.dim)
+        self._drain_staged_fits(net)
         for s in range(0, f_idx.size, PREDICT_BATCH):
             chunk = rows[s : s + PREDICT_BATCH]
             t0 = time.perf_counter()
@@ -665,21 +745,141 @@ class Spoke:
         else:
             xb = net.predict_pad(1)
             xb[0] = x
+        self._drain_staged_fits(net)
         with self.serve_timer:
             preds = net.node.on_forecast_batch(xb)
         self._emit_prediction(Prediction(net.request.id, inst, float(preds[0])))
         net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
 
+    @staticmethod
+    def _drain_staged_fits(net: SpokeNet) -> None:
+        """Launch a cohort member's staged gang fits BEFORE a serve-timed
+        predict: the predict would otherwise launch them inside the serving
+        timer, counting the fit's time there too."""
+        cohort = net.pipeline._cohort
+        if cohort is not None:
+            cohort.launch()
+
     def _serve_many(self, inst: DataInstance, entries) -> None:
         """Serve one forecast record to many nets: serving-armed nets queue
-        it, the others answer at once, in the nets' order. (The JAX package
-        also gangs cohort members and routes canaries here.)"""
+        it, cohort members answer through ONE gang predict a cohort, the
+        others at once; emission keeps the nets' order. (The JAX package
+        also routes canaries here.)"""
+        gang_in = []
+        t0 = time.perf_counter()
         for net, x in entries:
             if net.serving is not None:
                 self.serving_plane.admit(net, inst, x)
+            elif net.gang_predict_ok():
+                xb = net.predict_pad(1)
+                xb[0] = x
+                gang_in.append((net, xb))
+        ganged = self._gang_predictions(gang_in) if gang_in else {}
         for net, x in entries:
-            if net.serving is None:
+            if net.serving is not None:
+                continue
+            pred = ganged.get(id(net))
+            if pred is None:
                 self._serve(net, inst, x)
+            else:
+                self._emit_prediction(Prediction(net.request.id, inst, pred))
+                net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
+        if self._any_serving:
+            self.serving_plane.maybe_fill_flush()
+
+    def _gang_predictions(self, entries: List[Tuple[SpokeNet, np.ndarray]]) -> Dict[int, float]:
+        """One padded predict a cohort with two or more participants;
+        returns {id(net): prediction} for the nets a gang served."""
+        groups: Dict[Any, List[Tuple[SpokeNet, np.ndarray]]] = {}
+        for net, xb in entries:
+            groups.setdefault(net.pipeline._cohort, []).append((net, xb))
+        out: Dict[int, float] = {}
+        for cohort, items in groups.items():
+            if len(items) < 2:
+                continue
+            rows = [(net.pipeline._slot, xb) for net, xb in items]
+            preds = cohort.predict_rows(rows)
+            for (net, _), (slot, _) in zip(items, rows):
+                out[id(net)] = float(preds[slot, 0])
+        return out
+
+    # --- cohort gang dispatch (runtime.cohort) ---
+
+    def _flush_cohorts(self) -> None:
+        if self.cohorts is not None:
+            self.cohorts.flush()
+
+    def _process_packed_gang(self, nets: List[SpokeNet], x, y, f_idx) -> None:
+        """Lockstep twin of ``_process_packed_for_net`` over several nets:
+        segments between forecasts gang-train, forecasts gang-serve at
+        their stream position."""
+        if self._process_packed_serving_bulk(nets, x, y, f_idx):
+            return
+        n = x.shape[0]
+        prev = 0
+        for f in f_idx:
+            f = int(f)
+            if f > prev:
+                self._train_packed_gang(nets, x[prev:f], y[prev:f])
+            self._serve_packed_gang(nets, x, f)
+            prev = f + 1
+        if prev < n:
+            self._train_packed_gang(nets, x[prev:], y[prev:])
+
+    def _train_packed_gang(self, nets: List[SpokeNet], tx: np.ndarray, ty: np.ndarray) -> None:
+        """Feed a training segment to every net in batch-size strides: each
+        net's row order, holdout cycle and flush points are its solo ones,
+        only the flush ORDER across nets interleaves, so same-cohort
+        flushes stage into one gang launch (forced by the members' own
+        sync points, or at the block's gang barrier)."""
+        if tx.shape[0] == 0:
+            return
+        # cohort members are dense: each takes its own holdout split
+        feeds = [[net, *self._holdout_filter(net, self._adapt_width(tx, net.dim), ty), 0]
+                 for net in nets]
+        pending = True
+        while pending:
+            pending = False
+            for feed in feeds:
+                net, ftx, fty, cur = feed
+                if cur >= ftx.shape[0]:
+                    continue
+                cur += net.batcher.add_many(ftx[cur:], fty[cur:])
+                feed[3] = cur
+                if net.batcher.full:
+                    net.flush_batch()
+                if cur < ftx.shape[0]:
+                    pending = True
+
+    def _serve_packed_gang(self, nets: List[SpokeNet], x: np.ndarray, f: int) -> None:
+        """Serve packed-row forecast ``f`` to every net at its stream
+        position: a gang predict for cohort members, the serving queue for
+        armed nets, the solo path otherwise."""
+        gang_in = []
+        rows: Dict[int, np.ndarray] = {}
+        t0 = time.perf_counter()
+        for net in nets:
+            if net.serving is not None:
+                self._queue_packed(net, x, np.asarray([f]))
+            elif net.gang_predict_ok():
+                row = rows.get(net.dim)
+                if row is None:
+                    row = rows[net.dim] = self._adapt_width(x[f : f + 1], net.dim)[0]
+                xb = net.predict_pad(1)
+                xb[0] = row
+                gang_in.append((net, xb))
+        ganged = self._gang_predictions(gang_in) if gang_in else {}
+        for net in nets:
+            if net.serving is not None:
+                continue
+            pred = ganged.get(id(net))
+            if pred is None:
+                self._serve_packed_baseline(net, x, np.asarray([f]))
+            else:
+                inst = DataInstance(numerical_features=rows[net.dim].tolist(),
+                                    operation=FORECASTING)
+                self._emit_prediction(Prediction(net.request.id, inst, pred))
+                net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
         if self._any_serving:
             self.serving_plane.maybe_fill_flush()
 
@@ -702,6 +902,7 @@ class Spoke:
             # per-record path would have
             self.serving_plane.flush_net(net)
         net.flush_batch()
+        self._flush_cohorts()
         test = net.test_arrays()
         if test is not None:
             loss, score = net.pipeline.evaluate(*test)
@@ -768,6 +969,7 @@ class Spoke:
                 net.node.paused = False
             self._drain_pause_buffer(net)
             net.flush_batch()
+            self._flush_cohorts()
             net.node.on_flush()
             self.emit_query_response(net, TERMINATION_RESPONSE_ID)
         if self.serving_plane is not None:
@@ -785,9 +987,14 @@ class Spoke:
         net.node.deliver(op, payload, hub_id)
         # cooperative multi-pipeline fairness: every hub RPC for one net
         # TOGGLES the others (FlinkSpoke.scala:127-131); a net that just
-        # resumed drains the records buffered while paused
+        # resumed drains the records buffered while paused. Cohort-attached
+        # nets are exempt: gang lockstep gives the fairness the toggle
+        # approximates (and a toggle storm across a 64-member cohort would
+        # send every member through its pause buffer on each sync reply)
         for other_id, other in list(self.nets.items()):
             if other_id == network_id:
+                continue
+            if other.pipeline._cohort is not None:
                 continue
             other.node.toggle()
             if not other.node.paused:

@@ -191,3 +191,17 @@ class MicroBatcher:
         y[self._n :] = 0.0
         self._n = 0
         return x, y, mask
+
+    def flush_views(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Zero-copy flush: padded VIEWS of the internal buffers (valid only
+        until the next add) and a fresh mask, for consumers that copy the
+        rows at once -- a cohort member's fit stages them into the gang
+        buffers."""
+        if self._n == 0:
+            return None
+        mask = np.zeros((self.batch_size,), np.float32)
+        mask[: self._n] = 1.0
+        self._x[self._n :] = 0.0
+        self._y[self._n :] = 0.0
+        self._n = 0
+        return self._x, self._y, mask

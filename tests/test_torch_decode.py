@@ -22,7 +22,7 @@ def _setup(seed=0):
     jcfg = jt.TransformerConfig(**DIMS)
     tcfg = tt.TransformerConfig(**DIMS)
     jp = jt.init_transformer(jcfg, jax.random.PRNGKey(seed))
-    tp = tt.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    tp = tt.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     return jcfg, tcfg, jp, tp
 
 
@@ -32,7 +32,7 @@ def test_forward_with_cache_matches_jax():
     jlog, jcache = jd.forward_with_cache(jcfg, jp, jnp.asarray(prompt),
                                          jd.init_kv_cache(jcfg, 2, 16))
     tlog, tcache = td.forward_with_cache(tcfg, tp, torch.from_numpy(prompt).long(),
-                                         td.init_kv_cache(tcfg, 2, 16))
+                                         td.init_kv_cache(tcfg, 2, 16, device="cpu"))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5)
     assert tcache["pos"] == int(jcache["pos"]) == 7
     nxt = np.array([[3], [5]], np.int32)
@@ -77,4 +77,4 @@ def test_generate_bounds():
         td.generate(tcfg, tp, prompt, 10, max_len=8)
     with pytest.raises(ValueError, match="cache overflow"):
         td.forward_with_cache(tcfg, tp, torch.zeros((1, 9), dtype=torch.long),
-                              td.init_kv_cache(tcfg, 1, 8))
+                              td.init_kv_cache(tcfg, 1, 8, device="cpu"))

@@ -33,7 +33,7 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.protocols, omldm_tpu_torch.runtime.hub\n"
         "import omldm_tpu_torch.parallel.spmd, omldm_tpu_torch.parallel.mesh\n"
         "import omldm_tpu_torch.runtime.spmd_bridge, omldm_tpu_torch.ops.codec\n"
-        "import omldm_tpu_torch.runtime.databuffers\n"
+        "import omldm_tpu_torch.runtime.databuffers, omldm_tpu_torch.runtime.cohort\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -283,8 +283,7 @@ def test_chip_smoke_copy_task_stream():
 @pytest.mark.parametrize("option", [
     {"overload": "on"}, {"lifecycle": "on"},
     {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
-    {"chaos": "seed=1,drop=0.1"}, {"checkpointing": True}, {"cohort": "on"},
-    {"cohort_shards": "auto"},
+    {"chaos": "seed=1,drop=0.1"}, {"checkpointing": True},
 ])
 def test_unported_job_plane_raises(option):
     name = next(iter(option))
@@ -293,8 +292,22 @@ def test_unported_job_plane_raises(option):
 
 
 @pytest.mark.parametrize("option", [
+    {"cohort": "on"}, {"cohort_shards": "auto"}, {"cohort_min": 4},
+    {"cohort_impl": "vmap"},
+])
+def test_cohort_options_admitted(option):
+    """The cohort engine is ported: its knobs are JobConfig fields (the
+    JAX package's cohort_impl is accepted and ignored: the device picks the
+    member iteration), and a cohort_shards that resolves to one device (a
+    CPU job) is admitted."""
+    job = StreamJob(JobConfig(**option), device="cpu")
+    assert all(s.cohorts is not None for s in job.spokes)
+    assert job.tenant_topology()["cohort_shards"] == 1
+
+
+@pytest.mark.parametrize("option", [
     {"compute_dtype": "bfloat16"}, {"mesh_shape": {"dp": 2, "hub": 1}},
-    {"cohort_min": 4}, {"checkpoint_dir": "ckpt"},
+    {"checkpoint_dir": "ckpt"},
 ])
 def test_jax_only_job_knobs_do_not_exist(option):
     """Knobs of the JAX JobConfig that the port has no use for are not
@@ -370,7 +383,6 @@ def test_serving_plane_is_ported():
     (["--checkInterval", "100"], "checkInterval"),
     (["--computeDtype", "bfloat16"], "computeDtype"),
     (["--maxMsgParams", "2000"], "maxMsgParams"),
-    (["--cohortMin", "4"], "cohortMin"),
     (["--blackboxPath", "bb"], "blackboxPath"),
     (["--kafkaBrokers", "localhost:9092"], "kafkaBrokers"),
     (["--processes", "2"], "processes"),
@@ -400,6 +412,20 @@ def test_cli_accepts_zero_restart_attempts(tmp_path):
     train = tmp_path / "t.jsonl"
     train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
     assert main(["--trainingData", str(train), "--device", "cpu", "--restartAttempts", "0",
+                 "--performanceOut", str(tmp_path / "perf.jsonl")]) == 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--cohortMin", "4"], ["--cohort", "on"], ["--cohortImpl", "vmap"],
+])
+def test_cli_accepts_cohort_flags(argv, tmp_path):
+    """The cohort engine's flags reach the port's JobConfig (the JAX CLI
+    takes the same spellings)."""
+    from omldm_tpu_torch.__main__ import main
+
+    train = tmp_path / "t.jsonl"
+    train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
+    assert main(["--trainingData", str(train), "--device", "cpu", *argv,
                  "--performanceOut", str(tmp_path / "perf.jsonl")]) == 0
 
 

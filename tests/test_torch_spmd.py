@@ -167,7 +167,8 @@ def test_per_record_pa(protocol):
     """perRecord PA: the JAX side runs its lax.scan pass, the function its
     Pallas scan computes (that kernel does not trace under this JAX's
     shard_map, whose vma check wants the out shapes' vma set); the port's
-    pa_scan runs its plain twin on the CPU, once a worker a step."""
+    pa_scan runs its plain twin on the CPU, once a step for every worker
+    (the batched entry, through vmap over the workers)."""
     run_dense(PA_RECORD, protocol, dp=4, hub=1, steps=6, per_record=True)
 
 

@@ -60,7 +60,7 @@ def test_forward_matches_jax(objective):
     p = _params(jcfg)
     tokens = np.random.RandomState(1).randint(0, 32, size=(3, 24)).astype(np.int32)
     jl = jt.transformer_forward(jcfg, jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(tokens))
-    tl = tt.transformer_forward(tcfg, tt.params_from_numpy(p), torch.from_numpy(tokens).long())
+    tl = tt.transformer_forward(tcfg, tt.params_from_numpy(p, device="cpu"), torch.from_numpy(tokens).long())
     assert tl.shape == jl.shape
     np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), atol=1e-5)
 
@@ -75,7 +75,7 @@ def test_lm_loss_and_grads_match_jax(loss_chunk):
     jloss, jgrads = jax.value_and_grad(
         lambda p: jt.lm_loss(jcfg, p, jnp.asarray(tok), jnp.asarray(tgt), jnp.asarray(mask))
     )(jax.tree_util.tree_map(jnp.asarray, p))
-    tp = tt.params_from_numpy(p)
+    tp = tt.params_from_numpy(p, device="cpu")
     leaves = [t.requires_grad_(True) for t in tt.tree_leaves(tp)]
     tloss = tt.lm_loss(tcfg, tp, torch.from_numpy(tok).long(), torch.from_numpy(tgt).long(),
                        torch.from_numpy(mask))
@@ -91,7 +91,7 @@ def test_bfloat16_loss_and_grads_within_working_type():
     jloss, jgrads = jax.value_and_grad(
         lambda p: jt.lm_loss(jcfg, p, jnp.asarray(tok), jnp.asarray(tgt), jnp.asarray(mask))
     )(jax.tree_util.tree_map(jnp.asarray, p))
-    tp = tt.params_from_numpy(p)
+    tp = tt.params_from_numpy(p, device="cpu")
     leaves = [t.requires_grad_(True) for t in tt.tree_leaves(tp)]
     tloss = tt.lm_loss(tcfg, tp, torch.from_numpy(tok).long(), torch.from_numpy(tgt).long(),
                        torch.from_numpy(mask))
@@ -111,7 +111,7 @@ def test_classify_loss_matches_jax():
     labels = rng.randint(0, 3, size=(4,)).astype(np.int32)
     jloss = jt.classify_loss(jcfg, jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(tok),
                              jnp.asarray(labels))
-    tloss = tt.classify_loss(tcfg, tt.params_from_numpy(p), torch.from_numpy(tok).long(),
+    tloss = tt.classify_loss(tcfg, tt.params_from_numpy(p, device="cpu"), torch.from_numpy(tok).long(),
                              torch.from_numpy(labels).long())
     assert abs(float(tloss.detach()) - float(jloss)) <= 1e-5
 
@@ -184,11 +184,11 @@ def test_adam_update_matches_jax():
     g = jax.tree_util.tree_map(lambda x: rng.randn(*x.shape).astype(np.float32), p)
     jopt = {"mu": jax.tree_util.tree_map(np.zeros_like, p),
             "nu": jax.tree_util.tree_map(np.zeros_like, p), "count": jnp.int32(0)}
-    topt = init_adam_state(tt.params_from_numpy(p))
-    jp, tp = jax.tree_util.tree_map(jnp.asarray, p), tt.params_from_numpy(p)
+    topt = init_adam_state(tt.params_from_numpy(p, device="cpu"))
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, p), tt.params_from_numpy(p, device="cpu")
     for _ in range(2):
         jp, jopt = jax_adam(jp, jax.tree_util.tree_map(jnp.asarray, g), jopt, 1e-2)
-        tp, topt = adam_update(tp, tt.params_from_numpy(g), topt, 1e-2)
+        tp, topt = adam_update(tp, tt.params_from_numpy(g, device="cpu"), topt, 1e-2)
     _leaves_close(jp, tp, atol=1e-7)
     _leaves_close(jopt["nu"], topt["nu"], atol=1e-7)
     assert int(topt["count"]) == 2
@@ -205,7 +205,7 @@ def test_attention_block_passes_strided_views():
         return orig(ctx, q, k, v, *args)
 
     _, tcfg = _cfgs()
-    params = tt.init_transformer(tcfg, torch.Generator().manual_seed(0))
+    params = tt.init_transformer(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tatt.FlashAttention.forward = staticmethod(spy)
     try:
         tt.transformer_forward(tcfg, params, torch.zeros((2, 8), dtype=torch.long))
@@ -233,7 +233,7 @@ def test_mesh_axes_raise(fn):
     """The mesh axes are not ported: a caller that passes the JAX package's
     ``axes=AxisSpec(...)`` is refused, not run on one device."""
     _, tcfg = _cfgs()
-    params = tt.init_transformer(tcfg, torch.Generator().manual_seed(0))
+    params = tt.init_transformer(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
     args = {"transformer_hidden": (tok,), "transformer_forward": (tok,),
             "lm_loss": (tok, tok, torch.ones((1, 4))),
@@ -246,7 +246,7 @@ def test_config_takes_dtype_names_and_init_shapes():
     cfg = tt.TransformerConfig(**{**DIMS, "dtype": "bfloat16"})
     assert cfg.dtype == torch.bfloat16
     p = tt.init_transformer(dataclasses.replace(cfg, dtype=torch.float32),
-                            torch.Generator().manual_seed(0))
+                            torch.Generator().manual_seed(0), device="cpu")
     jp = _params(_cfgs()[0])
     assert jax.tree_util.tree_structure(jp) == jax.tree_util.tree_structure(tt.params_to_numpy(p))
     for a, b in zip(jax.tree_util.tree_leaves(jp), tt.tree_leaves(p)):
@@ -259,3 +259,22 @@ def test_jax_only_config_knobs_do_not_exist(knob):
     (Ulysses attention, MoE capacity) are not silently accepted."""
     with pytest.raises(TypeError):
         tt.TransformerConfig(**knob)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
+def test_model_helpers_want_cuda_by_default():
+    """With no device the model helpers want CUDA, as every entry point of
+    the port does, and raise without a card instead of running on the CPU
+    unasked; asked for the CPU they build there."""
+    from omldm_tpu_torch.models import decode as td
+
+    tcfg = tt.TransformerConfig(**{**DIMS, "dtype": torch.float32})
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="init_transformer"):
+        tt.init_transformer(tcfg, gen)
+    with pytest.raises(RuntimeError, match="params_from_numpy"):
+        tt.params_from_numpy({"w": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="init_kv_cache"):
+        td.init_kv_cache(tcfg, 1, 8)
+    p = tt.init_transformer(tcfg, gen, device="cpu")
+    assert all(t.device.type == "cpu" for t in tt.tree_leaves(p))
