@@ -227,6 +227,40 @@ Phases (any failure raises and the script exits nonzero without a result):
                  on (vmap) on the card against solo on the CPU (one worker:
                  the same schedule), held as phase 28 holds card against
                  CPU (regression predictions within rtol 1e-3, atol 1e-3).
+ 30. codec       the QDQ twins (fp16, int8) on the card against the CPU on a
+                 seeded vector of 2^20 (fp16 bitwise, 65520 becomes inf;
+                 int8 within one step) and on exact ties; phase 24's bench
+                 job with comm.codec int8, then fp16, on the whole file:
+                 records/s beside phase 24's unarmed run, bytesOnWire below
+                 bytesShipped; the file's first CODEC_PARITY_ROWS on the
+                 card and the CPU: statistics (bytesOnWire among them),
+                 probe predictions and parameters (W_RTOL, W_ATOL) equal;
+ 31. guard       phase 5's stream with the Create guarded: the slice's
+                 checks (pa_scan once a fit: the guard's health dot adds no
+                 program launch), records/s beside phase 5's; the first
+                 GUARD_PROFILE_RECORDS unguarded and guarded in turns (the
+                 ratio) and under torch.profiler (the idle share of each);
+                 GUARD_PARITY's run (the
+                 first 20,000 records, 4 workers, syncEvery 1) under
+                 GUARD_CHAOS (tests/test_guard.py's worker->hub spec: the
+                 hubs reject, no worker trips) and GUARD_CHAOS_BOTH (trips,
+                 rollbacks; a poisoned worker answers NaN until its guard's
+                 next check, as in the JAX package) on the card and the
+                 CPU: statistics and the chaos channels' counters equal,
+                 >= 99% predictions equal (NaN for NaN), holdout score
+                 above chance;
+ 32. guard-cohort phase 28's 64 tenants guarded, cohorts auto, over its
+                 first prefix_records: one batched pa_scan launch a gang
+                 step, one [C] health read a gang launch, predictions equal
+                 to the unguarded run's (records/s beside it); a tenant
+                 picked by --seed poisoned halfway on each worker where it
+                 is not waiting on its round: evicted, rolled back, finite,
+                 every other tenant's predictions unchanged;
+ 33. reliable    phase 5's stream at parallelism 4 over its first 20,000
+                 records through RELIABLE_CHAOS on the card and the CPU
+                 (duplicatesDropped, gapsResynced, every statistic and the
+                 chaos counters equal, >= 99% predictions equal), and
+                 unarmed on the card (wall against the chaos run's).
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -622,67 +656,90 @@ def _pipelines(job):
 SLICE_CONFIG = dict(parallelism=16, batch_size=256)
 
 
-def _run_slice(torch, events, device="cuda"):
-    """The slice's job on ``events``; returns (job, report, wall seconds)."""
+def _run_slice(torch, events, device="cuda", chaos=""):
+    """The slice's job on ``events`` (with ``chaos``, through the seeded
+    chaos channel); returns (job, report, wall seconds)."""
     from omldm_tpu_torch.config import JobConfig
     from omldm_tpu_torch.runtime import StreamJob
 
-    job = StreamJob(JobConfig(**SLICE_CONFIG), device=device)
+    job = StreamJob(JobConfig(**SLICE_CONFIG, chaos=chaos), device=device)
     t0 = time.perf_counter()
     report = job.run(events)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     return job, report, time.perf_counter() - t0
 
 
 def phase_slice(torch, pa_scan, events, device="cuda"):
+    launches, wall, _, _ = _slice_checked(torch, pa_scan, events, device)
+    return launches, wall
+
+
+def _slice_checked(torch, pa_scan, events, device="cuda", label="slice", chaos=""):
+    """One slice job, counted and checked: pa_scan once a per-record fit (a
+    fit counted by programLaunches; with chaos, where a rejected or lost
+    push takes its learning-curve points with it, by programLaunches
+    alone), every forecast answered, the Query's parameters, the state on
+    the device, the holdout score above chance. Returns (launches, wall,
+    job, statistics)."""
     n_fore = sum(1 for s, _ in events if s == "forecastingData")
     pa_scan.launches = 0
-    job, report, wall = _run_slice(torch, events, device)
+    job, report, wall = _run_slice(torch, events, device, chaos)
     launches = pa_scan.launches
 
-    check(report is not None, "the job emitted no JobStatistics")
+    check(report is not None, f"{label}: the job emitted no JobStatistics")
     [stats] = report.statistics
     fits = len(stats.learning_curve)
     # one holdout evaluation per worker for the Query and for termination
     evaluations = 2 * job.config.parallelism
     fits_by_launches = stats.program_launches - stats.forecasts_served - evaluations
-    log(f"slice: {wall:.2f} s wall, {len(events) / wall:.0f} records/s, "
+    log(f"{label}: {wall:.2f} s wall, {len(events) / wall:.0f} records/s, "
         f"fits {fits}, pa_scan launches {launches}, programLaunches "
         f"{stats.program_launches}, fitted {stats.fitted}, score {stats.score:.4f}, "
         f"serveLatencyP50Ms {stats.serve_latency_p50_ms:.4f}, "
         f"serveLatencyP99Ms {stats.serve_latency_p99_ms:.4f}")
-    check(launches > 0, "pa_scan was never launched on the main path")
-    check(launches == fits == fits_by_launches,
-          f"pa_scan launches {launches} != per-record fits {fits} "
-          f"(programLaunches accounting: {fits_by_launches})")
+    check(launches > 0, f"{label}: pa_scan was never launched on the main path")
+    if chaos:
+        check(launches == fits_by_launches,
+              f"{label}: pa_scan launches {launches} != per-record fits by programLaunches "
+              f"{fits_by_launches}")
+    else:
+        check(launches == fits == fits_by_launches,
+              f"{label}: pa_scan launches {launches} != per-record fits {fits} "
+              f"(programLaunches accounting: {fits_by_launches})")
     for pipe in _pipelines(job):
         tensors = [pipe.state["fitted"], pipe.state["cum_loss"]]
         tensors += list(pipe.state["params"].values())
         tensors += [t for s in pipe.state["preps"] for t in s.values()]
         check(all(t.device.type == device for t in tensors),
-              f"a pipeline state tensor is not on {device}")
+              f"{label}: a pipeline state tensor is not on {device}")
     check(len(job.predictions) == n_fore,
-          f"{len(job.predictions)} predictions for {n_fore} forecasting records")
+          f"{label}: {len(job.predictions)} predictions for {n_fore} forecasting records")
     preds = [p.value for p in job.predictions]
-    check(all(v in (-1.0, 1.0) for v in preds), "a prediction is not a sign")
-    check(len(job.responses) == 1, f"{len(job.responses)} query responses, expected 1")
+    # under chaos a worker whose release arrived poisoned answers NaN until
+    # its guard's next check rolls it back, as the JAX package does (the
+    # CPU runs of phase 31 hold the card to it); else every answer is a sign
+    nan_preds = sum(1 for v in preds if v != v)
+    check(all(v in (-1.0, 1.0) for v in preds if v == v) and (chaos or not nan_preds),
+          f"{label}: a prediction is not a sign ({nan_preds} NaN)")
+    check(len(job.responses) == 1, f"{label}: {len(job.responses)} query responses, expected 1")
     values = job.responses[0].learner["parameters"]["values"]
-    check(len(values) == N_FEATURES + 1, f"query returned {len(values)} parameters")
-    check(stats.forecasts_served == n_fore, "forecastsServed != forecasting records")
-    check(stats.score > 0.6, f"final holdout accuracy {stats.score} is not above chance")
+    check(len(values) == N_FEATURES + 1, f"{label}: query returned {len(values)} parameters")
+    check(stats.forecasts_served == n_fore, f"{label}: forecastsServed != forecasting records")
+    check(stats.score > 0.6, f"{label}: final holdout accuracy {stats.score} is not above chance")
     # host wall time inside the spokes' fit-flush and forecast-serve timers
     # (a fit returns before the device finishes, except at sync points)
     fit_s = sum(s.step_timer.total_ms for s in job.spokes) / 1e3
     serve_s = sum(s.serve_timer.total_ms for s in job.spokes) / 1e3
-    log("slice: " + json.dumps({
+    log(f"{label}: " + json.dumps({
         "records": len(events), "wall_s": wall, "records_per_s": len(events) / wall,
         "fit_flush_s": fit_s, "serve_s": serve_s,
         "fits": fits, "pa_scan_launches": launches, "score": stats.score,
         "serveLatencyP50Ms": stats.serve_latency_p50_ms,
         "serveLatencyP99Ms": stats.serve_latency_p99_ms,
-        "forecasts": n_fore,
+        "forecasts": n_fore, "nan_predictions": nan_preds,
     }))
-    return launches, wall
+    return launches, wall, job, stats
 
 
 def phase_parity(events, devices=("cuda", "cpu")):
@@ -2495,8 +2552,9 @@ def write_bench_stream(path: Path, n: int, seed: int, dim: int = 28) -> int:
     return path.stat().st_size
 
 
-def _bench_job(device):
-    """_make_e2e_job's job on ``device``: (job, bridge)."""
+def _bench_job(device, codec=None):
+    """_make_e2e_job's job on ``device`` (with ``codec``, the Create arms
+    that ``comm.codec``): (job, bridge)."""
     from omldm_tpu_torch.config import JobConfig
     from omldm_tpu_torch.runtime import StreamJob
 
@@ -2509,6 +2567,8 @@ def _bench_job(device):
         "trainingConfiguration": {"protocol": "Synchronous", "engine": "spmd",
                                   "extra": {"stageChain": b["chain"]}},
     }
+    if codec is not None:
+        create["trainingConfiguration"]["comm"] = {"codec": codec}
     job = StreamJob(JobConfig(parallelism=b["parallelism"], batch_size=b["batch"]), device=device)
     job.process_event("requests", json.dumps(create))
     [bridge] = job.spmd_bridges.values()
@@ -2537,7 +2597,7 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
-def _bench_run(torch, path: Path, device: str, route: str):
+def _bench_run(torch, path: Path, device: str, route: str, codec=None):
     """One timed bench run: the job built, then the file through
     ``route`` (``fused``: StreamJob.run_file_fused, which takes the
     overlapped route for Synchronous; ``serial``: the bridge's serial
@@ -2547,7 +2607,7 @@ def _bench_run(torch, path: Path, device: str, route: str):
     dispatch thread's), the single steps (tails) and the packed blocks."""
     import threading
 
-    job, bridge = _bench_job(device)
+    job, bridge = _bench_job(device, codec)
     tr = bridge.trainer
     counts = {"stages": 0, "stages_off_main": 0, "steps": 0, "packed_blocks": 0}
     many, step, packed = tr.step_many_dense, tr.step, job.process_packed_batch
@@ -2596,6 +2656,16 @@ def _bench_outcome(job, bridge, probe):
     return stats, preds, bridge.trainer.global_flat_params()
 
 
+def _stat_diff(a, b) -> dict:
+    """The integer fields of two JobStatistics entries that differ, and the
+    float fields past 1e-4 (wall-clock fields left out)."""
+    a, b = a.to_dict(), b.to_dict()
+    return {k: (a[k], b[k]) for k in b
+            if isinstance(b[k], (int, float)) and not isinstance(b[k], bool)
+            and (a[k] != b[k] if isinstance(b[k], int) else abs(a[k] - b[k]) > 1e-4)
+            and "Ms" not in k and "Seconds" not in k}
+
+
 def _check_bench_parity(label, card, cpu) -> float:
     """One bench job's outcome on the card against the CPU's: predictions
     equal, statistics equal (the score within 1e-4, wall-clock fields left
@@ -2604,13 +2674,9 @@ def _check_bench_parity(label, card, cpu) -> float:
     import numpy as np
 
     (sa, pa, fa), (sb, pb, fb) = card, cpu
-    sa, sb = sa.to_dict(), sb.to_dict()
     check(np.array_equal(pa, pb), f"{label}: {int((pa != pb).sum())} of {len(pa)} predictions "
           "differ on the card and the CPU")
-    diff = {k: (sa[k], sb[k]) for k in sb
-            if isinstance(sb[k], (int, float)) and not isinstance(sb[k], bool)
-            and (sa[k] != sb[k] if isinstance(sb[k], int) else abs(sa[k] - sb[k]) > 1e-4)
-            and "Ms" not in k and "Seconds" not in k}
+    diff = _stat_diff(sa, sb)
     check(not diff, f"{label}: statistics differ on the card and the CPU: {diff}")
     err = float(np.abs(fa - fb).max())
     check(np.allclose(fa, fb, rtol=W_RTOL, atol=W_ATOL), f"{label}: params max|d|={err:.3e}")
@@ -3252,10 +3318,13 @@ def mt_stream(records: int, seed: int):
 
 
 def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_record=True,
-            serving=True, run=MT_RUN, protocol="Synchronous"):
-    """``nets`` same-spec Creates (every other one serving-armed), then the
-    rows in packed blocks of PACKED_CHUNK, then termination. Returns (job,
-    report, wall seconds)."""
+            serving=True, run=MT_RUN, protocol="Synchronous", guard=False, split_at=None,
+            poke=None):
+    """``nets`` same-spec Creates (every other one serving-armed; with
+    ``guard``, every one guarded), then the rows in packed blocks of
+    PACKED_CHUNK (with ``split_at``, a block boundary there too, where
+    ``poke(job)`` runs), then termination. Returns (job, report, wall
+    seconds)."""
     from omldm_tpu_torch.config import JobConfig
     from omldm_tpu_torch.runtime import StreamJob
 
@@ -3267,12 +3336,17 @@ def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_recor
         tc = {"protocol": protocol, "perRecord": per_record}
         if serving and pid % 2:
             tc["serving"] = MT_SERVING
+        if guard:
+            tc["guard"] = True
         create = _create(learner, (), tc, x.shape[1])
         create["id"] = pid
         job.process_event("requests", json.dumps(create))
-    for i in range(0, x.shape[0], PACKED_CHUNK):
-        job.process_packed_batch(x[i : i + PACKED_CHUNK], y[i : i + PACKED_CHUNK],
-                                 op[i : i + PACKED_CHUNK])
+    bounds = sorted({*range(0, x.shape[0], PACKED_CHUNK), *([split_at] if split_at else []),
+                     x.shape[0]})
+    for lo, hi in zip(bounds, bounds[1:]):
+        if lo == split_at and poke is not None:
+            poke(job)
+        job.process_packed_batch(x[lo:hi], y[lo:hi], op[lo:hi])
     report = job.terminate()
     if device == "cuda":
         torch.cuda.synchronize()
@@ -3516,6 +3590,332 @@ FLASH_SOURCES = {
 }
 
 
+# --- phases 30-33: the transport codec, the guard and the reliable channel --
+
+# phase 30: the bench job's parameters on the card against the CPU over the
+# file's first rows (the whole file is phase 24's, on the card)
+CODEC_PARITY_ROWS = 200_000
+# phase 31: tests/test_guard.py's corruption spec (worker->hub only: the
+# hubs reject the poisoned pushes, no worker's own state goes bad) and the
+# same classes on both directions (a poisoned release reaches the workers,
+# whose guards trip and roll back)
+GUARD_CHAOS = "seed=7,up.nan=0.05,up.explode=0.05"
+GUARD_CHAOS_BOTH = "seed=7,nan=0.05,explode=0.05"
+GUARD_PROFILE_RECORDS = 10_000
+# the guarded stream's card-vs-CPU runs: its first 20,000 records at
+# parallelism 4 with the Create's syncEvery 1 (at the slice's 16 workers and
+# syncEvery 4 a worker pushes first after ~16,000 records, so a shorter
+# prefix would carry no push for the channel to corrupt)
+GUARD_PARITY = dict(records=20_000, parallelism=4, sync_every=1)
+# phase 33: phase 5's stream at parallelism 4 through the lossy channel
+RELIABLE_CHAOS = "seed=11,drop=0.05,dup=0.05,reorder=0.05,delay=0.05"
+RELIABLE_RUN = dict(parallelism=4, records=20_000)
+
+
+def phase_codec(torch, seed, bench_path: Path, bench: dict, tmp: Path):
+    """Phase 30: the QDQ twins on the card against the CPU on seeded
+    vectors (fp16 bitwise, overflow to inf included; int8 within one step,
+    ties on the grid included), then phase 24's bench job with comm.codec
+    int8 and fp16 on the whole file (records/s beside phase 24's unarmed
+    run), and on its first CODEC_PARITY_ROWS on the card and the CPU:
+    statistics (bytesOnWire among them) equal, probe predictions equal,
+    parameters within W_RTOL, W_ATOL."""
+    import numpy as np
+
+    from omldm_tpu_torch.ops import codec as codec_ops
+
+    rng = np.random.RandomState(seed)
+    vec = (rng.randn(1 << 20) * np.exp(2.0 * rng.randn(1 << 20))).astype(np.float32)
+    vec[:6] = [65504.0, 65519.0, 65520.0, -7e4, 1e-8, 3e38]
+    ties = np.float32([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127.0, 3.0])
+    twins = {}
+    for name, fn in (("fp16", codec_ops.qdq_fp16), ("int8", codec_ops.qdq_int8)):
+        for tag, v in (("vector", vec), ("ties", ties)):
+            card = fn(torch.from_numpy(v).cuda()).cpu().numpy()
+            cpu = fn(torch.from_numpy(v)).numpy()
+            if name == "fp16":
+                check(np.array_equal(card, cpu), f"codec: qdq_fp16 card != cpu on the {tag}")
+                err = 0.0
+            else:
+                step = float(np.abs(v).max()) / 127.0
+                err = float(np.abs(card - cpu).max())
+                check(err <= step, f"codec: qdq_int8 {tag} max|d|={err:.3e} > a step {step:.3e}")
+            twins[f"{name}_{tag}_max_abs_diff"] = err
+    check(np.isinf(codec_ops.qdq_fp16(torch.from_numpy(vec[:4]).cuda()).cpu().numpy()[2]),
+          "codec: qdq_fp16 kept 65520 finite")
+    log("codec: QDQ twins, card against cpu: " + json.dumps(twins))
+
+    prefix = tmp / "bench_prefix.jsonl"
+    with open(bench_path) as src, open(prefix, "w") as dst:
+        for _, line in zip(range(CODEC_PARITY_ROWS), src):
+            dst.write(line)
+    probe = _bench_probe(prefix)
+    rows = {}
+    for codec in ("int8", "fp16"):
+        job, bridge, wall, counts = _bench_run(torch, bench_path, "cuda", "fused", codec=codec)
+        check(counts["packed_blocks"] == 0 and counts["stages"] == counts["stages_off_main"] > 0,
+              f"codec[{codec}]: the overlapped fused route did not run: {counts}")
+        check(bridge.trainer._qdq is not None and "ef" in bridge.trainer.state,
+              f"codec[{codec}]: the trainer runs no QDQ")
+        [stats] = job.terminate().statistics
+        check(stats.score > 0.9, f"codec[{codec}]: score {stats.score}")
+        check(stats.bytes_on_wire < stats.bytes_shipped,
+              f"codec[{codec}]: bytesOnWire {stats.bytes_on_wire} not below bytesShipped "
+              f"{stats.bytes_shipped}")
+        outcomes = {}
+        for device in ("cuda", "cpu"):
+            job_p, bridge_p, _, _ = _bench_run(torch, prefix, device, "fused", codec=codec)
+            outcomes[device] = _bench_outcome(job_p, bridge_p, probe)
+        err = _check_bench_parity(f"codec[{codec}]", outcomes["cuda"], outcomes["cpu"])
+        rows[codec] = {
+            "records_per_s": bench["records"] / wall, "wall_s": wall,
+            "vs_unarmed": (bench["records"] / wall) / bench["records_per_s_overlapped"],
+            "bytesOnWire": stats.bytes_on_wire, "bytesShipped": stats.bytes_shipped,
+            "score": stats.score, "stages": counts["stages"],
+            "parity_rows": CODEC_PARITY_ROWS, "parity_params_max_abs_diff": err,
+            "parity_bytesOnWire": outcomes["cuda"][0].bytes_on_wire,
+        }
+        log(f"codec[{codec}]: {bench['records']} records at {bench['records'] / wall:.1f} "
+            f"records/s ({rows[codec]['vs_unarmed']:.4f}x phase 24's unarmed "
+            f"{bench['records_per_s_overlapped']:.1f}), bytesOnWire {stats.bytes_on_wire} of "
+            f"bytesShipped {stats.bytes_shipped}; first {CODEC_PARITY_ROWS} rows card vs cpu: "
+            f"statistics equal (bytesOnWire {outcomes['cuda'][0].bytes_on_wire}), "
+            f"{len(probe)} probe predictions equal, params max|d|={err:.3e}")
+    log("codec: " + json.dumps(rows))
+    return rows
+
+
+def _guarded_events(events, **tc):
+    """``events`` with the Create's trainingConfiguration guarded (and
+    ``tc`` set in it)."""
+    create = json.loads(events[0][1])
+    create["trainingConfiguration"].update(guard=True, **tc)
+    return [(events[0][0], json.dumps(create))] + list(events[1:])
+
+
+def _chaos_parity(label, events, chaos, parallelism=None):
+    """``events`` through the chaos channel on the card and the CPU: every
+    integer statistic equal (the channel's repairs and the guard's counts
+    among them), the chaos channels' counters equal, >= 99% of predictions
+    equal (the count is logged). Returns (the card's statistics, mismatches,
+    predictions)."""
+    import numpy as np
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    cfg = dict(SLICE_CONFIG)
+    if parallelism is not None:
+        cfg["parallelism"] = parallelism
+    runs = {}
+    for device in ("cuda", "cpu"):
+        job = StreamJob(JobConfig(**cfg, chaos=chaos), device=device)
+        t0 = time.perf_counter()
+        [stats] = job.run(events).statistics
+        runs[device] = (job, stats, time.perf_counter() - t0)
+    (jc, sc, wc), (jp, sp, wp) = runs["cuda"], runs["cpu"]
+    diff = _stat_diff(sc, sp)
+    check(not diff, f"{label}: statistics differ on the card and the CPU: {diff}")
+    for side in ("_chaos_up", "_chaos_down"):
+        check(getattr(jc, side).counters() == getattr(jp, side).counters(),
+              f"{label}: the {side} channel's schedule differs")
+    pc = np.array([p.value for p in jc.predictions])
+    pp = np.array([p.value for p in jp.predictions])
+    check(len(pc) == len(pp) > 0, f"{label}: prediction counts {len(pc)} / {len(pp)}")
+    mism = int((~((pc == pp) | (np.isnan(pc) & np.isnan(pp)))).sum())
+    check(mism <= 0.01 * len(pc), f"{label}: {mism} of {len(pc)} predictions differ")
+    log(f"{label}: {len(events) - 1} records, card vs cpu: statistics equal "
+        f"(deltasRejected {sc.deltas_rejected}, rollbacksPerformed {sc.rollbacks_performed}, "
+        f"duplicatesDropped {sc.duplicates_dropped}, gapsResynced {sc.gaps_resynced}), "
+        f"chaos counters {json.dumps(jc._chaos_up.counters())} up, "
+        f"{json.dumps(jc._chaos_down.counters())} down; {mism} of {len(pc)} predictions "
+        f"differ; card {wc:.2f} s, cpu {wp:.2f} s")
+    return sc, mism, len(pc), wc
+
+
+def phase_guard_stream(torch, pa_scan, events, unguarded_wall):
+    """Phase 31: phase 5's stream with the Create guarded (records/s beside
+    phase 5's unguarded run; pa_scan once a fit, the guard adding none);
+    its first GUARD_PROFILE_RECORDS unguarded and guarded in turns (u, g,
+    g, u: the guarded/unguarded ratio inside one phase) and under
+    torch.profiler (the device's idle share of each); GUARD_PARITY's run
+    under each chaos spec on the card and the CPU, GUARD_CHAOS_BOTH's with
+    trips, rollbacks and rejections, the holdout score above chance."""
+    import numpy as np
+
+    guarded = _guarded_events(events)
+    launches, wall, job, stats = _slice_checked(torch, pa_scan, guarded, label="guard")
+    guards = [net.pipeline.guard for sp in job.spokes for net in sp.nets.values()]
+    check(all(g is not None for g in guards) and sum(g.trips for g in guards) == 0,
+          "guard: a clean stream's guard is missing or tripped")
+    log(f"guard: {len(events) / wall:.1f} records/s guarded against phase 5's "
+        f"{len(events) / unguarded_wall:.1f} unguarded (earlier in this call)")
+
+    n = GUARD_PROFILE_RECORDS + 1
+    heads = {"unguarded": events[:n], "guarded": guarded[:n]}
+    walls = {"unguarded": [], "guarded": []}
+    for tag in ("unguarded", "guarded", "guarded", "unguarded"):
+        walls[tag].append(_run_slice(torch, heads[tag])[2])
+    ratio = float(np.mean(walls["unguarded"]) / np.mean(walls["guarded"]))
+    idle = {}
+    for tag, evs in heads.items():
+        w = float(np.mean(walls[tag]))
+        busy = _busy_s(torch, lambda evs=evs: _run_slice(torch, evs))
+        idle[tag] = {"wall_s": walls[tag], "busy_s": busy, "idle_share": 1.0 - busy / w}
+        log(f"guard[{tag}]: first {n - 1} records {w:.3f} s ({(n - 1) / w:.1f} records/s, "
+            f"turns {walls[tag]}), device busy {busy:.4f} s under torch.profiler: idle share "
+            f"{1.0 - busy / w:.4f}")
+    log(f"guard: guarded/unguarded records/s over the first {n - 1} records {ratio:.4f}")
+
+    gp = GUARD_PARITY
+    head = _guarded_events(events[: gp["records"] + 1], syncEvery=gp["sync_every"])
+    parity = {}
+    for spec in (GUARD_CHAOS, GUARD_CHAOS_BOTH):
+        st, mism, total, _ = _chaos_parity(f"guard-parity[{spec}]", head, spec,
+                                           parallelism=gp["parallelism"])
+        check(st.deltas_rejected > 0, f"guard-parity[{spec}]: nothing rejected")
+        check(spec == GUARD_CHAOS or st.rollbacks_performed > 0,
+              f"guard-parity[{spec}]: no worker rolled back")
+        check(st.score > 0.6, f"guard-parity[{spec}]: holdout accuracy {st.score}")
+        parity[spec] = {"deltasRejected": st.deltas_rejected,
+                        "rollbacksPerformed": st.rollbacks_performed, "score": st.score,
+                        "prediction_mismatches": mism, "predictions": total}
+    line = {
+        "records": len(events), "records_per_s": {"guarded": len(events) / wall,
+                                                  "unguarded_phase5": len(events) / unguarded_wall},
+        f"guarded_over_unguarded_first_{n - 1}": ratio, "idle": idle,
+        "pa_scan_launches": launches, "parity_run": gp, "parity": parity,
+    }
+    log("guard: " + json.dumps(line))
+    return launches
+
+
+def phase_guard_cohorts(torch, pa_scan, seed):
+    """Phase 32: phase 28's 64 tenants, guarded, cohorts auto, over its
+    first prefix_records rows: one batched pa_scan launch a gang step and
+    one [C] health read a gang launch; values equal to the unguarded run's
+    (records/s beside it); then a member picked by the seed poisoned on
+    worker 0 halfway: it trips, is evicted from its cohort and rolled back,
+    and every other tenant's predictions equal the clean guarded run's."""
+    import numpy as np
+
+    from omldm_tpu_torch.runtime import cohort as cohort_mod
+
+    r = MT_RUN
+    n = r["prefix_records"]
+    x, y, op = mt_stream(n, seed)
+    reads = [0]
+    real = cohort_mod.gang_health_values
+
+    def counted(v):
+        reads[0] += 1
+        return real(v)
+
+    cohort_mod.gang_health_values = counted
+    try:
+        _mt_reset(pa_scan)
+        plain = _mt_job(torch, x, y, op, "cuda", "auto", r["nets"], split_at=n // 2)
+        plain_counts = _mt_counts(pa_scan)
+        _mt_reset(pa_scan)
+        reads[0] = 0
+        clean = _mt_job(torch, x, y, op, "cuda", "auto", r["nets"], guard=True, split_at=n // 2)
+        counts, clean_reads = _mt_counts(pa_scan), reads[0]
+        victim = int(np.random.RandomState(seed).randint(r["nets"]))
+        poisoned_on = []
+
+        def poke(job):
+            # every replica that is not waiting on its round: a waiting one
+            # would take the round's release over the poison before a fit
+            for w, spoke in enumerate(job.spokes):
+                net = spoke.nets[victim]
+                if not getattr(net.node, "waiting", False):
+                    flat, _ = net.pipeline.get_flat_params()
+                    net.pipeline.set_flat_params(np.full_like(flat, np.nan))
+                    poisoned_on.append(w)
+
+        _mt_reset(pa_scan)
+        poisoned = _mt_job(torch, x, y, op, "cuda", "auto", r["nets"], guard=True,
+                           split_at=n // 2, poke=poke)
+        poisoned_counts = _mt_counts(pa_scan)
+    finally:
+        cohort_mod.gang_health_values = real
+    check(all(c.guarded and c.use_vmap for s in clean[0].spokes
+              for c in s.cohorts.cohorts.values()), "guard-cohort: the cohorts are not guarded")
+    check(counts["pa_scan"] == 0 and counts["pa_scan_batched"] == counts["gang_steps"] > 0,
+          f"guard-cohort: launches {counts}: one batched pa_scan a gang step")
+    check(clean_reads == counts["gang_launches"] > 0,
+          f"guard-cohort: {clean_reads} health reads for {counts['gang_launches']} gang launches")
+    pa, pb = _by_net(plain[0].predictions), _by_net(clean[0].predictions)
+    check(pa == pb, "guard-cohort: guarding a clean stream changed a prediction")
+    sp = {s.pipeline: s for s in poisoned[1].statistics}
+    pnets = [poisoned[0].spokes[w].nets[victim] for w in poisoned_on]
+    check(pnets and all(net.pipeline._cohort is None for net in pnets)
+          and sp[victim].members_evicted == len(pnets)
+          and sp[victim].rollbacks_performed >= len(pnets),
+          f"guard-cohort: tenant {victim} poisoned on workers {poisoned_on}: evicted "
+          f"{sp[victim].members_evicted}, rollbacks {sp[victim].rollbacks_performed}")
+    check(all(np.isfinite(net.pipeline.get_flat_params()[0]).all() for net in pnets),
+          "guard-cohort: the evicted tenant's parameters are not finite")
+    check(sum(s.members_evicted for s in poisoned[1].statistics) == len(pnets),
+          "guard-cohort: a tenant other than the poisoned one was evicted")
+    pp = _by_net(poisoned[0].predictions)
+    others = [k for k in pb if k != victim]
+    check(all(pp[k] == pb[k] for k in others),
+          "guard-cohort: a sibling's predictions changed when another member was poisoned")
+    line = {
+        "records": n, "tenants": r["nets"], "victim": victim, "poisoned_on": poisoned_on,
+        "records_per_s": {"guarded": n / clean[2], "unguarded": n / plain[2],
+                          "guarded_poisoned": n / poisoned[2]},
+        "guarded_over_unguarded": plain[2] / clean[2],
+        "launches": {"guarded": counts, "unguarded": plain_counts, "poisoned": poisoned_counts},
+        "health_reads": clean_reads,
+        "victim_rollbacks": sp[victim].rollbacks_performed,
+        "siblings_predictions_equal": len(others),
+    }
+    log(f"guard-cohort: first {n} records, {r['nets']} tenants: guarded {n / clean[2]:.1f} "
+        f"records/s against unguarded {n / plain[2]:.1f} (same predictions); "
+        f"{counts['pa_scan_batched']} batched pa_scan launches for {counts['gang_steps']} gang "
+        f"steps, {clean_reads} health reads for {counts['gang_launches']} gang launches; "
+        f"tenant {victim} poisoned on workers {poisoned_on}: evicted, "
+        f"{sp[victim].rollbacks_performed} rollbacks, the "
+        f"other {len(others)} tenants' predictions unchanged")
+    log("guard-cohort: " + json.dumps(line))
+    return counts["pa_scan_batched"]
+
+
+def phase_reliable(torch, pa_scan, events):
+    """Phase 33: phase 5's stream at RELIABLE_RUN's parallelism over its
+    first records, through RELIABLE_CHAOS on the card and the CPU (the
+    reliable channel's repairs, the statistics and the predictions equal)
+    and unarmed on the card (the wall against the chaos run's)."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    rr = RELIABLE_RUN
+    head = events[: rr["records"] + 1]
+    job = StreamJob(JobConfig(**dict(SLICE_CONFIG, parallelism=rr["parallelism"])),
+                    device="cuda")
+    t0 = time.perf_counter()
+    [plain] = job.run(head).statistics
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    pa_scan.launches = 0
+    stats, mism, total, wall = _chaos_parity("reliable", head, RELIABLE_CHAOS,
+                                             parallelism=rr["parallelism"])
+    launches = pa_scan.launches
+    check(stats.duplicates_dropped > 0 and stats.gaps_resynced >= 0 and launches > 0,
+          f"reliable: duplicatesDropped {stats.duplicates_dropped}, launches {launches}")
+    check(stats.score > 0.6, f"reliable: score {stats.score}")
+    line = {"records": rr["records"], "parallelism": rr["parallelism"], "spec": RELIABLE_CHAOS,
+            "duplicatesDropped": stats.duplicates_dropped, "gapsResynced": stats.gaps_resynced,
+            "wall_s": {"chaos": wall, "unarmed": plain_wall},
+            "records_per_s": {"chaos": rr["records"] / wall, "unarmed": rr["records"] / plain_wall},
+            "score": {"chaos": stats.score, "unarmed": plain.score},
+            "prediction_mismatches": mism, "predictions": total, "pa_scan_launches": launches}
+    log("reliable: " + json.dumps(line))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3630,12 +4030,20 @@ def main() -> int:
         if args.profile is not None:
             phase_bench_profile(torch, bench_path, args.profile)
             lap("bench profile")
-    batched_err, batched_times = phase_batched(torch, pa_scan)
-    lap("batched pa_scan check and time")
-    mt_launches = phase_multi_tenant(torch, pa_scan, args.seed)
-    lap("multi-tenant")
-    specs_launches = phase_cohort_specs(torch, pa_scan, args.seed)
-    lap("cohort specs")
+        batched_err, batched_times = phase_batched(torch, pa_scan)
+        lap("batched pa_scan check and time")
+        mt_launches = phase_multi_tenant(torch, pa_scan, args.seed)
+        lap("multi-tenant")
+        specs_launches = phase_cohort_specs(torch, pa_scan, args.seed)
+        lap("cohort specs")
+        phase_codec(torch, args.seed, bench_path, bench, spmd_dir)
+        lap("codec")
+    guard_launches = phase_guard_stream(torch, pa_scan, events, wall)
+    lap("guard stream")
+    guard_cohort_launches = phase_guard_cohorts(torch, pa_scan, args.seed)
+    lap("guard cohorts")
+    reliable_launches = phase_reliable(torch, pa_scan, events)
+    lap("reliable channel")
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):
@@ -3657,6 +4065,8 @@ def main() -> int:
             "stream": launches,
             "spmd_per_record": spmd_pa_launches,
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan"],
+            "stream_guarded": guard_launches,
+            "reliable_chaos_first_records": reliable_launches,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -3672,6 +4082,7 @@ def main() -> int:
             "multi_tenant": mt_launches,
             "cohort_specs": specs_launches,
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan_batched"],
+            "multi_tenant_guarded_first_records": guard_cohort_launches,
         },
         "max_abs_err": batched_err,
         **batched_times[BATCHED_SHAPES[0]],

@@ -20,7 +20,7 @@ from typing import Any, Mapping
 # literal copy: the port never imports that package)
 JAX_ONLY_FIELDS = (
     "max_msg_params", "check_interval_ms", "checkpoint_dir", "checkpoint_keep",
-    "request_buffer_cap", "liveness_stride",
+    "request_buffer_cap",
     "blackbox_path", "compute_dtype", "mesh_shape",
 )
 
@@ -86,12 +86,24 @@ class JobConfig:
     # admitted, more than one raises (runtime.cohort.resolve_cohort_shards)
     cohort_shards: str = "off"
 
+    # --- the reliable channel (runtime/hub.py) ---
+    # Hub liveness walk stride on the record path: with a quorum armed, the
+    # every-hub check_liveness walk runs every N events (or when a quarter
+    # of the tightest worker timeout passed).
+    liveness_stride: int = 16
+    # Seeded chaos channel on the in-process hub<->spoke bridge
+    # (runtime/supervisor.py), e.g. "seed=7,drop=0.05,dup=0.05"; the
+    # OMLDM_CHAOS environment variable is read when this is empty. Any
+    # spec arms the reliable channel of every pipeline; its burst keys
+    # (burst, burstFrom, burstLen, hotTenant) drive the overload plane and
+    # are refused (runtime.job.unported_job_options).
+    chaos: str = ""
+
     # --- planes of the JAX package the port does not have yet ---
     # Kept so a config written for omldm_tpu constructs here; arming any of
     # them makes StreamJob raise NotImplementedError naming the option
     # (runtime.job.unported_job_options).
     checkpointing: bool = False
-    chaos: str = ""
     lifecycle: str = ""
     overload: str = ""
     ingest: str = ""

@@ -99,6 +99,13 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(total > 0, mean, torch.zeros_like(mean))
 
 
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: torch.sign, except that a NaN stays NaN (torch.sign
+    gives it 0, so a model gone non-finite would answer 0 where the JAX
+    package answers NaN)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 def sign_labels(y: torch.Tensor) -> torch.Tensor:
     """Map {0,1} or {-1,+1} targets to signed labels in {-1,+1}."""
     return torch.where(y > 0, 1.0, -1.0).to(torch.float32)

@@ -28,6 +28,7 @@ from omldm_tpu_torch.learners.base import (
     class_ids,
     masked_mean,
     one_hot,
+    sign,
     sign_labels,
     take_class,
 )
@@ -68,7 +69,7 @@ class PAClassifier(Learner):
     def predict(self, params, x):
         # + 1e-30: a zero margin predicts +1, as the JAX package does
         # (torch.sign(0) is 0)
-        return torch.sign(append_bias(x) @ params["w"] + 1e-30)
+        return sign(append_bias(x) @ params["w"] + 1e-30)
 
     def loss(self, params, x, y, mask):
         hinge = torch.clamp(
@@ -127,7 +128,7 @@ class PARegressor(Learner):
         resid = y - xb @ params["w"]
         loss = torch.clamp(resid.abs() - eps, min=0.0)
         tau = _pa_tau(loss, (xb * xb).sum(dim=1), variant, C)
-        coef = tau * torch.sign(resid) * mask
+        coef = tau * sign(resid) * mask
         denom = torch.clamp(mask.sum(), min=1.0)
         return {"w": params["w"] + (coef @ xb) / denom}, masked_mean(loss, mask)
 
@@ -229,7 +230,7 @@ class RFFSVM(Learner):
 
     def predict(self, params, x):
         # + 1e-30: a zero margin predicts +1, as in PA
-        return torch.sign(self._features(params, x) @ params["w"] + 1e-30)
+        return sign(self._features(params, x) @ params["w"] + 1e-30)
 
     def loss(self, params, x, y, mask):
         z = self._features(params, x)

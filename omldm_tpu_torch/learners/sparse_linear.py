@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from omldm_tpu_torch.learners.base import Learner, Params, masked_mean, sign_labels
+from omldm_tpu_torch.learners.base import Learner, Params, masked_mean, sign, sign_labels
 from omldm_tpu_torch.learners.linear import _pa_tau
 from omldm_tpu_torch.ops.sparse import (
     append_bias_sparse,
@@ -177,7 +177,7 @@ class SparsePARegressor(SparseLinear):
         loss = torch.clamp(err.abs() - eps, min=0.0)
         tau = _pa_tau(loss, sparse_sq_norm(val), variant, C)
         denom = torch.clamp(mask.sum(), min=1.0)
-        coef = -torch.sign(err) * tau * mask / denom
+        coef = -sign(err) * tau * mask / denom
         return {"w": params["w"]}, idx, coef, val, masked_mean(loss, mask), False
 
 

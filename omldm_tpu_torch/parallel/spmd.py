@@ -40,10 +40,20 @@ state where the learner does (the sparse learners' scatter, as in
 ``MLPipeline.fit``), and every tensor the step leaves in the state is its
 own: no alias of one state tensor survives in another.
 
+With a transport codec (``comm.codec`` ``fp16`` or ``int8``; ``topk`` is
+host-plane only) every collective ships quantize-dequantized vectors
+(``ops.codec.make_qdq``): a worker's contribution plus its error-feedback
+residual (the state's ``ef`` leaf, ``[dp, flat_size]``, present only with a
+codec) is quantized before the reduction, the reduced vector again for the
+downlink, and the quantization error stays in ``ef`` for the next round.
+Where the JAX step skips a collective under ``lax.cond`` (GM and FGM
+without a violation, Async and SSP steps where no worker folds), the port
+computes it and keeps the old values with ``torch.where``, residual
+included.
+
 ``step_many`` and ``step_many_dense`` (one ``lax.scan`` program in the JAX
 package) are loops of steps on the device's stream here. Not ported:
-``save``/``load`` and the transport codec's quantize-dequantize
-(``ops.codec.make_qdq`` takes ``"none"`` only).
+``save``/``load``.
 """
 
 from __future__ import annotations
@@ -144,8 +154,10 @@ class SPMDTrainer:
             # loop; lockstep semantics are what Synchronous is for
             raise ValueError(f"SSP staleness must be >= 1, got {self.staleness}")
         self.alpha = float(self.tc.extra.get("alpha", 0.5 / max(self.dp, 1)))
+        # the transport codec's QDQ at the collective ship boundary (None:
+        # the exact step); topk raises here, as in the JAX package
         self.codec_name = comm_codec_name(self.tc)
-        make_qdq(self.codec_name)  # raises for every codec but "none"
+        self._qdq = make_qdq(self.codec_name)
 
         d = dim
         prep_dims = [d]
@@ -188,7 +200,7 @@ class SPMDTrainer:
         def counter(dtype, value=0):
             return torch.full((dp,), value, dtype=dtype, device=self.device)
 
-        return {
+        state = {
             "params": params,
             "preps": preps,
             "est": flat.clone(),
@@ -204,6 +216,12 @@ class SPMDTrainer:
             # steps on which the gated Async/SSP fold ran
             "fold_rounds": counter(torch.int32),
         }
+        if self._qdq is not None:
+            # each worker's error-feedback residual: the quantization error
+            # of what it shipped, added to what it ships next
+            state["ef"] = torch.zeros((dp, self.flat_size), dtype=torch.float32,
+                                      device=self.device)
+        return state
 
     def load_state(self, state: dict) -> None:
         """Adopt a whole fleet state (e.g. ``fleet_state_from_numpy`` of a
@@ -304,15 +322,16 @@ class SPMDTrainer:
         est, center = st["est"], st["center"]
         syncs, clock, fold_rounds = st["syncs"], st["clock"], st["fold_rounds"]
         accepted = st["accepted"]
+        qdq, ef = self._qdq, st.get("ef")
 
         if protocol == "Synchronous":
             if at_cadence:
-                g = self._ps_allreduce(self._flat(params))
+                g, ef = self._shipped_allreduce(self._flat(params), ef)
                 params, est, syncs = self._unflat(g), g, syncs + 1
         elif protocol == "EASGD":
             if at_cadence:
                 flat = self._flat(params)
-                mean_x = self._ps_allreduce(flat)
+                mean_x, ef = self._shipped_allreduce(flat, ef)
                 params = self._unflat(flat - self.alpha * (flat - center))
                 center = center + self.alpha * dp * (mean_x - center)
                 syncs = syncs + 1
@@ -326,10 +345,12 @@ class SPMDTrainer:
                 # FGM safe zone: psi = sum_i (drift_i^2 - T^2) >= 0
                 fire = (drift2 - self.threshold ** 2).sum() >= 0.0
             if at_cadence:
-                g = self._ps_allreduce(flat)
+                g, new_ef = self._shipped_allreduce(flat, ef)
                 params = self._unflat(torch.where(fire, g, flat))
                 est = torch.where(fire, g, est)
                 syncs = syncs + fire.to(torch.int32)
+                if ef is not None:
+                    ef = torch.where(fire, new_ef, ef)
         else:  # Asynchronous / SSP: per-worker progress + PS folds
             flat = self._flat(params)
             allowed = has_data
@@ -351,7 +372,15 @@ class SPMDTrainer:
             any_fold = my_turn.to(torch.float32).sum() > 0.0
             turn = my_turn[:, None]
             contrib = torch.where(turn, flat - est, torch.zeros_like(flat))
-            center = torch.where(any_fold, center + self._ps_allreduce(contrib), center)
+            if qdq is None:
+                center = torch.where(any_fold, center + self._ps_allreduce(contrib), center)
+            else:
+                # only folding workers ship (and spend) their residual;
+                # bystanders send exact zeros and keep theirs
+                snd = torch.where(turn, contrib + ef, torch.zeros_like(contrib))
+                t = qdq(snd)
+                center = torch.where(any_fold, center + qdq(self._ps_allreduce(t)), center)
+                ef = torch.where(any_fold, torch.where(turn, snd - t, ef), ef)
             fold_rounds = fold_rounds + any_fold.to(torch.int32)
             params = self._unflat(torch.where(turn, center, flat))
             est = torch.where(turn, center, est)
@@ -371,7 +400,21 @@ class SPMDTrainer:
             "accepted": accepted,
             "fold_rounds": fold_rounds,
         }
+        if ef is not None:
+            self.state["ef"] = ef
         return loss
+
+    def _shipped_allreduce(self, flat: torch.Tensor, ef: Optional[torch.Tensor]):
+        """``_ps_allreduce`` through the codec's ship boundary: ``(mean,
+        new ef)``. Without a codec, the exact mean. With one, each worker
+        ships ``qdq(flat + ef)``, the reduced vector is quantized again for
+        the downlink, and the uplink's quantization error is the new
+        residual."""
+        if self._qdq is None:
+            return self._ps_allreduce(flat), ef
+        snd = flat + ef
+        t = self._qdq(snd)
+        return self._qdq(self._ps_allreduce(t)), snd - t
 
     # --- public API ---
 

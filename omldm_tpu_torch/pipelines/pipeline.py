@@ -1,7 +1,7 @@
 """MLPipeline: preprocessors + learner as one training step.
 
-Counterpart of ``omldm_tpu/pipelines/pipeline.py`` (without guard or
-lifecycle attachments). One fit runs, in order: each scaler's statistics
+Counterpart of ``omldm_tpu/pipelines/pipeline.py`` (without the lifecycle
+plane's version tag). One fit runs, in order: each scaler's statistics
 update, the transform with the UPDATED statistics, then the learner update
 -- the reference's per-record ``MLPipeline.pipePoint`` order.
 
@@ -35,6 +35,16 @@ the host whatever the pipeline's device, as the JAX package runs it
 un-jitted: its tree is a Python structure, and its preprocessors' states
 stay CPU tensors. Its ``fit_many`` is a loop of fits, each counted as a
 launch, as in the JAX package.
+
+A pipeline built with ``guard`` (``trainingConfiguration.guard``, parsed
+by ``guard.guard_config``) and a learner that is not host-side carries a
+``ModelGuard``: each fit and ``fit_many`` ends with the squared norm of
+the new parameters' float leaves (:func:`param_health`), a 0-d tensor on
+the pipeline's device handed to ``ModelGuard.note`` unread. The JAX package
+fuses it into the fit's program; here it is one more kernel a float leaf
+(a ``dot``) and one add a leaf past the first, and the fit still counts as
+one program launch. ``cache_key``'s last field says whether the pipeline
+is guarded, so guarded and unguarded pipelines never share a cohort.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import numpy as np
 import torch
 
 from omldm_tpu_torch.api.requests import LearnerSpec, PreprocessorSpec
+from omldm_tpu_torch.guard import GuardConfig, ModelGuard
 from omldm_tpu_torch.learners.base import Learner
 from omldm_tpu_torch.learners.registry import make_learner
 from omldm_tpu_torch.preprocessors.base import Preprocessor
@@ -177,6 +188,21 @@ def unravel_fn(params, device) -> Callable[[np.ndarray], dict]:
     return unravel
 
 
+def param_health(params) -> torch.Tensor:
+    """The squared L2 norm over the float leaves of ``params``, as a 0-d
+    tensor: non-finite whenever any parameter is, so this one number
+    carries both of the guard's signals (non-finite state, exploding norm).
+    Integer leaves are skipped: corruption is a float phenomenon."""
+    sq = None
+    for leaf in _leaves(params):
+        if not leaf.is_floating_point():
+            continue
+        flat = leaf.reshape(-1).to(torch.float32)
+        term = torch.dot(flat, flat)
+        sq = term if sq is None else sq + term
+    return sq
+
+
 class MLPipeline:
     """One online-ML pipeline: a chain of preprocessors and a learner."""
 
@@ -188,6 +214,7 @@ class MLPipeline:
         generator: Optional[torch.Generator] = None,
         per_record: bool = False,
         device=None,
+        guard: Optional[GuardConfig] = None,
     ):
         self.learner: Learner = make_learner(learner_spec)
         self.device = (torch.device("cpu") if self.learner.host_side
@@ -205,6 +232,11 @@ class MLPipeline:
         # called once per program launch this pipeline dispatches; feeds the
         # Statistics `programLaunches` counter
         self.on_launch: Optional[Callable[[], None]] = None
+        # the model-integrity guard (None: unarmed, and always for a
+        # host-side learner, whose state the host already sees)
+        self.guard: Optional[ModelGuard] = (
+            ModelGuard(guard) if guard is not None and not self.learner.host_side else None
+        )
         d = dim
         dims = [d]
         for p in self.preps:
@@ -216,7 +248,7 @@ class MLPipeline:
         self._cohort = None
         self._slot = -1
         # pipelines with equal keys run the same step program, so they may
-        # share a cohort (the JAX key; its guard field is always False here)
+        # share a cohort (the JAX key, its last field whether it is guarded)
         self.cache_key = None if self.learner.host_side else (
             type(self.learner).__name__,
             _freeze(self.learner.hp),
@@ -224,7 +256,7 @@ class MLPipeline:
             tuple((type(p).__name__, _freeze(p.hp)) for p in self.preps),
             dim,
             per_record,
-            False,
+            self.guard is not None,
         )
         self._state = {
             "preps": [p.init(di, self.device) for p, di in zip(self.preps, dims)],
@@ -302,6 +334,7 @@ class MLPipeline:
         fitted counter without a device sync."""
         n = int(np.asarray(mask).sum())
         if self._cohort is not None:
+            # a guarded member's health comes from the gang launch
             loss = self._cohort.stage_fit(self._slot, x, y, mask)
         else:
             self._count_launch()
@@ -309,6 +342,8 @@ class MLPipeline:
                 self._state, _as_input(x, self.device), _as_tensor(y, self.device),
                 _as_tensor(mask, self.device),
             )
+            if self.guard is not None:
+                self.guard.note(param_health(self._state["params"]))
         self._fitted_host += n
         self._curve.append((loss, self._fitted_host))
         return loss
@@ -342,6 +377,10 @@ class MLPipeline:
             losses.append(loss)
         if not losses:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
+        if self.guard is not None:
+            # the final state's health covers the chain: NaN sticks, and an
+            # exploded norm does not shrink back
+            self.guard.note(param_health(self._state["params"]), fits=len(losses))
         return torch.stack(losses)
 
     def _read_state(self):

@@ -89,7 +89,9 @@ class ForwardingWorker(WorkerNode):
         self._hub_cum_loss = 0.0
 
     def on_training_batch(self, x, y, mask) -> Optional[Any]:
-        self.send(OP_PUSH, {"x": x, "y": y, "mask": mask}, 0)
+        # raw data, not a model exchange: the transport codec must never
+        # quantize training batches, so this bypasses the encoding send
+        self._send_raw(OP_PUSH, {"x": x, "y": y, "mask": mask}, 0)
         return None
 
     def receive(self, op: str, payload: Any, hub_id: int = 0) -> None:

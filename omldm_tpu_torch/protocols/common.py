@@ -1,10 +1,12 @@
 """Shared machinery for parameter-exchanging protocol workers.
 
-Counterpart of ``omldm_tpu/protocols/common.py`` without the reliable
-channel's stall watchdog and resync hooks.
-``SyncingWorker`` gives flat-param access, a sync cadence (``syncEvery``
-batches), blocking semantics (a worker waiting for the PS buffers incoming
-batches) and curve/fitted piggybacking on pushes.
+Counterpart of ``omldm_tpu/protocols/common.py``. ``SyncingWorker`` gives
+flat-param access, a sync cadence (``syncEvery`` batches), blocking
+semantics (a worker waiting for the PS buffers incoming batches),
+curve/fitted piggybacking on pushes, and the reliable channel's recovery:
+a worker that buffers ``comm.stallAfter`` batches while waiting (the stall
+watchdog, armed with the channel) NACKs its hubs and re-pushes, and an
+authoritative resync stands in for a lost release.
 
 Every sync point reads the flat parameters back to the host: one
 device->host copy every ``syncEvery`` fits per worker.
@@ -17,6 +19,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from omldm_tpu_torch.protocols.base import WorkerNode
+from omldm_tpu_torch.runtime.messages import DEFAULT_STALL_AFTER, OP_NACK, comm_dict
 
 # cap on batches buffered while blocked on the PS (the reference's record
 # buffer cap is 100_000 records, SpokeLogic.scala:32)
@@ -42,6 +45,12 @@ class SyncingWorker(WorkerNode):
         self._batches = 0
         self.waiting = False
         self._blocked: List[Tuple[Any, Any, Any]] = []
+        # the stall watchdog (reliable channel only): a worker that buffers
+        # ``stallAfter`` batches while waiting suspects a lost push or a
+        # lost release, NACKs every hub and re-pushes (barrier entries are
+        # worker-keyed, so the re-push is idempotent)
+        self._stall_after = int(comm_dict(self.config).get("stallAfter", DEFAULT_STALL_AFTER))
+        self._stalled_batches = 0
 
     # --- flat param helpers ---
 
@@ -100,7 +109,13 @@ class SyncingWorker(WorkerNode):
         if self.waiting:
             if len(self._blocked) < MAX_BLOCKED_BATCHES:
                 self._blocked.append((x, y, mask))
+            if self.channel_armed and self._stall_after > 0:
+                self._stalled_batches += 1
+                if self._stalled_batches >= self._stall_after:
+                    self._stalled_batches = 0
+                    self.on_stall()
             return None
+        self._stalled_batches = 0
         loss = self.pipeline.fit(x, y, mask)
         self._batches += 1
         if self._batches % self.sync_every == 0:
@@ -133,6 +148,35 @@ class SyncingWorker(WorkerNode):
     def on_sync_point(self) -> None:
         """Called every ``syncEvery`` batches; protocol-specific."""
         raise NotImplementedError
+
+    # --- reliable-channel recovery ---
+
+    def on_stall(self) -> None:
+        """Blocked too long: NACK every hub shard (each answers with a
+        resync if it has state) and re-push our contribution, in case the
+        push was what vanished."""
+        for h in range(self.n_hubs):
+            self.send(OP_NACK, {"stall": True}, h)
+        if self.waiting:
+            self.resend_state()
+
+    def resend_state(self, hub_id: int = 0) -> None:
+        """Re-ship this worker's contribution (idempotent on the PS)."""
+        self.final_push()
+
+    def on_resync(self, payload: Any, hub_id: int = 0) -> None:
+        """Adopt the hub's authoritative shard and clear this hub's wait:
+        the resync stands in for whatever release was lost. Protocols
+        refine ``channel_resynced``."""
+        params = (payload or {}).get("params")
+        if params is not None:
+            self.apply_shard(np.asarray(params), hub_id)
+        self.channel_resynced(payload or {}, hub_id)
+        if not self.waiting:
+            self.drain_blocked()
+
+    def channel_resynced(self, payload: dict, hub_id: int) -> None:
+        self.waiting = False
 
     def on_flush(self) -> None:
         """Quiesce: push whatever the protocol needs for final stats."""

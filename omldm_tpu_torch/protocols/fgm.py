@@ -79,6 +79,17 @@ class FGMWorker(SyncingWorker):
             self._theta = payload["theta"]
             self._counter = 0
 
+    def channel_resynced(self, payload: dict, hub_id: int) -> None:
+        # a resync is a fresh round estimate: re-anchor the safe zone and
+        # restart counting at the round quantum, as a round's release would
+        params = payload.get("params")
+        if params is not None:
+            self._estimate = np.asarray(params)
+            self._phi0 = -(self.threshold**2)
+            self._theta = float(payload.get("theta", self.threshold**2 / 2.0))
+            self._counter = 0
+        super().channel_resynced(payload, hub_id)
+
     def final_push(self) -> None:
         self.send(OP_PUSH, {"params": self.get_flat(), **self.piggyback()}, 0)
 
@@ -133,8 +144,26 @@ class FGMParameterServer(HubNode):
                 self.subrounds += 1
                 self._global_counter = 0
                 theta = -psi / (2.0 * self.round_target())
+                self.note_round_release()
                 self.count_shipped({"theta": theta}, n_dest=self.n_workers)
                 self.broadcast(OP_UPDATE, {"params": None, "theta": theta})
+
+    def worker_retired(self, worker_id: int) -> None:
+        self._phis.pop(worker_id, None)
+        self._collected.pop(worker_id, None)
+
+    def _barrier_recheck(self) -> None:
+        self._maybe_finish_poll()
+        if self._collecting and len(self._collected) >= self.round_target():
+            self._finish_round()
+
+    def set_parallelism(self, n_workers: int) -> None:
+        """Pruning retired workers may complete a pending poll or
+        collection: both barriers are re-checked here."""
+        super().set_parallelism(n_workers)
+        self._prune_retired(self._phis, n_workers)
+        self._prune_retired(self._collected, n_workers)
+        self._barrier_recheck()
 
     def _finish_round(self) -> None:
         self.global_params = np.stack(list(self._collected.values())).mean(axis=0)
@@ -142,6 +171,12 @@ class FGMParameterServer(HubNode):
         self._collecting = False
         self._global_counter = 0
         self.rounds += 1
+        self.note_round_release()
         payload = {"params": self.global_params, "theta": self.threshold**2 / 2.0}
         self.count_shipped(payload, n_dest=self.n_workers)
         self.broadcast(OP_UPDATE, payload)
+
+    def resync_payload(self) -> Optional[dict]:
+        if self.global_params is None:
+            return None
+        return {"params": self.global_params, "theta": self.threshold**2 / 2.0}

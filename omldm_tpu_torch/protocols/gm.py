@@ -53,6 +53,15 @@ class GMWorker(SyncingWorker):
             self._estimate = payload
             self._violated = False
 
+    def channel_resynced(self, payload: dict, hub_id: int) -> None:
+        # the resync carries the estimate of a release we missed: monitor
+        # drift from it, or every check would measure from a stale one
+        params = payload.get("params")
+        if params is not None:
+            self._estimate = np.asarray(params)
+            self._violated = False
+        super().channel_resynced(payload, hub_id)
+
     def final_push(self) -> None:
         self.send(OP_PUSH, {"params": self.get_flat(), **self.piggyback()}, 0)
 
@@ -92,10 +101,25 @@ class GMParameterServer(HubNode):
             if len(self._collected) >= self.round_target():
                 self._finish_round()
 
+    def worker_retired(self, worker_id: int) -> None:
+        self._collected.pop(worker_id, None)
+
+    def _barrier_recheck(self) -> None:
+        if self._collecting and len(self._collected) >= self.round_target():
+            self._finish_round()
+
+    def set_parallelism(self, n_workers: int) -> None:
+        """A pruned collection may be complete: finish it here, since every
+        survivor may be waiting on the broadcast."""
+        super().set_parallelism(n_workers)
+        self._prune_retired(self._collected, n_workers)
+        self._barrier_recheck()
+
     def _finish_round(self) -> None:
         self.global_params = np.stack(list(self._collected.values())).mean(axis=0)
         self._collected.clear()
         self._collecting = False
         self.rounds += 1
+        self.note_round_release()
         self.count_shipped(self.global_params, n_dest=self.n_workers)
         self.broadcast(OP_UPDATE, self.global_params)

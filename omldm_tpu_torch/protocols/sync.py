@@ -1,7 +1,10 @@
 """Synchronous (BSP) and stale-synchronous (SSP) parameter servers.
 
-Counterpart of ``omldm_tpu/protocols/sync.py`` without liveness
-retirement (MLNodeGenerator.scala:20-76). A Synchronous round that
+Counterpart of ``omldm_tpu/protocols/sync.py`` (MLNodeGenerator.scala:20-76).
+Both barriers count the active workers (``HubNode.round_target``,
+``active_workers``), so a worker that liveness or the guard retires stops
+being waited for, and ``_barrier_recheck`` releases what its retirement
+completed; a resync stands in for a lost release. A Synchronous round that
 completes while the job's cohort gang-averaging window is open averages
 with the other hubs' rounds of that window (``runtime.cohort.GangAverager``):
 
@@ -49,6 +52,11 @@ class SynchronousWorker(SyncingWorker):
                 self.waiting = False
                 self.drain_blocked()
 
+    def channel_resynced(self, payload: dict, hub_id: int) -> None:
+        # the resync stands in for this hub shard's lost round release
+        self._pending_hubs.discard(hub_id)
+        self.waiting = bool(self._pending_hubs)
+
     def final_push(self) -> None:
         self.send_vector(OP_PUSH, "params", self.get_flat())
 
@@ -71,6 +79,11 @@ class SynchronousParameterServer(HubNode):
         self._fitted_seen[worker_id] = payload["fitted"]
         self.stats.update_fitted(max(d, 0))
         self._round[worker_id] = payload["params"]
+        self._maybe_finish_round()
+
+    def _maybe_finish_round(self) -> None:
+        # round_target shrinks when a worker retires, so the active ones
+        # release the round instead of the fleet blocking on a straggler
         if len(self._round) >= self.round_target():
             stacked = np.stack(list(self._round.values()))
             self._round.clear()
@@ -83,12 +96,28 @@ class SynchronousParameterServer(HubNode):
 
     def _finish_round(self, averaged: np.ndarray) -> None:
         self.global_params = averaged
+        self.note_round_release()
         self.count_shipped(
             self.global_params,
             n_dest=self.n_workers,
             models=self.n_workers if self.hub_id == 0 else 0,
         )
         self.broadcast(OP_UPDATE, self.global_params)
+
+    def worker_retired(self, worker_id: int) -> None:
+        # its in-flight contribution still averages into the round it
+        # joined; it just stops being waited for
+        pass
+
+    def _barrier_recheck(self) -> None:
+        self._maybe_finish_round()
+
+    def set_parallelism(self, n_workers: int) -> None:
+        """A shrink may leave the pruned round complete, with every
+        survivor waiting: the barrier is re-checked here."""
+        super().set_parallelism(n_workers)
+        self._prune_retired(self._round, n_workers)
+        self._maybe_finish_round()
 
     def on_terminate(self) -> None:
         # release any round stuck behind a straggler that quiesced
@@ -121,6 +150,12 @@ class SSPWorker(SyncingWorker):
             self.waiting = bool(self._wait_hubs)
             if not self.waiting:
                 self.drain_blocked()
+
+    def channel_resynced(self, payload: dict, hub_id: int) -> None:
+        # a resync releases this hub's staleness hold (the PS resyncs only
+        # workers it considers releasable or re-admitted)
+        self._wait_hubs.discard(hub_id)
+        self.waiting = bool(self._wait_hubs)
 
     def final_push(self) -> None:
         self.send_vector(
@@ -160,6 +195,13 @@ class SSPClock:
                 self.waiting[w] = False
                 out.append(w)
         return out
+
+    def worker_retired(self, worker_id: int) -> None:
+        """Drop a retired worker from the window: its clock no longer
+        anchors ``slowest`` and it cannot sit in the wait-set. The caller
+        re-evaluates ``releasable`` after."""
+        self.clocks.pop(worker_id, None)
+        self.waiting.pop(worker_id, None)
 
 
 class SSPParameterServer(HubNode):
@@ -206,8 +248,27 @@ class SSPParameterServer(HubNode):
 
     def _release_unblocked(self) -> None:
         for w in self._clock_table.releasable(self.active_workers()):
+            self.note_round_release()
             self.count_shipped(self.global_params, models=1 if self.hub_id == 0 else 0)
             self.reply(w, OP_UPDATE, {"params": self.global_params, "wait": False})
+
+    def worker_retired(self, worker_id: int) -> None:
+        self._clock_table.worker_retired(worker_id)
+
+    def _barrier_recheck(self) -> None:
+        # the retired straggler may have been all that held the staleness
+        # window down: survivors waiting only on it release here
+        if self.global_params is not None:
+            self._release_unblocked()
+
+    def set_parallelism(self, n_workers: int) -> None:
+        """Retired clocks leave the staleness window; releases are
+        re-evaluated."""
+        super().set_parallelism(n_workers)
+        for w in [w for w in list(self._clocks) if w >= n_workers]:
+            self._clock_table.worker_retired(w)
+        if self.global_params is not None:
+            self._release_unblocked()
 
     def on_terminate(self) -> None:
         # release everything at quiesce

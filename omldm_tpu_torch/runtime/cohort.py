@@ -41,11 +41,19 @@ parameters for the whole cohort as one gang step:
 ``"on"`` (from one pipeline). The JAX package's ``cohort_impl`` is
 accepted and ignored: the device decides between ``map`` and ``vmap``.
 
-Not ported here: the model guard's gang health (``guarded`` programs and
-``_note_health``: the port's gate refuses ``guard``), and the tenant-axis
-device sharding (``cohort_shards`` > 1, ``shard_map`` over a ``tenants``
-mesh axis) -- a ``cohort_shards`` that resolves to one device is the
-single-device path and is admitted; more than one card raises.
+- **Guarded cohorts.** Pipelines with a guard gang only with guarded
+  ones (the guard is part of ``cache_key``). Their gang step also computes
+  each member's parameter health after its steps (``param_health``,
+  inside the same ``vmap``), and ``_note_health`` brings the ``[C]``
+  vector to the host in one copy a gang step and notes each launched
+  member's value on its guard. A member whose guard trips is evicted
+  (``CohortEngine.retire``) before its rollback, so its recovery never
+  rides a sibling's launch.
+
+Not ported here: the tenant-axis device sharding (``cohort_shards`` > 1,
+``shard_map`` over a ``tenants`` mesh axis) -- a ``cohort_shards`` that
+resolves to one device is the single-device path and is admitted; more
+than one card raises.
 """
 
 from __future__ import annotations
@@ -56,9 +64,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from omldm_tpu_torch.guard import gang_health_values
 from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY
 from omldm_tpu_torch.models.transformer import tree_leaves, tree_unflatten
-from omldm_tpu_torch.pipelines.pipeline import MLPipeline, _leaves, unravel_fn
+from omldm_tpu_torch.pipelines.pipeline import MLPipeline, _leaves, param_health, unravel_fn
 
 # staged batches per member before a launch is forced: bounds the gang input
 # [capacity, T, B, D] when a pipeline has no sync point for a while
@@ -137,6 +146,12 @@ class _Steps:
             losses.append(loss)
         return st, torch.stack(losses)
 
+    def member_fit_guarded(self, st, xs, ys, ms):
+        """``member_fit`` and the health of the member's state after it (a
+        kept state keeps its health)."""
+        st, losses = self.member_fit(st, xs, ys, ms)
+        return st, losses, param_health(st["params"])
+
 
 class _LaunchResult:
     """One gang launch's ``[C, T]`` losses, brought to the host at most once
@@ -206,8 +221,11 @@ class Cohort:
         # gang predicts (serving flushes) time apart from the fit flushes
         self.serve_timer = serve_timer
         self._steps = _Steps(pipeline)
+        # guarded pipelines gang with guarded ones only (cache_key)
+        self.guarded = pipeline.guard is not None
         if use_vmap:
-            self._vfit = torch.func.vmap(self._steps.member_fit)
+            self._vfit = torch.func.vmap(
+                self._steps.member_fit_guarded if self.guarded else self._steps.member_fit)
             self._vpredict = torch.func.vmap(self._steps.predict)
         params = pipeline._state["params"]
         self._unravel = unravel_fn(params, self.device)
@@ -416,11 +434,15 @@ class Cohort:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _map_fit(self, counts: Dict[int, int], t_pad: int) -> torch.Tensor:
+    def _map_fit(self, counts: Dict[int, int], t_pad: int):
         """The ``map`` gang fit: each staged member's steps on views of the
         stacked state, written back in place. A step whose host mask is all
-        zero keeps the state, as the select of the ``vmap`` form does."""
+        zero keeps the state, as the select of the ``vmap`` form does.
+        Guarded: ``(losses, health [capacity])``, the health of each staged
+        member after its steps."""
         losses = torch.zeros((self.capacity, t_pad), dtype=torch.float32, device=self.device)
+        health = (torch.zeros((self.capacity,), dtype=torch.float32, device=self.device)
+                  if self.guarded else None)
         steps = self._steps
         for slot in sorted(counts):
             xs = self._to_device(self._buf_x[slot, :counts[slot]])
@@ -434,7 +456,9 @@ class Cohort:
                 if ms_host[t].any():
                     st = new
             self._write_member(slot, st)
-        return losses
+            if health is not None:
+                health[slot] = param_health(st["params"])
+        return losses if health is None else (losses, health)
 
     def _run_staged(self) -> None:
         self._apply_host_writes()
@@ -451,18 +475,35 @@ class Cohort:
             if not self.use_vmap:
                 losses = self._map_fit(counts, t_pad)
             else:
-                self.stacked, losses = self._vfit(
+                out = self._vfit(
                     self.stacked, self._to_device(self._buf_x[:, :t_pad]),
                     self._to_device(self._buf_y[:, :t_pad]),
                     self._to_device(self._buf_m[:, :t_pad]),
                 )
+                self.stacked, losses = out[0], out[1:] if self.guarded else out[1]
         # zero ONLY the staged mask region again: stale x/y rows under a
         # zero mask are inert
         for slot, n in counts.items():
             self._buf_m[slot, :n] = 0.0
+        if self.guarded:
+            losses = self._note_health(losses, counts)
         if result is not None:
             result.fulfill(losses)
         self._flat_cache = None
+
+    def _note_health(self, gang_out, counts: Dict[int, int]) -> torch.Tensor:
+        """Split a guarded gang step's ``(losses, health [C])``: the health
+        vector comes to the host in ONE copy (C lazy scalars would cost a
+        read each at the next guard check) and each launched member's value
+        goes to its guard, counted as the fits it staged; returns the
+        losses."""
+        losses, health = gang_out
+        vals = gang_health_values(health)
+        for slot, n in counts.items():
+            member = self.members[slot]
+            if member is not None and member.guard is not None:
+                member.guard.note(float(vals[slot]), fits=n)
+        return losses
 
     def _apply_host_writes(self) -> None:
         """Write host-side authoritative state (checkouts, written flat

@@ -12,11 +12,13 @@ sparse variant, and takes no preprocessors (``validate_sparse``). A
 one drops its request. A Create for the SPMD engine (``engine: spmd``)
 that the engine hosts must name a feed dtype it takes and, under SSP, a
 staleness bound of at least 1 (``validate_spmd``); the JAX package raises
-on both at deploy. The port's gate also rejects what the port cannot run
-yet -- the transport codec, the reliable channel, and per-pipeline switches
-that arm a plane the port lacks (guard, overload, lifecycle, telemetry,
-events) -- with a reason that names it, so a request that would fail at
-deploy drops alone instead of killing the job.
+on both at deploy. A transport codec must be one the port knows, and
+``topk`` stays off the collective engine, whose allreduce needs dense
+operands (``validate_codec``, the JAX gate's ``_validate_codec``). The
+port's gate also rejects per-pipeline switches that arm a plane the port
+lacks (overload, lifecycle, telemetry, events) with a reason that names
+it, so a request that would fail at deploy drops alone instead of killing
+the job.
 """
 
 from __future__ import annotations
@@ -27,16 +29,12 @@ from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestTyp
 from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY, is_valid_learner
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 from omldm_tpu_torch.preprocessors.registry import is_valid_preprocessor
-from omldm_tpu_torch.runtime.messages import comm_codec_name, comm_dict
+from omldm_tpu_torch.runtime.messages import comm_codec_name
 from omldm_tpu_torch.runtime.serving import validate_serving
 from omldm_tpu_torch.runtime.spmd_bridge import spmd_engine_requested, spmd_engine_supported
 
 # trainingConfiguration keys that arm a plane the port does not have
-UNPORTED_PIPELINE_PLANES = ("guard", "overload", "lifecycle", "telemetry",
-                            "events")
-# trainingConfiguration.comm keys of the reliable channel (not ported)
-RELIABILITY_KEYS = ("reliable", "quorum", "workerTimeoutMs", "windowSize",
-                    "stallAfter")
+UNPORTED_PIPELINE_PLANES = ("overload", "lifecycle", "telemetry", "events")
 
 
 def _armed(value) -> bool:
@@ -55,13 +53,21 @@ def unported_option(request: Request) -> Optional[str]:
     for key in UNPORTED_PIPELINE_PLANES:
         if _armed(extra.get(key)):
             return f"trainingConfiguration.{key} is not yet ported"
-    comm = comm_dict(tc)
-    codec = comm_codec_name(tc)
-    if codec != "none":
-        return f"comm.codec {codec!r} is not yet ported"
-    for key in RELIABILITY_KEYS:
-        if key in comm:
-            return f"comm.{key} (reliable channel) is not yet ported"
+    return None
+
+
+def validate_codec(request: Request) -> Optional[str]:
+    """The transport codec must be deployable: an unknown name, or ``topk``
+    on the collective engine (its allreduce needs dense operands), would
+    raise at deploy and kill the job instead of dropping the request. The
+    engine is matched as ``spmd_engine_requested`` does (case-blind)."""
+    tc = request.training_configuration
+    try:
+        name = comm_codec_name(tc)
+    except ValueError as exc:
+        return str(exc)
+    if name == "topk" and spmd_engine_requested(request):
+        return "topk codec is host-plane only (SPMD allreduce needs dense operands)"
     return None
 
 
@@ -159,6 +165,9 @@ class PipelineManager:
         if tc.hub_parallelism < 1:
             return "HubParallelism must be >= 1"
         err = validate_serving(tc)
+        if err is not None:
+            return err
+        err = validate_codec(request)
         if err is not None:
             return err
         err = validate_spmd(request)

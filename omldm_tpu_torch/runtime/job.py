@@ -20,6 +20,12 @@ the hubs' gang-averaging window (``runtime.cohort.GangAverager``), so the
 Synchronous rounds of a cohort's pipelines that complete on one event
 average in one stacked reduction at its end.
 
+With a chaos spec (``JobConfig.chaos``, else ``OMLDM_CHAOS``) both
+directions of the in-process hub<->spoke bridge run through a seeded
+``ChaosChannel`` (``runtime.supervisor``), and every pipeline's reliable
+channel arms itself to survive it. At stream end the channels quiesce and
+the receive windows hand back what they hold before the termination probe.
+
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
 host without a card raises. A ``JobConfig`` that arms a plane the port does
@@ -30,7 +36,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
 import sys
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -46,6 +51,7 @@ from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.hub import HubManager
+from omldm_tpu_torch.runtime.messages import channel_chaos_spec
 from omldm_tpu_torch.runtime.responses import ResponseMerger
 from omldm_tpu_torch.runtime.serving import parse_serving_spec
 from omldm_tpu_torch.runtime.spmd_bridge import (
@@ -55,6 +61,7 @@ from omldm_tpu_torch.runtime.spmd_bridge import (
 )
 from omldm_tpu_torch.runtime.spoke import PACKED, Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
+from omldm_tpu_torch.runtime.supervisor import ChaosChannel, parse_chaos_spec
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
 from omldm_tpu_torch.utils.device import resolve_device
 
@@ -78,15 +85,23 @@ PRE_CREATE_BACKLOG_CAP = 100_000
 TOGGLE_FRAMES_PER_NET = 64
 
 
+# chaos keys that arm the overload plane's burst injector (BurstInjector),
+# which is not ported
+CHAOS_BURST_KEYS = ("burst", "burstFrom", "burstLen", "hotTenant")
+
+
 def unported_job_options(config: JobConfig) -> List[str]:
-    """The JobConfig options that arm a plane the port does not have yet."""
+    """The JobConfig options that arm a plane the port does not have yet.
+    A chaos spec runs, but its burst keys drive the overload plane."""
     names = [
-        name for name in ("overload", "lifecycle", "telemetry", "events",
-                          "ingest", "chaos")
+        name for name in ("overload", "lifecycle", "telemetry", "events", "ingest")
         if getattr(config, name)
     ]
-    if os.environ.get("OMLDM_CHAOS"):
-        names.append("chaos (OMLDM_CHAOS)")
+    spec = channel_chaos_spec(config)
+    burst = [k for k in CHAOS_BURST_KEYS
+             if any(part.partition("=")[0].strip() == k for part in spec.split(","))]
+    if burst:
+        names.append(f"chaos burst keys ({', '.join(burst)}: the overload plane)")
     if config.checkpointing:
         names.append("checkpointing")
     return names
@@ -129,12 +144,24 @@ class StreamJob:
             request_stream=REQUEST_STREAM,
         )
         self.response_merger = ResponseMerger(self._emit_response)
-        self.hub_manager = HubManager(self.config, self._reply_to_spoke, self.device)
+        self.hub_manager = HubManager(self.config, self._ship_to_spoke, self.device)
+        # the seeded chaos channel on both directions of the bridge (None:
+        # no spec, the plain route); a malformed spec raises here
+        self._chaos_up: Optional[ChaosChannel] = None
+        self._chaos_down: Optional[ChaosChannel] = None
+        spec = parse_chaos_spec(channel_chaos_spec(self.config))
+        if spec is not None:
+            self._chaos_up = ChaosChannel.from_spec(
+                self.hub_manager.route, spec, "up", name="spoke>hub")
+            self._chaos_down = ChaosChannel.from_spec(
+                self._reply_to_spoke, spec, "down", name="hub>spoke")
+        send_to_hub = (self._chaos_up.send if self._chaos_up is not None
+                       else self.hub_manager.route)
         self.spokes: List[Spoke] = [
             Spoke(
                 worker_id=i,
                 config=self.config,
-                send_to_hub=self.hub_manager.route,
+                send_to_hub=send_to_hub,
                 emit_prediction=self._emit_prediction,
                 emit_response=self._route_response_fragment,
                 on_poll=self.stats.mark_activity,
@@ -202,22 +229,46 @@ class StreamJob:
         else:
             self.response_merger.add_fragment(frag)
 
+    def _ship_to_spoke(self, network_id: int, hub_id: int, worker_id: int,
+                       op: str, payload: Any, seq=None) -> None:
+        """Hub->spoke ship boundary: through the chaos channel when armed."""
+        if self._chaos_down is not None:
+            self._chaos_down.send(network_id, hub_id, worker_id, op, payload, seq)
+        else:
+            self._reply_to_spoke(network_id, hub_id, worker_id, op, payload, seq)
+
     def _reply_to_spoke(self, network_id: int, hub_id: int, worker_id: int,
-                        op: str, payload: Any) -> None:
+                        op: str, payload: Any, seq=None) -> None:
         if worker_id >= len(self.spokes):
             return
-        self.spokes[worker_id].receive_from_hub(network_id, hub_id, op, payload)
+        self.spokes[worker_id].receive_from_hub(network_id, hub_id, op, payload, seq)
 
     def _note_wire(self, network_id: int, hub_id: int, counter: str, n) -> None:
-        """Spoke-side tallies (program launches, serving telemetry) fold into
-        the pipeline's hub statistics so one report carries both sides."""
+        """Spoke-side tallies (program launches, serving telemetry, the
+        channel's repairs, guard rollbacks, codec seconds) fold into the
+        pipeline's hub statistics so one report carries both sides."""
         hub = self.hub_manager.hubs.get((network_id, hub_id))
         if hub is None:
             return
         if counter == "serve_latency_ms":
             hub.node.stats.note_serve_latency(*n)
+        elif counter == "codec_seconds":
+            hub.node.stats.update_stats(
+                codec_encode_seconds=n[0], codec_decode_seconds=n[1])
         else:
             hub.node.stats.update_stats(**{counter: n})
+
+    def codec_seconds(self) -> Tuple[float, float]:
+        """(encode, decode) transport-codec seconds summed over every live
+        hub and spoke node."""
+        enc = dec = 0.0
+        nodes = [hub.node for hub in self.hub_manager.hubs.values()]
+        nodes += [net.node for spoke in self.spokes for net in spoke.nets.values()]
+        for node in nodes:
+            if node.codec is not None:
+                enc += node.codec.encode_seconds
+                dec += node.codec.decode_seconds
+        return enc, dec
 
     # --- event handling ---
 
@@ -413,6 +464,10 @@ class StreamJob:
 
     def _handle_data(self, inst: DataInstance) -> None:
         self.stats.mark_activity()
+        # records are the liveness clock: a silent worker that blocks the
+        # fleet on a barrier stops every protocol message (one flag read
+        # when no pipeline armed a quorum)
+        self.hub_manager.check_liveness()
         if self._pending_creates:
             pending, self._pending_creates = self._pending_creates, []
             for request in pending:
@@ -453,6 +508,7 @@ class StreamJob:
         if n == 0 or self.stats.terminated:
             return
         self.stats.mark_activity()
+        self.hub_manager.check_liveness()
         if self._pending_creates:
             pending, self._pending_creates = self._pending_creates, []
             for request in pending:
@@ -541,8 +597,17 @@ class StreamJob:
         count fragments, normalize, emit JobStatistics."""
         if self.stats.terminated:
             return self.performance[-1] if self.performance else None
-        self.stats.probe_fired = True
         with self._toggle_stack():
+            # the fault window ends with the stream: the chaos channels
+            # quiesce (held traffic flushes, later sends pass through) and
+            # the receive windows hand back what a never-filled gap held
+            for chaos in (self._chaos_up, self._chaos_down):
+                if chaos is not None:
+                    chaos.quiesce()
+            for spoke in self.spokes:
+                spoke.flush_rx_windows()
+            self.hub_manager.flush_windows()
+            self.stats.probe_fired = True
             for spoke in self.spokes:
                 spoke.handle_terminate_probe()
         # quarantined-record count, mirrored into every pipeline's report

@@ -26,8 +26,18 @@ launch together at the end of each record and each packed block (the gang
 barrier), packed blocks walk the members in lockstep, and forecasts to
 several members are answered by one gang predict. Attached nets are
 exempt from the cooperative pause toggle: gang lockstep is their fairness.
-The overload, lifecycle, guard, telemetry, events and reliable-channel
-branches are not ported.
+
+A guarded net (``trainingConfiguration.guard``) seeds its last-known-good
+snapshot at deploy; after each record, each packed block and before a
+Query the spoke checks every guard's newest health value
+(``_guard_tick_all``: one read a net that launched) and, on a trip,
+evicts a cohort member, rolls the parameters back, resets the codec's
+streams and asks the hubs for a resync (``_guard_trip``). With the
+reliable channel armed, each net stamps its sends with a per-hub sequence
+number and passes hub messages through a receive window
+(``receive_from_hub``); duplicates and gaps fold into the hub's
+statistics. The overload, lifecycle, telemetry and events branches are not
+ported.
 """
 
 from __future__ import annotations
@@ -43,11 +53,20 @@ from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
 from omldm_tpu_torch.config import JobConfig
+from omldm_tpu_torch.guard import guard_config
 from omldm_tpu_torch.pipelines import MLPipeline
 from omldm_tpu_torch.protocols.base import WorkerNode
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
 from omldm_tpu_torch.runtime.cohort import CohortEngine
 from omldm_tpu_torch.runtime.databuffers import DataSet
+from omldm_tpu_torch.runtime.messages import (
+    OP_NACK,
+    ReceiveWindow,
+    StreamSequencer,
+    channel_chaos_spec,
+    channel_window_size,
+    reliability_armed,
+)
 from omldm_tpu_torch.runtime.serving import (
     ServeQueue,
     ServeStats,
@@ -71,10 +90,10 @@ PREDICT_BATCH = 16
 PACKED = "__packed__"
 
 
-def create_pipeline(request: Request, dim: int, device) -> MLPipeline:
+def create_pipeline(request: Request, dim: int, device, guarded: bool = True) -> MLPipeline:
     """The Create-request pipeline recipe: a generator seeded from the
-    request id (where the JAX package keys ``jax.random.PRNGKey(request.id)``)
-    and the per-record mode."""
+    request id (where the JAX package keys ``jax.random.PRNGKey(request.id)``),
+    the per-record mode and, unless ``guarded`` is False, the guard."""
     tc = request.training_configuration
     return MLPipeline(
         request.learner,
@@ -83,6 +102,7 @@ def create_pipeline(request: Request, dim: int, device) -> MLPipeline:
         generator=torch.Generator().manual_seed(request.id),
         per_record=tc.per_record,
         device=device,
+        guard=guard_config(tc) if guarded else None,
     )
 
 
@@ -194,6 +214,33 @@ class SpokeNet:
         # records arriving while this net is PAUSED (cooperative toggle,
         # FlinkSpoke.scala:127-131) buffer here and drain on resume
         self.pause_buffer = _PauseBuffer(config.record_buffer_cap)
+        # codec seconds already folded into the hub statistics (each fold
+        # adds the delta since the last, so query and terminate never count
+        # a second twice)
+        self._codec_folded = (0.0, 0.0)
+        # the reliable channel: per-hub outgoing sequence numbers and
+        # per-hub receive windows (not armed: nothing stamped or windowed)
+        self.channel_armed = reliability_armed(tc, channel_chaos_spec(config))
+        self.node.channel_armed = self.channel_armed
+        self._window_size = channel_window_size(tc)
+        self._tx_seq = StreamSequencer() if self.channel_armed else None
+        self._rx_windows: Dict[int, ReceiveWindow] = {}
+        self._quiesced = False
+
+    def next_seq(self, hub_id: int) -> Optional[int]:
+        if self._tx_seq is None:
+            return None
+        return self._tx_seq.next(hub_id)
+
+    def rx_window(self, hub_id: int) -> ReceiveWindow:
+        window = self._rx_windows.get(hub_id)
+        if window is None:
+            # a window born after the quiesce passes through: the first
+            # message from this hub may arrive during termination
+            window = self._rx_windows[hub_id] = ReceiveWindow(
+                self._window_size, passthrough=self._quiesced
+            )
+        return window
 
     @property
     def pipeline(self) -> MLPipeline:
@@ -291,7 +338,7 @@ class Spoke:
         self,
         worker_id: int,
         config: JobConfig,
-        send_to_hub: Callable,   # (network_id, hub_id, worker_id, op, payload)
+        send_to_hub: Callable,   # (network_id, hub_id, worker_id, op, payload, seq)
         emit_prediction: Callable[[Prediction], None],
         emit_response: Callable[[QueryResponse], None],
         on_poll: Callable[[], None],
@@ -319,6 +366,8 @@ class Spoke:
         # flag gates every hot-path hook (one attribute read when unarmed)
         self.serving_plane: Optional[ServingPlane] = None
         self._any_serving = False
+        # True once a hosted net is guarded: gates the per-event guard walk
+        self._any_guard = False
         # pre-creation buffering (SpokeLogic.scala:31-35): records, and
         # whole packed blocks under the same row cap
         self.record_buffer: DataSet[DataInstance] = DataSet(config.record_buffer_cap)
@@ -354,6 +403,11 @@ class Spoke:
         net.node.on_start()
         if net.serving is not None:
             net._plane = self._ensure_serving_plane()
+        if net.pipeline.guard is not None:
+            self._any_guard = True
+            # the first last-known-good snapshot, at the initial params: a
+            # trip before the first cadence snapshot has a target too
+            net.pipeline.guard.maybe_snapshot(net.pipeline)
         if self.cohorts is not None:
             self.cohorts.consider(net.pipeline)
             # pooled pipelines may attach on a LATER create (the auto
@@ -410,7 +464,11 @@ class Spoke:
 
     def _make_send(self, network_id: int):
         def send(op: str, payload: Any, hub_id: int = 0) -> None:
-            self._send_to_hub(network_id, hub_id, self.worker_id, op, payload)
+            # the reliable channel stamps its sequence number here, at the
+            # ship boundary: below the codec, above the (lossy) router
+            net = self.nets.get(network_id)
+            seq = net.next_seq(hub_id) if net is not None else None
+            self._send_to_hub(network_id, hub_id, self.worker_id, op, payload, seq)
 
         return send
 
@@ -435,6 +493,8 @@ class Spoke:
             self._serve_many(inst, serve_entries)
         # gang barrier: launch every cohort's staged fits for this record
         self._flush_cohorts()
+        # guard: check the health values this record's launches noted
+        self._guard_tick_all()
         self.poll_serving()
         if inst.operation != FORECASTING:
             # poll marker every 100 training records -- once per record, not
@@ -484,6 +544,7 @@ class Spoke:
         elif gang_nets:
             self._process_packed_gang(gang_nets, x, y, f_idx)
         self._flush_cohorts()
+        self._guard_tick_all()
         self.poll_serving()
         nt = n - int(f_idx.size)
         if nt:
@@ -903,6 +964,9 @@ class Spoke:
             self.serving_plane.flush_net(net)
         net.flush_batch()
         self._flush_cohorts()
+        # settle a pending guard trip first: a query never reports a score
+        # off the parameters the guard is about to roll back
+        self._guard_tick_all()
         test = net.test_arrays()
         if test is not None:
             loss, score = net.pipeline.evaluate(*test)
@@ -923,6 +987,14 @@ class Spoke:
                 net.serve_stats.percentiles(),
             )
             net.serve_stats.reset()
+        # the codec's seconds fold as a delta since the last fold
+        if self._note_wire is not None and net.node.codec is not None:
+            c = net.node.codec
+            enc = c.encode_seconds - net._codec_folded[0]
+            dec = c.decode_seconds - net._codec_folded[1]
+            if enc > 0.0 or dec > 0.0:
+                self._note_wire(net.request.id, 0, "codec_seconds", (enc, dec))
+                net._codec_folded = (c.encode_seconds, c.decode_seconds)
         desc = net.pipeline.describe()
         qstats = net.node.query_stats()
 
@@ -976,14 +1048,37 @@ class Spoke:
             self.serving_plane.flush_all()
 
     def receive_from_hub(self, network_id: int, hub_id: int, op: str,
-                         payload: Any) -> None:
+                         payload: Any, seq: Optional[int] = None) -> None:
         net = self.nets.get(network_id)
         if net is None:
             return
+        if seq is None or not net.channel_armed:
+            self._deliver_from_hub(net, network_id, hub_id, op, payload)
+            return
+        # the reliable channel: dedupe and reorder through the hub's window;
+        # a gap past it drops the codec's receive bases of this hub's
+        # streams (the lost deltas desynced them) and NACKs the hub for a
+        # resync
+        res = net.rx_window(hub_id).offer(seq, op, payload)
+        if res.duplicates and self._note_wire is not None:
+            self._note_wire(network_id, hub_id, "duplicates_dropped", res.duplicates)
+        if res.gap:
+            if self._note_wire is not None:
+                self._note_wire(network_id, hub_id, "gaps_resynced", 1)
+            if net.node.codec is not None:
+                net.node.codec.reset_rx_stream(f"h{hub_id}>w{self.worker_id}")
+                net.node.codec.reset_rx_stream(f"h{hub_id}>*")
+            net.node.send(OP_NACK, {"gap": True}, hub_id)
+        for d_op, d_payload in res.deliver:
+            self._deliver_from_hub(net, network_id, hub_id, d_op, d_payload)
+
+    def _deliver_from_hub(self, net: SpokeNet, network_id: int, hub_id: int,
+                          op: str, payload: Any) -> None:
         if net.serving is not None and net.serve_queue.entries:
             # a hub payload may replace this net's model: exact-mode
             # serving drains the queue with the parameters before it
             self.serving_plane.fence(net)
+        # deliver() is the worker's decode boundary (the transport codec)
         net.node.deliver(op, payload, hub_id)
         # cooperative multi-pipeline fairness: every hub RPC for one net
         # TOGGLES the others (FlinkSpoke.scala:127-131); a net that just
@@ -999,6 +1094,67 @@ class Spoke:
             other.node.toggle()
             if not other.node.paused:
                 self._drain_pause_buffer(other)
+
+    def flush_rx_windows(self) -> None:
+        """Stream end: deliver what the receive windows still hold (their
+        gaps will never fill). Both dicts are iterated over snapshots: a
+        delivered release may drain, push, and make the hub reply into a
+        window or net not yet visited."""
+        for network_id, net in list(self.nets.items()):
+            net._quiesced = True
+            for hub_id, window in list(net._rx_windows.items()):
+                for op, payload in window.flush():
+                    self._deliver_from_hub(net, network_id, hub_id, op, payload)
+
+    # --- the model-integrity guard (omldm_tpu_torch.guard) ---
+
+    def _guard_tick_all(self) -> None:
+        """Check every guarded net's newest health value (noted by the
+        launches since the last tick: one read a net that launched) and run
+        the recovery for any that tripped. One flag read when no hosted
+        net is guarded."""
+        if not self._any_guard:
+            return
+        for net in list(self.nets.values()):
+            guard = net.pipeline.guard
+            if guard is None:
+                continue
+            reason = guard.check()
+            if reason is None:
+                guard.maybe_snapshot(net.pipeline)
+            else:
+                self._guard_trip(net, reason)
+
+    def _guard_trip(self, net: SpokeNet, reason: str) -> None:
+        """Divergence on one net: a cohort member is evicted to solo
+        execution first (its state leaves the stack, siblings untouched),
+        the parameters roll back to the last-known-good snapshot, the
+        codec's streams reset, and the worker asks its hubs for a resync
+        (OP_NACK -> OP_RESYNC) to catch up with the fleet."""
+        nid = net.request.id
+        if net.pipeline._cohort is not None and self.cohorts is not None:
+            self.cohorts.retire(net.pipeline)
+            if self._note_wire is not None:
+                self._note_wire(nid, 0, "members_evicted", 1)
+        net.pipeline.guard.rollback(net.pipeline)
+        if self._note_wire is not None:
+            self._note_wire(nid, 0, "rollbacks_performed", 1)
+        if net.serving is not None and net.serve_queue.entries:
+            # queued forecasts flush through the rolled-back model, never
+            # through the parameters the guard condemned
+            self.serving_plane.flush_net(net)
+        if net.node.codec is not None:
+            # the model was replaced wholesale and corrupt state may have
+            # shipped: residuals and top-k bases are stale on both ends
+            net.node.codec.reset_streams()
+        net.node.request_resync()
+        if getattr(net.node, "waiting", False):
+            # a blocking worker whose poisoned push was suppressed or
+            # rejected may wait on a barrier with nothing in flight, and a
+            # hub with no state yet ships no resync: re-push the healthy
+            # state so the round completes (barrier entries are
+            # worker-keyed, so this is idempotent)
+            net.node.resend_state()
 
     def _drain_pause_buffer(self, net: SpokeNet) -> None:
         if net.pause_buffer.is_empty:

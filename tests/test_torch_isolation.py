@@ -34,6 +34,8 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.parallel.spmd, omldm_tpu_torch.parallel.mesh\n"
         "import omldm_tpu_torch.runtime.spmd_bridge, omldm_tpu_torch.ops.codec\n"
         "import omldm_tpu_torch.runtime.databuffers, omldm_tpu_torch.runtime.cohort\n"
+        "import omldm_tpu_torch.runtime.codec, omldm_tpu_torch.guard\n"
+        "import omldm_tpu_torch.runtime.supervisor, omldm_tpu_torch.runtime.messages\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -283,7 +285,7 @@ def test_chip_smoke_copy_task_stream():
 @pytest.mark.parametrize("option", [
     {"overload": "on"}, {"lifecycle": "on"},
     {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
-    {"chaos": "seed=1,drop=0.1"}, {"checkpointing": True},
+    {"chaos": "seed=1,burst=4"}, {"checkpointing": True},
 ])
 def test_unported_job_plane_raises(option):
     name = next(iter(option))
@@ -345,15 +347,10 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
     (_create(telemetry={"sloMs": 5}), "trainingConfiguration.telemetry is not yet ported"),
     (_create(events=True), "trainingConfiguration.events is not yet ported"),
     (_create(preps=("Whitener",)), "unknown preprocessor 'Whitener'"),
-    (_create(comm={"quorum": 3}), "comm.quorum (reliable channel)"),
-    (_create(comm={"workerTimeoutMs": 500}), "comm.workerTimeoutMs (reliable channel)"),
-    (_create(comm={"windowSize": 8}), "comm.windowSize (reliable channel)"),
-    (_create(comm={"stallAfter": 8}), "comm.stallAfter (reliable channel)"),
-    (_create(guard=True), "guard"),
     (_create(serving={"maxBatch": 0}), "serving.maxBatch must be >= 1"),
     (_create(serving={"maxBatch": 8, "nope": 1}), "unknown serving knob"),
-    (_create(comm={"codec": "topk"}), "codec"),
-    (_create(comm={"reliable": True}), "reliable"),
+    (_create(comm={"codec": "zstd"}), "unknown comm codec 'zstd'"),
+    (_create(engine="spmd", comm={"codec": "topk"}), "topk codec is host-plane only"),
     (_create(engine="spmd", feedDtype="float64"), "engine 'spmd': feedDtype"),
     (_create(engine="spmd", protocol="SSP", staleness=0), "SSP staleness must be >= 1"),
 ])
@@ -364,6 +361,21 @@ def test_control_gate_rejects_unported(request_json, reason):
     assert entry["reason"] == "rejected_request"
     assert reason in entry["detail"]
     assert job.pipeline_manager.live_pipelines == []
+
+
+@pytest.mark.parametrize("tc", [
+    {"comm": {"quorum": 3}}, {"comm": {"workerTimeoutMs": 500}}, {"comm": {"windowSize": 8}},
+    {"comm": {"stallAfter": 8}}, {"comm": {"reliable": True}}, {"guard": True},
+    {"guard": {"normLimit": 1e3, "maxStrikes": 2}}, {"comm": {"codec": "topk"}},
+    {"comm": {"codec": "fp16"}}, {"codec": "int8"},
+    {"engine": "spmd", "comm": {"codec": "int8"}}, {"engine": "spmd", "comm": {"codec": "fp16"}},
+])
+def test_control_gate_admits_ported_planes(tc):
+    """The guard, every codec (topk on the host plane only) and the reliable
+    channel's keys deploy."""
+    job = StreamJob(JobConfig(parallelism=2), device="cpu")
+    job.run([("requests", _create(**tc))], terminate_on_end=False)
+    assert job.pipeline_manager.live_pipelines == [0] and not job.dead_letter.entries
 
 
 def test_serving_plane_is_ported():

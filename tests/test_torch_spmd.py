@@ -323,9 +323,13 @@ def test_trainer_refusals():
         SPMDTrainer(LearnerSpec("PA"), dim=3, protocol="SSP", device="cpu",
                     training_configuration=TrainingConfiguration(
                         protocol="SSP", extra={"staleness": 0}))
-    with pytest.raises(NotImplementedError, match="codec"):
+    with pytest.raises(ValueError, match="topk is a host-plane transport codec"):
         SPMDTrainer(LearnerSpec("PA"), dim=3, device="cpu",
-                    training_configuration=TrainingConfiguration(extra={"comm": {"codec": "fp16"}}))
+                    training_configuration=TrainingConfiguration(extra={"comm": {"codec": "topk"}}))
+    # fp16 and int8 are ported (tests/test_torch_codec.py holds them to JAX)
+    assert "ef" in SPMDTrainer(LearnerSpec("PA"), dim=3, device="cpu",
+                               training_configuration=TrainingConfiguration(
+                                   extra={"comm": {"codec": "fp16"}})).state
     tt = SPMDTrainer(LearnerSpec("PA"), dim=3, mesh=Mesh(2, 1, "cpu"))
     with pytest.raises(ValueError, match="not \\[dp=2"):
         fleet_state_from_numpy({"w": np.zeros((3, 1, 4))}, tt)
