@@ -261,6 +261,45 @@ Phases (any failure raises and the script exits nonzero without a result):
                  (duplicatesDropped, gapsResynced, every statistic and the
                  chaos counters equal, >= 99% predictions equal), and
                  unarmed on the card (wall against the chaos run's).
+ 34. recovery    phase 5's stream over RECOVERY_RUN's first 20,000 records
+                 on the card: unarmed; checkpointed about 20 times (the
+                 interval: the unarmed wall over 20; 10-40 snapshots; the
+                 same statistics and predictions); checkpointed with a
+                 FaultInjector crash in worker 3 at 9,000 records under
+                 JobSupervisor(max_restarts=2): one failure restored from a
+                 snapshot, every integer statistic but the tallies no
+                 snapshot carries (UNSNAPSHOTTED_TALLIES) and fitted equal
+                 to the unfaulted run's, parameters within rtol 1e-5, atol
+                 1e-6 (bitwise printed), the forecasts' last emissions >=
+                 99% equal, pa_scan once a fit of the final incarnation;
+                 the snapshot it restored, restored with device="cpu" and
+                 run to the end: the card continuation's statistics, >= 99%
+                 of its forecasts; save seconds, bytes, restore seconds and
+                 records/s armed against unarmed;
+ 35. rescale     the same records at 16 workers with rescale(4) after 7,000
+                 and rescale(8) after 14,000 on the card and the CPU (every
+                 integer statistic equal, rescalesPerformed 2, >= 99%
+                 forecasts equal, parameters within W_RTOL, W_ATOL, pa_scan
+                 once a fit); the snapshot at 10,000 restored at
+                 parallelism 4 on both (the same checks); phase 14's sparse
+                 stream over 20,000 records crashed and recovered on the
+                 card (phase 34's checks, scatter_add once a fit);
+ 36. rescale-cohort phase 28's 64 tenants at 2 workers over their first
+                 5,000 rows, rescale(1) at 2,500 and rescale(2) at 3,750, on
+                 the card (one batched pa_scan launch a gang step, no solo
+                 launch) and the CPU (>= 99% predictions equal, parameters
+                 within W_RTOL, W_ATOL, fitted equal);
+ 37. spmd-ckpt   the bench job on phase 26's Mesh(8, 2) over the bench
+                 file's first 20,000 rows, a snapshot at 10,000: the
+                 same-mesh restore continues to the uninterrupted run's
+                 counters and parameters (W_RTOL, W_ATOL); a restore at dp 4
+                 seeds the mean of the saved replicas on the card and the
+                 CPU, which then agree; SPMDTrainer save/load bitwise;
+ 38. lm-ckpt     phase 9's trainer saved, loaded into a fresh SeqTrainer
+                 (bitwise), both take 2 more steps: parameters bitwise or
+                 within LM_PARITY_ATOL (printed), the loaded trainer
+                 launches each flash kernel n_layers x 2 times; save and
+                 load seconds and bytes.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -3319,12 +3358,12 @@ def mt_stream(records: int, seed: int):
 
 def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_record=True,
             serving=True, run=MT_RUN, protocol="Synchronous", guard=False, split_at=None,
-            poke=None):
+            poke=None, pokes=None):
     """``nets`` same-spec Creates (every other one serving-armed; with
     ``guard``, every one guarded), then the rows in packed blocks of
     PACKED_CHUNK (with ``split_at``, a block boundary there too, where
-    ``poke(job)`` runs), then termination. Returns (job, report, wall
-    seconds)."""
+    ``poke(job)`` runs; ``pokes`` maps more rows to their pokes), then
+    termination. Returns (job, report, wall seconds)."""
     from omldm_tpu_torch.config import JobConfig
     from omldm_tpu_torch.runtime import StreamJob
 
@@ -3341,11 +3380,11 @@ def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_recor
         create = _create(learner, (), tc, x.shape[1])
         create["id"] = pid
         job.process_event("requests", json.dumps(create))
-    bounds = sorted({*range(0, x.shape[0], PACKED_CHUNK), *([split_at] if split_at else []),
-                     x.shape[0]})
+    pokes = {**({split_at: poke} if split_at else {}), **(pokes or {})}
+    bounds = sorted({*range(0, x.shape[0], PACKED_CHUNK), *pokes, x.shape[0]})
     for lo, hi in zip(bounds, bounds[1:]):
-        if lo == split_at and poke is not None:
-            poke(job)
+        if pokes.get(lo) is not None:
+            pokes[lo](job)
         job.process_packed_batch(x[lo:hi], y[lo:hi], op[lo:hi])
     report = job.terminate()
     if device == "cuda":
@@ -3916,6 +3955,623 @@ def phase_reliable(torch, pa_scan, events):
     return launches
 
 
+# --- checkpoint, supervised recovery and live rescale (phases 34-38) --------
+
+# phase 34: phase 5's stream, its first `records`, checkpointed about
+# `snapshots` times (the interval is the unarmed run's wall over it), a
+# crash in `worker` once the stream reached `crash_at` records
+RECOVERY_RUN = dict(records=20_000, snapshots=20, crash_at=9_000, worker=3, max_restarts=2)
+# a recovered run against the unfaulted one: the JAX suite's limits
+REC_RTOL, REC_ATOL = 1e-5, 1e-6
+# what a snapshot does not carry, in both packages: the spoke-side tallies
+# that fold into the hub statistics at a query or at termination, and the
+# learning-curve points of the fits since a worker's last push, which ride
+# in (and size) its next push. A recovered run loses those counted or
+# fitted between the last fold or push and its snapshot.
+UNSNAPSHOTTED_TALLIES = ("programLaunches", "forecastsServed", "bytesShipped", "bytesOnWire")
+# phase 35: live rescales at these records of the same stream; the snapshot
+# taken at `snapshot_at` restored at `restore_parallelism`; the sparse
+# stream's crash as phase 34's
+RESCALE_RUN = dict(records=20_000, schedule=((7_000, 4), (14_000, 8)), snapshot_at=10_000,
+                   restore_parallelism=4, sparse_snapshots=10)
+# phase 36: phase 28's tenants over their first `records` rows, rescaled
+COHORT_RESCALE = dict(records=5_000, schedule=((2_500, 1), (3_750, 2)))
+# phase 37: phase 24's bench job (Softmax, Synchronous, the SPMD engine) on
+# phase 26's Mesh(8, 2) leading axis, over the bench file's first `rows`
+SPMD_CKPT = dict(rows=20_000, snapshot_at=10_000, block=1_000, batch=256, chain=4,
+                 restore_dp=4)
+# phase 38: steps each trainer takes after the save and the load
+LM_CKPT_STEPS = 2
+
+
+class _FitCounter:
+    """Counts the solo fits (``MLPipeline._fit_impl`` calls) while entered:
+    the launches a per-record PA fit or a sparse fit makes one kernel
+    launch each, whatever reaches the learning curve."""
+
+    def __enter__(self):
+        from omldm_tpu_torch.pipelines.pipeline import MLPipeline
+
+        self.n = 0
+        self._orig = orig = MLPipeline._fit_impl
+
+        def counted(pipe, *a, **k):
+            self.n += 1
+            return orig(pipe, *a, **k)
+
+        MLPipeline._fit_impl = counted
+        return self
+
+    def __exit__(self, *exc):
+        from omldm_tpu_torch.pipelines.pipeline import MLPipeline
+
+        MLPipeline._fit_impl = self._orig
+
+
+def _positions(get_job):
+    """A prediction sink keyed by stream position: {events consumed: value},
+    a replayed forecast's last emission winning (the sinks are
+    at-least-once across a recovery)."""
+    out = {}
+
+    def sink(pred):
+        out[get_job().events_processed] = pred.value
+
+    return out, sink
+
+
+def _timed_saves(manager, rows):
+    """Wrap ``manager.save``: (seconds, bytes) of each snapshot into ``rows``."""
+    import os
+
+    save = manager.save
+
+    def timed(job):
+        t0 = time.perf_counter()
+        path = save(job)
+        rows.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    manager.save = timed
+
+
+def _int_stats(stats, skip=()):
+    return {k: v for k, v in stats.to_dict().items()
+            if isinstance(v, int) and not isinstance(v, bool) and k not in skip}
+
+
+def _same_positions(label, a: dict, b: dict, keys=None):
+    """>= 99% of the forecasts at the same stream positions equal."""
+    keys = sorted(a) if keys is None else keys
+    check(keys and all(k in b for k in keys),
+          f"{label}: the forecast positions differ ({len(a)} / {len(b)})")
+    mism = sum(1 for k in keys if a[k] != b[k])
+    check(mism <= 0.01 * len(keys), f"{label}: {mism} of {len(keys)} forecasts differ")
+    return mism, len(keys)
+
+
+def _job_flats(job):
+    return [p.get_flat_params()[0] for p in _pipelines(job)]
+
+
+def _flats_close(label, a, b, rtol, atol):
+    """Every pipeline's parameters within (rtol, atol); returns (max|d|,
+    bitwise)."""
+    import numpy as np
+
+    check(len(a) == len(b), f"{label}: {len(a)} / {len(b)} pipelines")
+    err = max(float(np.abs(u - v).max()) for u, v in zip(a, b))
+    check(all(np.allclose(u, v, rtol=rtol, atol=atol) for u, v in zip(a, b)),
+          f"{label}: parameters max|d|={err:.3e}")
+    return err, all(np.array_equal(u, v) for u, v in zip(a, b))
+
+
+def _slice_job(device, parallelism=None, ckpt_dir=None, interval_ms=0):
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    cfg = dict(SLICE_CONFIG, parallelism=parallelism or SLICE_CONFIG["parallelism"])
+    if ckpt_dir is not None:
+        cfg.update(checkpointing=True, checkpoint_dir=str(ckpt_dir),
+                   check_interval_ms=int(interval_ms), checkpoint_keep=0)
+    return StreamJob(JobConfig(**cfg), device=device)
+
+
+def _supervised(torch, counts, key, head, ckpt_dir, interval_ms, label, after_records):
+    """One crash-and-recover run on the card: a FaultInjector crash in
+    RECOVERY_RUN's worker once the stream reached ``after_records``,
+    JobSupervisor(max_restarts). ``counts[key]`` is the kernel's launch
+    count; it and the fit counter are set to 0 when the restored
+    incarnation takes over, just before it runs. Returns (supervisor,
+    report, wall, positions, fits and launches of the final incarnation,
+    the save rows)."""
+    from omldm_tpu_torch.runtime.recovery import FaultInjector, JobSupervisor, replayable
+
+    rr = RECOVERY_RUN
+    job = _slice_job("cuda", ckpt_dir=ckpt_dir, interval_ms=interval_ms)
+    saves = []
+    _timed_saves(job.checkpoint_manager, saves)
+    holder = {}
+    positions, sink = _positions(lambda: holder["sup"].job)
+    job.set_sinks(on_prediction=sink)
+    FaultInjector().arm(job, worker_id=rr["worker"],
+                        after_records=after_records // job.config.parallelism)
+
+    def on_failure(record):
+        # the final incarnation counts from here
+        fits.n = counts[key] = 0
+        _timed_saves(holder["sup"].job.checkpoint_manager, saves)
+
+    with _FitCounter() as fits:
+        sup = holder["sup"] = JobSupervisor(job, replayable(lambda: head),
+                                            max_restarts=rr["max_restarts"],
+                                            on_failure=on_failure)
+        t0 = time.perf_counter()
+        report = sup.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    final_fits, launched = fits.n, counts[key]
+    check(len(sup.failures) == 1 and sup.failures[0].restored_from is not None,
+          f"{label}: failures {sup.failures}")
+    check(sup.job.events_processed == len(head), f"{label}: the final incarnation stopped at "
+          f"{sup.job.events_processed} of {len(head)} events")
+    return sup, report, wall, positions, final_fits, launched, saves
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else 0.0
+
+
+def phase_recovery(torch, pa_scan, events, tmp: Path):
+    """Phase 34: phase 5's stream over RECOVERY_RUN's first records on the
+    card, unarmed, then checkpointed (the same statistics and predictions),
+    then checkpointed with a crash and supervised recovery (held to the
+    unfaulted run; pa_scan once a fit of the final incarnation); the
+    snapshot the recovery restored, restored on the CPU and run to the end
+    (held to the card's continuation). Returns the final incarnation's
+    pa_scan launches."""
+    from omldm_tpu_torch.checkpoint import CheckpointManager
+
+    rr = RECOVERY_RUN
+    head = events[: rr["records"] + 1]
+    job = _slice_job("cuda")
+    clean_pos, sink = _positions(lambda: job)
+    job.set_sinks(on_prediction=sink)
+    t0 = time.perf_counter()
+    [clean] = job.run(head).statistics
+    torch.cuda.synchronize()
+    unarmed_wall = time.perf_counter() - t0
+    clean_flats = _job_flats(job)
+    interval_ms = max(1, int(unarmed_wall * 1000 / rr["snapshots"]))
+
+    armed = _slice_job("cuda", ckpt_dir=tmp / "armed", interval_ms=interval_ms)
+    saves = []
+    _timed_saves(armed.checkpoint_manager, saves)
+    armed_pos, sink = _positions(lambda: armed)
+    armed.set_sinks(on_prediction=sink)
+    t0 = time.perf_counter()
+    [armed_stats] = armed.run(head).statistics
+    torch.cuda.synchronize()
+    armed_wall = time.perf_counter() - t0
+    n_saves = len(saves)
+    log(f"recovery: {n_saves} snapshots at check_interval_ms {interval_ms} over "
+        f"{rr['records']} records")
+    check(10 <= n_saves <= 40, f"recovery: {n_saves} snapshots, expected 10-40")
+    check(_int_stats(armed_stats) == _int_stats(clean),
+          f"recovery: checkpointing changed a statistic: {_stat_diff(clean, armed_stats)}")
+    check(armed_pos == clean_pos, "recovery: checkpointing changed a prediction")
+
+    sup, report, wall, positions, fits, launched, fsaves = _supervised(
+        torch, vars(pa_scan), "launches", head, tmp / "faulted", interval_ms, "recovery",
+        rr["crash_at"])
+    [stats] = report.statistics
+    failure = sup.failures[0]
+    want, got = _int_stats(clean, UNSNAPSHOTTED_TALLIES), _int_stats(stats, UNSNAPSHOTTED_TALLIES)
+    check(got == want, f"recovery: statistics differ from the unfaulted run: "
+          f"{ {k: (want[k], got[k]) for k in want if want[k] != got.get(k)} }")
+    check(stats.fitted == clean.fitted, "recovery: fitted differs from the unfaulted run")
+    err, bitwise = _flats_close("recovery[vs unfaulted]", _job_flats(sup.job), clean_flats,
+                                REC_RTOL, REC_ATOL)
+    mism, total = _same_positions("recovery[last emissions vs unfaulted]", clean_pos, positions)
+    check(launched == fits > 0, f"recovery: pa_scan launches {launched} != fits {fits} of the "
+          "final incarnation")
+    tallies = {k: (clean.to_dict()[k], stats.to_dict()[k]) for k in UNSNAPSHOTTED_TALLIES}
+
+    # the snapshot the recovery restored, on the card and on the CPU
+    t0 = time.perf_counter()
+    CheckpointManager(str(tmp / "faulted"), device="cuda").restore(path=failure.restored_from)
+    torch.cuda.synchronize()
+    restore_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_job = CheckpointManager(str(tmp / "faulted"), device="cpu").restore(
+        path=failure.restored_from)
+    restore_cpu_s = time.perf_counter() - t0
+    offset = cpu_job.events_processed
+    cpu_pos, sink = _positions(lambda: cpu_job)
+    cpu_job.set_sinks(on_prediction=sink)
+    [cpu_stats] = cpu_job.run(head[offset:]).statistics
+    check(_int_stats(cpu_stats) == _int_stats(stats),
+          f"recovery[cpu continuation]: statistics differ: {_stat_diff(stats, cpu_stats)}")
+    cmism, ctotal = _same_positions("recovery[cpu continuation]", cpu_pos, positions)
+    cerr = max(float(abs(a - b).max()) for a, b in zip(_job_flats(cpu_job), _job_flats(sup.job)))
+    check(all(p.device.type == "cpu" for pipe in _pipelines(cpu_job)
+              for p in pipe.state["params"].values()), "recovery: the CPU restore is not on cpu")
+    line = {
+        "records": rr["records"], "parallelism": SLICE_CONFIG["parallelism"],
+        "check_interval_ms": interval_ms, "snapshots": n_saves,
+        "save_s_median": _median([s for s, _ in saves + fsaves]),
+        "snapshot_bytes_median": _median([b for _, b in saves + fsaves]),
+        "restore_s": {"cuda": restore_card_s, "cpu": restore_cpu_s},
+        "records_per_s": {"unarmed": len(head) / unarmed_wall, "checkpointed": len(head) / armed_wall,
+                          "crash_and_recovery": len(head) / wall},
+        "checkpointed_over_unarmed": unarmed_wall / armed_wall,
+        "failure": {"offset": failure.offset, "kind": failure.kind,
+                    "restored_offset": offset},
+        "params_vs_unfaulted": {"max_abs_diff": err, "bitwise": bitwise},
+        "last_emissions_differ": [mism, total], "unsnapshotted_tallies": tallies,
+        "pa_scan_launches_final_incarnation": launched, "fits_final_incarnation": fits,
+        "cpu_continuation": {"events": len(head) - offset, "forecasts_differ": [cmism, ctotal],
+                             "params_max_abs_diff": cerr},
+    }
+    log("recovery: " + json.dumps(line))
+    return launched
+
+
+def _rescale_run(torch, head, device, schedule):
+    """The slice's job over ``head`` with ``rescale(n)`` after each
+    (records, n) of ``schedule``; returns (job, report, positions, seconds
+    of each rescale call to a synchronize)."""
+    job = _slice_job(device)
+    pos, sink = _positions(lambda: job)
+    job.set_sinks(on_prediction=sink)
+    prev, rescale_s = 0, []
+    for at, n in schedule:
+        job.run(head[prev : at + 1], terminate_on_end=False)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        job.rescale(n)
+        _sync(torch, device)
+        rescale_s.append(time.perf_counter() - t0)
+        prev = at + 1
+    report = job.run(head[prev:])
+    _sync(torch, device)
+    return job, report, pos, rescale_s
+
+
+def _card_vs_cpu(label, card, cpu, rtol=W_RTOL, atol=W_ATOL):
+    """(job, report, positions) on the card and the CPU: every integer
+    statistic equal, >= 99% of the forecasts equal, parameters within
+    (rtol, atol). Returns (stats, max|d|, mismatches, forecasts)."""
+    [a], [b] = card[1].statistics, cpu[1].statistics
+    check(_int_stats(a) == _int_stats(b), f"{label}: statistics differ: {_stat_diff(a, b)}")
+    mism, total = _same_positions(label, card[2], cpu[2])
+    err, _ = _flats_close(label, _job_flats(card[0]), _job_flats(cpu[0]), rtol, atol)
+    return a, err, mism, total
+
+
+def phase_rescale(torch, pa_scan, sparse, events, sparse_events, tmp: Path):
+    """Phase 35: phase 5's stream over RESCALE_RUN's records at 16 workers
+    rescaled live to 4 and 8 on the card and the CPU; its snapshot at
+    snapshot_at restored at restore_parallelism on both; phase 14's sparse
+    stream over the same records crashed and recovered on the card.
+    Returns the card's launches a path."""
+    from omldm_tpu_torch.checkpoint import CheckpointManager
+
+    rs = RESCALE_RUN
+    head = events[: rs["records"] + 1]
+    with _FitCounter() as fits:
+        pa_scan.launches = 0
+        t0 = time.perf_counter()
+        card = _rescale_run(torch, head, "cuda", rs["schedule"])
+        wall = time.perf_counter() - t0
+    launched = pa_scan.launches
+    check(launched == fits.n > 0, f"rescale: pa_scan launches {launched} != fits {fits.n}")
+    cpu = _rescale_run(torch, head, "cpu", rs["schedule"])
+    stats, err, mism, total = _card_vs_cpu("rescale[16 -> 4 -> 8, cuda vs cpu]", card, cpu)
+    check(stats.rescales_performed == 2 and len(card[0].spokes) == rs["schedule"][-1][1],
+          f"rescale: rescalesPerformed {stats.rescales_performed}")
+    check(stats.score > 0.6, f"rescale: score {stats.score}")
+    plain = _slice_job("cuda")
+    t0 = time.perf_counter()
+    plain.run(head)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    # the snapshot at snapshot_at, restored at another parallelism
+    job = _slice_job("cuda")
+    job.run(head[: rs["snapshot_at"] + 1], terminate_on_end=False)
+    path = CheckpointManager(str(tmp / "rescale"), device="cuda").save(job)
+    restored = {}
+    for device in ("cuda", "cpu"):
+        with _FitCounter() as rfits:
+            pa_scan.launches = 0
+            t0 = time.perf_counter()
+            rjob = CheckpointManager(str(tmp / "rescale"), device=device).restore(
+                path=path, parallelism=rs["restore_parallelism"])
+            restore_s = time.perf_counter() - t0
+            pos, sink = _positions(lambda rjob=rjob: rjob)
+            rjob.set_sinks(on_prediction=sink)
+            report = rjob.run(head[rs["snapshot_at"] + 1 :])
+            if device == "cuda":
+                torch.cuda.synchronize()
+        restored[device] = (rjob, report, pos, restore_s, pa_scan.launches, rfits.n)
+    rlaunched, rfits_n = restored["cuda"][4], restored["cuda"][5]
+    check(rlaunched == rfits_n > 0, f"rescale[restore]: pa_scan launches {rlaunched} != fits "
+          f"{rfits_n}")
+    rstats, rerr, rmism, rtotal = _card_vs_cpu(
+        f"rescale[restore at {rs['restore_parallelism']}, cuda vs cpu]",
+        restored["cuda"][:3], restored["cpu"][:3])
+    check(rstats.rescales_performed == 1 and len(restored["cuda"][0].spokes) ==
+          rs["restore_parallelism"], f"rescale[restore]: {rstats.rescales_performed} rescales")
+
+    # the sparse stream crashed and recovered
+    shead = sparse_events[: rs["records"] + 1]
+    sjob = _slice_job("cuda")
+    spos, sink = _positions(lambda: sjob)
+    sjob.set_sinks(on_prediction=sink)
+    t0 = time.perf_counter()
+    [sclean] = sjob.run(shead).statistics
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    sup, sreport, srec_wall, spositions, sfits, slaunched, ssaves = _supervised(
+        torch, sparse.launches, "scatter_add", shead, tmp / "sparse",
+        max(1, int(swall * 1000 / rs["sparse_snapshots"])), "rescale[sparse recovery]",
+        RECOVERY_RUN["crash_at"])
+    [sstats] = sreport.statistics
+    want = _int_stats(sclean, UNSNAPSHOTTED_TALLIES)
+    got = _int_stats(sstats, UNSNAPSHOTTED_TALLIES)
+    check(got == want, f"rescale[sparse recovery]: statistics differ from the unfaulted run: "
+          f"{ {k: (want[k], got[k]) for k in want if want[k] != got.get(k)} }")
+    serr, sbitwise = _flats_close("rescale[sparse recovery vs unfaulted]", _job_flats(sup.job),
+                                  _job_flats(sjob), REC_RTOL, REC_ATOL)
+    smism, stotal = _same_positions("rescale[sparse last emissions]", spos, spositions)
+    check(slaunched == sfits > 0, f"rescale[sparse recovery]: scatter_add launches {slaunched} "
+          f"!= fits {sfits}")
+    line = {
+        "records": rs["records"], "schedule": [list(s) for s in rs["schedule"]],
+        "records_per_s": {"rescaled": len(head) / wall, "unrescaled": len(head) / plain_wall},
+        "rescaled_over_unrescaled_wall": wall / plain_wall, "rescale_s": card[3],
+        "cuda_vs_cpu": {"params_max_abs_diff": err, "forecasts_differ": [mism, total]},
+        "pa_scan_launches": launched, "fits": fits.n,
+        "restore_at": {"parallelism": rs["restore_parallelism"], "snapshot_at": rs["snapshot_at"],
+                       "restore_s": {d: restored[d][3] for d in restored},
+                       "pa_scan_launches": rlaunched, "fits": rfits_n,
+                       "cuda_vs_cpu": {"params_max_abs_diff": rerr,
+                                       "forecasts_differ": [rmism, rtotal]}},
+        "sparse_recovery": {"snapshots": len(ssaves), "failure_offset": sup.failures[0].offset,
+                            "save_s_median": _median([s for s, _ in ssaves]),
+                            "snapshot_bytes_median": _median([b for _, b in ssaves]),
+                            "records_per_s": {"unfaulted": len(shead) / swall,
+                                              "crash_and_recovery": len(shead) / srec_wall},
+                            "params_vs_unfaulted": {"max_abs_diff": serr, "bitwise": sbitwise},
+                            "last_emissions_differ": [smism, stotal],
+                            "scatter_add_launches_final_incarnation": slaunched,
+                            "fits_final_incarnation": sfits},
+    }
+    log("rescale: " + json.dumps(line))
+    return {"rescale": launched, "restore_at_4": rlaunched, "sparse_recovery": slaunched}
+
+
+def phase_rescale_cohort(torch, pa_scan, seed):
+    """Phase 36: phase 28's tenants over COHORT_RESCALE's first rows at 2
+    workers, rescaled live to 1 and back to 2, on the card (one batched
+    pa_scan launch a gang step, no solo launch) and the CPU (held to the
+    card). Returns the card's batched launches."""
+    r, cr = MT_RUN, COHORT_RESCALE
+    x, y, op = mt_stream(r["records"], seed)
+    n = cr["records"]
+    x, y, op = x[:n], y[:n], op[:n]
+    pokes = {at: (lambda job, k=k: job.rescale(k)) for at, k in cr["schedule"]}
+    _mt_reset(pa_scan)
+    card = _mt_job(torch, x, y, op, "cuda", "auto", r["nets"], pokes=pokes)
+    counts = _mt_counts(pa_scan)
+    check(counts["pa_scan"] == 0 and counts["pa_scan_batched"] == counts["gang_steps"] > 0,
+          f"rescale-cohort: launches {counts}: one batched pa_scan a gang step, no solo launch")
+    cohorts = [c for s in card[0].spokes for c in s.cohorts.cohorts.values()]
+    check(len(card[0].spokes) == cr["schedule"][-1][1] and len(cohorts) == len(card[0].spokes)
+          and all(c.n_active == r["nets"] and c.use_vmap for c in cohorts),
+          "rescale-cohort: expected one vmap cohort of every tenant a spoke")
+    stats = card[1].statistics
+    check(all(s.rescales_performed == 2 for s in stats) and min(s.score for s in stats) > 0.6,
+          "rescale-cohort: rescalesPerformed or holdout accuracy off")
+    cpu = _mt_job(torch, x, y, op, "cpu", "auto", r["nets"], pokes=pokes)
+    mism, total, worst = _compare_jobs("rescale-cohort[cuda vs cpu]", card[:2], cpu[:2])
+    log("rescale-cohort: " + json.dumps({
+        "records": n, "tenants": r["nets"], "schedule": [list(s) for s in cr["schedule"]],
+        "records_per_s": {"cuda": n / card[2], "cpu": n / cpu[2]}, "launches": counts,
+        "cuda_vs_cpu": {"forecasts_differ": [mism, total], "params_max_rel_diff": worst},
+    }))
+    return counts["pa_scan_batched"]
+
+
+def _spmd_ckpt_job(device, parallelism):
+    """Phase 24's bench job (Softmax, Synchronous, the SPMD engine) at
+    SPMD_CKPT's batch and chain with hubParallelism 2 and ``parallelism``
+    workers: on phase 26's mesh leading axis at parallelism 8."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    s = SPMD_CKPT
+    create = {
+        "id": 0, "request": "Create",
+        "learner": {"name": "Softmax", "hyperParameters": {"learningRate": 0.05, "nClasses": 2},
+                    "dataStructure": {"nFeatures": BENCH_JOB["dim"]}},
+        "preProcessors": [],
+        "trainingConfiguration": {"protocol": "Synchronous", "engine": "spmd",
+                                  "hubParallelism": SPMD_MESH[1],
+                                  "extra": {"stageChain": s["chain"]}},
+    }
+    job = StreamJob(JobConfig(parallelism=parallelism, batch_size=s["batch"]), device=device)
+    job.process_event("requests", json.dumps(create))
+    return job
+
+
+def _concat(tree):
+    """Every leaf of a tree, flattened and concatenated in the port's leaf
+    order."""
+    import numpy as np
+
+    from omldm_tpu_torch.models.transformer import tree_leaves
+
+    return np.concatenate([np.asarray(v).reshape(-1) for v in tree_leaves(tree)])
+
+
+def phase_spmd_ckpt(torch, bench_path: Path, tmp: Path):
+    """Phase 37: the bench job on Mesh(8, 2) over the bench file's first
+    rows, a snapshot halfway: the same-mesh restore continues to the
+    uninterrupted run's counters and parameters; a restore at dp 4 seeds
+    the mean of the saved replicas, on the card and the CPU equal; the
+    trainer's save/load round trip is bitwise."""
+    import pickle
+
+    import numpy as np
+
+    from omldm_tpu_torch.checkpoint import CheckpointManager
+    from omldm_tpu_torch.models.transformer import tree_leaves
+    from omldm_tpu_torch.parallel.spmd import SPMDTrainer
+    from omldm_tpu_torch.runtime import spmd_bridge
+    from omldm_tpu_torch.runtime.job import PACKED_STREAM
+
+    s = SPMD_CKPT
+    with open(bench_path) as f:
+        rows = [json.loads(line) for _, line in zip(range(s["rows"]), f)]
+    x = np.array([r["numericalFeatures"] for r in rows], np.float32)
+    y = np.array([r["target"] for r in rows], np.float32)
+    op = np.zeros((x.shape[0],), np.uint8)
+    b = s["block"]
+    blocks = [(PACKED_STREAM, (x[i:i + b], y[i:i + b], op[i:i + b]))
+              for i in range(0, x.shape[0], b)]
+    half = s["snapshot_at"] // b
+    slots = spmd_bridge.device_slots
+    # phase 26's mesh: 8 dp workers and 2 hub shards, as leading axes
+    spmd_bridge.device_slots = lambda device: SPMD_MESH[0] * SPMD_MESH[1]
+    try:
+        job = _spmd_ckpt_job("cuda", SPMD_MESH[0])
+        trainer = job.spmd_bridges[0].trainer
+        check((trainer.dp, trainer.hub) == SPMD_MESH,
+              f"spmd-ckpt: mesh {(trainer.dp, trainer.hub)}")
+        job.run(blocks[:half], terminate_on_end=False)
+        directory = str(tmp / "spmd_ckpt")
+        t0 = time.perf_counter()
+        path = CheckpointManager(directory, device="cuda").save(job)
+        save_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            saved = pickle.load(f)["bridges"][0]["fleet"]["params"]
+        [whole] = job.run(blocks[half:]).statistics
+        whole_fleet = trainer.fleet_numpy()
+
+        same = CheckpointManager(directory, device="cuda").restore(path=path)
+        [cont] = same.run(blocks[half:]).statistics
+        check(_int_stats(cont) == _int_stats(whole),
+              f"spmd-ckpt[same mesh]: counters differ: {_stat_diff(whole, cont)}")
+        cont_fleet = same.spmd_bridges[0].trainer.fleet_numpy()
+        same_err = float(np.abs(_concat(cont_fleet["params"]) -
+                                _concat(whole_fleet["params"])).max())
+        check(np.allclose(_concat(cont_fleet["params"]), _concat(whole_fleet["params"]),
+                          rtol=W_RTOL, atol=W_ATOL)
+              and all(np.array_equal(cont_fleet[k], whole_fleet[k]) for k in ("step", "syncs")),
+              f"spmd-ckpt[same mesh]: fleet differs (params max|d|={same_err:.3e})")
+
+        seeded = {}
+        for device in ("cuda", "cpu"):
+            r = CheckpointManager(directory, device=device).restore(
+                path=path, parallelism=s["restore_dp"])
+            t = r.spmd_bridges[0].trainer
+            check((t.dp, t.hub) == (s["restore_dp"], SPMD_MESH[1]),
+                  f"spmd-ckpt[dp {s['restore_dp']}, {device}]: mesh {(t.dp, t.hub)}")
+            got = t.fleet_numpy()["params"]
+            for leaf, g in zip(tree_leaves(saved), tree_leaves(got)):
+                mean = leaf[:, 0].mean(axis=0)
+                check(np.allclose(g, np.broadcast_to(mean, g.shape), rtol=1e-6, atol=1e-7),
+                      f"spmd-ckpt[dp {s['restore_dp']}, {device}]: the params are not the "
+                      "mean of the saved replicas")
+            seeded[device] = (r, _concat(got))
+        dp_err = float(np.abs(seeded["cuda"][1] - seeded["cpu"][1]).max())
+        check(dp_err <= W_ATOL, f"spmd-ckpt[dp {s['restore_dp']}]: card and CPU seed "
+              f"differently ({dp_err:.3e})")
+        ran = {d: r.run(blocks[half:]).statistics[0] for d, (r, _) in seeded.items()}
+        check(_int_stats(ran["cuda"]) == _int_stats(ran["cpu"]),
+              f"spmd-ckpt[dp {s['restore_dp']}, cuda vs cpu]: "
+              f"{_stat_diff(ran['cuda'], ran['cpu'])}")
+        fa, fb = (seeded[d][0].spmd_bridges[0].trainer.global_flat_params() for d in ("cuda", "cpu"))
+        run_err = float(np.abs(fa - fb).max())
+        check(np.allclose(fa, fb, rtol=W_RTOL, atol=W_ATOL),
+              f"spmd-ckpt[dp {s['restore_dp']}, cuda vs cpu]: params max|d|={run_err:.3e}")
+
+        t0 = time.perf_counter()
+        trainer.save(str(tmp / "spmd_trainer"))
+        tsave_s = time.perf_counter() - t0
+        request = job.spmd_bridges[0].request
+        other = SPMDTrainer(request.learner, request.preprocessors or (), dim=trainer.dim,
+                            protocol=trainer.protocol, mesh=trainer.mesh,
+                            training_configuration=trainer.tc, batch_size=trainer.batch_size)
+        t0 = time.perf_counter()
+        other.load(str(tmp / "spmd_trainer"))
+        torch.cuda.synchronize()
+        tload_s = time.perf_counter() - t0
+        check(all(torch.equal(v, other.state[k]) for k, v in trainer.state.items()
+                  if isinstance(v, torch.Tensor)), "spmd-ckpt: SPMDTrainer save/load not bitwise")
+    finally:
+        spmd_bridge.device_slots = slots
+    log("spmd-ckpt: " + json.dumps({
+        "rows": s["rows"], "mesh": list(SPMD_MESH), "snapshot_at": s["snapshot_at"],
+        "job_save_s": save_s, "same_mesh": {"params_max_abs_diff": same_err,
+                                            "fitted": cont.fitted},
+        "restore_dp": s["restore_dp"], "dp_seed_cuda_vs_cpu_max_abs_diff": dp_err,
+        "dp_run_cuda_vs_cpu_max_abs_diff": run_err,
+        "trainer_save_s": tsave_s, "trainer_load_s": tload_s, "trainer_roundtrip": "bitwise",
+    }))
+
+
+def phase_lm_ckpt(torch, attention, trainer, seed, tmp: Path):
+    """Phase 38: phase 9's trainer saved; a fresh SeqTrainer (another seed)
+    loads it (bitwise), both take LM_CKPT_STEPS steps; the loaded one
+    launches each flash kernel n_layers x steps times. Returns its
+    launches."""
+    import os
+
+    from omldm_tpu_torch.models.transformer import tree_leaves
+
+    cfg = trainer.cfg
+    tok, tgt, mask = copy_task_batches(LM_CKPT_STEPS, LM_BATCH, LM_LEN, cfg.vocab_size, seed + 1)
+    t0 = time.perf_counter()
+    trainer.save(str(tmp / "lm"))
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(tmp / "lm" / f) for f in os.listdir(tmp / "lm"))
+    fresh = _lm_trainer(seed + 1, **LM_CONFIG)
+    t0 = time.perf_counter()
+    fresh.load(str(tmp / "lm"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(fresh.fitted == trainer.fitted, "lm-ckpt: fitted token count differs after the load")
+    pairs = list(zip(tree_leaves(trainer.params) + tree_leaves(trainer.opt),
+                     tree_leaves(fresh.params) + tree_leaves(fresh.opt)))
+    check(all(a.device == b.device and torch.equal(a, b) for a, b in pairs),
+          "lm-ckpt: the loaded state is not the saved one")
+    la = trainer.step_many(tok, tgt, mask).float().cpu()
+    for name in attention.launches:
+        attention.launches[name] = 0
+    lb = fresh.step_many(tok, tgt, mask).float().cpu()
+    torch.cuda.synchronize()
+    launches = dict(attention.launches)
+    want = cfg.n_layers * LM_CKPT_STEPS
+    for name, n in launches.items():
+        check(n == want, f"lm-ckpt: {name} launched {n} times by the loaded trainer, "
+              f"expected {want}")
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(tree_leaves(trainer.params), tree_leaves(fresh.params)))
+    bitwise = err == 0.0 and torch.equal(la, lb)
+    check(err <= LM_PARITY_ATOL, f"lm-ckpt: parameters after {LM_CKPT_STEPS} steps differ by "
+          f"{err:.3e}")
+    log("lm-ckpt: " + json.dumps({
+        "save_s": save_s, "load_s": load_s, "snapshot_bytes": n_bytes,
+        "steps_after": LM_CKPT_STEPS, "losses": {"saved": la.tolist(), "loaded": lb.tolist()},
+        "params_max_abs_diff": err, "bitwise": bitwise, "launches_loaded": launches,
+    }))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4011,6 +4667,9 @@ def main() -> int:
         phase_host_plane_profile(torch, args.seed, {**learner_rows, **protocol_rows},
                                  args.profile)
         lap("host-plane profiles")
+    # checkpoints of phases 34-38 and phase 37's rows of the bench file
+    ckpt_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    ckpt_dir = Path(ckpt_tmp.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
         spmd_dir = Path(tmp)
         bench_path, bench = phase_bench(torch, args.seed, args.bench_records, spmd_dir, card)
@@ -4021,6 +4680,10 @@ def main() -> int:
         spmd_parity_launches = phase_spmd_parity(torch, pa_scan, sparse, args.seed, bench_path,
                                                  spmd_dir)
         lap("spmd-parity")
+        spmd_ckpt_rows = ckpt_dir / "bench_head.jsonl"
+        with open(bench_path) as src, open(spmd_ckpt_rows, "w") as dst:
+            for _, line in zip(range(SPMD_CKPT["rows"]), src):
+                dst.write(line)
         log("spmd: " + json.dumps({
             "bench": bench, "protocols": spmd_rows,
             "pa_scan_launches_spmd_per_record": spmd_pa_launches,
@@ -4044,6 +4707,17 @@ def main() -> int:
     lap("guard cohorts")
     reliable_launches = phase_reliable(torch, pa_scan, events)
     lap("reliable channel")
+    recovery_launches = phase_recovery(torch, pa_scan, events, ckpt_dir)
+    lap("recovery")
+    rescale_launches = phase_rescale(torch, pa_scan, sparse, events, sparse_events, ckpt_dir)
+    lap("rescale")
+    cohort_rescale_launches = phase_rescale_cohort(torch, pa_scan, args.seed)
+    lap("rescale-cohort")
+    phase_spmd_ckpt(torch, spmd_ckpt_rows, ckpt_dir)
+    lap("spmd-ckpt")
+    lm_ckpt_launches = phase_lm_ckpt(torch, attention, trainer, args.seed, ckpt_dir)
+    lap("lm-ckpt")
+    ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
                                                 ("sparse", sparse_events, sparse_wall)):
@@ -4067,6 +4741,9 @@ def main() -> int:
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan"],
             "stream_guarded": guard_launches,
             "reliable_chaos_first_records": reliable_launches,
+            "recovery_final_incarnation": recovery_launches,
+            "rescale_16_4_8": rescale_launches["rescale"],
+            "restored_at_parallelism_4": rescale_launches["restore_at_4"],
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -4083,6 +4760,7 @@ def main() -> int:
             "cohort_specs": specs_launches,
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan_batched"],
             "multi_tenant_guarded_first_records": guard_cohort_launches,
+            "multi_tenant_rescaled_2_1_2": cohort_rescale_launches,
         },
         "max_abs_err": batched_err,
         **batched_times[BATCHED_SHAPES[0]],
@@ -4096,6 +4774,8 @@ def main() -> int:
             "source": "omldm_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": flash_launches[name],
+            "launches_by_path": {"lm": flash_launches[name],
+                                 "lm_loaded_from_checkpoint": lm_ckpt_launches[name]},
             "max_abs_err": flash_err[name],
             **flash_times[(b, lq, h, dh, name)],
         })
@@ -4114,6 +4794,7 @@ def main() -> int:
         "sparse_stream": scatter_launches,
         **{f"spmd_sparse_{route}": n for route, n in spmd_scatter.items()},
         "spmd_card_vs_cpu_dp8": spmd_parity_launches["scatter_add"],
+        "sparse_recovery_final_incarnation": rescale_launches["sparse_recovery"],
     }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

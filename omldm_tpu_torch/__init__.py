@@ -13,7 +13,9 @@ imports). It mirrors the reference's layout and names module by module:
     - ``omldm_tpu_torch.parallel``      the SPMD engine (``SPMDTrainer``, its
                                         mesh) and the sequence-model trainer
     - ``omldm_tpu_torch.runtime``       stream runtime: spokes, hubs, the job,
-                                        the SPMD bridges, ingest, serving
+                                        the SPMD bridges, ingest, serving,
+                                        supervised recovery
+    - ``omldm_tpu_torch.checkpoint``    job snapshots, rescale-merge restore
     - ``omldm_tpu_torch.models``        the transformer LM
     - ``omldm_tpu_torch.ops``           hand-written CUDA kernels (``csrc/``),
                                         the native parser (``ops/native``)

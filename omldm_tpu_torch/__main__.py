@@ -27,11 +27,19 @@ Sources (choose one style):
 Sinks: ``--predictionsOut`` / ``--responsesOut`` / ``--performanceOut``
 write JSON lines to files (default: performance to stdout).
 
+Recovery: ``--checkpointing true --stateBackend DIR --checkInterval MS``
+snapshot the job every MS milliseconds into DIR, and ``--restartAttempts
+N`` (with ``--restartDelayMs``) runs the replay under
+``runtime.recovery.JobSupervisor``: a failure restores the newest snapshot
+and resumes the replay at its event offset (without checkpointing, from
+the start). Either one keeps the file route on the event loop, which
+owns the periodic save.
+
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not
-have (Kafka, the multi-process fleet, supervised restarts, the profiler,
-the XLA compile cache, the sharded ingest plane, JAX-only ``JobConfig``
-fields) raise ``SystemExit`` naming the flag instead of being ignored.
+have (Kafka, the multi-process fleet, the profiler, the XLA compile cache,
+the sharded ingest plane, JAX-only ``JobConfig`` fields) raise
+``SystemExit`` naming the flag instead of being ignored.
 """
 
 from __future__ import annotations
@@ -90,10 +98,6 @@ def refuse_unported(flags: Dict[str, str]) -> None:
     for key, what in UNPORTED_ROUTE_FLAGS.items():
         if key in flags:
             raise SystemExit(f"--{key}: {what} is not ported to omldm_tpu_torch")
-    if int(flags.get("restartAttempts", "0")) > 0:
-        raise SystemExit(
-            "--restartAttempts: supervised recovery is not ported to omldm_tpu_torch"
-        )
 
 
 def combined_events(path: str) -> Iterator[Tuple[str, str]]:
@@ -163,28 +167,51 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _run(job: StreamJob, flags: Dict[str, str]) -> int:
     if "events" in flags:
-        job.run(combined_events(flags["events"]))
+        _run_replay(job, flags, lambda: combined_events(flags["events"]))
         return 0
     if _try_fused_run(job, flags):
         return 0
-    packed = None
-    if TRAINING_STREAM in flags and flags.get("fastIngest", "auto") != "false":
-        packed = _packed_training_source(flags)
-    sources = []
-    for topic in _STREAMS:
-        if topic not in flags:
-            continue
-        if topic == TRAINING_STREAM and packed is not None:
-            sources.append(packed)
-        else:
-            sources.append(file_events(flags[topic], topic))
-    if not sources:
-        raise SystemExit(
-            "no sources: pass --trainingData/--forecastingData/--requests "
-            "<path.jsonl> or --events <combined.jsonl>"
-        )
-    job.run(interleave(*sources))
+
+    def make_events():
+        packed = None
+        if TRAINING_STREAM in flags and flags.get("fastIngest", "auto") != "false":
+            packed = _packed_training_source(flags)
+        sources = []
+        for topic in _STREAMS:
+            if topic not in flags:
+                continue
+            if topic == TRAINING_STREAM and packed is not None:
+                sources.append(packed)
+            else:
+                sources.append(file_events(flags[topic], topic))
+        if not sources:
+            raise SystemExit(
+                "no sources: pass --trainingData/--forecastingData/--requests "
+                "<path.jsonl> or --events <combined.jsonl>"
+            )
+        return interleave(*sources)
+
+    _run_replay(job, flags, make_events)
     return 0
+
+
+def _run_replay(job: StreamJob, flags: Dict[str, str], make_events) -> None:
+    """Replay a deterministic source; ``--restartAttempts N`` opts into
+    supervised recovery (Flink's restart strategy: restore the newest
+    checkpoint -- pass ``--checkpointing true`` for stateful recovery --
+    and resume the replay at the snapshot's event offset)."""
+    attempts = int(flags.get("restartAttempts", "0"))
+    if attempts > 0:
+        from omldm_tpu_torch.runtime.recovery import JobSupervisor, replayable
+
+        JobSupervisor(
+            job,
+            replayable(make_events),
+            max_restarts=attempts,
+            restart_delay_s=float(flags.get("restartDelayMs", "0")) / 1000.0,
+        ).run()
+    else:
+        job.run(make_events())
 
 
 def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
@@ -193,7 +220,8 @@ def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
     requests file first, deploy the Creates at that width, and -- when the
     job then holds one pipeline, on the SPMD engine -- consume the training
     file through the fused C loop (``StreamJob.run_file_fused``) and
-    terminate: True. Otherwise the requests stay processed, the width is
+    terminate: True. Checkpointing and ``--restartAttempts`` keep the
+    file on the event loop: False before anything is read. Otherwise the requests stay processed, the width is
     stashed for the packed route (a sparse job takes the per-record route
     instead), and the event loop resumes: False. The JAX CLI's sharded
     ingest branch is refused at the flags (``--ingest``)."""
@@ -203,6 +231,10 @@ def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
         return False
     if flags.get("fusedIngest", "auto") == "false":
         return False
+    if job.checkpoint_manager is not None:
+        return False  # the event loop owns maybe_save
+    if int(flags.get("restartAttempts", "0")) > 0:
+        return False  # supervised recovery wraps the event loop, not this
     if any(t in flags for t in _STREAMS if t not in (TRAINING_STREAM, REQUEST_STREAM)):
         return False
     spec = _stream_spec(flags)

@@ -6,7 +6,7 @@ fields the port reads. Per-pipeline configuration arrives at runtime inside
 
 ``JobConfig.from_args`` builds a config from CLI flags as the JAX package
 does, with one difference: a flag naming a field of the JAX ``JobConfig``
-that the port does not have (``--meshShape``, ``--checkpointDir``, ...)
+that the port does not have (``--meshShape``, ``--computeDtype``, ...)
 raises ``SystemExit`` naming it, where the JAX package would honour it. The
 port must not quietly run without a knob the reference obeys.
 """
@@ -14,13 +14,14 @@ port must not quietly run without a knob the reference obeys.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any, Mapping
 
 # fields of the JAX package's JobConfig that the port does not have (a
 # literal copy: the port never imports that package)
 JAX_ONLY_FIELDS = (
-    "max_msg_params", "check_interval_ms", "checkpoint_dir", "checkpoint_keep",
-    "request_buffer_cap",
+    "max_msg_params", "request_buffer_cap",
     "blackbox_path", "compute_dtype", "mesh_shape",
 )
 
@@ -49,6 +50,16 @@ class JobConfig:
     test: bool = True
     # Micro-batch size per training step (the learner update's row count).
     batch_size: int = 256
+    # Checkpointing (opt-in in the reference: Job.scala:120,
+    # Checkpointing.scala:9-25; 5000 ms default interval). The directory
+    # defaults to omldm_tpu_checkpoints under the temporary directory.
+    checkpointing: bool = False
+    check_interval_ms: int = 5_000
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "omldm_tpu_checkpoints"))
+    # snapshots retained on disk (oldest pruned after each save); <= 0
+    # keeps everything
+    checkpoint_keep: int = 3
 
     # --- capacity limits (host-side buffering) ---
     # Spoke training-record buffer cap (SpokeLogic.scala:32).
@@ -103,7 +114,6 @@ class JobConfig:
     # Kept so a config written for omldm_tpu constructs here; arming any of
     # them makes StreamJob raise NotImplementedError naming the option
     # (runtime.job.unported_job_options).
-    checkpointing: bool = False
     lifecycle: str = ""
     overload: str = ""
     ingest: str = ""

@@ -5,8 +5,10 @@ mesh: the same loss, the same Adam and the same parameter and optimizer
 trees. Its attention runs the hand-written flash kernels on CUDA (forward,
 dQ and dK/dV) and their plain twins on the CPU.
 
-Not ported yet: the ("dp", "sp", "tp") mesh and expert parallelism, and
-``save``/``load`` (orbax checkpoints).
+``save``/``load`` snapshot ``{params, opt, fitted}`` as a numpy tree
+(``parallel.ckpt``): a trainer saved on the card loads on the CPU and the
+other way round. Not ported yet: the ("dp", "sp", "tp") mesh and expert
+parallelism.
 """
 
 from __future__ import annotations
@@ -118,3 +120,17 @@ class SeqTrainer:
     def host_params(self):
         """The parameter tree as numpy arrays."""
         return params_to_numpy(self.params)
+
+    def save(self, directory: str) -> None:
+        """Snapshot ``{params, opt, fitted}`` into ``directory`` (the
+        trainer-side checkpoint/resume path, SURVEY.md section 7 step 8)."""
+        from omldm_tpu_torch.parallel.ckpt import save_trainer_state
+
+        save_trainer_state(self, directory)
+
+    def load(self, directory: str) -> None:
+        """Restore a :meth:`save` snapshot onto this trainer's device (the
+        same model config)."""
+        from omldm_tpu_torch.parallel.ckpt import load_trainer_state
+
+        load_trainer_state(self, directory)

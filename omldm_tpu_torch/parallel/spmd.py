@@ -52,8 +52,10 @@ computes it and keeps the old values with ``torch.where``, residual
 included.
 
 ``step_many`` and ``step_many_dense`` (one ``lax.scan`` program in the JAX
-package) are loops of steps on the device's stream here. Not ported:
-``save``/``load``.
+package) are loops of steps on the device's stream here. ``save``/``load``
+snapshot the fleet state as a numpy tree in the JAX layout
+(``fleet_numpy``: leaves ``[dp, hub, ...]``, the hub slots equal), through
+``parallel.ckpt``.
 """
 
 from __future__ import annotations
@@ -66,8 +68,11 @@ import torch
 from omldm_tpu_torch.api.requests import LearnerSpec, PreprocessorSpec, TrainingConfiguration
 from omldm_tpu_torch.learners.registry import make_learner
 from omldm_tpu_torch.ops.codec import BYTES_PER_ELEMENT, LEAF_META_BYTES, make_qdq
+from omldm_tpu_torch.models.transformer import tree_map
+from omldm_tpu_torch.parallel.ckpt import load_tree, save_tree, to_host
 from omldm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from omldm_tpu_torch.pipelines.pipeline import _leaves, _rebuild, _tree_map as _map
+from omldm_tpu_torch.pipelines.pipeline import fleet_state_from_numpy
 from omldm_tpu_torch.preprocessors.registry import make_preprocessor
 from omldm_tpu_torch.runtime.messages import comm_codec_name
 from omldm_tpu_torch.utils import batch_valid_counts, resolve_device
@@ -228,6 +233,26 @@ class SPMDTrainer:
         JAX trainer's); the trainer owns it from here on."""
         self.state = state
         self._steps_host = int(state["step"][0])
+
+    def fleet_numpy(self) -> dict:
+        """The fleet state as numpy arrays in the JAX trainer's layout:
+        every leaf ``[dp, hub, ...]``, the hub slots of a worker equal (the
+        JAX package's hub shards hold the same values). The inverse is
+        ``pipelines.pipeline.fleet_state_from_numpy``."""
+
+        def widen(a):
+            return np.ascontiguousarray(
+                np.broadcast_to(a[:, None], (self.dp, self.hub) + a.shape[1:]))
+
+        return tree_map(widen, to_host(self.state))
+
+    def save(self, directory: str) -> None:
+        """Snapshot the full fleet state (SURVEY.md section 7 step 8)."""
+        save_tree(directory, self.fleet_numpy())
+
+    def load(self, directory: str) -> None:
+        """Restore fleet state saved by :meth:`save` (the same mesh shape)."""
+        self.load_state(fleet_state_from_numpy(load_tree(directory), self))
 
     # --- flat layout and the collective ---
 

@@ -12,7 +12,7 @@ SPMD bridges' holdout sets, whose arrays the fused C stages write into.
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Generic, List, Optional, Sequence, Tuple, TypeVar
+from typing import Deque, Generic, Iterable, List, Optional, Sequence, Tuple, TypeVar
 
 import numpy as np
 
@@ -32,6 +32,15 @@ class DataSet(Generic[T]):
             evicted = self._buf.popleft()
         self._buf.append(item)
         return evicted
+
+    def merge(self, others: Iterable["DataSet[T]"]) -> None:
+        """Merge parallel buffers (a shrink rescale, CommonUtils.scala:36-48):
+        this buffer's items, then each other's, keeping the newest
+        ``max_size``."""
+        merged: List[T] = list(self._buf)
+        for other in others:
+            merged.extend(other._buf)
+        self._buf = deque(merged[-self.max_size :])
 
     def __len__(self) -> int:
         return len(self._buf)

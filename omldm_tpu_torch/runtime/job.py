@@ -26,6 +26,14 @@ directions of the in-process hub<->spoke bridge run through a seeded
 channel arms itself to survive it. At stream end the channels quiesce and
 the receive windows hand back what they hold before the termination probe.
 
+With ``JobConfig.checkpointing`` the job snapshots itself every
+``check_interval_ms`` between events (``checkpoint.CheckpointManager``; a
+``runtime.recovery.JobSupervisor`` restores the newest snapshot and resumes
+at its event offset, ``events_processed``). ``rescale(n)`` changes the
+worker count mid-stream: a grow seeds the new replicas from spoke 0's
+model, a shrink merges each retiring spoke into a survivor
+(``Spoke.absorb``).
+
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
 host without a card raises. A ``JobConfig`` that arms a plane the port does
@@ -35,6 +43,7 @@ not have yet raises ``NotImplementedError`` naming it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import sys
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -46,6 +55,7 @@ from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
 from omldm_tpu_torch.api.stats import JobStatistics
+from omldm_tpu_torch.checkpoint import CheckpointManager
 from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
@@ -102,8 +112,6 @@ def unported_job_options(config: JobConfig) -> List[str]:
              if any(part.partition("=")[0].strip() == k for part in spec.split(","))]
     if burst:
         names.append(f"chaos burst keys ({', '.join(burst)}: the overload plane)")
-    if config.checkpointing:
-        names.append("checkpointing")
     return names
 
 
@@ -155,21 +163,8 @@ class StreamJob:
                 self.hub_manager.route, spec, "up", name="spoke>hub")
             self._chaos_down = ChaosChannel.from_spec(
                 self._reply_to_spoke, spec, "down", name="hub>spoke")
-        send_to_hub = (self._chaos_up.send if self._chaos_up is not None
-                       else self.hub_manager.route)
         self.spokes: List[Spoke] = [
-            Spoke(
-                worker_id=i,
-                config=self.config,
-                send_to_hub=send_to_hub,
-                emit_prediction=self._emit_prediction,
-                emit_response=self._route_response_fragment,
-                on_poll=self.stats.mark_activity,
-                device=self.device,
-                note_wire=self._note_wire,
-                emit_predictions=self._emit_predictions,
-            )
-            for i in range(self.config.parallelism)
+            self._spawn_spoke(i) for i in range(self.config.parallelism)
         ]
         self.predictions_trimmed = 0
         self.responses_trimmed = 0
@@ -182,8 +177,59 @@ class StreamJob:
         # pipelines deployed on the SPMD engine instead of the host plane
         self.spmd_bridges: Dict[int, Any] = {}
         self._in_event = False  # inside _toggle_stack
+        # live rescales so far (StreamJob.rescale, or a restore at another
+        # parallelism): every pipeline's report carries the count
+        self.rescales_performed = 0
+        # stream position: events consumed so far. Checkpoints record it so
+        # a supervisor can resume a replayable source at the exact event the
+        # snapshot covers (the role of Flink's source offsets in a
+        # checkpoint barrier; runtime.recovery.JobSupervisor)
+        self.events_processed = 0
+        # an external source's position (e.g. Kafka (topic, partition) ->
+        # next offset): a source that sets it has checkpoints carry it
+        self.source_position: Optional[dict] = None
+        # opt-in periodic checkpointing (Job.scala:120, Checkpointing.scala)
+        self.checkpoint_manager = None
+        if self.config.checkpointing:
+            self.checkpoint_manager = CheckpointManager(
+                self.config.checkpoint_dir, keep=self.config.checkpoint_keep,
+                device=self.device,
+            )
+
+    def _spawn_spoke(self, worker_id: int) -> Spoke:
+        """The one spoke recipe: construction at job init and the spokes a
+        live :meth:`rescale` grow adds share it, so every wiring decision
+        (the chaos route among them) follows the same rule on both paths."""
+        send_to_hub = (self._chaos_up.send if self._chaos_up is not None
+                       else self.hub_manager.route)
+        return Spoke(
+            worker_id=worker_id,
+            config=self.config,
+            send_to_hub=send_to_hub,
+            emit_prediction=self._emit_prediction,
+            emit_response=self._route_response_fragment,
+            on_poll=self.stats.mark_activity,
+            device=self.device,
+            note_wire=self._note_wire,
+            emit_predictions=self._emit_predictions,
+        )
 
     # --- sinks ---
+
+    def set_sinks(
+        self,
+        on_prediction: Optional[Callable[[Prediction], None]] = None,
+        on_response: Optional[Callable[[QueryResponse], None]] = None,
+        on_performance: Optional[Callable[[JobStatistics], None]] = None,
+    ) -> None:
+        """Replace output sinks after construction; only the callbacks
+        passed (not None) are replaced."""
+        if on_prediction is not None:
+            self._on_prediction = on_prediction
+        if on_response is not None:
+            self._on_response = on_response
+        if on_performance is not None:
+            self._on_performance = on_performance
 
     def _trim_emission(self, buf: list, counter: str) -> None:
         """With a sink attached the in-memory lists are mirrors: beyond
@@ -325,6 +371,7 @@ class StreamJob:
         return topo
 
     def _process_event_inner(self, stream: str, payload: Any) -> None:
+        self.events_processed += 1
         if stream == REQUEST_STREAM:
             if isinstance(payload, Request):
                 request = payload
@@ -462,6 +509,83 @@ class StreamJob:
             self.hub_manager.create_hub(request, h, dim)
         self._replay_backlog()
 
+    def rescale(self, n_new: int) -> None:
+        """Live parallelism change, mid-stream, without a restart -- the
+        runtime analogue of the reference's elastic rescale
+        (spokeParallelism bump, wrapper merge and mergingDataBuffers,
+        FlinkSpoke.scala:345-348, SpokeLogic.scala:37-50):
+
+        - grow: new spokes spawn and every live host-plane pipeline deploys
+          on them, each new replica seeded from spoke 0's model;
+        - shrink: retiring spokes merge into survivor ``id % n_new``
+          (``Spoke.absorb``);
+        - every spoke and hub shard learns the new worker count (barrier
+          counts, the termination countdown and score normalization follow
+          ``config.parallelism``).
+
+        SPMD-engine pipelines keep their mesh (dp is bound to the devices,
+        not to the virtual worker count)."""
+        p = len(self.spokes)
+        if n_new == p:
+            return
+        if n_new < 1:
+            raise ValueError(f"parallelism must be >= 1, got {n_new}")
+        self.rescales_performed += 1
+        if n_new > p:
+            for w in range(p, n_new):
+                self.spokes.append(self._spawn_spoke(w))
+            self.config.parallelism = n_new
+            for net_id, request in self.pipeline_manager.node_map.items():
+                if net_id in self.spmd_bridges:
+                    continue
+                dim = self._dims.get(net_id)
+                if dim is None:
+                    continue
+                src = self.spokes[0].nets.get(net_id)
+                deploy = request
+                if src is not None:
+                    # pin the RESOLVED protocol: a pipeline created at
+                    # parallelism 1 was forced to CentralizedTraining
+                    # (FlinkSpoke.scala:213-215); re-resolving at the new
+                    # parallelism would hand the new workers a protocol the
+                    # live hub does not speak
+                    deploy = dataclasses.replace(
+                        request,
+                        training_configuration=dataclasses.replace(
+                            request.training_configuration, protocol=src.protocol),
+                    )
+                for w in range(p, n_new):
+                    self.spokes[w].handle_request(deploy, dim)
+                    dst = self.spokes[w].nets.get(net_id)
+                    if src is None or dst is None:
+                        continue
+                    # seed the new replica from the fleet's current model (a
+                    # fresh init would drag the next average back toward
+                    # it); the deep copy gives it buffers of its own, since
+                    # a fit gives its state up
+                    state = copy.deepcopy(src.pipeline.state)
+                    state["fitted"] = dst.pipeline.state["fitted"]
+                    state["cum_loss"] = dst.pipeline.state["cum_loss"]
+                    dst.pipeline.state = state
+                    # drift baselines, codec streams and the guard's ring
+                    # restart at the seeded model
+                    dst.node.on_model_seeded()
+                    if dst.node.codec is not None:
+                        dst.node.codec.reset_streams()
+                    if dst.pipeline.guard is not None:
+                        dst.pipeline.guard.reseed(dst.pipeline)
+                    # (the lifecycle registry's candidate replicates onto the
+                    # new spoke here: ROADMAP queue 1, item 3)
+        else:
+            survivors, retired = self.spokes[:n_new], self.spokes[n_new:]
+            self.config.parallelism = n_new
+            for r in retired:
+                survivors[r.worker_id % n_new].absorb(r)
+            self.spokes = survivors
+        for spoke in self.spokes:
+            spoke.set_parallelism(n_new)
+        self.hub_manager.set_parallelism(n_new)
+
     def _handle_data(self, inst: DataInstance) -> None:
         self.stats.mark_activity()
         # records are the liveness clock: a silent worker that blocks the
@@ -577,6 +701,8 @@ class StreamJob:
             if self.stats.terminated:
                 break
             self.process_event(stream, payload)
+            if self.checkpoint_manager is not None:
+                self.checkpoint_manager.maybe_save(self)
         if terminate_on_end and not self.stats.terminated:
             return self.terminate()
         return self.performance[-1] if self.performance else None
@@ -610,13 +736,17 @@ class StreamJob:
             self.stats.probe_fired = True
             for spoke in self.spokes:
                 spoke.handle_terminate_probe()
-        # quarantined-record count, mirrored into every pipeline's report
+        # the quarantined-record and rescale counts are job-level, mirrored
+        # into every pipeline's report
         nq = self.dead_letter.record_count
+        nr = self.rescales_performed
         for bridge in self.spmd_bridges.values():
             bridge.handle_terminate_probe()
             bridge_stats = bridge.network_statistics()
             if nq:
                 bridge_stats.update_stats(records_quarantined=nq)
+            if nr:
+                bridge_stats.update_stats(rescales_performed=nr)
             self.stats.add_hub_statistics(bridge.request.id, bridge_stats)
         self.hub_manager.on_terminate()
         for net_id in self.pipeline_manager.live_pipelines:
@@ -624,6 +754,8 @@ class StreamJob:
             if merged is not None:
                 if nq:
                     merged.update_stats(records_quarantined=nq)
+                if nr:
+                    merged.update_stats(rescales_performed=nr)
                 merged.normalize(
                     max(len([k for k in self.hub_manager.hubs if k[0] == net_id]), 1)
                 )

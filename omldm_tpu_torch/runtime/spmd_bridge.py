@@ -23,9 +23,10 @@ dispatch thread trains stage k. A stage goes to the device as a synchronous
 copy from pageable memory, so a stage set is free for the parse thread
 again once the dispatch thread's launch call returns.
 
-Not ported here: the device-resident stage and holdout of the sharded
-ingest plane (``_ResidentIngest``), and the buffer snapshots of
-checkpointing.
+A job checkpoint (``omldm_tpu_torch.checkpoint``) takes a bridge's holdout
+and staged rows through ``snapshot_buffers`` and puts them back with
+``restore_buffers``. Not ported here: the device-resident stage and
+holdout of the sharded ingest plane (``_ResidentIngest``).
 """
 
 from __future__ import annotations
@@ -484,6 +485,25 @@ class SPMDBridge:
                     "SSP flush made no progress draining refused rows"
                 )
 
+    # --- checkpoint buffer snapshot (the sparse bridge overrides it) ---
+
+    def snapshot_buffers(self) -> dict:
+        """Holdout and staged rows for a job checkpoint."""
+        test_x, test_y = self.test_set.arrays()
+        x, y = self._stage.cols
+        return {
+            "test_x": test_x,
+            "test_y": test_y,
+            "stage_x": np.asarray(x[: self._stage_n], np.float32).copy(),
+            "stage_y": np.asarray(y[: self._stage_n], np.float32).copy(),
+        }
+
+    def restore_buffers(self, bd: dict) -> None:
+        if bd["test_x"].shape[0]:
+            self.test_set.append_many(bd["test_x"], bd["test_y"])
+        if bd["stage_x"].shape[0]:
+            self._stage_rows(bd["stage_x"], bd["stage_y"])
+
     # --- fused file ingest (C parse -> holdout -> stage, zero numpy) ---
 
     def supports_fused_ingest(self) -> bool:
@@ -857,6 +877,28 @@ class SparseSPMDBridge(SPMDBridge):
             prev = f + 1
         if prev < n:
             self._train_sparse_rows(*Spoke._dense_rows_to_coo(x[prev:], self.max_nnz), y[prev:])
+
+    def snapshot_buffers(self) -> dict:
+        ti, tv, ty = self.test_set.arrays()
+        si, sv, sy = (c[: self._stage_n].copy() for c in self._stage.cols)
+        return {
+            "sparse": True,
+            "test_i": ti, "test_v": tv, "test_yv": ty,
+            "stage_i": si, "stage_v": sv, "stage_yv": sy,
+            # dense-keyed empties: the dense reader's keys exist
+            "test_x": np.zeros((0, 1), np.float32),
+            "test_y": np.zeros((0,), np.float32),
+            "stage_x": np.zeros((0, 1), np.float32),
+            "stage_y": np.zeros((0,), np.float32),
+        }
+
+    def restore_buffers(self, bd: dict) -> None:
+        if bd.get("test_i") is not None and bd["test_i"].shape[0]:
+            self.test_set.append_many(bd["test_i"], bd["test_v"], bd["test_yv"])
+        if bd.get("stage_i") is not None and bd["stage_i"].shape[0]:
+            # through the stage filler: a snapshot of a larger mesh may carry
+            # more staged rows than this bridge holds, and the overflow trains
+            self._stage_rows(bd["stage_i"], bd["stage_v"], bd["stage_yv"])
 
     def _train_sparse_rows(self, idx, val, y) -> None:
         y = np.clip(np.asarray(y, np.float64), -F32_MAX, F32_MAX).astype(

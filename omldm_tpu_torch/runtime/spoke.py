@@ -36,8 +36,10 @@ streams and asks the hubs for a resync (``_guard_trip``). With the
 reliable channel armed, each net stamps its sends with a per-hub sequence
 number and passes hub messages through a receive window
 (``receive_from_hub``); duplicates and gaps fold into the hub's
-statistics. The overload, lifecycle, telemetry and events branches are not
-ported.
+statistics. A live shrink merges a retiring spoke into a survivor
+(``absorb``: models through the learner's merge, pending rows re-fed,
+holdout and pause buffers merged). The overload, lifecycle, telemetry and
+events branches are not ported.
 """
 
 from __future__ import annotations
@@ -160,6 +162,13 @@ class _PauseBuffer:
         self._rows = 0
         return entries
 
+    def merge(self, others) -> None:
+        """Take over other buffers' entries, oldest first, under this
+        buffer's cap (a shrink rescale)."""
+        for other in others:
+            for entry in other.drain():
+                self.append(entry)
+
 
 class SpokeNet:
     """Per-(spoke, networkId) state: worker node + batcher + holdout set."""
@@ -197,6 +206,12 @@ class SpokeNet:
         # the pipeline's hub statistics at query/terminate
         self.program_launches = 0
         pipeline.on_launch = self._note_launch
+        # set when a shrink rescale merges a retired replica in: the batcher
+        # then holds rows of another spoke's stream, so its pending fill is
+        # no longer a suffix of this spoke's (the JAX package's shared-ingest
+        # grouping skips such nets). Nothing in the port reads it yet: the
+        # reader returns with the shared-ingest grouping
+        self.shared_taint = False
         self.serve_stats = ServeStats()
         # adaptive-batching serving (runtime/serving.py): when armed, this
         # net's forecasts queue here and serve in batched predicts; None
@@ -1155,6 +1170,99 @@ class Spoke:
             # state so the round completes (barrier entries are
             # worker-keyed, so this is idempotent)
             net.node.resend_state()
+
+    # --- live rescale (FlinkSpoke.scala:345-348, SpokeLogic.scala:37-50) ---
+
+    def set_parallelism(self, n_workers: int) -> None:
+        """Propagate a live parallelism change to every hosted node."""
+        for net in self.nets.values():
+            net.node.set_parallelism(n_workers)
+
+    def absorb(self, retired: "Spoke") -> None:
+        """Merge a retiring spoke's state into this one (shrink rescale):
+        model replicas merge through the learner's merge, pending batcher
+        rows re-enter this spoke's batchers, holdout sets interleave, and
+        pre-creation buffers concatenate -- the mergingDataBuffers and
+        wrapper-merge semantics of the reference's rescale path
+        (SpokeLogic.scala:37-50, FlinkSpoke.scala:289-330)."""
+        # pending forecasts on both sides serve before any model merges:
+        # the retiring replicas' models are about to go and the survivors'
+        # to change
+        if retired.serving_plane is not None:
+            retired.serving_plane.flush_all()
+        if self.serving_plane is not None:
+            self.serving_plane.flush_all()
+        # (the overload plane's throttled rows and counters carry over here:
+        # ROADMAP queue 1, item 3)
+        # the retiring spoke's cohorts dissolve (members take their state
+        # back for the merge); the survivors keep theirs, and merge_from
+        # edits flow through the member checkout
+        if retired.cohorts is not None:
+            retired.cohorts.detach_all()
+        self._flush_cohorts()
+        for net_id, rnet in retired.nets.items():
+            snet = self.nets.get(net_id)
+            if snet is None:
+                # this spoke never hosted the pipeline (not the case in a
+                # job-managed rescale): adopt the retiring replica whole
+                rnet.shared_taint = True
+                self.nets[net_id] = rnet
+                if rnet.pipeline.guard is not None:
+                    self._any_guard = True
+                if rnet.serving is not None:
+                    # the retired spoke's plane (flushed above) goes with it
+                    rnet._plane = self._ensure_serving_plane()
+                continue
+            snet.shared_taint = True
+            # pending rows train into the surviving replica: the batcher's
+            # partial fill and any batches a blocking worker held while
+            # waiting on a protocol sync (SyncingWorker._blocked)
+            pending = [rnet.batcher.drain()]
+            for bx, by, bm in getattr(rnet.node, "_blocked", []):
+                valid = np.asarray(bm) > 0.0
+                if rnet.sparse:
+                    bi, bv = bx
+                    pending.append(((np.asarray(bi)[valid], np.asarray(bv)[valid]),
+                                    np.asarray(by)[valid]))
+                else:
+                    pending.append((np.asarray(bx)[valid], np.asarray(by)[valid]))
+            for entry in pending:
+                if entry is None:
+                    continue
+                px, py = entry
+                if rnet.sparse:
+                    for i in range(py.shape[0]):
+                        snet.batcher.add((px[0][i], px[1][i]), float(py[i]))
+                        if snet.batcher.full:
+                            snet.flush_batch()
+                else:
+                    i = 0
+                    while i < px.shape[0]:
+                        i += snet.batcher.add_many(px[i:], py[i:])
+                        if snet.batcher.full:
+                            snet.flush_batch()
+            snet.pipeline.merge_from([rnet.pipeline])
+            # the merge replaced the model wholesale: residuals and top-k
+            # bases computed against the pre-merge model are stale, and a
+            # guard rollback must not undo the absorbed replica
+            if snet.node.codec is not None:
+                snet.node.codec.reset_streams()
+            if snet.pipeline.guard is not None:
+                snet.pipeline.guard.reseed(snet.pipeline)
+            # (the retiring replica's lifecycle candidate retires with it and
+            # its counters carry over here: ROADMAP queue 1, item 3)
+            # holdout windows interleave, keeping the newest
+            # (CommonUtils.scala:36-48)
+            snet.test_set.merge([rnet.test_set])
+            snet.holdout_count += rnet.holdout_count
+            # records held under a cooperative pause carry over, and drain
+            # at once if the survivor is running
+            snet.pause_buffer.merge([rnet.pause_buffer])
+            if not snet.node.paused:
+                self._drain_pause_buffer(snet)
+        self.record_buffer.merge([retired.record_buffer])
+        self._packed_buffer.merge([retired._packed_buffer])
+        self._poll_counter += retired._poll_counter
 
     def _drain_pause_buffer(self, net: SpokeNet) -> None:
         if net.pause_buffer.is_empty:

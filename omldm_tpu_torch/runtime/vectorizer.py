@@ -131,6 +131,19 @@ class SparseMicroBatcher:
         self._y[self._n] = y
         self._n += 1
 
+    def drain(self):
+        """UNPADDED pending rows ((idx, val), y) and reset; None if empty
+        (a shrink rescale re-feeds them into another batcher)."""
+        if self._n == 0:
+            return None
+        out = ((self._idx[: self._n].copy(), self._val[: self._n].copy()),
+               self._y[: self._n].copy())
+        self._idx[:] = 0
+        self._val[:] = 0.0
+        self._y[:] = 0.0
+        self._n = 0
+        return out
+
     def flush(self):
         """((idx, val), y, mask) padded batch and reset; None if empty."""
         if self._n == 0:
@@ -178,6 +191,15 @@ class MicroBatcher:
             self._y[self._n : self._n + take] = y[:take]
             self._n += take
         return take
+
+    def drain(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The UNPADDED pending rows (x[:n], y[:n]) and reset; None if
+        empty (a shrink rescale re-feeds them into another batcher)."""
+        if self._n == 0:
+            return None
+        out = self._x[: self._n].copy(), self._y[: self._n].copy()
+        self._n = 0
+        return out
 
     def flush(self) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Return the padded (x, y, mask) batch and reset; None if empty."""

@@ -36,6 +36,9 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.databuffers, omldm_tpu_torch.runtime.cohort\n"
         "import omldm_tpu_torch.runtime.codec, omldm_tpu_torch.guard\n"
         "import omldm_tpu_torch.runtime.supervisor, omldm_tpu_torch.runtime.messages\n"
+        "import omldm_tpu_torch.checkpoint, omldm_tpu_torch.runtime.recovery\n"
+        "import omldm_tpu_torch.runtime.selfheal, omldm_tpu_torch.utils.backoff\n"
+        "import omldm_tpu_torch.parallel.ckpt\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -285,7 +288,7 @@ def test_chip_smoke_copy_task_stream():
 @pytest.mark.parametrize("option", [
     {"overload": "on"}, {"lifecycle": "on"},
     {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
-    {"chaos": "seed=1,burst=4"}, {"checkpointing": True},
+    {"chaos": "seed=1,burst=4"}, {"chaos": "seed=1,hotTenant=3"},
 ])
 def test_unported_job_plane_raises(option):
     name = next(iter(option))
@@ -309,7 +312,7 @@ def test_cohort_options_admitted(option):
 
 @pytest.mark.parametrize("option", [
     {"compute_dtype": "bfloat16"}, {"mesh_shape": {"dp": 2, "hub": 1}},
-    {"checkpoint_dir": "ckpt"},
+    {"max_msg_params": 2000},
 ])
 def test_jax_only_job_knobs_do_not_exist(option):
     """Knobs of the JAX JobConfig that the port has no use for are not
@@ -390,9 +393,6 @@ def test_serving_plane_is_ported():
 
 @pytest.mark.parametrize("argv,flag", [
     (["--meshShape", "dp=2,hub=1"], "meshShape"),
-    (["--checkpointDir", "ckpt"], "checkpointDir"),
-    (["--stateBackend", "ckpt"], "stateBackend"),
-    (["--checkInterval", "100"], "checkInterval"),
     (["--computeDtype", "bfloat16"], "computeDtype"),
     (["--maxMsgParams", "2000"], "maxMsgParams"),
     (["--blackboxPath", "bb"], "blackboxPath"),
@@ -401,7 +401,6 @@ def test_serving_plane_is_ported():
     (["--processId", "0"], "processId"),
     (["--coordinator", "localhost:1234"], "coordinator"),
     (["--supervise"], "supervise"),
-    (["--restartAttempts", "2"], "restartAttempts"),
     (["--profileDir", "prof"], "profileDir"),
     (["--compileCache", "off"], "compileCache"),
     (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
@@ -416,6 +415,30 @@ def test_cli_refuses_unported_flags(argv, flag, tmp_path):
     train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
     with pytest.raises(SystemExit, match=flag):
         main(["--trainingData", str(train), "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--checkpointDir", "{tmp}/a"], ["--stateBackend", "{tmp}/b"],
+    ["--checkInterval", "100"], ["--checkpointKeep", "2"],
+    ["--restartAttempts", "2"], ["--restartAttempts", "1", "--restartDelayMs", "5"],
+    ["--checkpointing", "true", "--stateBackend", "{tmp}/c", "--checkInterval", "0"],
+])
+def test_cli_accepts_recovery_flags(argv, tmp_path):
+    """Checkpointing and supervised recovery are ported: their flags set the
+    JobConfig fields (the JAX names) and the job runs."""
+    from omldm_tpu_torch.__main__ import main
+
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    train = tmp_path / "t.jsonl"
+    train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
+    assert main(["--trainingData", str(train), "--device", "cpu", *argv,
+                 "--performanceOut", str(tmp_path / "perf.jsonl")]) == 0
+    cfg = JobConfig.from_args({a[2:]: b for a, b in zip(argv[::2], argv[1::2])})
+    if "--stateBackend" in argv:
+        assert cfg.checkpoint_dir == argv[argv.index("--stateBackend") + 1]
+    if "--checkpointing" in argv:
+        assert cfg.checkpointing and cfg.check_interval_ms == 0
+        assert any(f.startswith("ckpt_") for f in os.listdir(tmp_path / "c"))
 
 
 def test_cli_accepts_zero_restart_attempts(tmp_path):
@@ -739,3 +762,32 @@ def test_chip_smoke_spmd_shapes():
     assert (tc["engine"], tc["stageChain"], tc["syncEvery"], tc["perRecord"]) == ("spmd", 4, 4, True)
     ds = chip_smoke.SPMD_CHECK_LEARNERS["sparse_pa2"][0]["dataStructure"]
     assert (ds["nFeatures"], ds["scatterImpl"]) == (chip_smoke.CRITEO_DIM, "scatter")
+
+
+@pytest.mark.parametrize("phase", [
+    "phase_recovery", "phase_rescale", "phase_rescale_cohort", "phase_spmd_ckpt",
+    "phase_lm_ckpt",
+])
+def test_chip_smoke_has_the_recovery_phases(phase):
+    chip_smoke = _chip_smoke()
+    assert callable(getattr(chip_smoke, phase))
+    assert f"{phase}(" in (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+
+
+def test_chip_smoke_recovery_shapes():
+    """Phases 34-38 run phase 5's stream over its first 20,000 records at 16
+    workers (a crash at 9,000; rescales to 4 and 8; a snapshot at 10,000
+    restored at 4), phase 28's tenants over 5,000 rows (2 -> 1 -> 2) and
+    phase 26's Mesh(8, 2); what no snapshot carries is named, and nothing
+    else escapes the recovered-against-unfaulted check."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.RECOVERY_RUN == dict(records=20_000, snapshots=20, crash_at=9_000,
+                                           worker=3, max_restarts=2)
+    assert chip_smoke.RESCALE_RUN["schedule"] == ((7_000, 4), (14_000, 8))
+    assert (chip_smoke.RESCALE_RUN["snapshot_at"],
+            chip_smoke.RESCALE_RUN["restore_parallelism"]) == (10_000, 4)
+    assert chip_smoke.COHORT_RESCALE == dict(records=5_000, schedule=((2_500, 1), (3_750, 2)))
+    assert chip_smoke.SPMD_CKPT["rows"] == 20_000 and chip_smoke.SPMD_MESH == (8, 2)
+    assert set(chip_smoke.UNSNAPSHOTTED_TALLIES) == {
+        "programLaunches", "forecastsServed", "bytesShipped", "bytesOnWire"}
+    assert (chip_smoke.REC_RTOL, chip_smoke.REC_ATOL) == (1e-5, 1e-6)
