@@ -300,6 +300,49 @@ Phases (any failure raises and the script exits nonzero without a result):
                  within LM_PARITY_ATOL (printed), the loaded trainer
                  launches each flash kernel n_layers x 2 times; save and
                  load seconds and bytes.
+ 39. overload    the JAX package's overload smoke (protocol_comparison.py
+                 run_overload_one): 64 PA tenants (C 1.0, Asynchronous,
+                 syncEvery 4, serving maxBatch 64 maxDelayMs 500), cohorts
+                 off, parallelism 1, batch 256, test off, OVERLOAD_SPEC,
+                 OVERLOAD_RUN's 4,096 rows of its _mt_stream (28 features)
+                 50/50 forecast and train through the record route, a
+                 no-burst leg and a burst leg (a 10x forecast flood at
+                 tenant 0 through the middle half), paired up to 3 times:
+                 its gates (the hot tenant sheds and throttles, the level
+                 peaks at CRITICAL and returns to OK; no healthy tenant
+                 sheds and they serve what the no-burst leg serves; the
+                 healthy p99 within 500 ms and 1.5x the no-burst leg's;
+                 nothing stranded in queue_depths; the healthy throughput
+                 ratio, best of the trials, reported and held to 0.9); the
+                 two legs on the first 1,024 rows on the card and the CPU:
+                 per-tenant forecastsShed, recordsThrottled and the
+                 dead-letter counts by reason equal; then phase 28's 64
+                 perRecord tenants on their first 5,000 rows, cohorts on,
+                 with the plane armed at its defaults and unarmed: every
+                 prediction bitwise equal, one batched pa_scan launch a
+                 gang step and no solo launch, records/s of each; then
+                 phase 14's sparse learner through the armed admission on
+                 its first 2,000 records: scatter_add once a fit.
+ 40. lifecycle   the JAX package's lifecycle smoke (run_lifecycle_one) on
+                 LIFECYCLE_RUN's 6,144 rows of the same stream, 50/50,
+                 parallelism 1, batch 64, test on, PA C 1.0 with perRecord
+                 (every fit a pa_scan launch), four legs: off; healthy
+                 (Shadow PA C 0.5, Promote; it must promote: active
+                 version 1, shadowScored >= 2, no rollback); hold (never
+                 promotes); poison (the candidate blown up at row 1,024:
+                 rolled back, active version 0, no promotion); no leg loses
+                 a forecast, and in hold and poison every untagged
+                 prediction is bitwise the off leg's at the same position;
+                 pa_scan once an active fit plus once a candidate fit (two
+                 a flush while a candidate trains); the healthy leg on the
+                 card and the CPU (the promotion at the same forecast, the
+                 version tags equal, >= 99% of predictions equal); a
+                 snapshot mid-canary restored on the card and with
+                 device="cpu" reaches the same promotion at the same
+                 forecast; records/s of healthy and hold against off, the
+                 device time the candidate adds in the hold leg
+                 (torch.profiler, hold against off), the snapshot's bytes
+                 and its save and restore seconds.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -3358,9 +3401,10 @@ def mt_stream(records: int, seed: int):
 
 def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_record=True,
             serving=True, run=MT_RUN, protocol="Synchronous", guard=False, split_at=None,
-            poke=None, pokes=None):
+            poke=None, pokes=None, overload=""):
     """``nets`` same-spec Creates (every other one serving-armed; with
-    ``guard``, every one guarded), then the rows in packed blocks of
+    ``guard``, every one guarded; ``overload``, the job-wide overload spec),
+    then the rows in packed blocks of
     PACKED_CHUNK (with ``split_at``, a block boundary there too, where
     ``poke(job)`` runs; ``pokes`` maps more rows to their pokes), then
     termination. Returns (job, report, wall seconds)."""
@@ -3368,7 +3412,8 @@ def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_recor
     from omldm_tpu_torch.runtime import StreamJob
 
     job = StreamJob(JobConfig(parallelism=run["parallelism"], batch_size=run["batch"],
-                              test_set_size=run["test_set_size"], cohort=cohort),
+                              test_set_size=run["test_set_size"], cohort=cohort,
+                              overload=overload),
                     device=device)
     t0 = time.perf_counter()
     for pid in range(nets):
@@ -4572,6 +4617,433 @@ def phase_lm_ckpt(torch, attention, trainer, seed, tmp: Path):
     return launches
 
 
+# --- the overload and lifecycle planes (phases 39-40) ---------------------------
+
+# protocol_comparison.py's overload smoke: 64 tenants, a 50/50 per-record
+# stream, the 10x burst at tenant 0 through the middle half of the stream
+OVERLOAD_RUN = dict(tenants=64, records=4_096, parity_records=1_024, batch=256,
+                    test_set_size=64, trials=3)
+OVERLOAD_SPEC = "window=32,share=2,hotHigh=24,hotCritical=48,cool=24"
+OVERLOAD_SERVING = {"maxBatch": 64, "maxDelayMs": 500.0}
+OVERLOAD_BURST = 10
+OVERLOAD_SPARSE_RECORDS = 2_000
+# protocol_comparison.py's lifecycle smoke, with perRecord on the Create
+LIFECYCLE_RUN = dict(records=6_144, batch=64, test_set_size=64, poison_at=1_024,
+                     snapshot_at=768)
+LIFECYCLE_SPEC = {"rampFrom": 0.0, "rampTo": 0.5, "rampEvery": 64, "rampStep": 0.125,
+                  "promoteAfter": 128, "shadowEvery": 8, "minShadowEvals": 2,
+                  "scoreEnvelope": 0.05, "seed": 7}
+
+
+def overload_stream(records: int, dim: int = N_FEATURES):
+    """protocol_comparison.py's _mt_stream: standard-normal rows and a
+    planted linear rule (the overload and lifecycle smokes' stream)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    w = np.random.RandomState(42).randn(dim)
+    x = rng.randn(records, dim).astype(np.float32)
+    return x, (x @ w > 0).astype(np.float32)
+
+
+def overload_chaos(records: int) -> str:
+    """The burst window in forecasting records (half the stream): the
+    middle half floods tenant 0."""
+    n_fore = records // 2
+    return (f"seed=7,burst={OVERLOAD_BURST},burstFrom={n_fore // 4},"
+            f"burstLen={n_fore // 2},hotTenant=0")
+
+
+def _feed_5050(job, x, y, lo, hi, before=None):
+    """Rows [lo, hi) as DataInstance events, even rows forecasts, odd rows
+    training; ``before(i)`` runs ahead of row i."""
+    from omldm_tpu_torch.api.data import FORECASTING, DataInstance
+
+    for i in range(lo, hi):
+        if before is not None:
+            before(i)
+        if i % 2 == 0:
+            job.process_event("forecastingData", DataInstance(
+                numerical_features=x[i].tolist(), operation=FORECASTING))
+        else:
+            job.process_event("trainingData", DataInstance(
+                numerical_features=x[i].tolist(), target=float(y[i])))
+
+
+def _overload_job(torch, x, y, burst, device="cuda"):
+    """protocol_comparison.py's run_overload_one on the port: the tenants'
+    Creates, an untimed warm-up of min(512, records / 4) rows, the timed
+    rest, termination. Returns the reference's result row, the per-tenant
+    counters and the job."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    r = OVERLOAD_RUN
+    records = x.shape[0]
+    job = StreamJob(JobConfig(parallelism=1, batch_size=r["batch"],
+                              test_set_size=r["test_set_size"], test=False, cohort="off",
+                              overload=OVERLOAD_SPEC, serving="",
+                              chaos=overload_chaos(records) if burst else ""), device=device)
+    for pid in range(r["tenants"]):
+        create = _create({"name": "PA", "hyperParameters": {"C": 1.0}}, (),
+                         {"protocol": "Asynchronous", "syncEvery": 4,
+                          "serving": OVERLOAD_SERVING}, x.shape[1])
+        create["id"] = pid
+        job.process_event("requests", json.dumps(create))
+    warm = min(512, records // 4)
+    _feed_5050(job, x, y, 0, warm)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _feed_5050(job, x, y, warm, records)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    level_after_feed = job.overload_level()
+    report = job.terminate()
+    by = {s.pipeline: s for s in report.statistics}
+    hot, healthy = by[0], [s for p, s in by.items() if p != 0]
+    served = sum(s.forecasts_served for s in healthy)
+    row = {
+        "burst": bool(burst), "records": records, "elapsed_s": elapsed,
+        "healthy_forecasts_served": served, "healthy_forecasts_per_sec": served / elapsed,
+        "healthy_serve_p99_ms": max((s.serve_latency_p99_ms for s in healthy), default=0.0),
+        "healthy_shed": sum(s.forecasts_shed for s in healthy),
+        "hot_served": hot.forecasts_served, "hot_shed": hot.forecasts_shed,
+        "hot_throttled": hot.records_throttled,
+        "pressure_peak": max(s.pressure_level for s in by.values()),
+        "level_after_feed": level_after_feed,
+        "shed_latency_ms": max(s.shed_latency_ms for s in by.values()),
+        "dead_letter_reasons": dict(job.dead_letter.by_reason),
+        "queue_depths": job.terminate_accounting,
+    }
+    tenants = {p: (s.forecasts_shed, s.records_throttled, s.forecasts_served)
+               for p, s in sorted(by.items())}
+    return row, tenants, job
+
+
+def _overload_gates(base, burst, ratio):
+    """protocol_comparison.py's overload gates (a)-(d); returns failures."""
+    failures = []
+    if burst["hot_shed"] == 0:
+        failures.append("the burst never engaged shedding (hot_shed 0)")
+    if burst["hot_throttled"] == 0:
+        failures.append("the burst never deferred training (hot_throttled 0)")
+    if burst["pressure_peak"] < 2:
+        failures.append(f"the level never reached CRITICAL (peak {burst['pressure_peak']})")
+    if burst["healthy_shed"]:
+        failures.append(f"{burst['healthy_shed']} healthy-tenant forecasts shed")
+    if burst["healthy_forecasts_served"] != base["healthy_forecasts_served"]:
+        failures.append(f"healthy tenants served {burst['healthy_forecasts_served']} under "
+                        f"the burst, {base['healthy_forecasts_served']} without it")
+    budget = OVERLOAD_SERVING["maxDelayMs"]
+    if burst["healthy_serve_p99_ms"] > budget:
+        failures.append(f"healthy serve p99 {burst['healthy_serve_p99_ms']:.3f} ms over the "
+                        f"{budget} ms budget")
+    if burst["healthy_serve_p99_ms"] > 1.5 * base["healthy_serve_p99_ms"]:
+        failures.append(f"healthy serve p99 {burst['healthy_serve_p99_ms']:.3f} ms > 1.5x the "
+                        f"no-burst leg's {base['healthy_serve_p99_ms']:.3f} ms")
+    if ratio < 0.9:
+        failures.append(f"healthy forecast throughput {ratio:.3f}x the no-burst leg's (< 0.9)")
+    if burst["level_after_feed"] != 0:
+        failures.append(f"the level is {burst['level_after_feed']} after the burst, not OK")
+    stranded = {k: v for k, v in burst["queue_depths"].items() if k != "pressure_level" and v}
+    if stranded:
+        failures.append(f"stranded queue rows at terminate: {stranded}")
+    return failures
+
+
+def phase_overload(torch, pa_scan, sparse, seed, sparse_events):
+    """Phase 39. Returns (the quiet-armed leg's batched pa_scan launches,
+    the sparse leg's scatter_add launches)."""
+    import numpy as np
+
+    r = OVERLOAD_RUN
+    x, y = overload_stream(r["records"])
+    # a warm-up job builds the programs and the serving scratch, as the
+    # reference's smoke does, so the first trial's base leg is not the
+    # slower one
+    _overload_job(torch, x[:1024], y[:1024], burst=False)
+    # paired trials until one meets every gate (the reference's best of 3:
+    # the legs' timings are the shared host's); else the best ratio's
+    trials = []
+    for trial in range(r["trials"]):
+        base, _, _ = _overload_job(torch, x, y, burst=False)
+        burst, _, _ = _overload_job(torch, x, y, burst=True)
+        ratio = burst["healthy_forecasts_per_sec"] / max(base["healthy_forecasts_per_sec"], 1e-9)
+        failures = _overload_gates(base, burst, ratio)
+        trials.append((not failures, ratio, base, burst, failures))
+        log(f"overload[trial {trial}]: healthy throughput burst / no-burst {ratio:.4f} "
+            f"({burst['healthy_forecasts_per_sec']:.1f} / {base['healthy_forecasts_per_sec']:.1f}"
+            f" forecasts/s), healthy p99 {burst['healthy_serve_p99_ms']:.3f} / "
+            f"{base['healthy_serve_p99_ms']:.3f} ms, failures {failures}")
+        if not failures:
+            break
+    _, ratio, base, burst, failures = max(trials, key=lambda t: t[:2])
+    log("overload: " + json.dumps({"spec": OVERLOAD_SPEC, "chaos": overload_chaos(r["records"]),
+                                   "healthy_throughput_ratio": ratio, "trials": len(trials),
+                                   "no_burst": base, "burst": burst, "failures": failures}))
+    check(not failures, "overload: " + "; ".join(failures))
+
+    # the shed and throttle schedule: a pure function of the records
+    n = r["parity_records"]
+    sched = {}
+    for device in ("cuda", "cpu"):
+        for burst_on in (False, True):
+            row, tenants, job = _overload_job(torch, x[:n], y[:n], burst_on, device)
+            sched[(device, burst_on)] = (tenants, row["dead_letter_reasons"])
+    for burst_on in (False, True):
+        check(sched[("cuda", burst_on)] == sched[("cpu", burst_on)],
+              f"overload-parity: the {'burst' if burst_on else 'no-burst'} leg's per-tenant "
+              f"shed/throttled/served or dead letters differ between the card and the CPU")
+    tenants, letters = sched[("cuda", True)]
+    check(tenants[0][0] > 0 and letters.get("shed_overload", 0) > 0,
+          "overload-parity: the first rows' burst leg shed nothing")
+    log(f"overload-parity: first {n} rows, both legs, card against CPU: per-tenant "
+        f"forecastsShed, recordsThrottled and forecastsServed equal, dead letters {letters} "
+        f"equal; hot tenant {tenants[0]}")
+
+    # quiet-armed block admission: phase 28's tenants, cohorts on
+    m = MT_RUN["prefix_records"]
+    mx, my, mop = mt_stream(m, seed)
+    runs, walls = {}, {False: [], True: []}
+    for armed in (False, True, True, False):  # in turns: the host drifts
+        _mt_reset(pa_scan)
+        job, report, wall = _mt_job(torch, mx, my, mop, "cuda", "auto", MT_RUN["nets"],
+                                    overload="on" if armed else "")
+        runs[armed] = (job, report, wall, _mt_counts(pa_scan))
+        walls[armed].append(wall)
+    job, _, _, counts = runs[True]
+    check(all(s.overload is not None and s.overload.level_peak == 0 for s in job.spokes),
+          "overload-quiet: the armed controllers flagged uniform traffic")
+    check(counts["pa_scan"] == 0 and counts["pa_scan_batched"] == counts["gang_steps"] > 0,
+          f"overload-quiet: launches {counts}: one batched pa_scan a gang step, no solo launch")
+    check(_by_net(runs[True][0].predictions) == _by_net(runs[False][0].predictions),
+          "overload-quiet: arming the plane changed a prediction")
+    log("overload-quiet: " + json.dumps({
+        "records": m, "tenants": MT_RUN["nets"], "parallelism": MT_RUN["parallelism"],
+        "records_per_s": {"armed": [m / w for w in walls[True]],
+                          "unarmed": [m / w for w in walls[False]]},
+        "armed_over_unarmed": sum(walls[False]) / sum(walls[True]), "launches": {
+            "armed": counts, "unarmed": runs[False][3]},
+        "predictions_bitwise_equal": len(runs[True][0].predictions)}))
+
+    # a sparse net through the armed admission: scatter_add once a fit
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    for name in sparse.launches:
+        sparse.launches[name] = 0
+    job = StreamJob(JobConfig(parallelism=1, batch_size=256, overload="on"), device="cuda")
+    report = job.run(sparse_events[: OVERLOAD_SPARSE_RECORDS + 1])
+    torch.cuda.synchronize()
+    [stats] = report.statistics
+    fits = len(stats.learning_curve)
+    scatter = sparse.launches["scatter_add"]
+    check(job.spokes[0].overload is not None, "overload-sparse: the net is not armed")
+    check(scatter == fits > 0, f"overload-sparse: scatter_add launches {scatter} for {fits} fits")
+    log(f"overload-sparse: phase 14's learner on {OVERLOAD_SPARSE_RECORDS} records, armed: "
+        f"scatter_add launches {scatter} for {fits} fits, score {stats.score:.4f}")
+    return counts["pa_scan_batched"], scatter
+
+
+def _lifecycle_job(x, y, mode, device="cuda", until=None, job=None, start=0,
+                   checkpoint_dir=None):
+    """protocol_comparison.py's run_lifecycle_one on the port, perRecord:
+    ``mode`` off, healthy, hold or poison. ``until`` stops before that row
+    (no termination); ``job`` and ``start`` continue one. Returns (job,
+    active fits counter)."""
+    import numpy as np
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    r = LIFECYCLE_RUN
+    if job is None:
+        spec = dict(LIFECYCLE_SPEC)
+        if mode == "hold":
+            spec["promoteAfter"] = 10 * x.shape[0]
+        extra = {} if checkpoint_dir is None else dict(
+            checkpointing=True, checkpoint_dir=str(checkpoint_dir), check_interval_ms=10 ** 9)
+        job = StreamJob(JobConfig(parallelism=1, batch_size=r["batch"],
+                                  test_set_size=r["test_set_size"], test=True, **extra),
+                        device=device)
+        tc = {"protocol": "Asynchronous", "syncEvery": 4, "perRecord": True}
+        if mode != "off":
+            tc["lifecycle"] = spec
+        job.process_event("requests", json.dumps(_create(
+            {"name": "PA", "hyperParameters": {"C": 1.0}}, (), tc, x.shape[1])))
+        if mode != "off":
+            job.process_event("requests", json.dumps({
+                "id": 0, "request": "Shadow",
+                "learner": {"name": "PA", "hyperParameters": {"C": 0.5},
+                            "dataStructure": {"nFeatures": int(x.shape[1])}}}))
+            job.process_event("requests", json.dumps({"id": 0, "request": "Promote"}))
+    net = job.spokes[0].nets[0]
+    if not hasattr(job, "smoke"):
+        # the active model's fits (every flush reaches the node once) and
+        # the row before which the registry first shows a promotion
+        job.smoke = {"active_fits": 0, "promoted_at_row": None}
+        node_fit = net.node.on_training_batch
+
+        def counted(*a, **k):
+            job.smoke["active_fits"] += 1
+            return node_fit(*a, **k)
+
+        net.node.on_training_batch = counted
+
+    def before(i):
+        if (job.smoke["promoted_at_row"] is None and net.lifecycle is not None
+                and net.lifecycle.active_version != 0):
+            job.smoke["promoted_at_row"] = i
+        if mode == "poison" and i == r["poison_at"]:
+            entry = net.lifecycle.candidate_entry
+            if entry is not None and entry.pipeline is not None:
+                flat, _ = entry.pipeline.get_flat_params()
+                entry.pipeline.set_flat_params(np.full_like(flat, 1.0e9))
+
+    _feed_5050(job, x, y, start, x.shape[0] if until is None else until, before)
+    return job
+
+
+def _lifecycle_leg(torch, pa_scan, x, y, mode, device="cuda"):
+    """One leg with the pa_scan count set to 0 just before: the leg's
+    summary, checked to launch pa_scan once an active fit plus once a
+    candidate fit."""
+    pa_scan.launches = 0
+    t0 = time.perf_counter()
+    job = _lifecycle_job(x, y, mode, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a perRecord fit's last rows (the termination flush) count too
+    report = job.terminate()
+    launches = pa_scan.launches
+    [s] = report.statistics
+    lc = job.spokes[0].nets[0].lifecycle
+    cand_fits = sum(e.fits for v, e in lc.versions.items() if v != 0) if lc is not None else 0
+    active_fits = job.smoke["active_fits"]
+    if device == "cuda":
+        check(launches == active_fits + cand_fits > 0,
+              f"lifecycle[{mode}]: pa_scan launches {launches} != active fits {active_fits} + "
+              f"candidate fits {cand_fits}")
+    return {
+        "mode": mode, "wall_s": wall, "records_per_s": x.shape[0] / wall,
+        "predictions": [(p.value, p.version) for p in job.predictions],
+        "lifecycle": lc.describe() if lc is not None else None,
+        "promoted_at_row": job.smoke["promoted_at_row"],
+        "pa_scan_launches": launches, "active_fits": active_fits, "candidate_fits": cand_fits,
+        "shadow_scored": s.shadow_scored, "canary_promotions": s.canary_promotions,
+        "canary_rollbacks": s.canary_rollbacks, "active_version": s.active_version,
+        "forecasts_served": s.forecasts_served, "score": s.score,
+    }
+
+
+def phase_lifecycle(torch, pa_scan, tmp: Path):
+    """Phase 40. Returns the four legs' pa_scan launches."""
+    import os
+
+    from omldm_tpu_torch.checkpoint import CheckpointManager
+
+    r = LIFECYCLE_RUN
+    x, y = overload_stream(r["records"])
+    # untimed: the first run of a net's per-record paths pays one-time
+    # costs, which would land on whichever leg ran first
+    _lifecycle_job(x[:512], y[:512], "hold").terminate()
+    legs = {mode: _lifecycle_leg(torch, pa_scan, x, y, mode)
+            for mode in ("off", "healthy", "hold", "poison")}
+    off, healthy, hold, poison = (legs[m] for m in ("off", "healthy", "hold", "poison"))
+    failures = []
+    if healthy["canary_promotions"] < 1 or healthy["canary_rollbacks"]:
+        failures.append(f"healthy: promotions {healthy['canary_promotions']}, rollbacks "
+                        f"{healthy['canary_rollbacks']}")
+    if healthy["active_version"] != 1 or healthy["shadow_scored"] < 2:
+        failures.append(f"healthy: active version {healthy['active_version']}, shadowScored "
+                        f"{healthy['shadow_scored']}")
+    if poison["canary_rollbacks"] < 1 or poison["canary_promotions"]:
+        failures.append(f"poison: rollbacks {poison['canary_rollbacks']}, promotions "
+                        f"{poison['canary_promotions']}")
+    if poison["lifecycle"]["activeVersion"] != 0:
+        failures.append(f"poison: active version {poison['lifecycle']['activeVersion']}")
+    if hold["canary_promotions"] or not any(v is not None for _, v in hold["predictions"]):
+        failures.append("hold: promoted, or the canary served nothing")
+    for leg in (healthy, hold, poison):
+        if len(leg["predictions"]) != len(off["predictions"]):
+            failures.append(f"{leg['mode']}: {len(leg['predictions'])} forecasts answered, "
+                            f"{len(off['predictions'])} without the plane")
+    for leg in (hold, poison):
+        mism = sum(1 for (v, ver), (v0, _) in zip(leg["predictions"], off["predictions"])
+                   if ver is None and v != v0)
+        if mism:
+            failures.append(f"{leg['mode']}: {mism} baseline predictions differ from the off "
+                            f"leg's")
+    for leg in (off, healthy, hold, poison):
+        log(f"lifecycle[{leg['mode']}]: " + json.dumps({
+            k: v for k, v in leg.items() if k not in ("predictions", "lifecycle")}))
+    check(not failures, "lifecycle: " + "; ".join(failures))
+
+    # the healthy leg on the CPU
+    cpu = _lifecycle_leg(torch, pa_scan, x, y, "healthy", "cpu")
+    tags = [v for _, v in healthy["predictions"]]
+    equal = sum(1 for (a, _), (b, _) in zip(healthy["predictions"], cpu["predictions"])
+                if a == b)
+    check(cpu["promoted_at_row"] == healthy["promoted_at_row"] is not None,
+          f"lifecycle-parity: promoted before row {healthy['promoted_at_row']} on the card, "
+          f"{cpu['promoted_at_row']} on the CPU")
+    check(tags == [v for _, v in cpu["predictions"]], "lifecycle-parity: version tags differ")
+    check(equal >= 0.99 * len(tags), f"lifecycle-parity: {equal} of {len(tags)} equal")
+    log(f"lifecycle-parity: healthy leg, card against CPU: promoted before row "
+        f"{healthy['promoted_at_row']} (forecast {(healthy['promoted_at_row'] + 1) // 2}) on "
+        f"both, version tags equal, {equal} of {len(tags)} predictions equal")
+
+    # a snapshot mid-canary, restored on the card and the CPU
+    at = r["snapshot_at"]
+    ckpt = tmp / "lifecycle"
+    job = _lifecycle_job(x, y, "healthy", until=at, checkpoint_dir=ckpt)
+    lc = job.spokes[0].nets[0].lifecycle
+    check(lc.canary_active and lc.active_version == 0,
+          f"lifecycle-ckpt: not mid-canary at row {at}")
+    t0 = time.perf_counter()
+    path = job.checkpoint_manager.save(job)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    _lifecycle_job(x, y, "healthy", job=job, start=at)
+    rows = {"uninterrupted": job.smoke["promoted_at_row"]}
+    restore_s = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        restored = CheckpointManager(str(ckpt), device=device).restore(path=path)
+        restore_s[device] = time.perf_counter() - t0
+        _lifecycle_job(x, y, "healthy", job=restored, start=at)
+        rows[device] = restored.smoke["promoted_at_row"]
+        check(restored.spokes[0].nets[0].lifecycle.describe()["counters"] ==
+              job.spokes[0].nets[0].lifecycle.describe()["counters"],
+              f"lifecycle-ckpt: the {device} restore's counters differ")
+    check(set(rows.values()) == {healthy["promoted_at_row"]},
+          f"lifecycle-ckpt: promoted before rows {rows}, the healthy leg before "
+          f"{healthy['promoted_at_row']}")
+
+    # the device time the candidate adds: the hold leg against the off leg
+    busy = {mode: _busy_s(torch, lambda m=mode: _lifecycle_job(x, y, m).terminate())
+            for mode in ("off", "hold")}
+    line = {
+        "records": r["records"],
+        "records_per_s": {m: legs[m]["records_per_s"] for m in legs},
+        "over_off": {m: legs[m]["records_per_s"] / off["records_per_s"]
+                     for m in ("healthy", "hold", "poison")},
+        "pa_scan": {m: {"launches": legs[m]["pa_scan_launches"],
+                        "active_fits": legs[m]["active_fits"],
+                        "candidate_fits": legs[m]["candidate_fits"]} for m in legs},
+        "promoted_at_row": healthy["promoted_at_row"],
+        "device_busy_s": busy,
+        "candidate_device_share_hold": (busy["hold"] - busy["off"]) / busy["hold"],
+        "snapshot": {"at_row": at, "bytes": size, "save_s": save_s, "restore_s": restore_s,
+                     "promoted_at_row": rows},
+    }
+    log("lifecycle: " + json.dumps(line))
+    return {m: legs[m]["pa_scan_launches"] for m in legs}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4717,6 +5189,11 @@ def main() -> int:
     lap("spmd-ckpt")
     lm_ckpt_launches = phase_lm_ckpt(torch, attention, trainer, args.seed, ckpt_dir)
     lap("lm-ckpt")
+    overload_batched, overload_scatter = phase_overload(torch, pa_scan, sparse, args.seed,
+                                                        sparse_events)
+    lap("overload")
+    lifecycle_launches = phase_lifecycle(torch, pa_scan, ckpt_dir)
+    lap("lifecycle")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -4744,6 +5221,7 @@ def main() -> int:
             "recovery_final_incarnation": recovery_launches,
             "rescale_16_4_8": rescale_launches["rescale"],
             "restored_at_parallelism_4": rescale_launches["restore_at_4"],
+            **{f"lifecycle_{mode}": n for mode, n in lifecycle_launches.items()},
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -4761,6 +5239,7 @@ def main() -> int:
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan_batched"],
             "multi_tenant_guarded_first_records": guard_cohort_launches,
             "multi_tenant_rescaled_2_1_2": cohort_rescale_launches,
+            "multi_tenant_overload_armed_first_records": overload_batched,
         },
         "max_abs_err": batched_err,
         **batched_times[BATCHED_SHAPES[0]],
@@ -4795,6 +5274,7 @@ def main() -> int:
         **{f"spmd_sparse_{route}": n for route, n in spmd_scatter.items()},
         "spmd_card_vs_cpu_dp8": spmd_parity_launches["scatter_add"],
         "sparse_recovery_final_incarnation": rescale_launches["sparse_recovery"],
+        "sparse_overload_armed_first_records": overload_scatter,
     }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -198,13 +198,21 @@ class Prediction:
     mlp_id: int
     data_instance: Optional[DataInstance]
     value: Any
+    # the model-lifecycle plane's version tag (runtime/lifecycle.py): set
+    # only on canary-routed predictions a candidate version served. None,
+    # the default and always for a lifecycle-unarmed pipeline, keeps the
+    # wire payload as it was
+    version: Optional[int] = None
 
     def to_dict(self) -> dict:
-        return {
+        out = {
             "mlpId": self.mlp_id,
             "dataInstance": self.data_instance.to_dict() if self.data_instance else None,
             "value": self.value,
         }
+        if self.version is not None:
+            out["version"] = self.version
+        return out
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict())

@@ -21,8 +21,12 @@ class RequestType(str, enum.Enum):
     UPDATE = "Update"
     QUERY = "Query"
     DELETE = "Delete"
-    # model-lifecycle verbs of omldm_tpu (omldm_tpu/runtime/lifecycle.py);
-    # parsed here so the port's control gate can reject them as not ported
+    # model-lifecycle verbs (runtime/lifecycle.py; the reference's only
+    # rollout is the destructive Update, PipelineMap.scala:43-47): Shadow
+    # registers a candidate configuration that trains and scores on the
+    # live stream without serving; Promote starts (or completes) the canary
+    # ramp; Rollback demotes the candidate, or after a promotion
+    # reactivates the retained previous version
     SHADOW = "Shadow"
     PROMOTE = "Promote"
     ROLLBACK = "Rollback"

@@ -31,6 +31,11 @@ class QueryResponse:
     loss: Optional[float] = None
     cumulative_loss: Optional[float] = None
     score: Optional[float] = None
+    # the model-lifecycle plane's registry view (runtime/lifecycle.py):
+    # active version, canary percentage, per-version shadow scores, on the
+    # bucket-0 fragment of a lifecycle-armed pipeline; None keeps the wire
+    # shape as it was
+    lifecycle: Optional[Mapping[str, Any]] = None
     # internal routing metadata (NOT part of the wire format): which worker
     # emitted this fragment — lets the merger re-assemble parameter buckets
     # from a single replica's fragment set even when replicas differ
@@ -51,6 +56,7 @@ class QueryResponse:
             loss=obj.get("loss"),
             cumulative_loss=obj.get("cumulativeLoss"),
             score=obj.get("score"),
+            lifecycle=obj.get("lifecycle"),
         )
 
     def to_dict(self) -> dict:
@@ -67,6 +73,8 @@ class QueryResponse:
             "cumulativeLoss": self.cumulative_loss,
             "score": self.score,
         }
+        if self.lifecycle is not None:
+            out["lifecycle"] = dict(self.lifecycle)
         return out
 
     def to_json(self) -> str:

@@ -31,10 +31,11 @@ class Statistics:
     protocol: str = ""
     models_shipped: int = 0
     bytes_shipped: int = 0
-    # Fields below that the port's planes never feed stay zero: they keep
-    # the wire report's schema equal to omldm_tpu.api.stats.Statistics,
-    # where each is documented (codec, reliable channel, guard, cohorts,
-    # overload, lifecycle, rescale, fleet, flight recorder).
+    # The fields below keep the wire report's schema equal to
+    # omldm_tpu.api.stats.Statistics, where each is documented (codec,
+    # reliable channel, guard, cohorts, overload, lifecycle, rescale,
+    # fleet, flight recorder); those of planes the port lacks (the fleet,
+    # the flight recorder) stay zero.
     bytes_on_wire: int = 0
     num_of_blocks: int = 0
     duplicates_dropped: int = 0
@@ -161,6 +162,11 @@ class Statistics:
         self.serve_latency_p50_ms = max(self.serve_latency_p50_ms, p50)
         self.serve_latency_p99_ms = max(self.serve_latency_p99_ms, p99)
         self.serve_latency_p999_ms = max(self.serve_latency_p999_ms, p999)
+
+    def note_shed_latency(self, p99: float) -> None:
+        """Fold one contributor's enqueue->shed p99 in (max-combine, as the
+        serve-latency percentiles)."""
+        self.shed_latency_ms = max(self.shed_latency_ms, p99)
 
     def update_fitted(self, fitted: int) -> None:
         self.fitted += fitted

@@ -24,8 +24,12 @@ temporary name and renamed. The snapshot's schema is the JAX package's, key
 for key: numpy leaves and Python values (a host-side learner's tree as its
 host objects), no tensor. So a snapshot taken on the card restores with
 ``device="cpu"`` and the other way round. Only the protocol nodes' round
-state (``node``) is framework-specific. The lifecycle plane's registry
-keys wait for that plane (ROADMAP queue 1, item 3).
+state (``node``) is framework-specific. A guarded net carries its guard's
+last-known-good ring (``guard``), and a lifecycle-armed net its version
+registry (``lifecycle``: versions, the candidate's and the retained
+model's state, the canary clocks), so a restart resumes mid-canary; a
+restore whose active version is a promoted candidate installs that
+pipeline before loading the net's state into it.
 """
 
 from __future__ import annotations
@@ -139,6 +143,10 @@ class CheckpointManager:
                 # that slipped into the snapshot its own rollback target)
                 if pipe.guard is not None:
                     nets[net_id]["guard"] = pipe.guard.snapshot()
+                # the version registry: a supervised restart resumes
+                # mid-canary instead of reverting to one unversioned model
+                if net.lifecycle is not None:
+                    nets[net_id]["lifecycle"] = net.lifecycle.snapshot()
             spokes.append(nets)
         hub_nodes = {}
         for (net_id, hub_id), hub in job.hub_manager.hubs.items():
@@ -452,7 +460,9 @@ class CheckpointManager:
             st["cum_loss"] = torch.tensor(total_cum_loss / len(new_spokes),
                                           dtype=torch.float32, device=device)
             # the guard's ring restarts at the merged model (the saved
-            # per-replica rings describe states no restored worker holds)
+            # per-replica rings describe states no restored worker holds);
+            # the lifecycle registry restarts clean too: its clocks are per
+            # replica and only defined 1:1
             if pipe.guard is not None:
                 pipe.guard.reseed(pipe)
             net.holdout_count = max(sv["holdout_count"] for sv in saved)
@@ -472,7 +482,16 @@ class CheckpointManager:
 
     @classmethod
     def _load_net_state(cls, net, sv: dict) -> None:
-        _pipeline_load(net.pipeline, sv)
+        # the registry first: when the saved ACTIVE version is a promoted
+        # candidate, restore() rebuilds that pipeline from its spec, loads
+        # this snapshot's pipeline fields into it and installs it (the
+        # default load would push promoted-spec parameters into the
+        # Create-spec pipeline)
+        swapped = False
+        if net.lifecycle is not None and sv.get("lifecycle") is not None:
+            swapped = net.lifecycle.restore(net, sv["lifecycle"], sv)
+        if not swapped:
+            _pipeline_load(net.pipeline, sv)
         if net.pipeline.guard is not None and sv.get("guard") is not None:
             net.pipeline.guard.restore(sv["guard"])
         net.holdout_count = sv["holdout_count"]

@@ -106,16 +106,22 @@ class JobConfig:
     # (runtime/supervisor.py), e.g. "seed=7,drop=0.05,dup=0.05"; the
     # OMLDM_CHAOS environment variable is read when this is empty. Any
     # spec arms the reliable channel of every pipeline; its burst keys
-    # (burst, burstFrom, burstLen, hotTenant) drive the overload plane and
-    # are refused (runtime.job.unported_job_options).
+    # (burst, burstFrom, burstLen, hotTenant) arm the overload plane's
+    # seeded hot-tenant flood (runtime.supervisor.BurstInjector).
     chaos: str = ""
+
+    # --- the overload and lifecycle planes ---
+    # Job-wide DEFAULT specs for pipelines whose trainingConfiguration
+    # carries no "lifecycle" / "overload" table (runtime/lifecycle.py,
+    # runtime/overload.py), e.g. "rampTo=0.5,promoteAfter=128,seed=7" or
+    # "window=32,share=2"; "on" takes the defaults, "" leaves them unarmed.
+    lifecycle: str = ""
+    overload: str = ""
 
     # --- planes of the JAX package the port does not have yet ---
     # Kept so a config written for omldm_tpu constructs here; arming any of
     # them makes StreamJob raise NotImplementedError naming the option
     # (runtime.job.unported_job_options).
-    lifecycle: str = ""
-    overload: str = ""
     ingest: str = ""
     telemetry: str = ""
     events: str = ""

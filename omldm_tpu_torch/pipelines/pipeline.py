@@ -1,9 +1,10 @@
 """MLPipeline: preprocessors + learner as one training step.
 
-Counterpart of ``omldm_tpu/pipelines/pipeline.py`` (without the lifecycle
-plane's version tag). One fit runs, in order: each scaler's statistics
-update, the transform with the UPDATED statistics, then the learner update
--- the reference's per-record ``MLPipeline.pipePoint`` order.
+Counterpart of ``omldm_tpu/pipelines/pipeline.py``. One fit runs, in
+order: each scaler's statistics update, the transform with the UPDATED
+statistics, then the learner update -- the reference's per-record
+``MLPipeline.pipePoint`` order. ``version`` is the model-lifecycle plane's
+tag of the model version the pipeline holds.
 
 A sparse learner's input is the padded-COO pair ``(idx, val)``; the
 pipeline moves idx to the device as int32 and refuses preprocessors for it.
@@ -232,6 +233,11 @@ class MLPipeline:
         # called once per program launch this pipeline dispatches; feeds the
         # Statistics `programLaunches` counter
         self.on_launch: Optional[Callable[[], None]] = None
+        # the model-lifecycle plane's version tag (runtime/lifecycle.py): 0
+        # is the Create-time model; the registry stamps a candidate with its
+        # row id, which follows the pipeline through promotion and rollback.
+        # Nothing in the pipeline's math reads it
+        self.version = 0
         # the model-integrity guard (None: unarmed, and always for a
         # host-side learner, whose state the host already sees)
         self.guard: Optional[ModelGuard] = (

@@ -14,11 +14,17 @@ that the engine hosts must name a feed dtype it takes and, under SSP, a
 staleness bound of at least 1 (``validate_spmd``); the JAX package raises
 on both at deploy. A transport codec must be one the port knows, and
 ``topk`` stays off the collective engine, whose allreduce needs dense
-operands (``validate_codec``, the JAX gate's ``_validate_codec``). The
-port's gate also rejects per-pipeline switches that arm a plane the port
-lacks (overload, lifecycle, telemetry, events) with a reason that names
-it, so a request that would fail at deploy drops alone instead of killing
-the job.
+operands (``validate_codec``, the JAX gate's ``_validate_codec``). An
+``overload`` table must parse (``runtime.overload.validate_overload``), and
+a ``lifecycle`` table must parse and name a dense host-plane pipeline
+(``runtime.lifecycle.validate_lifecycle``). The lifecycle verbs (Shadow,
+Promote, Rollback) must target a live pipeline, and a Shadow must name a
+known dense candidate learner and known preprocessors
+(``_validate_lifecycle_verb``); whether the target is armed is the job's
+call, since it holds the job-wide default spec. The port's gate also
+rejects per-pipeline switches that arm a plane the port lacks (telemetry,
+events) with a reason that names it, so a request that would fail at
+deploy drops alone instead of killing the job.
 """
 
 from __future__ import annotations
@@ -29,12 +35,14 @@ from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestTyp
 from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY, is_valid_learner
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 from omldm_tpu_torch.preprocessors.registry import is_valid_preprocessor
+from omldm_tpu_torch.runtime.lifecycle import validate_lifecycle
 from omldm_tpu_torch.runtime.messages import comm_codec_name
+from omldm_tpu_torch.runtime.overload import validate_overload
 from omldm_tpu_torch.runtime.serving import validate_serving
 from omldm_tpu_torch.runtime.spmd_bridge import spmd_engine_requested, spmd_engine_supported
 
 # trainingConfiguration keys that arm a plane the port does not have
-UNPORTED_PIPELINE_PLANES = ("overload", "lifecycle", "telemetry", "events")
+UNPORTED_PIPELINE_PLANES = ("telemetry", "events")
 
 
 def _armed(value) -> bool:
@@ -139,7 +147,7 @@ class PipelineManager:
                 return "create request without learner"
             return self._validate_spec(request)
         if request.request in LIFECYCLE_REQUESTS:
-            return f"{request.request.value} (model lifecycle) is not yet ported"
+            return self._validate_lifecycle_verb(request)
         if request.request in (RequestType.UPDATE, RequestType.QUERY, RequestType.DELETE):
             if request.id not in self.node_map:
                 return f"pipeline {request.id} does not exist"
@@ -167,13 +175,38 @@ class PipelineManager:
         err = validate_serving(tc)
         if err is not None:
             return err
+        err = validate_overload(tc)
+        if err is not None:
+            return err
         err = validate_codec(request)
         if err is not None:
             return err
         err = validate_spmd(request)
         if err is not None:
             return err
-        return unported_option(request)
+        err = unported_option(request)
+        if err is not None:
+            return err
+        return validate_lifecycle(request)
+
+    def _validate_lifecycle_verb(self, request: Request) -> Optional[str]:
+        """Shadow, Promote and Rollback target a live pipeline; a Shadow
+        also names the candidate configuration, a whole learner spec that
+        must be dense (the candidate's predict and flat-parameter paths
+        are). Whether the target has the plane armed is the job's call."""
+        if request.id not in self.node_map:
+            return f"pipeline {request.id} does not exist"
+        if request.request == RequestType.SHADOW:
+            if request.learner is None:
+                return "Shadow request without a candidate learner"
+            if not is_valid_learner(request.learner.name):
+                return f"unknown learner {request.learner.name!r}"
+            if (request.learner.data_structure or {}).get("sparse"):
+                return "lifecycle candidates must be dense learners"
+            for p in request.preprocessors:
+                if not is_valid_preprocessor(p.name):
+                    return f"unknown preprocessor {p.name!r}"
+        return None
 
     def apply(self, request: Request) -> None:
         """Bookkeeping for an ALREADY-validated request."""

@@ -4,7 +4,9 @@ Counterpart of ``omldm_tpu/runtime/deadletter.py`` without the external
 publisher and the flight-recorder cross-reference (neither is ported).
 Every rejected record or request is kept in a bounded in-memory ring with a
 reason code and, when ``path`` is set, appended to a JSONL file. Quarantine
-never raises: a failing dead-letter file must not take down the stream.
+never raises: a failing dead-letter file must not take down the stream. The
+overload plane's ``shed_overload`` and ``throttled`` entries carry the
+tenant and its queue depth as extra fields (``quarantine(extra=...)``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,11 @@ class DeadLetterSink:
         self.write_errors = 0
 
     def quarantine(self, stream: str, payload: Any, reason: str,
-                   detail: Optional[str] = None) -> dict:
-        """Record one rejected input and return its entry. Never raises."""
+                   detail: Optional[str] = None,
+                   extra: Optional[Dict[str, Any]] = None) -> dict:
+        """Record one rejected input and return its entry. Never raises.
+        ``extra`` merges more machine-readable fields into the entry (the
+        keys stream, reason, payload and detail are never overwritten)."""
         if isinstance(payload, bytes):
             payload = payload.decode("utf-8", errors="replace")
         elif not isinstance(payload, str):
@@ -49,6 +54,9 @@ class DeadLetterSink:
                  "payload": payload[:MAX_PAYLOAD_CHARS]}
         if detail:
             entry["detail"] = detail
+        if extra:
+            for k, v in extra.items():
+                entry.setdefault(k, v)
         self.entries.append(entry)
         if stream == self._request_stream:
             self.request_count += 1

@@ -26,13 +26,30 @@ directions of the in-process hub<->spoke bridge run through a seeded
 channel arms itself to survive it. At stream end the channels quiesce and
 the receive windows hand back what they hold before the termination probe.
 
+The spec's burst keys arm a ``runtime.supervisor.BurstInjector``: each
+forecasting record inside its window gains tenant-addressed copies that
+flood one pipeline, and every spoke then routes ``metadata.tenant``
+records to that tenant alone.
+
+The overload plane (``JobConfig.overload`` or a pipeline's
+``trainingConfiguration.overload``, ``runtime.overload``) folds into
+``overload_level()`` (the peak of the spokes' pressure levels) and
+``queue_depths()``; ``overload_idle_tick()`` advances the controllers'
+count clocks while a source is idle. The lifecycle plane
+(``JobConfig.lifecycle`` or ``trainingConfiguration.lifecycle``,
+``runtime.lifecycle``) takes the Shadow, Promote and Rollback requests: a
+verb aimed at an SPMD pipeline or at a pipeline without the plane armed is
+quarantined, any other goes to every spoke, and ``tenant_topology()``
+carries each armed pipeline's registry view.
+
 With ``JobConfig.checkpointing`` the job snapshots itself every
 ``check_interval_ms`` between events (``checkpoint.CheckpointManager``; a
 ``runtime.recovery.JobSupervisor`` restores the newest snapshot and resumes
 at its event offset, ``events_processed``). ``rescale(n)`` changes the
 worker count mid-stream: a grow seeds the new replicas from spoke 0's
 model, a shrink merges each retiring spoke into a survivor
-(``Spoke.absorb``).
+(``Spoke.absorb``). A live lifecycle registry (a candidate in flight, or a
+promoted active version) replicates onto a grown spoke.
 
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
@@ -52,16 +69,18 @@ import numpy as np
 import torch
 
 from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
-from omldm_tpu_torch.api.requests import Request, RequestType
+from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestType
 from omldm_tpu_torch.api.responses import TERMINATION_RESPONSE_ID, QueryResponse
-from omldm_tpu_torch.api.stats import JobStatistics
+from omldm_tpu_torch.api.stats import JobStatistics, Statistics
 from omldm_tpu_torch.checkpoint import CheckpointManager
 from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.hub import HubManager
+from omldm_tpu_torch.runtime.lifecycle import lifecycle_config, parse_lifecycle_spec
 from omldm_tpu_torch.runtime.messages import channel_chaos_spec
+from omldm_tpu_torch.runtime.overload import parse_overload_spec
 from omldm_tpu_torch.runtime.responses import ResponseMerger
 from omldm_tpu_torch.runtime.serving import parse_serving_spec
 from omldm_tpu_torch.runtime.spmd_bridge import (
@@ -71,7 +90,7 @@ from omldm_tpu_torch.runtime.spmd_bridge import (
 )
 from omldm_tpu_torch.runtime.spoke import PACKED, Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
-from omldm_tpu_torch.runtime.supervisor import ChaosChannel, parse_chaos_spec
+from omldm_tpu_torch.runtime.supervisor import BurstInjector, ChaosChannel, parse_chaos_spec
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
 from omldm_tpu_torch.utils.device import resolve_device
 
@@ -95,24 +114,9 @@ PRE_CREATE_BACKLOG_CAP = 100_000
 TOGGLE_FRAMES_PER_NET = 64
 
 
-# chaos keys that arm the overload plane's burst injector (BurstInjector),
-# which is not ported
-CHAOS_BURST_KEYS = ("burst", "burstFrom", "burstLen", "hotTenant")
-
-
 def unported_job_options(config: JobConfig) -> List[str]:
-    """The JobConfig options that arm a plane the port does not have yet.
-    A chaos spec runs, but its burst keys drive the overload plane."""
-    names = [
-        name for name in ("overload", "lifecycle", "telemetry", "events", "ingest")
-        if getattr(config, name)
-    ]
-    spec = channel_chaos_spec(config)
-    burst = [k for k in CHAOS_BURST_KEYS
-             if any(part.partition("=")[0].strip() == k for part in spec.split(","))]
-    if burst:
-        names.append(f"chaos burst keys ({', '.join(burst)}: the overload plane)")
-    return names
+    """The JobConfig options that arm a plane the port does not have yet."""
+    return [name for name in ("telemetry", "events", "ingest") if getattr(config, name)]
 
 
 class StreamJob:
@@ -135,6 +139,9 @@ class StreamJob:
         # serving table is checked at the control gate and drops only its
         # own request)
         parse_serving_spec(self.config.serving)
+        # ... and on malformed job-wide overload and lifecycle defaults
+        parse_overload_spec(self.config.overload)
+        parse_lifecycle_spec(self.config.lifecycle)
         self.device = resolve_device(device, "StreamJob")
         # a cohort_shards past one device raises here, before any spoke
         resolve_cohort_shards(self.config, self.device)
@@ -157,12 +164,16 @@ class StreamJob:
         # no spec, the plain route); a malformed spec raises here
         self._chaos_up: Optional[ChaosChannel] = None
         self._chaos_down: Optional[ChaosChannel] = None
+        # the seeded hot-tenant flood (the overload plane's fault injector),
+        # armed by the same spec's burst keys; None otherwise
+        self._burst: Optional[BurstInjector] = None
         spec = parse_chaos_spec(channel_chaos_spec(self.config))
         if spec is not None:
             self._chaos_up = ChaosChannel.from_spec(
                 self.hub_manager.route, spec, "up", name="spoke>hub")
             self._chaos_down = ChaosChannel.from_spec(
                 self._reply_to_spoke, spec, "down", name="hub>spoke")
+            self._burst = BurstInjector.from_spec(spec)
         self.spokes: List[Spoke] = [
             self._spawn_spoke(i) for i in range(self.config.parallelism)
         ]
@@ -195,11 +206,17 @@ class StreamJob:
                 self.config.checkpoint_dir, keep=self.config.checkpoint_keep,
                 device=self.device,
             )
+        # queue_depths() at terminate, after the drain cascade (None until
+        # then): the overload gates read it to find stranded rows
+        self.terminate_accounting: Optional[dict] = None
 
     def _spawn_spoke(self, worker_id: int) -> Spoke:
         """The one spoke recipe: construction at job init and the spokes a
         live :meth:`rescale` grow adds share it, so every wiring decision
-        (the chaos route among them) follows the same rule on both paths."""
+        (the chaos route, the quarantine, tenant routing) follows the same
+        rule on both paths. The job-level tenant routing is the burst
+        injector's; an armed overload controller routes on its own spoke,
+        which a grown spoke arms when the live pipelines deploy on it."""
         send_to_hub = (self._chaos_up.send if self._chaos_up is not None
                        else self.hub_manager.route)
         return Spoke(
@@ -212,6 +229,8 @@ class StreamJob:
             device=self.device,
             note_wire=self._note_wire,
             emit_predictions=self._emit_predictions,
+            quarantine=self.dead_letter.quarantine,
+            tenant_routing=self._burst is not None,
         )
 
     # --- sinks ---
@@ -298,6 +317,8 @@ class StreamJob:
             return
         if counter == "serve_latency_ms":
             hub.node.stats.note_serve_latency(*n)
+        elif counter == "shed_latency_ms":
+            hub.node.stats.note_shed_latency(n)
         elif counter == "codec_seconds":
             hub.node.stats.update_stats(
                 codec_encode_seconds=n[0], codec_decode_seconds=n[1])
@@ -353,15 +374,135 @@ class StreamJob:
     def _any_cohorts(self) -> bool:
         return any(s.cohorts is not None and s.cohorts.cohorts for s in self.spokes)
 
+    # --- overload control (runtime/overload.py) ---
+
+    def overload_level(self) -> int:
+        """The job's pressure level: the peak over the spokes' overload
+        controllers (0, OK, when none is armed). A source loop pauses on it
+        while any spoke is CRITICAL, leaving its offsets uncommitted (Flink's
+        credit-based backpressure, moved into the runtime)."""
+        level = 0
+        for spoke in self.spokes:
+            if spoke.overload is not None and spoke.overload.level > level:
+                level = spoke.overload.level
+        return level
+
+    def overload_idle_tick(self) -> None:
+        """Advance every controller's count clock while the source is idle
+        or paused: nothing admits then, so without these ticks the buckets
+        would never refill and a CRITICAL pause could never clear
+        (``OverloadController.idle_tick``)."""
+        for spoke in self.spokes:
+            if spoke.overload is not None:
+                spoke.overload.idle_tick()
+                # idle capacity drains deferred rows and settles sheds too
+                spoke._overload_tick()
+
+    def heartbeat_statistics(self) -> list:
+        """Read-only per-pipeline ``Statistics`` snapshots mid-stream: copies
+        of the merged hub statistics plus the spoke-side tallies that fold
+        at query and terminate (launches, serving, the overload counters,
+        the live version), peeked and never taken, so the terminate fold
+        still counts each delta once. No score is evaluated (that would
+        launch holdout predicts on the hot path); SPMD pipelines report at
+        terminate only. The heartbeats that emit these arrive with the
+        telemetry plane (ROADMAP queue 1, item 3)."""
+        out = []
+        for net_id in self.pipeline_manager.live_pipelines:
+            if net_id in self.spmd_bridges:
+                continue
+            merged = self.hub_manager.network_statistics(net_id)
+            s = copy.deepcopy(merged) if merged is not None else Statistics(pipeline=net_id)
+            fitted = 0
+            for spoke in self.spokes:
+                net = spoke.nets.get(net_id)
+                if net is None:
+                    continue
+                s.update_stats(program_launches=net.program_launches,
+                               forecasts_served=net.serve_stats.count)
+                if net.serve_stats.count:
+                    s.note_serve_latency(*net.serve_stats.percentiles())
+                # the host-side counter: query_stats() would read the
+                # cumulative loss, which checks a cohort member's state out
+                # and launches its staged gang fits early
+                fitted += int(net.pipeline.fitted)
+                ctl = spoke.overload
+                if ctl is not None:
+                    s.update_stats(forecasts_shed=ctl._shed.get(net_id, 0),
+                                   records_throttled=ctl._throttled.get(net_id, 0),
+                                   pressure_level=ctl.level_peak)
+                if net.lifecycle is not None:
+                    s.update_stats(active_version=net.lifecycle.active_version)
+                c = net.node.codec
+                if c is not None:
+                    # live totals less what already folded hub-side
+                    s.update_stats(
+                        codec_encode_seconds=c.encode_seconds - net._codec_folded[0],
+                        codec_decode_seconds=c.decode_seconds - net._codec_folded[1])
+            for (nid, _h), hub in self.hub_manager.hubs.items():
+                c = getattr(hub.node, "codec", None) if nid == net_id else None
+                if c is not None:
+                    # hub shards fold at terminate only: the live totals
+                    s.update_stats(codec_encode_seconds=c.encode_seconds,
+                                   codec_decode_seconds=c.decode_seconds)
+            if s.fitted == 0:
+                s.fitted = fitted
+            if self.dead_letter.record_count:
+                s.update_stats(records_quarantined=self.dead_letter.record_count)
+            if self.rescales_performed:
+                s.update_stats(rescales_performed=self.rescales_performed)
+            if self.dead_letter.write_errors:
+                s.update_stats(blackbox_write_errors=self.dead_letter.write_errors)
+            out.append(s)
+        return out
+
+    def heartbeat_frame(self) -> dict:
+        """The compact metrics frame a worker's heartbeat carries to an
+        autoscaling supervisor: the pressure level and the host-plane
+        signals a staging backlog cannot show (the serve-launch p99, the
+        hottest tenant's excess over its fair share, the queued rows). The
+        flight recorder's ``events`` and ``alerts`` are 0 until it is
+        ported."""
+        p99 = max((s.serve_timer.recent_p99() for s in self.spokes), default=0.0)
+        imbalance = 0.0
+        backlog = 0
+        for spoke in self.spokes:
+            if spoke.overload is not None:
+                imbalance = max(imbalance, spoke.overload._hot)
+            depths = spoke.queue_depths()
+            backlog += depths["serving"] + depths["batcher"] + depths["throttled"]
+        return {"level": self.overload_level(), "serveP99": round(p99, 3),
+                "imbalance": round(imbalance, 3), "backlog": int(backlog),
+                "events": 0, "alerts": 0}
+
+    def queue_depths(self) -> dict:
+        """The spokes' queue depths summed (``Spoke.queue_depths``), the
+        job's pre-deploy backlog and the pressure level."""
+        agg = {"serving": 0, "batcher": 0, "throttled": 0, "paused": 0, "pre_create": 0}
+        for spoke in self.spokes:
+            for k, v in spoke.queue_depths().items():
+                agg[k] += v
+        agg["backlog"] = len(self._backlog)
+        agg["pressure_level"] = self.overload_level()
+        return agg
+
     def tenant_topology(self) -> dict:
         """Where the co-hosted tenants run: the device count, the widest
-        tenant-mesh shard count (1: the port runs a cohort on one device)
-        and each live cohort's active members a shard."""
+        tenant-mesh shard count (1: the port runs a cohort on one device),
+        each live cohort's active members a shard, the live queue depths
+        and each lifecycle-armed pipeline's registry view (worker 0's
+        replica: the canary clocks are per spoke)."""
         topo = {
             "devices": torch.cuda.device_count() if self.device.type == "cuda" else 1,
             "cohort_shards": 1,
             "placement": [],
+            "queues": self.queue_depths(),
+            "lifecycle": {},
         }
+        for spoke in self.spokes:
+            for net_id, net in spoke.nets.items():
+                if net.lifecycle is not None:
+                    topo["lifecycle"].setdefault(net_id, net.lifecycle.describe())
         for spoke in self.spokes:
             if spoke.cohorts is None:
                 continue
@@ -393,6 +534,11 @@ class StreamJob:
                 if stream == FORECASTING_STREAM:
                     inst.operation = FORECASTING
                 self._handle_data(inst)
+                if self._burst is not None:
+                    # the seeded burst: tenant-addressed copies of this
+                    # forecast flood the hot tenant
+                    for clone in self._burst.clones(inst):
+                        self._handle_data(clone)
         elif stream == PACKED_STREAM:
             self.process_packed_batch(*payload)
 
@@ -426,6 +572,35 @@ class StreamJob:
             self._pending_creates = [
                 r for r in self._pending_creates if r.id != request.id
             ]
+        elif request.request in LIFECYCLE_REQUESTS:
+            # Shadow / Promote / Rollback passed the gate's structural
+            # check; the ARMING check needs the job-wide default spec, so it
+            # lives here: a verb aimed at an SPMD pipeline or an unarmed one
+            # is quarantined instead of vanishing
+            if request.id in self.spmd_bridges:
+                self.dead_letter.quarantine(
+                    REQUEST_STREAM, request.to_json(), "rejected_request",
+                    detail="lifecycle verbs are host-plane only")
+                return
+            if request.id not in self._dims:
+                # admitted but not deployed yet: no worker hosts it (an
+                # early Query's rule)
+                return
+            live = self.pipeline_manager.node_map.get(request.id)
+            armed = live is not None and lifecycle_config(
+                live.training_configuration, self.config.lifecycle) is not None
+            if armed and live.learner is not None and (
+                    (live.learner.data_structure or {}).get("sparse")):
+                # a job-wide default does not arm a sparse net (its
+                # SpokeNet keeps lifecycle None)
+                armed = False
+            if not armed:
+                self.dead_letter.quarantine(
+                    REQUEST_STREAM, request.to_json(), "rejected_request",
+                    detail=f"lifecycle plane not armed for pipeline {request.id}")
+                return
+            for spoke in self.spokes:
+                spoke.handle_request(request, self._dims.get(request.id, 0))
         elif request.request == RequestType.QUERY:
             if request.id not in self._dims:
                 # admitted but not deployed yet: no worker hosts it
@@ -574,8 +749,7 @@ class StreamJob:
                         dst.node.codec.reset_streams()
                     if dst.pipeline.guard is not None:
                         dst.pipeline.guard.reseed(dst.pipeline)
-                    # (the lifecycle registry's candidate replicates onto the
-                    # new spoke here: ROADMAP queue 1, item 3)
+                    self._replicate_lifecycle(src, dst)
         else:
             survivors, retired = self.spokes[:n_new], self.spokes[n_new:]
             self.config.parallelism = n_new
@@ -585,6 +759,40 @@ class StreamJob:
         for spoke in self.spokes:
             spoke.set_parallelism(n_new)
         self.hub_manager.set_parallelism(n_new)
+
+    @staticmethod
+    def _replicate_lifecycle(src, dst) -> None:
+        """Replicate a live lifecycle registry (a candidate in flight, or a
+        promoted active version) onto a grown spoke's net through the
+        checkpoint's restore recipe; otherwise the new spoke would train no
+        candidate, and a canary whose training rows land there would stall."""
+        if src.lifecycle is None or dst.lifecycle is None or (
+                src.lifecycle.candidate is None and src.lifecycle.active_version == 0):
+            return
+        from omldm_tpu_torch.checkpoint.checkpoint import _pipeline_snapshot
+
+        fresh_fitted = dst.pipeline.state["fitted"]
+        fresh_loss = dst.pipeline.state["cum_loss"]
+        swapped = dst.lifecycle.restore(dst, src.lifecycle.snapshot(),
+                                        _pipeline_snapshot(src.pipeline))
+        # the replica's statistics start fresh: the source spoke keeps its
+        # unfolded counter deltas (copying them would count them twice)
+        for k in dst.lifecycle._pending:
+            dst.lifecycle._pending[k] = 0
+            dst.lifecycle.totals[k] = 0
+        if swapped:
+            # restore installed the PROMOTED-spec pipeline with src's whole
+            # state: seed it as a fresh replica again (own counters zero,
+            # drift baseline, codec streams and guard ring at the seed)
+            state = dst.pipeline.state
+            state["fitted"] = fresh_fitted
+            state["cum_loss"] = fresh_loss
+            dst.pipeline.state = state
+            dst.node.on_model_seeded()
+            if dst.node.codec is not None:
+                dst.node.codec.reset_streams()
+            if dst.pipeline.guard is not None:
+                dst.pipeline.guard.reseed(dst.pipeline)
 
     def _handle_data(self, inst: DataInstance) -> None:
         self.stats.mark_activity()
@@ -760,6 +968,9 @@ class StreamJob:
                     max(len([k for k in self.hub_manager.hubs if k[0] == net_id]), 1)
                 )
                 self.stats.add_hub_statistics(net_id, merged)
+        # every queue must be empty after the probe's drain cascade: the
+        # overload gates read this snapshot for stranded rows
+        self.terminate_accounting = self.queue_depths()
         report = self.stats.try_finalize(len(self.pipeline_manager.live_pipelines))
         self.dead_letter.close()
         return report

@@ -12,7 +12,8 @@ running ahead of the operator thread (SURVEY.md §7 hard part (d)).
 than a bare generator so the ring's occupancy is observable
 (``queued()`` / ``occupancy()``, the queue-depth contract shared with
 ``ServingPlane.queued()``): a full ring means the consumer is the
-bottleneck, an empty one the parser.
+bottleneck, an empty one the parser, and the overload controller can watch
+it as an external pressure signal (``Prefetcher.as_signal``).
 """
 
 from __future__ import annotations
@@ -109,6 +110,18 @@ class Prefetcher(Iterator[T]):
         """Ring fill fraction in [0, 1] — 1.0 means the parser is running
         ahead of a stalled consumer."""
         return self._q.qsize() / self._q.maxsize
+
+    def as_signal(self, high: float = 0.75, critical: float = 0.95):
+        """Occupancy as an ``OverloadController.extra_signals`` probe: the
+        value is the ring's EMPTINESS (1 - occupancy), so a source that
+        cannot keep the ring fed raises the overload level instead of
+        starving the consumer in silence. ``high`` and ``critical`` are
+        emptiness fractions."""
+
+        def probe():
+            return 1.0 - self.occupancy(), high, critical
+
+        return probe
 
 
 def prefetch(source: Iterable[T], depth: int = 2) -> Prefetcher[T]:

@@ -62,6 +62,11 @@ class ResponseMerger:
             if f.protocol is not None:
                 out.protocol = f.protocol
             out.data_fitted += f.data_fitted
+            if f.lifecycle is not None:
+                # registry views are per-worker replicas of one
+                # count-clocked state machine: keep the last non-null one
+                # (the learner and protocol rule), never an average
+                out.lifecycle = dict(f.lifecycle)
         n = max(len(heads), 1)
         out.loss = sum((f.loss or 0.0) for f in heads) / n
         out.cumulative_loss = sum((f.cumulative_loss or 0.0) for f in heads) / n

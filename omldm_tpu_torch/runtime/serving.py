@@ -18,6 +18,12 @@ flushes when:
   changes pass first, trading a bounded model staleness for wider batches;
 - the stream terminates, a query arrives, or the pipeline is deleted.
 
+Under overload pressure (``runtime.overload``) the limits a flush compares
+against are the controller's degraded ones (widened ``maxBatch`` and
+``maxDelayMs``, relaxed staleness: :func:`_limits`), and on entering
+CRITICAL an over-limit tenant's queue is taken unserved (:meth:`take_queue`)
+and answered with reason-coded dead letters.
+
 Per-record latency clocks (enqueue -> emit) feed the ``forecastsServed`` and
 serving-latency fields of ``Statistics``; emission keeps stream order per
 net. A flush takes the net's cohort group: every pending net attached to
@@ -221,6 +227,15 @@ def _entry_rows(x) -> int:
     return 1
 
 
+def _limits(net) -> ServingConfig:
+    """The serving limits in force for ``net``: its static config, or the
+    overload controller's degraded variant while its spoke is under
+    pressure (``SpokeNet.serving_limits``). A net without the accessor
+    gets the static config."""
+    get = getattr(net, "serving_limits", None)
+    return get() if get is not None else net.serving
+
+
 class ServingPlane:
     """Per-spoke queue manager: admission, flush triggers, batched
     emission, latency accounting. One instance per Spoke, created when the
@@ -265,7 +280,7 @@ class ServingPlane:
             self._pending[net.request.id] = net
         q.entries.append((inst, x, now))
         q.n_rows += 1
-        if q.n_rows >= net.serving.max_batch:
+        if q.n_rows >= _limits(net).max_batch:
             self._fill = True
 
     def admit_rows(self, net, rows: np.ndarray, now: float) -> None:
@@ -283,7 +298,7 @@ class ServingPlane:
             self._pending[net.request.id] = net
         q.entries.append((None, rows, now))
         q.n_rows += rows.shape[0]
-        if q.n_rows >= net.serving.max_batch:
+        if q.n_rows >= _limits(net).max_batch:
             self._fill = True
 
     # --- flush triggers --------------------------------------------------
@@ -298,7 +313,7 @@ class ServingPlane:
         self._fill = False
         for net in list(self._pending.values()):
             q = net.serve_queue
-            if q.entries and q.n_rows >= net.serving.max_batch:
+            if q.entries and q.n_rows >= _limits(net).max_batch:
                 self.flush_group(self._group(net))
 
     def poll(self, now: Optional[float] = None) -> None:
@@ -310,7 +325,7 @@ class ServingPlane:
         now = self._clock() if now is None else now
         for net in list(self._pending.values()):
             q = net.serve_queue
-            if q.entries and (now - q.t_oldest) * 1000.0 >= net.serving.max_delay_ms:
+            if q.entries and (now - q.t_oldest) * 1000.0 >= _limits(net).max_delay_ms:
                 self.flush_group(self._group(net))
 
     def fence(self, net, chunks: int = 1) -> None:
@@ -329,7 +344,7 @@ class ServingPlane:
         q = net.serve_queue
         if not q.entries:
             return
-        cfg = net.serving
+        cfg = _limits(net)
         if cfg.staleness == "exact" or q.chunks >= cfg.stale_chunks:
             self.flush_group(self._group(net))
         else:
@@ -348,6 +363,18 @@ class ServingPlane:
             self.flush_group(self._group(net))
 
     # --- flush execution -------------------------------------------------
+
+    def take_queue(self, net) -> Tuple[List[tuple], int]:
+        """Remove and return one net's pending entries unserved: the
+        overload controller's CRITICAL shed takes an over-limit tenant's
+        queue here and answers each entry with a reason-coded dead letter
+        instead of a prediction."""
+        q = net.serve_queue
+        entries, q.entries = q.entries, []
+        n_rows, q.n_rows = q.n_rows, 0
+        q.chunks = 0
+        self._pending.pop(net.request.id, None)
+        return entries, n_rows
 
     def _group(self, net) -> List[Any]:
         """The gang-flush unit: every pending net attached to the same

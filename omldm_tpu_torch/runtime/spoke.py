@@ -38,8 +38,21 @@ number and passes hub messages through a receive window
 (``receive_from_hub``); duplicates and gaps fold into the hub's
 statistics. A live shrink merges a retiring spoke into a survivor
 (``absorb``: models through the learner's merge, pending rows re-fed,
-holdout and pause buffers merged). The overload, lifecycle, telemetry and
-events branches are not ported.
+holdout and pause buffers merged).
+
+With the overload plane armed (``trainingConfiguration.overload`` or
+``JobConfig.overload``, ``runtime.overload``) the spoke's
+``OverloadController`` accounts every tenant row it admits: a record whose
+``metadata.tenant`` names a hosted pipeline goes to that pipeline alone, and
+an over-limit tenant under pressure defers its training rows and, at
+CRITICAL, sheds its forecasts as ``shed_overload`` dead letters. A packed
+block is admitted whole before the cohort's gang walk, so an over-limit
+member leaves that block's gang. With the lifecycle plane armed
+(``runtime.lifecycle``) a net's Shadow candidate fits beside the active
+model on every flushed batch, a canary split routes forecasts to it at
+serve admission, and the spoke executes the registry's promote and rollback
+decisions after each record, block and query. The telemetry and events
+branches are not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +74,14 @@ from omldm_tpu_torch.protocols.base import WorkerNode
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
 from omldm_tpu_torch.runtime.cohort import CohortEngine
 from omldm_tpu_torch.runtime.databuffers import DataSet
+from omldm_tpu_torch.runtime.lifecycle import (
+    CANARY,
+    REASON_OPERATOR,
+    SHADOW,
+    LifecycleState,
+    build_candidate,
+    lifecycle_config,
+)
 from omldm_tpu_torch.runtime.messages import (
     OP_NACK,
     ReceiveWindow,
@@ -69,10 +90,17 @@ from omldm_tpu_torch.runtime.messages import (
     channel_window_size,
     reliability_armed,
 )
+from omldm_tpu_torch.runtime.overload import (
+    CRITICAL,
+    ELEVATED,
+    OverloadController,
+    overload_config,
+)
 from omldm_tpu_torch.runtime.serving import (
     ServeQueue,
     ServeStats,
     ServingPlane,
+    _entry_rows,
     serving_config,
 )
 from omldm_tpu_torch.runtime.vectorizer import (
@@ -95,7 +123,9 @@ PACKED = "__packed__"
 def create_pipeline(request: Request, dim: int, device, guarded: bool = True) -> MLPipeline:
     """The Create-request pipeline recipe: a generator seeded from the
     request id (where the JAX package keys ``jax.random.PRNGKey(request.id)``),
-    the per-record mode and, unless ``guarded`` is False, the guard."""
+    the per-record mode and, unless ``guarded`` is False, the guard. The
+    lifecycle plane rebuilds a retained version 0 through it too, so the
+    two cannot drift."""
     tc = request.training_configuration
     return MLPipeline(
         request.learner,
@@ -178,6 +208,7 @@ class SpokeNet:
                  timer: Optional[StepTimer] = None):
         self.request = request
         self.dim = dim
+        self.device = device
         self._timer = timer
         tc = request.training_configuration
         self.protocol = resolve_protocol(
@@ -206,12 +237,6 @@ class SpokeNet:
         # the pipeline's hub statistics at query/terminate
         self.program_launches = 0
         pipeline.on_launch = self._note_launch
-        # set when a shrink rescale merges a retired replica in: the batcher
-        # then holds rows of another spoke's stream, so its pending fill is
-        # no longer a suffix of this spoke's (the JAX package's shared-ingest
-        # grouping skips such nets). Nothing in the port reads it yet: the
-        # reader returns with the shared-ingest grouping
-        self.shared_taint = False
         self.serve_stats = ServeStats()
         # adaptive-batching serving (runtime/serving.py): when armed, this
         # net's forecasts queue here and serve in batched predicts; None
@@ -220,6 +245,19 @@ class SpokeNet:
         self.serving = serving_config(tc, config.serving)
         self.serve_queue = ServeQueue()
         self._plane: Optional[ServingPlane] = None
+        # the overload plane (runtime/overload.py): armed, this tenant's
+        # admissions run through the spoke's OverloadController (attached
+        # at create time); None keeps the plain routes
+        self.overload = overload_config(tc, config.overload)
+        self._octl: Optional[OverloadController] = None
+        # the model-lifecycle plane (runtime/lifecycle.py): the net's
+        # version registry. None (unarmed, and always for a sparse net: the
+        # candidate's predict and flat-parameter paths are dense) keeps the
+        # plain routes
+        lc_cfg = lifecycle_config(tc, config.lifecycle) if not self.sparse else None
+        self.lifecycle: Optional[LifecycleState] = (
+            LifecycleState(lc_cfg) if lc_cfg is not None else None
+        )
         # padded predict scratch, reused by every serve path
         self._scratch = None
         self._scratch_dirty = 0
@@ -263,6 +301,16 @@ class SpokeNet:
 
     def _note_launch(self) -> None:
         self.program_launches += 1
+
+    def serving_limits(self):
+        """The serving config the flush triggers compare against: the
+        static one, or its degraded variant (widened maxBatch and
+        maxDelayMs, relaxed staleness) while the spoke's overload
+        controller reports pressure."""
+        ctl = self._octl
+        if ctl is None or ctl.level == 0:
+            return self.serving
+        return ctl.degraded_serving(self)
 
     def gang_predict_ok(self) -> bool:
         """Gang serving bypasses ``node.on_forecast_batch`` with the same
@@ -324,6 +372,12 @@ class SpokeNet:
                 flushed = self.batcher.flush_views()
                 if flushed is not None:
                     self.node.on_training_batch(*flushed)
+                    if self.lifecycle is not None and self.lifecycle.training_active:
+                        # the candidate trains on the same batch; the views
+                        # alias batcher buffers that later adds reuse, so
+                        # it gets copies
+                        x, y, m = flushed
+                        self.lifecycle.fit_candidate(x.copy(), y.copy(), m)
                 return
         flushed = self.batcher.flush()
         if flushed is None:
@@ -333,6 +387,10 @@ class SpokeNet:
                 self.node.on_training_batch(*flushed)
         else:
             self.node.on_training_batch(*flushed)
+        if self.lifecycle is not None and self.lifecycle.training_active:
+            # a shadow or canary candidate trains on the same micro-batch
+            # (its own solo launch; the active model is untouched)
+            self.lifecycle.fit_candidate(*flushed)
 
     def test_arrays(self) -> Optional[Tuple[Any, np.ndarray, np.ndarray]]:
         if self.test_set.is_empty:
@@ -363,6 +421,13 @@ class Spoke:
         note_wire: Optional[Callable[[int, int, str, Any], None]] = None,
         # bulk twin of emit_prediction, one call per serving flush
         emit_predictions: Optional[Callable[[List[Prediction]], None]] = None,
+        # dead-letter hook (stream, payload, reason, detail=, extra=): the
+        # overload plane's shed and throttle records quarantine through it
+        quarantine: Optional[Callable] = None,
+        # metadata.tenant addressing with the overload plane unarmed (the
+        # job sets it when the chaos burst injector is armed: its copies
+        # are tenant-addressed); False broadcasts every record
+        tenant_routing: bool = False,
     ):
         self.worker_id = worker_id
         self.config = config
@@ -383,6 +448,14 @@ class Spoke:
         self._any_serving = False
         # True once a hosted net is guarded: gates the per-event guard walk
         self._any_guard = False
+        # True once a hosted net is lifecycle-armed: gates the per-event
+        # candidate tick and the canary split at serve admission
+        self._any_lifecycle = False
+        # the overload controller, created with the first overload-armed
+        # net; None: no admission accounting, ladder or shedding
+        self.overload: Optional[OverloadController] = None
+        self._quarantine = quarantine
+        self.tenant_routing = tenant_routing
         # pre-creation buffering (SpokeLogic.scala:31-35): records, and
         # whole packed blocks under the same row cap
         self.record_buffer: DataSet[DataInstance] = DataSet(config.record_buffer_cap)
@@ -406,6 +479,12 @@ class Spoke:
             self._delete(request.id)
         elif request.request == RequestType.QUERY:
             self._query(request)
+        elif request.request == RequestType.SHADOW:
+            self._lifecycle_shadow(request)
+        elif request.request == RequestType.PROMOTE:
+            self._lifecycle_promote_request(request)
+        elif request.request == RequestType.ROLLBACK:
+            self._lifecycle_rollback_request(request)
 
     def _create(self, request: Request, dim: int) -> None:
         if request.id in self.nets:
@@ -418,11 +497,17 @@ class Spoke:
         net.node.on_start()
         if net.serving is not None:
             net._plane = self._ensure_serving_plane()
+        if net.overload is not None:
+            if self.overload is None:
+                self.overload = OverloadController(self)
+            self.overload.arm(net)
         if net.pipeline.guard is not None:
             self._any_guard = True
             # the first last-known-good snapshot, at the initial params: a
             # trip before the first cadence snapshot has a target too
             net.pipeline.guard.maybe_snapshot(net.pipeline)
+        if net.lifecycle is not None:
+            self._any_lifecycle = True
         if self.cohorts is not None:
             self.cohorts.consider(net.pipeline)
             # pooled pipelines may attach on a LATER create (the auto
@@ -470,6 +555,10 @@ class Spoke:
             # cohort churn: the member's slot frees for reuse; the
             # survivors keep their slots
             self.cohorts.retire(net.pipeline)
+        if net is not None and self.overload is not None:
+            # the tenant's accounting and deferred rows go with it, as the
+            # net's pause buffer does
+            self.overload.retire(network_id)
         # a deleted net can no longer generate the hub RPCs that toggle its
         # siblings: resume + drain any survivor left paused
         for net in self.nets.values():
@@ -493,24 +582,71 @@ class Spoke:
         if not self.nets:
             self.record_buffer.append(inst)
             return
+        nets = list(self.nets.values())
+        meta = inst.metadata
+        if isinstance(meta, dict) and (self.overload is not None or self.tenant_routing):
+            # a tenant-ADDRESSED record: ``metadata.tenant`` names a hosted
+            # pipeline and the record goes to it alone, the traffic shape
+            # the overload plane's fair-share accounting (and the burst
+            # injector) exercise. Only an armed controller or the burst
+            # injector turns this on, so a stream whose metadata happens to
+            # carry a "tenant" key keeps the broadcast; an unknown tenant
+            # broadcasts too
+            target = self.nets.get(meta.get("tenant"))
+            if target is not None:
+                nets = [target]
+        ctl = self.overload
         serve_entries: List[Tuple[SpokeNet, Any]] = []
-        for net in list(self.nets.values()):
+        # False only when every admission of this record was shed: nothing
+        # entered a queue, so the boundary walks wait for the next admitted
+        # record (shedding must stay far cheaper than serving)
+        touched = ctl is None
+        for net in nets:
+            if ctl is not None and net.overload is not None and not net.node.paused:
+                # fair-share admission, before featurization: the counter
+                # accounts every row, the LEVEL decides what an over-limit
+                # verdict does (defer training at ELEVATED and up, shed
+                # forecasts at CRITICAL)
+                over = ctl.spend(net, 1)
+                if over and ctl.level >= ELEVATED:
+                    if inst.operation == FORECASTING:
+                        if ctl.level >= CRITICAL and net.overload.shed:
+                            self._shed_forecast(net, inst)
+                            continue
+                    else:
+                        self._defer_training(
+                            net, (inst.operation, net.vectorizer.vectorize(inst),
+                                  inst.target, None), 1)
+                        touched = True
+                        continue
             x = net.vectorizer.vectorize(inst)
             if net.node.paused:
                 # hold, don't drop: the net resumes on the next toggle
                 held_inst = inst if inst.operation == FORECASTING else None
                 net.pause_buffer.append((inst.operation, x, inst.target, held_inst))
+                touched = True
             elif inst.operation == FORECASTING:
                 serve_entries.append((net, x))
             else:
                 self._train(net, x, 0.0 if inst.target is None else inst.target)
+                touched = True
         if serve_entries:
+            touched = True
             self._serve_many(inst, serve_entries)
         # gang barrier: launch every cohort's staged fits for this record
         self._flush_cohorts()
         # guard: check the health values this record's launches noted
         self._guard_tick_all()
-        self.poll_serving()
+        # lifecycle: the candidates' guard, score and ramp decisions
+        self._lifecycle_tick_all()
+        if touched:
+            # overload: re-derive the level from the queues this record
+            # left, before the serving poll so degraded limits apply at
+            # this boundary. A fully shed record skips both walks (its
+            # spends already advanced the count clock)
+            if ctl is not None:
+                self._overload_tick()
+            self.poll_serving()
         if inst.operation != FORECASTING:
             # poll marker every 100 training records -- once per record, not
             # per hosted pipeline (FlinkSpoke.scala:83-89)
@@ -541,12 +677,22 @@ class Spoke:
             self._packed_buffer.append((PACKED, (x, y, op), None, None))
             return
         f_idx = np.nonzero(op != 0)[0]
+        ctl = self.overload
         gang_nets: List[SpokeNet] = []
         for net in list(self.nets.values()):
             if net.node.paused:
                 # hold the whole block; drains via _drain_pause_buffer
                 net.pause_buffer.append((PACKED, (x, y, op), None, None))
                 continue
+            if ctl is not None and net.overload is not None:
+                # block-granular admission, before the gang walk: an
+                # over-limit tenant under pressure sheds or serves its
+                # forecast rows and defers its training rows for the whole
+                # block, and so leaves this block's gang
+                over = ctl.spend(net, n)
+                if over and ctl.level >= ELEVATED:
+                    self._overload_packed(net, x, y, op, f_idx)
+                    continue
             if net.pipeline._cohort is not None:
                 # cohort members advance in LOCKSTEP below, so same-cohort
                 # flushes stage into shared gang launches (each net's row
@@ -560,6 +706,9 @@ class Spoke:
             self._process_packed_gang(gang_nets, x, y, f_idx)
         self._flush_cohorts()
         self._guard_tick_all()
+        self._lifecycle_tick_all()
+        if ctl is not None:
+            self._overload_tick()
         self.poll_serving()
         nt = n - int(f_idx.size)
         if nt:
@@ -620,7 +769,10 @@ class Spoke:
         fill0 = len(nets[0].batcher)
         for net in nets:
             if (net.serving is None or net.sparse or net.batcher.batch_size != b0
-                    or len(net.batcher) != fill0):
+                    or len(net.batcher) != fill0
+                    # an active canary needs the per-position walk: its
+                    # count-clocked split is per forecast row
+                    or (net.lifecycle is not None and net.lifecycle.canary_active)):
                 return False
         plane = self.serving_plane
         n = x.shape[0]
@@ -742,12 +894,16 @@ class Spoke:
         if net.serving is not None:
             self._queue_packed(net, x, f_idx)
             return
+        f_idx = self._route_packed_candidates(net, x, f_idx)
+        if f_idx.size == 0:
+            return
         self._serve_packed_baseline(net, x, f_idx)
 
     def _serve_packed_baseline(
         self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray
     ) -> None:
-        """Immediate packed-route serving: PREDICT_BATCH rows a predict."""
+        """Immediate packed-route serving through the active model,
+        PREDICT_BATCH rows a predict (an armed canary split ran first)."""
         if net.sparse:
             sidx, sval = self._dense_rows_to_coo(x[f_idx], net.max_nnz)
             for j in range(f_idx.size):
@@ -778,7 +934,11 @@ class Spoke:
     def _queue_packed(self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray) -> None:
         """Admit packed-route forecast rows into the net's serving queue.
         Dense rows defer the DataInstance to emission; sparse rows carry it
-        (its features are the pre-COO dense row)."""
+        (its features are the pre-COO dense row). An active canary takes its
+        share of the rows first."""
+        f_idx = self._route_packed_candidates(net, x, f_idx)
+        if f_idx.size == 0:
+            return
         plane = self.serving_plane
         if net.sparse:
             sidx, sval = self._dense_rows_to_coo(x[f_idx], net.max_nnz)
@@ -837,10 +997,20 @@ class Spoke:
             cohort.launch()
 
     def _serve_many(self, inst: DataInstance, entries) -> None:
-        """Serve one forecast record to many nets: serving-armed nets queue
-        it, cohort members answer through ONE gang predict a cohort, the
-        others at once; emission keeps the nets' order. (The JAX package
-        also routes canaries here.)"""
+        """Serve one forecast record to many nets: canary-routed forecasts
+        serve through their candidate, serving-armed nets queue the rest,
+        cohort members answer through ONE gang predict a cohort, the
+        others at once; emission keeps the nets' order."""
+        if self._any_lifecycle:
+            # the canary split at the serve-admission boundary
+            kept = []
+            for net, x in entries:
+                lc = net.lifecycle
+                if lc is not None and lc.route_candidate():
+                    self._serve_candidate(net, inst, x)
+                else:
+                    kept.append((net, x))
+            entries = kept
         gang_in = []
         t0 = time.perf_counter()
         for net, x in entries:
@@ -933,10 +1103,18 @@ class Spoke:
         armed nets, the solo path otherwise."""
         gang_in = []
         rows: Dict[int, np.ndarray] = {}
+        routed: set = set()
         t0 = time.perf_counter()
         for net in nets:
             if net.serving is not None:
+                # _queue_packed runs the canary split itself
                 self._queue_packed(net, x, np.asarray([f]))
+                continue
+            lc = net.lifecycle
+            if lc is not None and lc.canary_active and lc.route_candidate():
+                row = self._adapt_width(x[f : f + 1], net.dim)[0]
+                self._serve_candidate(net, DataInstance.forecast_payload(row), row)
+                routed.add(id(net))
             elif net.gang_predict_ok():
                 row = rows.get(net.dim)
                 if row is None:
@@ -946,7 +1124,7 @@ class Spoke:
                 gang_in.append((net, xb))
         ganged = self._gang_predictions(gang_in) if gang_in else {}
         for net in nets:
-            if net.serving is not None:
+            if net.serving is not None or id(net) in routed:
                 continue
             pred = ganged.get(id(net))
             if pred is None:
@@ -982,6 +1160,9 @@ class Spoke:
         # settle a pending guard trip first: a query never reports a score
         # off the parameters the guard is about to roll back
         self._guard_tick_all()
+        # ... and a pending lifecycle decision, so the registry view (and
+        # its counters) this response carries is settled too
+        self._lifecycle_tick_all()
         test = net.test_arrays()
         if test is not None:
             loss, score = net.pipeline.evaluate(*test)
@@ -1002,6 +1183,23 @@ class Spoke:
                 net.serve_stats.percentiles(),
             )
             net.serve_stats.reset()
+        # the overload plane's shed and throttle counts fold once (as the
+        # launch tally), the pressure level is a peak gauge, and the
+        # shed-wait p99 max-combines as the serve latency does
+        if self._note_wire is not None and self.overload is not None:
+            ctl = self.overload
+            nid = net.request.id
+            shed = ctl.take_shed(nid)
+            if shed:
+                self._note_wire(nid, 0, "forecasts_shed", shed)
+                p99 = ctl.shed_latency_p99(nid)
+                if p99:
+                    self._note_wire(nid, 0, "shed_latency_ms", p99)
+            throttled = ctl.take_throttled(nid)
+            if throttled:
+                self._note_wire(nid, 0, "records_throttled", throttled)
+            if ctl.level_peak:
+                self._note_wire(nid, 0, "pressure_level", ctl.level_peak)
         # the codec's seconds fold as a delta since the last fold
         if self._note_wire is not None and net.node.codec is not None:
             c = net.node.codec
@@ -1010,6 +1208,14 @@ class Spoke:
             if enc > 0.0 or dec > 0.0:
                 self._note_wire(net.request.id, 0, "codec_seconds", (enc, dec))
                 net._codec_folded = (c.encode_seconds, c.decode_seconds)
+        # the lifecycle counters fold once; the live version is a
+        # last-write gauge, folded every time (0 after an operator rollback
+        # to the Create model included)
+        if self._note_wire is not None and net.lifecycle is not None:
+            for counter, n in net.lifecycle.take_counters().items():
+                self._note_wire(net.request.id, 0, counter, n)
+            self._note_wire(net.request.id, 0, "active_version",
+                            net.lifecycle.active_version)
         desc = net.pipeline.describe()
         qstats = net.node.query_stats()
 
@@ -1042,6 +1248,10 @@ class Spoke:
                     loss=loss if i == 0 else None,
                     cumulative_loss=qstats["cumulative_loss"] if i == 0 else None,
                     score=score if i == 0 else None,
+                    # the worker's registry view rides the bucket-0
+                    # fragment of a lifecycle-armed pipeline
+                    lifecycle=(net.lifecycle.describe()
+                               if i == 0 and net.lifecycle is not None else None),
                     source_worker=self.worker_id,
                 )
             )
@@ -1055,6 +1265,10 @@ class Spoke:
             if net.node.paused:
                 net.node.paused = False
             self._drain_pause_buffer(net)
+            if self.overload is not None:
+                # deferred (throttled) rows train before the final
+                # evaluation: deprioritized work is late, never lost
+                self._drain_throttled(net)
             net.flush_batch()
             self._flush_cohorts()
             net.node.on_flush()
@@ -1171,6 +1385,273 @@ class Spoke:
             # worker-keyed, so this is idempotent)
             net.node.resend_state()
 
+    # --- the overload-control plane (runtime.overload) ---
+
+    def _overload_tick(self) -> None:
+        """Re-derive the pressure level and act on the transition: entering
+        CRITICAL sheds the over-limit tenants' QUEUED forecasts (they would
+        otherwise serve through a saturated plane after waiting out the
+        episode); recovered tenants, and every tenant at OK, drain their
+        deferred training rows back into the stream."""
+        ctl = self.overload
+        old, new = ctl.tick()
+        if new >= CRITICAL and old < CRITICAL and self.serving_plane is not None:
+            for net in list(self.nets.values()):
+                if (net.overload is not None and net.overload.shed
+                        and net.serving is not None and net.serve_queue.entries
+                        and ctl.is_over(net.request.id)):
+                    self._shed_queued(net)
+        for nid in ctl.drainable():
+            net = self.nets.get(nid)
+            if net is not None and not net.node.paused:
+                self._drain_throttled(net)
+
+    def _quarantine_shed(self, net: SpokeNet, payload, depth: int) -> None:
+        if self._quarantine is not None:
+            # an explicit, reason-coded SHED record carrying the tenant and
+            # its queue depth instead of a silent timeout (the stream name
+            # is the job's forecasting stream, so it counts as a record)
+            self._quarantine("forecastingData", payload, "shed_overload",
+                             extra={"tenant": net.request.id, "queueDepth": depth})
+
+    def _shed_forecast(self, net: SpokeNet, inst: DataInstance) -> None:
+        """Admission-time shed of one forecasting record (CRITICAL, an
+        over-limit tenant): refused before it queues, so it adds no
+        shed-latency sample. The payload stays a compact row count, not the
+        feature vector: shedding must be far cheaper than serving."""
+        self.overload.note_shed(net.request.id, 1)
+        self._quarantine_shed(net, "rows=1 source=admission", net.serve_queue.n_rows)
+
+    def _shed_packed(self, net: SpokeNet, f_idx: np.ndarray) -> None:
+        """Admission-time shed of a packed block's forecast rows."""
+        rows = int(f_idx.size)
+        self.overload.note_shed(net.request.id, rows)
+        self._quarantine_shed(net, {"rows": rows, "source": "packed"}, net.serve_queue.n_rows)
+
+    def _shed_queued(self, net: SpokeNet) -> None:
+        """CRITICAL-entry shed of a tenant's queued forecasts; each entry's
+        enqueue-to-shed wait feeds the shedLatencyMs percentile."""
+        depth = net.serve_queue.n_rows
+        entries, n_rows = self.serving_plane.take_queue(net)
+        if not entries:
+            return
+        ctl = self.overload
+        now = ctl.now()
+        for inst, x, t0 in entries:
+            k = 1 if inst is not None else _entry_rows(x)
+            ctl.note_shed(net.request.id, k, (now - t0) * 1000.0)
+        self._quarantine_shed(net, {"rows": n_rows, "source": "queue"}, depth)
+
+    def _overload_packed(self, net: SpokeNet, x, y, op, f_idx: np.ndarray) -> None:
+        """An over-limit tenant's share of a packed block under pressure:
+        its forecasts shed at CRITICAL (and serve at ELEVATED, where only
+        training is deprioritized), its training rows defer behind the
+        healthy tenants' work."""
+        ctl = self.overload
+        if f_idx.size:
+            if ctl.level >= CRITICAL and net.overload.shed:
+                self._shed_packed(net, f_idx)
+            else:
+                self._serve_packed(net, x, f_idx)
+        t_idx = np.nonzero(op == 0)[0]
+        if t_idx.size:
+            entry = (PACKED, (x[t_idx], y[t_idx], np.zeros((t_idx.size,), np.uint8)),
+                     None, None)
+            self._defer_training(net, entry, int(t_idx.size))
+
+    def _defer_training(self, net: SpokeNet, entry: tuple, rows: int) -> None:
+        """Put an over-limit tenant's training rows in its bounded deferral
+        ring (drained when the tenant recovers, pressure clears or the
+        terminate probe fires); the oldest rows an overflow drops are
+        quarantined with reason ``throttled`` rather than lost silently."""
+        ctl = self.overload
+        nid = net.request.id
+        buf = ctl.deferred.get(nid)
+        if buf is None:
+            buf = ctl.deferred[nid] = _PauseBuffer(net.overload.defer_cap)
+        before = len(buf)
+        buf.append(entry)
+        ctl.note_throttled(nid, rows)
+        evicted = before + rows - len(buf)
+        if evicted > 0 and self._quarantine is not None:
+            self._quarantine("trainingData", {"rows": evicted}, "throttled",
+                             extra={"tenant": nid, "queueDepth": len(buf)})
+
+    def _drain_throttled(self, net: SpokeNet) -> None:
+        """Re-admit a tenant's deferred training rows (no second spend: the
+        rows were accounted when they arrived)."""
+        ctl = self.overload
+        if ctl is None:
+            return
+        buf = ctl.deferred.get(net.request.id)
+        if buf is None or buf.is_empty:
+            return
+        for operation, x, target, _inst in buf.drain():
+            if operation == PACKED:
+                px, py, pop = x
+                self._process_packed_for_net(net, px, py, np.nonzero(pop != 0)[0])
+            else:
+                self._train(net, x, 0.0 if target is None else target)
+
+    def queue_depths(self) -> Dict[str, int]:
+        """This spoke's queue depths: the serving queues, the batchers'
+        pending rows, the deferred (throttled) rows, the pause buffers and
+        the pre-creation buffers. The overload controller reads some of
+        them as pressure signals; after the terminate probe every one must
+        be 0 (no stranded rows)."""
+        return {
+            "serving": self.serving_plane.queued() if self.serving_plane is not None else 0,
+            "batcher": int(sum(net.batcher.queued() for net in self.nets.values())),
+            "throttled": self.overload.backlog_rows() if self.overload is not None else 0,
+            "paused": int(sum(len(net.pause_buffer) for net in self.nets.values())),
+            "pre_create": len(self.record_buffer) + len(self._packed_buffer),
+        }
+
+    # --- the model-lifecycle plane (runtime.lifecycle) ---
+
+    def _lifecycle_shadow(self, request: Request) -> None:
+        """Shadow: register the request's candidate configuration in
+        shadow mode. It trains on the same flushed micro-batches and scores
+        on the same holdout window while serving stays on the active
+        version. The candidate must keep the baseline's flat-parameter SIZE
+        (a promotion swaps the protocol node's pipeline and the hub keeps
+        its state): a size-changing candidate is quarantined instead (an
+        architecture change stays the destructive Update, as in the
+        reference)."""
+        net = self.nets.get(request.id)
+        if net is None or net.lifecycle is None:
+            return
+        pipe, spec = build_candidate(net, request, net.lifecycle.next_version)
+        try:
+            cand_size = pipe.get_flat_params()[0].size
+            base_size = net.pipeline.get_flat_params()[0].size
+        except Exception:
+            cand_size = base_size = None  # host-side: no flat contract
+        if cand_size != base_size:
+            if self._quarantine is not None:
+                self._quarantine(
+                    "requests", request.to_json(), "rejected_request",
+                    detail=("lifecycle candidate changes the parameter shape "
+                            f"({cand_size} vs {base_size}); use Update for "
+                            "architecture changes"),
+                )
+            return
+        pipe.on_launch = net._note_launch
+        net.lifecycle.arm_shadow(pipe, spec)
+
+    def _lifecycle_promote_request(self, request: Request) -> None:
+        """Promote: a shadow candidate starts its canary ramp; a canarying
+        one completes at once (the operator overrides the rest of the ramp;
+        the swap is the same)."""
+        net = self.nets.get(request.id)
+        if net is None or net.lifecycle is None:
+            return
+        entry = net.lifecycle.candidate_entry
+        if entry is None:
+            return
+        if entry.state == SHADOW:
+            net.lifecycle.start_canary()
+        elif entry.state == CANARY:
+            self._lifecycle_promote(net)
+
+    def _lifecycle_rollback_request(self, request: Request) -> None:
+        """Rollback: demote a live candidate (routing snaps back to the
+        baseline, which never moved) or, with no candidate in flight,
+        reactivate the retained pre-promotion version."""
+        net = self.nets.get(request.id)
+        if net is None or net.lifecycle is None:
+            return
+        lc = net.lifecycle
+        if lc.candidate_entry is not None:
+            lc.demote_candidate(REASON_OPERATOR)
+            return
+        entry = lc.previous
+        if entry is None:
+            return
+        if net.serving is not None and net.serve_queue.entries:
+            # queued forecasts drain through the outgoing model first
+            self.serving_plane.flush_net(net)
+        if net.pipeline._cohort is not None and self.cohorts is not None:
+            self.cohorts.retire(net.pipeline)
+        net.node.pipeline = lc.reactivate(entry, net)
+        self._lifecycle_post_swap(net)
+
+    def _lifecycle_tick_all(self) -> None:
+        """The decision pass for every net with a live candidate (next to
+        the guard tick): a candidate guard trip or shadow-score regression
+        rolls the candidate back, a completed ramp promotes it. One flag
+        read when no hosted net is lifecycle-armed."""
+        if not self._any_lifecycle:
+            return
+        for net in list(self.nets.values()):
+            lc = net.lifecycle
+            if lc is None or lc.candidate is None:
+                continue
+            action = lc.tick(net)
+            if action is None:
+                continue
+            if action[0] == "rollback":
+                lc.demote_candidate(action[1])
+            else:
+                self._lifecycle_promote(net)
+
+    def _lifecycle_promote(self, net: SpokeNet) -> None:
+        """The runtime half of a promotion: drain the serving queue through
+        the outgoing model, detach it from its cohort (the registry keeps a
+        live pipeline for an operator Rollback), install the candidate as
+        the protocol node's pipeline and re-anchor the transport and
+        protocol state, as a rescale's model seed does."""
+        if net.serving is not None and net.serve_queue.entries:
+            self.serving_plane.flush_net(net)
+        if net.pipeline._cohort is not None and self.cohorts is not None:
+            self.cohorts.retire(net.pipeline)
+        net.node.pipeline = net.lifecycle.promote(net)
+        self._lifecycle_post_swap(net)
+
+    def _lifecycle_post_swap(self, net: SpokeNet) -> None:
+        """The shared tail of promote and reactivate: codec residuals and
+        top-k bases computed against the replaced model are stale, drift
+        baselines re-anchor, and the new active model's guard (a candidate
+        always carries one) reseeds its ring at the promoted parameters."""
+        if net.node.codec is not None:
+            net.node.codec.reset_streams()
+        net.node.on_model_seeded()
+        if net.pipeline.guard is not None:
+            self._any_guard = True
+            net.pipeline.guard.reseed(net.pipeline)
+
+    def _serve_candidate(self, net: SpokeNet, inst, row) -> None:
+        """Serve one canary-routed forecast through the candidate, at once
+        and never queued (the candidate is outside the serving plane's
+        staleness contract), tagged with the candidate's version."""
+        lc = net.lifecycle
+        entry = lc.candidate_entry
+        t0 = time.perf_counter()
+        rows = np.asarray(row, np.float32).reshape(1, -1)
+        with self.serve_timer:
+            val = float(lc.predict_candidate(rows)[0])
+        self._emit_prediction(Prediction(net.request.id, inst, val, version=entry.version))
+        net.serve_stats.note((time.perf_counter() - t0) * 1000.0)
+
+    def _route_packed_candidates(self, net: SpokeNet, x: np.ndarray,
+                                 f_idx: np.ndarray) -> np.ndarray:
+        """The packed route's canary split: walk the block's forecast rows
+        through the count-clocked router; candidate-routed rows serve at
+        once, the rest return for the baseline path. The identity (no
+        clock tick) without an active canary."""
+        lc = net.lifecycle
+        if lc is None or not lc.canary_active:
+            return f_idx
+        keep: List[int] = []
+        for f in f_idx:
+            f = int(f)
+            if lc.route_candidate():
+                row = self._adapt_width(x[f : f + 1], net.dim)[0]
+                self._serve_candidate(net, DataInstance.forecast_payload(row), row)
+            else:
+                keep.append(f)
+        return np.asarray(keep, np.int64)
+
     # --- live rescale (FlinkSpoke.scala:345-348, SpokeLogic.scala:37-50) ---
 
     def set_parallelism(self, n_workers: int) -> None:
@@ -1192,8 +1673,21 @@ class Spoke:
             retired.serving_plane.flush_all()
         if self.serving_plane is not None:
             self.serving_plane.flush_all()
-        # (the overload plane's throttled rows and counters carry over here:
-        # ROADMAP queue 1, item 3)
+        if retired.overload is not None:
+            # throttled rows train into the retiring replicas before the
+            # merge (deprioritized work must not vanish with its spoke),
+            # and the unfolded shed and throttle counters carry over
+            for rnet in retired.nets.values():
+                retired._drain_throttled(rnet)
+            if self.overload is not None:
+                rctl, sctl = retired.overload, self.overload
+                for nid in list(rctl._shed):
+                    sctl._shed[nid] = sctl._shed.get(nid, 0) + rctl.take_shed(nid)
+                for nid in list(rctl._throttled):
+                    sctl._throttled[nid] = sctl._throttled.get(nid, 0) + rctl.take_throttled(nid)
+                sctl.level_peak = max(sctl.level_peak, rctl.level_peak)
+                sctl.total_shed += rctl.total_shed
+                sctl.total_throttled += rctl.total_throttled
         # the retiring spoke's cohorts dissolve (members take their state
         # back for the merge); the survivors keep theirs, and merge_from
         # edits flow through the member checkout
@@ -1205,15 +1699,20 @@ class Spoke:
             if snet is None:
                 # this spoke never hosted the pipeline (not the case in a
                 # job-managed rescale): adopt the retiring replica whole
-                rnet.shared_taint = True
                 self.nets[net_id] = rnet
                 if rnet.pipeline.guard is not None:
                     self._any_guard = True
+                if rnet.lifecycle is not None:
+                    self._any_lifecycle = True
                 if rnet.serving is not None:
                     # the retired spoke's plane (flushed above) goes with it
                     rnet._plane = self._ensure_serving_plane()
+                if rnet.overload is not None:
+                    # and so does its admission accounting
+                    if self.overload is None:
+                        self.overload = OverloadController(self)
+                    self.overload.arm(rnet)
                 continue
-            snet.shared_taint = True
             # pending rows train into the surviving replica: the batcher's
             # partial fill and any batches a blocking worker held while
             # waiting on a protocol sync (SyncingWorker._blocked)
@@ -1249,8 +1748,14 @@ class Spoke:
                 snet.node.codec.reset_streams()
             if snet.pipeline.guard is not None:
                 snet.pipeline.guard.reseed(snet.pipeline)
-            # (the retiring replica's lifecycle candidate retires with it and
-            # its counters carry over here: ROADMAP queue 1, item 3)
+            # the retiring replica's candidate retires with its spoke
+            # (released silently, not counted as a rollback) and its
+            # unfolded counters carry over, as the overload counters do
+            if rnet.lifecycle is not None:
+                rnet.lifecycle.demote_candidate(None)
+                if snet.lifecycle is not None:
+                    for k, v in rnet.lifecycle.take_counters().items():
+                        snet.lifecycle._bump(k, v)
             # holdout windows interleave, keeping the newest
             # (CommonUtils.scala:36-48)
             snet.test_set.merge([rnet.test_set])
@@ -1272,7 +1777,9 @@ class Spoke:
                 px, py, pop = x
                 self._process_packed_for_net(net, px, py, np.nonzero(pop != 0)[0])
             elif operation == FORECASTING:
-                if net.serving is not None:
+                if net.lifecycle is not None and net.lifecycle.route_candidate():
+                    self._serve_candidate(net, inst, x)
+                elif net.serving is not None:
                     self.serving_plane.admit(net, inst, x)
                 else:
                     self._serve(net, inst, x)

@@ -12,15 +12,18 @@ crc32). ``StreamJob`` wraps both directions of its bridge in one when
 ``JobConfig.chaos`` or ``OMLDM_CHAOS`` holds a spec
 (:func:`parse_chaos_spec`), and every pipeline's reliable channel arms.
 
+The spec's burst keys arm :class:`BurstInjector`, the overload plane's
+seeded hot-tenant flood: the job feeds it every forecasting record and
+handles the tenant-addressed copies it returns.
+
 The rest of the JAX module -- the fleet supervisor and autoscaler, the
-process fault injector, the burst injector of the overload plane and the
-Kafka ``ChaosConsumer`` -- arrives with the distributed fleet (ROADMAP
-queue 1, item 4) and the planes it drives; the job refuses the burst keys
-by name until then.
+process fault injector and the Kafka ``ChaosConsumer`` -- arrives with the
+distributed fleet (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Dict, List, Optional
 
@@ -309,3 +312,51 @@ class ChaosChannel:
         }
 
 
+class BurstInjector:
+    """Seeded hot-tenant burst injector (the overload plane's fault
+    injector): inside a window counted in forecasting records, every
+    forecast gains ``factor - 1`` TENANT-ADDRESSED copies
+    (``metadata.tenant``) that flood one pipeline.
+
+    The schedule is a pure function of the spec and the forecast sequence,
+    so a spec replays the same flood and, downstream, the same shed and
+    throttle schedule. The seed keys the injector's own RNG stream
+    (``_chaos_rng``, the JAX package's draw for draw) for stochastic
+    classes; the window itself draws nothing."""
+
+    def __init__(self, factor: int, start: int = 0, length: int = 1 << 31,
+                 hot_tenant: int = 0, seed: int = 0):
+        self.factor = int(factor)
+        self.start = int(start)
+        self.length = int(length)
+        self.hot_tenant = int(hot_tenant)
+        self._rng = _chaos_rng(seed, "burst")
+        self.forecasts_seen = 0
+        self.injected = 0
+
+    @classmethod
+    def from_spec(cls, spec: Optional[Dict]) -> Optional["BurstInjector"]:
+        """The injector a parsed chaos spec arms, or None (no ``burst`` of
+        at least 2)."""
+        if not spec or int(spec.get("burst", 0)) < 2:
+            return None
+        return cls(spec["burst"], spec.get("burstFrom", 0),
+                   spec.get("burstLen", 1 << 31), spec.get("hotTenant", 0),
+                   seed=spec.get("seed", 0))
+
+    def clones(self, inst):
+        """The extra copies of ``inst`` to inject: empty outside the window
+        and for a training record. Copies share the feature payload
+        (read-only) and carry the hot tenant's address."""
+        from omldm_tpu_torch.api.data import FORECASTING
+
+        if inst.operation != FORECASTING:
+            return ()
+        i = self.forecasts_seen
+        self.forecasts_seen += 1
+        if not (self.start <= i < self.start + self.length):
+            return ()
+        clone = dataclasses.replace(inst, metadata={"tenant": self.hot_tenant, "burst": True})
+        k = self.factor - 1
+        self.injected += k
+        return [clone] * k

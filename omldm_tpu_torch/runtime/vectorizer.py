@@ -121,6 +121,11 @@ class SparseMicroBatcher:
     def __len__(self) -> int:
         return self._n
 
+    def queued(self) -> int:
+        """Pending (staged, unflushed) rows: the queue-depth accessor
+        (``ServingPlane.queued()``'s contract)."""
+        return self._n
+
     @property
     def full(self) -> bool:
         return self._n >= self.batch_size
@@ -171,6 +176,11 @@ class MicroBatcher:
         self._n = 0
 
     def __len__(self) -> int:
+        return self._n
+
+    def queued(self) -> int:
+        """Pending (staged, unflushed) rows: the queue-depth accessor
+        (``ServingPlane.queued()``'s contract)."""
         return self._n
 
     @property

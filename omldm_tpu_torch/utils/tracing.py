@@ -2,7 +2,8 @@
 only ``StepTimer`` is ported -- the JAX profiler wrapper has no use here).
 
 :class:`StepTimer` is cheap wall-clock accounting for streaming steps:
-per-step ms percentiles and steps/sec.
+per-step ms percentiles and steps/sec, and the recent p99 the overload
+controller reads as its serve-latency signal.
 """
 
 from __future__ import annotations
@@ -69,6 +70,19 @@ class StepTimer:
             "p99_ms": float(np.percentile(d, 99)),
             "steps_per_sec": 1000.0 / mean if mean > 0 else 0.0,
         }
+
+    def recent_p99(self, window: int = 256) -> float:
+        """p99 ms over (about) the newest ``window`` samples: the overload
+        controller's latency signal. It reads the tail of the ring without
+        sorting the whole window (past one wrap the ring's order scrambles
+        recency a little, which a pressure signal tolerates); 0.0 when
+        empty."""
+        import numpy as np
+
+        if not self._durations_ms:
+            return 0.0
+        tail = self._durations_ms[-min(window, len(self._durations_ms)):]
+        return float(np.percentile(np.asarray(tail), 99))
 
     def reset(self) -> None:
         self._durations_ms = []

@@ -10,7 +10,7 @@
 - ``_corrupt_payload`` corrupts raw vectors and every encoded leaf kind
   the way the JAX package does, and never mutates its input.
 - A job with ``chaos`` (or ``OMLDM_CHAOS``) runs; the overload plane's
-  burst keys are refused by name; 64 PA-I Synchronous tenants under a drop
+  burst keys arm its burst injector; 64 PA-I Synchronous tenants under a drop
   spec with cohorts off finish inside the job's raised recursion limit
   (the JAX package stops with RecursionError there, ROADMAP queue 3).
 """
@@ -164,8 +164,16 @@ def test_job_runs_under_chaos_and_env(monkeypatch):
                                   "burstFrom, hotTenant"),
 ])
 def test_chaos_burst_keys_refused_by_name(spec, keys):
-    with pytest.raises(NotImplementedError, match=f"chaos burst keys \\({keys}"):
-        StreamJob(JobConfig(chaos=spec), device="cpu")
+    """The burst keys were refused while the overload plane was missing;
+    they now arm its ``BurstInjector`` (a ``burst`` of at least 2), whose
+    window and hot tenant are the spec's, and turn tenant routing on."""
+    job = StreamJob(JobConfig(chaos=spec), device="cpu")
+    if "burst" in keys.split(", "):
+        assert job._burst is not None and job._burst.factor == 4
+        assert all(s.tenant_routing for s in job.spokes)
+    else:
+        assert job._burst is None
+        assert tsup.parse_chaos_spec(spec)["hotTenant"] == 2
 
 
 def test_64_synchronous_tenants_under_drop_fit_the_stack():

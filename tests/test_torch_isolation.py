@@ -38,7 +38,8 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.supervisor, omldm_tpu_torch.runtime.messages\n"
         "import omldm_tpu_torch.checkpoint, omldm_tpu_torch.runtime.recovery\n"
         "import omldm_tpu_torch.runtime.selfheal, omldm_tpu_torch.utils.backoff\n"
-        "import omldm_tpu_torch.parallel.ckpt\n"
+        "import omldm_tpu_torch.parallel.ckpt, omldm_tpu_torch.runtime.overload\n"
+        "import omldm_tpu_torch.runtime.lifecycle\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -286,14 +287,29 @@ def test_chip_smoke_copy_task_stream():
 
 
 @pytest.mark.parametrize("option", [
-    {"overload": "on"}, {"lifecycle": "on"},
     {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
-    {"chaos": "seed=1,burst=4"}, {"chaos": "seed=1,hotTenant=3"},
 ])
 def test_unported_job_plane_raises(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         StreamJob(JobConfig(**option), device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    {"overload": "on"}, {"lifecycle": "on"},
+    {"chaos": "seed=1,burst=4"}, {"chaos": "seed=1,hotTenant=3"},
+])
+def test_overload_and_lifecycle_job_planes_run(option):
+    """The overload and lifecycle planes and the chaos spec's burst keys
+    are ported: a job armed with any of them builds and runs."""
+    job = StreamJob(JobConfig(parallelism=2, batch_size=8, **option), device="cpu")
+    rows = [("trainingData", json.dumps({"numericalFeatures": [float(i % 3), 1.0],
+                                         "target": float(i % 2)})) for i in range(40)]
+    report = job.run([("requests", _create())] + rows)
+    assert job.pipeline_manager.live_pipelines == [0] and report.statistics[0].fitted > 0
+    net = job.spokes[0].nets[0]
+    assert (net.overload is not None) == ("overload" in option)
+    assert (net.lifecycle is not None) == ("lifecycle" in option)
 
 
 @pytest.mark.parametrize("option", [
@@ -344,9 +360,9 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
 
 
 @pytest.mark.parametrize("request_json,reason", [
-    (_create(overload={"shedHigh": 0.9}), "trainingConfiguration.overload is not yet ported"),
+    (_create(overload={"shedHigh": 0.9}), "unknown overload knob(s): ['shedHigh']"),
     (_create(learner="Nope"), "unknown learner"),
-    (_create(lifecycle="on"), "trainingConfiguration.lifecycle is not yet ported"),
+    (_create(lifecycle={"rampTo": 2}), "lifecycle ramp must satisfy"),
     (_create(telemetry={"sloMs": 5}), "trainingConfiguration.telemetry is not yet ported"),
     (_create(events=True), "trainingConfiguration.events is not yet ported"),
     (_create(preps=("Whitener",)), "unknown preprocessor 'Whitener'"),
@@ -517,12 +533,16 @@ def test_control_gate_admits_every_protocol(protocol):
 
 @pytest.mark.parametrize("request_type", ["Shadow", "Promote", "Rollback"])
 def test_control_gate_rejects_lifecycle_requests(request_type):
+    """The lifecycle verbs are ported: aimed at a pipeline without the
+    plane armed they are rejected by that reason (an armed pipeline takes
+    them, tests/test_torch_lifecycle.py)."""
     job = StreamJob(JobConfig(parallelism=2), device="cpu")
     job.run([("requests", _create()),
+             ("trainingData", json.dumps({"numericalFeatures": [1.0, 0.0], "target": 1.0})),
              ("requests", json.dumps({"id": 0, "request": request_type,
                                       "learner": {"name": "PA"}}))])
     [entry] = job.dead_letter.entries
-    assert "(model lifecycle) is not yet ported" in entry["detail"]
+    assert entry["detail"] == "lifecycle plane not armed for pipeline 0"
 
 
 def test_unknown_protocol_falls_back_to_asynchronous():
