@@ -343,6 +343,48 @@ Phases (any failure raises and the script exits nonzero without a result):
                  device time the candidate adds in the hold leg
                  (torch.profiler, hold against off), the snapshot's bytes
                  and its save and restore seconds.
+ 41. telemetry   (a) the JAX package's telemetry smoke (protocol_comparison.py
+                 --telemetry-smoke), not cut: TELEMETRY_SMOKE's 48,000 rows
+                 (28 features), parallelism 4, batch 64, Synchronous PA C
+                 1.0, packed blocks of 8,192; unarmed against armed
+                 (statsEvery=4096,traceSample=16,spanPath=...) in 4 paired
+                 trials after one warm-up pair: the armed leg's score,
+                 fitted, modelsShipped, bytesOnWire and numOfBlocks equal
+                 the unarmed leg's, the best pair costs at most 1.03x, at
+                 least max(records // 8192 - 1, 1) heartbeats, the phase
+                 table's coverage at least 0.5, a completed span whose
+                 record has networkId, seq, op and rttMs; (b) phase 5's
+                 stream armed (statsEvery=10000,traceSample=16) under
+                 torch.profiler (device activity): predictions bitwise
+                 phase 5's, pa_scan launches phase 5's, the heartbeat count,
+                 phase table and device-busy seconds printed; (c) the first
+                 PROFILED_CLI_RECORDS training records of phase 17's stream
+                 through the CLI with --profileDir and without: the Chrome
+                 trace names pa_gram_kernel, pa_chain_kernel and
+                 pa_update_kernel, each as often as pa_scan's launch counter
+                 moved over the run, and the predictions are equal.
+ 42. recorder    (a) the JAX package's incident smoke (run_incident_smoke),
+                 not cut: INCIDENT_SMOKE's 16,000 rows, dim 28, parallelism
+                 2, batch 64, Asynchronous PA C 1.0 guarded; 4 paired
+                 clean trials unarmed against INCIDENT_EVENTS_SPEC (the
+                 score equal, the best pair at most 1.03x, an event
+                 recorded); the supervised leg (guard maxStrikes 1, the
+                 reliable channel, syncEvery 1, spoke 1 poisoned before
+                 block 6, worker 0 dying after 2,500 rows under
+                 JobSupervisor): exactly one restart, a kind="alert" record
+                 on the performance sink, one merged bundle holding
+                 delta_rejected (strikes >= 1) < worker_retired
+                 (guard_strikes) < restart, the rejection stamped, each
+                 sender stream in seq order, an alert in the bundle; the
+                 same leg on the CPU: the same timeline without wall
+                 times; (b) phase 32's poisoned guarded cohorts with
+                 events on, on the card and the CPU: guard_trip,
+                 guard_rollback and guard_evict for the poisoned tenant
+                 only, batched pa_scan launches phase 32's, the journals
+                 equal; (c) phase 40's poison leg with events on, on the
+                 card and the CPU: the lifecycle transitions through the
+                 rollback recorded, pa_scan launches and predictions phase
+                 40's, version tags and journals equal.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -359,6 +401,12 @@ With --ab-pa-scan SRC, after the build: the one-scan kernel against SRC
 (another checkout's omldm_tpu_torch/csrc/pa_scan.cu, e.g. a parent commit
 unpacked with git archive) as CUDA graphs at TIME_SHAPES in alternating
 turns, then exit.
+With --overload-legs N, after the build: N trials of phase 39's timed legs
+(no burst, then burst), each leg's healthy serve p99, seconds and the full
+collections inside it, with full collections deferred as the phase runs
+them or, with --overload-collector on, left to the collector;
+--overload-package DIR takes omldm_tpu_torch from DIR (another checkout,
+e.g. a parent commit unpacked with git archive); then exit.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -366,6 +414,8 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -753,8 +803,10 @@ def _run_slice(torch, events, device="cuda", chaos=""):
 
 
 def phase_slice(torch, pa_scan, events, device="cuda"):
-    launches, wall, _, _ = _slice_checked(torch, pa_scan, events, device)
-    return launches, wall
+    """Phase 5. Returns (pa_scan launches, wall seconds, the predictions'
+    values in emission order)."""
+    launches, wall, job, _ = _slice_checked(torch, pa_scan, events, device)
+    return launches, wall, [p.value for p in job.predictions]
 
 
 def _slice_checked(torch, pa_scan, events, device="cuda", label="slice", chaos=""):
@@ -3401,9 +3453,10 @@ def mt_stream(records: int, seed: int):
 
 def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_record=True,
             serving=True, run=MT_RUN, protocol="Synchronous", guard=False, split_at=None,
-            poke=None, pokes=None, overload=""):
+            poke=None, pokes=None, overload="", events=""):
     """``nets`` same-spec Creates (every other one serving-armed; with
-    ``guard``, every one guarded; ``overload``, the job-wide overload spec),
+    ``guard``, every one guarded; ``overload``, the job-wide overload spec;
+    ``events``, the flight recorder's),
     then the rows in packed blocks of
     PACKED_CHUNK (with ``split_at``, a block boundary there too, where
     ``poke(job)`` runs; ``pokes`` maps more rows to their pokes), then
@@ -3413,7 +3466,7 @@ def _mt_job(torch, x, y, op, device, cohort, nets, learner=MT_LEARNER, per_recor
 
     job = StreamJob(JobConfig(parallelism=run["parallelism"], batch_size=run["batch"],
                               test_set_size=run["test_set_size"], cohort=cohort,
-                              overload=overload),
+                              overload=overload, events=events),
                     device=device)
     t0 = time.perf_counter()
     for pid in range(nets):
@@ -3906,17 +3959,7 @@ def phase_guard_cohorts(torch, pa_scan, seed):
         counts, clean_reads = _mt_counts(pa_scan), reads[0]
         victim = int(np.random.RandomState(seed).randint(r["nets"]))
         poisoned_on = []
-
-        def poke(job):
-            # every replica that is not waiting on its round: a waiting one
-            # would take the round's release over the poison before a fit
-            for w, spoke in enumerate(job.spokes):
-                net = spoke.nets[victim]
-                if not getattr(net.node, "waiting", False):
-                    flat, _ = net.pipeline.get_flat_params()
-                    net.pipeline.set_flat_params(np.full_like(flat, np.nan))
-                    poisoned_on.append(w)
-
+        poke = _poison_tenant(victim, poisoned_on)
         _mt_reset(pa_scan)
         poisoned = _mt_job(torch, x, y, op, "cuda", "auto", r["nets"], guard=True,
                            split_at=n // 2, poke=poke)
@@ -3964,7 +4007,26 @@ def phase_guard_cohorts(torch, pa_scan, seed):
         f"{sp[victim].rollbacks_performed} rollbacks, the "
         f"other {len(others)} tenants' predictions unchanged")
     log("guard-cohort: " + json.dumps(line))
-    return counts["pa_scan_batched"]
+    return {"batched": counts["pa_scan_batched"], "victim": victim,
+            "poisoned_counts": poisoned_counts, "poisoned_preds": pp}
+
+
+def _poison_tenant(victim, poisoned_on):
+    """A poke that sets tenant ``victim``'s parameters to NaN on every
+    replica not waiting on its round (a waiting one would take the round's
+    release over the poison before a fit), noting the workers in
+    ``poisoned_on``."""
+    import numpy as np
+
+    def poke(job):
+        for w, spoke in enumerate(job.spokes):
+            net = spoke.nets[victim]
+            if not getattr(net.node, "waiting", False):
+                flat, _ = net.pipeline.get_flat_params()
+                net.pipeline.set_flat_params(np.full_like(flat, np.nan))
+                poisoned_on.append(w)
+
+    return poke
 
 
 def phase_reliable(torch, pa_scan, events):
@@ -4670,6 +4732,24 @@ def _feed_5050(job, x, y, lo, hi, before=None):
                 numerical_features=x[i].tolist(), target=float(y[i])))
 
 
+@contextlib.contextmanager
+def _timed_legs():
+    """Timed legs without the collector's full passes, as ``timeit`` times
+    with the collector off: a full pass walks every object the script still
+    holds, so its length is set by the phases before and not by the job, and
+    one that lands inside a leg moves that leg's latency and rate by 10-25%
+    on the card's host. Young collections still run inside the legs; each
+    leg starts with a full ``gc.collect()`` of its own, and the thresholds
+    come back when the legs end."""
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(thresholds[0], thresholds[1], 1 << 30)
+    try:
+        yield
+    finally:
+        gc.set_threshold(*thresholds)
+
+
 def _overload_job(torch, x, y, burst, device="cuda"):
     """protocol_comparison.py's run_overload_one on the port: the tenants'
     Creates, an untimed warm-up of min(512, records / 4) rows, the timed
@@ -4680,6 +4760,10 @@ def _overload_job(torch, x, y, burst, device="cuda"):
 
     r = OVERLOAD_RUN
     records = x.shape[0]
+    # every leg starts clean: the previous leg's job (its reference cycles
+    # and retained predictions) is collected here, before any forecast's
+    # latency clock starts
+    gc.collect()
     job = StreamJob(JobConfig(parallelism=1, batch_size=r["batch"],
                               test_set_size=r["test_set_size"], test=False, cohort="off",
                               overload=OVERLOAD_SPEC, serving="",
@@ -4753,6 +4837,48 @@ def _overload_gates(base, burst, ratio):
     return failures
 
 
+def phase_overload_legs(torch, trials, collector):
+    """--overload-legs: phase 39's timed legs alone, every gate reported and
+    none held, with the full collections inside each leg (ms) beside its
+    p99 and seconds."""
+    import omldm_tpu_torch
+
+    log(f"overload-legs: package {Path(omldm_tpu_torch.__file__).parent}, "
+        f"collector {collector}")
+    x, y = overload_stream(OVERLOAD_RUN["records"])
+    _overload_job(torch, x[:1024], y[:1024], burst=False)
+    full = []
+    t0 = [0.0]
+
+    def note(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        elif info["generation"] == 2:
+            full.append(round((time.perf_counter() - t0[0]) * 1e3, 1))
+
+    gc.callbacks.append(note)
+    try:
+        with _timed_legs() if collector == "deferred" else contextlib.nullcontext():
+            for trial in range(trials):
+                legs = []
+                for burst_on in (False, True):
+                    full.clear()
+                    row, _, _ = _overload_job(torch, x, y, burst=burst_on)
+                    # the first full collection is the leg's own, before its clock
+                    legs.append((row, full[1:]))
+                (base, base_gc), (burst, burst_gc) = legs
+                ratio = (burst["healthy_forecasts_per_sec"]
+                         / max(base["healthy_forecasts_per_sec"], 1e-9))
+                log("overload-legs: " + json.dumps({
+                    "trial": trial, "ratio": ratio,
+                    "p99_ms": [base["healthy_serve_p99_ms"], burst["healthy_serve_p99_ms"]],
+                    "elapsed_s": [base["elapsed_s"], burst["elapsed_s"]],
+                    "full_collections_ms": [base_gc, burst_gc],
+                    "failures": _overload_gates(base, burst, ratio)}))
+    finally:
+        gc.callbacks.remove(note)
+
+
 def phase_overload(torch, pa_scan, sparse, seed, sparse_events):
     """Phase 39. Returns (the quiet-armed leg's batched pa_scan launches,
     the sparse leg's scatter_add launches)."""
@@ -4767,18 +4893,21 @@ def phase_overload(torch, pa_scan, sparse, seed, sparse_events):
     # paired trials until one meets every gate (the reference's best of 3:
     # the legs' timings are the shared host's); else the best ratio's
     trials = []
-    for trial in range(r["trials"]):
-        base, _, _ = _overload_job(torch, x, y, burst=False)
-        burst, _, _ = _overload_job(torch, x, y, burst=True)
-        ratio = burst["healthy_forecasts_per_sec"] / max(base["healthy_forecasts_per_sec"], 1e-9)
-        failures = _overload_gates(base, burst, ratio)
-        trials.append((not failures, ratio, base, burst, failures))
-        log(f"overload[trial {trial}]: healthy throughput burst / no-burst {ratio:.4f} "
-            f"({burst['healthy_forecasts_per_sec']:.1f} / {base['healthy_forecasts_per_sec']:.1f}"
-            f" forecasts/s), healthy p99 {burst['healthy_serve_p99_ms']:.3f} / "
-            f"{base['healthy_serve_p99_ms']:.3f} ms, failures {failures}")
-        if not failures:
-            break
+    with _timed_legs():
+        for trial in range(r["trials"]):
+            base, _, _ = _overload_job(torch, x, y, burst=False)
+            burst, _, _ = _overload_job(torch, x, y, burst=True)
+            ratio = (burst["healthy_forecasts_per_sec"]
+                     / max(base["healthy_forecasts_per_sec"], 1e-9))
+            failures = _overload_gates(base, burst, ratio)
+            trials.append((not failures, ratio, base, burst, failures))
+            log(f"overload[trial {trial}]: healthy throughput burst / no-burst {ratio:.4f} "
+                f"({burst['healthy_forecasts_per_sec']:.1f} / "
+                f"{base['healthy_forecasts_per_sec']:.1f} forecasts/s), healthy p99 "
+                f"{burst['healthy_serve_p99_ms']:.3f} / {base['healthy_serve_p99_ms']:.3f} ms, "
+                f"failures {failures}")
+            if not failures:
+                break
     _, ratio, base, burst, failures = max(trials, key=lambda t: t[:2])
     log("overload: " + json.dumps({"spec": OVERLOAD_SPEC, "chaos": overload_chaos(r["records"]),
                                    "healthy_throughput_ratio": ratio, "trials": len(trials),
@@ -4848,7 +4977,7 @@ def phase_overload(torch, pa_scan, sparse, seed, sparse_events):
 
 
 def _lifecycle_job(x, y, mode, device="cuda", until=None, job=None, start=0,
-                   checkpoint_dir=None):
+                   checkpoint_dir=None, events=""):
     """protocol_comparison.py's run_lifecycle_one on the port, perRecord:
     ``mode`` off, healthy, hold or poison. ``until`` stops before that row
     (no termination); ``job`` and ``start`` continue one. Returns (job,
@@ -4866,7 +4995,8 @@ def _lifecycle_job(x, y, mode, device="cuda", until=None, job=None, start=0,
         extra = {} if checkpoint_dir is None else dict(
             checkpointing=True, checkpoint_dir=str(checkpoint_dir), check_interval_ms=10 ** 9)
         job = StreamJob(JobConfig(parallelism=1, batch_size=r["batch"],
-                                  test_set_size=r["test_set_size"], test=True, **extra),
+                                  test_set_size=r["test_set_size"], test=True, events=events,
+                                  **extra),
                         device=device)
         tc = {"protocol": "Asynchronous", "syncEvery": 4, "perRecord": True}
         if mode != "off":
@@ -4906,13 +5036,14 @@ def _lifecycle_job(x, y, mode, device="cuda", until=None, job=None, start=0,
     return job
 
 
-def _lifecycle_leg(torch, pa_scan, x, y, mode, device="cuda"):
+def _lifecycle_leg(torch, pa_scan, x, y, mode, device="cuda", events=""):
     """One leg with the pa_scan count set to 0 just before: the leg's
     summary, checked to launch pa_scan once an active fit plus once a
-    candidate fit."""
+    candidate fit (with ``events``, the flight recorder's spec, its journal
+    too)."""
     pa_scan.launches = 0
     t0 = time.perf_counter()
-    job = _lifecycle_job(x, y, mode, device)
+    job = _lifecycle_job(x, y, mode, device, events=events)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4936,11 +5067,14 @@ def _lifecycle_leg(torch, pa_scan, x, y, mode, device="cuda"):
         "shadow_scored": s.shadow_scored, "canary_promotions": s.canary_promotions,
         "canary_rollbacks": s.canary_rollbacks, "active_version": s.active_version,
         "forecasts_served": s.forecasts_served, "score": s.score,
+        "journal": ([{k: v for k, v in e.items() if k != "wall"}
+                     for e in job.events.journal.tail()] if job.events is not None else None),
     }
 
 
 def phase_lifecycle(torch, pa_scan, tmp: Path):
-    """Phase 40. Returns the four legs' pa_scan launches."""
+    """Phase 40. Returns (the four legs' pa_scan launches, the poison leg's
+    (value, version) predictions)."""
     import os
 
     from omldm_tpu_torch.checkpoint import CheckpointManager
@@ -4979,7 +5113,7 @@ def phase_lifecycle(torch, pa_scan, tmp: Path):
                             f"leg's")
     for leg in (off, healthy, hold, poison):
         log(f"lifecycle[{leg['mode']}]: " + json.dumps({
-            k: v for k, v in leg.items() if k not in ("predictions", "lifecycle")}))
+            k: v for k, v in leg.items() if k not in ("predictions", "lifecycle", "journal")}))
     check(not failures, "lifecycle: " + "; ".join(failures))
 
     # the healthy leg on the CPU
@@ -5041,7 +5175,426 @@ def phase_lifecycle(torch, pa_scan, tmp: Path):
                      "promoted_at_row": rows},
     }
     log("lifecycle: " + json.dumps(line))
-    return {m: legs[m]["pa_scan_launches"] for m in legs}
+    return {m: legs[m]["pa_scan_launches"] for m in legs}, poison["predictions"]
+
+
+# phase 41: protocol_comparison.py's telemetry smoke (:2337-2450), not cut
+TELEMETRY_SMOKE = dict(records=48_000, parallelism=4, batch=64, stats_every=4_096, trials=4,
+                       warmup=2_048)
+# phase 41 (b): phase 5's stream armed
+TELEMETRY_STREAM_SPEC = "statsEvery=10000,traceSample=16"
+# phase 41 (c): the training records of phase 17's stream the profiled CLI takes
+PROFILED_CLI_RECORDS = 10_000
+PA_SCAN_KERNELS = ("pa_gram_kernel", "pa_chain_kernel", "pa_update_kernel")
+# phase 42: run_incident_smoke (protocol_comparison.py:883-1096), not cut
+INCIDENT_SMOKE = dict(records=16_000, dim=28, parallelism=2, batch=64, chunk=512,
+                      poison_chunk=6, death_rows=2_500, trials=4, warmup=2_048)
+INCIDENT_EVENTS_SPEC = "watchdogEvery=2048,shedHigh=1"
+
+
+def _strip_wall(events):
+    return [{k: v for k, v in e.items() if k != "wall"} for e in events]
+
+
+def _smoke_run(torch, protocol, x, y, parallelism, batch, device="cuda", sync_every=4,
+               guard=False, telemetry="", events=""):
+    """protocol_comparison.py's run_one on the port: a PA C 1.0 Create, the
+    rows as packed blocks of PACKED_CHUNK (all training), termination, the
+    clock from the first block to the synchronize after termination.
+    Returns its result row."""
+    import numpy as np
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    n = x.shape[0]
+    job = StreamJob(JobConfig(parallelism=parallelism, batch_size=batch, test_set_size=64,
+                              telemetry=telemetry, events=events), device=device)
+    tc = {"protocol": protocol, "syncEvery": sync_every}
+    if guard:
+        tc["guard"] = True
+    job.process_event("requests", json.dumps(_create(
+        {"name": "PA", "hyperParameters": {"C": 1.0}}, (), tc, x.shape[1])))
+    op = np.zeros((n,), np.uint8)
+    # both legs start clean: the previous leg's garbage (the job's reference
+    # cycles) is collected here, not inside the next leg's clock
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, n, PACKED_CHUNK):
+        job.process_packed_batch(x[i:i + PACKED_CHUNK], y[i:i + PACKED_CHUNK],
+                                 op[i:i + PACKED_CHUNK])
+    report = job.terminate()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    [stats] = report.statistics
+    out = {"examples_per_sec": n / elapsed, "score": stats.score, "fitted": stats.fitted,
+           "models_shipped": stats.models_shipped, "bytes_on_wire": stats.bytes_on_wire,
+           "num_of_blocks": stats.num_of_blocks, "events_recorded": stats.events_recorded,
+           "alerts_raised": stats.alerts_raised}
+    if telemetry:
+        out["heartbeats"] = job.telemetry.heartbeats_emitted
+        out["spans_completed"] = job.telemetry.spans.completed
+        out["phase_table"] = job.phase_table(elapsed)
+    return out
+
+
+def _paired_trials(trials, run_off, run_on):
+    """The smokes' paired method: ``trials`` back-to-back (off, on) pairs.
+    Returns the best row of each leg and every pair's off/on ratio (host
+    noise only inflates a pair's ratio, so the smallest estimates the
+    plane's cost)."""
+    best_off = best_on = None
+    ratios = []
+    with _timed_legs():
+        for _ in range(trials):
+            r_off, r_on = run_off(), run_on()
+            ratios.append(r_off["examples_per_sec"] / max(r_on["examples_per_sec"], 1e-9))
+            if best_off is None or r_off["examples_per_sec"] > best_off["examples_per_sec"]:
+                best_off = r_off
+            if best_on is None or r_on["examples_per_sec"] > best_on["examples_per_sec"]:
+                best_on = r_on
+    return best_off, best_on, ratios
+
+
+def _kineto_busy_s(prof) -> float:
+    """Device busy seconds of a finished torch.profiler run: the sum of its
+    device events' durations (kernels, copies, memsets), read from the raw
+    trace (``key_averages`` builds an event tree first, which takes seconds
+    a 100,000-record stream)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+
+
+def _trace_kernel_counts(path: Path, names):
+    """Launches of each kernel of ``names`` in a torch.profiler Chrome trace
+    (a kernel event's name is its demangled signature, ``name(args...)``)."""
+    import re
+
+    pattern = re.compile(r"(?:^|[\s:])(" + "|".join(map(re.escape, names)) + r")\(")
+    counts = dict.fromkeys(names, 0)
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            m = pattern.search(e.get("name", ""))
+            if m is not None:
+                counts[m.group(1)] += 1
+    return counts
+
+
+def phase_telemetry(torch, pa_scan, events, slice_launches, slice_preds, tmp: Path):
+    """Phase 41. Returns the pa_scan launches of (b) and (c)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+    from omldm_tpu_torch.utils.tracing import trace_path
+
+    # (a) the reference's smoke, its gates
+    t_phase = time.perf_counter()
+    r = TELEMETRY_SMOKE
+    rng = np.random.RandomState(13)
+    w = np.random.RandomState(42).randn(N_FEATURES)
+    tx = rng.randn(r["records"], N_FEATURES).astype(np.float32)
+    ty = (tx @ w > 0).astype(np.float32)
+    span_path = tmp / "spans.jsonl"
+    spec = f"statsEvery={r['stats_every']},traceSample=16,spanPath={span_path}"
+    par, batch, head = r["parallelism"], r["batch"], r["warmup"]
+    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch)
+    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch,
+               telemetry=f"statsEvery={r['stats_every']}")
+    best_off, best_on, ratios = _paired_trials(
+        r["trials"], lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch),
+        lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch, telemetry=spec))
+    overhead = min(ratios)
+    failures = [f"armed leg diverged on {k}: {best_on[k]} != unarmed {best_off[k]}"
+                for k in ("score", "fitted", "models_shipped", "bytes_on_wire", "num_of_blocks")
+                if best_off[k] != best_on[k]]
+    if overhead > 1.03:
+        failures.append(f"telemetry-armed throughput {overhead:.3f}x slower than unarmed")
+    # a heartbeat acts at the first block boundary past statsEvery records
+    expected_beats = max(r["records"] // max(r["stats_every"], PACKED_CHUNK) - 1, 1)
+    if best_on["heartbeats"] < expected_beats:
+        failures.append(f"{best_on['heartbeats']} heartbeats < {expected_beats}")
+    coverage = best_on["phase_table"].get("_coverage", 0.0)
+    if coverage < 0.5:
+        failures.append(f"the phase table attributes {coverage:.2f} of the wall (< 0.5)")
+    if best_on["spans_completed"] == 0:
+        failures.append("no protocol-round span completed")
+    span_lines = span_path.read_text().splitlines() if span_path.exists() else []
+    if not span_lines:
+        failures.append("the span file is empty")
+    else:
+        first = json.loads(span_lines[0])
+        failures += [f"span records lack {k!r}" for k in ("networkId", "seq", "op", "rttMs")
+                     if k not in first]
+    log("telemetry-smoke: " + json.dumps({
+        "records": r["records"], "telemetry_spec": spec, "overhead_x": overhead,
+        "pair_ratios": ratios, "phase_coverage": coverage, "spans_written": len(span_lines),
+        "unarmed": best_off, "armed": best_on, "smoke_s": time.perf_counter() - t_phase}))
+    check(not failures, "telemetry-smoke: " + "; ".join(failures))
+
+    # (b) phase 5's stream armed, under torch.profiler's device trace
+    pa_scan.launches = 0
+    job = StreamJob(JobConfig(**SLICE_CONFIG, telemetry=TELEMETRY_STREAM_SPEC), device="cuda")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as tp:
+        job.run(events)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stream_launches = pa_scan.launches
+    t_busy = time.perf_counter()
+    busy = _kineto_busy_s(tp)
+    t_busy = time.perf_counter() - t_busy
+    preds = [p.value for p in job.predictions]
+    table = job.phase_table(wall)
+    beats = job.telemetry.heartbeats_emitted
+    log(f"telemetry-stream: phase 5's stream armed ({TELEMETRY_STREAM_SPEC}), "
+        f"torch.profiler tracing the device: {wall:.2f} s wall, {beats} heartbeats, "
+        f"{job.telemetry.spans.completed} spans, pa_scan launches {stream_launches} "
+        f"(unarmed {slice_launches}), device busy {busy:.4f} s (summed in {t_busy:.2f} s)")
+    log("telemetry-stream: " + json.dumps({
+        "wall_s": wall, "heartbeats": beats, "device_busy_s": busy,
+        "idle_share": 1.0 - busy / wall, "phase_table": table,
+        "launch_timing": job.launch_timing()}))
+    check(stream_launches == slice_launches,
+          f"telemetry-stream: pa_scan launches {stream_launches} != unarmed {slice_launches}")
+    check(preds == slice_preds, "telemetry-stream: a prediction differs from phase 5's")
+    check(beats == len(events) // 10_000,
+          f"telemetry-stream: {beats} heartbeats for {len(events)} events")
+
+    # (c) the CLI with --profileDir: the kernels in the trace, by name
+    create = json.loads(events[0][1])
+    create["learner"]["dataStructure"] = {"nFeatures": N_FEATURES}
+    cut, n_train = [("requests", json.dumps(create))], 0
+    for stream, payload in events[1:]:
+        if stream == "trainingData":
+            if n_train == PROFILED_CLI_RECORDS:
+                break
+            n_train += 1
+        if stream != "requests":
+            cut.append((stream, payload))
+    train, reqs = write_stream_files(cut, tmp, "profiled")
+    argv = CLI_ARGS + ["--trainingData", train, "--requests", reqs, "--fastIngest", "true"]
+    pa_scan.launches = 0
+    _, plain_wall, plain_preds = run_cli(torch, argv, tmp, "unprofiled")
+    plain_launches = pa_scan.launches
+    prof_dir = tmp / "profile"
+    pa_scan.launches = 0
+    _, prof_wall, prof_preds = run_cli(torch, argv + ["--profileDir", prof_dir], tmp, "profiled")
+    prof_launches = pa_scan.launches
+    trace = Path(trace_path(str(prof_dir)))
+    t_parse = time.perf_counter()
+    named = _trace_kernel_counts(trace, PA_SCAN_KERNELS)
+    t_parse = time.perf_counter() - t_parse
+    log(f"cli-profiled: the first {n_train} training records of phase 17's stream: "
+        f"{plain_wall:.2f} s unprofiled, {prof_wall:.2f} s under --profileDir "
+        f"({trace.stat().st_size} bytes of trace, read in {t_parse:.2f} s); pa_scan launches "
+        f"{prof_launches} "
+        f"(unprofiled {plain_launches}); kernels in the trace: {json.dumps(named)}")
+    check(prof_launches == plain_launches > 0,
+          f"cli-profiled: pa_scan launches {prof_launches}, unprofiled {plain_launches}")
+    check(all(n == prof_launches for n in named.values()),
+          f"cli-profiled: the trace's kernels {named} != {prof_launches} pa_scan launches")
+    check([(p["dataInstance"], p["value"]) for p in prof_preds]
+          == [(p["dataInstance"], p["value"]) for p in plain_preds],
+          "cli-profiled: the profiled run's predictions differ")
+    return stream_launches, prof_launches
+
+
+def _incident_leg(torch, device, gx, gy, tmp: Path):
+    """run_incident_smoke's supervised leg on ``device``: guard maxStrikes
+    1, the reliable channel, syncEvery 1, spoke 1 poisoned before block
+    poison_chunk, worker 0 dying after death_rows rows, JobSupervisor with
+    one restart. Returns (supervisor, injector, performance records)."""
+    import numpy as np
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+    from omldm_tpu_torch.runtime.job import PACKED_STREAM
+    from omldm_tpu_torch.runtime.recovery import FaultInjector, JobSupervisor, replayable
+
+    r = INCIDENT_SMOKE
+    op = np.zeros((r["records"],), np.uint8)
+    create = json.dumps(_create({"name": "PA", "hyperParameters": {"C": 1.0}}, (), {
+        "protocol": "Asynchronous", "syncEvery": 1, "guard": {"maxStrikes": 1},
+        "comm": {"reliable": True}}, r["dim"]))
+    perf = []
+    job = StreamJob(JobConfig(parallelism=r["parallelism"], batch_size=r["batch"],
+                              test_set_size=64, events=INCIDENT_EVENTS_SPEC,
+                              blackbox_path=str(tmp)),
+                    on_performance=perf.append, device=device)
+    holder = {"job": job}
+    poisoned = [False]
+
+    def make_events():
+        yield ("requests", create)
+        for idx, i in enumerate(range(0, r["records"], r["chunk"])):
+            if idx == r["poison_chunk"] and not poisoned[0]:
+                poisoned[0] = True
+                net = holder["job"].spokes[1].nets[0]
+                flat, _ = net.pipeline.get_flat_params()
+                net.pipeline.set_flat_params(np.full_like(flat, 1e9))
+            yield (PACKED_STREAM, (gx[i:i + r["chunk"]], gy[i:i + r["chunk"]],
+                                   op[i:i + r["chunk"]]))
+
+    injector = FaultInjector()
+    injector.arm(job, worker_id=0, after_records=r["death_rows"])
+    sup = JobSupervisor(job, replayable(make_events), max_restarts=1,
+                        on_failure=lambda rec: holder.update(job=sup.job))
+    sup.run()
+    return sup, injector, perf
+
+
+def _incident_gates(sup, injector, perf):
+    """run_incident_smoke's gates on one supervised leg. Returns (failures,
+    the bundle's timeline)."""
+    failures = []
+    if injector.fired != 1 or len(sup.failures) != 1:
+        failures.append(f"the worker death gave fired={injector.fired}, "
+                        f"restarts={len(sup.failures)}")
+    if not any(p.kind == "alert" for p in perf):
+        failures.append('no kind="alert" record reached the performance sink')
+    if sup.bundle_path is None:
+        return failures + ["no merged incident bundle"], []
+    timeline = json.load(open(sup.bundle_path))["timeline"]
+    kinds = [e["kind"] for e in timeline]
+
+    def first(kind, pred=lambda e: True):
+        return next((i for i, e in enumerate(timeline) if e["kind"] == kind and pred(e)), None)
+
+    i_rej = first("delta_rejected", lambda e: e.get("strikes", 0) >= 1)
+    i_ret = first("worker_retired", lambda e: e["cause"] == "guard_strikes")
+    i_restart = first("restart")
+    if None in (i_rej, i_ret, i_restart):
+        failures.append(f"the bundle lacks the rejection/retire/restart chain: {sorted(set(kinds))}")
+    elif not i_rej < i_ret < i_restart:
+        failures.append(f"the chain is out of order: {i_rej}, {i_ret}, {i_restart}")
+    if i_rej is not None and timeline[i_rej].get("stamp") is None:
+        failures.append("the rejection carries no transport stamp")
+    per_stream = {}
+    for e in timeline:
+        if e.get("stamp") and e["stamp"][0] == 0:
+            per_stream.setdefault((e.get("worker"), e.get("hub"), e.get("side", "")),
+                                  []).append(e["stamp"][1])
+    failures += [f"stream {k} not in seq order: {v}" for k, v in per_stream.items()
+                 if v != sorted(v)]
+    if "alert" not in kinds:
+        failures.append("the bundle carries no alert")
+    return failures, timeline
+
+
+def phase_flight_recorder(torch, pa_scan, seed, guard_cohort, lifecycle_launches,
+                          poison_preds, tmp: Path):
+    """Phase 42. Returns the batched pa_scan launches of (b) and the
+    pa_scan launches of (c) on the card."""
+    import numpy as np
+
+    # (a) the reference's incident smoke, its gates
+    r = INCIDENT_SMOKE
+    rng = np.random.RandomState(11)
+    w = np.random.RandomState(42).randn(r["dim"])
+    gx = rng.randn(r["records"], r["dim"]).astype(np.float32)
+    gy = (gx @ w > 0).astype(np.float32)
+    par, batch, head = r["parallelism"], r["batch"], r["warmup"]
+    _smoke_run(torch, "Asynchronous", gx[:head], gy[:head], par, batch, guard=True)
+    _smoke_run(torch, "Asynchronous", gx[:head], gy[:head], par, batch, guard=True,
+               events=INCIDENT_EVENTS_SPEC)
+    clean_off, clean_on, ratios = _paired_trials(
+        r["trials"], lambda: _smoke_run(torch, "Asynchronous", gx, gy, par, batch, guard=True),
+        lambda: _smoke_run(torch, "Asynchronous", gx, gy, par, batch, guard=True,
+                           events=INCIDENT_EVENTS_SPEC))
+    overhead = min(ratios)
+    failures = []
+    if clean_on["score"] != clean_off["score"]:
+        failures.append(f"armed clean score {clean_on['score']} != {clean_off['score']}")
+    if overhead > 1.03:
+        failures.append(f"events-armed clean throughput {overhead:.3f}x slower than unarmed")
+    if clean_on["events_recorded"] < 1:
+        failures.append("the armed clean leg recorded no event")
+    legs = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        sup, injector, perf = _incident_leg(torch, device, gx, gy, tmp / f"incident_{device}")
+        leg_failures, timeline = _incident_gates(sup, injector, perf)
+        failures += [f"{device}: {f}" for f in leg_failures]
+        legs[device] = {"timeline": timeline, "by_kind": json.load(open(sup.bundle_path))[
+            "byKind"] if sup.bundle_path else None,
+            "alerts_on_sink": sum(1 for p in perf if p.kind == "alert"),
+            "wall_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+    if _strip_wall(legs["cuda"]["timeline"]) != _strip_wall(legs["cpu"]["timeline"]):
+        failures.append("the card's bundle timeline differs from the CPU's")
+    log("incident-smoke: " + json.dumps({
+        "records": r["records"], "events_spec": INCIDENT_EVENTS_SPEC, "overhead_x": overhead,
+        "pair_ratios": ratios, "clean_events_off": clean_off, "clean_events_on": clean_on,
+        **{device: {k: v for k, v in leg.items() if k != "timeline"}
+           for device, leg in legs.items()},
+        "timeline_events": len(legs["cuda"]["timeline"])}))
+    check(not failures, "incident-smoke: " + "; ".join(failures))
+
+    # (b) phase 32's poisoned guarded cohorts, recorded, card and CPU
+    m = MT_RUN
+    n = m["prefix_records"]
+    x, y, op = mt_stream(n, seed)
+    victim = guard_cohort["victim"]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _mt_reset(pa_scan)
+        poisoned_on = []
+        job, _, wall = _mt_job(torch, x, y, op, device, "auto", m["nets"], guard=True,
+                               split_at=n // 2, poke=_poison_tenant(victim, poisoned_on),
+                               events="on")
+        runs[device] = {"job": job, "wall": wall, "counts": _mt_counts(pa_scan),
+                        "journal": _strip_wall(job.events.journal.tail())}
+    card, cpu = runs["cuda"], runs["cpu"]
+    guard_kinds = ("guard_trip", "guard_rollback", "guard_evict")
+    recorded = [e for e in card["journal"] if e["kind"] in guard_kinds]
+    log(f"recorder-cohort: {m['nets']} guarded tenants, {n} rows, tenant {victim} poisoned, "
+        f"events on: {len(card['journal'])} events ({len(recorded)} guard events), batched "
+        f"pa_scan launches {card['counts']['pa_scan_batched']} and solo "
+        f"{card['counts']['pa_scan']} (the evicted member's), unarmed "
+        f"{guard_cohort['poisoned_counts']['pa_scan_batched']} and "
+        f"{guard_cohort['poisoned_counts']['pa_scan']}; {n / card['wall']:.1f} records/s on "
+        f"the card, {n / cpu['wall']:.1f} on the CPU")
+    check({e["kind"] for e in recorded} == set(guard_kinds)
+          and all(e.get("pipeline") == victim for e in recorded),
+          f"recorder-cohort: guard events {[(e['kind'], e.get('pipeline')) for e in recorded]}")
+    check(card["counts"] == guard_cohort["poisoned_counts"],
+          f"recorder-cohort: launches {card['counts']} against the unarmed run's "
+          f"{guard_cohort['poisoned_counts']}")
+    armed, unarmed = _by_net(card["job"].predictions), guard_cohort["poisoned_preds"]
+    # the poisoned tenant answers NaN until its guard's check: NaN for NaN
+    check(armed.keys() == unarmed.keys() and all(
+        np.array_equal(np.asarray(armed[k]), np.asarray(unarmed[k]), equal_nan=True)
+        for k in armed), "recorder-cohort: a prediction differs from the unarmed poisoned run's")
+    check(card["journal"] == cpu["journal"], "recorder-cohort: the journals differ card to CPU")
+
+    # (c) phase 40's poison leg, recorded, card and CPU
+    x, y = overload_stream(LIFECYCLE_RUN["records"])
+    lc = {device: _lifecycle_leg(torch, pa_scan, x, y, "poison", device, events="on")
+          for device in ("cuda", "cpu")}
+    transitions = [e["cause"] for e in lc["cuda"]["journal"] if e["kind"] == "lifecycle"]
+    log(f"recorder-lifecycle: the poison leg with events on: transitions {transitions}, "
+        f"pa_scan launches {lc['cuda']['pa_scan_launches']} (unarmed "
+        f"{lifecycle_launches['poison']}), {lc['cuda']['records_per_s']:.1f} records/s")
+    check(transitions[:2] == ["shadow_armed", "canary_started"]
+          and "canary_rolled_back" in transitions,
+          f"recorder-lifecycle: transitions {transitions}")
+    check(lc["cuda"]["pa_scan_launches"] == lifecycle_launches["poison"],
+          f"recorder-lifecycle: pa_scan launches {lc['cuda']['pa_scan_launches']} != unarmed "
+          f"{lifecycle_launches['poison']}")
+    check(lc["cuda"]["predictions"] == poison_preds,
+          "recorder-lifecycle: a prediction or tag differs from the unarmed leg's")
+    check([v for _, v in lc["cuda"]["predictions"]] == [v for _, v in lc["cpu"]["predictions"]],
+          "recorder-lifecycle: the version tags differ card to CPU")
+    check(lc["cuda"]["journal"] == lc["cpu"]["journal"],
+          "recorder-lifecycle: the journals differ card to CPU")
+    return card["counts"]["pa_scan_batched"], lc["cuda"]["pa_scan_launches"]
 
 
 def main() -> int:
@@ -5055,6 +5608,12 @@ def main() -> int:
     parser.add_argument("--ab-pa-scan", type=Path, default=None, metavar="SRC",
                         help="time the one-scan kernel against SRC (another checkout's "
                              "pa_scan.cu), then exit")
+    parser.add_argument("--overload-legs", type=int, default=0, metavar="N",
+                        help="run N trials of phase 39's timed legs, then exit")
+    parser.add_argument("--overload-collector", choices=("deferred", "on"),
+                        default="deferred")
+    parser.add_argument("--overload-package", type=Path, default=None, metavar="DIR",
+                        help="with --overload-legs: the omldm_tpu_torch of DIR")
     args = parser.parse_args()
 
     import torch
@@ -5069,6 +5628,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
+    if args.overload_legs and args.overload_package is not None:
+        sys.path.insert(0, str(args.overload_package.resolve()))
     from omldm_tpu_torch.ops import attention, pa_scan, sparse
     from omldm_tpu_torch.runtime import fast_ingest
 
@@ -5082,6 +5643,9 @@ def main() -> int:
         log(json.dumps({"ab_pa_scan": {f"{b}x{d}": {"this_ms": t, "other_ms": o}
                                        for (b, d), (t, o) in ab.items()}}))
         return 0
+    if args.overload_legs:
+        phase_overload_legs(torch, args.overload_legs, args.overload_collector)
+        return 0
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
     lap("pa_scan check and time")
@@ -5089,7 +5653,7 @@ def main() -> int:
     events = make_events(args.records, args.seed, query_at=args.records // 2)
     log(f"slice: generated {len(events)} events ({args.records} training) "
         f"in {time.perf_counter() - t0:.2f} s")
-    launches, wall = phase_slice(torch, pa_scan, events)
+    launches, wall, slice_preds = phase_slice(torch, pa_scan, events)
     phase_parity(events[: args.parity_records + 1])
     lap("slice stream and parity")
     flash_err = phase_flash_check(torch, attention)
@@ -5175,7 +5739,7 @@ def main() -> int:
         lap("codec")
     guard_launches = phase_guard_stream(torch, pa_scan, events, wall)
     lap("guard stream")
-    guard_cohort_launches = phase_guard_cohorts(torch, pa_scan, args.seed)
+    guard_cohort = phase_guard_cohorts(torch, pa_scan, args.seed)
     lap("guard cohorts")
     reliable_launches = phase_reliable(torch, pa_scan, events)
     lap("reliable channel")
@@ -5192,8 +5756,15 @@ def main() -> int:
     overload_batched, overload_scatter = phase_overload(torch, pa_scan, sparse, args.seed,
                                                         sparse_events)
     lap("overload")
-    lifecycle_launches = phase_lifecycle(torch, pa_scan, ckpt_dir)
+    lifecycle_launches, poison_preds = phase_lifecycle(torch, pa_scan, ckpt_dir)
     lap("lifecycle")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_planes_") as tmp:
+        telemetry_launches, cli_profiled_launches = phase_telemetry(
+            torch, pa_scan, events, launches, slice_preds, Path(tmp))
+        lap("telemetry")
+        recorder_batched, recorder_lifecycle = phase_flight_recorder(
+            torch, pa_scan, args.seed, guard_cohort, lifecycle_launches, poison_preds, Path(tmp))
+        lap("flight recorder")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -5222,6 +5793,9 @@ def main() -> int:
             "rescale_16_4_8": rescale_launches["rescale"],
             "restored_at_parallelism_4": rescale_launches["restore_at_4"],
             **{f"lifecycle_{mode}": n for mode, n in lifecycle_launches.items()},
+            "stream_telemetry_armed": telemetry_launches,
+            "cli_profiled": cli_profiled_launches,
+            "lifecycle_poison_events_armed": recorder_lifecycle,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -5237,9 +5811,10 @@ def main() -> int:
             "multi_tenant": mt_launches,
             "cohort_specs": specs_launches,
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan_batched"],
-            "multi_tenant_guarded_first_records": guard_cohort_launches,
+            "multi_tenant_guarded_first_records": guard_cohort["batched"],
             "multi_tenant_rescaled_2_1_2": cohort_rescale_launches,
             "multi_tenant_overload_armed_first_records": overload_batched,
+            "multi_tenant_guarded_events_armed": recorder_batched,
         },
         "max_abs_err": batched_err,
         **batched_times[BATCHED_SHAPES[0]],

@@ -27,6 +27,13 @@ Sources (choose one style):
 Sinks: ``--predictionsOut`` / ``--responsesOut`` / ``--performanceOut``
 write JSON lines to files (default: performance to stdout).
 
+Observability: ``--telemetry SPEC`` arms the telemetry plane (heartbeats on
+the performance sink, the phase table, sampled spans), ``--flightRecorder
+SPEC`` the flight recorder (``--blackboxPath DIR`` for its ring dumps and
+bundles), and ``--profileDir DIR`` wraps the file and replay routes in a
+``torch.profiler`` trace (``utils.tracing.trace``: a Chrome trace in DIR,
+with the card's kernels on a CUDA job).
+
 Recovery: ``--checkpointing true --stateBackend DIR --checkInterval MS``
 snapshot the job every MS milliseconds into DIR, and ``--restartAttempts
 N`` (with ``--restartDelayMs``) runs the replay under
@@ -37,8 +44,8 @@ owns the periodic save.
 
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not
-have (Kafka, the multi-process fleet, the profiler, the XLA compile cache,
-the sharded ingest plane, JAX-only ``JobConfig`` fields) raise
+have (Kafka and its profile window, the multi-process fleet, the XLA
+compile cache, the sharded ingest plane, JAX-only ``JobConfig`` fields) raise
 ``SystemExit`` naming the flag instead of being ignored.
 """
 
@@ -57,6 +64,7 @@ from omldm_tpu_torch.runtime.job import (
     TRAINING_STREAM,
     StreamJob,
 )
+from omldm_tpu_torch.utils.tracing import trace
 
 _STREAMS = (TRAINING_STREAM, FORECASTING_STREAM, REQUEST_STREAM)
 
@@ -67,7 +75,7 @@ UNPORTED_ROUTE_FLAGS = {
     "processId": "the multi-process fleet",
     "coordinator": "the multi-process fleet",
     "supervise": "the multi-process fleet's supervisor",
-    "profileDir": "the JAX profiler trace",
+    "profileSteps": "the Kafka loop's profile window",
     "compileCache": "the XLA compile cache",
     "compileCacheMinSecs": "the XLA compile cache",
     "ingest": "the sharded ingest plane",
@@ -159,7 +167,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     refuse_unported(flags)
     job, sinks = build_job(flags)
     try:
-        return _run(job, flags)
+        with trace(flags.get("profileDir"), job.device):
+            return _run(job, flags)
     finally:
         for sink in sinks:
             sink.close()

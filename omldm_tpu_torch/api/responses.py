@@ -36,6 +36,10 @@ class QueryResponse:
     # bucket-0 fragment of a lifecycle-armed pipeline; None keeps the wire
     # shape as it was
     lifecycle: Optional[Mapping[str, Any]] = None
+    # the flight recorder's view (runtime/events.py): the tail of the
+    # pipeline's event ring on the bucket-0 fragment when the recorder is
+    # armed; None keeps the wire shape as it was
+    events: Optional[Sequence[Mapping[str, Any]]] = None
     # internal routing metadata (NOT part of the wire format): which worker
     # emitted this fragment — lets the merger re-assemble parameter buckets
     # from a single replica's fragment set even when replicas differ
@@ -57,6 +61,7 @@ class QueryResponse:
             cumulative_loss=obj.get("cumulativeLoss"),
             score=obj.get("score"),
             lifecycle=obj.get("lifecycle"),
+            events=obj.get("events"),
         )
 
     def to_dict(self) -> dict:
@@ -75,6 +80,8 @@ class QueryResponse:
         }
         if self.lifecycle is not None:
             out["lifecycle"] = dict(self.lifecycle)
+        if self.events is not None:
+            out["events"] = [dict(e) for e in self.events]
         return out
 
     def to_json(self) -> str:

@@ -34,8 +34,10 @@ class Statistics:
     # The fields below keep the wire report's schema equal to
     # omldm_tpu.api.stats.Statistics, where each is documented (codec,
     # reliable channel, guard, cohorts, overload, lifecycle, rescale,
-    # fleet, flight recorder); those of planes the port lacks (the fleet,
-    # the flight recorder) stay zero.
+    # fleet, flight recorder, telemetry); the fleet's, a plane the port
+    # lacks, stay zero. The launch percentiles fold only with the
+    # telemetry plane armed (wall-clock values would make an unarmed
+    # report irreproducible).
     bytes_on_wire: int = 0
     num_of_blocks: int = 0
     duplicates_dropped: int = 0
@@ -154,6 +156,17 @@ class Statistics:
         # job-level mirrors: max, not sum
         self.events_recorded = max(self.events_recorded, events_recorded)
         self.alerts_raised = max(self.alerts_raised, alerts_raised)
+
+    def note_launch_ms(self, p50: float, p99: float) -> None:
+        """Fold one contributor's fit-flush launch percentile window in
+        (max-combine, as the serve-latency percentiles)."""
+        self.launch_p50_ms = max(self.launch_p50_ms, p50)
+        self.launch_p99_ms = max(self.launch_p99_ms, p99)
+
+    def note_serve_launch_ms(self, p50: float, p99: float) -> None:
+        """Fold one contributor's serving-launch percentile window in."""
+        self.serve_launch_p50_ms = max(self.serve_launch_p50_ms, p50)
+        self.serve_launch_p99_ms = max(self.serve_launch_p99_ms, p99)
 
     def note_serve_latency(self, p50: float, p99: float, p999: float) -> None:
         """Fold one contributor's serving-latency percentile window in
@@ -339,8 +352,11 @@ class JobStatistics:
     parallelism: int
     duration_ms: float
     statistics: List[Statistics] = dataclasses.field(default_factory=list)
-    # heartbeat extensions of omldm_tpu's telemetry plane: None on the
-    # terminate-time final report, the only report the port emits
+    # the telemetry plane's extensions (runtime/telemetry.py): ``kind`` is
+    # None on the terminate-time final report, whose wire shape then stays
+    # the plain schema, "heartbeat" on the snapshots the armed plane emits
+    # mid-stream and "alert" on the flight recorder's watchdog alerts; they
+    # carry their ``seq`` and extras merged top-level into to_dict
     kind: Optional[str] = None
     seq: Optional[int] = None
     extra: Optional[dict] = None

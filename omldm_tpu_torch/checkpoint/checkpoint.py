@@ -52,9 +52,11 @@ from omldm_tpu_torch.pipelines.pipeline import fleet_state_from_numpy
 from omldm_tpu_torch.utils.device import resolve_device
 
 # node attributes that are wiring (callables, config, the job's gang
-# averager, set by the HubManager) or restored separately (the pipeline),
-# not protocol state
-_NODE_SKIP = frozenset({"pipeline", "config", "send", "reply", "broadcast", "gang"})
+# averager and flight-recorder journal, set by the HubManager, and the
+# transient receive stamp) or restored separately (the pipeline), not
+# protocol state
+_NODE_SKIP = frozenset({"pipeline", "config", "send", "reply", "broadcast", "gang",
+                        "events", "_rx_stamp"})
 
 
 def _node_state(node) -> dict:

@@ -21,8 +21,7 @@ from typing import Any, Mapping
 # fields of the JAX package's JobConfig that the port does not have (a
 # literal copy: the port never imports that package)
 JAX_ONLY_FIELDS = (
-    "max_msg_params", "request_buffer_cap",
-    "blackbox_path", "compute_dtype", "mesh_shape",
+    "max_msg_params", "request_buffer_cap", "compute_dtype", "mesh_shape",
 )
 
 
@@ -118,13 +117,25 @@ class JobConfig:
     lifecycle: str = ""
     overload: str = ""
 
-    # --- planes of the JAX package the port does not have yet ---
-    # Kept so a config written for omldm_tpu constructs here; arming any of
-    # them makes StreamJob raise NotImplementedError naming the option
-    # (runtime.job.unported_job_options).
-    ingest: str = ""
+    # --- the telemetry plane and the flight recorder ---
+    # Job-wide DEFAULT specs for pipelines whose trainingConfiguration
+    # carries no "telemetry" / "events" table (runtime/telemetry.py,
+    # runtime/events.py), e.g. "statsEvery=10000,traceSample=64" or
+    # "watchdogEvery=10000,shedHigh=1"; "on" takes the defaults, "" leaves
+    # them unarmed. On the CLI the events spec rides --flightRecorder: the
+    # bare --events flag names the combined replay file.
     telemetry: str = ""
     events: str = ""
+    # Directory for the flight recorder's ring dumps (blackbox-proc<N>.jsonl)
+    # and the supervisor's incident bundles; "" keeps the ring in memory.
+    # The events spec's own blackboxPath knob wins when set.
+    blackbox_path: str = ""
+
+    # --- a plane of the JAX package the port does not have yet ---
+    # Kept so a config written for omldm_tpu constructs here; arming it
+    # makes StreamJob raise NotImplementedError naming the option
+    # (runtime.job.unported_job_options).
+    ingest: str = ""
 
     # Aliases mapping the reference's exact CLI flag names to the fields
     # (FlinkLearning.scala:43-48, Job.scala:120, Checkpointing.scala:15-22).

@@ -1,7 +1,6 @@
 """Protocol node interfaces: worker (spoke-side) and hub (PS-side).
 
-Counterpart of ``omldm_tpu/protocols/base.py`` without the flight
-recorder's events. Nodes are plain Python objects exchanging in-process
+Counterpart of ``omldm_tpu/protocols/base.py``. Nodes are plain Python objects exchanging in-process
 messages through ``send``/``reply``/``broadcast`` callables. A worker node
 wraps an ``MLPipeline`` replica; a hub node owns the protocol's global
 state and the per-pipeline ``Statistics``.
@@ -27,6 +26,10 @@ The boundaries every message crosses live here:
 - **Cohorts**: a worker that consumes its batch at once says so
   (``consumes_batch_synchronously``), and a hub may stage its round
   average on the job's ``GangAverager`` (``HubNode.gang``).
+- **Flight recorder** (``runtime.events``): with the job's journal armed
+  (``HubNode.events``) the admission, liveness, quorum and resync decisions
+  above record typed events, stamped with the ``(networkId, seq)`` of the
+  message that triggered them (``_rx_stamp``, set by ``Hub.receive``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,13 @@ from omldm_tpu_torch.api.stats import Statistics
 from omldm_tpu_torch.guard import _payload_vector, admission_reason, guard_config, payload_non_finite
 from omldm_tpu_torch.pipelines import MLPipeline
 from omldm_tpu_torch.runtime.codec import make_transport_codec
+from omldm_tpu_torch.runtime.events import (
+    DELTA_REJECTED,
+    QUORUM_RELEASE,
+    RESYNC,
+    WORKER_READMITTED,
+    WORKER_RETIRED,
+)
 from omldm_tpu_torch.runtime.messages import OP_NACK, OP_RESYNC, comm_dict, payload_size
 
 # send(op: str, payload, hub_id: int) -> None           (worker -> hub)
@@ -212,6 +222,13 @@ class HubNode:
         # rounds (SynchronousParameterServer) stages its completed rounds
         # on it while a window is open. None: every round averages inline
         self.gang = None
+        # the flight-recorder journal (runtime/events.EventJournal), set by
+        # the HubManager when the plane is armed: the decision sites below
+        # record through it (one attribute read a site when None).
+        # ``_rx_stamp`` is the transport stamp of the message being
+        # dispatched (set by Hub.receive), which those events carry
+        self.events = None
+        self._rx_stamp = None
         # the transport codec: each reply or broadcast is encoded once
         self.codec = make_transport_codec(config)
         self.reply = self._reply_ship
@@ -256,6 +273,12 @@ class HubNode:
     def liveness_armed(self) -> bool:
         return self.quorum is not None
 
+    def _event(self, kind: str, cause: str, **fields) -> None:
+        """Record one decision tagged with this pipeline when the flight
+        recorder is armed (runtime/events.py)."""
+        if self.events is not None:
+            self.events.record(kind, cause, pipeline=self.network_id, **fields)
+
     def _retired(self) -> Set[int]:
         """Workers left out of round accounting: liveness-retired (silent
         past the deadline) and guard-retired (repeatedly poisoned)."""
@@ -272,6 +295,8 @@ class HubNode:
         self._last_seen[worker_id] = now
         if worker_id in self._retired_live:
             self._retired_live.discard(worker_id)
+            self._event(WORKER_READMITTED, "sign_of_life", worker=worker_id,
+                        stamp=self._rx_stamp, hub=self.hub_id)
             self.resync_worker(worker_id)
 
     def check_liveness(self) -> None:
@@ -291,6 +316,8 @@ class HubNode:
             if now - seen > self.worker_timeout_s:
                 self._retired_live.add(w)
                 retired_any = True
+                self._event(WORKER_RETIRED, "liveness_timeout", worker=w,
+                            silent_s=round(now - seen, 3), hub=self.hub_id)
                 self.worker_retired(w)
         if retired_any:
             self._barrier_recheck()
@@ -310,6 +337,8 @@ class HubNode:
         quorum release."""
         if self._retired_live:
             self.stats.update_stats(quorum_releases=1)
+            self._event(QUORUM_RELEASE, "retired_worker_excluded",
+                        active=self.round_target(), retired=sorted(self._retired()))
 
     # --- delta admission (trainingConfiguration.guard) ---
 
@@ -329,6 +358,8 @@ class HubNode:
                 # control message carries no model to judge)
                 self._guard_retired.discard(worker_id)
                 self._guard_strikes.pop(worker_id, None)
+                self._event(WORKER_READMITTED, "healthy_push", worker=worker_id,
+                            stamp=self._rx_stamp, hub=self.hub_id)
                 self.resync_worker(worker_id)
             elif worker_id in self._guard_strikes and self._carries_params(payload):
                 self._guard_strikes.pop(worker_id, None)
@@ -336,6 +367,8 @@ class HubNode:
         self.stats.update_stats(deltas_rejected=1)
         strikes = self._guard_strikes.get(worker_id, 0) + 1
         self._guard_strikes[worker_id] = strikes
+        self._event(DELTA_REJECTED, reason, worker=worker_id, stamp=self._rx_stamp,
+                    op=op, strikes=strikes, hub=self.hub_id)
         if (
             strikes >= self.guard_cfg.max_strikes
             and worker_id not in self._guard_retired
@@ -345,6 +378,8 @@ class HubNode:
             # the offender stops being waited for but keeps receiving
             # broadcasts, so a healed model can re-admit it later
             self._guard_retired.add(worker_id)
+            self._event(WORKER_RETIRED, "guard_strikes", worker=worker_id,
+                        stamp=self._rx_stamp, strikes=strikes, hub=self.hub_id)
             self.worker_retired(worker_id)
             self._barrier_recheck()
         if self.codec is not None:
@@ -384,6 +419,8 @@ class HubNode:
         payload = self.resync_payload()
         if payload is None:
             return
+        self._event(RESYNC, "authoritative_reship", worker=worker_id,
+                    stamp=self._rx_stamp, hub=self.hub_id)
         self.stats.update_stats(bytes_on_wire=payload_size(payload))
         self._reply_raw(worker_id, OP_RESYNC, payload)
 

@@ -21,9 +21,9 @@ a ``lifecycle`` table must parse and name a dense host-plane pipeline
 Promote, Rollback) must target a live pipeline, and a Shadow must name a
 known dense candidate learner and known preprocessors
 (``_validate_lifecycle_verb``); whether the target is armed is the job's
-call, since it holds the job-wide default spec. The port's gate also
-rejects per-pipeline switches that arm a plane the port lacks (telemetry,
-events) with a reason that names it, so a request that would fail at
+call, since it holds the job-wide default spec. A ``telemetry`` and an
+``events`` table must parse (``runtime.telemetry.validate_telemetry``,
+``runtime.events.validate_events``), so a request that would fail at
 deploy drops alone instead of killing the job.
 """
 
@@ -35,33 +35,13 @@ from omldm_tpu_torch.api.requests import LIFECYCLE_REQUESTS, Request, RequestTyp
 from omldm_tpu_torch.learners.registry import SINGLE_LEARNER_ONLY, is_valid_learner
 from omldm_tpu_torch.learners.sparse_linear import SPARSE_LEARNERS
 from omldm_tpu_torch.preprocessors.registry import is_valid_preprocessor
+from omldm_tpu_torch.runtime.events import validate_events
 from omldm_tpu_torch.runtime.lifecycle import validate_lifecycle
 from omldm_tpu_torch.runtime.messages import comm_codec_name
 from omldm_tpu_torch.runtime.overload import validate_overload
 from omldm_tpu_torch.runtime.serving import validate_serving
 from omldm_tpu_torch.runtime.spmd_bridge import spmd_engine_requested, spmd_engine_supported
-
-# trainingConfiguration keys that arm a plane the port does not have
-UNPORTED_PIPELINE_PLANES = ("telemetry", "events")
-
-
-def _armed(value) -> bool:
-    """Whether a per-pipeline switch arms its plane (absent, false and the
-    "off" spellings leave it unarmed)."""
-    if isinstance(value, str):
-        return value.strip().lower() not in ("", "off", "false", "none", "0")
-    return bool(value)
-
-
-def unported_option(request: Request) -> Optional[str]:
-    """The reason a Create/Update names something the port cannot run yet,
-    or None."""
-    tc = request.training_configuration
-    extra = tc.extra or {}
-    for key in UNPORTED_PIPELINE_PLANES:
-        if _armed(extra.get(key)):
-            return f"trainingConfiguration.{key} is not yet ported"
-    return None
+from omldm_tpu_torch.runtime.telemetry import validate_telemetry
 
 
 def validate_codec(request: Request) -> Optional[str]:
@@ -184,7 +164,10 @@ class PipelineManager:
         err = validate_spmd(request)
         if err is not None:
             return err
-        err = unported_option(request)
+        err = validate_telemetry(tc)
+        if err is not None:
+            return err
+        err = validate_events(tc)
         if err is not None:
             return err
         return validate_lifecycle(request)

@@ -1,12 +1,17 @@
 """Dead-letter sink: quarantine for malformed / rejected stream input.
 
-Counterpart of ``omldm_tpu/runtime/deadletter.py`` without the external
-publisher and the flight-recorder cross-reference (neither is ported).
-Every rejected record or request is kept in a bounded in-memory ring with a
-reason code and, when ``path`` is set, appended to a JSONL file. Quarantine
-never raises: a failing dead-letter file must not take down the stream. The
-overload plane's ``shed_overload`` and ``throttled`` entries carry the
-tenant and its queue depth as extra fields (``quarantine(extra=...)``).
+Counterpart of ``omldm_tpu/runtime/deadletter.py``. Every rejected record
+or request is kept in a bounded in-memory ring with a reason code, appended
+to a JSONL file when ``path`` is set, and handed to ``publish`` when one is
+given (the JAX package's Kafka route wires a ``deadLetters`` topic there;
+the port has no Kafka route yet). Quarantine never raises: a failing file
+or publisher must not take down the stream, so a refused write counts in
+``write_errors`` and a failing publisher in ``publish_errors`` (and is
+dropped). The overload plane's ``shed_overload`` and ``throttled`` entries
+carry the tenant and its queue depth as extra fields
+(``quarantine(extra=...)``). With the flight recorder armed the job sets
+``event_ring`` to its journal, and each entry carries the journal's
+high-water ``eventId``, pointing at the events that explain it.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import collections
 import json
 import logging
-from typing import Any, Deque, Dict, Optional
+from typing import Any, Callable, Deque, Dict, Optional
 
 # cap on the raw payload text preserved per entry
 MAX_PAYLOAD_CHARS = 4096
@@ -26,8 +31,14 @@ class DeadLetterSink:
     """Bounded quarantine for rejected stream input, with reason codes."""
 
     def __init__(self, path: str = "", cap: int = 10_000,
+                 publish: Optional[Callable[[dict], None]] = None,
                  request_stream: str = "requests"):
         self.path = path or ""
+        #: optional external publisher of every entry
+        self.publish = publish
+        self.publish_errors = 0
+        #: the flight-recorder journal (runtime/events.EventJournal) or None
+        self.event_ring = None
         self.entries: Deque[dict] = collections.deque(maxlen=max(int(cap), 1))
         self._request_stream = request_stream
         self.record_count = 0
@@ -57,6 +68,9 @@ class DeadLetterSink:
         if extra:
             for k, v in extra.items():
                 entry.setdefault(k, v)
+        if self.event_ring is not None:
+            # 0: quarantined before any decision was recorded
+            entry.setdefault("eventId", self.event_ring.high_water)
         self.entries.append(entry)
         if stream == self._request_stream:
             self.request_count += 1
@@ -65,6 +79,13 @@ class DeadLetterSink:
             self.record_count += 1
         self.by_reason[reason] = self.by_reason.get(reason, 0) + 1
         self._write(entry)
+        if self.publish is not None:
+            try:
+                self.publish(entry)
+            except Exception as exc:  # a dead topic must not kill the job
+                self.publish_errors += 1
+                self.publish = None
+                log.warning("dead-letter publish failed (%s); publishing stops", exc)
         return entry
 
     @property

@@ -14,7 +14,9 @@ A hub's receive boundary (:meth:`Hub.receive`, :meth:`Hub._dispatch`)
 runs, in order: the liveness clock, the reliable channel's receive window
 (a worker's stream: duplicates drop, reordered messages wait, a lost gap
 NACKs the worker), the wire-byte count, the transport codec's decode and
-the guard's delta admission, then the protocol node.
+the guard's delta admission, then the protocol node. With the flight
+recorder armed, a gap records a ``gap_resync`` event and the message's
+``(networkId, seq)`` stamp rides the decision events the node records.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from omldm_tpu_torch.protocols.centralized import CentralizedMLServer
 from omldm_tpu_torch.protocols.registry import make_hub_node, resolve_protocol
 from omldm_tpu_torch.runtime.cohort import GangAverager
 from omldm_tpu_torch.runtime.databuffers import DataSet
+from omldm_tpu_torch.runtime.events import GAP_RESYNC, events_armed_for
 from omldm_tpu_torch.runtime.messages import (
     OP_NACK,
     ReceiveWindow,
@@ -93,6 +96,13 @@ class Hub:
         gap, and a gap past the window fast-forwards and NACKs the worker
         (its codec delta stream re-anchors too). A message from anyone is
         also the liveness clock's tick."""
+        if self.node.events is not None:
+            # the transport stamp of the message being dispatched: the
+            # decision events this receive triggers (rejection, retirement,
+            # resync, re-admission) carry it. A held or reordered delivery
+            # keeps the triggering message's stamp: the decision happened
+            # at this receive
+            self.node._rx_stamp = (self.network_id, seq) if seq is not None else None
         if self.node.liveness_armed:
             self.node.note_worker(worker_id)
             self.node.check_liveness()
@@ -112,6 +122,11 @@ class Hub:
             self.node.stats.update_stats(duplicates_dropped=res.duplicates)
         if res.gap:
             self.node.stats.update_stats(gaps_resynced=1)
+            if self.node.events is not None:
+                self.node.events.record(
+                    GAP_RESYNC, "window_gap", pipeline=self.network_id,
+                    worker=worker_id, stamp=(self.network_id, seq), side="hub",
+                    hub=self.hub_id, expected=res.gap_from, got=res.gap_to)
             if self.node.codec is not None:
                 # deltas were lost: the rx base no longer matches the
                 # sender's; drop it and make the sender re-anchor
@@ -201,6 +216,9 @@ class HubManager:
         self.gang: Optional[GangAverager] = (
             GangAverager() if str(config.cohort).lower() in ("auto", "on") else None
         )
+        # the flight-recorder journal (runtime/events.EventJournal) handed
+        # to every shard's protocol node at creation; None: unarmed
+        self.events = None
 
     def create_hub(self, request: Request, hub_id: int, dim: int) -> Hub:
         key = (request.id, hub_id)
@@ -226,6 +244,11 @@ class HubManager:
         hub = Hub(net_id, hub_id, request, dim, self.config, reply, broadcast,
                   self.device)
         hub.node.gang = self.gang
+        # a pipeline that opts out (trainingConfiguration.events = false)
+        # never records, even with the job's recorder armed
+        if self.events is not None and events_armed_for(
+                request.training_configuration, self.config.events):
+            hub.node.events = self.events
         self.hubs[key] = hub
         self._any_liveness = self._any_liveness or hub.node.liveness_armed
         self._refresh_liveness_period()

@@ -51,10 +51,22 @@ model, a shrink merges each retiring spoke into a survivor
 (``Spoke.absorb``). A live lifecycle registry (a candidate in flight, or a
 promoted active version) replicates onto a grown spoke.
 
+The telemetry plane (``JobConfig.telemetry`` or a pipeline's
+``trainingConfiguration.telemetry``, ``runtime.telemetry``) emits a
+heartbeat (a ``JobStatistics`` with ``kind="heartbeat"``) every
+``statsEvery`` records through the performance sink, keeps the phase table
+(``phase_table``) and samples round spans. The flight recorder
+(``JobConfig.events`` or ``trainingConfiguration.events``,
+``runtime.events``) journals every plane's decisions, dumps its ring to
+``blackbox_path`` at incidents and terminate, and runs the watchdog every
+``watchdogEvery`` records: a fired rule reaches the performance sink as a
+``kind="alert"`` record. Both are count-clocked (a packed block ticks by its
+rows), read host values only, and unarmed leave no object behind.
+
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
 host without a card raises. A ``JobConfig`` that arms a plane the port does
-not have yet raises ``NotImplementedError`` naming it.
+not have yet (``ingest``) raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ import contextlib
 import copy
 import dataclasses
 import sys
+import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +90,14 @@ from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
+from omldm_tpu_torch.runtime.events import (
+    RESCALE,
+    TERMINATE,
+    FlightRecorder,
+    events_armed_for,
+    events_config,
+    parse_events_spec,
+)
 from omldm_tpu_torch.runtime.hub import HubManager
 from omldm_tpu_torch.runtime.lifecycle import lifecycle_config, parse_lifecycle_spec
 from omldm_tpu_torch.runtime.messages import channel_chaos_spec
@@ -91,8 +112,15 @@ from omldm_tpu_torch.runtime.spmd_bridge import (
 from omldm_tpu_torch.runtime.spoke import PACKED, Spoke, _PauseBuffer
 from omldm_tpu_torch.runtime.stats import StatisticsCollector
 from omldm_tpu_torch.runtime.supervisor import BurstInjector, ChaosChannel, parse_chaos_spec
+from omldm_tpu_torch.runtime.telemetry import (
+    PhaseProfile,
+    TelemetryPlane,
+    parse_telemetry_spec,
+    telemetry_config,
+)
 from omldm_tpu_torch.runtime.vectorizer import Vectorizer
 from omldm_tpu_torch.utils.device import resolve_device
+from omldm_tpu_torch.utils.tracing import StepTimer
 
 # event stream names (the reference's Kafka topics)
 TRAINING_STREAM = "trainingData"
@@ -116,7 +144,7 @@ TOGGLE_FRAMES_PER_NET = 64
 
 def unported_job_options(config: JobConfig) -> List[str]:
     """The JobConfig options that arm a plane the port does not have yet."""
-    return [name for name in ("telemetry", "events", "ingest") if getattr(config, name)]
+    return [name for name in ("ingest",) if getattr(config, name)]
 
 
 class StreamJob:
@@ -142,6 +170,14 @@ class StreamJob:
         # ... and on malformed job-wide overload and lifecycle defaults
         parse_overload_spec(self.config.overload)
         parse_lifecycle_spec(self.config.lifecycle)
+        # the telemetry plane and the flight recorder: armed by a job-wide
+        # spec after the spokes exist (a malformed one fails here), or
+        # lazily by the first pipeline whose table arms them (_deploy).
+        # Unarmed, both stay None and no object of theirs exists
+        tel_cfg = parse_telemetry_spec(self.config.telemetry)
+        ev_cfg = parse_events_spec(self.config.events)
+        self.telemetry: Optional[TelemetryPlane] = None
+        self.events: Optional[FlightRecorder] = None
         self.device = resolve_device(device, "StreamJob")
         # a cohort_shards past one device raises here, before any spoke
         resolve_cohort_shards(self.config, self.device)
@@ -177,6 +213,10 @@ class StreamJob:
         self.spokes: List[Spoke] = [
             self._spawn_spoke(i) for i in range(self.config.parallelism)
         ]
+        if tel_cfg is not None:
+            self._arm_telemetry(tel_cfg)
+        if ev_cfg is not None:
+            self._arm_events(ev_cfg)
         self.predictions_trimmed = 0
         self.responses_trimmed = 0
         self._rr = 0  # round-robin data partitioner (the reference rebalances)
@@ -231,6 +271,8 @@ class StreamJob:
             emit_predictions=self._emit_predictions,
             quarantine=self.dead_letter.quarantine,
             tenant_routing=self._burst is not None,
+            telemetry=self.telemetry,
+            events=self.events.journal if self.events is not None else None,
         )
 
     # --- sinks ---
@@ -322,8 +364,168 @@ class StreamJob:
         elif counter == "codec_seconds":
             hub.node.stats.update_stats(
                 codec_encode_seconds=n[0], codec_decode_seconds=n[1])
+        elif counter == "launch_ms":
+            hub.node.stats.note_launch_ms(*n)
+        elif counter == "serve_launch_ms":
+            hub.node.stats.note_serve_launch_ms(*n)
         else:
             hub.node.stats.update_stats(**{counter: n})
+
+    # --- the telemetry plane (runtime/telemetry.py) ---
+
+    def _arm_telemetry(self, cfg) -> None:
+        """Create the job's TelemetryPlane (once) and hand every spoke the
+        reference: from __init__ for the job-wide spec, or from _deploy for
+        the first pipeline's table. The standing probes read host values
+        only (StepTimer rings, queue lengths, the pressure level), never a
+        CUDA tensor, so a snapshot adds no device sync; the serve p99 is
+        also the overload ladder's latency signal once the plane is armed
+        (``OverloadController.signals``)."""
+        plane = TelemetryPlane(cfg)
+        plane.registry.probe("serve_launch_p99_ms", self._serve_p99)
+        plane.registry.probe("flush_launch_p99_ms", lambda: max(
+            (s.step_timer.recent_p99() for s in self.spokes), default=0.0))
+        plane.registry.probe("pressure_level", self.overload_level)
+        plane.registry.probe("queued_rows", lambda: float(sum(
+            v for k, v in self.queue_depths().items() if k != "pressure_level")))
+        self.telemetry = plane
+        for spoke in self.spokes:
+            spoke.attach_telemetry(plane)
+
+    # --- the flight recorder (runtime/events.py) ---
+
+    def _arm_events(self, cfg) -> None:
+        """Create the job's FlightRecorder (once) and hand every spoke, hub
+        shard and the dead-letter sink the journal: from __init__ for the
+        job-wide spec, or from _deploy for the first pipeline's table. A
+        pipeline whose table opts out keeps its shards unarmed."""
+        rec = FlightRecorder(
+            cfg, pid=0, position=lambda: self.events_processed,
+            on_alert=self._emit_alert_record,
+            blackbox_default=self.config.blackbox_path,
+        )
+        self.events = rec
+        for spoke in self.spokes:
+            spoke.attach_events(rec.journal)
+        self.hub_manager.events = rec.journal
+        for (nid, _h), hub in self.hub_manager.hubs.items():
+            req = self.pipeline_manager.node_map.get(nid)
+            if req is not None and events_armed_for(req.training_configuration,
+                                                    self.config.events):
+                hub.node.events = rec.journal
+        # each quarantine entry then carries the journal's high-water id,
+        # pointing at the events that explain it
+        self.dead_letter.event_ring = rec.journal
+
+    def _serve_p99(self) -> float:
+        """The spokes' worst recent serve-launch p99 (ms)."""
+        return max((s.serve_timer.recent_p99() for s in self.spokes), default=0.0)
+
+    def _emit_live_report(self, kind: str, seq: int, statistics: list, extra: dict,
+                          now: Optional[float] = None) -> None:
+        """A mid-stream ``JobStatistics`` of ``kind`` through the
+        performance sink (the final report's ``kind`` stays None)."""
+        start = self.stats.job_start
+        now = time.time() if now is None else now
+        self._emit_performance(JobStatistics(
+            job_name=self.config.job_name, parallelism=self.config.parallelism,
+            duration_ms=(now - start) * 1000.0 if start is not None else 0.0,
+            statistics=statistics, kind=kind, seq=seq, extra=extra,
+        ))
+
+    def _emit_alert_record(self, event: dict) -> None:
+        """One watchdog alert onto the performance sink as a ``kind="alert"``
+        record (no statistics: an alert points into the journal)."""
+        self._emit_live_report("alert", event["id"], [], {"alert": event})
+
+    def _watchdog_signals(self) -> dict:
+        """The signals one watchdog pass evaluates: the telemetry registry's
+        serve p99 probe when the plane is armed, the same accessor
+        otherwise; all host values, peeked and never folded."""
+        tel = self.telemetry
+        p99 = (tel.registry.read_probe("serve_launch_p99_ms") if tel is not None
+               else self._serve_p99())
+        shed = 0
+        for spoke in self.spokes:
+            ctl = spoke.overload
+            if ctl is not None:
+                shed += ctl.total_shed + ctl.total_throttled
+        hubs = list(self.hub_manager.hubs.values())
+        shed += sum(h.node.stats.deltas_rejected for h in hubs)
+        losses = [h.node.stats.learning_curve[-1] for h in hubs
+                  if h.node.stats.learning_curve]
+        return {
+            "records": self.events.records_seen,
+            "serve_p99_ms": p99,
+            "shed": shed,
+            "loss": sum(losses) / len(losses) if losses else None,
+            "last_activity": self.stats.last_activity,
+        }
+
+    def _watchdog_eval(self, now: Optional[float] = None) -> None:
+        rec = self.events
+        if rec is not None and rec.watchdog is not None:
+            rec.watchdog.evaluate(self._watchdog_signals(), now)
+
+    def _blackbox_write_errors(self) -> int:
+        """Writes the disk refused (black-box dumps and dead-letter file
+        appends), mirrored job-wide like events_recorded (max-combined, so
+        the heartbeat peek and the terminate fold cannot count twice)."""
+        n = self.dead_letter.write_errors
+        if self.events is not None:
+            n += self.events.journal.write_errors
+        return n
+
+    def _emit_heartbeat(self, now: Optional[float] = None) -> None:
+        """One incremental ``JobStatistics`` snapshot (``kind="heartbeat"``)
+        through the performance sink, carrying the registry snapshot, the
+        queue depths and the phase table."""
+        tel = self.telemetry
+        seq = tel.mark_beat(now)
+        self._emit_live_report("heartbeat", seq, self.heartbeat_statistics(), {
+            "eventsProcessed": self.events_processed,
+            "telemetry": tel.registry.snapshot(),
+            "queues": self.queue_depths(),
+            "phases": self.phase_table(),
+        }, now)
+
+    def phase_table(self, e2e_s: Optional[float] = None) -> dict:
+        """The phase-attributed breakdown: the telemetry plane's measured
+        read/parse/stage/holdout rings plus the phases clocked elsewhere --
+        fit (the spokes' flush StepTimers), serve (their serving
+        StepTimers) and ship (the codec's seconds). On a CUDA job fit and
+        serve time the host's dispatch and the syncs inside it, not the
+        kernels. With ``e2e_s`` each row carries its share of it and
+        ``_coverage`` is the attributed fraction."""
+        tel = self.telemetry
+        profile = tel.phases if tel is not None and tel.phases is not None else PhaseProfile()
+        enc, dec = self.codec_seconds()
+        extra = {
+            "fit": sum(s.step_timer.total_ms for s in self.spokes) / 1e3,
+            "serve": sum(s.serve_timer.total_ms for s in self.spokes) / 1e3,
+            "ship": enc + dec,
+        }
+        return profile.table(e2e_s, extra={k: v for k, v in extra.items() if v > 0.0})
+
+    def launch_timing(self) -> dict:
+        """The spokes' StepTimers pooled: the fit flush path's per-launch ms
+        percentiles (p50, p99) and launches a second, and the serving
+        launches' (``serve_*``); the counts are the true totals, the
+        percentiles the bounded windows'."""
+        pooled = StepTimer("spoke_flush")
+        serve = StepTimer("serve_flush")
+        for spoke in self.spokes:
+            for d in spoke.step_timer._durations_ms:
+                pooled.record(d)
+            for d in spoke.serve_timer._durations_ms:
+                serve.record(d)
+        out = pooled.summary()
+        ssum = serve.summary()
+        out["count"] = sum(s.step_timer.count for s in self.spokes)
+        out["serve_count"] = sum(s.serve_timer.count for s in self.spokes)
+        out["serve_p50_ms"] = ssum["p50_ms"]
+        out["serve_p99_ms"] = ssum["p99_ms"]
+        return out
 
     def codec_seconds(self) -> Tuple[float, float]:
         """(encode, decode) transport-codec seconds summed over every live
@@ -370,6 +572,16 @@ class StreamJob:
                 # this event is processed average together at its exit
                 with gang.window():
                     self._process_event_inner(stream, payload)
+        # the heartbeat and watchdog count clocks: one tick an event (a
+        # packed block ticks its rows in process_packed_batch), acting at
+        # the event boundary, after the event's own work settled
+        if stream != PACKED_STREAM:
+            tel = self.telemetry
+            if tel is not None and tel.note_records(1):
+                self._emit_heartbeat()
+            rec = self.events
+            if rec is not None and rec.note_records(1):
+                self._watchdog_eval()
 
     def _any_cohorts(self) -> bool:
         return any(s.cohorts is not None and s.cohorts.cohorts for s in self.spokes)
@@ -405,8 +617,7 @@ class StreamJob:
         the live version), peeked and never taken, so the terminate fold
         still counts each delta once. No score is evaluated (that would
         launch holdout predicts on the hot path); SPMD pipelines report at
-        terminate only. The heartbeats that emit these arrive with the
-        telemetry plane (ROADMAP queue 1, item 3)."""
+        terminate only. Every value is a host counter: no tensor is read."""
         out = []
         for net_id in self.pipeline_manager.live_pipelines:
             if net_id in self.spmd_bridges:
@@ -451,8 +662,12 @@ class StreamJob:
                 s.update_stats(records_quarantined=self.dead_letter.record_count)
             if self.rescales_performed:
                 s.update_stats(rescales_performed=self.rescales_performed)
-            if self.dead_letter.write_errors:
-                s.update_stats(blackbox_write_errors=self.dead_letter.write_errors)
+            if self.events is not None and self.events.journal.total:
+                s.update_stats(events_recorded=self.events.journal.total,
+                               alerts_raised=self.events.journal.alerts)
+            nw = self._blackbox_write_errors()
+            if nw:
+                s.update_stats(blackbox_write_errors=nw)
             out.append(s)
         return out
 
@@ -460,10 +675,11 @@ class StreamJob:
         """The compact metrics frame a worker's heartbeat carries to an
         autoscaling supervisor: the pressure level and the host-plane
         signals a staging backlog cannot show (the serve-launch p99, the
-        hottest tenant's excess over its fair share, the queued rows). The
-        flight recorder's ``events`` and ``alerts`` are 0 until it is
-        ported."""
-        p99 = max((s.serve_timer.recent_p99() for s in self.spokes), default=0.0)
+        hottest tenant's excess over its fair share, the queued rows), and
+        the flight recorder's high-water event id and alert count (0
+        unarmed), so a supervisor sees the journal advance without reading
+        the black box."""
+        p99 = self._serve_p99()
         imbalance = 0.0
         backlog = 0
         for spoke in self.spokes:
@@ -471,9 +687,11 @@ class StreamJob:
                 imbalance = max(imbalance, spoke.overload._hot)
             depths = spoke.queue_depths()
             backlog += depths["serving"] + depths["batcher"] + depths["throttled"]
+        journal = self.events.journal if self.events is not None else None
         return {"level": self.overload_level(), "serveP99": round(p99, 3),
                 "imbalance": round(imbalance, 3), "backlog": int(backlog),
-                "events": 0, "alerts": 0}
+                "events": journal.high_water if journal is not None else 0,
+                "alerts": journal.alerts if journal is not None else 0}
 
     def queue_depths(self) -> dict:
         """The spokes' queue depths summed (``Spoke.queue_depths``), the
@@ -526,7 +744,12 @@ class StreamJob:
             if isinstance(payload, DataInstance):
                 inst = payload
             else:
-                inst, reason = DataInstance.parse(payload)
+                ph = self.telemetry.phases if self.telemetry is not None else None
+                if ph is None:
+                    inst, reason = DataInstance.parse(payload)
+                else:
+                    with ph.phase("parse"):
+                        inst, reason = DataInstance.parse(payload)
                 if reason is not None:
                     # EOS markers / blank lines return (None, None)
                     self.dead_letter.quarantine(stream, payload, reason)
@@ -659,7 +882,18 @@ class StreamJob:
     def _deploy(self, request: Request, dim: int) -> None:
         """Create the pipeline on every worker and its hub shard(s)
         (PipelineMap.scala:54-57, FlinkSpoke.scala:220-222), or on the SPMD
-        engine when the request asks for it and the engine hosts it."""
+        engine when the request asks for it and the engine hosts it. The
+        first pipeline whose table arms the telemetry plane or the flight
+        recorder arms it for the job (the gate validated the table)."""
+        if self.telemetry is None:
+            tel_cfg = telemetry_config(request.training_configuration,
+                                       self.config.telemetry)
+            if tel_cfg is not None:
+                self._arm_telemetry(tel_cfg)
+        if self.events is None:
+            ev_cfg = events_config(request.training_configuration, self.config.events)
+            if ev_cfg is not None:
+                self._arm_events(ev_cfg)
         use_spmd = spmd_engine_requested(request) and spmd_engine_supported(request)
         if request.id in self._dims:
             # an Update tears down the previous deployment, on either plane
@@ -699,13 +933,21 @@ class StreamJob:
           ``config.parallelism``).
 
         SPMD-engine pipelines keep their mesh (dp is bound to the devices,
-        not to the virtual worker count)."""
+        not to the virtual worker count). With the flight recorder armed the
+        rescale is an incident: recorded, the ring dumped, and the journal's
+        transport epoch bumped (reused worker slots restart their sequence
+        counters, which the bundle merge must not compare with older ones)."""
         p = len(self.spokes)
         if n_new == p:
             return
         if n_new < 1:
             raise ValueError(f"parallelism must be >= 1, got {n_new}")
         self.rescales_performed += 1
+        if self.events is not None:
+            self.events.journal.record(RESCALE, "live_rescale", from_procs=p,
+                                       to_procs=n_new)
+            self.events.journal.incident("rescale")
+            self.events.journal.bump_epoch()
         if n_new > p:
             for w in range(p, n_new):
                 self.spokes.append(self._spawn_spoke(w))
@@ -826,7 +1068,10 @@ class StreamJob:
         continuing the ``_rr`` cycle, so packed and per-record events can
         interleave. Callers may call this directly, not only through
         :meth:`process_event`, so the gang-averaging window opens here too
-        (it counts its depth: nested, it flushes at the outer exit)."""
+        (it counts its depth: nested, it flushes at the outer exit). The
+        heartbeat and watchdog clocks tick by the block's rows, so their
+        cadence is the record sequence's whichever route carried it (and a
+        cadence below the block size acts once a block)."""
         gang = self.hub_manager.gang
         with self._toggle_stack():
             if gang is None or not self._any_cohorts():
@@ -834,6 +1079,14 @@ class StreamJob:
             else:
                 with gang.window():
                     self._process_packed_inner(x, y, op)
+        if self.stats.terminated:
+            return
+        tel = self.telemetry
+        if tel is not None and tel.note_records(int(x.shape[0])):
+            self._emit_heartbeat()
+        rec = self.events
+        if rec is not None and rec.note_records(int(x.shape[0])):
+            self._watchdog_eval()
 
     def _process_packed_inner(self, x: np.ndarray, y: np.ndarray, op: np.ndarray) -> None:
         n = x.shape[0]
@@ -919,9 +1172,19 @@ class StreamJob:
         """Live-mode hook: the serving plane's deadline clock (a queued
         forecast whose maxDelayMs elapses while the stream is silent must
         not wait for the next record), then the termination probe once the
-        silence timeout elapsed (StatisticsOperator.scala:135-142)."""
+        silence timeout elapsed (StatisticsOperator.scala:135-142). With the
+        telemetry plane armed, a stream with records pending since the last
+        heartbeat reports after ``idleMs``; with a silence rule armed, the
+        watchdog polls it (both wall-clocked: the count clocks cannot move
+        while nothing flows)."""
         for spoke in self.spokes:
             spoke.poll_serving()
+        tel = self.telemetry
+        if tel is not None and not self.stats.terminated and tel.idle_due(now):
+            self._emit_heartbeat(now)
+        rec = self.events
+        if rec is not None and rec.watchdog is not None and not self.stats.terminated:
+            rec.watchdog.poll_silence(self.stats.last_activity, now)
         if self.stats.silence_exceeded(now):
             return self.terminate()
         return None
@@ -944,26 +1207,37 @@ class StreamJob:
             self.stats.probe_fired = True
             for spoke in self.spokes:
                 spoke.handle_terminate_probe()
-        # the quarantined-record and rescale counts are job-level, mirrored
-        # into every pipeline's report
+        # the quarantined-record, rescale and flight-recorder counts are
+        # job-level, mirrored into every pipeline's report
         nq = self.dead_letter.record_count
         nr = self.rescales_performed
+        ne = na = 0
+        if self.events is not None:
+            self.events.journal.record(TERMINATE, "termination_protocol")
+            ne = self.events.journal.total
+            na = self.events.journal.alerts
+        nw = self._blackbox_write_errors()
+        folds = {}
+        if nq:
+            folds["records_quarantined"] = nq
+        if nr:
+            folds["rescales_performed"] = nr
+        if ne:
+            folds.update(events_recorded=ne, alerts_raised=na)
+        if nw:
+            folds["blackbox_write_errors"] = nw
         for bridge in self.spmd_bridges.values():
             bridge.handle_terminate_probe()
             bridge_stats = bridge.network_statistics()
-            if nq:
-                bridge_stats.update_stats(records_quarantined=nq)
-            if nr:
-                bridge_stats.update_stats(rescales_performed=nr)
+            if folds:
+                bridge_stats.update_stats(**folds)
             self.stats.add_hub_statistics(bridge.request.id, bridge_stats)
         self.hub_manager.on_terminate()
         for net_id in self.pipeline_manager.live_pipelines:
             merged = self.hub_manager.network_statistics(net_id)
             if merged is not None:
-                if nq:
-                    merged.update_stats(records_quarantined=nq)
-                if nr:
-                    merged.update_stats(rescales_performed=nr)
+                if folds:
+                    merged.update_stats(**folds)
                 merged.normalize(
                     max(len([k for k in self.hub_manager.hubs if k[0] == net_id]), 1)
                 )
@@ -973,4 +1247,11 @@ class StreamJob:
         self.terminate_accounting = self.queue_depths()
         report = self.stats.try_finalize(len(self.pipeline_manager.live_pipelines))
         self.dead_letter.close()
+        # the span file closes; the final report above is the plain
+        # terminate-time JobStatistics (heartbeats only add entries)
+        if self.telemetry is not None:
+            self.telemetry.close()
+        # the final black-box dump: this process's last word in a bundle
+        if self.events is not None:
+            self.events.journal.dump()
         return report

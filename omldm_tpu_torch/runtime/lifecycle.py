@@ -50,9 +50,9 @@ deterministic and a checkpoint restored mid-canary reaches the same one.
 The registry lives per (spoke, pipeline): at parallelism > 1 each worker
 decides on its own share of the stream. Candidates must keep the
 baseline's flat-parameter size (a promotion swaps the protocol node's
-pipeline under a hub that keeps its state). The flight recorder's hook
-(``events``, :meth:`LifecycleState._event`) stays unarmed until
-``runtime/events.py`` is ported.
+pipeline under a hub that keeps its state). With the flight recorder armed
+(``events``, wired by the spoke) every canary transition records a
+``lifecycle`` event (:meth:`LifecycleState._event`).
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from omldm_tpu_torch.api.requests import LearnerSpec, PreprocessorSpec
+from omldm_tpu_torch.runtime.events import LIFECYCLE
 
 # version states
 REGISTERED = "registered"
@@ -409,11 +410,7 @@ class LifecycleState:
     def _event(self, cause: str, **fields) -> None:
         """Record one canary state-machine transition (kind
         ``lifecycle``) when the flight recorder is armed."""
-        # ``events`` stays None until the flight recorder
-        # (runtime/events.py) is ported
         if self.events is not None:
-            from omldm_tpu_torch.runtime.events import LIFECYCLE
-
             self.events.record(
                 LIFECYCLE, cause, pipeline=self.net_id, **fields
             )

@@ -39,10 +39,12 @@ controller object exists anywhere. Armed, each Spoke hosts one
 
 Levels gate ACTIONS; the buckets account continuously, so the plane's cost
 when healthy is one bucket update an admission and a strided signal scan.
-The flight recorder's hooks (``events``, ``_record_events``) and the
-telemetry plane's arming of the latency signal stay unarmed until
-``runtime/events.py`` and ``runtime/telemetry.py`` are ported: ``events``
-is None and the spoke has no ``telemetry``.
+With the flight recorder armed (``events``, wired by the spoke) every
+ladder transition records a ``pressure`` event and the shed and throttle
+volume one aggregated ``shed``/``throttle`` event an evaluation window
+(``_record_events``); with the telemetry plane armed (the spoke's
+``telemetry``) the serve p99 is measured as a signal without the
+``p99HighMs`` knob.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from omldm_tpu_torch.runtime.events import PRESSURE, SHED, THROTTLE
 from omldm_tpu_torch.runtime.serving import ServeStats, ServingConfig
 
 # pressure levels (the Statistics ``pressureLevel`` gauge reports the peak)
@@ -294,8 +297,7 @@ class OverloadController:
         self.extra_signals: Dict[str, Callable[[], Tuple[float, float, float]]] = {}
         # degraded-serving cache: (tenant, level) -> ServingConfig
         self._eff: Dict[Tuple[int, int], ServingConfig] = {}
-        # flight-recorder journal (runtime/events.EventJournal, not
-        # ported yet) or None:
+        # flight-recorder journal (runtime/events.EventJournal) or None:
         # ladder transitions record through it, and shed/throttle volume
         # records AGGREGATED at evaluation ticks (one event per window of
         # activity, never one per flooded record — the recorder must stay
@@ -440,8 +442,6 @@ class OverloadController:
             "backlog": float(self.backlog_rows()),
         }
         cfg = self.config
-        # the spoke's ``telemetry`` is None until the telemetry plane is
-        # ported (ROADMAP queue 1): only the p99HighMs knob arms the signal
         if (cfg is not None and cfg.p99_high_ms > 0) or getattr(
             spoke, "telemetry", None
         ) is not None:
@@ -507,10 +507,6 @@ class OverloadController:
         event per ladder transition, one aggregated ``shed``/``throttle``
         event per window with new volume (count-clocked — same-seed
         bursts replay the same event stream)."""
-        # reached only with ``events`` set, which nothing does until the
-        # flight recorder (runtime/events.py) is ported
-        from omldm_tpu_torch.runtime.events import PRESSURE, SHED, THROTTLE
-
         if self.level != old:
             self.events.record(
                 PRESSURE, LEVEL_NAMES[self.level], old=old, new=self.level,

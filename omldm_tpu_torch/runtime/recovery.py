@@ -26,11 +26,14 @@ replay (at-least-once sinks, as in Flink without two-phase-commit sinks).
 A deterministic poison event crashes every attempt and exhausts
 ``max_restarts``, also as in Flink.
 
-The flight-recorder hooks (``_record_restore``, the supervisor's
-``_ensure_journal`` and ``_write_bundle``) read ``job.events``, which is
-None until the events plane is ported (ROADMAP queue 1, item 3; its module
-``runtime/events.py`` arrives with it): they are no-ops until then, and
-item 3 arms them or deletes them together with that module.
+With the supervised job's flight recorder armed (``job.events``), the
+supervisor keeps its own journal (``pid="sup"``): each restore decision is
+a ``restore`` event (``_record_restore``), each failed incarnation's ring is
+dumped as a ``worker_death`` incident and gathered, each restart is a
+``restart`` event, and the run ends with one merged bundle,
+``incident-supervised.json`` under the black-box directory
+(``_write_bundle``). Each incarnation keeps its own ring (ids from 1); the
+bundle merge keeps the rings apart. Unarmed: no recorder object exists.
 
 The JAX supervisor's ``restart_jitter_s``, ``restart_growth`` and
 ``restart_seed`` options are left out: nothing in the port sets them, and
@@ -48,6 +51,7 @@ import time
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 from omldm_tpu_torch.api.stats import JobStatistics
+from omldm_tpu_torch.runtime.events import RESTART, RESTORE, EventJournal, write_bundle
 from omldm_tpu_torch.runtime.job import StreamJob
 from omldm_tpu_torch.runtime.selfheal import RestartPolicy, classify_exception
 from omldm_tpu_torch.utils.backoff import with_backoff
@@ -93,8 +97,6 @@ def _record_restore(job: StreamJob, cause: str, **fields) -> None:
     incident bundle either way they go."""
     rec = getattr(job, "events", None)
     if rec is not None:
-        from omldm_tpu_torch.runtime.events import RESTORE
-
         rec.journal.record(RESTORE, cause, **fields)
 
 
@@ -215,8 +217,6 @@ class JobSupervisor:
         if self.journal is None:
             rec = getattr(self.job, "events", None)
             if rec is not None:
-                from omldm_tpu_torch.runtime.events import EventJournal
-
                 self.journal = EventJournal(
                     cap=1024, pid="sup", path=rec.journal.path
                 )
@@ -276,8 +276,6 @@ class JobSupervisor:
         rec = getattr(self.job, "events", None)
         if rec is None or self._ensure_journal() is None:
             return
-        from omldm_tpu_torch.runtime.events import write_bundle
-
         streams = list(self._gathered)
         if rec.journal.events:
             streams.append(rec.journal.tail())
@@ -306,8 +304,6 @@ class JobSupervisor:
             self._gathered.append(rec.journal.tail())
         job, record.restored_from = recover_job(failed, self._ckpt_floor)
         if self._ensure_journal() is not None:
-            from omldm_tpu_torch.runtime.events import RESTART
-
             self.journal.record(
                 RESTART, "worker_failure", error=record.error,
                 offset=record.offset, attempt=len(self.failures),

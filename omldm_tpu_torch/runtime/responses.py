@@ -67,6 +67,11 @@ class ResponseMerger:
                 # count-clocked state machine: keep the last non-null one
                 # (the learner and protocol rule), never an average
                 out.lifecycle = dict(f.lifecycle)
+            if f.events is not None:
+                # event-ring tails come from the one job-level journal
+                # (every fragment carries the same view): keep the last
+                # non-null one, the lifecycle rule
+                out.events = list(f.events)
         n = max(len(heads), 1)
         out.loss = sum((f.loss or 0.0) for f in heads) / n
         out.cumulative_loss = sum((f.cumulative_loss or 0.0) for f in heads) / n

@@ -51,8 +51,17 @@ member leaves that block's gang. With the lifecycle plane armed
 (``runtime.lifecycle``) a net's Shadow candidate fits beside the active
 model on every flushed batch, a canary split routes forecasts to it at
 serve admission, and the spoke executes the registry's promote and rollback
-decisions after each record, block and query. The telemetry and events
-branches are not ported.
+decisions after each record, block and query.
+
+With the telemetry plane armed (``runtime.telemetry``, attached by the job)
+the spoke times its ``stage`` (featurization, batcher fill) and ``holdout``
+phases, opens a sampled span at a send and closes it at the next reply on
+that stream, and folds its launch percentiles into the statistics. With
+the flight recorder armed (``runtime.events``) it records its decisions:
+guard trips, rollbacks and cohort evictions, receive-window gaps and
+accepted resyncs, and wires the overload controller's and the lifecycle
+registries' journals. A net whose ``trainingConfiguration`` sets
+``telemetry`` or ``events`` to false opts out of spans or events.
 """
 
 from __future__ import annotations
@@ -74,6 +83,14 @@ from omldm_tpu_torch.protocols.base import WorkerNode
 from omldm_tpu_torch.protocols.registry import make_worker_node, resolve_protocol
 from omldm_tpu_torch.runtime.cohort import CohortEngine
 from omldm_tpu_torch.runtime.databuffers import DataSet
+from omldm_tpu_torch.runtime.events import (
+    CHANNEL_RESYNC,
+    GAP_RESYNC,
+    GUARD_EVICT,
+    GUARD_ROLLBACK,
+    GUARD_TRIP,
+    events_config,
+)
 from omldm_tpu_torch.runtime.lifecycle import (
     CANARY,
     REASON_OPERATOR,
@@ -84,6 +101,7 @@ from omldm_tpu_torch.runtime.lifecycle import (
 )
 from omldm_tpu_torch.runtime.messages import (
     OP_NACK,
+    OP_RESYNC,
     ReceiveWindow,
     StreamSequencer,
     channel_chaos_spec,
@@ -103,6 +121,7 @@ from omldm_tpu_torch.runtime.serving import (
     _entry_rows,
     serving_config,
 )
+from omldm_tpu_torch.runtime.telemetry import telemetry_config
 from omldm_tpu_torch.runtime.vectorizer import (
     F32_MAX,
     MicroBatcher,
@@ -250,6 +269,13 @@ class SpokeNet:
         # at create time); None keeps the plain routes
         self.overload = overload_config(tc, config.overload)
         self._octl: Optional[OverloadController] = None
+        # the telemetry plane's and the flight recorder's per-net switches:
+        # an explicit false keeps this pipeline's rounds out of the sampled
+        # spans, or its decisions out of the journal and its Query responses
+        # without an event tail, even when another pipeline or the job-wide
+        # spec armed the job's plane (which lives on the job)
+        self.telemetry_cfg = telemetry_config(tc, config.telemetry)
+        self.events_cfg = events_config(tc, config.events)
         # the model-lifecycle plane (runtime/lifecycle.py): the net's
         # version registry. None (unarmed, and always for a sparse net: the
         # candidate's predict and flat-parameter paths are dense) keeps the
@@ -404,6 +430,15 @@ class SpokeNet:
         return x, y, np.ones((len(pts),), np.float32)
 
 
+def _vectorize(net: SpokeNet, inst: DataInstance, vecs: Dict[Any, Any]):
+    """``net.vectorizer.vectorize(inst)``, memoized in ``vecs`` by the
+    vectorizer's value for the one record being routed."""
+    x = vecs.get(net.vectorizer)
+    if x is None:
+        x = vecs[net.vectorizer] = net.vectorizer.vectorize(inst)
+    return x
+
+
 class Spoke:
     """One logical worker (a Flink subtask in the reference)."""
 
@@ -428,6 +463,11 @@ class Spoke:
         # job sets it when the chaos burst injector is armed: its copies
         # are tenant-addressed); False broadcasts every record
         tenant_routing: bool = False,
+        # the job's telemetry plane (runtime/telemetry.TelemetryPlane) and
+        # flight-recorder journal (runtime/events.EventJournal), or None:
+        # one attribute read a hook when unarmed
+        telemetry=None,
+        events=None,
     ):
         self.worker_id = worker_id
         self.config = config
@@ -456,6 +496,16 @@ class Spoke:
         self.overload: Optional[OverloadController] = None
         self._quarantine = quarantine
         self.tenant_routing = tenant_routing
+        # the telemetry plane and its phase profile (split so a hot path
+        # reads one attribute), set here or later by attach_telemetry (lazy
+        # arming), and the flight recorder's journal (attach_events)
+        self.telemetry = telemetry
+        self._phases = telemetry.phases if telemetry is not None else None
+        self.events = events
+        # cached (count, (p50, p99)) a timer: the terminate probe folds the
+        # launch percentiles a net, and re-sorting the ring a tenant would
+        # make a many-tenant terminate quadratic in the ring's length
+        self._tp_cache: Dict[str, Tuple[int, Tuple[float, float]]] = {}
         # pre-creation buffering (SpokeLogic.scala:31-35): records, and
         # whole packed blocks under the same row cap
         self.record_buffer: DataSet[DataInstance] = DataSet(config.record_buffer_cap)
@@ -508,6 +558,7 @@ class Spoke:
             net.pipeline.guard.maybe_snapshot(net.pipeline)
         if net.lifecycle is not None:
             self._any_lifecycle = True
+        self._wire_events(net)
         if self.cohorts is not None:
             self.cohorts.consider(net.pipeline)
             # pooled pipelines may attach on a LATER create (the auto
@@ -566,12 +617,55 @@ class Spoke:
                 net.node.paused = False
                 self._drain_pause_buffer(net)
 
+    def attach_telemetry(self, plane) -> None:
+        """Hand this spoke the job's telemetry plane (lazy arming by a
+        pipeline's table)."""
+        self.telemetry = plane
+        self._phases = plane.phases
+
+    def attach_events(self, journal) -> None:
+        """Hand this spoke the job's flight-recorder journal (lazy arming by
+        a pipeline's table) and wire the hosted planes that record their own
+        transitions."""
+        self.events = journal
+        for net in self.nets.values():
+            self._wire_events(net)
+
+    def _wire_events(self, net: SpokeNet) -> None:
+        """Hand a recording net's planes the journal: its lifecycle registry,
+        and the spoke's overload controller (whose ladder events are
+        spoke-scoped: any recording overload tenant arms them)."""
+        if self.events is None or net.events_cfg is None:
+            return
+        if net.overload is not None:
+            self.overload.events = self.events
+        if net.lifecycle is not None:
+            net.lifecycle.events = self.events
+            net.lifecycle.net_id = net.request.id
+
+    def _timer_percentiles(self, timer: StepTimer) -> Tuple[float, float]:
+        """(p50, p99) ms of a StepTimer's window, cached by the timer's
+        count so a many-tenant terminate sorts each ring once."""
+        cached = self._tp_cache.get(timer.name)
+        if cached is not None and cached[0] == timer.count:
+            return cached[1]
+        sm = timer.summary()
+        out = (sm["p50_ms"], sm["p99_ms"])
+        self._tp_cache[timer.name] = (timer.count, out)
+        return out
+
     def _make_send(self, network_id: int):
         def send(op: str, payload: Any, hub_id: int = 0) -> None:
             # the reliable channel stamps its sequence number here, at the
             # ship boundary: below the codec, above the (lossy) router
             net = self.nets.get(network_id)
             seq = net.next_seq(hub_id) if net is not None else None
+            # sampled round tracing: 1/traceSample sends open a span keyed
+            # by the stamp; the next hub delivery on the stream closes it
+            tel = self.telemetry
+            if (tel is not None and tel.spans.active and net is not None
+                    and net.telemetry_cfg is not None):
+                tel.spans.maybe_open(network_id, hub_id, self.worker_id, op, seq)
             self._send_to_hub(network_id, hub_id, self.worker_id, op, payload, seq)
 
         return send
@@ -601,6 +695,10 @@ class Spoke:
         # entered a queue, so the boundary walks wait for the next admitted
         # record (shedding must stay far cheaper than serving)
         touched = ctl is None
+        # one featurization per vectorizer shape: a broadcast record reaches
+        # every hosted net, and nets of one width share its vector (nothing
+        # downstream writes into a staged row)
+        vecs: Dict[Any, Any] = {}
         for net in nets:
             if ctl is not None and net.overload is not None and not net.node.paused:
                 # fair-share admission, before featurization: the counter
@@ -615,11 +713,18 @@ class Spoke:
                             continue
                     else:
                         self._defer_training(
-                            net, (inst.operation, net.vectorizer.vectorize(inst),
+                            net, (inst.operation, _vectorize(net, inst, vecs),
                                   inst.target, None), 1)
                         touched = True
                         continue
-            x = net.vectorizer.vectorize(inst)
+            ph = self._phases
+            if ph is None:
+                x = _vectorize(net, inst, vecs)
+            else:
+                # per-record featurization is the record route's share of
+                # the ``stage`` phase
+                with ph.phase("stage"):
+                    x = _vectorize(net, inst, vecs)
             if net.node.paused:
                 # hold, don't drop: the net resumes on the next toggle
                 held_inst = inst if inst.operation == FORECASTING else None
@@ -842,7 +947,17 @@ class Spoke:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorized 8-of-10 holdout split over a packed segment; evicted
         test points re-enter the training flow at the slot of the row that
-        evicted them. Identity when test mode is off."""
+        evicted them. Identity when test mode is off. Timed as the
+        ``holdout`` phase when the telemetry plane is armed."""
+        ph = self._phases
+        if ph is None:
+            return self._holdout_filter_inner(net, tx, ty)
+        with ph.phase("holdout"):
+            return self._holdout_filter_inner(net, tx, ty)
+
+    def _holdout_filter_inner(
+        self, net: SpokeNet, tx: np.ndarray, ty: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
         if not self.config.test:
             return tx, ty
         n = tx.shape[0]
@@ -886,9 +1001,20 @@ class Spoke:
         i = 0
         total = tx.shape[0]
         while i < total:
-            i += net.batcher.add_many(tx[i:], ty[i:])
+            i += self._staged_add(net.batcher, tx, ty, i)
             if net.batcher.full:
                 net.flush_batch()
+
+    def _staged_add(self, batcher, tx, ty, i: int) -> int:
+        """``batcher.add_many(tx[i:], ty[i:])``, timed as the ``stage``
+        phase when the telemetry plane is armed (the fit a full batcher
+        triggers times itself into the flush StepTimer: the two never
+        nest)."""
+        ph = self._phases
+        if ph is None:
+            return batcher.add_many(tx[i:], ty[i:])
+        with ph.phase("stage"):
+            return batcher.add_many(tx[i:], ty[i:])
 
     def _serve_packed(self, net: SpokeNet, x: np.ndarray, f_idx: np.ndarray) -> None:
         if net.serving is not None:
@@ -1090,7 +1216,7 @@ class Spoke:
                 net, ftx, fty, cur = feed
                 if cur >= ftx.shape[0]:
                     continue
-                cur += net.batcher.add_many(ftx[cur:], fty[cur:])
+                cur += self._staged_add(net.batcher, ftx, fty, cur)
                 feed[3] = cur
                 if net.batcher.full:
                     net.flush_batch()
@@ -1208,6 +1334,17 @@ class Spoke:
             if enc > 0.0 or dec > 0.0:
                 self._note_wire(net.request.id, 0, "codec_seconds", (enc, dec))
                 net._codec_folded = (c.encode_seconds, c.decode_seconds)
+        # the launch percentiles of the fit flush and the serving paths,
+        # max-combined hub-side; folded only with the telemetry plane armed
+        # (they are wall-clock values, which would make every unarmed
+        # report irreproducible)
+        if self._note_wire is not None and self.telemetry is not None:
+            if self.step_timer.count:
+                self._note_wire(net.request.id, 0, "launch_ms",
+                                self._timer_percentiles(self.step_timer))
+            if self.serve_timer.count:
+                self._note_wire(net.request.id, 0, "serve_launch_ms",
+                                self._timer_percentiles(self.serve_timer))
         # the lifecycle counters fold once; the live version is a
         # last-write gauge, folded every time (0 after an operator rollback
         # to the Create model included)
@@ -1252,6 +1389,11 @@ class Spoke:
                     # fragment of a lifecycle-armed pipeline
                     lifecycle=(net.lifecycle.describe()
                                if i == 0 and net.lifecycle is not None else None),
+                    # the tail of the pipeline's event ring rides the
+                    # bucket-0 fragment when the flight recorder is armed
+                    events=(self.events.tail_for(net.request.id)
+                            if i == 0 and self.events is not None
+                            and net.events_cfg is not None else None),
                     source_worker=self.worker_id,
                 )
             )
@@ -1294,6 +1436,11 @@ class Spoke:
         if res.gap:
             if self._note_wire is not None:
                 self._note_wire(network_id, hub_id, "gaps_resynced", 1)
+            if self.events is not None and net.events_cfg is not None:
+                self.events.record(
+                    GAP_RESYNC, "window_gap", pipeline=network_id,
+                    worker=self.worker_id, stamp=(network_id, seq), side="worker",
+                    hub=hub_id, expected=res.gap_from, got=res.gap_to)
             if net.node.codec is not None:
                 net.node.codec.reset_rx_stream(f"h{hub_id}>w{self.worker_id}")
                 net.node.codec.reset_rx_stream(f"h{hub_id}>*")
@@ -1303,6 +1450,15 @@ class Spoke:
 
     def _deliver_from_hub(self, net: SpokeNet, network_id: int, hub_id: int,
                           op: str, payload: Any) -> None:
+        # sampled round tracing: an open span on this stream completes
+        tel = self.telemetry
+        if tel is not None and tel.spans.active:
+            tel.spans.maybe_close(network_id, hub_id, self.worker_id, op)
+        if self.events is not None and op == OP_RESYNC and net.events_cfg is not None:
+            # the worker accepted an authoritative re-ship: the recovery
+            # half of a NACK or rejection chain
+            self.events.record(CHANNEL_RESYNC, "authoritative_reship",
+                               pipeline=network_id, worker=self.worker_id, hub=hub_id)
         if net.serving is not None and net.serve_queue.entries:
             # a hub payload may replace this net's model: exact-mode
             # serving drains the queue with the parameters before it
@@ -1361,13 +1517,23 @@ class Spoke:
         codec's streams reset, and the worker asks its hubs for a resync
         (OP_NACK -> OP_RESYNC) to catch up with the fleet."""
         nid = net.request.id
+        journal = self.events if net.events_cfg is not None else None
+        if journal is not None:
+            # the trip is the incident: record the chain and dump the ring
+            # (the post-mortem must not depend on the stream reaching its end)
+            journal.record(GUARD_TRIP, reason, pipeline=nid, worker=self.worker_id)
         if net.pipeline._cohort is not None and self.cohorts is not None:
             self.cohorts.retire(net.pipeline)
             if self._note_wire is not None:
                 self._note_wire(nid, 0, "members_evicted", 1)
+            if journal is not None:
+                journal.record(GUARD_EVICT, reason, pipeline=nid, worker=self.worker_id)
         net.pipeline.guard.rollback(net.pipeline)
         if self._note_wire is not None:
             self._note_wire(nid, 0, "rollbacks_performed", 1)
+        if journal is not None:
+            journal.record(GUARD_ROLLBACK, reason, pipeline=nid, worker=self.worker_id)
+            journal.incident("guard_trip", pipeline=nid)
         if net.serving is not None and net.serve_queue.entries:
             # queued forecasts flush through the rolled-back model, never
             # through the parameters the guard condemned

@@ -28,7 +28,7 @@ def clamp_f32(feats) -> np.ndarray:
     return np.clip(a, -F32_MAX, F32_MAX).astype(np.float32)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class Vectorizer:
     """Maps DataInstances to fixed-dim float32 vectors: records with fewer
     features are zero-padded, longer ones truncated; ``hash_dims`` > 0
@@ -64,7 +64,7 @@ class Vectorizer:
         return n + hash_dims
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class SparseVectorizer:
     """Maps DataInstances to padded-COO (idx[K], val[K]) records: dense
     features keep their positional slots [0, dense_dim), categorical

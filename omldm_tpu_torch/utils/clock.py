@@ -1,8 +1,10 @@
-"""The runtime's injectable clock (the port's copy of the part of the JAX
-package's ``utils/clock.py`` that the serving plane uses).
+"""The runtime's injectable clocks (the port's copy of the part of the JAX
+package's ``utils/clock.py`` that the serving plane and the flight recorder
+use).
 
 :data:`PERF` is the system clock the serving plane's ``maxDelayMs``
-deadline and latency accounting default to. :class:`ManualClock` is the
+deadline and latency accounting default to; :data:`WALL` stamps the flight
+recorder's events (timestamps that cross processes). :class:`ManualClock` is the
 deterministic test double: a callable a plane accepts wherever a clock is
 injectable, moved forward with ``advance()`` instead of sleeping.
 """
@@ -17,6 +19,7 @@ Clock = Callable[[], float]
 # sub-ms latency measurement; sites reference the name instead of binding
 # time.perf_counter, so a test that patches it moves every default clock
 PERF: Clock = time.perf_counter
+WALL: Clock = time.time
 
 
 class ManualClock:

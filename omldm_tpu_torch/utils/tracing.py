@@ -1,15 +1,69 @@
-"""Host-side step timing (counterpart of ``omldm_tpu/utils/tracing.py``;
-only ``StepTimer`` is ported -- the JAX profiler wrapper has no use here).
+"""Profiling and host-side step timing (counterpart of
+``omldm_tpu/utils/tracing.py``).
 
-:class:`StepTimer` is cheap wall-clock accounting for streaming steps:
-per-step ms percentiles and steps/sec, and the recent p99 the overload
-controller reads as its serve-latency signal.
+- :func:`trace` -- a context manager around ``torch.profiler`` writing a
+  Chrome trace (``chrome://tracing``, Perfetto) into a directory: the
+  port's ``--profileDir``, where the JAX package writes an XLA profile.
+- :class:`StepTimer` -- cheap wall-clock accounting for streaming steps:
+  per-step ms percentiles and steps/sec, and the recent p99 the overload
+  controller reads as its serve-latency signal.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, List, Optional
+
+
+def trace_path(log_dir: str) -> str:
+    """The Chrome trace :func:`trace` writes into ``log_dir``."""
+    return os.path.join(log_dir, f"trace-{os.getpid()}.json")
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], device=None):
+    """Profile the enclosed block with ``torch.profiler`` when ``log_dir``
+    is set (a no-op otherwise, so call sites pass the flag through).
+
+    CPU activity is always recorded; CUDA activity too when ``device`` is
+    a CUDA device, and then a profiler that cannot record the card raises
+    instead of writing a CPU-only trace. The trace lands in
+    :func:`trace_path`. An exception in the block stops the profiler and
+    propagates unchanged (no trace is written for a failed block)."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError(
+                "--profileDir: this torch.profiler cannot record CUDA activity")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield prof
+    except BaseException:
+        try:
+            prof.__exit__(None, None, None)
+        except Exception:
+            pass  # the block's own exception is the one to report
+        raise
+    prof.__exit__(None, None, None)
+    # the raw trace's events (prof.events() would build the whole event
+    # tree first, seconds on a long run)
+    if cuda and not any(e.device_type() == torch.autograd.DeviceType.CUDA
+                        for e in prof.profiler.kineto_results.events()):
+        raise RuntimeError(
+            "--profileDir: torch.profiler recorded no CUDA activity on a CUDA job")
+    prof.export_chrome_trace(trace_path(log_dir))
 
 
 class StepTimer:

@@ -70,10 +70,12 @@ def write_files(tmp_path, requests, lines=None):
     return train, reqs
 
 
-def run_cli(cli, tmp_path, tag, argv, monkeypatch):
+def run_cli(cli, tmp_path, tag, argv, monkeypatch, all_performance=False):
     """Run ``cli.main`` with file sinks under ``tmp_path/tag``; returns
     (job, predictions, responses, final statistics) read back from the
-    sinks. The job is captured through ``build_job``."""
+    sinks (with ``all_performance``, every performance record: heartbeats
+    and alerts first, the final report last). The job is captured through
+    ``build_job``."""
     out = tmp_path / tag
     out.mkdir()
     captured = {}
@@ -100,7 +102,10 @@ def run_cli(cli, tmp_path, tag, argv, monkeypatch):
         text = (out / name).read_text().strip()
         return [json.loads(line) for line in text.splitlines()] if text else []
 
-    [perf] = read("perf.jsonl")
+    if all_performance:
+        perf = read("perf.jsonl")
+    else:
+        [perf] = read("perf.jsonl")
     return captured["job"], read("pred.jsonl"), read("resp.jsonl"), perf
 
 
@@ -241,6 +246,78 @@ def test_events_replay_matches_jax(tmp_path, monkeypatch):
                                jax_resp[0]["learner"]["parameters"]["values"],
                                rtol=2e-4, atol=2e-5)
     assert_statistics_match(port_perf, jax_perf)
+
+
+def test_telemetry_and_flight_recorder_flags_match_jax(tmp_path, monkeypatch):
+    """--telemetry, --flightRecorder and --blackboxPath reach the job in
+    both CLIs: the same heartbeat schedule on the performance sink, the
+    same black-box dump (wall times aside), and the final report,
+    predictions and parameters of the unarmed comparison."""
+    train, reqs = write_files(tmp_path, [create(per_record=False, guard=True)])
+    base = COMMON + ["--trainingData", str(train), "--requests", str(reqs),
+                     "--ingestBatch", "256", "--telemetry", "statsEvery=256,traceSample=4",
+                     "--flightRecorder", "watchdogEvery=256,shedHigh=1"]
+    runs = {}
+    for cli, tag in ((port_cli, "port"), (jax_cli, "jax")):
+        argv = base + ["--blackboxPath", str(tmp_path / f"bb_{tag}")]
+        runs[tag] = run_cli(cli, tmp_path, tag, argv, monkeypatch, all_performance=True)
+    (port_job, port_pred, _, port_perf), (jax_job, jax_pred, _, jax_perf) = (
+        runs["port"], runs["jax"])
+    assert port_job.telemetry is not None and port_job.events is not None
+
+    def beats(perf):
+        return [(p["seq"], p["eventsProcessed"], p["telemetry"]["counters"])
+                for p in perf if p.get("kind") == "heartbeat"]
+
+    assert len(beats(port_perf)) >= 3 and beats(port_perf) == beats(jax_perf)
+    assert "kind" not in port_perf[-1]
+    assert_statistics_match(port_perf[-1], jax_perf[-1])
+    assert port_perf[-1]["statistics"][0]["eventsRecorded"] >= 1
+    assert_predictions_match(port_pred, jax_pred)
+    for a, b in zip(final_params(port_job), final_params(jax_job)):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5)
+
+    def dump(tag):
+        lines = (tmp_path / f"bb_{tag}" / "blackbox-proc0.jsonl").read_text().splitlines()
+        return [{k: v for k, v in json.loads(line).items() if k != "wall"} for line in lines]
+
+    assert dump("port") == dump("jax") and dump("port")[-1]["kind"] == "terminate"
+
+
+def test_profile_dir_writes_a_cpu_trace(tmp_path, monkeypatch):
+    """--profileDir on the CPU: a Chrome trace of CPU ops lands in the
+    directory, and the run's outputs equal the unprofiled run's."""
+    from omldm_tpu_torch.utils.tracing import trace_path
+
+    train, reqs = write_files(tmp_path, [create(per_record=False)])
+    argv = COMMON + ["--trainingData", str(train), "--requests", str(reqs)]
+    prof = tmp_path / "prof"
+    _, plain_pred, _, plain_perf = run_cli(port_cli, tmp_path, "plain", argv, monkeypatch)
+    job, prof_pred, _, prof_perf = run_cli(port_cli, tmp_path, "profiled",
+                                           argv + ["--profileDir", str(prof)], monkeypatch)
+    doc = json.loads(open(trace_path(str(prof))).read())
+    ops = [e for e in doc["traceEvents"] if e.get("cat") == "cpu_op"]
+    assert ops, "the trace holds no CPU op"
+    assert [(p["dataInstance"], p["value"]) for p in prof_pred] == [
+        (p["dataInstance"], p["value"]) for p in plain_pred]
+    assert_statistics_match(prof_perf, plain_perf)
+
+
+def test_profile_dir_stops_on_an_exception(tmp_path, monkeypatch):
+    """A run that raises under --profileDir stops the profiler and the
+    exception propagates unchanged."""
+    import torch.autograd.profiler as autograd_profiler
+
+    train, reqs = write_files(tmp_path, [create(per_record=False)])
+
+    def boom(job, flags):
+        raise RuntimeError("mid-run failure")
+
+    monkeypatch.setattr(port_cli, "_run", boom)
+    with pytest.raises(RuntimeError, match="mid-run failure"):
+        port_cli.main(COMMON + ["--trainingData", str(train), "--requests", str(reqs),
+                                "--device", "cpu", "--profileDir", str(tmp_path / "prof")])
+    assert not autograd_profiler._is_profiler_enabled
 
 
 def test_no_sources_exits():

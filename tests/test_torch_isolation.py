@@ -40,6 +40,8 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.selfheal, omldm_tpu_torch.utils.backoff\n"
         "import omldm_tpu_torch.parallel.ckpt, omldm_tpu_torch.runtime.overload\n"
         "import omldm_tpu_torch.runtime.lifecycle\n"
+        "import omldm_tpu_torch.runtime.telemetry, omldm_tpu_torch.runtime.events\n"
+        "import omldm_tpu_torch.utils.tracing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -286,13 +288,42 @@ def test_chip_smoke_copy_task_stream():
     assert len({tuple(r[:4]) for r in tok.reshape(-1, 16)}) <= 16
 
 
-@pytest.mark.parametrize("option", [
-    {"telemetry": "on"}, {"events": "on"}, {"ingest": "on"},
-])
+@pytest.mark.parametrize("option", [{"ingest": "on"}])
 def test_unported_job_plane_raises(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         StreamJob(JobConfig(**option), device="cpu")
+
+
+def test_profiler_trace_pulls_in_no_jax(tmp_path):
+    """``--profileDir``'s torch.profiler path, run on the CPU in a fresh
+    interpreter, loads nothing of JAX and writes a Chrome trace."""
+    code = (
+        "import sys, torch\n"
+        "from omldm_tpu_torch.utils.tracing import trace, trace_path\n"
+        f"with trace({str(tmp_path)!r}, 'cpu'):\n"
+        "    torch.ones(8).sum()\n"
+        f"assert trace_path({str(tmp_path)!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    assert [p.name for p in tmp_path.iterdir() if p.name.startswith("trace-")]
+
+
+@pytest.mark.parametrize("option", [
+    {"telemetry": "statsEvery=16,traceSample=2"}, {"events": "watchdogEvery=16,shedHigh=1"},
+])
+def test_telemetry_and_events_job_planes_run(option):
+    """The telemetry plane and the flight recorder are ported: a job armed
+    with either builds, runs, and holds its plane's object."""
+    job = StreamJob(JobConfig(parallelism=2, batch_size=8, **option), device="cpu")
+    rows = [("trainingData", json.dumps({"numericalFeatures": [float(i % 3), 1.0],
+                                         "target": float(i % 2)})) for i in range(40)]
+    report = job.run([("requests", _create())] + rows)
+    assert report.statistics[0].fitted > 0
+    assert (job.telemetry is not None) == ("telemetry" in option)
+    assert (job.events is not None) == ("events" in option)
 
 
 @pytest.mark.parametrize("option", [
@@ -363,8 +394,8 @@ def _create(learner="PA", preps=("StandardScaler",), **tc):
     (_create(overload={"shedHigh": 0.9}), "unknown overload knob(s): ['shedHigh']"),
     (_create(learner="Nope"), "unknown learner"),
     (_create(lifecycle={"rampTo": 2}), "lifecycle ramp must satisfy"),
-    (_create(telemetry={"sloMs": 5}), "trainingConfiguration.telemetry is not yet ported"),
-    (_create(events=True), "trainingConfiguration.events is not yet ported"),
+    (_create(telemetry={"sloMs": 5}), "unknown telemetry knob(s): ['sloMs']"),
+    (_create(events={"bogus": 1}), "unknown events knob(s): ['bogus']"),
     (_create(preps=("Whitener",)), "unknown preprocessor 'Whitener'"),
     (_create(serving={"maxBatch": 0}), "serving.maxBatch must be >= 1"),
     (_create(serving={"maxBatch": 8, "nope": 1}), "unknown serving knob"),
@@ -411,13 +442,13 @@ def test_serving_plane_is_ported():
     (["--meshShape", "dp=2,hub=1"], "meshShape"),
     (["--computeDtype", "bfloat16"], "computeDtype"),
     (["--maxMsgParams", "2000"], "maxMsgParams"),
-    (["--blackboxPath", "bb"], "blackboxPath"),
+    (["--requestBufferCap", "10"], "requestBufferCap"),
     (["--kafkaBrokers", "localhost:9092"], "kafkaBrokers"),
     (["--processes", "2"], "processes"),
     (["--processId", "0"], "processId"),
     (["--coordinator", "localhost:1234"], "coordinator"),
     (["--supervise"], "supervise"),
-    (["--profileDir", "prof"], "profileDir"),
+    (["--profileSteps", "100"], "profileSteps"),
     (["--compileCache", "off"], "compileCache"),
     (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
     (["--ingest", "shards=2"], "ingest"),
