@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--records N] [--parity-records N]
-                          [--lm-steps N] [--profile DIR]
+                          [--lm-steps N] [--profile DIR] [--sequence-only]
 
 Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
@@ -12,7 +12,7 @@ Phases (any failure raises and the script exits nonzero without a result):
                  each, started together (pa_scan.cu, flash_attention.cu,
                  scatter_add.cu); each pa_scan and flash kernel's registers,
                  spills and static shared memory from the -Xptxas -v log
-                 (the Hopper flash kernels must not spill);
+                 (no flash kernel instance may spill);
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
@@ -385,6 +385,38 @@ Phases (any failure raises and the script exits nonzero without a result):
                  card and the CPU: the lifecycle transitions through the
                  rollback recorded, pa_scan launches and predictions phase
                  40's, version tags and journals equal.
+ 43. flash-coverage the forward, dQ and dK/dV kernels against their plain
+                 twins (phase 7's limits; float32 against the twin in
+                 float64) at the widths and dtypes the JAX kernels take:
+                 float32 dh 128 (8 x 1024 x 4, and ragged 1000/1100), dh
+                 8, 12, 16, 36, 48, 80, 96, 100 and 256 in bf16 and
+                 float32 (square and ragged): every (dtype, built width,
+                 design) run_dtype reaches; and B * H = 131,072 on each
+                 design (32,768 x 64 x 4: bf16 dh 64 sm90, float32 dh 8
+                 mma; the twin in batch chunks); then
+                 FLASH_COVERAGE_TIME timed as phase 8 (20 launches a turn)
+                 with each design's bound and SDPA;
+ 44. lm-moe      SeqTrainer at LM_MOE_CONFIG (phase 9's LM with 8 switch
+                 experts, capacity 1.25, remat): a warm-up step and 8
+                 steps; the warm-up batch's loss falls; flash launches
+                 forward 64, dQ 32, dK/dV 32 (remat runs the forward again
+                 in the backward); tokens/s, ms a step, peak memory, the
+                 share of tokens dropped at capacity on the last step; the
+                 config without remat for 2 steps, both steps' peak memory
+                 printed, and the loss-and-gradient pass's peak above the
+                 resident state must be higher without remat; generate
+                 refuses the config;
+ 45. lm-f32      (a) phase 9's LM at float32, 4 steps: the loss falls, each
+                 float32 dh-128 kernel launched 16 times, ms a step beside
+                 phase 9's; (b) LM_MOE_PARITY_CONFIG (MoE, remat, float32)
+                 3 steps on cuda and cpu from the same numpy parameters:
+                 every token's (expert, keep) on the last step's forward
+                 equal, parameters within LM_PARITY_ATOL, losses within
+                 1e-5; (c) GRAFT_MOE_CONFIG (dh 8, the JAX package's MoE
+                 dry-run width) 3 steps on the card, finite falling losses.
+Phases 43-45 run right after phase 10 (their timings need the profiler's
+device records, which can come back empty after phases 41-42's traces).
+With --sequence-only: the build, phase 9 and phases 43-45, then exit.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -395,8 +427,8 @@ serial fused route under cProfile (host seconds by function:
 BENCH_PROFILE_FUNCS); then the slice's and the sparse
 stream's runs under cProfile (host time by function) and torch.profiler
 (device busy time), then 4 LM steps under torch.profiler (device busy
-time, the flash kernels' share, the top kernels); tables are written into
-DIR.
+time, the flash kernels' share, the top kernels), and in phase 44 4 steps
+of the MoE LM the same way; tables are written into DIR.
 With --ab-pa-scan SRC, after the build: the one-scan kernel against SRC
 (another checkout's omldm_tpu_torch/csrc/pa_scan.cu, e.g. a parent commit
 unpacked with git archive) as CUDA graphs at TIME_SHAPES in alternating
@@ -556,7 +588,9 @@ def phase_build(pa_scan, attention, sparse):
     for lib, prefix in ((pa_scan.LIBRARY, "_kernel"), (attention.LIBRARY, "flash_")):
         for kernel, info in ptxas_summary(lib.build_log, prefix).items():
             log(f"build: ptxas {kernel}: {info}")
-            check("_sm90_kernel" not in kernel or info.get("spill_stores", 0) + info.get("spill_loads", 0) == 0,
+            # every flash instance must build without spills (the register
+            # budget each design's tiles and column chunks are sized for)
+            check(prefix != "flash_" or info.get("spill_stores", 0) + info.get("spill_loads", 0) == 0,
                   f"{kernel} spills: {info}")
 
 
@@ -1011,7 +1045,9 @@ FLASH_PACKED = {"packed_qkv"}
 # few times the largest reading of the sound kernels (PERF.md), far below
 # what one wrong row tile or a mis-scaled P would give. bfloat16 is compared
 # in its working type (both sides round out, dq, dk and dv to bf16, and P
-# against another row max); float32 is held tightly.
+# against another row max); float32 is held tightly to the exact answer:
+# its twin runs in float64 (reference_inputs), so no library's summation
+# order enters the check.
 FLASH_TOL = {"bfloat16": (1e-2, 1e-1, 1e-5), "float32": (2e-6, 2e-5, 4e-6)}  # l2, elem, lse
 FLASH_TIME_SHAPES = [(8, 1024, 4, 128), (2, 4096, 4, 128)]
 
@@ -1050,32 +1086,74 @@ def _per_head(torch, fn, *tensors):
     return result
 
 
+def _batch_chunks(torch, fn, *tensors, heads=8192):
+    """Run a [B, L, H, Dh] -> tuple twin over batch chunks of at most
+    ``heads`` (b, h) heads (so B * H past 65,535 takes a few calls, not one
+    a head) and concatenate the results along their leading axis."""
+    b, h = tensors[0].shape[0], tensors[0].shape[2]
+    step = max(1, heads // h)
+    parts = [fn(b0, min(b0 + step, b), *[t[b0:b0 + step] for t in tensors])
+             for b0 in range(0, b, step)]
+    return [torch.cat(pieces, dim=0) for pieces in zip(*parts)]
+
+
+def reference_inputs(dtype, *tensors):
+    """The tensors the plain twin takes for a kernel of ``dtype``: float32
+    cases widened to float64 (the twin then computes the exact answer, and
+    the check reads only the kernel's own rounding); bf16 as they are (the
+    twin rounds P and dS to bf16 as the kernels do)."""
+    return [t.double() if dtype == "float32" else t for t in tensors]
+
+
 def phase_flash_check(torch, attention):
     """Each kernel against its plain twin on the card. The backward kernels
     and twin share the kernel forward's lse and delta, so each comparison
     isolates one kernel."""
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
     readings = {dtype: [0.0, 0.0, 0.0] for dtype in FLASH_TOL}  # l2, elem, lse
+    n = run_flash_checks(torch, attention, FLASH_CHECKS, worst, readings, "flash-check")
+    log(f"flash-check: {n} cases pass; largest readings (rel L2, worst element, lse) "
+        f"{readings} against the limits {FLASH_TOL}")
+    return worst
+
+
+def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
+    """The three kernels against their plain twins on ``cases``, each causal
+    and not; the twin runs one (b, h) head at a time, or batch chunks past
+    64 heads. Updates ``worst`` (max |d| by kernel) and ``readings`` (the
+    largest rel L2, worst element and lse error by dtype); returns the
+    number of cases run."""
     n = 0
-    for name, b, lq, lk, h, dh, dtype, qo, ko in FLASH_CHECKS:
+    for name, b, lq, lk, h, dh, dtype, qo, ko in cases:
         l2_tol, elem_tol, lse_atol = FLASH_TOL[dtype]
         packed = name in FLASH_PACKED
         for causal in (False, True):
-            q, k, v, g = _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed=n, packed=packed)
+            q, k, v, g = _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed=seed0 + n,
+                                       packed=packed)
             check(not packed or q.data_ptr() + h * dh * q.element_size() == k.data_ptr(),
                   "the packed case's k is not a view into the qkv projection")
             out, lse = attention.flash_attention(q, k, v, causal, qo, ko, return_lse=True)
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
             dq, dk, dv = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
             torch.cuda.synchronize()
-            lse2, delta2 = lse.reshape(b, h, lq), delta.reshape(b, h, lq)
-            p_out, p_lse = _per_head(
-                torch, lambda bi, hi, q, k, v: attention.flash_attention_reference(
-                    q, k, v, causal, qo, ko), q, k, v)
-            p_dq, p_dk, p_dv = _per_head(
-                torch, lambda bi, hi, q, k, v, g: attention.flash_attention_bwd_reference(
-                    q, k, v, g, lse2[bi, hi].contiguous(), delta2[bi, hi].contiguous(),
-                    causal, qo, ko), q, k, v, g)
+            rq, rk, rv, rg, lse2, delta2 = reference_inputs(
+                dtype, q, k, v, g, lse.reshape(b, h, lq), delta.reshape(b, h, lq))
+            if b * h <= 64:
+                p_out, p_lse = _per_head(
+                    torch, lambda bi, hi, q, k, v: attention.flash_attention_reference(
+                        q, k, v, causal, qo, ko), q, k, v)
+                p_dq, p_dk, p_dv = _per_head(
+                    torch, lambda bi, hi, q, k, v, g: attention.flash_attention_bwd_reference(
+                        q, k, v, g, lse2[bi, hi].contiguous(), delta2[bi, hi].contiguous(),
+                        causal, qo, ko), rq, rk, rv, rg)
+            else:
+                p_out, p_lse = _batch_chunks(
+                    torch, lambda b0, b1, q, k, v: attention.flash_attention_reference(
+                        q, k, v, causal, qo, ko), q, k, v)
+                p_dq, p_dk, p_dv = _batch_chunks(
+                    torch, lambda b0, b1, q, k, v, g: attention.flash_attention_bwd_reference(
+                        q, k, v, g, lse2[b0:b1].reshape(-1, lq), delta2[b0:b1].reshape(-1, lq),
+                        causal, qo, ko), rq, rk, rv, rg)
             pairs = [("flash_fwd", "out", out, p_out), ("flash_dq", "dq", dq, p_dq),
                      ("flash_dkdv", "dk", dk, p_dk), ("flash_dkdv", "dv", dv, p_dv)]
             errs = {}
@@ -1100,22 +1178,22 @@ def phase_flash_check(torch, attention):
                       "rows that see no key must have zero output and zero dq")
                 check(lse.reshape(b, h, lq)[:, :, :ko - qo].max().item() < attention.NEG_INF / 2,
                       "rows that see no key must have an lse near NEG_INF")
-            log(f"flash-check: {name} {(b, lq, lk, h, dh)} {dtype} causal={causal} "
+            design = attention.KERNEL_DESIGNS[(getattr(torch, dtype), dh)]
+            log(f"{label}: {name} {(b, lq, lk, h, dh)} {dtype} ({design}) causal={causal} "
                 f"q_offset={qo} kv_offset={ko}{' packed' if packed else ''}: "
                 f"max|d|/relL2/element " + " ".join(
                     f"{w}={e}" for w, e in errs.items()) + f" lse={lse_err:.3e}")
             n += 1
-            del q, k, v, g, out, lse, dq, dk, dv, p_out, p_lse, p_dq, p_dk, p_dv
+            del q, k, v, g, rq, rk, rv, rg, out, lse, dq, dk, dv, p_out, p_lse, p_dq, p_dk, p_dv
             torch.cuda.empty_cache()
-    log(f"flash-check: {n} cases pass; largest readings (rel L2, worst element, lse) "
-        f"{readings} against the limits {FLASH_TOL}")
-    return worst
+    return n
 
 
 def flash_errors(torch, a, ref):
     """(max |a - ref|, ||a - ref|| / ||ref||, max |a - ref| / (|ref| + rms(ref)))
-    in float32."""
-    a, ref = a.float(), ref.float()
+    in float32, or in float64 against a float64 twin."""
+    wide = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    a, ref = a.to(wide), ref.to(wide)
     d = (a - ref).abs()
     rms = ref.square().mean().sqrt()
     return (d.max().item(), (d.norm() / ref.norm().clamp_min(1e-30)).item(),
@@ -1123,28 +1201,31 @@ def flash_errors(torch, a, ref):
 
 
 def flash_flops(kernel, b, lq, lk, h, dh, causal):
-    """The bf16 tensor-core operations of one call: 2 per multiply-add of
-    its products (forward 2, dQ 3, dK/dV 4), over the (query, key) pairs the
-    causal mask keeps."""
+    """The operations of one call: 2 per multiply-add of its products
+    (forward 2, dQ 3, dK/dV 4), over the (query, key) pairs the causal mask
+    keeps, at the true head width (not the instance's padded one)."""
     pairs = sum(min(lk, i + 1) for i in range(lq)) if causal else lq * lk
     products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkdv": 4}[kernel]
     return 2 * products * dh * pairs * b * h
 
 
-def flash_bound_ms(kernel, b, lq, lk, h, dh, causal):
-    """Least time for the same work on this card: the larger of the bf16
-    tensor-core operations over 989 TFLOP/s and the bytes (each input read
+def flash_bound_ms(kernel, b, lq, lk, h, dh, causal, dtype="bfloat16"):
+    """Least time for the same work on this card: the larger of the
+    operations over the dtype's peak (bf16 tensor cores 989 TFLOP/s; float32
+    67 TFLOP/s outside the tensor cores) and the bytes (each input read
     once, each output written once) over 3.35 TB/s. Operations count only
     the (query, key) pairs the causal mask keeps."""
     flops = flash_flops(kernel, b, lq, lk, h, dh, causal)
-    tile = b * h * dh * 2  # one bf16 [B, L, H, Dh] row set per position
+    size = 2 if dtype == "bfloat16" else 4
+    tile = b * h * dh * size  # one [B, L, H, Dh] row set per position
     rows = b * h * lq * 4  # one f32 value per query row
     nbytes = {
         "flash_fwd": tile * (lq + 2 * lk + lq) + rows,          # q, k, v -> out, lse
         "flash_dq": tile * (lq + 2 * lk + lq + lq) + 2 * rows,  # q, k, v, dO, lse, delta -> dq
         "flash_dkdv": tile * (lq + 2 * lk + lq + 2 * lk) + 2 * rows,  # ... -> dk, dv
     }[kernel]
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else FP32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1223,75 +1304,91 @@ def phase_flash_time(torch, attention):
     its autograd backward (dQ, dK and dV in one call, reported for both
     backward kernels) over 100, in FLASH_TIME_TURNS turns of kernel, plain,
     library; the median turn is reported, the spread printed."""
+    out = {}
+    for b, lq, h, dh in FLASH_TIME_SHAPES:
+        out.update(flash_time_at(torch, attention, b, lq, h, dh, "bfloat16"))
+    return out
+
+
+def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5, detail=True):
+    """Phase 8's timing at one causal shape and dtype: {(b, lq, h, dh, name):
+    {ms, plain_ms, bound_ms, bound_by, library_ms}}; checks that each pass
+    launched the design KERNEL_DESIGNS names for (dtype, dh). ``detail``
+    adds each wrapper's host time, the launches' attributes and the sm90
+    tile plan."""
     import statistics
 
     import torch.nn.functional as F
 
     out = {}
-    for b, lq, h, dh in FLASH_TIME_SHAPES:
-        q, k, v, g = _flash_inputs(torch, b, lq, lq, h, dh, "bfloat16", seed=123)
-        o, lse = attention.flash_attention(q, k, v, True, return_lse=True)
-        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-        gt = g.transpose(1, 2).contiguous()
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        calls = {
-            "flash_fwd": (100, lambda: attention.flash_attention(q, k, v, True, return_lse=True)),
-            "flash_dq": (100, lambda: attention.flash_attention_dq(q, k, v, g, lse, delta, True)),
-            "flash_dkdv": (100, lambda: attention.flash_attention_dkdv(
-                q, k, v, g, lse, delta, True)),
-            "plain_fwd": (5, lambda: attention.flash_attention_reference(q, k, v, True)),
-            "plain_bwd": (5, lambda: attention.flash_attention_bwd_reference(
-                q, k, v, g, lse, delta, True)),
-            "lib_fwd": (100, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
-            "lib_bwd": (100, lambda: torch.autograd.grad(ot, (qt, kt, vt), gt,
-                                                         retain_graph=True)),
-        }
-        turns = {key: [] for key in calls}
-        names = {key: {} for key in calls}  # kernel names each call launched
-        for turn in range(FLASH_TIME_TURNS):
-            for key, (reps, fn) in calls.items():
-                turns[key].append(_device_ms(torch, fn, reps, names[key]))
-            log(f"flash-time: turn {turn} at {(b, lq, h, dh)} bf16 causal, device ms a call: "
-                + " ".join(f"{key} {val[-1]:.6f}" for key, val in turns.items()))
-        times = {key: statistics.median(val) for key, val in turns.items()}
-        log(f"flash-time: at {(b, lq, h, dh)}, median (min-max) over {FLASH_TIME_TURNS} turns: "
-            + "; ".join(f"{key} {times[key]:.6f} ({min(val):.6f}-{max(val):.6f})"
-                        for key, val in turns.items()))
-        host = {name: _host_us(torch, calls[name][1]) for name in ("flash_fwd", "flash_dq",
-                                                                    "flash_dkdv")}
-        for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
+    tag = "bf16" if dtype == "bfloat16" else "f32"
+    design = attention.KERNEL_DESIGNS[(getattr(torch, dtype), dh)]
+    q, k, v, g = _flash_inputs(torch, b, lq, lq, h, dh, dtype, seed=123)
+    o, lse = attention.flash_attention(q, k, v, True, return_lse=True)
+    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    calls = {
+        "flash_fwd": (reps, lambda: attention.flash_attention(q, k, v, True, return_lse=True)),
+        "flash_dq": (reps, lambda: attention.flash_attention_dq(q, k, v, g, lse, delta, True)),
+        "flash_dkdv": (reps, lambda: attention.flash_attention_dkdv(
+            q, k, v, g, lse, delta, True)),
+        "plain_fwd": (plain_reps, lambda: attention.flash_attention_reference(q, k, v, True)),
+        "plain_bwd": (plain_reps, lambda: attention.flash_attention_bwd_reference(
+            q, k, v, g, lse, delta, True)),
+        "lib_fwd": (reps, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        "lib_bwd": (reps, lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)),
+    }
+    turns = {key: [] for key in calls}
+    names = {key: {} for key in calls}  # kernel names each call launched
+    for turn in range(FLASH_TIME_TURNS):
+        for key, (n, fn) in calls.items():
+            turns[key].append(_device_ms(torch, fn, n, names[key]))
+        log(f"flash-time: turn {turn} at {(b, lq, h, dh)} {tag} causal, device ms a call: "
+            + " ".join(f"{key} {val[-1]:.6f}" for key, val in turns.items()))
+    times = {key: statistics.median(val) for key, val in turns.items()}
+    log(f"flash-time: at {(b, lq, h, dh)} {tag}, median (min-max) over {FLASH_TIME_TURNS} "
+        f"turns: " + "; ".join(f"{key} {times[key]:.6f} ({min(val):.6f}-{max(val):.6f})"
+                               for key, val in turns.items()))
+    passes = ("flash_fwd", "flash_dq", "flash_dkdv")
+    host = {name: _host_us(torch, calls[name][1]) for name in passes} if detail else {}
+    for name in passes:
+        if detail:
             for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
                 log(f"flash-time: {name} at {(b, lq, h, dh)} launches {kernel[:70]}: {attrs}")
-            # bf16 at these widths runs the Hopper design for every pass
-            check(any(f"{name}_sm90_kernel" in kernel for kernel in names[name]),
-                  f"{name} at {(b, lq, h, dh)} launched {list(names[name])}, not {name}_sm90_kernel")
-        for name in ("flash_fwd", "flash_dq", "flash_dkdv"):
-            bound, by = flash_bound_ms(name, b, lq, lq, h, dh, True)
-            bwd = name != "flash_fwd"
-            lib = times["lib_bwd" if bwd else "lib_fwd"]
-            out[(b, lq, h, dh, name)] = {
-                "ms": times[name],
-                "plain_ms": times["plain_bwd" if bwd else "plain_fwd"],
-                "bound_ms": bound, "bound_by": by,
-                "library_ms": lib,
-            }
-            tflops = flash_flops(name, b, lq, lq, h, dh, True) / (times[name] * 1e-3) / 1e12
-            log(f"flash-time: {name} at {(b, lq, h, dh)}: kernel {times[name]:.6f} ms, "
-                f"{tflops:.1f} TFLOP/s, bound {bound:.6f} ms ({by}), {bound / times[name]:.4f} "
-                f"of the bound; plain {out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library "
-                f"{lib:.6f} ms ({'SDPA backward, dQ+dK+dV' if bwd else 'SDPA forward'}), "
-                f"kernel / library {times[name] / lib:.3f}; host {host[name]:.1f} us a call")
+        # each pass launches the design run_dtype dispatches (dtype, dh) to
+        want = f"{name}_sm90_kernel" if design == "sm90" else f"{name}_kernel"
+        check(any(want in kernel for kernel in names[name]),
+              f"{name} at {(b, lq, h, dh)} {tag} launched {list(names[name])}, not {want}")
+    for name in passes:
+        bound, by = flash_bound_ms(name, b, lq, lq, h, dh, True, dtype)
+        bwd = name != "flash_fwd"
+        lib = times["lib_bwd" if bwd else "lib_fwd"]
+        out[(b, lq, h, dh, name)] = {
+            "ms": times[name],
+            "plain_ms": times["plain_bwd" if bwd else "plain_fwd"],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+        }
+        tflops = flash_flops(name, b, lq, lq, h, dh, True) / (times[name] * 1e-3) / 1e12
+        log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} ({design}): kernel "
+            f"{times[name]:.6f} ms, {tflops:.1f} TFLOP/s, bound {bound:.6f} ms ({by}), "
+            f"{bound / times[name]:.4f} of the bound; plain "
+            f"{out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library {lib:.6f} ms "
+            f"({'SDPA backward, dQ+dK+dV' if bwd else 'SDPA forward'}), kernel / library "
+            f"{times[name] / lib:.3f}" + (f"; host {host[name]:.1f} us a call" if detail else ""))
+    if detail and design == "sm90":
         for which, name in (("fwd", "flash_fwd"), ("dq", "flash_dq"), ("dkdv", "flash_dkdv")):
             states = [s for _, tiles in attention.sm90_tile_plan(which, lq, lq, True)
                       for _, pair in tiles for s in pair]
             log(f"flash-time: {name} at {(b, lq, h, dh)}: a head's warpgroup tiles "
                 + ", ".join(f"{s} {states.count(s)}" for s in ("full", "cut", "skip")))
-        pair = times["flash_dq"] + times["flash_dkdv"]
-        log(f"flash-time: backward pair dQ + dK/dV at {(b, lq, h, dh)}: {pair:.6f} ms against "
-            f"SDPA's backward {times['lib_bwd']:.6f} ms: {pair / times['lib_bwd']:.3f}x")
-        del q, k, v, g, o, lse, delta, qt, kt, vt, gt, ot, calls
-        torch.cuda.empty_cache()
+    pair = times["flash_dq"] + times["flash_dkdv"]
+    log(f"flash-time: backward pair dQ + dK/dV at {(b, lq, h, dh)} {tag}: {pair:.6f} ms "
+        f"against SDPA's backward {times['lib_bwd']:.6f} ms: {pair / times['lib_bwd']:.3f}x")
+    del q, k, v, g, o, lse, delta, qt, kt, vt, gt, ot, calls
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1386,7 +1483,7 @@ def phase_lm(torch, attention, steps, seed):
         "peak_memory_bytes": peak, "losses": losses, "warmup_batch_loss": [warm, after],
         "launches": launches,
     }))
-    return launches, trainer
+    return launches, trainer, wall / steps * 1e3
 
 
 def phase_lm_parity(torch, seed):
@@ -1415,12 +1512,13 @@ def phase_lm_parity(torch, seed):
     check(bool((gc == gp).all()), "greedy tokens differ between cuda and cpu")
 
 
-def phase_lm_profile(torch, attention, trainer, out_dir: Path, seed):
+def phase_lm_profile(torch, attention, trainer, out_dir: Path, seed, tag="lm"):
     """4 LM steps under torch.profiler: device busy time, the flash kernels'
     share, the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out_dir.mkdir(parents=True, exist_ok=True)
     tok, tgt, mask = copy_task_batches(4, LM_BATCH, LM_LEN, trainer.cfg.vocab_size, seed + 7)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
@@ -1429,16 +1527,317 @@ def phase_lm_profile(torch, attention, trainer, out_dir: Path, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avg = tp.key_averages()
-    (out_dir / "lm_torch.txt").write_text(avg.table(sort_by="self_cpu_time_total", row_limit=60))
+    (out_dir / f"{tag}_torch.txt").write_text(avg.table(sort_by="self_cpu_time_total",
+                                                        row_limit=60))
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA]
     busy = sum(_dev_us(e) for e in kernels) / 1e6
     flash = sum(_dev_us(e) for e in kernels if "flash_" in e.key) / 1e6
-    log(f"lm-profile: 4 steps, wall {wall:.4f} s under the profiler; device busy "
+    log(f"{tag}-profile: 4 steps, wall {wall:.4f} s under the profiler; device busy "
         f"{busy:.4f} s ({busy / wall:.3f} of the wall), flash kernels {flash:.4f} s "
         f"({flash / max(busy, 1e-12):.3f} of busy); top kernels:")
     for e in sorted(kernels, key=lambda e: -_dev_us(e))[:12]:
         log(f"  {_dev_us(e) / 1e3:.3f} ms, {e.count} launches: {e.key[:100]}")
     return busy, flash, wall
+
+
+# --- phases 43-45: the sequence-model family on one card --------------------
+
+# phase 43: the head widths and dtypes the JAX kernels take, each causal and
+# not: float32 at dh 128; dh 8 (the JAX tests' and the graft's width), 12
+# (rows that are not whole 16-byte groups in bf16), 16, 36 and 100 (bf16
+# rows of odd 8-byte groups: mma.sync at 64 and 128), 48 (bf16: the Hopper
+# instance at 64, its TMA box wider than the rows), 80, 96 and 256 in both
+# dtypes, square and ragged; B * H = 131,072 (past the grid's y limit) on
+# the Hopper design and on mma.sync
+FLASH_COVERAGE_CHECKS = [
+    ("f32_dh128", 8, 1024, 1024, 4, 128, "float32", 0, 0),
+    ("f32_dh128_ragged", 2, 1000, 1100, 4, 128, "float32", 0, 0),
+    *[(f"{dtype}_dh{dh}{tag}", 2, lq, lk, 2 if dh == 256 else 4, dh, dtype, 0, 0)
+      for dtype in ("bfloat16", "float32") for dh in (8, 12, 16, 36, 48, 80, 96, 100, 256)
+      for tag, lq, lk in (("", 1024, 1024), ("_ragged", 1000, 1100))],
+    ("bh131072", 32768, 64, 64, 4, 64, "bfloat16", 0, 0),
+    ("bh131072_mma", 32768, 64, 64, 4, 8, "float32", 0, 0),
+]
+# (B, L, H, Dh, dtype) timed as phase 8 times its shapes
+FLASH_COVERAGE_TIME = [(8, 1024, 4, 128, "float32"), (2, 1024, 4, 8, "bfloat16"),
+                       (2, 1024, 4, 80, "bfloat16"), (2, 1024, 4, 256, "bfloat16")]
+# phase 44: the LM of phase 9 with Switch-Base-8's switch layer (8 experts,
+# capacity factor 1.25; Fedus et al. 2021, section 2.1 and Table 1) and remat
+LM_MOE_CONFIG = dict(LM_CONFIG, n_experts=8, capacity_factor=1.25, remat=True)
+LM_MOE_NO_REMAT_STEPS = 2
+# phase 45: phase 9's LM in float32; the parity config as a remat MoE; the
+# JAX package's own MoE dry-run width (__graft_entry__.py: d 16, 2 heads)
+LM_F32_STEPS = 4
+LM_MOE_PARITY_CONFIG = dict(LM_PARITY_CONFIG, n_experts=4, remat=True)
+GRAFT_MOE_CONFIG = dict(vocab_size=64, d_model=16, n_heads=2, n_layers=1, d_ff=32,
+                        max_len=64, n_experts=4)
+LOSS_PARITY_ATOL = 1e-5
+
+
+def phase_flash_coverage(torch, attention):
+    """Phase 43: the forward, dQ and dK/dV kernels against their plain twins
+    at every (dtype, head width) design of FLASH_COVERAGE_CHECKS and at
+    B * H = 131,072; then device times at FLASH_COVERAGE_TIME."""
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
+    readings = {dtype: [0.0, 0.0, 0.0] for dtype in FLASH_TOL}
+    for name in attention.launches:
+        attention.launches[name] = 0
+    n = run_flash_checks(torch, attention, FLASH_COVERAGE_CHECKS, worst, readings,
+                         "flash-coverage", seed0=1000)
+    check(all(v == 2 * len(FLASH_COVERAGE_CHECKS) for v in attention.launches.values()),
+          f"flash-coverage: launches {attention.launches}, expected "
+          f"{2 * len(FLASH_COVERAGE_CHECKS)} each")
+    log(f"flash-coverage: {n} cases pass; largest readings (rel L2, worst element, lse) "
+        f"{readings} against the limits {FLASH_TOL}")
+    times = {}
+    for b, lq, h, dh, dtype in FLASH_COVERAGE_TIME:
+        for key, val in flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=20,
+                                      plain_reps=2, detail=False).items():
+            times[(*key[:4], dtype, key[4])] = val
+    return worst, times
+
+
+def _moe_routes(transformer):
+    """Records the keep mask and expert of every moe_route call until the
+    context exits: a list the caller reads."""
+    routes = []
+    orig = transformer.moe_route
+
+    def record(layer, t, capacity_factor):
+        out = orig(layer, t, capacity_factor)
+        routes.append((out[0].detach(), out[2].detach()))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        transformer.moe_route = record
+        try:
+            yield routes
+        finally:
+            transformer.moe_route = orig
+
+    return ctx()
+
+
+def _grad_peak(torch, trainer, tok, tgt, mask):
+    """Bytes a loss-and-gradient pass of ``trainer`` (its step without the
+    Adam update) allocates above what is resident before it, at its peak:
+    the activations remat trades for recomputation. (A whole step's peak is
+    the Adam update's, which holds the old and new parameter and optimizer
+    trees at once whether remat is on or not.)"""
+    from omldm_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainer.params)]
+    params = tree_unflatten(trainer.params, leaves)
+    batch = [trainer._as_device(a, dt) for a, dt in ((tok, torch.long), (tgt, torch.long),
+                                                      (mask, torch.float32))]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = torch.autograd.grad(trainer._loss(params, *batch), leaves)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads, leaves, params
+    return peak
+
+
+def phase_lm_moe(torch, attention, seed, profile_dir=None):
+    """Phase 44: SeqTrainer at LM_MOE_CONFIG (the LM's full width, 8 switch
+    experts, capacity 1.25, remat): a warm-up step, then --lm-steps steps;
+    the warm-up batch's loss falls, the flash forward runs 2 x layers a
+    step (remat runs it again in the backward) and dQ, dK/dV once a layer;
+    the share of tokens dropped at capacity on the last step; then the same
+    trainer without remat for LM_MOE_NO_REMAT_STEPS steps: both steps' peak
+    memory printed, and the loss-and-gradient pass's peak above the
+    resident state (_grad_peak) must be lower with remat; generate refuses
+    the config as the JAX package does."""
+    from omldm_tpu_torch.models import generate, lm_loss
+    from omldm_tpu_torch.models import transformer
+
+    steps = 8
+    trainer = _lm_trainer(seed, **LM_MOE_CONFIG)
+    cfg = trainer.cfg
+    tok, tgt, mask = copy_task_batches(steps + 1, LM_BATCH, LM_LEN, cfg.vocab_size, seed + 3)
+    t0 = time.perf_counter()
+    warm = float(trainer.step(tok[0], tgt[0], mask[0]))
+    torch.cuda.synchronize()
+    log(f"lm-moe: warm-up step {time.perf_counter() - t0:.3f} s, loss {warm:.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    for name in attention.launches:
+        attention.launches[name] = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(1, steps):
+        losses.append(trainer.step(tok[i], tgt[i], mask[i]))
+    with _moe_routes(transformer) as routes:  # the last step: its forward routes first
+        losses.append(trainer.step(tok[steps], tgt[steps], mask[steps]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(attention.launches)
+    losses = [float(x) for x in losses]
+    kept = torch.stack([keep for _, keep in routes[:cfg.n_layers]]).float()
+    dropped = 1.0 - float(kept.mean())
+    loads = torch.stack([torch.bincount(e, minlength=cfg.n_experts)
+                         for e, _ in routes[:cfg.n_layers]]).tolist()
+    tokens = steps * LM_BATCH * LM_LEN
+    log(f"lm-moe: {steps} steps in {wall:.4f} s: {wall / steps * 1e3:.3f} ms/step, "
+        f"{tokens / wall:.0f} tokens/s, peak memory {peak / 2**30:.3f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; launches {launches}; last step "
+        f"dropped {dropped:.4f} of tokens at capacity; tokens an expert by layer {loads}")
+    check(all(x == x and abs(x) < float("inf") for x in losses), "an MoE LM loss is not finite")
+    with torch.no_grad():
+        after = float(lm_loss(cfg, trainer.params, *(torch.as_tensor(a[0], device="cuda")
+                                                     for a in (tok, tgt, mask))))
+    log(f"lm-moe: loss on the warm-up batch {warm:.4f} before training, {after:.4f} after")
+    check(after < warm, f"the MoE LM loss did not fall: {warm} -> {after}")
+    want = {"flash_fwd": 2 * cfg.n_layers * steps, "flash_dq": cfg.n_layers * steps,
+            "flash_dkdv": cfg.n_layers * steps}
+    check(launches == want, f"lm-moe: launches {launches}, expected {want}")
+    try:
+        generate(cfg, trainer.params, torch.as_tensor(tok[0][:1, :8], device="cuda"), 4)
+        check(False, "generate ran an MoE config")
+    except ValueError as err:
+        check("decode supports dense transformer configs" in str(err), f"generate: {err}")
+        log(f"lm-moe: generate refuses the config: {err}")
+    if profile_dir is not None:
+        phase_lm_profile(torch, attention, trainer, profile_dir, seed, tag="lm-moe")
+    remat_grad = _grad_peak(torch, trainer, tok[0], tgt[0], mask[0])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = _lm_trainer(seed, **dict(LM_MOE_CONFIG, remat=False))
+    plain.step(tok[0], tgt[0], mask[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(1, LM_MOE_NO_REMAT_STEPS + 1):
+        plain.step(tok[i], tgt[i], mask[i])
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / LM_MOE_NO_REMAT_STEPS
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_grad = _grad_peak(torch, plain, tok[0], tgt[0], mask[0])
+    log(f"lm-moe: without remat {plain_wall * 1e3:.3f} ms/step, a step's peak memory "
+        f"{plain_peak / 2**30:.3f} GiB against remat's {peak / 2**30:.3f} GiB "
+        f"({peak / plain_peak:.4f}x; the Adam update sets both); the loss-and-gradient "
+        f"pass's peak above the resident state {plain_grad / 2**30:.3f} GiB against "
+        f"remat's {remat_grad / 2**30:.3f} GiB ({remat_grad / plain_grad:.4f}x)")
+    check(remat_grad < plain_grad,
+          f"remat did not lower the activations' peak: {remat_grad} >= {plain_grad}")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"steps": steps, "ms_per_step": wall / steps * 1e3, "tokens_per_s": tokens / wall,
+              "peak_memory_bytes": peak, "no_remat_peak_memory_bytes": plain_peak,
+              "grad_pass_peak_bytes": remat_grad, "no_remat_grad_pass_peak_bytes": plain_grad,
+              "no_remat_ms_per_step": plain_wall * 1e3, "dropped_share_last_step": dropped,
+              "losses": losses, "warmup_batch_loss": [warm, after], "launches": launches}
+    log("lm-moe: " + json.dumps(result))
+    return launches
+
+
+def _parity_steps(torch, transformer, cfg, start, batches, device):
+    """3 steps from numpy parameters on ``device``: the losses, the numpy
+    parameters and the last step's forward routes (expert, keep) by layer."""
+    import numpy as np
+
+    from omldm_tpu_torch.models.transformer import tree_leaves
+
+    trainer = _lm_trainer(0, device=device, **cfg)
+    trainer.load_numpy(start)
+    losses = []
+    tok, tgt, mask = batches
+    for i in range(len(tok) - 1):
+        losses.append(float(trainer.step(tok[i], tgt[i], mask[i])))
+    with _moe_routes(transformer) as routes:
+        losses.append(float(trainer.step(tok[-1], tgt[-1], mask[-1])))
+    fwd = [(e.cpu().numpy(), k.cpu().numpy()) for e, k in routes[:trainer.cfg.n_layers]]
+    return np.asarray(losses), tree_leaves(trainer.host_params()), fwd
+
+
+def phase_lm_f32_and_parity(torch, attention, seed, bf16_ms):
+    """Phase 45: (a) phase 9's LM at float32 (the float32 dh-128 instances),
+    LM_F32_STEPS steps, the loss falls, n_layers x steps launches of each
+    kernel; (b) LM_MOE_PARITY_CONFIG (MoE, remat, float32) 3 steps on the
+    card and on the CPU from the same numpy parameters: routes equal,
+    parameters within LM_PARITY_ATOL, losses within LOSS_PARITY_ATOL; (c)
+    GRAFT_MOE_CONFIG (dh 8) 3 steps on the card, finite losses that fall."""
+    import numpy as np
+
+    from omldm_tpu_torch.models import lm_loss
+    from omldm_tpu_torch.models import transformer
+
+    cfg32 = dict(LM_CONFIG, dtype="float32")
+    trainer = _lm_trainer(seed, **cfg32)
+    tok, tgt, mask = copy_task_batches(LM_F32_STEPS + 1, LM_BATCH, LM_LEN, LM_CONFIG["vocab_size"],
+                                       seed + 5)
+    warm = float(trainer.step(tok[0], tgt[0], mask[0]))
+    torch.cuda.synchronize()
+    for name in attention.launches:
+        attention.launches[name] = 0
+    t0 = time.perf_counter()
+    losses = trainer.step_many(tok[1:], tgt[1:], mask[1:]).cpu().tolist()
+    wall = time.perf_counter() - t0
+    launches = dict(attention.launches)
+    with torch.no_grad():
+        after = float(lm_loss(trainer.cfg, trainer.params,
+                              *(torch.as_tensor(a[0], device="cuda") for a in (tok, tgt, mask))))
+    ms = wall / LM_F32_STEPS * 1e3
+    log(f"lm-f32: {LM_F32_STEPS} float32 steps, {ms:.3f} ms/step against phase 9's bf16 "
+        f"{bf16_ms:.3f} ms/step ({ms / bf16_ms:.3f}x); losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; warm-up batch {warm:.4f} -> {after:.4f}; launches {launches}")
+    check(after < warm, f"the float32 LM loss did not fall: {warm} -> {after}")
+    want = LM_CONFIG["n_layers"] * LM_F32_STEPS
+    check(all(n == want for n in launches.values()),
+          f"lm-f32: launches {launches}, expected {want} each")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = LM_MOE_PARITY_CONFIG
+    batches = copy_task_batches(3, 4, 128, cfg["vocab_size"], seed + 1)
+    start = _lm_trainer(seed, device="cpu", **cfg).host_params()
+    card = _parity_steps(torch, transformer, cfg, start, batches, "cuda")
+    cpu = _parity_steps(torch, transformer, cfg, start, batches, "cpu")
+    routes_equal = all((a[0] == b[0]).all() and (a[1] == b[1]).all()
+                       for a, b in zip(card[2], cpu[2]))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card[1], cpu[1]))
+    loss_err = float(np.abs(card[0] - cpu[0]).max())
+    dropped = [float(1.0 - k.mean()) for _, k in card[2]]
+    log(f"lm-moe-parity: {cfg}, 3 steps cuda vs cpu: losses {card[0].tolist()} vs "
+        f"{cpu[0].tolist()} (max|d| {loss_err:.3e}, atol {LOSS_PARITY_ATOL}); params "
+        f"max|d|={err:.3e} (atol {LM_PARITY_ATOL}); last step's (expert, keep) equal for "
+        f"every token: {routes_equal}; dropped share by layer {dropped}")
+    check(routes_equal, "MoE routes differ between cuda and cpu")
+    check(err <= LM_PARITY_ATOL, f"MoE LM params differ between cuda and cpu: {err}")
+    check(loss_err <= LOSS_PARITY_ATOL, f"MoE LM losses differ between cuda and cpu: {loss_err}")
+
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, 64, size=(4, 16))
+    tgts = np.roll(toks, -1, axis=1)
+    graft = _lm_trainer(seed, **GRAFT_MOE_CONFIG)
+    before = dict(attention.launches)
+    g_losses = [float(graft.step(toks, tgts)) for _ in range(3)]
+    g_launches = {k: attention.launches[k] - before[k] for k in before}
+    log(f"lm-graft-moe: {GRAFT_MOE_CONFIG} (dh 8) on the card, 3 steps: losses {g_losses}; "
+        f"launches {g_launches}")
+    check(all(np.isfinite(g_losses)) and g_losses[-1] < g_losses[0],
+          f"the graft MoE losses are not finite and falling: {g_losses}")
+    check(all(n == 3 for n in g_launches.values()), f"lm-graft-moe: launches {g_launches}")
+    return launches, g_launches
+
+
+def phase_sequence_family(torch, attention, seed, lm_ms, profile_dir=None):
+    """Phases 43-45, each lapped."""
+    coverage_err, coverage_times = phase_flash_coverage(torch, attention)
+    lap("flash coverage")
+    moe_launches = phase_lm_moe(torch, attention, seed, profile_dir)
+    lap("lm-moe")
+    f32_launches, graft_launches = phase_lm_f32_and_parity(torch, attention, seed, lm_ms)
+    lap("lm-f32 and lm-moe-parity")
+    return coverage_err, coverage_times, moe_launches, f32_launches, graft_launches
 
 
 # --- the sparse (padded-COO) path ------------------------------------------------
@@ -5614,6 +6013,9 @@ def main() -> int:
                         default="deferred")
     parser.add_argument("--overload-package", type=Path, default=None, metavar="DIR",
                         help="with --overload-legs: the omldm_tpu_torch of DIR")
+    parser.add_argument("--sequence-only", action="store_true",
+                        help="run phases 43-45 after the build (phase 9's LM for 45's "
+                             "comparison), then exit")
     args = parser.parse_args()
 
     import torch
@@ -5646,6 +6048,11 @@ def main() -> int:
     if args.overload_legs:
         phase_overload_legs(torch, args.overload_legs, args.overload_collector)
         return 0
+    if args.sequence_only:
+        _, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
+        del trainer
+        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
+        return 0
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
     lap("pa_scan check and time")
@@ -5660,9 +6067,14 @@ def main() -> int:
     lap("flash check")
     flash_times = phase_flash_time(torch, attention)
     lap("flash time")
-    flash_launches, trainer = phase_lm(torch, attention, args.lm_steps, args.seed)
+    flash_launches, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
     phase_lm_parity(torch, args.seed)
     lap("lm and lm-parity")
+    # phases 43-45 run here, beside the LM phases: their timings need
+    # torch.profiler's device records, which can come back empty after
+    # phases 41-42's device-only traces
+    coverage_err, coverage_times, moe_launches, f32_launches, graft_launches = \
+        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
     scatter_err = phase_sparse_check(torch, sparse)
     scatter_times = phase_sparse_time(torch, sparse)
     lap("sparse check and time")
@@ -5829,9 +6241,17 @@ def main() -> int:
             "replaces": replaces,
             "launches": flash_launches[name],
             "launches_by_path": {"lm": flash_launches[name],
-                                 "lm_loaded_from_checkpoint": lm_ckpt_launches[name]},
-            "max_abs_err": flash_err[name],
+                                 "lm_loaded_from_checkpoint": lm_ckpt_launches[name],
+                                 "lm_moe_remat": moe_launches[name],
+                                 "lm_float32": f32_launches[name],
+                                 "graft_moe_dh8": graft_launches[name]},
+            "max_abs_err": max(flash_err[name], coverage_err[name]),
             **flash_times[(b, lq, h, dh, name)],
+            # phase 43's other (dtype, head width) designs, timed as phase 8
+            "times_by_shape": [
+                {"shape": [cb, cl, ch, cd], "dtype": cdt, **entry}
+                for (cb, cl, ch, cd, cdt, kname), entry in coverage_times.items()
+                if kname == name],
         })
     for name, launched, shape in (("scatter_add", scatter_launches, "slice"),
                                   ("scatter_add_outer", outer_launches, "avazu")):

@@ -4,11 +4,18 @@
 //   flash_fwd_sm90_kernel,  flash_fwd_kernel  <- _flash_kernel          (wrapper flash_attention_pallas)
 //   flash_dq_sm90_kernel,   flash_dq_kernel   <- _flash_bwd_dq_kernel   (wrapper _flash_diff_bwd)
 //   flash_dkdv_sm90_kernel, flash_dkdv_kernel <- _flash_bwd_dkdv_kernel (wrapper _flash_diff_bwd)
-// on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (Dh = 32, 64 or 128 in bfloat16,
-// 32 or 64 in float32), with the causal mask on absolute positions q_offset + row >=
+// on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (any Dh from 1 to 256, bfloat16 or
+// float32, any B * H), with the causal mask on absolute positions q_offset + row >=
 // kv_offset + col, keys past Lk masked, and p = 0 wherever s <= NEG_INF / 2
 // (so a row that sees no key has a zero output, an lse near NEG_INF and zero
 // gradients).
+//
+// Head widths: instances are built at 32, 64, 128 and 256 columns; a width
+// with no instance of its own runs the next built one with Q, K, V and dO
+// zero-padded in shared memory (zero columns change neither S nor dP), the
+// padded output columns never stored, and the softmax scale 1/sqrt(Dh) of
+// the true width (the caller passes it). run_dtype says which design runs
+// each (dtype, Dh).
 //
 //   forward: S = Q K^T * scale, online softmax over K tiles with f32 running
 //            max m, denominator l and accumulator; out = acc / max(l, 1e-30),
@@ -29,7 +36,8 @@
 // products keep them fed: that is the Hopper design. The mma.sync design
 // covers the widths and types it does not.
 //
-// Hopper design (bfloat16 at Dh 64 and 128: all three passes):
+// Hopper design (bfloat16 at Dh 33 to 128 whose rows are whole 16-byte
+// groups, Dh % 8 == 0, in the instances at 64 and 128: all three passes):
 //   - One CTA of three warpgroups. Warpgroup 0 is the producer: after
 //     setmaxnreg gives its registers away (24 a thread), one thread (in
 //     dK/dV one warp, which also stages each tile's lse and delta rows)
@@ -41,7 +49,7 @@
 //   - Tiles arrive by TMA from a 4-d tensor map over the strided [B, L, H, Dh]
 //     view (so q, k and v can be views into the packed qkv projection), in
 //     64-column boxes with the 128-byte swizzle (a Dh-128 tile is two boxes);
-//     rows past L arrive as zeros. The wgmma shared-memory descriptors
+//     rows past L and columns past Dh arrive as zeros. The wgmma shared-memory descriptors
 //     describe that layout: K-major (Dh contiguous) for Q K^T-shaped
 //     products, MN-major (the transpose flag) where the same tile is the B
 //     operand of a product over its rows.
@@ -72,14 +80,25 @@
 //   - The grid's slow axis runs over the tiles, longest causal sweeps first,
 //     so the first wave holds the heaviest CTAs of every head.
 //
-// mma.sync design (float32 at Dh 32 and 64, bfloat16 at Dh 32, all three
-// passes): warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-// plain synchronous tile copies.
+// mma.sync design (float32 at every width; bfloat16 at Dh 1 to 32, at
+// widths whose rows are not whole 16-byte groups, and from 129 to 256; all
+// three passes): warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate)
+// with plain synchronous tile copies.
 //   - The TPU's sequential K grid axis becomes a loop inside the block. One
-//     CTA of 4 warps per (b*h, 64-row Q tile) in the forward and dQ passes,
-//     sweeping 64-key tiles; one CTA per (b*h, 64-key tile) in the dK/dV
-//     pass, sweeping 32-row Q tiles. Each warp owns 16 rows of the CTA's
-//     tile; the accumulators live in registers in the mma C-fragment layout.
+//     CTA of 4 warps per (b*h, 64-row Q tile, column chunk) in the forward
+//     and dQ passes, sweeping 64-key tiles (32 in the dQ at 256, so its
+//     four float32 tiles fit shared memory and its bf16 S and dP leave
+//     registers for the 128-column chunk); one CTA per (b*h, 64-key tile,
+//     column chunk) in the dK/dV pass, sweeping 32-row Q tiles. Each warp
+//     owns 16 rows of the CTA's tile; the accumulators live in registers in
+//     the mma C-fragment layout. b*h is the grid's x axis (2^31 - 1), the
+//     tile its y axis, the chunk its z axis.
+//   - Column chunks keep the accumulators under the register file: a CTA
+//     computes S (and dP) over the whole width but accumulates and stores
+//     only its chunk of O, dQ or dK and dV -- 128 columns (bf16) or 64
+//     (float32) in the forward and dQ, 64 in dK/dV, whose two accumulators
+//     at 128 float32 columns spilled. The chunks of a row recompute its
+//     scores; only chunk 0 writes the forward's lse.
 //   - The tiles a CTA reads sit in shared memory (rows padded by 8 elements,
 //     so fragment loads hit 32 distinct banks). S and dS never leave
 //     registers: an mma C fragment of two adjacent 8-column tiles is exactly
@@ -89,10 +108,13 @@
 //     the f32 path share every index and mask. It is there for parity
 //     checks at small sizes, not for speed.
 //   - Ragged Lq and Lk are handled by bounds checks: rows past the end load
-//     as zeros, are masked, and are never stored.
+//     as zeros, are masked, and are never stored. Rows that are whole
+//     16-byte groups (every base, stride and the width) load 16 bytes a
+//     thread; others, such as Dh 12 in bf16, one element at a time.
 //
-// Both designs: inputs by strides ([B, L, H, Dh] with unit stride on Dh and
-// 16-byte aligned rows); outputs contiguous [B, L, H, Dh]; lse and delta
+// Both designs: inputs by strides ([B, L, H, Dh] with unit stride on Dh;
+// the Hopper design also needs 16-byte aligned rows for its tensor maps);
+// outputs contiguous [B, L, H, Dh]; lse and delta
 // contiguous f32 [B*H, Lq]. Rounding points follow the JAX kernels: scores,
 // softmax statistics and every accumulator are f32; P is rounded to the
 // operand type before the P V and P^T dO products, dS before the dS K and
@@ -129,6 +151,8 @@ struct Params {
   const float* delta;
   long long q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, do_sb, do_sl, do_sh;
   int H, Lq, Lk, causal, q_offset, kv_offset;
+  int dh;   // the true head width (the instance's DH may be wider)
+  int vec;  // every row of q, k, v and dout is whole 16-byte groups at 16-byte aligned addresses
   float scale;
 };
 
@@ -256,7 +280,8 @@ __device__ __forceinline__ void mma(float (&c)[4], const FragA<float>& a, const 
 
 // ---- tile products ----------------------------------------------------------
 
-// c[16 x N] = sA[row0 .. row0+15, :DH] . sB[:N, :DH]^T (both tiles row-major over DH).
+// c[16 x N] = sA[row0 .. row0+15, :DH] . sB[:N, :DH]^T (both tiles row-major
+// over DH), each output one sequential chain over DH.
 template <typename T, int DH, int N>
 __device__ __forceinline__ void gemm_abt(float (&c)[N / 8][4], const T* sA, int row0, const T* sB) {
   constexpr int LD = DH + kPad;
@@ -264,7 +289,9 @@ __device__ __forceinline__ void gemm_abt(float (&c)[N / 8][4], const T* sA, int 
   for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-#pragma unroll
+  // float32's emulated products are long: a rolled reduction loop keeps
+  // its code (and build) small; nothing in it indexes registers by kk
+#pragma unroll(sizeof(T) == 4 ? 1 : DH / 16)
   for (int kk = 0; kk < DH; kk += 16) {
     FragA<T> a;
     load_a(a, sA, LD, row0, kk);
@@ -277,16 +304,17 @@ __device__ __forceinline__ void gemm_abt(float (&c)[N / 8][4], const T* sA, int 
   }
 }
 
-// c[16 x DH] += P[16 x N] (registers, C layout) . sB[:N, :DH].
-template <typename T, int DH, int N>
-__device__ __forceinline__ void gemm_pb(float (&c)[DH / 8][4], const float (&pm)[N / 8][4], const T* sB) {
+// c[16 x DC] += P[16 x N] (registers, C layout) . sB[:N, :DC], where sB points
+// at the first column of a DC-wide chunk of a tile row-major over DH.
+template <typename T, int DH, int DC, int N>
+__device__ __forceinline__ void gemm_pb(float (&c)[DC / 8][4], const float (&pm)[N / 8][4], const T* sB) {
   constexpr int LD = DH + kPad;
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     FragA<T> a;
     a_from_acc(a, pm[2 * kk], pm[2 * kk + 1]);
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
+    for (int n = 0; n < DC / 8; ++n) {
       FragB<T> b;
       load_b_kn(b, sB, LD, kk * 16, n * 8);
       mma(c[n], a, b);
@@ -342,20 +370,35 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16_rn(0.f); }
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+
 // Rows [row0, row0 + ROWS) of one (b, h) slice into shared memory (row stride
-// DH + kPad), 16 bytes a thread at a time; rows at or past `rows` are zeros.
+// DH + kPad); rows at or past `rows` and columns at or past p.dh are zeros.
+// 16 bytes a thread at a time where every row is whole 16-byte groups
+// (p.vec), else one element at a time.
 template <typename T, int DH, int ROWS>
-__device__ __forceinline__ void load_tile(T* s, const T* src, long long row_stride, int row0, int rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = DH / kVec;
+__device__ __forceinline__ void load_tile(T* s, const T* src, long long row_stride, int row0, int rows,
+                                          const Params& p) {
   constexpr int LD = DH + kPad;
+  if (p.vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kPerRow = DH / kVec;
 #pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(s + r * LD + c) = val;
+    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < rows && c < p.dh)
+        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
+      *reinterpret_cast<uint4*>(s + r * LD + c) = val;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * DH; i += kThreads) {
+      const int r = i / DH, c = i % DH;
+      s[r * LD + c] = row0 + r < rows && c < p.dh ? src[(long long)(row0 + r) * row_stride + c] : zero<T>();
+    }
   }
 }
 
@@ -367,25 +410,42 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Stores this lane's two rows of a [16 x DH] C-layout accumulator, times
-// `mul`, into a contiguous [B, L, H, DH] output.
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(T* out, const float (&c)[DH / 8][4], int b, int h, int row0,
-                                           int L, int H, float mul) {
+__device__ __forceinline__ void store_one(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store_one(float* p, float a) { *p = a; }
+
+// Columns col, col + 1 of one output row of width dh: one paired store where
+// both lie inside and the pair is aligned (dh even), else one at a time.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, int dh, float a, float b) {
+  if (col + 1 < dh && !(dh & 1)) {
+    store_pair(row + col, a, b);
+  } else {
+    if (col < dh) store_one(row + col, a);
+    if (col + 1 < dh) store_one(row + col + 1, b);
+  }
+}
+
+// Stores this lane's two rows of a [16 x DC] C-layout accumulator (columns
+// col0 .. col0 + DC - 1 of the instance's width), times `mul`, into a
+// contiguous [B, L, H, p.dh] output; columns past p.dh are not stored.
+template <typename T, int DC>
+__device__ __forceinline__ void store_rows(T* out, const float (&c)[DC / 8][4], int b, int h, int row0,
+                                           int L, const Params& p, int col0, float mul) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + (lane >> 2) + 8 * r;
     if (row >= L) continue;
-    T* dst = out + (((long long)b * L + row) * H + h) * DH + 2 * (lane & 3);
+    T* dst = out + (((long long)b * L + row) * p.H + h) * p.dh;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) store_pair(dst + n * 8, c[n][2 * r] * mul, c[n][2 * r + 1] * mul);
+    for (int n = 0; n < DC / 8; ++n)
+      store_cols(dst, col0 + n * 8 + 2 * (lane & 3), p.dh, c[n][2 * r] * mul, c[n][2 * r + 1] * mul);
   }
 }
 
 // ---- kernels ----------------------------------------------------------------
 
-template <typename T, int DH>
+template <typename T, int DH, int DC>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   constexpr int LD = DH + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -393,17 +453,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   T* sK = sQ + kBlockQ * LD;
   T* sV = sK + kBlockK * LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest causal sweeps first
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal sweeps first
+  const int c0 = blockIdx.z * DC;                          // this CTA's output columns
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const int row0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row0, row0 + 8
 
-  load_tile<T, DH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq);
-  float o[DH / 8][4];
+  load_tile<T, DH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, p);
+  float o[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -412,8 +473,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, DH, kBlockK>(sK, K, p.k_sl, k0, p.Lk);
-    load_tile<T, DH, kBlockK>(sV, V, p.v_sl, k0, p.Lk);
+    load_tile<T, DH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, p);
+    load_tile<T, DH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, p);
     __syncthreads();
 
     float s[kBlockK / 8][4];
@@ -443,10 +504,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
-    gemm_pb<T, DH, kBlockK>(o, s, sV);
+    gemm_pb<T, DH, DC, kBlockK>(o, s, sV + c0);
   }
 
   float den[2];
@@ -454,34 +515,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     den[r] = fmaxf(l[r], 1e-30f);
     const int row = row0 + 8 * r;
-    if (t == 0 && row < p.Lq) p.lse[(long long)bh * p.Lq + row] = m[r] + logf(den[r]);
+    if (blockIdx.z == 0 && t == 0 && row < p.Lq) p.lse[(long long)bh * p.Lq + row] = m[r] + logf(den[r]);
   }
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] /= den[i >> 1];
-  store_rows<T, DH>(static_cast<T*>(p.out), o, b, h, q0 + warp * 16, p.Lq, p.H, 1.f);
+  store_rows<T, DC>(static_cast<T*>(p.out), o, b, h, q0 + warp * 16, p.Lq, p, c0, 1.f);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int DC, int BK>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
   constexpr int LD = DH + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sDO = sQ + kBlockQ * LD;
   T* sK = sDO + kBlockQ * LD;
-  T* sV = sK + kBlockK * LD;
+  T* sV = sK + BK * LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int c0 = blockIdx.z * DC;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const int row0 = q0 + warp * 16 + (lane >> 2);
 
-  load_tile<T, DH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq);
-  load_tile<T, DH, kBlockQ>(sDO, DO, p.do_sl, q0, p.Lq);
+  load_tile<T, DH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, p);
+  load_tile<T, DH, kBlockQ>(sDO, DO, p.do_sl, q0, p.Lq, p);
   float lse[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -489,25 +551,25 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
     lse[r] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
     delta[r] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
   }
-  float dq[DH / 8][4];
+  float dq[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
 
-  const int n_k = k_tiles_needed(p, q0, kBlockQ, kBlockK);
+  const int n_k = k_tiles_needed(p, q0, kBlockQ, BK);
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kBlockK;
+    const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, DH, kBlockK>(sK, K, p.k_sl, k0, p.Lk);
-    load_tile<T, DH, kBlockK>(sV, V, p.v_sl, k0, p.Lk);
+    load_tile<T, DH, BK>(sK, K, p.k_sl, k0, p.Lk, p);
+    load_tile<T, DH, BK>(sV, V, p.v_sl, k0, p.Lk, p);
     __syncthreads();
 
-    float s[kBlockK / 8][4], dp[kBlockK / 8][4];
-    gemm_abt<T, DH, kBlockK>(s, sQ, warp * 16, sK);
-    gemm_abt<T, DH, kBlockK>(dp, sDO, warp * 16, sV);
+    float s[BK / 8][4], dp[BK / 8][4];
+    gemm_abt<T, DH, BK>(s, sQ, warp * 16, sK);
+    gemm_abt<T, DH, BK>(dp, sDO, warp * 16, sV);
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
@@ -515,12 +577,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
             masked(s[j][i] * p.scale, row0 + 8 * r, k0 + j * 8 + 2 * t + (i & 1), p), lse[r]);
         s[j][i] = pw * (dp[j][i] - delta[r]);  // dS
       }
-    gemm_pb<T, DH, kBlockK>(dq, s, sK);
+    gemm_pb<T, DH, DC, BK>(dq, s, sK + c0);
   }
-  store_rows<T, DH>(static_cast<T*>(p.dq), dq, b, h, q0 + warp * 16, p.Lq, p.H, p.scale);
+  store_rows<T, DC>(static_cast<T*>(p.dq), dq, b, h, q0 + warp * 16, p.Lq, p, c0, p.scale);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, int DC>
 __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
   constexpr int LD = DH + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -531,19 +593,20 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
   float* sLse = reinterpret_cast<float*>(sDO + kBlockQB * LD);
   float* sDelta = sLse + kBlockQB;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
-  const int k0 = blockIdx.x * kBlockK;  // the first K tiles have the longest causal sweeps
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kBlockK;  // the first K tiles have the longest causal sweeps
+  const int c0 = blockIdx.z * DC;
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const int key0 = k0 + warp * 16 + (lane >> 2);  // this lane's keys: key0, key0 + 8
 
-  load_tile<T, DH, kBlockK>(sK, K, p.k_sl, k0, p.Lk);
-  load_tile<T, DH, kBlockK>(sV, V, p.v_sl, k0, p.Lk);
-  float dk[DH / 8][4], dv[DH / 8][4];
+  load_tile<T, DH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, p);
+  load_tile<T, DH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, p);
+  float dk[DC / 8][4], dv[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
 
@@ -551,8 +614,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
   for (int qt = first_q_tile_needed(p, k0, kBlockQB); qt < n_q; ++qt) {
     const int q0 = qt * kBlockQB;
     __syncthreads();
-    load_tile<T, DH, kBlockQB>(sQ, Q, p.q_sl, q0, p.Lq);
-    load_tile<T, DH, kBlockQB>(sDO, DO, p.do_sl, q0, p.Lq);
+    load_tile<T, DH, kBlockQB>(sQ, Q, p.q_sl, q0, p.Lq, p);
+    load_tile<T, DH, kBlockQB>(sDO, DO, p.do_sl, q0, p.Lq, p);
     if (threadIdx.x < kBlockQB) {
       const int row = q0 + threadIdx.x;
       sLse[threadIdx.x] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
@@ -570,19 +633,19 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
         const int col = j * 8 + 2 * t + (i & 1);
         st[j][i] = weight(masked(st[j][i] * p.scale, q0 + col, key0 + 8 * (i >> 1), p), sLse[col]);
       }
-    gemm_pb<T, DH, kBlockQB>(dv, st, sDO);  // dV += P^T dO
+    gemm_pb<T, DH, DC, kBlockQB>(dv, st, sDO + c0);  // dV += P^T dO
     gemm_abt<T, DH, kBlockQB>(dpt, sV, warp * 16, sDO);
 #pragma unroll
     for (int j = 0; j < kBlockQB / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) st[j][i] *= dpt[j][i] - sDelta[j * 8 + 2 * t + (i & 1)];  // dS^T
-    gemm_pb<T, DH, kBlockQB>(dk, st, sQ);  // dK += dS^T Q
+    gemm_pb<T, DH, DC, kBlockQB>(dk, st, sQ + c0);  // dK += dS^T Q
   }
-  store_rows<T, DH>(static_cast<T*>(p.dk), dk, b, h, k0 + warp * 16, p.Lk, p.H, p.scale);
-  store_rows<T, DH>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p.H, 1.f);
+  store_rows<T, DC>(static_cast<T*>(p.dk), dk, b, h, k0 + warp * 16, p.Lk, p, c0, p.scale);
+  store_rows<T, DC>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p, c0, 1.f);
 }
 
-// ---- Hopper kernels: bfloat16 at Dh 64 and 128 ----------------------------------
+// ---- Hopper kernels: bfloat16 at Dh 64 and 128 (and the widths padded to them) ----
 
 constexpr int kWarpgroup = 128;
 constexpr int kSm90Threads = 3 * kWarpgroup;  // producer warpgroup + two consumer warpgroups
@@ -642,18 +705,20 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&c
 }
 
 // Stores this thread's two rows (row0, row0 + 8) of a warpgroup's 64 x DH
-// accumulator, times `mul`, into a contiguous [B, L, H, DH] output.
+// accumulator, times `mul`, into a contiguous [B, L, H, dh] output (dh <= DH,
+// a multiple of 8: the columns past it are not stored).
 template <int DH>
 __device__ __forceinline__ void store_acc(bf16* out, const float (&c)[DH / 2], int b, int h, int row0, int L,
-                                          int H, float mul) {
+                                          const Params& p, float mul) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= L) continue;
-    bf16* dst = out + (((long long)b * L + row) * H + h) * DH + 2 * t;
+    bf16* dst = out + (((long long)b * L + row) * p.H + h) * p.dh + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) store_pair(dst + 8 * j, c[4 * j + 2 * r] * mul, c[4 * j + 2 * r + 1] * mul);
+    for (int j = 0; j < DH / 8; ++j)
+      if (8 * j < p.dh) store_pair(dst + 8 * j, c[4 * j + 2 * r] * mul, c[4 * j + 2 * r + 1] * mul);
   }
 }
 
@@ -789,7 +854,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1) flash_fwd_sm90_kernel(const _
       o[4 * j + 2 * r + 1] /= den;
     }
   }
-  store_acc<DH>(static_cast<bf16*>(p.out), o, b, h, row0, p.Lq, p.H, 1.f);
+  store_acc<DH>(static_cast<bf16*>(p.out), o, b, h, row0, p.Lq, p, 1.f);
 }
 
 template <int DH>
@@ -924,8 +989,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1) flash_dkdv_sm90_kernel(const 
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
   }
-  store_acc<DH>(static_cast<bf16*>(p.dk), dk, b, h, key0, p.Lk, p.H, p.scale);
-  store_acc<DH>(static_cast<bf16*>(p.dv), dv, b, h, key0, p.Lk, p.H, 1.f);
+  store_acc<DH>(static_cast<bf16*>(p.dk), dk, b, h, key0, p.Lk, p, p.scale);
+  store_acc<DH>(static_cast<bf16*>(p.dv), dv, b, h, key0, p.Lk, p, 1.f);
 }
 
 template <int DH>
@@ -1043,7 +1108,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1) flash_dq_sm90_kernel(const __
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
   }
-  store_acc<DH>(static_cast<bf16*>(p.dq), dq, b, h, row0, p.Lq, p.H, p.scale);
+  store_acc<DH>(static_cast<bf16*>(p.dq), dq, b, h, row0, p.Lq, p, p.scale);
 }
 
 // ---- host side --------------------------------------------------------------
@@ -1056,18 +1121,26 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Arg& arg, c
   return (int)cudaGetLastError();
 }
 
-// The mma.sync design, all three passes.
+// The mma.sync design, all three passes: (b*h, tile, column chunk) grids,
+// as many chunks as hold columns of the true width.
 template <typename T, int DH>
 int run_mma(int which, const Params& p, int BH, cudaStream_t stream) {
+  constexpr int kWide = sizeof(T) == 4 ? 64 : 128;   // forward and dQ column chunk
+  constexpr int kCols = DH < kWide ? DH : kWide;
+  constexpr int kBwdCols = DH < 64 ? DH : 64;           // dK/dV column chunk
+  constexpr int kDqKeys = DH > 128 ? 32 : kBlockK;  // dQ key tile at 256: shared memory (f32), registers (bf16)
   constexpr size_t row = (DH + kPad) * sizeof(T);
   const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ, n_k = (p.Lk + kBlockK - 1) / kBlockK;
+  if (n_q > 65535 || n_k > 65535) return (int)cudaErrorInvalidValue;
   switch (which) {
     case 0:
-      return launch(flash_fwd_kernel<T, DH>, dim3(n_q, BH), kThreads, (kBlockQ + 2 * kBlockK) * row, p, stream);
+      return launch(flash_fwd_kernel<T, DH, kCols>, dim3(BH, n_q, (p.dh + kCols - 1) / kCols), kThreads,
+                    (kBlockQ + 2 * kBlockK) * row, p, stream);
     case 1:
-      return launch(flash_dq_kernel<T, DH>, dim3(n_q, BH), kThreads, (2 * kBlockQ + 2 * kBlockK) * row, p, stream);
+      return launch(flash_dq_kernel<T, DH, kCols, kDqKeys>, dim3(BH, n_q, (p.dh + kCols - 1) / kCols), kThreads,
+                    (2 * kBlockQ + 2 * kDqKeys) * row, p, stream);
     case 2:
-      return launch(flash_dkdv_kernel<T, DH>, dim3(n_k, BH), kThreads,
+      return launch(flash_dkdv_kernel<T, DH, kBwdCols>, dim3(BH, n_k, (p.dh + kBwdCols - 1) / kBwdCols), kThreads,
                     (2 * kBlockK + 2 * kBlockQB) * row + 2 * kBlockQB * sizeof(float), p, stream);
   }
   return (int)cudaErrorInvalidValue;
@@ -1080,15 +1153,17 @@ int run_mma(int which, const Params& p, int BH, cudaStream_t stream) {
 template <int DH>
 int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
   if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+  if ((which == 2 ? (p.Lk + kBwdN - 1) / kBwdN : (p.Lq + kFwdM - 1) / kFwdM) > 65535)
+    return (int)cudaErrorInvalidValue;
   Sm90Args args;
   args.p = p;
   const int q_rows = which == 0 ? kFwdM : which == 1 ? kDqM : kBwdM;
   const int kv_rows = which == 0 ? kFwdN : which == 1 ? kDqN : kBwdN;
-  int rc = sm90::make_tensor_map(&args.q, p.q, B, p.Lq, p.H, DH, p.q_sb, p.q_sl, p.q_sh, q_rows);
-  if (rc == 0) rc = sm90::make_tensor_map(&args.k, p.k, B, p.Lk, p.H, DH, p.k_sb, p.k_sl, p.k_sh, kv_rows);
-  if (rc == 0) rc = sm90::make_tensor_map(&args.v, p.v, B, p.Lk, p.H, DH, p.v_sb, p.v_sl, p.v_sh, kv_rows);
+  int rc = sm90::make_tensor_map(&args.q, p.q, B, p.Lq, p.H, p.dh, p.q_sb, p.q_sl, p.q_sh, q_rows);
+  if (rc == 0) rc = sm90::make_tensor_map(&args.k, p.k, B, p.Lk, p.H, p.dh, p.k_sb, p.k_sl, p.k_sh, kv_rows);
+  if (rc == 0) rc = sm90::make_tensor_map(&args.v, p.v, B, p.Lk, p.H, p.dh, p.v_sb, p.v_sl, p.v_sh, kv_rows);
   if (rc == 0 && which != 0)
-    rc = sm90::make_tensor_map(&args.dout, p.dout, B, p.Lq, p.H, DH, p.do_sb, p.do_sl, p.do_sh, q_rows);
+    rc = sm90::make_tensor_map(&args.dout, p.dout, B, p.Lq, p.H, p.dh, p.do_sb, p.do_sl, p.do_sh, q_rows);
   if (rc != 0) return rc;
   constexpr size_t kAlign = 1024, kBars = 8 * (1 + 3 * kStages);
   if (which == 0) {
@@ -1107,23 +1182,35 @@ int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
   return launch(flash_dkdv_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
 }
 
-// Which design runs each (dtype, head width); the CPU tests pin this table
-// against KERNEL_HEAD_DIMS in ops/attention.py. Float32 at 128 is not built
-// (its exact mma emulation spills and only lengthens the build).
+// Which design and instance run each (dtype, head width): the next built
+// width of 32, 64, 128 and 256 at or above dh; bfloat16 rows of whole
+// 16-byte groups (dh % 8 == 0) at 64 and 128 take the Hopper design, every
+// other width the mma.sync design. ops/attention.py restates this as
+// kernel_width and KERNEL_DESIGNS; the CPU tests pin the two together.
 int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t stream) {
+  const int BH = B * p.H;
   if (dtype == 1) {
-    switch (dh) {
-      case 32: return run_mma<bf16, 32>(which, p, B * p.H, stream);
-      case 64: return run_sm90<64>(which, p, B, stream);
-      case 128: return run_sm90<128>(which, p, B, stream);
-    }
+    if (dh <= 32) return run_mma<bf16, 32>(which, p, BH, stream);
+    if (dh <= 64) return dh % 8 == 0 ? run_sm90<64>(which, p, B, stream) : run_mma<bf16, 64>(which, p, BH, stream);
+    if (dh <= 128) return dh % 8 == 0 ? run_sm90<128>(which, p, B, stream) : run_mma<bf16, 128>(which, p, BH, stream);
+    if (dh <= 256) return run_mma<bf16, 256>(which, p, BH, stream);
   } else if (dtype == 0) {
-    switch (dh) {
-      case 32: return run_mma<float, 32>(which, p, B * p.H, stream);
-      case 64: return run_mma<float, 64>(which, p, B * p.H, stream);
-    }
+    if (dh <= 32) return run_mma<float, 32>(which, p, BH, stream);
+    if (dh <= 64) return run_mma<float, 64>(which, p, BH, stream);
+    if (dh <= 128) return run_mma<float, 128>(which, p, BH, stream);
+    if (dh <= 256) return run_mma<float, 256>(which, p, BH, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Whether every row of t (base and the three strides, in elements of `size`
+// bytes) and the width are whole 16-byte groups: the mma.sync design's 16-byte loads.
+bool rows_of_16(const void* t, const long long* strides, int dh, int size) {
+  if (t == nullptr) return true;
+  if (reinterpret_cast<uintptr_t>(t) % 16 || (dh * size) % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if ((strides[i] * size) % 16) return false;
+  return true;
 }
 
 }  // namespace
@@ -1140,7 +1227,8 @@ int omldm_flash_attention(int which, int dtype, int dh, int B, int H, int Lq, in
                           const void* q, const void* k, const void* v, const void* dout, void* out,
                           void* dq, void* dk, void* dv, float* lse, const float* delta,
                           void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || (long long)B * H > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || dh < 1 || (long long)B * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.out = out; p.dq = dq; p.dk = dk; p.dv = dv;
@@ -1151,6 +1239,10 @@ int omldm_flash_attention(int which, int dtype, int dh, int B, int H, int Lq, in
   p.do_sb = strides[9]; p.do_sl = strides[10]; p.do_sh = strides[11];
   p.H = H; p.Lq = Lq; p.Lk = Lk; p.causal = causal;
   p.q_offset = q_offset; p.kv_offset = kv_offset; p.scale = scale;
+  p.dh = dh;
+  const int size = dtype == 1 ? 2 : 4;
+  p.vec = rows_of_16(q, strides, dh, size) && rows_of_16(k, strides + 3, dh, size) &&
+          rows_of_16(v, strides + 6, dh, size) && rows_of_16(dout, strides + 9, dh, size);
   return run_dtype(which, dtype, dh, p, B, static_cast<cudaStream_t>(stream));
 }
 

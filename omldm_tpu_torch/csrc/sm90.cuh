@@ -238,7 +238,8 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map over a bf16 [B, L, H, Dh] view with element strides
 // (sb, sl, sh, 1): dimensions (Dh, H, L, B) innermost first, boxes of
-// 64 x 1 x rows x 1 with the 128-byte swizzle; rows past L read as zeros.
+// 64 x 1 x rows x 1 with the 128-byte swizzle; rows past L and columns past
+// Dh (a width padded to the instance's) read as zeros.
 // Returns 0, or a CUDA error code if cuTensorMapEncodeTiled refuses the map
 // (a byte stride that is not a multiple of 16, a misaligned base).
 inline int make_tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int DH, long long sb,

@@ -1,5 +1,5 @@
-"""Sequence-model family: the dense transformer and its KV-cache decoding
-(single device)."""
+"""Sequence-model family: the transformer (dense MLP or switch-MoE blocks,
+optional remat) and its KV-cache decoding (dense configs), single device."""
 
 from omldm_tpu_torch.models.decode import forward_with_cache, generate, init_kv_cache
 from omldm_tpu_torch.models.transformer import (

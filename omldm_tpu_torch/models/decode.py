@@ -3,8 +3,10 @@
 Counterpart of ``omldm_tpu/models/decode.py``: a prompt is prefilled once,
 then tokens are generated one at a time against a preallocated KV cache.
 Attention here is plain torch (``_cached_attention``), as in the JAX package:
-no kernel runs on this path. Unlike the JAX package, the cache is written in
-place (it is preallocated for that) and its position is a host integer.
+no kernel runs on this path. Dense configs only: an MoE config
+(``n_experts > 0``) raises the JAX package's ``ValueError``. Unlike the JAX
+package, the cache is written in place (it is preallocated for that) and
+its position is a host integer.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from omldm_tpu_torch.models.transformer import (
     TransformerConfig,
     _rms_norm,
     cast_params,
-    check_ported,
     tree_leaves,
 )
 from omldm_tpu_torch.ops.attention import NEG_INF
@@ -56,8 +57,10 @@ def forward_with_cache(cfg: TransformerConfig, params, tokens,
                        cache: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process T tokens starting at ``cache["pos"]``: writes their K/V into
     the cache (in place) and returns (logits [B, T, V], the cache advanced
-    by T)."""
-    check_ported(cfg)
+    by T). A mixture-of-experts config is refused, as the JAX package
+    refuses it."""
+    if cfg.n_experts:
+        raise ValueError("decode supports dense transformer configs")
     if cfg.objective != "lm" or not cfg.causal:
         raise ValueError(
             "decode requires a causal lm config (the KV cache is causal and "

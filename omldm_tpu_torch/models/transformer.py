@@ -1,17 +1,26 @@
-"""Dense transformer LM / classifier, single device.
+"""Transformer LM / classifier (dense MLP or switch-MoE blocks), single device.
 
 Counterpart of ``omldm_tpu/models/transformer.py`` with the same parameter
-tree (names, shapes, ``wqkv`` as [D, 3, D]) held as a plain dict of tensors,
-so a JAX parameter tree carries across with :func:`params_from_numpy`. The
-attention runs through ``ops.attention.attention``: the hand-written flash
-kernels on CUDA tensors, their plain twins on CPU tensors. The projections,
-MLP and LM head are plain products (``torch.matmul``), as the JAX package
-leaves them to XLA.
+tree (names, shapes, ``wqkv`` as [D, 3, D], MoE ``router`` [D, E], ``w1``
+[E, D, F], ``w2`` [E, F, D]) held as a plain dict of tensors, so a JAX
+parameter tree carries across with :func:`params_from_numpy`. The attention
+runs through ``ops.attention.attention``: the hand-written flash kernels on
+CUDA tensors (any head width up to 256, float32 or bfloat16), their plain
+twins on CPU tensors. The projections, MLP, switch MoE and LM head are plain
+products (``torch.matmul``/``einsum``), as the JAX package leaves them to
+XLA.
 
-Not ported yet: mixture of experts (``n_experts > 0``) and ``remat`` raise
-``NotImplementedError`` naming them; the functions take no mesh axes (the
-JAX package's ``AxisSpec``: ring and Ulysses attention, Megatron and expert
-parallelism), so passing one is a ``TypeError``.
+``n_experts > 0`` makes every block's MLP a top-1 switch MoE with the JAX
+package's capacity rule, run through a ``[E, C, D]`` dispatch buffer
+(:func:`_moe_block`, the JAX ``_moe_block_ep`` at one expert shard). It
+computes the same function as the JAX ``_moe_block_dense``, which the JAX
+package runs with no mesh axes, so one form serves both.
+``remat=True`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``, the JAX ``jax.checkpoint(block)``).
+
+The functions take no mesh axes (the JAX package's ``AxisSpec``: ring and
+Ulysses attention, Megatron and expert parallelism over devices), so
+passing one is a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -40,9 +49,13 @@ class TransformerConfig:
     n_classes: int = 2          # classify head width
     causal: bool = True
     objective: str = "lm"       # "lm" (token logits) | "classify" (pooled)
-    n_experts: int = 0          # > 0 (MoE) is not ported yet
+    # MoE: n_experts == 0 => dense MLP blocks; else top-1 switch blocks whose
+    # experts take at most max(int(capacity_factor * T / n_experts), 1) tokens
+    n_experts: int = 0
+    capacity_factor: float = 1.25
     dtype: Any = torch.float32  # compute dtype: a torch dtype, "float32" or "bfloat16"
-    remat: bool = False         # True is not ported yet
+    # recompute each block's activations in the backward pass
+    remat: bool = False
     # > 0: the LM loss in token chunks of this size, each chunk's logits
     # recomputed in the backward and never stored whole (see _lm_nll_fused)
     loss_chunk: int = 0
@@ -50,14 +63,6 @@ class TransformerConfig:
     def __post_init__(self):
         if isinstance(self.dtype, str):
             object.__setattr__(self, "dtype", _DTYPES[self.dtype])
-
-
-def check_ported(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` naming any option the port lacks."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("n_experts > 0 (mixture of experts) is not ported yet")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
 
 
 def _dense(gen, fan_in, fan_out, device):
@@ -71,7 +76,6 @@ def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
     distributions (drawn from ``generator``, so not its values), on
     ``device``: CUDA unless the caller asks for the CPU (without a card,
     CUDA raises)."""
-    check_ported(cfg)
     device = resolve_device(device, "init_transformer")
     d = cfg.d_model
     assert d % cfg.n_heads == 0
@@ -82,14 +86,21 @@ def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
         "layers": [],
     }
     for _ in range(cfg.n_layers):
-        params["layers"].append({
+        layer = {
             "ln1": {"g": torch.ones((d,), device=device)},
             "ln2": {"g": torch.ones((d,), device=device)},
             "wqkv": _dense(generator, d, 3 * d, device).reshape(d, 3, d),
             "wo": _dense(generator, d, d, device),
-            "w1": _dense(generator, d, cfg.d_ff, device),
-            "w2": _dense(generator, cfg.d_ff, d, device),
-        })
+        }
+        if cfg.n_experts > 0:
+            e = cfg.n_experts
+            layer["router"] = _dense(generator, d, e, device)
+            layer["w1"] = torch.stack([_dense(generator, d, cfg.d_ff, device) for _ in range(e)])
+            layer["w2"] = torch.stack([_dense(generator, cfg.d_ff, d, device) for _ in range(e)])
+        else:
+            layer["w1"] = _dense(generator, d, cfg.d_ff, device)
+            layer["w2"] = _dense(generator, cfg.d_ff, d, device)
+        params["layers"].append(layer)
     width = cfg.n_classes if cfg.objective == "classify" else cfg.vocab_size
     params["head"] = _dense(generator, d, width, device)
     return params
@@ -169,16 +180,70 @@ def _mlp_block(layer, x):
     return torch.relu(x @ layer["w1"]) @ layer["w2"]
 
 
+def moe_route(layer, t, capacity_factor: float):
+    """Top-1 switch routing of tokens t [T, D], the JAX package's rule:
+    softmax gate in float32, the expert by argmax (ties to the lowest index,
+    as ``jnp.argmax`` and ``torch.argmax`` both break them), each token's
+    slot within its expert by an integer cumsum in token order, and
+    ``keep = slot < cap`` with ``cap = max(int(capacity_factor * T / E), 1)``.
+    Returns (expert [T], slot [T], keep [T], gate value [T] float32, cap)."""
+    n_tokens, n_experts = t.shape[0], layer["w1"].shape[0]
+    cap = max(int(capacity_factor * n_tokens / n_experts), 1)
+    gate = torch.softmax((t @ layer["router"]).float(), dim=-1)        # [T, E]
+    expert = torch.argmax(gate, dim=-1)                                 # [T]
+    gval = gate.gather(-1, expert[:, None])[:, 0]                       # [T]
+    onehot = torch.nn.functional.one_hot(expert, n_experts)             # [T, E] int64
+    # the scan runs along the contiguous axis of the [E, T] transpose: a
+    # cumsum down the T rows of [T, E] is one slow scan of T steps a column
+    slot = (torch.cumsum(onehot.t(), dim=1).t() * onehot).sum(-1) - 1  # 0-based
+    return expert, slot, slot < cap, gval, cap
+
+
+def _moe_block(layer, x, capacity_factor: float):
+    """Switch MoE through a ``[E, C, D]`` dispatch buffer: the JAX
+    ``_moe_block_ep`` at one expert shard (its all_to_alls are identities).
+    Only kept tokens are written into the buffer, each into its own (expert,
+    slot), so no two writes meet; the experts run on their C slots, and each
+    kept token gathers its slot back, scaled by its gate value; a dropped
+    token gives 0, as in the JAX ``_moe_block_dense``."""
+    b, lc, d = x.shape
+    t = x.reshape(-1, d)
+    expert, slot, keep, gval, cap = moe_route(layer, t, capacity_factor)
+    disp = t.new_zeros((layer["w1"].shape[0], cap, d))
+    disp = disp.index_put((expert[keep], slot[keep]), t[keep])
+    ht = torch.relu(torch.einsum("ecd,edf->ecf", disp, layer["w1"]))
+    yt = torch.einsum("ecf,efd->ecd", ht, layer["w2"])                  # [E, C, D]
+    # the combine: each token's (expert, slot) row of the flattened buffer
+    # (a dropped token row 0, then masked, as the JAX block does);
+    # index_select's backward adds each kept token's gradient into its own
+    # row, where the backward of 2-d advanced indexing sorts the indices
+    rows = torch.where(keep, expert * cap + slot, torch.zeros_like(slot))
+    out = yt.reshape(-1, d).index_select(0, rows) * gval[:, None].to(x.dtype)
+    out = torch.where(keep[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.reshape(b, lc, d)
+
+
+def _block(cfg, layer, x):
+    x = x + _attention_block(cfg, layer, _rms_norm(x, layer["ln1"]["g"]))
+    z = _rms_norm(x, layer["ln2"]["g"])
+    if cfg.n_experts > 0:
+        return x + _moe_block(layer, z, cfg.capacity_factor)
+    return x + _mlp_block(layer, z)
+
+
 def transformer_hidden(cfg: TransformerConfig, params,
                        tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Final-norm hidden states [B, L, D] plus the compute-dtype params."""
-    check_ported(cfg)
     params = cast_params(params, cfg.dtype)
     lc = tokens.shape[1]
     x = params["embed"][tokens] + params["pos"][:lc]
     for layer in params["layers"]:
-        x = x + _attention_block(cfg, layer, _rms_norm(x, layer["ln1"]["g"]))
-        x = x + _mlp_block(layer, _rms_norm(x, layer["ln2"]["g"]))
+        if cfg.remat:
+            # the block draws no random numbers, so no RNG state is kept
+            x = checkpoint(_block, cfg, layer, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(cfg, layer, x)
     return _rms_norm(x, params["ln_f"]["g"]), params
 
 

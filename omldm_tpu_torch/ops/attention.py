@@ -18,13 +18,16 @@ Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
                            JAX package's ``_flash_diff`` custom VJP).
 - ``attention``            the entry point the transformer calls.
 
-``KERNEL_DESIGNS`` says which of the two CUDA designs runs a (dtype, head
-width); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate on the host
-what the Hopper design's loops visit and which TMA tensor map it encodes.
+The kernels take any head width from 1 to ``MAX_HEAD_DIM`` (256) in float32
+or bfloat16, and any B * H: ``kernel_width`` gives the built width a head
+width runs at, ``KERNEL_DESIGNS`` which of the two CUDA designs runs a
+(dtype, head width); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate
+on the host what the Hopper design's loops visit and which TMA tensor map
+it encodes.
 
-A CUDA tensor the kernels cannot take (dtype, head width, layout) raises;
-nothing falls back to the plain version. Every kernel launch counts in
-:data:`launches`.
+A CUDA tensor the kernels cannot take (dtype, a head width past 256,
+layout) raises; nothing falls back to the plain version. Every kernel
+launch counts in :data:`launches`.
 """
 
 from __future__ import annotations
@@ -42,15 +45,35 @@ NEG_INF = -1e30
 #: kernel launches by name (CUDA tensors only)
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
 
-#: head widths the kernels are built for, by dtype
-KERNEL_HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (32, 64)}
+#: the widest head the kernels take; a wider one raises
+MAX_HEAD_DIM = 256
+#: the widths instances are built at; a head width with none of its own runs
+#: the next of them, zero-padded in shared memory (``kernel_width``)
+KERNEL_WIDTHS = (32, 64, 128, 256)
+
+
+def kernel_width(dh: int) -> int:
+    """The built width a head width runs at: the next of KERNEL_WIDTHS."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh} is outside 1..{MAX_HEAD_DIM}")
+    return next(w for w in KERNEL_WIDTHS if w >= dh)
+
+
+def _design(dtype: torch.dtype, dh: int) -> str:
+    # bf16 rows of whole 16-byte groups fit the TMA boxes of the Hopper
+    # instances at 64 and 128; everything else runs mma.sync
+    if dtype == torch.bfloat16 and kernel_width(dh) in (64, 128) and dh % 8 == 0:
+        return "sm90"
+    return "mma"
+
+
 #: which design runs all three passes (forward, dQ, dK/dV) for each (dtype,
 #: head width), as ``run_dtype`` in csrc/flash_attention.cu dispatches:
 #: "sm90" (TMA ring, warp-specialised wgmma) or "mma" (mma.sync,
-#: synchronous copies).
-KERNEL_DESIGNS = {(torch.bfloat16, 32): "mma", (torch.bfloat16, 64): "sm90",
-                  (torch.bfloat16, 128): "sm90", (torch.float32, 32): "mma",
-                  (torch.float32, 64): "mma"}
+#: synchronous copies, column chunks)
+KERNEL_DESIGNS = {(dtype, dh): _design(dtype, dh)
+                  for dtype in (torch.bfloat16, torch.float32)
+                  for dh in range(1, MAX_HEAD_DIM + 1)}
 #: tiles of the sm90 design: forward and dQ (query rows a CTA, keys a
 #: tile), dK/dV (keys a CTA, query rows a tile); each CTA's two consumer
 #: warpgroups take half of its rows (keys) each
@@ -147,21 +170,28 @@ def blockwise_attention(q, k, v, causal: bool = False, block_k: int = 256,
 # ---------------------------------------------------------------------------
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The twins' working type: float32, or float64 for float64 operands."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def flash_attention_reference(q, k, v, causal: bool = False, q_offset: int = 0,
                               kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: (out [B, Lq, H, Dh] in q's dtype,
     lse [B*H, Lq, 1] float32). Scores and sums in float32 from the operands'
-    own values; P rounded to v's dtype before the P V product, as the kernel
-    rounds it. Materialises the [Lq, Lk] scores of every head at once."""
+    own values (float64 for float64 operands: the exact answer a float32
+    kernel is held to); P rounded to v's dtype before the P V product, as
+    the kernel rounds it. Materialises the [Lq, Lk] scores of every head at
+    once."""
     b, lq, h, dh = q.shape
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(dh))
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * (1.0 / math.sqrt(dh))
     keep = _allowed(lq, k.shape[1], causal, q_offset, kv_offset, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float()) / l
+    o = torch.einsum("bhqk,bkhd->bhqd", _wide(p.to(v.dtype)), _wide(v)) / l
     lse = (m + torch.log(l)).reshape(b * h, lq, 1)
     return o.transpose(1, 2).to(q.dtype), lse
 
@@ -170,16 +200,17 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal: bool = Fals
                                   q_offset: int = 0, kv_offset: int = 0,
                                   block_k: int = 128):
     """Plain version of the dQ and dK/dV kernels: P recomputed from the saved
-    lse one key block at a time, ``dS = P (dP - delta)``, float32 sums, P and
-    dS rounded to the operand dtype before their products. lse and delta:
+    lse one key block at a time, ``dS = P (dP - delta)``, float32 sums
+    (float64 for float64 operands), P and dS rounded to the operand dtype
+    before their products. lse and delta:
     [B*H, Lq] (a trailing unit axis is accepted). Returns dq, dk, dv in
     [B, L, H, Dh] and the dtypes of q, k, v."""
     b, lq, h, dh = q.shape
     lk = k.shape[1]
     scale = 1.0 / math.sqrt(dh)
-    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, dout))  # [B,H,L,D]
-    lse4 = lse.reshape(b, h, lq, 1).float()
-    delta4 = delta.reshape(b, h, lq, 1).float()
+    qf, kf, vf, dof = (_wide(t).transpose(1, 2) for t in (q, k, v, dout))  # [B,H,L,D]
+    lse4 = lse.reshape(b, h, lq, 1).to(qf.dtype)
+    delta4 = delta.reshape(b, h, lq, 1).to(qf.dtype)
     keep = _allowed(lq, lk, causal, q_offset, kv_offset, q.device)
     dq = torch.zeros_like(qf)
     dk = torch.empty_like(kf)
@@ -190,10 +221,10 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal: bool = Fals
         if keep is not None:
             s = s.masked_fill(~keep[:, k0:k0 + block_k], NEG_INF)
         p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse4))
-        dv[:, :, k0:k0 + block_k] = p.to(dout.dtype).float().transpose(-1, -2) @ dof
+        dv[:, :, k0:k0 + block_k] = _wide(p.to(dout.dtype)).transpose(-1, -2) @ dof
         ds = p * (dof @ vb.transpose(-1, -2) - delta4)
-        dq += ds.to(k.dtype).float() @ kb
-        dk[:, :, k0:k0 + block_k] = (ds.to(q.dtype).float().transpose(-1, -2) @ qf) * scale
+        dq += _wide(ds.to(k.dtype)) @ kb
+        dk[:, :, k0:k0 + block_k] = (_wide(ds.to(q.dtype)).transpose(-1, -2) @ qf) * scale
     dq = dq * scale
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))
@@ -206,8 +237,10 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal: bool = Fals
 
 def _check_kernel_inputs(fn: str, named) -> torch.dtype:
     """Raise unless every tensor is one the kernels take: CUDA, one dtype of
-    float32/bfloat16, [B, L, H, Dh] with Dh in KERNEL_HEAD_DIMS[dtype], unit stride
-    on Dh and 16-byte aligned rows."""
+    float32/bfloat16, [B, L, H, Dh] with 1 <= Dh <= MAX_HEAD_DIM and unit
+    stride on Dh; where the Hopper design runs (``KERNEL_DESIGNS``), rows
+    16-byte aligned and strides a TMA tensor map takes. The mma.sync design
+    reads any such rows (16 bytes at a time where they allow it)."""
     dtype = named[0][1].dtype
     device = named[0][1].device
     if dtype not in _DTYPE_CODES:
@@ -219,16 +252,18 @@ def _check_kernel_inputs(fn: str, named) -> torch.dtype:
             raise ValueError(f"{fn}: {name} is {t.dtype}, q is {dtype}")
         if t.dim() != 4:
             raise ValueError(f"{fn}: {name} must be [B, L, H, Dh], got {tuple(t.shape)}")
-        if t.shape[-1] not in KERNEL_HEAD_DIMS[dtype]:
-            raise ValueError(f"{fn}: head width {t.shape[-1]} is not one of "
-                             f"{KERNEL_HEAD_DIMS[dtype]} for {dtype}")
-        align = 16 // t.element_size()
-        if t.stride(-1) != 1 or any(s % align for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"{fn}: {name} needs unit stride on Dh and 16-byte aligned rows "
-                f"(strides {t.stride()})")
-        if KERNEL_DESIGNS[(dtype, t.shape[-1])] == "sm90":
+        dh = t.shape[-1]
+        if not 1 <= dh <= MAX_HEAD_DIM:
+            raise ValueError(f"{fn}: head width {dh} is outside 1..{MAX_HEAD_DIM}: the "
+                             f"kernels tile at most {MAX_HEAD_DIM} columns")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{fn}: {name} needs unit stride on Dh (strides {t.stride()})")
+        if KERNEL_DESIGNS[(dtype, dh)] == "sm90":
+            align = 16 // t.element_size()
+            if any(s % align for s in t.stride()[:3]) or t.data_ptr() % 16:
+                raise ValueError(
+                    f"{fn}: {name} needs 16-byte aligned rows for the Hopper design's "
+                    f"tensor maps (strides {t.stride()})")
             try:
                 tensor_map_geometry(t)
             except ValueError as err:
@@ -304,8 +339,6 @@ def _launch(which, dtype, q, k, v, causal, q_offset, kv_offset, dout=None,
             out=None, dq=None, dk=None, dv=None, lse=None, delta=None):
     b, lq, h, dh = q.shape
     lk = k.shape[1]
-    if b * h > 65535:
-        raise ValueError(f"flash attention: B*H = {b * h} exceeds the grid limit 65535")
     lib = LIBRARY.load()
     do = dout if dout is not None else q
     strides = (ctypes.c_longlong * 12)(

@@ -3,12 +3,16 @@
 Counterpart of ``omldm_tpu/parallel/seq_trainer.py`` for its single-device
 mesh: the same loss, the same Adam and the same parameter and optimizer
 trees. Its attention runs the hand-written flash kernels on CUDA (forward,
-dQ and dK/dV) and their plain twins on the CPU.
+dQ and dK/dV) and their plain twins on the CPU. A config with
+``n_experts > 0`` trains switch-MoE blocks through the ``[E, C, D]``
+dispatch buffer (the JAX trainer's expert-parallel block at one shard);
+``remat=True`` recomputes each block in the backward pass, so the flash
+forward runs twice a layer a step.
 
 ``save``/``load`` snapshot ``{params, opt, fitted}`` as a numpy tree
 (``parallel.ckpt``): a trainer saved on the card loads on the CPU and the
 other way round. Not ported yet: the ("dp", "sp", "tp") mesh and expert
-parallelism.
+parallelism over devices.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import torch
 
 from omldm_tpu_torch.models.transformer import (
     TransformerConfig,
-    check_ported,
     classify_loss,
     init_transformer,
     lm_loss,
@@ -41,7 +44,6 @@ class SeqTrainer:
     def __init__(self, cfg: TransformerConfig, device=None, lr: float = 1e-3,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  seed: int = 0):
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device, "SeqTrainer")
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps

@@ -148,10 +148,10 @@ def _bad(kind):
         return [("q", q.half())], "float32 or bfloat16"
     if kind == "mixed":
         return [("q", q), ("k", q.float())], "is torch.float32"
-    if kind == "head_width":
-        return [("q", torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16))], "head width 48"
-    if kind == "f32_128":
-        return [("q", torch.zeros((1, 8, 2, 128)))], "head width 128"
+    if kind == "head_width":  # past the widest instance (256)
+        return [("q", torch.zeros((1, 8, 2, 320), dtype=torch.bfloat16))], "head width 320"
+    if kind == "f32_128":  # float32 at 128 now runs; float16 at 128 does not
+        return [("q", torch.zeros((1, 8, 2, 128), dtype=torch.float16))], "float32 or bfloat16"
     if kind == "rank":
         return [("q", q[0])], r"\[B, L, H, Dh\]"
     if kind == "stride":
@@ -191,3 +191,78 @@ def test_backward_input_checks_refuse(bad):
         delta = torch.zeros((2, 16), dtype=torch.float64)
     with pytest.raises(ValueError, match="do not fit|contiguous float32"):
         tatt._check_bwd_inputs("flash_attention_bwd", q, k, v, dout, lse, delta)
+
+
+# head widths off the built instances (32, 64, 128, 256): the JAX tests'
+# width 8, rows that are not whole 16-byte groups in bf16 (12), a width
+# padded into the Hopper instance at 128 (80) and the widest (256)
+PADDED_DH = [8, 12, 80, 256]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", PADDED_DH)
+def test_forward_matches_pallas_interpret_at_padded_widths(dh, causal):
+    """The plain twins take any width, as the JAX kernel tiles the whole
+    dh: out and lse at atol 1e-5 (float32)."""
+    q, k, v, _ = _inputs(1, 40, 48, 2, dh, seed=dh)
+    jo, jl = jatt.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, block_q=16,
+        block_k=16, interpret=True, return_lse=True)
+    to, tl = tatt.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal, return_lse=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, :40], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", PADDED_DH)
+def test_grads_match_pallas_backward_at_padded_widths(dh, causal):
+    """Gradients through FlashAttention against jax.vjp of the Pallas dQ
+    and dK/dV kernels at atol 1e-5 (float32)."""
+    q, k, v, g = _inputs(1, 40, 40, 2, dh, seed=3 * dh)
+    _, vjp = jax.vjp(lambda q, k, v: jatt._flash_diff(q, k, v, causal, 0, 0, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    tatt.attention(tq, tk, tv, causal).backward(torch.from_numpy(g))
+    for jg, t in zip(jgrads, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 8), (torch.bfloat16, 12),
+                                      (torch.bfloat16, 80), (torch.bfloat16, 256),
+                                      (torch.float32, 128), (torch.float32, 12),
+                                      (torch.float32, 256)])
+def test_kernel_input_checks_take_every_width_to_256(dtype, dh):
+    """Widths the kernels used to refuse now pass the checks, contiguous
+    and as strided views into a packed projection."""
+    q = torch.zeros((2, 16, 4, dh), dtype=dtype)
+    assert tatt._check_kernel_inputs("flash_attention", [("q", q), ("k", q), ("v", q)]) == dtype
+    qkv = torch.zeros((2, 16, 3, 4, dh), dtype=dtype)
+    named = [("q", qkv[:, :, 0]), ("k", qkv[:, :, 1]), ("v", qkv[:, :, 2])]
+    assert tatt._check_kernel_inputs("flash_attention", named) == dtype
+
+
+def test_kernel_widths_and_designs():
+    """Every width 1..256 runs the next built instance; bf16 rows of whole
+    16-byte groups inside 33..128 take the Hopper design, the rest mma.sync."""
+    assert [tatt.kernel_width(d) for d in (1, 8, 32, 33, 64, 65, 80, 128, 129, 256)] == \
+        [32, 32, 32, 64, 64, 128, 128, 128, 256, 256]
+    for bad in (0, 257, 320):
+        with pytest.raises(ValueError, match="head width"):
+            tatt.kernel_width(bad)
+    designs = tatt.KERNEL_DESIGNS
+    assert len(designs) == 2 * 256
+    assert {dh for (dt, dh), d in designs.items() if d == "sm90"} == set(range(40, 129, 8))
+    assert all(d == "mma" for (dt, _), d in designs.items() if dt == torch.float32)
+    assert designs[(torch.bfloat16, 12)] == designs[(torch.bfloat16, 36)] == "mma"
+
+
+def test_sm90_widths_still_need_aligned_rows():
+    """A padded width on the Hopper design (bf16 80) keeps the tensor-map
+    rule; a width on mma.sync (bf16 12) reads rows at any 2-byte offset."""
+    off = torch.zeros(1 * 9 * 2 * 80 + 1, dtype=torch.bfloat16)[1:].view(1, 9, 2, 80)
+    with pytest.raises(ValueError, match="aligned"):
+        tatt._check_kernel_inputs("flash_attention", [("q", off)])
+    off12 = torch.zeros(1 * 9 * 2 * 12 + 1, dtype=torch.bfloat16)[1:].view(1, 9, 2, 12)
+    assert tatt._check_kernel_inputs("flash_attention", [("q", off12)]) == torch.bfloat16

@@ -4,9 +4,9 @@ attention source dispatches, checked on the CPU without nvcc.
 - A library's cache name hashes its source, every shared header of
   ``csrc/`` and the nvcc flags, so a changed header or flag never reuses a
   stale library.
-- ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches exactly the
-  (dtype, head width) pairs of ``KERNEL_HEAD_DIMS``, each to the design
-  ``KERNEL_DESIGNS`` names, the Hopper dispatch launches a Hopper kernel for
+- ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches every (dtype,
+  head width) pair of ``KERNEL_DESIGNS`` (widths 1..256) to the design it
+  names at ``kernel_width``, the Hopper dispatch launches a Hopper kernel for
   each of the three passes, and the source's sm90 tile sizes are the ones
   ``sm90_tile_plan`` models.
 """
@@ -71,28 +71,36 @@ def test_changed_source_and_flags_change_target(csrc_copy, monkeypatch):
 
 
 def _run_dtype_table():
-    """{(dtype code, head width): the run_* function run_dtype calls}."""
+    """{(dtype code, head width): (design, built width)} for every width
+    1..256, read from run_dtype's `if (dh <= W) return ...` lines: the
+    mma.sync instance at W, or the Hopper one where `dh % 8 == 0 ?` picks
+    it."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int run_dtype("):]
     body = body[:body.index("\n}\n")]
     table = {}
     for code, block in re.findall(r"dtype == (\d)\) \{(.*?)\n  \}", body, re.S):
-        for dh, fn in re.findall(r"case (\d+): return (run_\w+)<", block):
-            table[(int(code), int(dh))] = fn
+        lo = 1
+        for width, line in re.findall(r"if \(dh <= (\d+)\) return (.*?);\n", block + "\n"):
+            width = int(width)
+            assert f"<{width}>" in line or f", {width}>" in line, line
+            for dh in range(lo, width + 1):
+                sm90 = "dh % 8 == 0 ? run_sm90<" in line and dh % 8 == 0
+                table[(int(code), dh)] = ("sm90" if sm90 else "mma", width)
+            lo = width + 1
     return table
 
 
 def test_dispatch_matches_kernel_head_dims_and_designs():
     table = _run_dtype_table()
     codes = {torch.float32: 0, torch.bfloat16: 1}
-    wanted = {(codes[dt], dh) for dt, dims in tatt.KERNEL_HEAD_DIMS.items() for dh in dims}
-    assert set(table) == wanted
-    fn_of = {"sm90": "run_sm90", "mma": "run_mma"}
+    assert set(table) == {(codes[dt], dh) for dt, dh in tatt.KERNEL_DESIGNS}
     for (dt, dh), design in tatt.KERNEL_DESIGNS.items():
-        assert table[(codes[dt], dh)] == fn_of[design], (dt, dh)
-    # the Hopper design is bf16 at 64 and 128 only; float32 keeps its exact emulation
+        assert table[(codes[dt], dh)] == (design, tatt.kernel_width(dh)), (dt, dh)
+    # the Hopper design is bf16 only, at the widths padded to 64 and 128
+    # whose rows are whole 16-byte groups; float32 keeps its exact emulation
     assert {k for k, v in tatt.KERNEL_DESIGNS.items() if v == "sm90"} == {
-        (torch.bfloat16, 64), (torch.bfloat16, 128)}
+        (torch.bfloat16, dh) for dh in range(40, 129, 8)}
 
 
 def test_sm90_launches_all_three_kernels_and_never_falls_back():

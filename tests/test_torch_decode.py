@@ -78,3 +78,33 @@ def test_generate_bounds():
     with pytest.raises(ValueError, match="cache overflow"):
         td.forward_with_cache(tcfg, tp, torch.zeros((1, 9), dtype=torch.long),
                               td.init_kv_cache(tcfg, 1, 8, device="cpu"))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_decode_refused_as_in_jax(remat):
+    """An MoE config is refused by both packages' decode with the same type
+    and words; the JAX refusal is the reference."""
+    dims = {**DIMS, "n_experts": 4, "remat": remat}
+    jcfg, tcfg = jt.TransformerConfig(**dims), tt.TransformerConfig(**dims)
+    tp = tt.init_transformer(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError) as jerr:
+        jd.forward_with_cache(jcfg, {}, jnp.zeros((1, 3), jnp.int32), jd.init_kv_cache(jcfg, 1, 8))
+    with pytest.raises(ValueError) as terr:
+        td.forward_with_cache(tcfg, tp, torch.zeros((1, 3), dtype=torch.long),
+                              td.init_kv_cache(tcfg, 1, 8, device="cpu"))
+    assert str(terr.value) == str(jerr.value) == "decode supports dense transformer configs"
+    with pytest.raises(ValueError, match="dense transformer configs"):
+        td.generate(tcfg, tp, torch.zeros((1, 3), dtype=torch.long), 2)
+
+
+def test_remat_config_decodes_as_the_plain_one():
+    """remat changes training memory only: a remat config decodes the same
+    greedy tokens as its plain twin and as the JAX package."""
+    jcfg, tcfg, jp, tp = _setup(3)
+    prompt = np.random.RandomState(4).randint(0, 48, size=(2, 5)).astype(np.int32)
+    rcfg = tt.TransformerConfig(**{**DIMS, "remat": True})
+    a = td.generate(rcfg, tp, torch.from_numpy(prompt), 6, max_len=16)
+    b = td.generate(tcfg, tp, torch.from_numpy(prompt), 6, max_len=16)
+    assert torch.equal(a, b)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(jd.generate(jcfg, jp, jnp.asarray(prompt), 6,
+                                                                    max_len=16)))

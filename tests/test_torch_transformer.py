@@ -216,15 +216,24 @@ def test_attention_block_passes_strided_views():
 
 
 @pytest.mark.parametrize("change,name", [
-    ({"n_experts": 4}, "n_experts"),
-    ({"remat": True}, "remat"),
+    ({"n_experts": 4}, "decode supports dense transformer configs"),
+    ({"causal": False}, "decode requires a causal lm config"),
 ])
 def test_unported_options_raise(change, name):
+    """What the model path still refuses, with the JAX package's reasons:
+    decoding a mixture-of-experts config, and decoding a non-causal one.
+    Training and the forward take both (MoE and remat are ported)."""
+    from omldm_tpu_torch.models import decode as td
+
     cfg = tt.TransformerConfig(**{**DIMS, **change})
-    with pytest.raises(NotImplementedError, match=name):
-        SeqTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        tt.transformer_forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
+    params = tt.init_transformer(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match=name):
+        td.forward_with_cache(cfg, params, tok, td.init_kv_cache(cfg, 1, 8, device="cpu"))
+    with pytest.raises(ValueError, match=name):
+        td.generate(cfg, params, tok, 2)
+    assert tt.transformer_forward(cfg, params, tok).shape == (1, 4, DIMS["vocab_size"])
+    SeqTrainer(dataclasses.replace(cfg, remat=True), device="cpu").step(tok, tok)
 
 
 @pytest.mark.parametrize("fn", ["transformer_hidden", "transformer_forward",
@@ -253,10 +262,11 @@ def test_config_takes_dtype_names_and_init_shapes():
         assert a.shape == tuple(b.shape) and b.dtype == torch.float32
 
 
-@pytest.mark.parametrize("knob", [{"seq_parallel": "ulysses"}, {"capacity_factor": 2.0}])
+@pytest.mark.parametrize("knob", [{"seq_parallel": "ulysses"}, {"seq_parallel": "ring"}])
 def test_jax_only_config_knobs_do_not_exist(knob):
-    """Knobs of the JAX TransformerConfig that only unported paths read
-    (Ulysses attention, MoE capacity) are not silently accepted."""
+    """The knob of the JAX TransformerConfig that only unported paths read
+    (the sequence-parallel strategy: ring or Ulysses attention over
+    devices) is not silently accepted, whichever value it is given."""
     with pytest.raises(TypeError):
         tt.TransformerConfig(**knob)
 
