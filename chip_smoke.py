@@ -191,6 +191,22 @@ Phases (any failure raises and the script exits nonzero without a result):
                  for the 8 workers (pa_scan_update_batched), scatter_add
                  one; then the bench job's first 20,000 rows on both: 512
                  probe predictions and the statistics equal.
+ 46. ingest      (run after phase 26, on phase 24's file) the bench job over
+                 the bench file's first INGEST_LINES (200,000) lines through
+                 the packed route, StreamJob.run_file_sharded at
+                 ingest_shards() parsers (cores - 1), the same with
+                 device=on and the CLI's --ingest: fitted count, score,
+                 parameters and holdout bitwise equal on the first three
+                 (the CLI's fitted and score too), no degrade and the
+                 resident stage armed on clean runs, a parser SIGKILLed
+                 mid-stream degrading with class crash to the same bits;
+                 records/s of each route beside the card; the sharded
+                 ingest rate with the device stubbed against the single
+                 parse's (sharded_vs_single); driver wait, starvation and
+                 the device's idle share with device=on under
+                 torch.profiler; phase 25's perRecord PA job over the
+                 file's first 50,000 lines on the sharded route, pa_scan
+                 once a worker a step;
  27. batched-check pa_scan_update_batched (C scans in one launch
                  sequence: member on the grid's y axis, a chain CTA a
                  member) against its plain version at BATCHED_SHAPES
@@ -390,12 +406,17 @@ Phases (any failure raises and the script exits nonzero without a result):
                  float64) at the widths and dtypes the JAX kernels take:
                  float32 dh 128 (8 x 1024 x 4, and ragged 1000/1100), dh
                  8, 12, 16, 36, 48, 80, 96, 100 and 256 in bf16 and
-                 float32 (square and ragged): every (dtype, built width,
-                 design) run_dtype reaches; and B * H = 131,072 on each
+                 float32 (square and ragged); and B * H = 131,072 on each
                  design (32,768 x 64 x 4: bf16 dh 64 sm90, float32 dh 8
-                 mma; the twin in batch chunks); then
+                 mma; the twin in batch chunks); then FLASH_WIDE_CHECKS
+                 with their own readings: the wide instance at dh 320 and
+                 512 in both dtypes (2 x 1024 x 2, and ragged 1000/1100)
+                 and a bf16 dh-128 case whose views are 2 bytes off
+                 16-byte alignment (it must run mma.sync): every (dtype,
+                 built width, design) run_dtype reaches; then
                  FLASH_COVERAGE_TIME timed as phase 8 (20 launches a turn)
-                 with each design's bound and SDPA;
+                 with each design's bound and SDPA (the SDPA backends that
+                 take each shape named);
  44. lm-moe      SeqTrainer at LM_MOE_CONFIG (phase 9's LM with 8 switch
                  experts, capacity 1.25, remat): a warm-up step and 8
                  steps; the warm-up batch's loss falls; flash launches
@@ -449,6 +470,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -1039,6 +1061,9 @@ FLASH_CHECKS = [
 # cases whose q, k and v are views into one [B, L, 3, H, Dh] projection, as
 # the transformer hands them over
 FLASH_PACKED = {"packed_qkv"}
+# cases whose q, k, v and dO are each a view one element (2 bytes in bf16)
+# off 16-byte alignment: a Hopper width that runs on mma.sync
+FLASH_MISALIGNED = {"misaligned_dh128"}
 # Each kernel output against its twin, per tensor: the relative L2 error
 # ||a - ref|| / ||ref||, and the worst element against its own size plus the
 # tensor's rms, max |a - ref| / (|ref| + rms(ref)); lse absolute. Limits: a
@@ -1052,10 +1077,14 @@ FLASH_TOL = {"bfloat16": (1e-2, 1e-1, 1e-5), "float32": (2e-6, 2e-5, 4e-6)}  # l
 FLASH_TIME_SHAPES = [(8, 1024, 4, 128), (2, 4096, 4, 128)]
 
 
-def _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed, packed=False):
+def _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed, packed=False, misaligned=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dt)  # noqa: E731
+    if misaligned:  # each a view whose base is one element off 16-byte alignment
+        def mk(*s):  # noqa: F811
+            flat = torch.randn(math.prod(s) + 1, generator=g, device="cuda").to(dt)
+            return flat[1:].view(s)
     if packed:  # transformer.py's qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         assert lq == lk
         qkv = mk(b, lq, 3, h, dh)
@@ -1127,15 +1156,24 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
     for name, b, lq, lk, h, dh, dtype, qo, ko in cases:
         l2_tol, elem_tol, lse_atol = FLASH_TOL[dtype]
         packed = name in FLASH_PACKED
+        misaligned = name in FLASH_MISALIGNED
         for causal in (False, True):
             q, k, v, g = _flash_inputs(torch, b, lq, lk, h, dh, dtype, seed=seed0 + n,
-                                       packed=packed)
+                                       packed=packed, misaligned=misaligned)
             check(not packed or q.data_ptr() + h * dh * q.element_size() == k.data_ptr(),
                   "the packed case's k is not a view into the qkv projection")
+            design = attention.kernel_design(q, k, v, g)
+            if misaligned:
+                check(q.data_ptr() % 16 == q.element_size() and design == "mma",
+                      f"{name}: a view {q.data_ptr() % 16} bytes off alignment runs {design}")
+            by_design = dict(attention.design_launches)
             out, lse = attention.flash_attention(q, k, v, causal, qo, ko, return_lse=True)
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
             dq, dk, dv = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
             torch.cuda.synchronize()
+            check(attention.design_launches[design] == by_design[design] + 3,
+                  f"{name}: {design} launched {attention.design_launches[design] - by_design[design]}"
+                  " of the three passes")
             rq, rk, rv, rg, lse2, delta2 = reference_inputs(
                 dtype, q, k, v, g, lse.reshape(b, h, lq), delta.reshape(b, h, lq))
             if b * h <= 64:
@@ -1178,9 +1216,10 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
                       "rows that see no key must have zero output and zero dq")
                 check(lse.reshape(b, h, lq)[:, :, :ko - qo].max().item() < attention.NEG_INF / 2,
                       "rows that see no key must have an lse near NEG_INF")
-            design = attention.KERNEL_DESIGNS[(getattr(torch, dtype), dh)]
-            log(f"{label}: {name} {(b, lq, lk, h, dh)} {dtype} ({design}) causal={causal} "
-                f"q_offset={qo} kv_offset={ko}{' packed' if packed else ''}: "
+            width = attention.kernel_width(dh)
+            log(f"{label}: {name} {(b, lq, lk, h, dh)} {dtype} ({design} at {width}) "
+                f"causal={causal} q_offset={qo} kv_offset={ko}{' packed' if packed else ''}"
+                f"{' misaligned' if misaligned else ''}: "
                 f"max|d|/relL2/element " + " ".join(
                     f"{w}={e}" for w, e in errs.items()) + f" lse={lse_err:.3e}")
             n += 1
@@ -1310,6 +1349,29 @@ def phase_flash_time(torch, attention):
     return out
 
 
+def sdpa_backends(torch, q, k, v):
+    """The fused SDPA backends (flash, efficient, cuDNN) that take these
+    [B, H, L, Dh] inputs causal, forward and backward: each tried alone.
+    The math backend (plain matmuls and softmax) takes everything and is
+    left out."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+
+    took = []
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+            torch.cuda.synchronize()
+            took.append(name)
+        except RuntimeError:
+            pass
+    return took
+
+
 def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5, detail=True):
     """Phase 8's timing at one causal shape and dtype: {(b, lq, h, dh, name):
     {ms, plain_ms, bound_ms, bound_by, library_ms}}; checks that each pass
@@ -1340,6 +1402,8 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
         "lib_fwd": (reps, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
         "lib_bwd": (reps, lambda: torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)),
     }
+    log(f"flash-time: SDPA backends that take {(b, lq, h, dh)} {tag} causal: "
+        f"{', '.join(sdpa_backends(torch, qt, kt, vt)) or 'none'}")
     turns = {key: [] for key in calls}
     names = {key: {} for key in calls}  # kernel names each call launched
     for turn in range(FLASH_TIME_TURNS):
@@ -1358,7 +1422,8 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
             for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
                 log(f"flash-time: {name} at {(b, lq, h, dh)} launches {kernel[:70]}: {attrs}")
         # each pass launches the design run_dtype dispatches (dtype, dh) to
-        want = f"{name}_sm90_kernel" if design == "sm90" else f"{name}_kernel"
+        want = (f"{name}_sm90_kernel" if design == "sm90" else f"{name}_wide_kernel"
+                if attention.kernel_width(dh) == attention.WIDE else f"{name}_kernel")
         check(any(want in kernel for kernel in names[name]),
               f"{name} at {(b, lq, h, dh)} {tag} launched {list(names[name])}, not {want}")
     for name in passes:
@@ -1384,6 +1449,9 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
                       for _, pair in tiles for s in pair]
             log(f"flash-time: {name} at {(b, lq, h, dh)}: a head's warpgroup tiles "
                 + ", ".join(f"{s} {states.count(s)}" for s in ("full", "cut", "skip")))
+    log(f"flash-time: SDPA at {(b, lq, h, dh)} {tag} launched: forward "
+        f"{sorted(k[:50] for k in names['lib_fwd'])}, backward "
+        f"{sorted(k[:50] for k in names['lib_bwd'])}")
     pair = times["flash_dq"] + times["flash_dkdv"]
     log(f"flash-time: backward pair dQ + dK/dV at {(b, lq, h, dh)} {tag}: {pair:.6f} ms "
         f"against SDPA's backward {times['lib_bwd']:.6f} ms: {pair / times['lib_bwd']:.3f}x")
@@ -1558,9 +1626,20 @@ FLASH_COVERAGE_CHECKS = [
     ("bh131072", 32768, 64, 64, 4, 64, "bfloat16", 0, 0),
     ("bh131072_mma", 32768, 64, 64, 4, 8, "float32", 0, 0),
 ]
+# the wide instance (every head width past 256, one instance a type): dh
+# 320 (a ragged last chunk in both types) and 512 in both dtypes, square and
+# ragged, each causal and not; and a bf16 dh-128 case whose views are 2
+# bytes off 16-byte alignment (the Hopper width on mma.sync)
+FLASH_WIDE_CHECKS = [
+    *[(f"{dtype}_dh{dh}{tag}", 2, lq, lk, 2, dh, dtype, 0, 0)
+      for dtype in ("bfloat16", "float32") for dh in (320, 512)
+      for tag, lq, lk in (("", 1024, 1024), ("_ragged", 1000, 1100))],
+    ("misaligned_dh128", 2, 1024, 1024, 4, 128, "bfloat16", 0, 0),
+]
 # (B, L, H, Dh, dtype) timed as phase 8 times its shapes
 FLASH_COVERAGE_TIME = [(8, 1024, 4, 128, "float32"), (2, 1024, 4, 8, "bfloat16"),
-                       (2, 1024, 4, 80, "bfloat16"), (2, 1024, 4, 256, "bfloat16")]
+                       (2, 1024, 4, 80, "bfloat16"), (2, 1024, 4, 256, "bfloat16"),
+                       (2, 1024, 4, 512, "bfloat16"), (2, 1024, 4, 512, "float32")]
 # phase 44: the LM of phase 9 with Switch-Base-8's switch layer (8 experts,
 # capacity factor 1.25; Fedus et al. 2021, section 2.1 and Table 1) and remat
 LM_MOE_CONFIG = dict(LM_CONFIG, n_experts=8, capacity_factor=1.25, remat=True)
@@ -1577,18 +1656,21 @@ LOSS_PARITY_ATOL = 1e-5
 def phase_flash_coverage(torch, attention):
     """Phase 43: the forward, dQ and dK/dV kernels against their plain twins
     at every (dtype, head width) design of FLASH_COVERAGE_CHECKS and at
-    B * H = 131,072; then device times at FLASH_COVERAGE_TIME."""
+    B * H = 131,072, then at the wide instance's widths and on a misaligned
+    view (FLASH_WIDE_CHECKS), each set with its own largest readings; then
+    device times at FLASH_COVERAGE_TIME."""
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
-    readings = {dtype: [0.0, 0.0, 0.0] for dtype in FLASH_TOL}
-    for name in attention.launches:
-        attention.launches[name] = 0
-    n = run_flash_checks(torch, attention, FLASH_COVERAGE_CHECKS, worst, readings,
-                         "flash-coverage", seed0=1000)
-    check(all(v == 2 * len(FLASH_COVERAGE_CHECKS) for v in attention.launches.values()),
-          f"flash-coverage: launches {attention.launches}, expected "
-          f"{2 * len(FLASH_COVERAGE_CHECKS)} each")
-    log(f"flash-coverage: {n} cases pass; largest readings (rel L2, worst element, lse) "
-        f"{readings} against the limits {FLASH_TOL}")
+    for label, cases, seed0 in (("flash-coverage", FLASH_COVERAGE_CHECKS, 1000),
+                                ("flash-wide", FLASH_WIDE_CHECKS, 2000)):
+        readings = {dtype: [0.0, 0.0, 0.0] for dtype in FLASH_TOL}
+        for name in attention.launches:
+            attention.launches[name] = 0
+        n = run_flash_checks(torch, attention, cases, worst, readings, label, seed0=seed0)
+        check(all(v == 2 * len(cases) for v in attention.launches.values()),
+              f"{label}: launches {attention.launches}, expected {2 * len(cases)} each")
+        log(f"{label}: {n} cases pass; largest readings (rel L2, worst element, lse) "
+            f"{readings} against the limits {FLASH_TOL}; float32 worst element "
+            f"{readings['float32'][1]:.4e}")
     times = {}
     for b, lq, h, dh, dtype in FLASH_COVERAGE_TIME:
         for key, val in flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=20,
@@ -3085,12 +3167,8 @@ def write_bench_stream(path: Path, n: int, seed: int, dim: int = 28) -> int:
     return path.stat().st_size
 
 
-def _bench_job(device, codec=None):
-    """_make_e2e_job's job on ``device`` (with ``codec``, the Create arms
-    that ``comm.codec``): (job, bridge)."""
-    from omldm_tpu_torch.config import JobConfig
-    from omldm_tpu_torch.runtime import StreamJob
-
+def _bench_create(codec=None) -> dict:
+    """_make_e2e_job's Create (with ``codec``, it arms that ``comm.codec``)."""
     b = BENCH_JOB
     create = {
         "id": 0, "request": "Create",
@@ -3102,8 +3180,19 @@ def _bench_job(device, codec=None):
     }
     if codec is not None:
         create["trainingConfiguration"]["comm"] = {"codec": codec}
-    job = StreamJob(JobConfig(parallelism=b["parallelism"], batch_size=b["batch"]), device=device)
-    job.process_event("requests", json.dumps(create))
+    return create
+
+
+def _bench_job(device, codec=None, ingest=""):
+    """_make_e2e_job's job on ``device`` (``ingest``: its JobConfig.ingest):
+    (job, bridge)."""
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    b = BENCH_JOB
+    job = StreamJob(JobConfig(parallelism=b["parallelism"], batch_size=b["batch"], ingest=ingest),
+                    device=device)
+    job.process_event("requests", json.dumps(_bench_create(codec)))
     [bridge] = job.spmd_bridges.values()
     return job, bridge
 
@@ -3613,6 +3702,297 @@ def phase_bench_profile(torch, path: Path, out_dir: Path):
 
 # (members C, rows B, width D + 1) of the batched pa_scan's check and time;
 # (64, 256, 29) is the multi-tenant stream's gang step
+# --- phase 46: the sharded ingest plane and the device-resident stage -----------
+
+# the bench file's first INGEST_LINES lines: the phase reads its file eight
+# times (four routes, a killed parser, the stubbed-device sharded and
+# single-parse rates, a profiled run); the whole 1,000,000-line file would
+# take it past ~30 s (the log prints the projection)
+INGEST_LINES = 200_000
+INGEST_PA_LINES = 50_000  # phase 25's perRecord PA job on the sharded route: its 50,000 records
+
+
+def ingest_shards() -> int:
+    """run_benchmarks.py:1081-1083's shard count: one parser a spare core."""
+    import os
+
+    return max((os.cpu_count() or 1) - 1, 1)
+
+
+def head_file(src: Path, dst: Path, lines: int) -> Path:
+    """The first ``lines`` lines of ``src`` in ``dst``."""
+    with open(src) as f, open(dst, "w") as out:
+        for _, line in zip(range(lines), f):
+            out.write(line)
+    return dst
+
+
+def _ingest_run(torch, path: Path, route: str, ingest: str = "", kill: bool = False):
+    """One timed run of the bench job over ``path``: ``packed`` (the file as
+    iter_file_batches blocks through process_packed_batch) or ``sharded``
+    (StreamJob.run_file_sharded under ``ingest``); ``kill`` SIGKILLs parser
+    1 when the first block reaches the job. The stage drained and the
+    parameters read back end the timing. Returns (job, bridge, wall s)."""
+    import multiprocessing
+    import os
+    import signal
+
+    from omldm_tpu_torch.runtime.fast_ingest import iter_file_batches
+
+    job, bridge = _bench_job("cuda", ingest=ingest)
+    if kill:
+        real = job.process_packed_batch
+
+        def process(*block):
+            for p in multiprocessing.active_children():
+                if p.name == "ingest-shard-1" and p.is_alive():
+                    os.kill(p.pid, signal.SIGKILL)
+                    p.join(timeout=5.0)
+            return real(*block)
+
+        job.process_packed_batch = process
+    t0 = time.perf_counter()
+    if route == "packed":
+        for block in iter_file_batches(str(path), BENCH_JOB["dim"], PACKED_CHUNK):
+            job.process_packed_batch(*block)
+    else:
+        check(job.run_file_sharded(str(path), dim=BENCH_JOB["dim"]),
+              f"ingest[{route}]: run_file_sharded refused the job")
+    bridge.flush()
+    bridge.trainer.global_flat_params()
+    torch.cuda.synchronize()
+    return job, bridge, time.perf_counter() - t0
+
+
+def _ingest_outcome(job, bridge):
+    """(fitted, score, flat parameters, holdout x, holdout y) of a finished
+    run; terminates the job."""
+    if bridge._resident is not None:
+        bridge._resident.sync_host()
+    [stats] = job.terminate().statistics
+    return (stats.fitted, stats.score, bridge.trainer.global_flat_params(),
+            *bridge.test_set.arrays())
+
+
+def _same_outcome(label, a, b) -> None:
+    import numpy as np
+
+    check(a[:2] == b[:2], f"{label}: fitted, score {a[:2]} against {b[:2]}")
+    for name, u, v in zip(("parameters", "holdout x", "holdout y"), a[2:], b[2:]):
+        check(u.shape == v.shape and np.array_equal(u, v),
+              f"{label}: {name} differ in {int((u != v).sum()) if u.shape == v.shape else 'shape'}")
+
+
+def _stub_seconds(path: Path, shards: int):
+    """run_benchmarks.py's sharded-ingest leg (:1073-1100) on phase 46's
+    file: (t_sharded, t_host), each the best of 3 after a warm pass, with
+    the bench bridge's device stubbed out (_NopTrainer): ShardedIngest at
+    ``shards`` parsers feeding handle_batch, and the serial fused ingest."""
+    from omldm_tpu_torch.runtime.ingest_shard import IngestConfig, ShardedIngest
+
+    _, bridge = _bench_job("cuda")
+    bridge.trainer = _NopTrainer()
+
+    def sharded():
+        si = ShardedIngest(str(path), BENCH_JOB["dim"], IngestConfig(shards=shards))
+        try:
+            for block in si.blocks():
+                bridge.handle_batch(*block)
+        finally:
+            si.close()
+        bridge.flush()
+
+    def single():
+        bridge.ingest_file(str(path))
+        bridge.flush()
+
+    out = []
+    for fn in (sharded, single):
+        samples = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            fn()
+            if i:
+                samples.append(time.perf_counter() - t0)
+        out.append(min(samples))
+    return tuple(out)
+
+
+def _sharded_breakdown(path: Path, lines: int, shards: int) -> dict:
+    """One pass of the stubbed-device sharded ingest over ``path``, its host
+    seconds split: the rings' allocation and the forks (the constructor),
+    the wait for the first block, the blocks through handle_batch, and the
+    workers' reaping (close, which the block iterator runs when it ends);
+    beside the driver's resident and mapped memory, which each fork copies
+    the page tables of."""
+    from omldm_tpu_torch.runtime.ingest_shard import IngestConfig, ShardedIngest
+
+    _, bridge = _bench_job("cuda")
+    bridge.trainer = _NopTrainer()
+    with open("/proc/self/status") as f:
+        status = dict(line.split(":", 1) for line in f if ":" in line)
+    t0 = time.perf_counter()
+    si = ShardedIngest(str(path), BENCH_JOB["dim"], IngestConfig(shards=shards))
+    t1 = time.perf_counter()
+    blocks = si.blocks()
+    bridge.handle_batch(*next(blocks))
+    t2 = time.perf_counter()
+    t3 = t2
+    for block in blocks:
+        bridge.handle_batch(*block)
+        t3 = time.perf_counter()
+    t4 = time.perf_counter()
+    bridge.flush()
+    return {"lines": lines, "init_s": t1 - t0, "first_block_s": t2 - t1,
+            "blocks_s": t3 - t2, "close_s": t4 - t3, "total_s": t4 - t0,
+            "driver_rss": status.get("VmRSS", "").strip(),
+            "driver_vm": status.get("VmSize", "").strip(), **si.stats()}
+
+
+def phase_ingest(torch, pa_scan, bench_path: Path, records: int, tmp: Path, card: str):
+    """Phase 46: phase 24's bench job over the first INGEST_LINES of the
+    bench file's ``records`` lines through the packed route, run_file_sharded at
+    ingest_shards() parsers, the same with device=on and the CLI's
+    --ingest: fitted count, score, parameters and holdout bitwise equal on
+    the first three, no degrade and the resident stage armed on clean runs,
+    a SIGKILLed parser degrading with class crash to the same bits; the
+    stubbed-device sharded rate against the single parse; driver wait,
+    starvation and the device's idle share with device=on under
+    torch.profiler; then phase 25's perRecord PA job on the sharded route,
+    pa_scan launched once a worker-step. Returns the pa_scan launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import omldm_tpu_torch.__main__ as cli
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+
+    t_phase = time.perf_counter()
+    n = ingest_shards()
+    lines, pa_lines = min(INGEST_LINES, records), min(INGEST_PA_LINES, records)
+    path = head_file(bench_path, tmp / "ingest.jsonl", lines)
+    sharded, resident = f"shards={n}", f"shards={n},device=on"
+    runs, walls, stats = {}, {}, {}
+    for label, route, ingest in (("packed", "packed", ""), ("sharded", "sharded", sharded),
+                                 ("sharded_device", "sharded", resident)):
+        job, bridge, walls[label] = _ingest_run(torch, path, route, ingest)
+        stats[label] = job._ingest_stats
+        if route == "sharded":
+            check(stats[label].get("degraded") is None and stats[label]["rows"] == lines,
+                  f"ingest[{label}]: a clean run degraded or lost rows: {stats[label]}")
+            check((bridge._resident is not None) == ingest.endswith("device=on"),
+                  f"ingest[{label}]: resident stage {bridge._resident is not None}")
+        runs[label] = _ingest_outcome(job, bridge)
+    for label in ("sharded", "sharded_device"):
+        _same_outcome(f"ingest[{label}] against the packed route", runs[label], runs["packed"])
+    fitted, score = runs["packed"][:2]
+    check(fitted > 0.75 * lines and score > 0.9, f"ingest: fitted {fitted}, score {score}")
+    log(f"ingest: packed, sharded ({sharded}) and sharded with device=on: fitted {fitted}, score "
+        f"{score}, parameters and holdout bitwise equal; no degrade; the resident stage armed")
+
+    # a parser SIGKILLed mid-stream (256 KB chunks: parser 1 owns chunks to
+    # the file's end, and a ring of one slot holds it back from finishing
+    # before the first block reaches the job): degraded with class crash,
+    # the same bits
+    job, bridge, _ = _ingest_run(torch, path, "sharded", f"{resident},chunkKb=256,ring=1",
+                                 kill=True)
+    killed = job._ingest_stats
+    check(killed.get("degraded", {}).get("class") == "crash",
+          f"ingest: a SIGKILLed parser gave {killed.get('degraded')}")
+    _same_outcome("ingest[killed parser]", _ingest_outcome(job, bridge), runs["packed"])
+    log(f"ingest: parser 1 SIGKILLed at the first block: degraded {killed['degraded']}, "
+        "rows and model bitwise the clean run's")
+
+    # the CLI with --ingest
+    reqs = tmp / "ingest_requests.jsonl"
+    reqs.write_text(json.dumps(_bench_create()) + "\n")
+    perf = tmp / "ingest_cli_perf.jsonl"
+    calls = []
+    real = cli.StreamJob.run_file_sharded  # the class the CLI builds its job from
+
+    def spy(self, *a, **k):
+        calls.append(a[0])
+        return real(self, *a, **k)
+
+    cli.StreamJob.run_file_sharded = spy
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["--trainingData", str(path), "--requests", str(reqs), "--parallelism",
+                       str(BENCH_JOB["parallelism"]), "--batchSize", str(BENCH_JOB["batch"]),
+                       "--ingest", sharded, "--performanceOut", str(perf)])
+        torch.cuda.synchronize()
+        walls["cli"] = time.perf_counter() - t0
+    finally:
+        cli.StreamJob.run_file_sharded = real
+    [report] = [json.loads(line) for line in perf.read_text().splitlines()]
+    [cst] = report["statistics"]
+    check(rc == 0 and calls == [str(path)], f"ingest[cli]: rc {rc}, sharded runs {calls}")
+    check((cst["fitted"], cst["score"]) == (fitted, score),
+          f"ingest[cli]: fitted, score {(cst['fitted'], cst['score'])} against {(fitted, score)}")
+
+    # the ingest plane's own rate with the device stubbed (the JAX bench
+    # leg's sharded_vs_single), and the device's idle share with device=on
+    t_sharded, t_host = _stub_seconds(path, n)
+    # where the sharded pass's host time goes, on the cut file and the whole
+    for label, file, count in (("cut", path, lines), ("whole", bench_path, records)):
+        log(f"ingest: stubbed sharded pass over the {label} file: "
+            + json.dumps(_sharded_breakdown(file, count, n)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        job, bridge, wall_prof = _ingest_run(torch, path, "sharded", resident)
+    job.terminate()
+    busy_s = sum(_dev_us(e) for e in tp.key_averages() if e.device_type == DeviceType.CUDA) / 1e6
+    check(busy_s > 0, "ingest: torch.profiler traced no device time")
+    summary = {
+        "card": card, "lines": lines, "shards": n, "fitted": fitted, "score": score,
+        **{f"records_per_s_{k}": lines / w for k, w in walls.items()},
+        **{f"wall_{k}_s": w for k, w in walls.items()},
+        "stub_sharded_records_per_s": lines / t_sharded,
+        "stub_host_records_per_s": lines / t_host,
+        "sharded_vs_single": t_host / t_sharded,
+        "driver_wait_s": {k: stats[k]["driver_wait_s"] for k in ("sharded", "sharded_device")},
+        "starvation": {k: stats[k]["starvation"] for k in ("sharded", "sharded_device")},
+        "worker_parse_s": stats["sharded"]["parse_s"],
+        "worker_stall_s": stats["sharded"]["worker_stall_s"],
+        "device_busy_s_device_on": busy_s,
+        "idle_share_device_on": 1.0 - busy_s / walls["sharded_device"],
+        "profiled_wall_s": wall_prof,
+    }
+    for k in walls:
+        log(f"ingest: {k}: {lines / walls[k]:.1f} records/s ({walls[k]:.4f} s) on {card}")
+    log(f"ingest: stubbed device, {n} parsers: {lines / t_sharded:.1f} records/s against the "
+        f"single parse's {lines / t_host:.1f} (sharded_vs_single {t_host / t_sharded:.4f}); "
+        f"idle share with device=on {summary['idle_share_device_on']:.4f}")
+
+    # phase 25's perRecord PA job on the sharded route: pa_scan a worker-step
+    pa_path = head_file(bench_path, tmp / "ingest_pa.jsonl", pa_lines)
+    r = SPMD_RUN
+    job = StreamJob(JobConfig(parallelism=r["parallelism"], batch_size=r["batch"],
+                              test_set_size=r["test_set_size"], ingest=sharded), device="cuda")
+    job.process_event("requests", json.dumps(_spmd_create("Synchronous", per_record=True)))
+    pa_scan.launches = 0
+    t0 = time.perf_counter()
+    check(job.run_file_sharded(str(pa_path), dim=BENCH_JOB["dim"]),
+          "ingest[pa]: run_file_sharded refused the job")
+    [pst] = job.terminate().statistics
+    torch.cuda.synchronize()
+    pa_wall = time.perf_counter() - t0
+    pa_launches = pa_scan.launches
+    steps = len(pst.learning_curve) * job.spmd_bridges[0].dp
+    check(pa_launches == steps > 0 and pst.fitted > 0.75 * pa_lines,
+          f"ingest[pa]: pa_scan launches {pa_launches} against worker-steps {steps}, "
+          f"fitted {pst.fitted}")
+    summary.update(pa_records_per_s=pa_lines / pa_wall, pa_scan_launches=pa_launches)
+    phase_s = time.perf_counter() - t_phase
+    summary["phase_s"] = phase_s
+    log(f"ingest: perRecord PA at parallelism {r['parallelism']} on the sharded route: "
+        f"{pa_lines / pa_wall:.1f} records/s, pa_scan launches {pa_launches} = "
+        f"worker-steps {steps}, score {pst.score:.4f}")
+    log(f"ingest: phase 46 took {phase_s:.1f} s on {lines} lines (the whole "
+        f"{records}-line file projects to {phase_s * records / lines:.0f} s)")
+    log("ingest: " + json.dumps(summary))
+    return pa_launches
+
+
 BATCHED_SHAPES = [(64, 256, 29), (8, 256, 1025), (3, 255, 4097)]
 # a 5-member call whose member 2 has an all-zero mask: it keeps w0 bitwise
 BATCHED_ZERO_CHECK = (5, 256, 29)
@@ -6128,6 +6508,9 @@ def main() -> int:
         spmd_parity_launches = phase_spmd_parity(torch, pa_scan, sparse, args.seed, bench_path,
                                                  spmd_dir)
         lap("spmd-parity")
+        ingest_pa_launches = phase_ingest(torch, pa_scan, bench_path, args.bench_records, spmd_dir,
+                                          card)
+        lap("ingest")
         spmd_ckpt_rows = ckpt_dir / "bench_head.jsonl"
         with open(bench_path) as src, open(spmd_ckpt_rows, "w") as dst:
             for _, line in zip(range(SPMD_CKPT["rows"]), src):
@@ -6198,6 +6581,7 @@ def main() -> int:
         "launches_by_path": {
             "stream": launches,
             "spmd_per_record": spmd_pa_launches,
+            "spmd_per_record_sharded_ingest": ingest_pa_launches,
             "spmd_card_vs_cpu_dp8": spmd_parity_launches["pa_scan"],
             "stream_guarded": guard_launches,
             "reliable_chaos_first_records": reliable_launches,

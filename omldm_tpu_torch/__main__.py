@@ -14,13 +14,18 @@ Sources (choose one style):
   ``EOS`` marker lines are dropped and replay continues
   (DataInstanceParser.scala:13-21). With a training file and only a
   requests file beside it, the requests are replayed FIRST, as the JAX
-  package does. When they leave one pipeline, on the SPMD engine
-  (``engine: spmd``), the training file goes through the fused C parse ->
-  holdout -> stage loop (``StreamJob.run_file_fused``; ``--fusedIngest
-  false`` opts out), dense or sparse. Otherwise it goes through the C++
-  bulk parser (``--fastIngest auto|true|false``, blocks of
-  ``--ingestBatch`` rows, parsed ``--prefetchDepth`` blocks ahead on a
-  thread); sparse Creates then take the per-record route.
+  package does. With ``--ingest SPEC`` (``JobConfig.ingest``: e.g.
+  ``shards=4``, ``shards=4,device=on`` or ``on``), a dense job's training
+  file goes through the sharded ingest plane
+  (``StreamJob.run_file_sharded``: parser processes, blocks replayed in
+  file order through the packed route, any number of pipelines). Else,
+  when the requests leave one pipeline, on the SPMD engine (``engine:
+  spmd``), the training file goes through the fused C parse -> holdout ->
+  stage loop (``StreamJob.run_file_fused``; ``--fusedIngest false`` opts
+  out), dense or sparse. Otherwise it goes through the C++ bulk parser
+  (``--fastIngest auto|true|false``, blocks of ``--ingestBatch`` rows,
+  parsed ``--prefetchDepth`` blocks ahead on a thread); sparse Creates then
+  take the per-record route.
 - ``--events combined.jsonl`` -- one fully ordered file of ``{"stream":
   "trainingData"|"forecastingData"|"requests", "data": {...}}`` lines.
 
@@ -45,8 +50,8 @@ owns the periodic save.
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not
 have (Kafka and its profile window, the multi-process fleet, the XLA
-compile cache, the sharded ingest plane, JAX-only ``JobConfig`` fields) raise
-``SystemExit`` naming the flag instead of being ignored.
+compile cache, JAX-only ``JobConfig`` fields) raise ``SystemExit`` naming
+the flag instead of being ignored.
 """
 
 from __future__ import annotations
@@ -78,7 +83,6 @@ UNPORTED_ROUTE_FLAGS = {
     "profileSteps": "the Kafka loop's profile window",
     "compileCache": "the XLA compile cache",
     "compileCacheMinSecs": "the XLA compile cache",
-    "ingest": "the sharded ingest plane",
 }
 
 
@@ -226,14 +230,16 @@ def _run_replay(job: StreamJob, flags: Dict[str, str], make_events) -> None:
 def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
     """The fastest file route, as the JAX CLI's: whenever the training file
     is the only data source and the width can be pinned, replay the whole
-    requests file first, deploy the Creates at that width, and -- when the
-    job then holds one pipeline, on the SPMD engine -- consume the training
-    file through the fused C loop (``StreamJob.run_file_fused``) and
-    terminate: True. Checkpointing and ``--restartAttempts`` keep the
-    file on the event loop: False before anything is read. Otherwise the requests stay processed, the width is
+    requests file first, deploy the Creates at that width, and consume the
+    training file -- through the sharded ingest plane when ``--ingest``
+    arms it and the job is dense (``StreamJob.run_file_sharded``: any
+    pipelines, blocks replayed in file order), else through the fused C
+    loop when the job holds one pipeline, on the SPMD engine
+    (``StreamJob.run_file_fused``) -- and terminate: True. Checkpointing
+    and ``--restartAttempts`` keep the file on the event loop: False before
+    anything is read. Otherwise the requests stay processed, the width is
     stashed for the packed route (a sparse job takes the per-record route
-    instead), and the event loop resumes: False. The JAX CLI's sharded
-    ingest branch is refused at the flags (``--ingest``)."""
+    instead), and the event loop resumes: False."""
     if TRAINING_STREAM not in flags:
         return False
     if flags.get("fastIngest", "auto") == "false":
@@ -265,6 +271,14 @@ def _try_fused_run(job: StreamJob, flags: Dict[str, str]) -> bool:
         else:
             flags["__streamSpec__"] = f"{spec[0]},{spec[1]}"
     job.ensure_deployed(spec[0])
+    # the sharded ingest plane: dense jobs only (its parser shards run the
+    # dense packed batcher); host-plane and multi-pipeline jobs are fine --
+    # the blocks replay through the packed route, in file order
+    if job.ingest_cfg is not None and not sparse:
+        if job.run_file_sharded(flags[TRAINING_STREAM], dim=spec[0], hash_dims=spec[1]):
+            job.terminate()
+            return True
+        return False
     if job.fused_file_bridge() is None:
         return False  # requests stay processed; the packed route resumes
     job.run_file_fused(flags[TRAINING_STREAM])

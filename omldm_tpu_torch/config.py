@@ -131,10 +131,16 @@ class JobConfig:
     # The events spec's own blackboxPath knob wins when set.
     blackbox_path: str = ""
 
-    # --- a plane of the JAX package the port does not have yet ---
-    # Kept so a config written for omldm_tpu constructs here; arming it
-    # makes StreamJob raise NotImplementedError naming the option
-    # (runtime.job.unported_job_options).
+    # --- the ingest plane (runtime/ingest_shard.py) ---
+    # The sharded multi-process ingest and the device-resident stage for
+    # file runs (StreamJob.run_file / run_file_sharded, the CLI's
+    # --ingest): "shards=N,chunkKb=C,ring=R,slotRows=S,device=on,waitMs=W"
+    # or "on" (one parser a spare core). "" (the default) arms nothing: no
+    # ingest object exists and run_file takes the fused C route. The rows
+    # reach the job in file order, bit-identical to ingest in one process;
+    # device=on keeps the SPMD bridges' stage and holdout ring on the
+    # device (SPMDBridge.enable_resident_ingest). A dead parser process
+    # degrades to in-process parsing, reason-coded with the selfheal class.
     ingest: str = ""
 
     # Aliases mapping the reference's exact CLI flag names to the fields

@@ -4,7 +4,7 @@
 //   flash_fwd_sm90_kernel,  flash_fwd_kernel  <- _flash_kernel          (wrapper flash_attention_pallas)
 //   flash_dq_sm90_kernel,   flash_dq_kernel   <- _flash_bwd_dq_kernel   (wrapper _flash_diff_bwd)
 //   flash_dkdv_sm90_kernel, flash_dkdv_kernel <- _flash_bwd_dkdv_kernel (wrapper _flash_diff_bwd)
-// on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (any Dh from 1 to 256, bfloat16 or
+// on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (any Dh from 1 up, bfloat16 or
 // float32, any B * H), with the causal mask on absolute positions q_offset + row >=
 // kv_offset + col, keys past Lk masked, and p = 0 wherever s <= NEG_INF / 2
 // (so a row that sees no key has a zero output, an lse near NEG_INF and zero
@@ -14,8 +14,9 @@
 // with no instance of its own runs the next built one with Q, K, V and dO
 // zero-padded in shared memory (zero columns change neither S nor dP), the
 // padded output columns never stored, and the softmax scale 1/sqrt(Dh) of
-// the true width (the caller passes it). run_dtype says which design runs
-// each (dtype, Dh).
+// the true width (the caller passes it). Every width past 256 runs the wide
+// instance, which loops over Dh at run time. run_dtype says which design
+// runs each (dtype, Dh) and view.
 //
 //   forward: S = Q K^T * scale, online softmax over K tiles with f32 running
 //            max m, denominator l and accumulator; out = acc / max(l, 1e-30),
@@ -37,7 +38,8 @@
 // covers the widths and types it does not.
 //
 // Hopper design (bfloat16 at Dh 33 to 128 whose rows are whole 16-byte
-// groups, Dh % 8 == 0, in the instances at 64 and 128: all three passes):
+// groups, Dh % 8 == 0, in the instances at 64 and 128, where every view's
+// base and strides are whole 16-byte groups too: all three passes):
 //   - One CTA of three warpgroups. Warpgroup 0 is the producer: after
 //     setmaxnreg gives its registers away (24 a thread), one thread (in
 //     dK/dV one warp, which also stages each tile's lse and delta rows)
@@ -81,9 +83,10 @@
 //     so the first wave holds the heaviest CTAs of every head.
 //
 // mma.sync design (float32 at every width; bfloat16 at Dh 1 to 32, at
-// widths whose rows are not whole 16-byte groups, and from 129 to 256; all
-// three passes): warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate)
-// with plain synchronous tile copies.
+// widths whose rows are not whole 16-byte groups, at a Hopper width whose
+// view the tensor maps cannot take, and from 129 up; all three passes):
+// warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) with plain
+// synchronous tile copies.
 //   - The TPU's sequential K grid axis becomes a loop inside the block. One
 //     CTA of 4 warps per (b*h, 64-row Q tile, column chunk) in the forward
 //     and dQ passes, sweeping 64-key tiles (32 in the dQ at 256, so its
@@ -111,6 +114,17 @@
 //     as zeros, are masked, and are never stored. Rows that are whole
 //     16-byte groups (every base, stride and the width) load 16 bytes a
 //     thread; others, such as Dh 12 in bf16, one element at a time.
+//   - The wide instance (every Dh past 256, one instance a type): a 64-row
+//     float32 K tile of 512 columns alone would take ~132 KB of shared
+//     memory, so its tiles hold one column chunk of a row -- 64 columns in
+//     float32, 128 in bf16 -- and a loop over Dh at run time accumulates S
+//     (and dP, and in dK/dV their transposes) chunk after chunk into the
+//     same registers, each output one ascending chain over Dh as in the
+//     built instances. Each CTA still owns one output column chunk on grid
+//     z (that chunk's width in the forward and dQ, 64 in dK/dV), and its
+//     products with P and dS read only that chunk of V or K (forward, dQ)
+//     or of dO and Q (dK/dV). Every CTA of a row recomputes S over the
+//     whole width: right and slow (Dh / 64 recomputations in float32).
 //
 // Both designs: inputs by strides ([B, L, H, Dh] with unit stride on Dh;
 // the Hopper design also needs 16-byte aligned rows for its tensor maps);
@@ -640,6 +654,282 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) st[j][i] *= dpt[j][i] - sDelta[j * 8 + 2 * t + (i & 1)];  // dS^T
     gemm_pb<T, DH, DC, kBlockQB>(dk, st, sQ + c0);  // dK += dS^T Q
+  }
+  store_rows<T, DC>(static_cast<T*>(p.dk), dk, b, h, k0 + warp * 16, p.Lk, p, c0, p.scale);
+  store_rows<T, DC>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p, c0, 1.f);
+}
+
+// ---- the wide instance: every head width past 256 ---------------------------
+
+template <typename T> struct WideChunk;
+template <> struct WideChunk<bf16> { static constexpr int value = 128; };
+template <> struct WideChunk<float> { static constexpr int value = 64; };
+constexpr int kWideDqKeys = 32;    // dQ keys per tile (S and dP beside a 128-column bf16 chunk)
+constexpr int kWideBwdCols = 64;   // dK/dV output columns per CTA
+
+template <int N>
+__device__ __forceinline__ void clear(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+}
+
+// W columns from col0 of rows [row0, row0 + ROWS) of one (b, h) slice into
+// shared memory (row stride LDW + kPad); rows at or past `rows` and columns
+// at or past p.dh are zeros. col0 is a multiple of 64, so where every row is
+// whole 16-byte groups (p.vec) so is every chunk of it.
+template <typename T, int W, int LDW, int ROWS>
+__device__ __forceinline__ void load_chunk(T* s, const T* src, long long row_stride, int row0, int rows,
+                                           int col0, const Params& p) {
+  constexpr int LD = LDW + kPad;
+  const int cols = p.dh - col0;
+  src += col0;
+  if (p.vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kPerRow = W / kVec;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < rows && c < cols)
+        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
+      *reinterpret_cast<uint4*>(s + r * LD + c) = val;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * W; i += kThreads) {
+      const int r = i / W, c = i % W;
+      s[r * LD + c] = row0 + r < rows && c < cols ? src[(long long)(row0 + r) * row_stride + c] : zero<T>();
+    }
+  }
+}
+
+// c[16 x N] += sA[row0 .. row0+15, :W] . sB[:N, :W]^T (both tiles row-major,
+// row stride W + kPad): the next W terms of each output's one chain over dh.
+template <typename T, int W, int N>
+__device__ __forceinline__ void gemm_abt_add(float (&c)[N / 8][4], const T* sA, int row0, const T* sB) {
+  constexpr int LD = W + kPad;
+#pragma unroll(sizeof(T) == 4 ? 1 : W / 16)
+  for (int kk = 0; kk < W; kk += 16) {
+    FragA<T> a;
+    load_a(a, sA, LD, row0, kk);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      FragB<T> b;
+      load_b_nk(b, sB, LD, j * 8, kk);
+      mma(c[j], a, b);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(const Params p) {
+  constexpr int CH = WideChunk<T>::value;
+  constexpr int LD = CH + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + kBlockQ * LD;
+  T* sV = sK + kBlockK * LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal sweeps first
+  const int c0 = blockIdx.z * CH;                          // this CTA's output columns
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int n_c = (p.dh + CH - 1) / CH;
+
+  float o[CH / 8][4];
+  clear(o);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int n_k = k_tiles_needed(p, q0, kBlockQ, kBlockK);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBlockK;
+    float s[kBlockK / 8][4];
+    clear(s);
+    for (int c = 0; c < n_c; ++c) {  // S = Q K^T, chunk after chunk of dh
+      __syncthreads();  // every warp is done with the previous chunks (and V tile)
+      load_chunk<T, CH, CH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
+      load_chunk<T, CH, CH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
+      if (c == 0) load_chunk<T, CH, CH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, c0, p);
+      __syncthreads();
+      gemm_abt_add<T, CH, kBlockK>(s, sQ, warp * 16, sK);
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = masked(s[j][i] * p.scale, row0 + 8 * (i >> 1), k0 + j * 8 + 2 * t + (i & 1), p);
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(fminf(m[r] - mn, 0.f));
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = weight(s[j][i], m[i >> 1]);
+        rs[i >> 1] += s[j][i];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int n = 0; n < CH / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
+    gemm_pb<T, CH, CH, kBlockK>(o, s, sV);  // O += P V[:, chunk]
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    den[r] = fmaxf(l[r], 1e-30f);
+    const int row = row0 + 8 * r;
+    if (blockIdx.z == 0 && t == 0 && row < p.Lq) p.lse[(long long)bh * p.Lq + row] = m[r] + logf(den[r]);
+  }
+#pragma unroll
+  for (int n = 0; n < CH / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] /= den[i >> 1];
+  store_rows<T, CH>(static_cast<T*>(p.out), o, b, h, q0 + warp * 16, p.Lq, p, c0, 1.f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_wide_kernel(const Params p) {
+  constexpr int CH = WideChunk<T>::value, BK = kWideDqKeys;
+  constexpr int LD = CH + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sDO = sQ + kBlockQ * LD;
+  T* sK = sDO + kBlockQ * LD;
+  T* sV = sK + BK * LD;
+  T* sKc = sV + BK * LD;  // K[:, this CTA's chunk], the B operand of dS K
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int c0 = blockIdx.z * CH;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int n_c = (p.dh + CH - 1) / CH;
+
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
+    delta[r] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
+  }
+  float dq[CH / 8][4];
+  clear(dq);
+  const int n_k = k_tiles_needed(p, q0, kBlockQ, BK);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * BK;
+    float s[BK / 8][4], dp[BK / 8][4];
+    clear(s);
+    clear(dp);
+    for (int c = 0; c < n_c; ++c) {  // S = Q K^T and dP = dO V^T, chunk after chunk of dh
+      __syncthreads();
+      load_chunk<T, CH, CH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
+      load_chunk<T, CH, CH, kBlockQ>(sDO, DO, p.do_sl, q0, p.Lq, c * CH, p);
+      load_chunk<T, CH, CH, BK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
+      load_chunk<T, CH, CH, BK>(sV, V, p.v_sl, k0, p.Lk, c * CH, p);
+      if (c == 0) load_chunk<T, CH, CH, BK>(sKc, K, p.k_sl, k0, p.Lk, c0, p);
+      __syncthreads();
+      gemm_abt_add<T, CH, BK>(s, sQ, warp * 16, sK);
+      gemm_abt_add<T, CH, BK>(dp, sDO, warp * 16, sV);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const float pw = weight(
+            masked(s[j][i] * p.scale, row0 + 8 * r, k0 + j * 8 + 2 * t + (i & 1), p), lse[r]);
+        s[j][i] = pw * (dp[j][i] - delta[r]);  // dS
+      }
+    gemm_pb<T, CH, CH, BK>(dq, s, sKc);  // dQ += dS K[:, chunk]
+  }
+  store_rows<T, CH>(static_cast<T*>(p.dq), dq, b, h, q0 + warp * 16, p.Lq, p, c0, p.scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkdv_wide_kernel(const Params p) {
+  constexpr int CH = WideChunk<T>::value, DC = kWideBwdCols;
+  constexpr int LD = CH + kPad, LDC = DC + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kBlockK * LD;
+  T* sQ = sV + kBlockK * LD;
+  T* sDO = sQ + kBlockQB * LD;
+  T* sQc = sDO + kBlockQB * LD;    // Q[:, this CTA's chunk], the B operand of dS^T Q
+  T* sDOc = sQc + kBlockQB * LDC;  // dO[:, this CTA's chunk], the B operand of P^T dO
+  float* sLse = reinterpret_cast<float*>(sDOc + kBlockQB * LDC);
+  float* sDelta = sLse + kBlockQB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kBlockK;
+  const int c0 = blockIdx.z * DC;
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int key0 = k0 + warp * 16 + (lane >> 2);
+  const int n_c = (p.dh + CH - 1) / CH;
+
+  float dk[DC / 8][4], dv[DC / 8][4];
+  clear(dk);
+  clear(dv);
+  const int n_q = (p.Lq + kBlockQB - 1) / kBlockQB;
+  for (int qt = first_q_tile_needed(p, k0, kBlockQB); qt < n_q; ++qt) {
+    const int q0 = qt * kBlockQB;
+    // S^T = K Q^T and dP^T = V dO^T, chunk after chunk of dh: rows are this
+    // warp's keys, columns the tile's queries
+    float st[kBlockQB / 8][4], dpt[kBlockQB / 8][4];
+    clear(st);
+    clear(dpt);
+    for (int c = 0; c < n_c; ++c) {
+      __syncthreads();
+      load_chunk<T, CH, CH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
+      load_chunk<T, CH, CH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, c * CH, p);
+      load_chunk<T, CH, CH, kBlockQB>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
+      load_chunk<T, CH, CH, kBlockQB>(sDO, DO, p.do_sl, q0, p.Lq, c * CH, p);
+      if (c == 0) {
+        load_chunk<T, DC, DC, kBlockQB>(sQc, Q, p.q_sl, q0, p.Lq, c0, p);
+        load_chunk<T, DC, DC, kBlockQB>(sDOc, DO, p.do_sl, q0, p.Lq, c0, p);
+        if (threadIdx.x < kBlockQB) {
+          const int row = q0 + threadIdx.x;
+          sLse[threadIdx.x] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
+          sDelta[threadIdx.x] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
+        }
+      }
+      __syncthreads();
+      gemm_abt_add<T, CH, kBlockQB>(st, sK, warp * 16, sQ);
+      gemm_abt_add<T, CH, kBlockQB>(dpt, sV, warp * 16, sDO);
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockQB / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = j * 8 + 2 * t + (i & 1);
+        st[j][i] = weight(masked(st[j][i] * p.scale, q0 + col, key0 + 8 * (i >> 1), p), sLse[col]);
+      }
+    gemm_pb<T, DC, DC, kBlockQB>(dv, st, sDOc);  // dV += P^T dO[:, chunk]
+#pragma unroll
+    for (int j = 0; j < kBlockQB / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] *= dpt[j][i] - sDelta[j * 8 + 2 * t + (i & 1)];  // dS^T
+    gemm_pb<T, DC, DC, kBlockQB>(dk, st, sQc);  // dK += dS^T Q[:, chunk]
   }
   store_rows<T, DC>(static_cast<T*>(p.dk), dk, b, h, k0 + warp * 16, p.Lk, p, c0, p.scale);
   store_rows<T, DC>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p, c0, 1.f);
@@ -1182,23 +1472,63 @@ int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
   return launch(flash_dkdv_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
 }
 
-// Which design and instance run each (dtype, head width): the next built
-// width of 32, 64, 128 and 256 at or above dh; bfloat16 rows of whole
-// 16-byte groups (dh % 8 == 0) at 64 and 128 take the Hopper design, every
-// other width the mma.sync design. ops/attention.py restates this as
-// kernel_width and KERNEL_DESIGNS; the CPU tests pin the two together.
+// The wide instance, all three passes: (b*h, tile, column chunk) grids as
+// in run_mma, every chunk of the true width its own CTA.
+template <typename T>
+int run_wide(int which, const Params& p, int BH, cudaStream_t stream) {
+  constexpr int CH = WideChunk<T>::value;
+  constexpr size_t row = (CH + kPad) * sizeof(T), out_row = (kWideBwdCols + kPad) * sizeof(T);
+  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ, n_k = (p.Lk + kBlockK - 1) / kBlockK;
+  if (n_q > 65535 || n_k > 65535) return (int)cudaErrorInvalidValue;
+  switch (which) {
+    case 0:
+      return launch(flash_fwd_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
+                    (kBlockQ + 2 * kBlockK) * row, p, stream);
+    case 1:
+      return launch(flash_dq_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
+                    (2 * kBlockQ + 3 * kWideDqKeys) * row, p, stream);
+    case 2:
+      return launch(flash_dkdv_wide_kernel<T>, dim3(BH, n_k, (p.dh + kWideBwdCols - 1) / kWideBwdCols),
+                    kThreads,
+                    (2 * kBlockK + 2 * kBlockQB) * row + 2 * kBlockQB * out_row + 2 * kBlockQB * sizeof(float),
+                    p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Whether the views fit the Hopper design's tensor maps: every row whole
+// 16-byte groups at 16-byte aligned addresses (p.vec), and every byte
+// stride below 2^40, the largest cuTensorMapEncodeTiled takes.
+bool tma_fits(const Params& p) {
+  const long long strides[12] = {p.q_sb, p.q_sl, p.q_sh, p.k_sb, p.k_sl, p.k_sh,
+                                 p.v_sb, p.v_sl, p.v_sh, p.do_sb, p.do_sl, p.do_sh};
+  for (long long s : strides)
+    if (s * 2 >= (1LL << 40)) return false;
+  return p.vec != 0;
+}
+
+// Which design and instance run each (dtype, head width) and view: the next
+// built width of 32, 64, 128 and 256 at or above dh, and the wide instance
+// past 256; bfloat16 rows of whole 16-byte groups (dh % 8 == 0) at 64 and
+// 128 take the Hopper design where the views fit its tensor maps
+// (tma_fits), every other width and view the mma.sync design at the same
+// width. ops/attention.py restates this as kernel_width, KERNEL_DESIGNS
+// and kernel_design; the CPU tests pin them together.
 int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t stream) {
   const int BH = B * p.H;
+  const bool tma = tma_fits(p);
   if (dtype == 1) {
     if (dh <= 32) return run_mma<bf16, 32>(which, p, BH, stream);
-    if (dh <= 64) return dh % 8 == 0 ? run_sm90<64>(which, p, B, stream) : run_mma<bf16, 64>(which, p, BH, stream);
-    if (dh <= 128) return dh % 8 == 0 ? run_sm90<128>(which, p, B, stream) : run_mma<bf16, 128>(which, p, BH, stream);
+    if (dh <= 64) return dh % 8 == 0 && tma ? run_sm90<64>(which, p, B, stream) : run_mma<bf16, 64>(which, p, BH, stream);
+    if (dh <= 128) return dh % 8 == 0 && tma ? run_sm90<128>(which, p, B, stream) : run_mma<bf16, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<bf16, 256>(which, p, BH, stream);
+    return run_wide<bf16>(which, p, BH, stream);
   } else if (dtype == 0) {
     if (dh <= 32) return run_mma<float, 32>(which, p, BH, stream);
     if (dh <= 64) return run_mma<float, 64>(which, p, BH, stream);
     if (dh <= 128) return run_mma<float, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<float, 256>(which, p, BH, stream);
+    return run_wide<float>(which, p, BH, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -18,16 +18,18 @@ Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
                            JAX package's ``_flash_diff`` custom VJP).
 - ``attention``            the entry point the transformer calls.
 
-The kernels take any head width from 1 to ``MAX_HEAD_DIM`` (256) in float32
-or bfloat16, and any B * H: ``kernel_width`` gives the built width a head
-width runs at, ``KERNEL_DESIGNS`` which of the two CUDA designs runs a
-(dtype, head width); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate
-on the host what the Hopper design's loops visit and which TMA tensor map
-it encodes.
+The kernels take any head width from 1 up in float32 or bfloat16, and any
+B * H: ``kernel_width`` gives the built width a head width runs at (the
+wide instance past 256), ``KERNEL_DESIGNS`` which of the two CUDA designs
+runs a (dtype, head width), and ``kernel_design`` which one runs a call's
+views (a Hopper width whose views the tensor maps cannot take runs
+mma.sync); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate on the
+host what the Hopper design's loops visit and which TMA tensor map it
+encodes.
 
-A CUDA tensor the kernels cannot take (dtype, a head width past 256,
-layout) raises; nothing falls back to the plain version. Every kernel
-launch counts in :data:`launches`.
+A CUDA tensor the kernels cannot take (dtype, layout) raises; nothing falls
+back to the plain version. Every kernel launch counts in :data:`launches`,
+and by design in :data:`design_launches`.
 """
 
 from __future__ import annotations
@@ -44,19 +46,23 @@ NEG_INF = -1e30
 
 #: kernel launches by name (CUDA tensors only)
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
+#: the same launches by the design that ran them (``kernel_design``)
+design_launches = {"sm90": 0, "mma": 0}
 
-#: the widest head the kernels take; a wider one raises
-MAX_HEAD_DIM = 256
 #: the widths instances are built at; a head width with none of its own runs
 #: the next of them, zero-padded in shared memory (``kernel_width``)
 KERNEL_WIDTHS = (32, 64, 128, 256)
+#: the instance every head width past 256 runs: its tiles hold one column
+#: chunk of a row (64 float32, 128 bf16) and it loops over the width
+WIDE = "wide"
 
 
-def kernel_width(dh: int) -> int:
-    """The built width a head width runs at: the next of KERNEL_WIDTHS."""
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head width {dh} is outside 1..{MAX_HEAD_DIM}")
-    return next(w for w in KERNEL_WIDTHS if w >= dh)
+def kernel_width(dh: int):
+    """The built width a head width runs at: the next of KERNEL_WIDTHS, or
+    WIDE past 256."""
+    if dh < 1:
+        raise ValueError(f"head width {dh} is below 1")
+    return next((w for w in KERNEL_WIDTHS if w >= dh), WIDE)
 
 
 def _design(dtype: torch.dtype, dh: int) -> str:
@@ -68,12 +74,42 @@ def _design(dtype: torch.dtype, dh: int) -> str:
 
 
 #: which design runs all three passes (forward, dQ, dK/dV) for each (dtype,
-#: head width), as ``run_dtype`` in csrc/flash_attention.cu dispatches:
-#: "sm90" (TMA ring, warp-specialised wgmma) or "mma" (mma.sync,
-#: synchronous copies, column chunks)
+#: head width) on views that are whole 16-byte groups, as ``run_dtype`` in
+#: csrc/flash_attention.cu dispatches: "sm90" (TMA ring, warp-specialised
+#: wgmma) or "mma" (mma.sync, synchronous copies, column chunks). Listed to
+#: 512: every width past 256 runs the wide instance as 257..512 do.
 KERNEL_DESIGNS = {(dtype, dh): _design(dtype, dh)
                   for dtype in (torch.bfloat16, torch.float32)
-                  for dh in range(1, MAX_HEAD_DIM + 1)}
+                  for dh in range(1, 2 * KERNEL_WIDTHS[-1] + 1)}
+
+
+def _rows_of_16(t: torch.Tensor) -> bool:
+    """rows_of_16 in csrc/flash_attention.cu: the base, the three outer
+    strides and the width of a [B, L, H, Dh] view are whole 16-byte groups."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * size % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+
+
+def kernel_design(*views: torch.Tensor) -> str:
+    """The design a call on these views runs, as ``run_dtype`` picks it:
+    ``KERNEL_DESIGNS``' design for (dtype, head width), except that a Hopper
+    width runs mma.sync at the same width where any view's rows are not
+    whole 16-byte groups at 16-byte aligned addresses or a TMA tensor map
+    would refuse it (``tensor_map_geometry``). The views are q, k, v and,
+    for the backward passes, dout."""
+    design = _design(views[0].dtype, views[0].shape[-1])
+    if design == "sm90":
+        for t in views:
+            if not _rows_of_16(t):
+                return "mma"
+            try:
+                tensor_map_geometry(t)
+            except ValueError:
+                return "mma"
+    return design
+
+
 #: tiles of the sm90 design: forward and dQ (query rows a CTA, keys a
 #: tile), dK/dV (keys a CTA, query rows a tile); each CTA's two consumer
 #: warpgroups take half of its rows (keys) each
@@ -236,11 +272,11 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, delta, causal: bool = Fals
 
 
 def _check_kernel_inputs(fn: str, named) -> torch.dtype:
-    """Raise unless every tensor is one the kernels take: CUDA, one dtype of
-    float32/bfloat16, [B, L, H, Dh] with 1 <= Dh <= MAX_HEAD_DIM and unit
-    stride on Dh; where the Hopper design runs (``KERNEL_DESIGNS``), rows
-    16-byte aligned and strides a TMA tensor map takes. The mma.sync design
-    reads any such rows (16 bytes at a time where they allow it)."""
+    """Raise unless every tensor is one the kernels take: one dtype of
+    float32/bfloat16, on one device, [B, L, H, Dh] with Dh >= 1 and unit
+    stride on Dh. Any such view runs: where the Hopper design cannot take it
+    (``kernel_design``), mma.sync reads its rows (16 bytes at a time where
+    they allow it)."""
     dtype = named[0][1].dtype
     device = named[0][1].device
     if dtype not in _DTYPE_CODES:
@@ -252,22 +288,10 @@ def _check_kernel_inputs(fn: str, named) -> torch.dtype:
             raise ValueError(f"{fn}: {name} is {t.dtype}, q is {dtype}")
         if t.dim() != 4:
             raise ValueError(f"{fn}: {name} must be [B, L, H, Dh], got {tuple(t.shape)}")
-        dh = t.shape[-1]
-        if not 1 <= dh <= MAX_HEAD_DIM:
-            raise ValueError(f"{fn}: head width {dh} is outside 1..{MAX_HEAD_DIM}: the "
-                             f"kernels tile at most {MAX_HEAD_DIM} columns")
+        if t.shape[-1] < 1:
+            raise ValueError(f"{fn}: head width {t.shape[-1]} of {name} is below 1")
         if t.stride(-1) != 1:
             raise ValueError(f"{fn}: {name} needs unit stride on Dh (strides {t.stride()})")
-        if KERNEL_DESIGNS[(dtype, dh)] == "sm90":
-            align = 16 // t.element_size()
-            if any(s % align for s in t.stride()[:3]) or t.data_ptr() % 16:
-                raise ValueError(
-                    f"{fn}: {name} needs 16-byte aligned rows for the Hopper design's "
-                    f"tensor maps (strides {t.stride()})")
-            try:
-                tensor_map_geometry(t)
-            except ValueError as err:
-                raise ValueError(f"{fn}: {name}: {err}") from None
     return dtype
 
 
@@ -354,6 +378,7 @@ def _launch(which, dtype, q, k, v, causal, q_offset, kv_offset, dout=None,
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel {which} launch failed: CUDA error {rc}")
+    design_launches[kernel_design(q, k, v, *(() if dout is None else (dout,)))] += 1
 
 
 def _check_device(fn: str, q: torch.Tensor) -> bool:

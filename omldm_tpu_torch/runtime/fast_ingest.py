@@ -134,6 +134,22 @@ class PackedBatcher:
             np.asarray(rows_op, np.uint8),
         )
 
+    def parse_rows(
+        self, buf, start: int = 0, stop: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Parse ``buf[start:stop]`` (whole JSON lines) to kept
+        (x[n, dim], y[n], op[n]) rows WITHOUT the batch accumulator -- the
+        block entry point for callers that do their own batching (the
+        sharded ingest workers, which hand whole-chunk row blocks to the
+        driver's rings in stream order)."""
+        if stop is None:
+            stop = len(buf)
+        if self.parser is None:
+            return self._parse_block_python(bytes(buf[start:stop]))
+        blocks["native"] += 1
+        parsed = self.parser.parse_range(buf, start, stop)
+        return self._postprocess(parsed, lambda: bytes(buf[start:stop]))
+
     def feed_buffer(self, buf: bytearray, start: int, stop: int) -> Iterator[Batch]:
         """Zero-copy variant of :meth:`feed`: parse ``buf[start:stop]``
         (whole JSON lines) straight out of the caller's reusable read

@@ -1,5 +1,7 @@
 """Ingest sources: file replay and in-memory streams (the port's copy of
-the JAX package's ``runtime/ingest.py``, without the sharded ingest plane).
+the JAX package's ``runtime/ingest.py``, without ``sharded_packed_events``,
+which nothing calls: the sharded ingest plane's driver loop is
+``StreamJob.run_file_sharded``).
 
 Reference counterpart: the Kafka sources of Job.scala:42-67,127-142 with
 ``SimpleStringSchema`` JSON lines; the ``"EOS"`` marker

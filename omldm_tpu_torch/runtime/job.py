@@ -15,6 +15,13 @@ learner the engine hosts, on an ``SPMDBridge`` (``runtime.spmd_bridge``),
 which sees every record. A job whose one pipeline is on that engine can
 take a training file through the fused C ingest (``run_file_fused``).
 
+The sharded ingest plane (``JobConfig.ingest``, ``runtime.ingest_shard``)
+stripes a training file across parser processes and replays their row
+blocks in file order through the packed route (``run_file_sharded``; with
+``device=on`` the SPMD bridges keep their stage and holdout ring on the
+device). ``run_file`` takes that route when the plane is armed, else the
+fused one.
+
 With cohorts armed (``JobConfig.cohort``), each event is processed inside
 the hubs' gang-averaging window (``runtime.cohort.GangAverager``), so the
 Synchronous rounds of a cohort's pipelines that complete on one event
@@ -65,8 +72,7 @@ rows), read host values only, and unarmed leave no object behind.
 
 Every pipeline's state lives on the job's ``torch.device``: CUDA unless the
 caller asks for the CPU. There is no fallback -- a job asked for CUDA on a
-host without a card raises. A ``JobConfig`` that arms a plane the port does
-not have yet (``ingest``) raises ``NotImplementedError`` naming it.
+host without a card raises.
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ from omldm_tpu_torch.runtime.cohort import resolve_cohort_shards
 from omldm_tpu_torch.runtime.control import PipelineManager
 from omldm_tpu_torch.runtime.deadletter import DeadLetterSink
 from omldm_tpu_torch.runtime.events import (
+    DEGRADE,
     RESCALE,
     TERMINATE,
     FlightRecorder,
@@ -99,9 +106,11 @@ from omldm_tpu_torch.runtime.events import (
     parse_events_spec,
 )
 from omldm_tpu_torch.runtime.hub import HubManager
+from omldm_tpu_torch.runtime.ingest_shard import IngestConfig, ShardedIngest, parse_ingest_spec
 from omldm_tpu_torch.runtime.lifecycle import lifecycle_config, parse_lifecycle_spec
 from omldm_tpu_torch.runtime.messages import channel_chaos_spec
 from omldm_tpu_torch.runtime.overload import parse_overload_spec
+from omldm_tpu_torch.runtime.prefetch import Prefetcher
 from omldm_tpu_torch.runtime.responses import ResponseMerger
 from omldm_tpu_torch.runtime.serving import parse_serving_spec
 from omldm_tpu_torch.runtime.spmd_bridge import (
@@ -142,11 +151,6 @@ PRE_CREATE_BACKLOG_CAP = 100_000
 TOGGLE_FRAMES_PER_NET = 64
 
 
-def unported_job_options(config: JobConfig) -> List[str]:
-    """The JobConfig options that arm a plane the port does not have yet."""
-    return [name for name in ("ingest",) if getattr(config, name)]
-
-
 class StreamJob:
     def __init__(
         self,
@@ -157,12 +161,6 @@ class StreamJob:
         device=None,
     ):
         self.config = config or JobConfig()
-        missing = unported_job_options(self.config)
-        if missing:
-            raise NotImplementedError(
-                "omldm_tpu_torch does not port these JobConfig options yet: "
-                + ", ".join(missing)
-            )
         # fail fast on a malformed job-wide serving default (a per-pipeline
         # serving table is checked at the control gate and drops only its
         # own request)
@@ -170,6 +168,12 @@ class StreamJob:
         # ... and on malformed job-wide overload and lifecycle defaults
         parse_overload_spec(self.config.overload)
         parse_lifecycle_spec(self.config.lifecycle)
+        # the ingest plane, armed by the job-wide spec (a malformed one
+        # fails here). Unarmed, no ingest object exists and run_file takes
+        # the fused route
+        self.ingest_cfg: Optional[IngestConfig] = parse_ingest_spec(self.config.ingest)
+        # the last sharded run's worker and driver accounting
+        self._ingest_stats: Optional[dict] = None
         # the telemetry plane and the flight recorder: armed by a job-wide
         # spec after the spokes exist (a malformed one fails here), or
         # lazily by the first pipeline whose table arms them (_deploy).
@@ -1147,6 +1151,83 @@ class StreamJob:
             bridge.ingest_file_overlapped(path, on_chunk=self.stats.mark_activity)
         else:
             bridge.ingest_file(path, on_chunk=self.stats.mark_activity)
+        return True
+
+    def run_file(self, path: str, dim: Optional[int] = None, hash_dims: int = 0) -> bool:
+        """The file router: the sharded ingest plane when ``JobConfig.ingest``
+        is armed, else the fused C route. False when no route qualifies:
+        callers fall back to the packed or per-record event loops."""
+        if self.ingest_cfg is not None:
+            return self.run_file_sharded(path, dim=dim, hash_dims=hash_dims)
+        return self.run_file_fused(path)
+
+    def run_file_sharded(self, path: str, dim: Optional[int] = None, hash_dims: int = 0) -> bool:
+        """Consume a JSON-lines training file through the sharded ingest
+        plane: N parser processes stripe the file's byte-grid chunks and
+        hand row blocks back through shared-memory rings; the driver
+        replays them in ascending chunk order through
+        ``process_packed_batch``, so the row order -- and every fitted,
+        holdout and prediction sequence -- is bit-identical to ingest in
+        one process. With ``device=on``, the SPMD bridges that can keep
+        their stage and holdout ring on the device do so.
+
+        A dead or wedged parser degrades to in-process parsing from the
+        wounded chunk on (reason-coded with the selfheal class, and
+        journalled as a DEGRADE when the flight recorder is armed) instead
+        of wedging the driver. While the run is live, the driver's
+        starvation and the prefetch ring's emptiness feed every armed
+        overload controller as ``extra_signals`` probes."""
+        if self.ingest_cfg is None:
+            return False
+        if dim is None:
+            if not self._dims:
+                return False
+            dim = next(iter(self._dims.values()))
+        self.ensure_deployed(dim)
+        if self.ingest_cfg.device:
+            for bridge in self.spmd_bridges.values():
+                bridge.enable_resident_ingest()  # a bridge it cannot serve stays on the host
+
+        def on_degrade(info: dict) -> None:
+            if self.events is not None:
+                self.events.journal.record(
+                    DEGRADE, f"ingest_worker_{info['class']}", worker=info["worker"],
+                    returncode=info["returncode"], chunk=info["chunk"],
+                )
+
+        si = ShardedIngest(path, dim, self.ingest_cfg, hash_dims=hash_dims,
+                           on_degrade=on_degrade)
+        pf = Prefetcher(si.blocks(), depth=2)
+        probes = {
+            "ingest_starvation": lambda: (si.starvation(), 0.5, 0.9),
+            "ingest_prefetch": pf.as_signal(),
+        }
+        for name, fn in probes.items():
+            for spoke in self.spokes:
+                spoke.attach_ingest_probe(name, fn)
+        try:
+            for x, y, op in pf:
+                self.process_packed_batch(x, y, op)
+        finally:
+            pf.close()
+            si.close()
+            for name in probes:
+                for spoke in self.spokes:
+                    spoke.detach_ingest_probe(name)
+            st = si.stats()
+            st["starvation"] = si.starvation()
+            if si.degraded is not None:
+                st["degraded"] = dict(si.degraded)
+            self._ingest_stats = st
+            # the phase table: the shards' parse seconds into "parse" (summed
+            # across the worker processes: on a host of many cores they
+            # overlap in wall time) and the driver's ring wait into "read"
+            tel = self.telemetry
+            if tel is not None and tel.phases is not None:
+                if st["parse_s"] > 0:
+                    tel.phases.note("parse", st["parse_s"])
+                if st["driver_wait_s"] > 0:
+                    tel.phases.note("read", st["driver_wait_s"])
         return True
 
     # --- run loop ---

@@ -9,11 +9,14 @@ throws and Flink restarts the whole job with a fixed-delay strategy
 - :func:`classify_exception` -- the failure taxonomy: ``crash`` (a failure
   after the attempt had made progress), ``hang`` (a timeout shape) and
   ``launch`` (an attempt that failed before processing a single event).
+- :func:`classify_failure` -- the same taxonomy for a process, from its exit
+  code and heartbeat (the sharded ingest plane's parser workers,
+  ``runtime.ingest_shard``), with ``HANG_EXIT``, the exit code a wedged
+  slot's watchdog uses.
 - :class:`RestartPolicy` -- exponential backoff (Flink's fixed delay is
   ``growth=1``) with deterministic, seeded jitter.
 
-The fleet's half of the JAX module -- ``classify_failure`` and its
-``HANG_EXIT`` code (a worker process's exit status), ``SelfHealPolicy``
+The rest of the fleet's half of the JAX module -- ``SelfHealPolicy``
 (slot strikes, shrink-to-survivors, probed re-expansion), ``HangWatchdog``,
 ``kill_escalate`` and ``sigstop_self`` -- waits for the multi-process
 fleet (ROADMAP queue 1, item 4), which is their only caller.
@@ -32,6 +35,27 @@ from omldm_tpu_torch.utils.backoff import BackoffPolicy, seeded_rng
 CRASH = "crash"    # a failure after the attempt had proven itself alive
 HANG = "hang"      # heartbeat silence / wedged in a collective
 LAUNCH = "launch"  # died without ever making progress: never came up
+
+# exit code a worker's hang watchdog uses: "my peer is dead or wedged; I am
+# exiting instead of blocking in this collective forever". Distinct from
+# RESCALE_EXIT (17) and the fault injector's crash code (3), so a
+# supervisor blames the WEDGED slot, not the honest survivor.
+HANG_EXIT = 19
+
+
+def classify_failure(
+    returncode: Optional[int] = None,
+    heartbeat_silent: bool = False,
+    ever_beat: Optional[bool] = None,
+) -> str:
+    """One failed process's failure class. ``ever_beat`` is None when the
+    heartbeat channel is unarmed (launch failures are then
+    indistinguishable from crashes and classify as ``crash``)."""
+    if heartbeat_silent or returncode == HANG_EXIT:
+        return HANG
+    if ever_beat is False:
+        return LAUNCH
+    return CRASH
 
 
 def classify_exception(exc: BaseException, progressed: bool = True) -> str:

@@ -25,8 +25,15 @@ again once the dispatch thread's launch call returns.
 
 A job checkpoint (``omldm_tpu_torch.checkpoint``) takes a bridge's holdout
 and staged rows through ``snapshot_buffers`` and puts them back with
-``restore_buffers``. Not ported here: the device-resident stage and
-holdout of the sharded ingest plane (``_ResidentIngest``).
+``restore_buffers``.
+
+With the sharded ingest plane's ``device=on`` (``JobConfig.ingest``,
+``runtime.ingest_shard``), ``enable_resident_ingest`` moves a dense
+bridge's stage and holdout ring onto its device (``_ResidentIngest``): the
+host computes each block's holdout and stage indices, and the rows move by
+gathers and scatters on the device; a full stage trains from the resident
+tensors as they lie. ``SparseSPMDBridge`` stays on the host route, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from omldm_tpu_torch.api.data import FORECASTING, DataInstance, Prediction
 from omldm_tpu_torch.api.requests import Request
@@ -57,6 +65,189 @@ from omldm_tpu_torch.utils import resolve_device
 # flush remainders pad to this sub-batch instead of a full dp*B group
 # (a 1-row tail no longer ships half a megabyte of zeros)
 TAIL_BATCH = 256
+
+
+def _resident_seg_rows(hold_cap: int, test_enabled: bool) -> int:
+    """Segment width of the resident scatter. Destinations must be distinct
+    within one segment (where two lanes wrote one row, which write lands
+    would be the device's choice), so a segment may not carry more test
+    rows than the holdout ring holds; the worst case over cycle phases for
+    a window of m rows is 2*(m//10) + min(m%10, 2)."""
+    if not test_enabled:
+        return 4096
+    m = 5 * hold_cap
+    while m > 1 and (2 * (m // 10) + min(m % 10, 2)) > hold_cap:
+        m -= 1
+    return max(m, 1)
+
+
+class _ResidentIngest:
+    """Device-resident stage and holdout ring for :class:`SPMDBridge`.
+
+    When armed (``JobConfig.ingest`` with ``device=on``), the stage and the
+    holdout ring live as tensors on the bridge's device; the host computes
+    only each segment's O(n) index arithmetic (the exact ``_train_rows``
+    and ``ArrayHoldout.append_many`` rules; the counters stay on the host),
+    and one gather/scatter sequence on the device moves the rows. A full
+    stage launches ``step_many_dense`` on the resident stage's
+    [chain, dp, B, dim] view: no staging copy on the host, no holdout
+    filtering there. Partial drains (flush, snapshot) go back through the
+    bridge's host path, so the fitted and holdout row order stays
+    bit-identical to the route without residency.
+
+    Each segment is padded to ``seg`` lanes, whose unused lanes write to
+    one spare row past the stage (row ``cap``) and past the ring (row
+    ``H``) -- the rows JAX's ``mode="drop"`` scatter discards; only views of
+    the first ``cap`` and ``H`` rows are ever read. Every other destination
+    of a segment is distinct, so what the visible rows hold does not depend
+    on the order the device writes in."""
+
+    def __init__(self, bridge: "SPMDBridge"):
+        self.bridge = bridge
+        ts = bridge.test_set
+        self.seg = _resident_seg_rows(ts.max_size, bool(bridge.config.test))
+        dev = bridge.trainer.device
+        cap, dim = bridge._stage_cap, bridge.dim
+        self._sx = torch.zeros((cap + 1, dim), dtype=torch.float32, device=dev)
+        self._sy = torch.zeros((cap + 1,), dtype=torch.float32, device=dev)
+        self._hx = torch.zeros((ts.max_size + 1, dim), dtype=torch.float32, device=dev)
+        self._hy = torch.zeros((ts.max_size + 1,), dtype=torch.float32, device=dev)
+        self.push_from_host()
+
+    # --- hot path ---
+
+    def absorb(self, x: np.ndarray, y: np.ndarray) -> None:
+        """Resident twin of ``_train_rows`` + ``_stage_rows``: the same
+        holdout cycle, eviction order and stage fill order, with the rows
+        moved on the device."""
+        br = self.bridge
+        ts = br.test_set
+        n = x.shape[0]
+        cap, H, seg = br._stage_cap, ts.max_size, self.seg
+        i = 0
+        while i < n:
+            m = min(seg, n - i)
+            if br.config.test:
+                c = (br.holdout_count + np.arange(m)) % 10
+                test_mask = c >= 8
+                # a test row emits a train row only once the ring is full at
+                # its turn (it evicts the oldest holdout point)
+                free = H - ts._n
+                emits = np.where(test_mask, np.cumsum(test_mask) > free, True)
+            else:
+                test_mask = np.zeros(m, bool)
+                emits = np.ones(m, bool)
+            train_cum = np.cumsum(emits)
+            room = cap - br._stage_n
+            if train_cum.size and train_cum[-1] > room:
+                # split where the stage fills exactly; trailing rows that emit
+                # nothing may ride along (harmless), emitters may not
+                m = int(np.searchsorted(train_cum, room, side="right"))
+                test_mask = test_mask[:m]
+            t_idx = np.nonzero(test_mask)[0]
+            keep_idx = np.nonzero(~test_mask)[0]
+            fill = min(H - ts._n, t_idx.size)
+            k2 = t_idx.size - fill
+            head = ts._head
+            # evicted points re-enter training at the evicting row's slot:
+            # the same stable order as _train_rows' argsort re-merge
+            pos = np.concatenate([keep_idx, t_idx[fill:]])
+            rank = np.empty(pos.size, np.int64)
+            rank[np.argsort(pos, kind="stable")] = np.arange(pos.size)
+            base = br._stage_n
+            # one upload of the segment's index lanes: ev_slot, ev_dst,
+            # keep_src, keep_dst, hold_dst (spare rows: cap, cap, H)
+            lanes = np.zeros((5, seg), np.int64)
+            ev_slot, ev_dst, keep_src, keep_dst, hold_dst = lanes
+            ev_dst[:] = keep_dst[:] = cap
+            hold_dst[:] = H
+            hold_dst[t_idx[:fill]] = (head + ts._n + np.arange(fill)) % H
+            hold_dst[t_idx[fill:]] = ev_slot[:k2] = (head + np.arange(k2)) % H
+            ev_dst[:k2] = base + rank[keep_idx.size:]
+            keep_src[: keep_idx.size] = keep_idx
+            keep_dst[: keep_idx.size] = base + rank[: keep_idx.size]
+            rows = np.zeros((seg, br.dim + 1), np.float32)
+            rows[:m, :-1] = x[i : i + m]
+            rows[:m, -1] = y[i : i + m]
+            self._scatter(torch.from_numpy(lanes), torch.from_numpy(rows))
+            ts._n += fill
+            ts._head = (head + k2) % H
+            br.holdout_count += m
+            br._stage_n = base + pos.size
+            if br._stage_n >= cap:
+                self._launch_full()
+            i += m
+
+    def _scatter(self, lanes: torch.Tensor, rows: torch.Tensor) -> None:
+        """One segment on the device: gather the holdout rows the segment
+        evicts (before their slots are overwritten), put them and the kept
+        rows into the stage at their stream-order ranks, and put the
+        segment's rows into their ring slots (test rows; the rest into the
+        spare row)."""
+        dev = self._sx.device
+        ev_slot, ev_dst, keep_src, keep_dst, hold_dst = lanes.to(dev)
+        rows = rows.to(dev)
+        bx, by = rows[:, :-1], rows[:, -1]
+        self._sx.index_copy_(0, ev_dst, self._hx.index_select(0, ev_slot))
+        self._sy.index_copy_(0, ev_dst, self._hy.index_select(0, ev_slot))
+        self._sx.index_copy_(0, keep_dst, bx.index_select(0, keep_src))
+        self._sy.index_copy_(0, keep_dst, by.index_select(0, keep_src))
+        self._hx.index_copy_(0, hold_dst, bx)
+        self._hy.index_copy_(0, hold_dst, by)
+
+    def _launch_full(self) -> None:
+        br = self.bridge
+        b, cap = br.config.batch_size, br._stage_cap
+        br.trainer.step_many_dense(self._sx[:cap].view(br.chain, br.dp, b, br.dim),
+                                   self._sy[:cap].view(br.chain, br.dp, b))
+        br._stage_n = 0
+
+    # --- drains and syncs (the rare paths go through the host route) ---
+
+    def drain_to_host(self) -> None:
+        """Launch a partial stage through the bridge's host tail path (whole
+        [dp, B] groups, then the padded TAIL_BATCH remainder), so partial
+        launches are bit-identical to the route without residency."""
+        br = self.bridge
+        n = br._stage_n
+        br._stage_n = 0
+        if n:
+            br._launch((self._sx[:n].cpu().numpy(), self._sy[:n].cpu().numpy()), n)
+
+    def sync_host(self) -> None:
+        """Copy the resident ring and stage back into the host mirrors
+        (checkpoint snapshots read them)."""
+        br = self.bridge
+        ts = br.test_set
+        H, n = ts.max_size, br._stage_n
+        ts._x[...] = self._hx[:H].cpu().numpy()
+        ts._y[...] = self._hy[:H].cpu().numpy()
+        x, y = br._stage.cols
+        x[:n] = self._sx[:n].cpu().numpy()
+        y[:n] = self._sy[:n].cpu().numpy()
+
+    def push_from_host(self) -> None:
+        """Upload the host mirrors (a checkpoint restore writes them)."""
+        br = self.bridge
+        H, cap = br.test_set.max_size, br._stage_cap
+        x, y = br._stage.cols
+        self._hx[:H] = torch.from_numpy(br.test_set._x)
+        self._hy[:H] = torch.from_numpy(br.test_set._y)
+        self._sx[:cap] = torch.from_numpy(np.asarray(x, np.float32))
+        self._sy[:cap] = torch.from_numpy(np.asarray(y, np.float32))
+
+    def eval_arrays(self):
+        """The holdout eval's inputs straight from the resident ring: the
+        same oldest-first order and zero padding as ``ArrayHoldout.arrays``
+        and the host's pad, with no round trip through the host."""
+        ts = self.bridge.test_set
+        H = ts.max_size
+        dev = self._hx.device
+        idx = torch.from_numpy((ts._head + np.arange(H)) % H).to(dev)
+        mask = torch.from_numpy((np.arange(H) < ts._n).astype(np.float32)).to(dev)
+        xs = torch.where(mask[:, None] > 0, self._hx.index_select(0, idx), 0.0)
+        ys = torch.where(mask > 0, self._hy.index_select(0, idx), 0.0)
+        return xs, ys, mask
 
 
 def spmd_engine_requested(request: Request) -> bool:
@@ -262,6 +453,8 @@ class SPMDBridge:
         self._stage_n = 0
         # the ordered dispatch queue while a double-buffered route runs
         self._dispatch: Optional[_OverlapDispatcher] = None
+        # armed by enable_resident_ingest() (JobConfig.ingest device=on)
+        self._resident: Optional[_ResidentIngest] = None
 
     # --- what a row is (the sparse bridge overrides these) ---
 
@@ -349,6 +542,9 @@ class SPMDBridge:
         n = cols[0].shape[0]
         if n == 0:
             return
+        if self._resident is not None:
+            self._resident.absorb(*cols)
+            return
         if self.config.test:
             cycle = (self.holdout_count + np.arange(n)) % 10
             self.holdout_count += n
@@ -388,7 +584,12 @@ class SPMDBridge:
     def _train_staged(self) -> None:
         """Launch the staged rows. While a double-buffered route runs, the
         set goes to the dispatch thread instead and staging goes on in a
-        free set from the pool."""
+        free set from the pool. With the resident stage armed, a partial
+        stage drains through the host path (a full one launched on the
+        device when it filled)."""
+        if self._resident is not None:
+            self._resident.drain_to_host()
+            return
         n = self._stage_n
         self._stage_n = 0
         if n == 0:
@@ -489,6 +690,8 @@ class SPMDBridge:
 
     def snapshot_buffers(self) -> dict:
         """Holdout and staged rows for a job checkpoint."""
+        if self._resident is not None:
+            self._resident.sync_host()
         test_x, test_y = self.test_set.arrays()
         x, y = self._stage.cols
         return {
@@ -499,6 +702,16 @@ class SPMDBridge:
         }
 
     def restore_buffers(self, bd: dict) -> None:
+        if self._resident is not None:
+            # restore on the host mirrors (the rare path), then upload them
+            res, self._resident = self._resident, None
+            res.sync_host()
+            try:
+                self.restore_buffers(bd)
+            finally:
+                self._resident = res
+                res.push_from_host()
+            return
         if bd["test_x"].shape[0]:
             self.test_set.append_many(bd["test_x"], bd["test_y"])
         if bd["stage_x"].shape[0]:
@@ -509,8 +722,32 @@ class SPMDBridge:
     def supports_fused_ingest(self) -> bool:
         """The fused C loop writes float32 rows straight into the staging
         buffers; fp16 feeds and missing-toolchain hosts use the packed
-        numpy route instead."""
-        return self.feed_dtype == np.float32 and fast_parser_available()
+        numpy route instead. A resident stage lives on the device, where the
+        C loop cannot write: the packed route (``_train_rows``, and thereby
+        the resident scatter) carries those jobs."""
+        return (self.feed_dtype == np.float32 and self._resident is None
+                and fast_parser_available())
+
+    # --- device-resident stage and holdout (JobConfig.ingest device=on) ---
+
+    def supports_resident_ingest(self) -> bool:
+        """The resident stage needs the chained mask-free launch: a float32
+        feed and no SSP pacing (refused rows must re-enter a host stage)."""
+        return self.feed_dtype == np.float32 and not self._paced
+
+    def enable_resident_ingest(self) -> bool:
+        """Arm the device-resident stage and holdout ring. False (the
+        bridge stays on the host route) where the resident path cannot
+        serve it. Safe before any data flows; arming mid-stream would
+        strand staged host rows, so it is refused then."""
+        if self._resident is not None:
+            return True
+        if not self.supports_resident_ingest():
+            return False
+        if self._stage_n or len(self.test_set):
+            return False
+        self._resident = _ResidentIngest(self)
+        return True
 
     def _fused_stage(self):
         """The current stage set's C stager."""
@@ -656,6 +893,9 @@ class SPMDBridge:
     def _evaluate(self) -> Tuple[float, float]:
         if self.test_set.is_empty:
             return 0.0, 0.0
+        if self._resident is not None:
+            # served straight from the resident holdout ring
+            return self.trainer.evaluate(*self._resident.eval_arrays())
         cols = self.test_set.arrays()
         # padded to the holdout capacity, as the JAX package pads it for
         # one compiled eval program: the mask keeps the values the same
@@ -794,6 +1034,11 @@ class SparseSPMDBridge(SPMDBridge):
 
     # supports_overlapped_ingest: inherited — supports_fused_ingest is
     # polymorphic and the opt-out knob is shared with the dense route.
+
+    def supports_resident_ingest(self) -> bool:
+        """Padded-COO rows stay on the host route (the resident stage holds
+        dense rows), as in the JAX package."""
+        return False
 
     def _use_fused_coo(self) -> bool:
         """The fused C loop (omldm_parse_stage_sparse) is the default file

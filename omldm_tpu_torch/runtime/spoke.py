@@ -643,6 +643,23 @@ class Spoke:
             net.lifecycle.events = self.events
             net.lifecycle.net_id = net.request.id
 
+    def attach_ingest_probe(self, name: str, probe) -> None:
+        """Register an ingest-plane pressure probe (a callable of no
+        arguments returning (value, high, critical)) on this spoke's
+        overload controller -- the sharded ingest driver's starvation or
+        the prefetch ring's emptiness (``OverloadController.extra_signals``).
+        A no-op while the overload plane is unarmed: the signal has no
+        ladder to raise."""
+        if self.overload is not None:
+            self.overload.extra_signals[name] = probe
+
+    def detach_ingest_probe(self, name: str) -> None:
+        """Remove a probe ``attach_ingest_probe`` registered (the sharded
+        ingest driver detaches its probes when the file run ends: a closed
+        ``ShardedIngest`` must not go on reporting stale pressure)."""
+        if self.overload is not None:
+            self.overload.extra_signals.pop(name, None)
+
     def _timer_percentiles(self, timer: StepTimer) -> Tuple[float, float]:
         """(p50, p99) ms of a StepTimer's window, cached by the timer's
         count so a many-tenant terminate sorts each ring once."""

@@ -148,20 +148,20 @@ def _bad(kind):
         return [("q", q.half())], "float32 or bfloat16"
     if kind == "mixed":
         return [("q", q), ("k", q.float())], "is torch.float32"
-    if kind == "head_width":  # past the widest instance (256)
-        return [("q", torch.zeros((1, 8, 2, 320), dtype=torch.bfloat16))], "head width 320"
+    if kind == "head_width":  # every width from 1 up runs; an empty head does not
+        return [("q", torch.zeros((1, 8, 2, 0), dtype=torch.bfloat16))], "head width 0"
     if kind == "f32_128":  # float32 at 128 now runs; float16 at 128 does not
         return [("q", torch.zeros((1, 8, 2, 128), dtype=torch.float16))], "float32 or bfloat16"
     if kind == "rank":
         return [("q", q[0])], r"\[B, L, H, Dh\]"
     if kind == "stride":
         return [("q", q.transpose(2, 3).contiguous().transpose(2, 3))], "unit stride"
-    return [("q", torch.zeros(1 * 9 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 9, 2, 64))], \
-        "aligned"
+    return [("q", q), ("k", torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device="meta"))], \
+        "on meta, q on cpu"
 
 
 @pytest.mark.parametrize("kind", ["dtype", "mixed", "head_width", "f32_128", "rank", "stride",
-                                  "misaligned"])
+                                  "device"])
 def test_kernel_input_checks_refuse(kind):
     """What the CUDA wrappers refuse before a launch (checked here on CPU
     tensors: the checks read only dtype, shape, strides and alignment)."""
@@ -244,25 +244,107 @@ def test_kernel_input_checks_take_every_width_to_256(dtype, dh):
 
 
 def test_kernel_widths_and_designs():
-    """Every width 1..256 runs the next built instance; bf16 rows of whole
-    16-byte groups inside 33..128 take the Hopper design, the rest mma.sync."""
+    """Every width 1..256 runs the next built instance and every wider one
+    the wide instance; bf16 rows of whole 16-byte groups inside 33..128 take
+    the Hopper design, the rest mma.sync."""
     assert [tatt.kernel_width(d) for d in (1, 8, 32, 33, 64, 65, 80, 128, 129, 256)] == \
         [32, 32, 32, 64, 64, 128, 128, 128, 256, 256]
-    for bad in (0, 257, 320):
-        with pytest.raises(ValueError, match="head width"):
-            tatt.kernel_width(bad)
+    assert [tatt.kernel_width(d) for d in (257, 320, 512, 1000)] == [tatt.WIDE] * 4
+    with pytest.raises(ValueError, match="head width"):
+        tatt.kernel_width(0)
     designs = tatt.KERNEL_DESIGNS
-    assert len(designs) == 2 * 256
+    assert len(designs) == 2 * 512
     assert {dh for (dt, dh), d in designs.items() if d == "sm90"} == set(range(40, 129, 8))
     assert all(d == "mma" for (dt, _), d in designs.items() if dt == torch.float32)
+    assert all(d == "mma" for (_, dh), d in designs.items() if dh > 256)
     assert designs[(torch.bfloat16, 12)] == designs[(torch.bfloat16, 36)] == "mma"
 
 
 def test_sm90_widths_still_need_aligned_rows():
-    """A padded width on the Hopper design (bf16 80) keeps the tensor-map
-    rule; a width on mma.sync (bf16 12) reads rows at any 2-byte offset."""
+    """A padded width on the Hopper design (bf16 80) whose view is 2 bytes
+    off 16-byte alignment passes the checks and runs mma.sync at the same
+    width; the aligned view runs the Hopper design. A width on mma.sync
+    (bf16 12) reads rows at any 2-byte offset."""
     off = torch.zeros(1 * 9 * 2 * 80 + 1, dtype=torch.bfloat16)[1:].view(1, 9, 2, 80)
-    with pytest.raises(ValueError, match="aligned"):
-        tatt._check_kernel_inputs("flash_attention", [("q", off)])
+    assert tatt._check_kernel_inputs("flash_attention", [("q", off)]) == torch.bfloat16
+    assert tatt.kernel_design(off, off, off) == "mma"
+    assert tatt.kernel_width(80) == 128
+    aligned = torch.zeros((1, 9, 2, 80), dtype=torch.bfloat16)
+    assert tatt.kernel_design(aligned, aligned, aligned) == "sm90"
+    # one view of four off alignment (dout, in the backward) takes mma.sync
+    assert tatt.kernel_design(aligned, aligned, aligned, off) == "mma"
+    # a row stride that is not whole 16-byte groups: mma.sync too
+    odd = torch.zeros((1, 9, 2, 84), dtype=torch.bfloat16)[..., :80]
+    assert tatt.kernel_design(odd, aligned, aligned) == "mma"
     off12 = torch.zeros(1 * 9 * 2 * 12 + 1, dtype=torch.bfloat16)[1:].view(1, 9, 2, 12)
     assert tatt._check_kernel_inputs("flash_attention", [("q", off12)]) == torch.bfloat16
+    assert tatt.kernel_design(off12, off12, off12) == "mma"
+
+
+# head widths past the widest built instance: the wide instance's chunk
+# loop (float32 64 columns, bf16 128) with a ragged last chunk (320) and
+# without (512)
+WIDE_DH = [320, 512]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", WIDE_DH)
+def test_forward_matches_pallas_interpret_at_wide_widths(dh, causal):
+    """float32: out and lse at atol 1e-5, as at the built widths."""
+    q, k, v, _ = _inputs(1, 40, 48, 2, dh, seed=dh)
+    jo, jl = jatt.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, block_q=16,
+        block_k=16, interpret=True, return_lse=True)
+    to, tl = tatt.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal, return_lse=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, :40], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", WIDE_DH)
+def test_grads_match_pallas_backward_at_wide_widths(dh, causal):
+    """float32 gradients through FlashAttention against jax.vjp of the
+    Pallas dQ and dK/dV kernels at atol 1e-5."""
+    q, k, v, g = _inputs(1, 40, 40, 2, dh, seed=3 * dh)
+    _, vjp = jax.vjp(lambda q, k, v: jatt._flash_diff(q, k, v, causal, 0, 0, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    tatt.attention(tq, tk, tv, causal).backward(torch.from_numpy(g))
+    for jg, t in zip(jgrads, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), atol=1e-5)
+
+
+def _bf16(a):
+    """numpy float32 rounded to bf16 and back, so both packages start from
+    the same bf16 values."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", WIDE_DH)
+def test_bfloat16_at_wide_widths_in_working_type(dh, causal):
+    """bf16 forward and gradients against the Pallas kernels in interpret
+    mode on the same bf16 inputs, compared in the working type: out atol
+    1e-2 (one or two bf16 ulps at |out| ~ 1, as the bf16 forward above;
+    met: 9.8e-4); gradients within one bf16 ulp of their largest element,
+    4e-3 of it (met: 3.3e-7 of it) -- both sides round P and dS to bf16
+    before their products, from float32 sums taken in another order."""
+    q, k, v, g = (_bf16(a) for a in _inputs(1, 40, 40, 2, dh, seed=5 * dh))
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    jo = jatt.flash_attention_pallas(jq, jk, jv, causal=causal, block_q=16, block_k=16,
+                                     interpret=True)
+    _, vjp = jax.vjp(lambda q, k, v: jatt._flash_diff(q, k, v, causal, 0, 0, True), jq, jk, jv)
+    jgrads = vjp(jg)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16().requires_grad_(True) for a in (q, k, v))
+    to = tatt.attention(tq, tk, tv, causal)
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.detach().float().numpy(), np.asarray(jo, np.float32),
+                               atol=1e-2)
+    to.backward(torch.from_numpy(g).bfloat16())
+    for jgrad, t in zip(jgrads, (tq, tk, tv)):
+        ref = np.asarray(jgrad, np.float32)
+        assert t.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.grad.float().numpy(), ref,
+                                   atol=4e-3 * float(np.abs(ref).max()))

@@ -5,8 +5,10 @@ attention source dispatches, checked on the CPU without nvcc.
   ``csrc/`` and the nvcc flags, so a changed header or flag never reuses a
   stale library.
 - ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches every (dtype,
-  head width) pair of ``KERNEL_DESIGNS`` (widths 1..256) to the design it
-  names at ``kernel_width``, the Hopper dispatch launches a Hopper kernel for
+  head width) pair of ``KERNEL_DESIGNS`` (widths 1..512) to the design it
+  names at ``kernel_width`` (the wide instance past 256), takes the Hopper
+  design only where the views fit its tensor maps (as ``kernel_design``
+  does), the Hopper dispatch launches a Hopper kernel for
   each of the three passes, and the source's sm90 tile sizes are the ones
   ``sm90_tile_plan`` models.
 """
@@ -70,14 +72,16 @@ def test_changed_source_and_flags_change_target(csrc_copy, monkeypatch):
     assert _library(csrc_copy)._target() != base
 
 
-def _run_dtype_table():
+def _run_dtype_table(top=512):
     """{(dtype code, head width): (design, built width)} for every width
-    1..256, read from run_dtype's `if (dh <= W) return ...` lines: the
-    mma.sync instance at W, or the Hopper one where `dh % 8 == 0 ?` picks
-    it."""
+    1..top, read from run_dtype's `if (dh <= W) return ...` lines: the
+    mma.sync instance at W, or the Hopper one where `dh % 8 == 0 && tma ?`
+    picks it (for views that fit its tensor maps); then its closing
+    `return run_wide<...>` for every wider width."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int run_dtype("):]
     body = body[:body.index("\n}\n")]
+    assert "const bool tma = tma_fits(p);" in body
     table = {}
     for code, block in re.findall(r"dtype == (\d)\) \{(.*?)\n  \}", body, re.S):
         lo = 1
@@ -85,9 +89,13 @@ def _run_dtype_table():
             width = int(width)
             assert f"<{width}>" in line or f", {width}>" in line, line
             for dh in range(lo, width + 1):
-                sm90 = "dh % 8 == 0 ? run_sm90<" in line and dh % 8 == 0
+                sm90 = "dh % 8 == 0 && tma ? run_sm90<" in line and dh % 8 == 0
                 table[(int(code), dh)] = ("sm90" if sm90 else "mma", width)
             lo = width + 1
+        wide = re.findall(r"\n    return (run_wide<\w+>)\(which, p, BH, stream\);", block)
+        assert wide == [f"run_wide<{'bf16' if code == '1' else 'float'}>"], block
+        for dh in range(lo, top + 1):
+            table[(int(code), dh)] = ("mma", tatt.WIDE)
     return table
 
 
@@ -124,3 +132,15 @@ def test_source_tiles_match_the_plan():
     assert (consts["kFwdM"], consts["kFwdN"]) == tatt.SM90_FWD_TILE
     assert (consts["kDqM"], consts["kDqN"]) == tatt.SM90_DQ_TILE
     assert (consts["kBwdN"], consts["kBwdM"]) == tatt.SM90_DKDV_TILE
+
+
+def test_tma_fits_mirrors_kernel_design():
+    """run_dtype's tma_fits asks what kernel_design asks of the views: the
+    rows of 16 bytes (p.vec, from rows_of_16) and byte strides below 2^40."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("bool tma_fits("):]
+    body = body[:body.index("\n}\n")]
+    assert "s * 2 >= (1LL << 40)" in body and "return p.vec != 0;" in body
+    vec = src[src.index("p.vec = rows_of_16("):]
+    vec = vec[:vec.index(";")]
+    assert vec.count("rows_of_16(") == 4  # q, k, v and dout

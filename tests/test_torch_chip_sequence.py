@@ -59,8 +59,9 @@ def test_coverage_checks_float32_128_and_wide_grid(cs):
         return (dt, tatt.kernel_width(dh), tatt.KERNEL_DESIGNS[(dt, dh)])
 
     reachable = {triple(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS}
-    assert len(reachable) == 10
-    covered = {triple(getattr(torch, c[6]), c[5]) for c in cs.FLASH_COVERAGE_CHECKS}
+    assert len(reachable) == 12  # the wide instance in both dtypes included
+    covered = {triple(getattr(torch, c[6]), c[5])
+               for c in cs.FLASH_COVERAGE_CHECKS + cs.FLASH_WIDE_CHECKS}
     assert covered == reachable
     # the Hopper instance at 64 with a width narrower than its TMA box
     assert any(tatt.KERNEL_DESIGNS[(getattr(torch, c[6]), c[5])] == "sm90" and c[5] % 64
@@ -76,7 +77,33 @@ def test_coverage_checks_float32_128_and_wide_grid(cs):
 
 def test_coverage_time_shapes(cs):
     assert cs.FLASH_COVERAGE_TIME == [(8, 1024, 4, 128, "float32"), (2, 1024, 4, 8, "bfloat16"),
-                                      (2, 1024, 4, 80, "bfloat16"), (2, 1024, 4, 256, "bfloat16")]
+                                      (2, 1024, 4, 80, "bfloat16"), (2, 1024, 4, 256, "bfloat16"),
+                                      (2, 1024, 4, 512, "bfloat16"), (2, 1024, 4, 512, "float32")]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dh", [320, 512])
+def test_wide_checks_square_and_ragged(cs, dtype, dh):
+    """The wide instance is checked at (2, 1024, 2, dh) and ragged
+    1000/1100 in both dtypes; the earlier 40 cases (80 checks) are kept as
+    they were."""
+    cases = [c for c in cs.FLASH_WIDE_CHECKS if c[5] == dh and c[6] == dtype]
+    assert {(c[1], c[2], c[3], c[4]) for c in cases} == {(2, 1024, 1024, 2), (2, 1000, 1100, 2)}
+    assert tatt.kernel_width(dh) == tatt.WIDE
+    assert len(cs.FLASH_COVERAGE_CHECKS) == 40
+
+
+def test_misaligned_case_runs_mma_on_the_cpu_views(cs):
+    """The misaligned case's views (built here on the CPU as chip_smoke
+    builds them on the card) are one element off 16-byte alignment: a
+    Hopper width (bf16 128) whose design is mma.sync."""
+    [case] = [c for c in cs.FLASH_WIDE_CHECKS if c[0] in cs.FLASH_MISALIGNED]
+    b, lq, lk, h, dh, dtype = case[1:7]
+    assert (dh, dtype) == (128, "bfloat16")
+    assert tatt.KERNEL_DESIGNS[(torch.bfloat16, dh)] == "sm90"
+    flat = torch.zeros(b * lq * h * dh + 1, dtype=torch.bfloat16)
+    view = flat[1:].view(b, lq, h, dh)
+    assert view.data_ptr() % 16 == 2 and tatt.kernel_design(view, view, view, view) == "mma"
 
 
 def test_float32_bound_uses_the_float32_peak_and_4_byte_elements(cs):

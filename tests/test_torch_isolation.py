@@ -41,7 +41,7 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.parallel.ckpt, omldm_tpu_torch.runtime.overload\n"
         "import omldm_tpu_torch.runtime.lifecycle\n"
         "import omldm_tpu_torch.runtime.telemetry, omldm_tpu_torch.runtime.events\n"
-        "import omldm_tpu_torch.utils.tracing\n"
+        "import omldm_tpu_torch.utils.tracing, omldm_tpu_torch.runtime.ingest_shard\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -288,11 +288,42 @@ def test_chip_smoke_copy_task_stream():
     assert len({tuple(r[:4]) for r in tok.reshape(-1, 16)}) <= 16
 
 
-@pytest.mark.parametrize("option", [{"ingest": "on"}])
-def test_unported_job_plane_raises(option):
-    name = next(iter(option))
-    with pytest.raises(NotImplementedError, match=name):
-        StreamJob(JobConfig(**option), device="cpu")
+def test_forked_ingest_worker_loads_no_jax(tmp_path):
+    """The sharded ingest plane's parser worker, forked from a fresh
+    interpreter that loaded the port's job, runs its real loop over a small
+    file and reports the modules it holds at the end: nothing of JAX or of
+    the JAX package."""
+    path = tmp_path / "rows.jsonl"
+    path.write_text("".join(json.dumps({"numericalFeatures": [float(i), 1.0],
+                                        "target": float(i % 2)}) + "\n" for i in range(50)))
+    code = textwrap.dedent(f"""
+        import multiprocessing, sys
+        import omldm_tpu_torch.runtime.job
+        from omldm_tpu_torch.runtime import ingest_shard as ish
+
+        def worker(out):
+            ctx = multiprocessing.get_context("fork")
+            ring = lambda kind, n: ctx.RawArray(kind, n)
+            ready, free = ctx.Queue(), ctx.Queue()
+            free.put(0)
+            ish._worker_main(0, 1, {str(path)!r}, 2, 0, 1 << 20, 64, ring("f", 128),
+                             ring("f", 64), ring("B", 64), ring("q", 4), ring("d", 4),
+                             ready, free, ctx.Event())
+            assert ready.get(timeout=10) == 0 and ready.get(timeout=10) == -1  # a block, EOS
+            out.put(sorted({{m.split(".")[0] for m in sys.modules}}))
+
+        ctx = multiprocessing.get_context("fork")
+        out = ctx.Queue()
+        p = ctx.Process(target=worker, args=(out,), daemon=True)  # never outlives a failure
+        p.start()
+        roots = out.get(timeout=60)
+        p.join(timeout=30)
+        assert p.exitcode == 0, p.exitcode
+        bad = [r for r in roots if r in ("jax", "jaxlib", "optax", "omldm_tpu")]
+        assert not bad, bad
+        assert "omldm_tpu_torch" in roots
+    """)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
 def test_profiler_trace_pulls_in_no_jax(tmp_path):
@@ -451,7 +482,6 @@ def test_serving_plane_is_ported():
     (["--profileSteps", "100"], "profileSteps"),
     (["--compileCache", "off"], "compileCache"),
     (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
-    (["--ingest", "shards=2"], "ingest"),
 ])
 def test_cli_refuses_unported_flags(argv, flag, tmp_path):
     """A CLI flag whose route or knob the port lacks raises SystemExit
