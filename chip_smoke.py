@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--records N] [--parity-records N]
                           [--lm-steps N] [--profile DIR] [--sequence-only]
+                          [--kafka-only]
 
 Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
@@ -435,6 +436,54 @@ Phases (any failure raises and the script exits nonzero without a result):
                  equal, parameters within LM_PARITY_ATOL, losses within
                  1e-5; (c) GRAFT_MOE_CONFIG (dh 8, the JAX package's MoE
                  dry-run width) 3 steps on the card, finite falling losses.
+ 47. kafka       (47d runs after phase 40, before phases 41-42: its
+                 profile window needs torch.profiler's device records; the
+                 rest after phase 42, so that the reference smokes' timed
+                 gates run as before the phase existed) the Kafka
+                 route over tests/fskafka.py's file-backed broker
+                 (installed as the ``kafka`` module; FSKAFKA_DIR under the
+                 run's temporary directory; sys.modules and the
+                 environment restored after): (a) python -m
+                 omldm_tpu_torch --kafkaBrokers fs://local on the card
+                 (phase 17's flags), phase 5's stream published to the
+                 requests, trainingData and forecastingData logs by a
+                 feeder thread once the consumer connected, the job ended
+                 by its silence timer: one predictions-topic line for
+                 every forecast, fitted equal to phase 17's, pa_scan
+                 launched once a fit, the statistics on the performance
+                 topic, holdout accuracy > 0.6, the Query answered once;
+                 then the route's time a record split in the same call
+                 (kafka-breakdown: the file-backed consumer alone,
+                 polling_events with no job, a producer send, the job
+                 alone through _kafka_loop, over a window of the logs'
+                 head and one of their training-only tail); (b) the first --parity-records records preloaded and
+                 consumed in assign mode from offset 0 (connect_kafka,
+                 polling_events) at phase 6's parallelism on the card and
+                 on the CPU: every integer statistic equal, >= 99% of
+                 predictions equal; then again under OMLDM_CHAOS_KAFKA
+                 (seeded drop, duplicate, reorder): ChaosConsumer's
+                 counters equal too; (c) phase 34's records (forecasts
+                 inline on trainingData) through the CLI with
+                 --checkpointing --checkInterval (about 10 saves)
+                 --restartAttempts 2 and phase 34's FaultInjector crash:
+                 one restore, the reconnect seeks the snapshot's offsets,
+                 fitted equal to phase 34's unfaulted run, every forecast
+                 answered; (d) --profileSteps 1000 --profileDir on the
+                 route (the first 5,000 training records, batch 16): the
+                 trace stops once, names pa_gram_kernel, pa_chain_kernel
+                 and pa_update_kernel each as often as pa_scan launched in
+                 the window, and gives the window's idle share; (e) the
+                 load harness's default storm (seed 7, 256 tenants, 1,024
+                 records, chunk rows 64) through run_inprocess_storm on the
+                 card, again on the card and on the CPU: the SLO report
+                 passes (the hot tenants may shed, no row stranded), the
+                 three core digests equal; run_composition_identity on
+                 STORM_IDENTITY on the card: equal digests; (f) the storm
+                 with perRecord: one batched pa_scan launch a gang step,
+                 the solo launches printed. After each of its two parts
+                 no thread started in it is alive and torch.profiler is
+                 off (a residue: line). With --kafka-only: the build,
+                 phase 17 and phase 47, then exit.
 Phases 43-45 run right after phase 10 (their timings need the profiler's
 device records, which can come back empty after phases 41-42's traces).
 With --sequence-only: the build, phase 9 and phases 43-45, then exit.
@@ -5101,7 +5150,7 @@ def phase_recovery(torch, pa_scan, events, tmp: Path):
                              "params_max_abs_diff": cerr},
     }
     log("recovery: " + json.dumps(line))
-    return launched
+    return launched, clean.fitted
 
 
 def _rescale_run(torch, head, device, schedule):
@@ -6376,6 +6425,685 @@ def phase_flight_recorder(torch, pa_scan, seed, guard_cohort, lifecycle_launches
     return card["counts"]["pa_scan_batched"], lc["cuda"]["pa_scan_launches"]
 
 
+# --- phase 47: the Kafka route and the load harness's in-process leg -----------
+
+# the Kafka route's runs: the silence timer that ends each live run; 47b's
+# broker chaos (seeded drop, duplicate and reorder on the record stream);
+# 47c's restart run over phase 34's records (the stream's first 20,000,
+# its unfaulted run the reference), `restart_saves` snapshots and phase
+# 34's crash; 47d's window of `profile_steps` events over the first
+# `profile_records` training records at `profile_batch` rows a fit (phase
+# 5's 256 fill no batch in 1,000 events)
+KAFKA_RUN = dict(timeout_ms=2_000, chaos="seed=7,drop=0.02,dup=0.05,reorder=0.05",
+                 restart_saves=10, profile_steps=1_000, profile_records=5_000, profile_batch=16,
+                 breakdown_records=10_000)
+KAFKA_TOPICS = ("requests", "trainingData", "forecastingData")
+# the load harness's default storm (benchmarks/load_harness.py:64-98,
+# :367-372) and the composition-identity storm of tests/test_load_harness.py
+# cut from 256 tenants to 64 (its pair of runs took 30 s at 256 on the
+# card, the deploys and terminate evaluations of 4,096 nets; the CPU tests
+# hold it at 256)
+STORM = dict(seed=7, tenants=256, records=1_024, chunk_rows=64)
+STORM_IDENTITY = dict(seed=5, tenants=64, records=128, chunk_rows=64, n_features=4,
+                      forecast_ratio=0.4)
+
+
+@contextlib.contextmanager
+def _no_residue(torch, label: str):
+    """Phase 47's legs leave nothing behind for the phases after them: on
+    exit (after a full collection) no thread started inside the block is
+    alive and torch.profiler is off. Logs the threads alive and the
+    collector's tracked objects."""
+    import threading
+
+    before = set(threading.enumerate())
+    yield
+    gc.collect()
+    left = [t.name for t in threading.enumerate() if t not in before and t.is_alive()]
+    log(f"{label}: residue: {threading.active_count()} threads alive, "
+        f"{len(left)} started in the phase {left}, {len(gc.get_objects())} objects tracked")
+    check(not left, f"{label}: threads of the phase still alive: {left}")
+    check(not torch.autograd._profiler_enabled(), f"{label}: torch.profiler left on")
+
+
+@contextlib.contextmanager
+def _fskafka(broker: Path):
+    """tests/fskafka.py installed as the ``kafka`` module, its broker the
+    directory ``broker``; on exit ``sys.modules["kafka"]``, ``sys.path``
+    and the environment are as they were."""
+    import os
+
+    saved_env = {k: os.environ.get(k) for k in ("FSKAFKA_DIR", "OMLDM_CHAOS_KAFKA")}
+    saved_kafka = sys.modules.get("kafka")
+    saved_path = list(sys.path)
+    tests = str(Path(__file__).resolve().parent / "tests")
+    sys.path.insert(0, tests)
+    try:
+        import fskafka
+
+        broker.mkdir(parents=True, exist_ok=True)
+        os.environ["FSKAFKA_DIR"] = str(broker)
+        os.environ.pop("OMLDM_CHAOS_KAFKA", None)
+        fskafka.install()
+        yield fskafka
+    finally:
+        sys.path[:] = saved_path
+        sys.modules.pop("fskafka", None)
+        if saved_kafka is None:
+            sys.modules.pop("kafka", None)
+        else:
+            sys.modules["kafka"] = saved_kafka
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _topic_lines(events, inline_forecasts=False):
+    """A StreamJob event list as topic contents: {topic: [lines]}; the
+    Create names its width (a Query for a pipeline not deployed yet would
+    be dropped). ``inline_forecasts`` puts each forecast on trainingData
+    at its position, marked "operation": "forecasting", as the CLI's
+    training file holds it."""
+    out = {t: [] for t in KAFKA_TOPICS}
+    for stream, payload in events:
+        if stream == "requests":
+            req = json.loads(payload)
+            if req.get("request") == "Create":
+                req["learner"]["dataStructure"] = {"nFeatures": N_FEATURES}
+            out["requests"].append(json.dumps(req))
+        elif stream == "forecastingData" and inline_forecasts:
+            rec = json.loads(payload)
+            rec["operation"] = "forecasting"
+            out["trainingData"].append(json.dumps(rec))
+        else:
+            out[stream].append(payload)
+    return out
+
+
+def _publish(broker: Path, topic: str, lines) -> None:
+    """A topic log's whole contents at once (written aside, then renamed
+    over the empty log): a consumer never reads a half-written line."""
+    import os
+
+    tmp = broker / f".{topic}.partial"
+    tmp.write_text("".join(line + "\n" for line in lines))
+    os.replace(tmp, broker / f"{topic}--0.log")
+
+
+def _read_topic(broker: Path, topic: str):
+    path = broker / f"{topic}--0.log"
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def _kafka_cli(torch, argv, broker: Path, feed=None, arm=None):
+    """``python -m omldm_tpu_torch --kafkaBrokers fs://local ...`` in-process
+    on the card, its sinks the producer's topic logs under ``broker``.
+    ``feed(job)`` runs on a thread once the first consumer has connected
+    (a live subscriber starts at the log's end); ``arm(job)`` runs on the
+    built job before the loop. Returns (job, wall seconds, the connect
+    calls' positions, the time the feeder published the data)."""
+    import threading
+
+    import omldm_tpu_torch.__main__ as cli
+    from omldm_tpu_torch.runtime import kafka_io
+
+    for topic in KAFKA_TOPICS:
+        (broker / f"{topic}--0.log").write_text("")
+    captured, connects, fed = {}, [], {}
+    connected = threading.Event()
+    real_build, real_connect = cli.build_job, kafka_io.connect_kafka
+
+    def build_job(flags):
+        job, sinks = real_build(flags)
+        captured["job"] = job
+        if arm is not None:
+            arm(job)
+        return job, sinks
+
+    def connect(*a, **kw):
+        connects.append(None if kw.get("position") is None else dict(kw["position"]))
+        out = real_connect(*a, **kw)
+        connected.set()
+        return out
+
+    def feeder():
+        if connected.wait(120):
+            fed["wall"] = time.time()
+            feed(captured["job"])
+
+    thread = threading.Thread(target=feeder, daemon=True) if feed is not None else None
+    cli.build_job, kafka_io.connect_kafka = build_job, connect
+    try:
+        if thread is not None:
+            thread.start()
+        t0 = time.perf_counter()
+        rc = cli.main(["--kafkaBrokers", "fs://local", "--timeout",
+                       str(KAFKA_RUN["timeout_ms"])] + [str(a) for a in argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli.build_job, kafka_io.connect_kafka = real_build, real_connect
+        if thread is not None:
+            thread.join(5)
+    check(rc == 0, f"kafka: the CLI returned {rc}")
+    check(thread is None or not thread.is_alive(), "kafka: the feeder never saw a connect")
+    return captured["job"], wall, connects, fed.get("wall")
+
+
+def _feed_after_create(broker: Path, lines):
+    """A feeder: the requests, then -- once the Create deployed -- the data
+    topics (a record before any pipeline would wait in the pre-create
+    backlog)."""
+
+    def feed(job):
+        _publish(broker, "requests", lines["requests"])
+        deadline = time.time() + 60
+        while not job.pipeline_manager.live_pipelines and time.time() < deadline:
+            time.sleep(0.001)
+        for topic in ("trainingData", "forecastingData"):
+            if lines[topic]:
+                _publish(broker, topic, lines[topic])
+
+    return feed
+
+
+def _forecast_keys(lines):
+    """The float32 feature tuples of the forecasts among topic lines."""
+    import numpy as np
+
+    keys = []
+    for line in lines:
+        rec = json.loads(line)
+        if "target" not in rec or rec.get("operation") == "forecasting":
+            keys.append(tuple(np.float32(rec["numericalFeatures"]).tolist()))
+    return keys
+
+
+def _answered(preds):
+    import numpy as np
+
+    return [tuple(np.float32(p["dataInstance"]["numericalFeatures"]).tolist()) for p in preds]
+
+
+def _drain(job, kio, broker: Path, chaos=None):
+    """Assign mode from offset 0 on every topic: consume until the logs run
+    dry (two idle polls in a row), then terminate. Returns (report, the
+    ChaosConsumer or None)."""
+    from omldm_tpu_torch.runtime import supervisor
+
+    captured = {}
+    real = supervisor.maybe_chaos_consumer
+
+    def wrap(consumer, **kw):
+        captured["consumer"] = out = real(consumer, **kw)
+        return out
+
+    supervisor.maybe_chaos_consumer = wrap
+    try:
+        position = {(t, 0): 0 for t in KAFKA_TOPICS}
+        events, sinks = kio.connect_kafka("fs://local", position=position, tracker=dict(position))
+    finally:
+        supervisor.maybe_chaos_consumer = real
+    idle = 0
+    for event in events:
+        if event is None:
+            idle += 1
+            if idle >= 2:
+                break
+            continue
+        idle = 0
+        job.process_event(*event)
+    report = job.terminate()
+    sinks.close()
+    consumer = captured.get("consumer")
+    return report, (consumer if hasattr(consumer, "dropped") else None)
+
+
+def _kafka_parity(torch, events, broker: Path, chaos: str):
+    """47b: the same preloaded logs on the card and on the CPU, at phase 6's
+    parallelism; with ``chaos`` set, under OMLDM_CHAOS_KAFKA."""
+    import os
+
+    from omldm_tpu_torch.config import JobConfig
+    from omldm_tpu_torch.runtime import StreamJob
+    from omldm_tpu_torch.runtime import kafka_io
+
+    lines = _topic_lines(events)
+    for topic in KAFKA_TOPICS:
+        _publish(broker, topic, lines[topic])
+    if chaos:
+        os.environ["OMLDM_CHAOS_KAFKA"] = chaos
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            job = StreamJob(JobConfig(**dict(SLICE_CONFIG, parallelism=PARITY_PARALLELISM)),
+                            device=device)
+            t0 = time.perf_counter()
+            report, consumer = _drain(job, kafka_io, broker)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out[device] = (report, job, consumer, time.perf_counter() - t0)
+    finally:
+        os.environ.pop("OMLDM_CHAOS_KAFKA", None)
+    label = "kafka-parity" + ("[chaos]" if chaos else "")
+    (card, cjob, ccons, cwall), (cpu, pjob, pcons, pwall) = out["cuda"], out["cpu"]
+    [cs], [ps] = card.statistics, cpu.statistics
+    check(cs.fitted > 0, f"{label}: nothing fitted")
+    check(_int_stats(cs) == _int_stats(ps),
+          f"{label}: integer statistics differ: {_stat_diff(cs, ps)}")
+    ck = [(tuple(p.data_instance.numerical_features), p.value) for p in cjob.predictions]
+    pk = [(tuple(p.data_instance.numerical_features), p.value) for p in pjob.predictions]
+    check(len(ck) == len(pk) > 0 and [k for k, _ in ck] == [k for k, _ in pk],
+          f"{label}: the forecasts answered differ ({len(ck)} / {len(pk)})")
+    mism = sum(a != b for (_, a), (_, b) in zip(ck, pk))
+    check(mism <= 0.01 * len(ck), f"{label}: {mism} of {len(ck)} predictions differ")
+    counters = None
+    if chaos:
+        check(ccons is not None and pcons is not None, f"{label}: the chaos consumer never armed")
+        counters = {k: getattr(ccons, k) for k in ("dropped", "duplicated", "reordered",
+                                                   "poisoned")}
+        check(counters == {k: getattr(pcons, k) for k in counters},
+              f"{label}: ChaosConsumer counters differ: {counters}")
+        check(counters["dropped"] and counters["duplicated"] and counters["reordered"],
+              f"{label}: the chaos spec did not misbehave: {counters}")
+    row = {"events": len(events) - 1, "parallelism": PARITY_PARALLELISM,
+           "fitted": cs.fitted, "predictions": len(ck), "differ": mism,
+           "records_per_s": {"cuda": len(events) / cwall, "cpu": len(events) / pwall},
+           "chaos": chaos or None, "chaos_counters": counters}
+    log(f"{label}: " + json.dumps(row))
+    return row
+
+
+def _kafka_breakdown(torch, broker: Path, lines, route_rate: float, sends_per_record: float,
+                     device="cuda"):
+    """Where 47a's time a record goes, in the same call, over two windows
+    of ``KAFKA_RUN["breakdown_records"]`` records of 47a's topic logs: the
+    head, where the broker alternates forecasts and training records, and
+    the training-only tail from the middle of ``trainingData``. Each window
+    is read by the file-backed consumer alone, then through the port's
+    ``polling_events`` with no job; then the route's job (built by the
+    CLI from 47a's flags, its outputs sent through ``ProducerSinks`` to
+    scratch topics) takes the head's events and the tail's in the order
+    the broker delivered them (requests first, as the live feeder
+    published them) through the CLI's ``_kafka_loop``. A producer send of
+    a predictions line is also timed alone (the route makes
+    ``sends_per_record`` of them; the job's leg includes them). The
+    windows' costs weighted by the route's own mix estimate its time a
+    record beside the measured one."""
+    import kafka
+
+    import omldm_tpu_torch.__main__ as cli
+    from omldm_tpu_torch.runtime import kafka_io
+
+    n = KAFKA_RUN["breakdown_records"]
+    n_fore, n_train = len(lines["forecastingData"]), len(lines["trainingData"])
+    ends = {t: len(lines[t]) for t in KAFKA_TOPICS}
+    windows = {"head": {t: 0 for t in KAFKA_TOPICS},
+               "tail": dict(ends, trainingData=n_train // 2)}
+    legs, events = {}, {}
+    for name, offsets in windows.items():
+        position = {(t, 0): o for t, o in offsets.items()}
+        consumer = kafka.KafkaConsumer()
+        consumer.assign([kafka.TopicPartition(t, p) for t, p in position])
+        for (t, p), o in position.items():
+            consumer.seek(kafka.TopicPartition(t, p), o)
+        t0 = time.perf_counter()
+        got = sum(1 for _ in zip(range(n), consumer))
+        consume_s = time.perf_counter() - t0
+        consumer.close()
+        check(got == n, f"kafka-breakdown[{name}]: the consumer gave {got} of {n} records")
+        polled, sinks = kafka_io.connect_kafka("fs://local", position=position,
+                                               tracker=dict(position))
+        got = []
+        t0 = time.perf_counter()
+        for event in polled:
+            if event is None:
+                break
+            got.append(event)
+            if len(got) == n:
+                break
+        poll_s = time.perf_counter() - t0
+        sinks.close()
+        check(len(got) == n, f"kafka-breakdown[{name}]: polling_events gave {len(got)} of {n}")
+        events[name] = got
+        legs[name] = {"consume": consume_s / n * 1e6, "polling_events": poll_s / n * 1e6}
+
+    preds = (broker / "predictions--0.log").read_bytes().splitlines()[:1_000]
+    producer = kafka.KafkaProducer()
+    t0 = time.perf_counter()
+    for line in preds:
+        producer.send("breakdownScratch", line)
+    send_us = (time.perf_counter() - t0) / len(preds) * 1e6
+    (broker / "breakdownScratch--0.log").unlink()
+
+    # the route's own job: built by the CLI from 47a's flags, its outputs
+    # sent through ProducerSinks (to scratch topics)
+    flags = cli.parse_flags(CLI_ARGS + ["--kafkaBrokers", "fs://local", "--device", device])
+    job, file_sinks = cli.build_job(flags)
+    scratch = {k: "breakdown" + v[:1].upper() + v[1:]
+               for k, v in kafka_io.DEFAULT_OUT_TOPICS.items()}
+    sinks = kafka_io.ProducerSinks(kafka.KafkaProducer(), out_topics=scratch)
+    cli._apply_kafka_sinks(job, flags, sinks)
+    for event in lines["requests"]:
+        job.process_event("requests", event)
+    for name in windows:
+        data = [e for e in events[name] if e[0] != "requests"]
+        t0 = time.perf_counter()
+        cli._kafka_loop(job, iter(data), {"window": None, "n_events": 0, "steps": 0,
+                                          "error": None})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        legs[name]["job"] = (time.perf_counter() - t0) / len(data) * 1e6
+        legs[name]["sends"] = send_us * sends_per_record
+        legs[name]["sum"] = legs[name]["polling_events"] + legs[name]["job"]
+    sinks.close()
+    for sink in file_sinks:
+        sink.close()
+    for topic in scratch.values():
+        (broker / f"{topic}--0.log").unlink(missing_ok=True)
+    # the head window's mix holds the route's first 2 x n_fore records
+    # (forecasts alternating with training records), the tail's the rest
+    n_data = n_fore + n_train
+    mixed = {k: (2 * n_fore * legs["head"][k] + (n_data - 2 * n_fore) * legs["tail"][k])
+             / n_data for k in legs["head"]}
+    row = {"records_a_window": n, "us_per_record": legs, "route_mix_us": mixed,
+           "send_us": send_us, "sends_per_record": sends_per_record,
+           "route_us": 1e6 / route_rate}
+    log("kafka-breakdown: " + json.dumps(row))
+    return row
+
+
+def phase_kafka(torch, pa_scan, events, cli_stats, slice_rate, parity_records, tmp: Path,
+                restart_fitted=None):
+    """Phase 47 (a-c): the Kafka route on the card over tests/fskafka.py's
+    file-backed broker. ``restart_fitted`` is phase 34's unfaulted fitted
+    over the same records (run here when None); ``slice_rate`` is phase
+    5's records/s in memory, printed beside the route's. Returns the
+    pa_scan launches of 47a and of 47c's final incarnation."""
+    from omldm_tpu_torch.runtime import recovery
+    from omldm_tpu_torch.runtime.recovery import FaultInjector
+
+    t_phase = time.perf_counter()
+    kr = KAFKA_RUN
+    out = {}
+    with _fskafka(tmp / "broker_a"):
+        # (a) the CLI route, live: phase 5's stream fed after the connect
+        broker = tmp / "broker_a"
+        lines = _topic_lines(events)
+        n_fore = len(lines["forecastingData"])
+        n_data = n_fore + len(lines["trainingData"])
+        pa_scan.launches = 0
+        job, wall, connects, fed = _kafka_cli(torch, CLI_ARGS, broker,
+                                              feed=_feed_after_create(broker, lines))
+        launches = pa_scan.launches
+        stats, fits, serves, evaluations = _cli_counts(job)
+        preds = _read_topic(broker, "predictions")
+        perf = _read_topic(broker, "performance")
+        resp = _read_topic(broker, "responses")
+        answered = _answered(preds)
+        want = _forecast_keys(lines["forecastingData"])
+        rate = n_data / max(job.stats.last_activity - fed, 1e-9)
+        row = {"records": n_data, "wall_s": wall, "records_per_s": rate,
+               "records_per_s_phase5": slice_rate,
+               "records_per_s_phase17": cli_stats["records"] / cli_stats["wall"],
+               "fitted": stats.fitted, "fitted_phase17": cli_stats["stats"].fitted,
+               "fits": fits, "pa_scan_launches": launches, "predictions": len(preds),
+               "forecasts": n_fore, "responses": len(resp), "score": stats.score,
+               "serveLatencyP50Ms": stats.serve_latency_p50_ms,
+               "serveLatencyP99Ms": stats.serve_latency_p99_ms,
+               "connects": len(connects)}
+        log("kafka-route: " + json.dumps(row))
+        check(len(connects) == 1 and connects[0] is None,
+              f"kafka-route: connects {connects}, expected one subscribe")
+        check(len(preds) == n_fore and sorted(answered) == sorted(want),
+              f"kafka-route: {len(preds)} prediction lines for {n_fore} forecasts "
+              f"({len(set(answered))} distinct)")
+        check(stats.fitted == cli_stats["stats"].fitted,
+              f"kafka-route: fitted {stats.fitted} != phase 17's {cli_stats['stats'].fitted}")
+        check(launches == fits > 0, f"kafka-route: pa_scan launches {launches} != fits {fits}")
+        check(perf and perf[-1]["statistics"][0]["fitted"] == stats.fitted,
+              "kafka-route: the performance topic does not hold the statistics")
+        check(stats.score > 0.6, f"kafka-route: holdout accuracy {stats.score}")
+        check(len(resp) == 1, f"kafka-route: {len(resp)} responses to the one Query")
+        _check_placement(torch, job, "kafka-route")
+        out["route"] = launches
+        sends = len(preds) + len(perf) + len(resp)
+        del job
+        _kafka_breakdown(torch, broker, lines, rate, sends / n_data)
+
+    # (b) card against CPU over the same preloaded logs, then under chaos
+    head = events[: parity_records + 1]
+    for chaos in ("", kr["chaos"]):
+        broker = tmp / ("broker_b_chaos" if chaos else "broker_b")
+        with _fskafka(broker):
+            _kafka_parity(torch, head, broker, chaos)
+
+    # (c) supervised restart: phase 34's records, forecasts inline on
+    # trainingData (one data partition: the replay after the seek is the
+    # original order), checkpoints, phase 34's crash
+    rr = RECOVERY_RUN
+    head = events[: rr["records"] + 1]
+    if restart_fitted is None:
+        ref = _slice_job("cuda")
+        [ref_stats] = ref.run(head).statistics
+        restart_fitted = ref_stats.fitted
+    lines = _topic_lines(head, inline_forecasts=True)
+    want = _forecast_keys(lines["trainingData"])
+    interval_ms = max(1, int(len(head) / rate * 1000 / kr["restart_saves"]))
+    restored = {}
+    real_recover = recovery.recover_job
+
+    def recover_job(failed, floor=None):
+        new_job, path = real_recover(failed, floor)
+        restored.update(path=path, position=dict(new_job.source_position or {}))
+        pa_scan.launches = 0  # the final incarnation counts from here
+        return new_job, path
+
+    def arm(job):
+        FaultInjector().arm(job, worker_id=rr["worker"],
+                            after_records=rr["crash_at"] // job.config.parallelism)
+
+    with _fskafka(tmp / "broker_c1"):
+        broker = tmp / "broker_c1"
+        recovery.recover_job = recover_job
+        try:
+            job, wall, connects, _ = _kafka_cli(
+                torch, CLI_ARGS + ["--checkpointing", "true", "--stateBackend", tmp / "ckpt_c",
+                                   "--checkInterval", interval_ms, "--restartAttempts", "2"],
+                broker, feed=_feed_after_create(broker, lines), arm=arm)
+        finally:
+            recovery.recover_job = real_recover
+        final_launches = pa_scan.launches
+        preds = _read_topic(broker, "predictions")
+        [perf_stats] = _read_topic(broker, "performance")[-1]["statistics"]
+    answered = _answered(preds)
+    row = {"records": len(head) - 1, "check_interval_ms": interval_ms,
+           "restored_from": Path(restored.get("path") or "").name,
+           "seek": {f"{t}:{p}": o for (t, p), o in sorted((connects[-1] or {}).items())},
+           "fitted": perf_stats["fitted"], "fitted_unfaulted": restart_fitted,
+           "predictions": len(preds), "forecasts": len(want),
+           "answered_twice": len(answered) - len(set(answered)),
+           "pa_scan_launches_final_incarnation": final_launches,
+           "wall_s": wall, "records_per_s_crash_and_restart": len(head) / wall}
+    log("kafka-restart: " + json.dumps(row))
+    check(len(connects) == 2 and connects[0] is None and restored.get("path"),
+          f"kafka-restart: connects {connects}, restored {restored}: expected one restore")
+    check(connects[1] == restored["position"] and connects[1].get(("trainingData", 0), 0) > 0,
+          f"kafka-restart: the reconnect sought {connects[1]}, the snapshot holds "
+          f"{restored['position']}")
+    check(perf_stats["fitted"] == restart_fitted,
+          f"kafka-restart: fitted {perf_stats['fitted']} != the unfaulted {restart_fitted}")
+    check(set(answered) == set(want), f"kafka-restart: {len(set(answered))} of {len(want)} "
+          "forecasts answered")
+    check(final_launches > 0, "kafka-restart: the final incarnation launched no pa_scan")
+    out["restart"] = final_launches
+
+    log(f"kafka: phase 47a-c took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_kafka_profile(torch, pa_scan, events, tmp: Path):
+    """Phase 47d: the ``--profileSteps`` window on the Kafka route. Runs
+    before phases 41-42 (its trace needs torch.profiler's device records).
+    Returns the pa_scan launches in the window."""
+    import omldm_tpu_torch.__main__ as cli
+    from omldm_tpu_torch.utils.tracing import trace_path
+
+    kr = KAFKA_RUN
+    cut, n_train = [], 0
+    for stream, payload in events:
+        if stream == "trainingData":
+            if n_train == kr["profile_records"]:
+                break
+            n_train += 1
+        cut.append((stream, payload))
+    lines = _topic_lines(cut)
+    window = {"stops": 0}
+    real_start, real_stop = cli.ProfileWindow.start, cli.ProfileWindow.stop
+
+    def start(self):
+        window.update(t0=time.perf_counter())
+        return real_start(self)
+
+    def stop(self, write=True):
+        if self.active:
+            torch.cuda.synchronize()
+            window["stops"] += 1
+            window.update(t1=time.perf_counter(), launches=pa_scan.launches)
+        return real_stop(self, write)
+
+    prof_dir = tmp / "profile"
+    with _fskafka(tmp / "broker_d"):
+        broker = tmp / "broker_d"
+        cli.ProfileWindow.start, cli.ProfileWindow.stop = start, stop
+        pa_scan.launches = 0
+        try:
+            argv = ["--parallelism", SLICE_CONFIG["parallelism"], "--batchSize",
+                    kr["profile_batch"], "--profileSteps", kr["profile_steps"],
+                    "--profileDir", prof_dir]
+            job, wall, _, _ = _kafka_cli(torch, argv, broker,
+                                         feed=_feed_after_create(broker, lines))
+        finally:
+            cli.ProfileWindow.start, cli.ProfileWindow.stop = real_start, real_stop
+        total_launches = pa_scan.launches
+    trace = Path(trace_path(str(prof_dir)))
+    named = _trace_kernel_counts(trace, PA_SCAN_KERNELS)
+    doc = json.loads(trace.read_text())
+    busy_us = sum(e.get("dur", 0) for e in doc.get("traceEvents", [])
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    span_s = window["t1"] - window["t0"]
+    row = {"profile_steps": kr["profile_steps"], "batch": kr["profile_batch"],
+           "stops": window["stops"], "window_s": span_s,
+           "pa_scan_launches_in_window": window["launches"],
+           "pa_scan_launches_run": total_launches, "trace_kernels": named,
+           "trace_bytes": trace.stat().st_size, "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / 1e6 / span_s}
+    log("kafka-profile: " + json.dumps(row))
+    check(window["stops"] == 1, f"kafka-profile: the trace stopped {window['stops']} times")
+    check(0 < window["launches"] < total_launches,
+          f"kafka-profile: pa_scan launches {window['launches']} in the window, "
+          f"{total_launches} in the run")
+    check(all(n == window["launches"] for n in named.values()),
+          f"kafka-profile: the trace's kernels {named} != the window's "
+          f"{window['launches']} pa_scan launches")
+    return window["launches"]
+
+
+def _storm_run(torch, storm, budgets, device, **kw):
+    """run_inprocess_storm on ``device``, its SLO report checked. Returns
+    (report, job, wall seconds, events/s, the seconds of its terminate)."""
+    from omldm_tpu_torch.load_harness import run_inprocess_storm
+    from omldm_tpu_torch.runtime.job import StreamJob
+
+    real = StreamJob.terminate
+    spent = []
+
+    def terminate(job):
+        t = time.perf_counter()
+        try:
+            return real(job)
+        finally:
+            spent.append(time.perf_counter() - t)
+
+    StreamJob.terminate = terminate
+    try:
+        t0 = time.perf_counter()
+        report, job = run_inprocess_storm(storm, budgets, device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        StreamJob.terminate = real
+    check(report.passed, f"storm[{device}]: SLO breaches "
+          f"{[c.to_dict() for c in report.failing()]}")
+    n = storm.spec.tenants + sum(1 for _ in storm.events())
+    return report, job, wall, n / wall, sum(spent)
+
+
+def phase_storm(torch, pa_scan):
+    """Phase 47 (e-f): the load harness's in-process leg on the card.
+    Returns the batched pa_scan launches of the perRecord storm."""
+    from omldm_tpu_torch.load_harness import default_storm_spec, run_composition_identity
+    from omldm_tpu_torch.runtime.loadgen import LoadStorm, StormSpec
+    from omldm_tpu_torch.runtime.slo import SLOBudgets
+
+    t_phase = time.perf_counter()
+    storm = LoadStorm(default_storm_spec(**STORM))
+    # JAX TestInprocessLeg's budgets: the hot tenants may shed, no row
+    # stranded
+    budgets = SLOBudgets(allow_shed_tenants=storm.hot_tenant_ids(), max_stranded_rows=0)
+    card, job, card_wall, card_rate, card_term = _storm_run(torch, storm, budgets, "cuda")
+    shed = {s.pipeline: s.forecasts_shed for s in job.performance[-1].statistics
+            if s.forecasts_shed}
+    n_preds, n_nets = len(job.predictions), sum(len(s.nets) for s in job.spokes)
+    phase_table = job.phase_table(card_wall)
+    del job  # its 4,192 nets are not kept through the runs below
+    again, _, again_wall, again_rate, _ = _storm_run(torch, storm, budgets, "cuda")
+    cpu, _, cpu_wall, cpu_rate, cpu_term = _storm_run(torch, storm, budgets, "cpu")
+    identity = LoadStorm(StormSpec(**STORM_IDENTITY))
+    t0 = time.perf_counter()
+    bare, composed = run_composition_identity(identity, device="cuda")
+    torch.cuda.synchronize()
+    identity_wall = time.perf_counter() - t0
+    row = {"tenants": STORM["tenants"], "records": STORM["records"],
+           "fingerprint": storm.fingerprint()[:16], "core_digest": card.core_digest()[:16],
+           "checks": {c.name: c.ok for c in card.checks}, "predictions": n_preds,
+           "shed": shed, "records_per_s": {"cuda": card_rate, "cuda_again": again_rate,
+                                           "cpu": cpu_rate},
+           "wall_s": {"cuda": card_wall, "cuda_again": again_wall, "cpu": cpu_wall,
+                      "identity_pair": identity_wall},
+           "terminate_s": {"cuda": card_term, "cpu": cpu_term},
+           "nets": n_nets, "phase_table": phase_table}
+    log("storm: " + json.dumps(row))
+    check(card.core_digest() == again.core_digest(),
+          "storm: a second run on the card gave another report core")
+    check(card.core_digest() == cpu.core_digest(),
+          "storm: the card's report core differs from the CPU's")
+    check(bare == composed and len(bare) == STORM_IDENTITY["tenants"],
+          "storm: the unarmed plane matrix is not bit-transparent on the card")
+
+    # (f) the perRecord storm: one batched pa_scan launch a gang step
+    per_record = LoadStorm(default_storm_spec(**STORM, training_extra={"perRecord": True}))
+    budgets = SLOBudgets(allow_shed_tenants=per_record.hot_tenant_ids(), max_stranded_rows=0)
+    _mt_reset(pa_scan)
+    report, job, wall, rate, _ = _storm_run(torch, per_record, budgets, "cuda")
+    counts = _mt_counts(pa_scan)
+    cohorts = [c for s in job.spokes if s.cohorts is not None for c in s.cohorts.cohorts.values()]
+    row = {"records_per_s": rate, "wall_s": wall, **counts,
+           "cohorts": len(cohorts), "members": sum(c.n_active for c in cohorts),
+           "checks": {c.name: c.ok for c in report.checks}}
+    log("storm-per-record: " + json.dumps(row))
+    log(f"storm-per-record: {counts['pa_scan']} solo pa_scan launches (members never ganged "
+        f"or evicted), {counts['pa_scan_batched']} batched for {counts['gang_steps']} gang steps")
+    check(counts["pa_scan_batched"] == counts["gang_steps"] > 0,
+          f"storm-per-record: batched launches {counts['pa_scan_batched']} != gang steps "
+          f"{counts['gang_steps']}")
+    log(f"storm: phase 47e-f took {time.perf_counter() - t_phase:.1f} s")
+    return counts["pa_scan_batched"], counts["pa_scan"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6396,6 +7124,8 @@ def main() -> int:
     parser.add_argument("--sequence-only", action="store_true",
                         help="run phases 43-45 after the build (phase 9's LM for 45's "
                              "comparison), then exit")
+    parser.add_argument("--kafka-only", action="store_true",
+                        help="run phase 17 and phase 47 after the build, then exit")
     args = parser.parse_args()
 
     import torch
@@ -6432,6 +7162,20 @@ def main() -> int:
         _, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
         del trainer
         phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
+        return 0
+    if args.kafka_only:
+        events = make_events(args.records, args.seed, query_at=args.records // 2)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kafka_") as tmp:
+            cli = phase_cli(torch, pa_scan, fast_ingest, events, Path(tmp), float("nan"))
+            lap("cli")
+            with _no_residue(torch, "kafka-profile"):
+                phase_kafka_profile(torch, pa_scan, events, Path(tmp))
+            with _no_residue(torch, "kafka"):
+                phase_kafka(torch, pa_scan, events, cli, float("nan"), args.parity_records,
+                            Path(tmp))
+                lap("kafka")
+                phase_storm(torch, pa_scan)
+                lap("storm")
         return 0
     max_err = phase_check(torch, pa_scan)
     times = phase_time(torch, pa_scan)
@@ -6538,7 +7282,7 @@ def main() -> int:
     lap("guard cohorts")
     reliable_launches = phase_reliable(torch, pa_scan, events)
     lap("reliable channel")
-    recovery_launches = phase_recovery(torch, pa_scan, events, ckpt_dir)
+    recovery_launches, recovery_fitted = phase_recovery(torch, pa_scan, events, ckpt_dir)
     lap("recovery")
     rescale_launches = phase_rescale(torch, pa_scan, sparse, events, sparse_events, ckpt_dir)
     lap("rescale")
@@ -6553,6 +7297,14 @@ def main() -> int:
     lap("overload")
     lifecycle_launches, poison_preds = phase_lifecycle(torch, pa_scan, ckpt_dir)
     lap("lifecycle")
+    # phase 47d runs before phases 41-42: its profile window needs
+    # torch.profiler's device records; the rest of phase 47 runs after
+    # them, so the reference smokes' timed gates (41a, 42a) see the state
+    # of the script they saw before the phase existed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kafka_") as tmp, \
+            _no_residue(torch, "kafka-profile"):
+        kafka_profile_launches = phase_kafka_profile(torch, pa_scan, events, Path(tmp))
+        lap("kafka profile window")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_planes_") as tmp:
         telemetry_launches, cli_profiled_launches = phase_telemetry(
             torch, pa_scan, events, launches, slice_preds, Path(tmp))
@@ -6560,6 +7312,14 @@ def main() -> int:
         recorder_batched, recorder_lifecycle = phase_flight_recorder(
             torch, pa_scan, args.seed, guard_cohort, lifecycle_launches, poison_preds, Path(tmp))
         lap("flight recorder")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kafka_") as tmp, \
+            _no_residue(torch, "kafka"):
+        kafka_launches = phase_kafka(torch, pa_scan, events, cli, len(events) / wall,
+                                     args.parity_records, Path(tmp),
+                                     restart_fitted=recovery_fitted)
+        lap("kafka")
+        storm_batched, storm_solo = phase_storm(torch, pa_scan)
+        lap("storm")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -6592,6 +7352,10 @@ def main() -> int:
             "stream_telemetry_armed": telemetry_launches,
             "cli_profiled": cli_profiled_launches,
             "lifecycle_poison_events_armed": recorder_lifecycle,
+            "kafka_route": kafka_launches["route"],
+            "kafka_restart_final_incarnation": kafka_launches["restart"],
+            "kafka_profile_window": kafka_profile_launches,
+            "storm_per_record_solo": storm_solo,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -6611,6 +7375,7 @@ def main() -> int:
             "multi_tenant_rescaled_2_1_2": cohort_rescale_launches,
             "multi_tenant_overload_armed_first_records": overload_batched,
             "multi_tenant_guarded_events_armed": recorder_batched,
+            "storm_per_record": storm_batched,
         },
         "max_abs_err": batched_err,
         **batched_times[BATCHED_SHAPES[0]],

@@ -28,6 +28,17 @@ Sources (choose one style):
   take the per-record route.
 - ``--events combined.jsonl`` -- one fully ordered file of ``{"stream":
   "trainingData"|"forecastingData"|"requests", "data": {...}}`` lines.
+- ``--kafkaBrokers host:port`` -- the live Kafka consumer and producer
+  (``runtime.kafka_io``; needs kafka-python, a module importable as
+  ``kafka``): the polling loop runs until the silence timer
+  (``--timeout`` ms, StatisticsOperator.scala:135-142) terminates the job;
+  an idle poll window still ticks the silence and overload clocks, and an
+  overload controller at CRITICAL pauses consumption (its offsets stay
+  unread, so paused traffic replays). Predictions, responses, performance
+  and dead letters publish to their topics unless a ``--*Out`` file flag
+  claims the stream. ``--retry*`` / ``--sendRetry*`` set the connect and
+  send backoff (``BackoffPolicy.from_flags``); ``OMLDM_CHAOS_KAFKA``
+  arms the seeded broker-side chaos (``runtime.supervisor.ChaosConsumer``).
 
 Sinks: ``--predictionsOut`` / ``--responsesOut`` / ``--performanceOut``
 write JSON lines to files (default: performance to stdout).
@@ -37,7 +48,9 @@ the performance sink, the phase table, sampled spans), ``--flightRecorder
 SPEC`` the flight recorder (``--blackboxPath DIR`` for its ring dumps and
 bundles), and ``--profileDir DIR`` wraps the file and replay routes in a
 ``torch.profiler`` trace (``utils.tracing.trace``: a Chrome trace in DIR,
-with the card's kernels on a CUDA job).
+with the card's kernels on a CUDA job). On the unbounded Kafka route the
+trace covers the first ``--profileSteps`` events (default 1000) and stops
+once (``utils.tracing.ProfileWindow``).
 
 Recovery: ``--checkpointing true --stateBackend DIR --checkInterval MS``
 snapshot the job every MS milliseconds into DIR, and ``--restartAttempts
@@ -45,13 +58,16 @@ N`` (with ``--restartDelayMs``) runs the replay under
 ``runtime.recovery.JobSupervisor``: a failure restores the newest snapshot
 and resumes the replay at its event offset (without checkpointing, from
 the start). Either one keeps the file route on the event loop, which
-owns the periodic save.
+owns the periodic save. On the Kafka route a failure restores the newest
+snapshot of this run and seeks the rebuilt consumer to its (topic,
+partition) offsets; without one the next incarnation starts fresh at the
+live position, its request partitions rewound.
 
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not
-have (Kafka and its profile window, the multi-process fleet, the XLA
-compile cache, JAX-only ``JobConfig`` fields) raise ``SystemExit`` naming
-the flag instead of being ignored.
+have (the multi-process fleet, the XLA compile cache, JAX-only
+``JobConfig`` fields) raise ``SystemExit`` naming the flag instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -69,18 +85,16 @@ from omldm_tpu_torch.runtime.job import (
     TRAINING_STREAM,
     StreamJob,
 )
-from omldm_tpu_torch.utils.tracing import trace
+from omldm_tpu_torch.utils.tracing import ProfileWindow, trace
 
 _STREAMS = (TRAINING_STREAM, FORECASTING_STREAM, REQUEST_STREAM)
 
 # routes of the JAX CLI the port does not have: flag -> what it arms there
 UNPORTED_ROUTE_FLAGS = {
-    "kafkaBrokers": "the Kafka route",
     "processes": "the multi-process fleet",
     "processId": "the multi-process fleet",
     "coordinator": "the multi-process fleet",
     "supervise": "the multi-process fleet's supervisor",
-    "profileSteps": "the Kafka loop's profile window",
     "compileCache": "the XLA compile cache",
     "compileCacheMinSecs": "the XLA compile cache",
 }
@@ -171,6 +185,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     refuse_unported(flags)
     job, sinks = build_job(flags)
     try:
+        if "kafkaBrokers" in flags:
+            # unbounded stream: the Kafka loop bounds its own profile
+            # window (--profileSteps events) instead of tracing the run
+            return _run_kafka(job, flags)
         with trace(flags.get("profileDir"), job.device):
             return _run(job, flags)
     finally:
@@ -200,12 +218,164 @@ def _run(job: StreamJob, flags: Dict[str, str]) -> int:
         if not sources:
             raise SystemExit(
                 "no sources: pass --trainingData/--forecastingData/--requests "
-                "<path.jsonl> or --events <combined.jsonl>"
+                "<path.jsonl>, --events <combined.jsonl>, or --kafkaBrokers "
+                "<host:port>"
             )
         return interleave(*sources)
 
     _run_replay(job, flags, make_events)
     return 0
+
+
+def _apply_kafka_sinks(job: StreamJob, flags: Dict[str, str], producer_sinks) -> None:
+    """Kafka producers are the default egress; an explicitly passed file
+    sink keeps precedence over the producer for its stream."""
+    job.set_sinks(
+        on_prediction=None if "predictionsOut" in flags else producer_sinks.on_prediction,
+        on_response=None if "responsesOut" in flags else producer_sinks.on_response,
+        on_performance=None if "performanceOut" in flags else producer_sinks.on_performance,
+    )
+    # quarantined records and requests publish to the deadLetters topic
+    # besides the job's in-memory ring and --deadLetterPath file
+    job.dead_letter.publish = producer_sinks.on_dead_letter
+
+
+def _kafka_loop(job: StreamJob, events, profile: Dict) -> None:
+    """One supervised attempt at the live polling loop. ``profile`` carries
+    the bounded trace window across restart attempts (the window counts
+    TOTAL events, and the trace stops exactly once)."""
+    # start the silence clock at loop entry, so a broker that never
+    # delivers anything still terminates after the timeout
+    job.stats.mark_activity()
+    for event in events:  # None on each idle poll window
+        if event is not None:
+            job.process_event(*event)
+            if job.checkpoint_manager is not None:
+                job.checkpoint_manager.maybe_save(job)
+            profile["n_events"] += 1
+            window = profile["window"]
+            if window is not None and window.active and profile["n_events"] >= profile["steps"]:
+                try:
+                    window.stop()
+                except Exception as exc:  # noqa: BLE001 -- re-raised by _run_kafka
+                    # a profiling fault is not a job failure: held past the
+                    # restart loop, so it never triggers a restart
+                    profile["error"] = exc
+        else:
+            # idle or backpressure-paused poll window: idle capacity decays
+            # the overload counters so a CRITICAL pause can clear (a no-op
+            # when the plane is unarmed)
+            job.overload_idle_tick()
+        job.check_silence()
+        if job.stats.terminated:
+            break
+
+
+def _kafka_retry_policies(flags: Dict[str, str]):
+    """(connect/metadata policy, producer-send policy) from the CLI knobs
+    ``--retry{Attempts,BaseDelayMs,Growth,JitterMs,TimeoutMs}`` and
+    ``--sendRetry{...}`` (defaults in ``runtime.kafka_io``)."""
+    import dataclasses
+
+    from omldm_tpu_torch.runtime.kafka_io import CONNECT_RETRY, SEND_RETRY
+    from omldm_tpu_torch.utils.backoff import BackoffPolicy
+
+    connect = BackoffPolicy.from_flags(flags, "retry", **dataclasses.asdict(CONNECT_RETRY))
+    send = BackoffPolicy.from_flags(flags, "sendRetry", **dataclasses.asdict(SEND_RETRY))
+    return connect, send
+
+
+def _run_kafka(job: StreamJob, flags: Dict[str, str]) -> int:
+    """The live Kafka job, optionally supervised (``--restartAttempts N``):
+    on failure, restore the newest checkpoint taken during this run and
+    seek the rebuilt consumer to the snapshot's (topic, partition) offsets
+    -- Flink's restore-from-checkpoint with Kafka source offsets. Without a
+    usable snapshot the next incarnation starts fresh from the live
+    position (no replay), Flink's uncheckpointed behaviour on a live
+    source. The restart loop runs under the shared backoff helper (fixed
+    delay, bounded attempts: RestartStrategies.fixedDelayRestart)."""
+    # looked up on the module at call time: tests stand a fake broker in
+    from omldm_tpu_torch.runtime import kafka_io
+    from omldm_tpu_torch.runtime.recovery import recover_job
+    from omldm_tpu_torch.utils.backoff import BackoffPolicy, with_backoff
+
+    attempts = int(flags.get("restartAttempts", "0"))
+    delay_s = float(flags.get("restartDelayMs", "0")) / 1000.0
+    connect_retry, send_retry = _kafka_retry_policies(flags)
+    # the bounded profile window of the unbounded stream: the first
+    # --profileSteps events (default 1000)
+    profile = {"window": None, "n_events": 0, "error": None,
+               "steps": int(flags.get("profileSteps", "1000"))}
+    if flags.get("profileDir"):
+        profile["window"] = ProfileWindow(flags["profileDir"], job.device).start()
+
+    manager = job.checkpoint_manager
+    ckpt_floor = manager.latest_path() if manager is not None else None
+    # mutable attempt state: each restart swaps in the recovered job, its
+    # tracker and the reconnected clients for the next with_backoff attempt
+    state = {"job": job, "tracker": {}}
+
+    def pause_when() -> bool:
+        # upstream backpressure (runtime/overload.py): while any spoke's
+        # overload controller reports CRITICAL the polling loop stops
+        # consuming, offsets unread, so paused traffic replays instead of
+        # buffering; read through ``state``, it follows the restarts
+        return state["job"].overload_level() >= 2
+
+    failed = True
+    try:
+        events, producer_sinks = kafka_io.connect_kafka(
+            flags["kafkaBrokers"], tracker=state["tracker"], retry=connect_retry,
+            send_retry=send_retry, pause_when=pause_when,
+        )
+        state.update(events=events, sinks=producer_sinks)
+
+        def attempt() -> int:
+            j = state["job"]
+            j.source_position = state["tracker"]
+            _apply_kafka_sinks(j, flags, state["sinks"])
+            _kafka_loop(j, state["events"], profile)
+            return 0
+
+        def on_restart(exc: Exception, next_attempt: int) -> None:
+            print(f"job failure ({type(exc).__name__}: {exc}); "
+                  f"restart {next_attempt - 1}/{attempts}", file=sys.stderr)
+            new_job, _restored_from = recover_job(state["job"], ckpt_floor)
+            if new_job.source_position is None:
+                # fresh incarnation: data streams continue from the live
+                # position (no replay on a live source), but the CONTROL
+                # stream rewinds to the beginning -- a fresh-state job must
+                # re-consume Create/Update/Delete to rebuild its topology.
+                # Dropping the key makes the reconnect seek those
+                # partitions to the beginning
+                position = dict(state["tracker"])
+                for key in list(position):
+                    if kafka_io.DEFAULT_TOPICS.get(key[0]) == REQUEST_STREAM:
+                        del position[key]
+                new_job.source_position = position
+            new_tracker = dict(new_job.source_position)
+            # close the abandoned clients: restarts must not leak broker
+            # connections
+            state["sinks"].close()
+            new_events, new_sinks = kafka_io.connect_kafka(
+                flags["kafkaBrokers"], position=new_tracker, tracker=new_tracker,
+                retry=connect_retry, send_retry=send_retry, pause_when=pause_when,
+            )
+            state.update(job=new_job, events=new_events, sinks=new_sinks, tracker=new_tracker)
+
+        rc = with_backoff(
+            attempt, policy=BackoffPolicy(attempts=attempts + 1, base_delay=delay_s),
+            retry_on=(Exception,), on_retry=on_restart,
+        )
+        if profile["error"] is not None:
+            raise profile["error"]
+        failed = False
+        return rc
+    finally:
+        # the window stops once: here only if the stream ended (or failed)
+        # inside it
+        if profile["window"] is not None:
+            profile["window"].stop(write=not failed)
 
 
 def _run_replay(job: StreamJob, flags: Dict[str, str], make_events) -> None:

@@ -280,7 +280,10 @@ class ServingPlane:
             self._pending[net.request.id] = net
         q.entries.append((inst, x, now))
         q.n_rows += 1
-        if q.n_rows >= _limits(net).max_batch:
+        # the overload plane only widens a net's limits (overload.widen >=
+        # 1): a queue short of its static maxBatch needs no lookup of the
+        # limits in force
+        if q.n_rows >= net.serving.max_batch and q.n_rows >= _limits(net).max_batch:
             self._fill = True
 
     def admit_rows(self, net, rows: np.ndarray, now: float) -> None:
@@ -325,7 +328,12 @@ class ServingPlane:
         now = self._clock() if now is None else now
         for net in list(self._pending.values()):
             q = net.serve_queue
-            if q.entries and (now - q.t_oldest) * 1000.0 >= _limits(net).max_delay_ms:
+            if not q.entries:
+                continue
+            # as in admit: the static maxDelayMs bounds the one in force
+            # from below, so a younger queue skips the lookup
+            age_ms = (now - q.t_oldest) * 1000.0
+            if age_ms >= net.serving.max_delay_ms and age_ms >= _limits(net).max_delay_ms:
                 self.flush_group(self._group(net))
 
     def fence(self, net, chunks: int = 1) -> None:

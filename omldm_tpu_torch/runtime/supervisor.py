@@ -16,14 +16,21 @@ The spec's burst keys arm :class:`BurstInjector`, the overload plane's
 seeded hot-tenant flood: the job feeds it every forecasting record and
 handles the tenant-addressed copies it returns.
 
-The rest of the JAX module -- the fleet supervisor and autoscaler, the
-process fault injector and the Kafka ``ChaosConsumer`` -- arrives with the
-distributed fleet (ROADMAP queue 1, item 4).
+:class:`ChaosConsumer` makes a Kafka-style consumer misbehave the way a
+broker does across restarts and rebalances (drop, duplicate, reorder, and
+poisoned record values), on the same seeded schedule; the Kafka route arms
+it with ``OMLDM_CHAOS_KAFKA`` (:func:`maybe_chaos_consumer`).
+
+The rest of the JAX module -- the fleet supervisor and autoscaler and the
+process fault injector -- arrives with the distributed fleet (ROADMAP
+queue 1, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import zlib
 from typing import Dict, List, Optional
 
@@ -360,3 +367,160 @@ class BurstInjector:
         k = self.factor - 1
         self.injected += k
         return [clone] * k
+
+
+# poison-record templates: malformed or non-finite record values a
+# hostile producer could publish (ChaosConsumer's ``poison`` class)
+_POISON_RECORDS = (
+    '{"numericalFeatures": [NaN, 1.0], "target": 1.0}',
+    '{"numericalFeatures": [1e999, 0.5], "target": 0.0}',
+    '{"numericalFeatures": [1.0, 2.0], "target": Infinity}',
+    '{"numericalFeatures": [1.0, 2.0], "target": ',
+)
+
+
+class _PoisonedRecord:
+    """Minimal ConsumerRecord stand-in carrying a poisoned value."""
+
+    __slots__ = ("topic", "value", "partition", "offset")
+
+    def __init__(self, rec, value):
+        self.topic = rec.topic
+        self.value = value
+        self.partition = getattr(rec, "partition", 0)
+        self.offset = getattr(rec, "offset", None)
+
+
+class ChaosConsumer:
+    """Seeded lossy wrapper around a Kafka-style consumer iterator.
+
+    Applies drop/dup/reorder to the RECORD stream (the broker-side faults
+    of an at-least-once source: redelivery after rebalance, replayed
+    batches after restart). Drops model transient loss before commit --
+    offsets of dropped records are never recorded, so a checkpoint/restore
+    cycle re-reads them: at-least-once is preserved, exactly what the
+    reference's Kafka sources guarantee. All non-iterator attributes
+    (assign/seek/position/...) delegate to the wrapped consumer."""
+
+    def __init__(self, inner, *, seed: int = 0, drop: float = 0.0,
+                 dup: float = 0.0, reorder: float = 0.0, delay: float = 0.0,
+                 poison: float = 0.0, nan: float = 0.0, explode: float = 0.0,
+                 window: int = 4, name: str = "kafka",
+                 poison_exempt_topics=()):
+        self._inner = inner
+        self._rng = _chaos_rng(seed, name)
+        self._drop = float(drop)
+        self._dup = float(dup)
+        self._reorder = float(reorder + delay)
+        # poison-record injection: with probability ``poison`` a consumed
+        # record's VALUE is replaced by a seeded malformed/non-finite
+        # template (_POISON_RECORDS) -- the hostile-producer fault the
+        # dead-letter quarantine + isValid boundary must absorb without
+        # crashing or training on it. ``nan``/``explode`` are channel
+        # (parameter-payload) classes and are inert on a record stream --
+        # accepted so one spec string can arm both layers.
+        self._poison = float(poison)
+        # topics poison must never touch (the CONTROL stream): a poisoned
+        # record is consumed -- its offset advances -- so unlike the drop
+        # class it is not replayed later. Destroying a Create/Delete
+        # would silently change the job topology forever, which is a
+        # different fault class than hostile data records. The fate draw
+        # still happens for exempt topics so the corruption schedule of
+        # the data streams does not depend on the topic mix.
+        self._poison_exempt = frozenset(poison_exempt_topics)
+        self._window = max(int(window), 1)
+        self._held: List[list] = []  # [countdown, record]
+        self.dropped = 0
+        self.duplicated = 0
+        self.reordered = 0
+        self.poisoned = 0
+
+    def __iter__(self):
+        return self
+
+    def _due(self):
+        due = next((h for h in self._held if h[0] <= 0), None)
+        if due is not None:
+            self._held.remove(due)
+        return due
+
+    def __next__(self):
+        while True:
+            due = self._due()
+            if due is not None:
+                return due[1]
+            try:
+                rec = next(self._inner)
+            except StopIteration:
+                # idle window: release held records (nothing left for them
+                # to reorder past) before going idle ourselves
+                if self._held:
+                    return self._held.pop(0)[1]
+                raise
+            for h in self._held:
+                h[0] -= 1
+            if self._poison > 0.0:
+                u_poison = self._rng.random_sample()
+                hit = u_poison < self._poison
+                if hit:
+                    value = _POISON_RECORDS[
+                        int(self._rng.randint(len(_POISON_RECORDS)))
+                    ]
+                if hit and getattr(rec, "topic", None) not in self._poison_exempt:
+                    rec = _PoisonedRecord(rec, value)
+                    self.poisoned += 1
+            u_drop, u_dup, u_reorder = self._rng.random_sample(3)
+            if u_dup < self._dup:
+                self._held.append(
+                    [int(self._rng.randint(1, self._window + 1)), rec]
+                )
+                self.duplicated += 1
+            if u_drop < self._drop:
+                self.dropped += 1
+                continue
+            if u_reorder < self._reorder:
+                self._held.append(
+                    [int(self._rng.randint(1, self._window + 1)), rec]
+                )
+                self.reordered += 1
+                continue
+            return rec
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def maybe_chaos_consumer(
+    consumer,
+    env_var: str = "OMLDM_CHAOS_KAFKA",
+    name: str = "kafka",
+    poison_exempt_topics=(),
+):
+    """Wrap ``consumer`` in a :class:`ChaosConsumer` when broker chaos is
+    armed by the env var; otherwise return it untouched.
+    ``poison_exempt_topics`` names topics the poison class must never
+    mutate -- callers pass their request/control topics."""
+    spec = parse_chaos_spec(os.environ.get(env_var, ""))
+    if spec is None:
+        return consumer
+    params = spec["up"]
+    if not any(params.values()):
+        return consumer
+    print(
+        f"[chaos] kafka consumer chaos armed: seed={spec['seed']} {params}",
+        file=sys.stderr,
+        flush=True,
+    )
+    return ChaosConsumer(
+        consumer, seed=spec["seed"], window=spec["window"], name=name,
+        poison_exempt_topics=poison_exempt_topics, **params
+    )
+
+
+__all__ = [
+    "BurstInjector",
+    "ChaosChannel",
+    "ChaosConsumer",
+    "maybe_chaos_consumer",
+    "parse_chaos_spec",
+]

@@ -3,7 +3,9 @@
 
 - :func:`trace` -- a context manager around ``torch.profiler`` writing a
   Chrome trace (``chrome://tracing``, Perfetto) into a directory: the
-  port's ``--profileDir``, where the JAX package writes an XLA profile.
+  port's ``--profileDir``, where the JAX package writes an XLA profile;
+  :class:`ProfileWindow` -- the same trace over a window opened and closed
+  by hand (the Kafka route's ``--profileSteps`` window).
 - :class:`StepTimer` -- cheap wall-clock accounting for streaming steps:
   per-step ms percentiles and steps/sec, and the recent p99 the overload
   controller reads as its serve-latency signal.
@@ -22,48 +24,88 @@ def trace_path(log_dir: str) -> str:
     return os.path.join(log_dir, f"trace-{os.getpid()}.json")
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str], device=None):
-    """Profile the enclosed block with ``torch.profiler`` when ``log_dir``
-    is set (a no-op otherwise, so call sites pass the flag through).
+class ProfileWindow:
+    """A ``torch.profiler`` trace over a window the caller opens and closes:
+    :meth:`start` begins recording, :meth:`stop` ends it (once; a second
+    call does nothing) and writes the Chrome trace into :func:`trace_path`.
+    The Kafka route bounds its window to ``--profileSteps`` events this way
+    (the stream is unbounded); :func:`trace` wraps a block in one.
 
     CPU activity is always recorded; CUDA activity too when ``device`` is
     a CUDA device, and then a profiler that cannot record the card raises
-    instead of writing a CPU-only trace. The trace lands in
+    at :meth:`start`, and a window that recorded no CUDA activity raises at
+    :meth:`stop`, instead of writing a CPU-only trace."""
+
+    def __init__(self, log_dir: str, device=None):
+        import torch
+        from torch.profiler import ProfilerActivity
+
+        self.log_dir = log_dir
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._activities = [ProfilerActivity.CPU]
+        if self.cuda:
+            if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+                raise RuntimeError(
+                    "--profileDir: this torch.profiler cannot record CUDA activity")
+            self._activities.append(ProfilerActivity.CUDA)
+        self._prof = None
+        self.active = False
+
+    def start(self) -> "ProfileWindow":
+        from torch.profiler import profile
+
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._prof = profile(activities=self._activities)
+        self._prof.__enter__()
+        self.active = True
+        return self
+
+    def stop(self, write: bool = True) -> None:
+        """End the window; with ``write``, export the trace (``write=False``
+        discards it: the window's block failed)."""
+        if not self.active:
+            return
+        self.active = False
+        prof = self._prof
+        if not write:
+            try:
+                prof.__exit__(None, None, None)
+            except Exception:
+                pass  # the block's own exception is the one to report
+            return
+        prof.__exit__(None, None, None)
+        import torch
+
+        # the raw trace's events (prof.events() would build the whole event
+        # tree first, seconds on a long run)
+        if self.cuda and not any(e.device_type() == torch.autograd.DeviceType.CUDA
+                                 for e in prof.profiler.kineto_results.events()):
+            raise RuntimeError(
+                "--profileDir: torch.profiler recorded no CUDA activity on a CUDA job")
+        prof.export_chrome_trace(trace_path(self.log_dir))
+
+    @property
+    def profiler(self):
+        return self._prof
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], device=None):
+    """Profile the enclosed block with ``torch.profiler`` when ``log_dir``
+    is set (a no-op otherwise, so call sites pass the flag through): a
+    :class:`ProfileWindow` over the block. The trace lands in
     :func:`trace_path`. An exception in the block stops the profiler and
     propagates unchanged (no trace is written for a failed block)."""
     if not log_dir:
         yield None
         return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    cuda = device is not None and torch.device(device).type == "cuda"
-    if cuda:
-        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
-            raise RuntimeError(
-                "--profileDir: this torch.profiler cannot record CUDA activity")
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.__enter__()
+    window = ProfileWindow(log_dir, device).start()
     try:
-        yield prof
+        yield window.profiler
     except BaseException:
-        try:
-            prof.__exit__(None, None, None)
-        except Exception:
-            pass  # the block's own exception is the one to report
+        window.stop(write=False)
         raise
-    prof.__exit__(None, None, None)
-    # the raw trace's events (prof.events() would build the whole event
-    # tree first, seconds on a long run)
-    if cuda and not any(e.device_type() == torch.autograd.DeviceType.CUDA
-                        for e in prof.profiler.kineto_results.events()):
-        raise RuntimeError(
-            "--profileDir: torch.profiler recorded no CUDA activity on a CUDA job")
-    prof.export_chrome_trace(trace_path(log_dir))
+    window.stop()
 
 
 class StepTimer:

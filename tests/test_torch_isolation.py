@@ -42,6 +42,8 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.lifecycle\n"
         "import omldm_tpu_torch.runtime.telemetry, omldm_tpu_torch.runtime.events\n"
         "import omldm_tpu_torch.utils.tracing, omldm_tpu_torch.runtime.ingest_shard\n"
+        "import omldm_tpu_torch.runtime.kafka_io, omldm_tpu_torch.runtime.loadgen\n"
+        "import omldm_tpu_torch.runtime.slo, omldm_tpu_torch.load_harness\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -62,6 +64,14 @@ def _imported_roots(path: Path):
 def test_no_jax_import_in_source(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "optax", "omldm_tpu"}, roots
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "omldm_tpu_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_package_never_imports_the_test_broker(path):
+    """tests/fskafka.py is a test fake: the package imports ``kafka`` (the
+    real client) and never the fake, nor anything of the tests."""
+    assert not set(_imported_roots(path)) & {"fskafka", "tests"}
 
 
 PACKAGE_FILES = sorted((ROOT / "omldm_tpu_torch").rglob("*.py"))
@@ -474,12 +484,10 @@ def test_serving_plane_is_ported():
     (["--computeDtype", "bfloat16"], "computeDtype"),
     (["--maxMsgParams", "2000"], "maxMsgParams"),
     (["--requestBufferCap", "10"], "requestBufferCap"),
-    (["--kafkaBrokers", "localhost:9092"], "kafkaBrokers"),
     (["--processes", "2"], "processes"),
     (["--processId", "0"], "processId"),
     (["--coordinator", "localhost:1234"], "coordinator"),
     (["--supervise"], "supervise"),
-    (["--profileSteps", "100"], "profileSteps"),
     (["--compileCache", "off"], "compileCache"),
     (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
 ])
@@ -492,6 +500,34 @@ def test_cli_refuses_unported_flags(argv, flag, tmp_path):
     train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
     with pytest.raises(SystemExit, match=flag):
         main(["--trainingData", str(train), "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--kafkaBrokers", "localhost:9092", "--timeout", "200"], "kafkaBrokers"),
+    (["--profileSteps", "100"], "profileSteps"),
+])
+def test_cli_accepts_kafka_route_flags(argv, flag, tmp_path, monkeypatch):
+    """The Kafka route and its profile window are ported: their flags are
+    no longer refused. ``--kafkaBrokers`` runs the polling loop (here over a
+    broker that never delivers, until the silence timer); ``--profileSteps``
+    is accepted and, off the Kafka route, has no effect, as in the JAX
+    CLI."""
+    import omldm_tpu_torch.runtime.kafka_io as kafka_io
+    from omldm_tpu_torch.__main__ import UNPORTED_ROUTE_FLAGS, main
+
+    class Silent:
+        def __next__(self):
+            raise StopIteration
+
+    monkeypatch.setattr(kafka_io, "connect_kafka", lambda brokers, **kw: (
+        kafka_io.polling_events(Silent()), kafka_io.ProducerSinks(None)))
+    assert flag not in UNPORTED_ROUTE_FLAGS
+    train = tmp_path / "t.jsonl"
+    train.write_text('{"numericalFeatures": [1.0], "target": 1.0}\n')
+    sources = [] if flag == "kafkaBrokers" else ["--trainingData", str(train)]
+    assert main([*sources, "--device", "cpu", *argv,
+                 "--performanceOut", str(tmp_path / "perf.jsonl")]) == 0
+    assert (tmp_path / "perf.jsonl").read_text().strip()
 
 
 @pytest.mark.parametrize("argv", [

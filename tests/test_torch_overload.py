@@ -508,3 +508,57 @@ def test_heartbeat_folds_match_jax():
     jr = jj.terminate()
     assert [s.forecasts_shed for s in report.statistics] == [
         s.forecasts_shed for s in jr.statistics]
+
+
+class _LimitsNet:
+    """A serving-armed net as the serving plane sees it: its static config
+    and the limits in force (``serving_limits``), widened under pressure."""
+
+    def __init__(self, queue_cls, nid, static, in_force):
+        self.request = types.SimpleNamespace(id=nid)
+        self.pipeline = types.SimpleNamespace()
+        self.serving = static
+        self.serve_queue = queue_cls()
+        self._in_force = in_force
+
+    def serving_limits(self):
+        return self._in_force
+
+
+@pytest.mark.parametrize("widen", [1.0, 4.0])
+def test_flush_points_under_widened_limits_match_jax(widen):
+    """The port skips the lookup of the limits in force while a queue is
+    short of its static maxBatch and maxDelayMs (the plane only widens
+    them); the fill flag and the deadline flushes stay the JAX plane's,
+    admission for admission."""
+    from omldm_tpu.runtime import serving as jsv
+    from omldm_tpu_torch.runtime import serving as tsv
+
+    def drive(mod, cfg_cls):
+        static = cfg_cls(max_batch=4, max_delay_ms=10.0)
+        in_force = cfg_cls(max_batch=int(4 * widen), max_delay_ms=10.0 * widen)
+        now = [0.0]
+        plane = mod.ServingPlane(lambda p: None, clock=lambda: now[0])
+        flushed = []
+        plane.flush_group = lambda nets: [
+            (flushed.append((now[0], n.request.id, n.serve_queue.n_rows)),
+             plane.take_queue(n)) for n in nets]
+        nets = [_LimitsNet(mod.ServeQueue, i, static, in_force if i == 0 else static)
+                for i in range(2)]
+        fills = []
+        for step in range(40):
+            now[0] = step * 0.002
+            for net in nets[: 1 + step % 2]:
+                plane.admit(net, None, np.zeros(2, np.float32))
+            fills.append(plane._fill)
+            plane.maybe_fill_flush()
+            plane.poll()
+        return fills, flushed
+
+    port, ref = drive(tsv, ServingConfig), drive(jsv, JServingConfig)
+    assert port == ref
+    fills, flushed = port
+    # the widened net's queue first fills at its widened maxBatch
+    first = next(n for _, nid, n in flushed if nid == 0)
+    assert first == int(4 * widen)
+    assert any(fills)
