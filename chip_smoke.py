@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--records N] [--parity-records N]
                           [--lm-steps N] [--profile DIR] [--sequence-only]
-                          [--kafka-only]
+                          [--kafka-only] [--fleet-only]
 
 Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
@@ -222,7 +222,8 @@ Phases (any failure raises and the script exits nonzero without a result):
                  device busy time, host time, the plain version, the bound;
  28. multi-tenant MT_RUN: 64 same-spec Creates (PA-I, C 0.01, perRecord,
                  Synchronous, every other one serving-armed) at
-                 parallelism 2, dim 28, 50,000 HIGGS-shaped rows through
+                 parallelism 2, dim 28, the first 25,000 of 50,000
+                 HIGGS-shaped rows (MT_RUN's main_records) through
                  the packed route, every tenth a forecast, with cohorts
                  auto (vmap; one cohort of 64 a spoke, one batched pa_scan
                  launch a gang step, no solo pa_scan; every forecast
@@ -479,11 +480,32 @@ Phases (any failure raises and the script exits nonzero without a result):
                  passes (the hot tenants may shed, no row stranded), the
                  three core digests equal; run_composition_identity on
                  STORM_IDENTITY on the card: equal digests; (f) the storm
-                 with perRecord: one batched pa_scan launch a gang step,
+                 at 64 tenants with perRecord: one batched pa_scan launch a
+                 gang step,
                  the solo launches printed. After each of its two parts
                  no thread started in it is alive and torch.profiler is
                  off (a residue: line). With --kafka-only: the build,
                  phase 17 and phase 47, then exit.
+ 48. fleet       (after phase 47) the multi-process fleet's file route,
+                 each process a python -c bootstrap that calls
+                 omldm_tpu_torch.runtime.distributed_job.run_distributed
+                 with the CLI's flags and prints its pa_scan and
+                 scatter_add launches, fleet steps and group calls: (a)
+                 the slice-1 Create (nFeatures 28) on 100,000
+                 HIGGS-shaped records, a forecast every 9, a final Query,
+                 at --processes 2 sharing the card (gloo, the backend
+                 rule), at --processes 1 on the card and at --processes 2
+                 --device cpu: fitted + holdout = the training rows,
+                 every forecast answered, score > 0.6, on the card
+                 pa_scan launched once a fleet step on each process; card
+                 against CPU every integer statistic equal, >= 99% of
+                 predictions equal; (b) the slice-3 sparse Create (13 +
+                 2^18, maxNnz 40) on 20,000 Criteo-shaped records at two
+                 processes, card and CPU: scatter_add once a fleet step a
+                 process, every integer statistic equal. Prints records/s
+                 at 1 and 2 processes, each process's wall and group
+                 calls a step (fleet[...]: lines). With --fleet-only: the
+                 build and phase 48, then exit.
 Phases 43-45 run right after phase 10 (their timings need the profiler's
 device records, which can come back empty after phases 41-42's traces).
 With --sequence-only: the build, phase 9 and phases 43-45, then exit.
@@ -498,7 +520,8 @@ BENCH_PROFILE_FUNCS); then the slice's and the sparse
 stream's runs under cProfile (host time by function) and torch.profiler
 (device busy time), then 4 LM steps under torch.profiler (device busy
 time, the flash kernels' share, the top kernels), and in phase 44 4 steps
-of the MoE LM the same way; tables are written into DIR.
+of the MoE LM the same way; in phase 48 the one-process card run again
+under cProfile (fleet-card1.txt); tables are written into DIR.
 With --ab-pa-scan SRC, after the build: the one-scan kernel against SRC
 (another checkout's omldm_tpu_torch/csrc/pa_scan.cu, e.g. a parent commit
 unpacked with git archive) as CUDA graphs at TIME_SHAPES in alternating
@@ -516,10 +539,12 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1978,7 +2003,8 @@ CRITEO_DIM = 13 + CRITEO_HASH      # nFeatures: 13 numerics + the hashed space
 CRITEO_NNZ = 40                    # maxNnz: 39 active slots and one pad
 AVAZU_DIM = 1 << 20                # 21 categorical slots hashed into 2^20
 AVAZU_SLOTS = 21
-SPARSE_RECORDS, AVAZU_RECORDS = 100_000, 20_000  # phases 14 and 16
+# phases 14 and 16 (phase 14 cut from 100,000 for the script's time limit)
+SPARSE_RECORDS, AVAZU_RECORDS = 50_000, 20_000
 # (B, K) into w[CRITEO_DIM + 1]: one record and a micro-batch of the slice
 # (K = maxNnz + the bias slot), and the experiment's 4096 x 39
 SPARSE_CHECKS = [(1, CRITEO_NNZ + 1), (256, CRITEO_NNZ + 1), (4096, 39)]
@@ -4053,8 +4079,11 @@ BATCHED_GROUPED_CHECK = (96, 16_384, 29, 40)
 # phase 28: 64 same-spec PA perRecord tenants (PA-I, C 0.01) under
 # Synchronous at parallelism 2, dim 28 (the bench job's width), every tenth
 # record a forecast, serving armed on every other tenant
-MT_RUN = dict(nets=64, records=50_000, parallelism=2, batch=256, test_set_size=64,
-              prefix_records=5_000)
+# the cohort run takes the stream's first main_records rows (cut from
+# 50,000 for the script's time limit); the stream itself stays the
+# 50,000-row draw, so every run of the phase sees the rows it saw before
+MT_RUN = dict(nets=64, records=50_000, main_records=25_000, parallelism=2, batch=256,
+              test_set_size=64, prefix_records=5_000)
 MT_LEARNER = {"name": "PA", "hyperParameters": {"C": 0.01, "variant": "PA-I"}}
 MT_SERVING = {"maxBatch": 64, "maxDelayMs": 5}
 # phase 29: every dense spec of the reference's cohort tests, 8 members
@@ -4475,7 +4504,8 @@ def phase_multi_tenant(torch, pa_scan, seed):
     pa_scan_batched launches."""
     r = MT_RUN
     x, y, op = mt_stream(r["records"], seed)
-    main = _mt_checked(torch, pa_scan, x, y, op, "auto", "multi-tenant[cohort]")
+    m = r["main_records"]
+    main = _mt_checked(torch, pa_scan, x[:m], y[:m], op[:m], "auto", "multi-tenant[cohort]")
 
     n = r["prefix_records"]
     px, py, pop = x[:n], y[:n], op[:n]
@@ -4504,8 +4534,8 @@ def phase_multi_tenant(torch, pa_scan, seed):
         f"{cpu[2]:.2f} s")
     auto, off = runs["auto"], runs["off"]
     line = {
-        "records": r["records"], "tenants": r["nets"],
-        "records_per_s": {"cohort": r["records"] / main[2],
+        "records": m, "tenants": r["nets"],
+        "records_per_s": {"cohort": m / main[2],
                           f"cohort_first_{r['prefix_records']}": r["prefix_records"] / auto[2],
                           f"solo_first_{r['prefix_records']}": r["prefix_records"] / off[2]},
         "idle_share": {"cohort": idle["auto"], "solo": idle["off"],
@@ -6436,7 +6466,7 @@ def phase_flight_recorder(torch, pa_scan, seed, guard_cohort, lifecycle_launches
 # 5's 256 fill no batch in 1,000 events)
 KAFKA_RUN = dict(timeout_ms=2_000, chaos="seed=7,drop=0.02,dup=0.05,reorder=0.05",
                  restart_saves=10, profile_steps=1_000, profile_records=5_000, profile_batch=16,
-                 breakdown_records=10_000)
+                 breakdown_records=5_000)  # cut from 10,000 for the time limit
 KAFKA_TOPICS = ("requests", "trainingData", "forecastingData")
 # the load harness's default storm (benchmarks/load_harness.py:64-98,
 # :367-372) and the composition-identity storm of tests/test_load_harness.py
@@ -6444,6 +6474,8 @@ KAFKA_TOPICS = ("requests", "trainingData", "forecastingData")
 # card, the deploys and terminate evaluations of 4,096 nets; the CPU tests
 # hold it at 256)
 STORM = dict(seed=7, tenants=256, records=1_024, chunk_rows=64)
+# 47f's perRecord storm, cut to 64 tenants for the script's time limit
+STORM_PER_RECORD = dict(STORM, tenants=64)
 STORM_IDENTITY = dict(seed=5, tenants=64, records=128, chunk_rows=64, n_features=4,
                       forecast_ratio=0.4)
 
@@ -7085,7 +7117,8 @@ def phase_storm(torch, pa_scan):
           "storm: the unarmed plane matrix is not bit-transparent on the card")
 
     # (f) the perRecord storm: one batched pa_scan launch a gang step
-    per_record = LoadStorm(default_storm_spec(**STORM, training_extra={"perRecord": True}))
+    per_record = LoadStorm(default_storm_spec(**STORM_PER_RECORD,
+                                              training_extra={"perRecord": True}))
     budgets = SLOBudgets(allow_shed_tenants=per_record.hot_tenant_ids(), max_stranded_rows=0)
     _mt_reset(pa_scan)
     report, job, wall, rate, _ = _storm_run(torch, per_record, budgets, "cuda")
@@ -7104,10 +7137,272 @@ def phase_storm(torch, pa_scan):
     return counts["pa_scan_batched"], counts["pa_scan"]
 
 
+# --- phase 48: the multi-process fleet's file route ---------------------------
+
+FLEET_RECORDS, FLEET_SPARSE_RECORDS = 100_000, 20_000
+FLEET_ARGS = ["--batchSize", str(SLICE_CONFIG["batch_size"]), "--testSetSize", "64"]
+# each process of a fleet runs this bootstrap: run_distributed, then its own
+# launch counters, fleet steps, group calls and host seconds by part on one
+# "fleet-process:" line. The parts nest: "step" (SPMDTrainer.step after the
+# first) and "step_first" (the first, which imports what torch.library's
+# custom op pulls in on first use) inside "pump", "group" (every fabric
+# call) inside the others; "parse" is the packed batcher's or the COO
+# block's parse and staging, "join" the process group's join with the mesh
+# and the card's context
+FLEET_BOOT = """
+import json, os, sys, time
+import omldm_tpu_torch.runtime.distributed_job as dj
+import omldm_tpu_torch.runtime.fast_ingest as fast_ingest
+from omldm_tpu_torch.ops import pa_scan, sparse
+from omldm_tpu_torch.parallel import multihost
+from omldm_tpu_torch.parallel.spmd import SPMDTrainer
+spent = {}
+jobs = []
+def timed(owner, name, key):
+    real = getattr(owner, name)
+    def wrapper(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            part = key + "_first" if key == "step" and "step_first" not in spent else key
+            spent[part] = spent.get(part, 0.0) + time.perf_counter() - t
+    setattr(owner, name, wrapper)
+for owner, name, key in ((dj.DistributedStreamJob, "__init__", "join"),
+                         (dj.DistributedStreamJob, "sync_requests", "control"),
+                         (dj.DistributedStreamJob, "_pump_pipeline", "pump"),
+                         (dj.DistributedStreamJob, "_pump_forecasts", "serve"),
+                         (dj.DistributedStreamJob, "merged_report", "report"),
+                         (dj, "_consume_sparse_block", "parse"),
+                         (SPMDTrainer, "step", "step"),
+                         (multihost, "on_backend_device", "group")):
+    timed(owner, name, key)
+init = dj.DistributedStreamJob.__init__
+def caught(self, *a, **k):
+    init(self, *a, **k)
+    jobs.append(self)
+dj.DistributedStreamJob.__init__ = caught
+batches = fast_ingest.iter_file_batches
+def parsed(*a, **k):
+    it = batches(*a, **k)
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            spent["parse"] = spent.get("parse", 0.0) + time.perf_counter() - t
+        yield item
+fast_ingest.iter_file_batches = parsed
+profile = os.environ.get("CHIP_SMOKE_FLEET_PROFILE")
+if profile:
+    import cProfile
+    prof = cProfile.Profile()
+    prof.enable()
+t0 = time.perf_counter()
+rc = dj.run_distributed(sys.argv[1:])
+wall = time.perf_counter() - t0
+job = jobs[0]
+if profile:
+    prof.disable()
+    prof.dump_stats(f"{profile}.p{job.pid}")
+print("fleet-process: " + json.dumps({
+    "pid": job.pid, "processes": job.nproc, "device": str(job.device), "wall_s": wall,
+    "steps": sum(p.steps_run for p in job.pipelines.values()),
+    "pa_scan": pa_scan.launches, "pa_scan_batched": pa_scan.batched_launches,
+    "scatter_add": sparse.launches["scatter_add"], "group_calls": multihost.group_calls,
+    "host_s": spent,
+}))
+sys.exit(rc)
+"""
+
+
+def _fleet_run(tag: str, nproc: int, device: str, train: Path, reqs: Path, final: Path,
+               tmp: Path, profile: Path | None = None):
+    """``nproc`` processes of the fleet's file route (the CLI's flags, one
+    bootstrap each, a free localhost port); (report, predictions, query
+    responses, per-process rows, wall seconds of the launch, backends).
+    With ``profile``, each process runs under cProfile into
+    ``profile.p<pid>``."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    perf, pred, resp = (tmp / f"{tag}_{k}.jsonl" for k in ("perf", "pred", "resp"))
+    flags = FLEET_ARGS + ["--device", device, "--trainingData", str(train),
+                          "--requests", str(reqs), "--requestsFinal", str(final),
+                          "--performanceOut", str(perf), "--predictionsOut", str(pred),
+                          "--responsesOut", str(resp), "--processes", str(nproc)]
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", FLEET_BOOT, *flags, "--processId", str(pid),
+         *(["--coordinator", f"127.0.0.1:{port}"] if nproc > 1 else [])],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, **({"CHIP_SMOKE_FLEET_PROFILE": str(profile)} if profile else {})))
+        for pid in range(nproc)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:  # a failed or stuck member must not hold the group
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"fleet[{tag}]: a process exited {p.returncode}:\n"
+              f"{err[-3000:]}")
+    rows = sorted((json.loads(line.split(" ", 1)[1]) for out, _ in outs
+                   for line in out.splitlines() if line.startswith("fleet-process: ")),
+                  key=lambda r: r["pid"])
+    check(len(rows) == nproc, f"fleet[{tag}]: {len(rows)} process lines for {nproc}")
+    backends = {line.rsplit(" over ", 1)[1] for _, err in outs for line in err.splitlines()
+                if line.startswith("[multihost p") and " over " in line}
+    report = json.loads(perf.read_text())
+    paths = [pred] if nproc == 1 else [Path(f"{pred}.p{i}") for i in range(nproc)]
+    preds = [json.loads(line) for path in paths for line in path.read_text().splitlines()]
+    responses = [json.loads(line) for line in resp.read_text().splitlines()]
+    return report, preds, responses, rows, wall, sorted(backends)
+
+
+FLEET_TIMEOUT_S = 240
+FLEET_INT_STATS = ("fitted", "numOfBlocks", "bytesShipped", "modelsShipped", "bytesOnWire")
+
+
+def _fleet_same(label: str, a, b) -> float:
+    """Card run ``a`` against CPU run ``b``: every integer statistic, the
+    holdout sizes and the Query's dataFitted equal; returns the share of
+    predictions equal."""
+    (ra, pa, qa, *_), (rb, pb, qb, *_) = a, b
+    for sa, sb in zip(ra["statistics"], rb["statistics"]):
+        for key in FLEET_INT_STATS:
+            check(sa[key] == sb[key], f"{label}: {key} {sa[key]} on the card, {sb[key]} on "
+                  "the CPU")
+    check(ra["holdout"] == rb["holdout"], f"{label}: holdout {ra['holdout']} != {rb['holdout']}")
+    check([q["dataFitted"] for q in qa] == [q["dataFitted"] for q in qb],
+          f"{label}: the Query's dataFitted differs")
+    check(len(pa) == len(pb), f"{label}: {len(pa)} predictions on the card, {len(pb)} on the CPU")
+    return sum(x["value"] == y["value"] for x, y in zip(pa, pb)) / max(len(pa), 1)
+
+
+def _fleet_checks(label: str, run, training: int, n_fore: int, kernel: str):
+    """One run's own checks: rows conserved, every forecast answered, the
+    Query answered once, accuracy above chance, and on the card ``kernel``
+    launched once a fleet step on every process (none on the CPU)."""
+    report, preds, responses, rows, _, _ = run
+    [s] = report["statistics"]
+    check(s["fitted"] + report["holdout"]["0"] == training,
+          f"{label}: fitted {s['fitted']} + holdout {report['holdout']['0']} != {training}")
+    check(len(preds) == n_fore, f"{label}: {len(preds)} predictions for {n_fore} forecasts")
+    check(len(responses) == 1 and responses[0]["dataFitted"] == s["fitted"],
+          f"{label}: the final Query was not answered once with the fleet's fitted")
+    check(s["score"] > 0.6, f"{label}: holdout accuracy {s['score']} is not above chance")
+    for r in rows:
+        want = r["steps"] if r["device"].startswith("cuda") else 0
+        check(r["steps"] > 0 and r[kernel] == want,
+              f"{label}: process {r['pid']} launched {kernel} {r[kernel]} times in "
+              f"{r['steps']} fleet steps on {r['device']}")
+    return s
+
+
+def phase_fleet(torch, sparse, seed: int, card: str, tmp: Path, profile_dir: Path | None = None):
+    """Phase 48: the fleet's file route in processes of its own. (a) the
+    slice-1 Create on FLEET_RECORDS HIGGS-shaped records, a forecast every
+    9, at 2 processes sharing the card, 1 process on the card, 2 processes
+    on the CPU; (b) the slice-3 sparse Create on FLEET_SPARSE_RECORDS
+    Criteo-shaped records at 2 processes, on the card and on the CPU.
+    With ``profile_dir``, (a)'s one-process card run again under cProfile
+    (host seconds by function into profile_dir/fleet-card1.txt). Returns
+    each card process's pa_scan and scatter_add launches."""
+    from omldm_tpu_torch.ops.native import fast_parser_available, loader
+
+    t_phase = time.perf_counter()
+    # the native parser is built here, not by the first fleet processes
+    # (two building it at once would time g++ as their parse)
+    check(fast_parser_available(), f"fleet: the native parser did not build:\n"
+          f"{loader.build_error}")
+    events = make_events(FLEET_RECORDS, seed, query_at=None)
+    create = json.loads(events[0][1])
+    create["learner"]["dataStructure"] = {"nFeatures": N_FEATURES}
+    train, reqs = write_stream_files([("requests", json.dumps(create))] + events[1:], tmp,
+                                     "fleet")
+    final = tmp / "fleet_final.jsonl"
+    final.write_text(json.dumps({"id": 0, "request": "Query", "requestId": 1}) + "\n")
+    n_fore = sum(1 for st, _ in events if st == "forecastingData")
+    sparse_events = criteo_events(FLEET_SPARSE_RECORDS, seed, query_at=None,
+                                  scatter_impl=stream_scatter_impl(sparse))
+    strain, sreqs = write_stream_files(sparse_events, tmp, "fleet_sparse")
+    s_fore = sum(1 for st, _ in sparse_events if st == "forecastingData")
+    s_training = FLEET_SPARSE_RECORDS - s_fore
+
+    two = _fleet_run("card2", 2, "cuda", train, reqs, final, tmp)
+    one = _fleet_run("card1", 1, "cuda", train, reqs, final, tmp)
+    # the CPU runs and the sparse fleet are not timed against each other:
+    # they run side by side, apart from (a)'s timed card runs
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+        cpu_f = pool.submit(_fleet_run, "cpu2", 2, "cpu", train, reqs, final, tmp)
+        sparse_f = pool.submit(_fleet_run, "sparse_card2", 2, "cuda", strain, sreqs, final, tmp)
+        sparse_cpu_f = pool.submit(_fleet_run, "sparse_cpu2", 2, "cpu", strain, sreqs, final,
+                                   tmp)
+        cpu, sparse_card, sparse_cpu = cpu_f.result(), sparse_f.result(), sparse_cpu_f.result()
+    stats = {}
+    for label, run in (("card2", two), ("card1", one), ("cpu2", cpu)):
+        stats[label] = _fleet_checks(f"fleet[{label}]", run, FLEET_RECORDS, n_fore, "pa_scan")
+    for label, run in (("sparse_card2", sparse_card), ("sparse_cpu2", sparse_cpu)):
+        stats[label] = _fleet_checks(f"fleet[{label}]", run, s_training, s_fore, "scatter_add")
+    equal = _fleet_same("fleet[card2 vs cpu2]", two, cpu)
+    check(equal >= 0.99, f"fleet: {equal:.4f} of the predictions equal card against CPU")
+    sparse_equal = _fleet_same("fleet[sparse card2 vs cpu2]", sparse_card, sparse_cpu)
+    check(two[5] == ["gloo"] and sparse_card[5] == ["gloo"],
+          f"fleet: two processes on one card joined over {two[5]}, not gloo")
+    records = FLEET_RECORDS + n_fore
+    for label, run in (("card2", two), ("card1", one), ("cpu2", cpu),
+                       ("sparse_card2", sparse_card), ("sparse_cpu2", sparse_cpu)):
+        report, _, _, rows, wall, backends = run
+        n = records if not label.startswith("sparse") else FLEET_SPARSE_RECORDS
+        slowest = max(r["wall_s"] for r in rows)
+        log(f"fleet[{label}]: " + json.dumps({
+            "card": card, "records": n, "records_per_s": n / slowest,
+            "launch_wall_s": wall, "process_wall_s": [r["wall_s"] for r in rows],
+            "steps": [r["steps"] for r in rows], "pa_scan": [r["pa_scan"] for r in rows],
+            "scatter_add": [r["scatter_add"] for r in rows],
+            "group_calls": [r["group_calls"] for r in rows],
+            "group_calls_per_step": [r["group_calls"] / r["steps"] for r in rows],
+            "host_s": [r["host_s"] for r in rows],
+            "backend": backends, "score": stats[label]["score"],
+            **{k: stats[label][k] for k in FLEET_INT_STATS}, "holdout": report["holdout"],
+        }))
+    log(f"fleet: card = CPU in every integer statistic; predictions equal {equal:.4f} "
+        f"(dense), {sparse_equal:.4f} (sparse); 2 processes at "
+        f"{records / max(r['wall_s'] for r in two[3]):.0f} records/s, 1 process at "
+        f"{records / max(r['wall_s'] for r in one[3]):.0f}")
+    log(f"fleet: phase 48 took {time.perf_counter() - t_phase:.1f} s")
+    if profile_dir is not None:
+        import pstats
+
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        stats_path = tmp / "fleet_card1.prof"
+        _fleet_run("card1_profiled", 1, "cuda", train, reqs, final, tmp, profile=stats_path)
+        out = profile_dir / "fleet-card1.txt"
+        with open(out, "w") as f:
+            stats = pstats.Stats(f"{stats_path}.p0", stream=f)
+            stats.sort_stats("tottime").print_stats(40)
+            stats.sort_stats("cumulative").print_stats(40)
+        log(f"fleet: the one-process card run under cProfile: {out}")
+    return ({f"fleet_2p_card_p{r['pid']}": r["pa_scan"] for r in two[3]}
+            | {"fleet_1p_card": one[3][0]["pa_scan"]},
+            {f"fleet_sparse_2p_card_p{r['pid']}": r["scatter_add"] for r in sparse_card[3]})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--records", type=int, default=100_000)
+    # cut from 100,000 for the script's time limit
+    parser.add_argument("--records", type=int, default=50_000)
     parser.add_argument("--parity-records", type=int, default=5_000)
     parser.add_argument("--lm-steps", type=int, default=8)
     parser.add_argument("--bench-records", type=int, default=BENCH_RECORDS)
@@ -7126,6 +7421,8 @@ def main() -> int:
                              "comparison), then exit")
     parser.add_argument("--kafka-only", action="store_true",
                         help="run phase 17 and phase 47 after the build, then exit")
+    parser.add_argument("--fleet-only", action="store_true",
+                        help="run phase 48 after the build, then exit")
     args = parser.parse_args()
 
     import torch
@@ -7162,6 +7459,11 @@ def main() -> int:
         _, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
         del trainer
         phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
+        return 0
+    if args.fleet_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+            phase_fleet(torch, sparse, args.seed, card, Path(tmp), args.profile)
+            lap("fleet")
         return 0
     if args.kafka_only:
         events = make_events(args.records, args.seed, query_at=args.records // 2)
@@ -7320,6 +7622,10 @@ def main() -> int:
         lap("kafka")
         storm_batched, storm_solo = phase_storm(torch, pa_scan)
         lap("storm")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        fleet_pa_launches, fleet_scatter_launches = phase_fleet(torch, sparse, args.seed, card,
+                                                                Path(tmp), args.profile)
+        lap("fleet")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -7356,6 +7662,7 @@ def main() -> int:
             "kafka_restart_final_incarnation": kafka_launches["restart"],
             "kafka_profile_window": kafka_profile_launches,
             "storm_per_record_solo": storm_solo,
+            **fleet_pa_launches,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -7419,6 +7726,7 @@ def main() -> int:
         "spmd_card_vs_cpu_dp8": spmd_parity_launches["scatter_add"],
         "sparse_recovery_final_incarnation": rescale_launches["sparse_recovery"],
         "sparse_overload_armed_first_records": overload_scatter,
+        **fleet_scatter_launches,
     }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -63,9 +63,17 @@ snapshot of this run and seeks the rebuilt consumer to its (topic,
 partition) offsets; without one the next incarnation starts fresh at the
 live position, its request partitions rewound.
 
+Fleet: ``--processes N --processId i --coordinator host:port`` (any of
+the three) hands the command to the multi-process fleet's file route,
+``runtime.distributed_job.run_distributed``, as the JAX CLI does; every
+process runs the same command with its own ``--processId``. There the
+flags of the fleet's later half (checkpoints, rescale, Kafka, heartbeats,
+the watchdog, the recorder, overload, the profiler, the fault injector)
+are refused by name.
+
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not
-have (the multi-process fleet, the XLA compile cache, JAX-only
+have (the fleet's supervisor, the XLA compile cache, JAX-only
 ``JobConfig`` fields) raise ``SystemExit`` naming the flag instead of
 being ignored.
 """
@@ -89,11 +97,11 @@ from omldm_tpu_torch.utils.tracing import ProfileWindow, trace
 
 _STREAMS = (TRAINING_STREAM, FORECASTING_STREAM, REQUEST_STREAM)
 
+# flags that make a command one process of the fleet
+FLEET_FLAGS = ("processes", "processId", "coordinator")
+
 # routes of the JAX CLI the port does not have: flag -> what it arms there
 UNPORTED_ROUTE_FLAGS = {
-    "processes": "the multi-process fleet",
-    "processId": "the multi-process fleet",
-    "coordinator": "the multi-process fleet",
     "supervise": "the multi-process fleet's supervisor",
     "compileCache": "the XLA compile cache",
     "compileCacheMinSecs": "the XLA compile cache",
@@ -183,6 +191,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     flags = parse_flags(argv)
     refuse_unported(flags)
+    if any(k in flags for k in FLEET_FLAGS):
+        # one entry point for both shapes (Job.scala:110-120)
+        from omldm_tpu_torch.runtime.distributed_job import run_distributed
+
+        return run_distributed(argv)
     job, sinks = build_job(flags)
     try:
         if "kafkaBrokers" in flags:

@@ -32,7 +32,7 @@ from omldm_tpu_torch.learners.base import (
     sign_labels,
     take_class,
 )
-from omldm_tpu_torch.ops.pa_scan import pa_scan_op
+from omldm_tpu_torch.ops.pa_scan import pa_scan_op, pa_scan_update
 
 
 def _pa_tau(loss: torch.Tensor, sq_norm: torch.Tensor, variant: str, C: float) -> torch.Tensor:
@@ -90,12 +90,15 @@ class PAClassifier(Learner):
         return {"w": new_w}, masked_mean(hinge, mask)
 
     def update_per_record(self, params, x, y, mask, donate=False):
-        """Exact sequential pass through ``ops.pa_scan`` (its custom op:
-        ``torch.func.vmap`` over pipelines makes it one batched launch)."""
-        new_w, loss = pa_scan_op(
-            params["w"], append_bias(x).contiguous(), y.contiguous(),
-            mask.contiguous(), self._variant(), self._C(),
-        )
+        """Exact sequential pass through ``ops.pa_scan``. Under
+        ``torch.func.vmap`` (a batched operand) it goes through the custom
+        op, whose vmap rule makes the pipelines one batched launch; else
+        through the wrapper itself, the op's own body: a custom op's first
+        call imports ``torch._dynamo``, seconds in a fresh process."""
+        args = (params["w"], append_bias(x).contiguous(), y.contiguous(), mask.contiguous())
+        batched = any(torch._C._functorch.is_batchedtensor(a) for a in args)
+        new_w, loss = (pa_scan_op if batched else pa_scan_update)(
+            *args, self._variant(), self._C())
         return {"w": new_w}, loss
 
 

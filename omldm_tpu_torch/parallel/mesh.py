@@ -11,12 +11,18 @@ many mesh slots as it has devices of the kind (``device_slots``), and
 ``Mesh(dp, hub, device)`` may name more workers than slots: they share the
 device as rows of the leading axis. The device is CUDA unless the caller
 asks for the CPU.
+
+A fleet of ``processes`` (``parallel.multihost``) spreads the ``dp``
+workers over the processes of one ``torch.distributed`` group: process
+``process_id`` holds the ``dp_local`` rows ``[process_id * dp_local,
+(process_id + 1) * dp_local)`` of the ``dp_global = dp`` workers. A mesh of
+one process is the whole fleet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -28,11 +34,35 @@ class Mesh:
     dp: int
     hub: int = 1
     device: Optional[torch.device] = None
+    processes: int = 1
+    process_id: int = 0
+    # the fleet's process group (None: the default group)
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.dp < 1 or self.hub < 1:
             raise ValueError(f"mesh axes must be >= 1, got dp={self.dp}, hub={self.hub}")
+        if self.processes < 1 or self.dp % self.processes:
+            raise ValueError(f"dp={self.dp} workers do not split over {self.processes} "
+                             "processes")
+        if not 0 <= self.process_id < self.processes:
+            raise ValueError(f"process id {self.process_id} outside [0, {self.processes})")
         object.__setattr__(self, "device", resolve_device(self.device, "Mesh"))
+
+    @property
+    def dp_global(self) -> int:
+        """Workers of the whole fleet."""
+        return self.dp
+
+    @property
+    def dp_local(self) -> int:
+        """Workers this process holds (its rows of the leading axis)."""
+        return self.dp // self.processes
+
+    @property
+    def fleet(self) -> bool:
+        """Whether the workers span processes (reductions cross the group)."""
+        return self.processes > 1
 
     @property
     def shape(self) -> Dict[str, int]:

@@ -51,6 +51,20 @@ without a violation, Async and SSP steps where no worker folds), the port
 computes it and keeps the old values with ``torch.where``, residual
 included.
 
+Across processes (a ``Mesh`` with ``processes`` > 1, ``parallel.multihost``)
+each process holds ``dp_local`` rows of the ``dp``-wide fleet, and every
+reduction over workers is a local reduction over its rows plus one group
+collective: the PS pmean (``_ps_allreduce``, a SUM divided by ``dp``), the
+GM and FGM votes and the Async/SSP fold vote (SUM), SSP's slowest clock
+and the straggler release (MIN, MAX), the loss means and the counters the
+job reads. A fleet step's group calls: Synchronous and EASGD one at their
+cadence; GM and FGM two at theirs (the vote, read only there, and the
+pmean); Asynchronous two a step (the fold vote and the fold), SSP three
+(the slowest clock first). The one-process step makes no group call and
+runs the ops it ran before the fleet existed. Each process draws the whole
+fleet's initial state from the seed and keeps its rows, so two processes
+at ``dp_local`` 1 hold the fleet of one process at ``Mesh(dp=2)``.
+
 ``step_many`` and ``step_many_dense`` (one ``lax.scan`` program in the JAX
 package) are loops of steps on the device's stream here. ``save``/``load``
 snapshot the fleet state as a numpy tree in the JAX layout
@@ -70,6 +84,7 @@ from omldm_tpu_torch.learners.registry import make_learner
 from omldm_tpu_torch.ops.codec import BYTES_PER_ELEMENT, LEAF_META_BYTES, make_qdq
 from omldm_tpu_torch.models.transformer import tree_map
 from omldm_tpu_torch.parallel.ckpt import load_tree, save_tree, to_host
+from omldm_tpu_torch.parallel import multihost
 from omldm_tpu_torch.parallel.mesh import Mesh, make_mesh
 from omldm_tpu_torch.pipelines.pipeline import _leaves, _rebuild, _tree_map as _map
 from omldm_tpu_torch.pipelines.pipeline import fleet_state_from_numpy
@@ -133,7 +148,11 @@ class SPMDTrainer:
             raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
         self.mesh = mesh
         self.device = resolve_device(mesh.device, "SPMDTrainer")
+        # dp counts the fleet's workers (every process's, as the JAX
+        # trainer's global mesh does); dp_local the rows this process holds
         self.dp = mesh.shape["dp"]
+        self.dp_local = mesh.dp_local
+        self.fleet = mesh.fleet
         self.hub = mesh.shape["hub"]
         self.protocol = protocol
         self.tc = training_configuration or TrainingConfiguration(protocol=protocol)
@@ -182,7 +201,8 @@ class SPMDTrainer:
     def _init_state(self, seed: int, prep_dims) -> dict:
         """Per-worker draws from one generator seeded with ``seed`` (the JAX
         package splits a PRNG key per worker; parity tests load its draw
-        with ``fleet_state_from_numpy``)."""
+        with ``fleet_state_from_numpy``). A process of a fleet draws every
+        worker and keeps its rows."""
         gen = torch.Generator().manual_seed(seed)
         workers = [
             self.learner.init(self.learner_dim, gen, self.device) for _ in range(self.dp)
@@ -194,13 +214,18 @@ class SPMDTrainer:
         self.flat_size = self.n_params + self.pad
         self.shard_size = self.flat_size // self.hub
         params = _stack(workers)
-        preps = [_stack([p.init(di, self.device)] * self.dp)
+        dp = self.dp_local
+        preps = [_stack([p.init(di, self.device)] * dp)
                  for p, di in zip(self.preps, prep_dims)]
         # drift estimates start from each worker's own init; the center (the
         # EASGD center / the async global) is PS state and starts identical
         # on every worker, at the fleet-mean init
-        flat = self._flat(params)
-        dp = self.dp
+        flat = self._flat(params, self.dp)
+        center = flat.mean(dim=0, keepdim=True).expand(dp, -1).clone()
+        if self.fleet:
+            rows = slice(self.mesh.process_id * dp, (self.mesh.process_id + 1) * dp)
+            params = _map(lambda t: t[rows].clone(), params)
+            flat = flat[rows]
 
         def counter(dtype, value=0):
             return torch.full((dp,), value, dtype=dtype, device=self.device)
@@ -209,7 +234,7 @@ class SPMDTrainer:
             "params": params,
             "preps": preps,
             "est": flat.clone(),
-            "center": flat.mean(dim=0, keepdim=True).expand(dp, -1).clone(),
+            "center": center,
             "step": counter(torch.int32),
             "syncs": counter(torch.int32),
             "cum_loss": counter(torch.float32),
@@ -237,12 +262,13 @@ class SPMDTrainer:
     def fleet_numpy(self) -> dict:
         """The fleet state as numpy arrays in the JAX trainer's layout:
         every leaf ``[dp, hub, ...]``, the hub slots of a worker equal (the
-        JAX package's hub shards hold the same values). The inverse is
+        JAX package's hub shards hold the same values); a process of a
+        fleet gives its own ``dp_local`` rows. The inverse is
         ``pipelines.pipeline.fleet_state_from_numpy``."""
 
         def widen(a):
             return np.ascontiguousarray(
-                np.broadcast_to(a[:, None], (self.dp, self.hub) + a.shape[1:]))
+                np.broadcast_to(a[:, None], (self.dp_local, self.hub) + a.shape[1:]))
 
         return tree_map(widen, to_host(self.state))
 
@@ -256,12 +282,14 @@ class SPMDTrainer:
 
     # --- flat layout and the collective ---
 
-    def _flat(self, params) -> torch.Tensor:
-        """``[dp, flat_size]``: each worker's leaves in ``ravel_pytree``
-        order as float32, zero-padded to a multiple of hub."""
-        cols = [t.reshape(self.dp, -1).to(torch.float32) for t in _leaves(params)]
+    def _flat(self, params, rows: Optional[int] = None) -> torch.Tensor:
+        """``[rows, flat_size]`` (rows: the process's ``dp_local``): each
+        worker's leaves in ``ravel_pytree`` order as float32, zero-padded to
+        a multiple of hub."""
+        rows = self.dp_local if rows is None else rows
+        cols = [t.reshape(rows, -1).to(torch.float32) for t in _leaves(params)]
         if self.pad:
-            cols.append(torch.zeros((self.dp, self.pad), dtype=torch.float32,
+            cols.append(torch.zeros((rows, self.pad), dtype=torch.float32,
                                     device=self.device))
         return torch.cat(cols, dim=1)
 
@@ -272,7 +300,7 @@ class SPMDTrainer:
         out, pos = [], 0
         for shape, dtype in self._specs:
             size = int(np.prod(shape, dtype=np.int64))
-            leaf = flat[:, pos : pos + size].reshape(self.dp, *shape)
+            leaf = flat[:, pos : pos + size].reshape(self.dp_local, *shape)
             out.append(leaf.to(dtype, memory_format=torch.contiguous_format, copy=True))
             pos += size
         return _rebuild(self._template, iter(out))
@@ -280,9 +308,21 @@ class SPMDTrainer:
     def _ps_allreduce(self, flat: torch.Tensor) -> torch.Tensor:
         """pmean over the workers through the hub-sharded PS: each hub
         bucket's mean over dp, reassembled (the all_gather over hub is a
-        concatenation here), seen by every worker."""
-        mean = flat.reshape(self.dp, self.hub, self.shard_size).mean(dim=0)
-        return mean.reshape(1, self.flat_size).expand(self.dp, -1)
+        concatenation here), seen by every worker. In a fleet: the sum over
+        the process's rows, summed over the group, over dp."""
+        buckets = flat.reshape(self.dp_local, self.hub, self.shard_size)
+        if self.fleet:
+            mean = multihost.all_reduce(buckets.sum(dim=0), "sum", self.mesh.group) / self.dp
+        else:
+            mean = buckets.mean(dim=0)
+        return mean.reshape(1, self.flat_size).expand(self.dp_local, -1)
+
+    def _fleet_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A reduction over the process's workers finished over every
+        process (the identity in one process: no group call)."""
+        if not self.fleet:
+            return t
+        return multihost.all_reduce(t.clone(), op, self.mesh.group)
 
     # --- the step ---
 
@@ -306,14 +346,15 @@ class SPMDTrainer:
         batched kernel once for every worker); otherwise a loop over the
         workers."""
         learner = self.learner
-        if self.dp > 1 and self.sparse and not self.per_record:
+        dp = self.dp_local
+        if dp > 1 and self.sparse and not self.per_record:
             new, loss = learner.fleet_update(params, x, y, mask)
             return new, preps, loss
-        if self.dp > 1 and self.per_record and not self.sparse:
+        if dp > 1 and self.per_record and not self.sparse:
             return torch.func.vmap(self._worker_update)(params, preps, x, y, mask)
         update = learner.update_per_record if self.per_record else learner.update
         outs = []
-        for i in range(self.dp):
+        for i in range(dp):
             z = (x[0][i], x[1][i]) if self.sparse else x[i]
             new_preps = []
             for prep, s in zip(self.preps, preps):
@@ -322,7 +363,7 @@ class SPMDTrainer:
                 z = prep.transform(s, z)
             p, loss = update(_map(lambda t: t[i], params), z, y[i], mask[i], donate=True)
             outs.append((p, new_preps, loss))
-        if self.dp == 1:
+        if dp == 1:
             p, new_preps, loss = outs[0]
             lead = lambda t: t.unsqueeze(0)  # noqa: E731
             return _map(lead, p), [_map(lead, s) for s in new_preps], loss.reshape(1)
@@ -334,7 +375,7 @@ class SPMDTrainer:
 
     def _step_impl(self, x, y, mask) -> torch.Tensor:
         st = self.state
-        dp, protocol = self.dp, self.protocol
+        dp, protocol = self.dp_local, self.protocol
         self._steps_host += 1
         at_cadence = self._steps_host % self.sync_every == 0
         rows = mask.sum(dim=1)
@@ -358,18 +399,20 @@ class SPMDTrainer:
                 flat = self._flat(params)
                 mean_x, ef = self._shipped_allreduce(flat, ef)
                 params = self._unflat(flat - self.alpha * (flat - center))
-                center = center + self.alpha * dp * (mean_x - center)
+                center = center + self.alpha * self.dp * (mean_x - center)
                 syncs = syncs + 1
         elif protocol in ("GM", "FGM"):
             flat = self._flat(params)
             drift2 = ((flat - est) ** 2).sum(dim=1)
             if protocol == "GM":
                 # any worker outside the sphere => global violation
-                fire = (drift2 > self.threshold ** 2).to(torch.float32).sum() > 0
+                votes = (drift2 > self.threshold ** 2).to(torch.float32).sum()
             else:
                 # FGM safe zone: psi = sum_i (drift_i^2 - T^2) >= 0
-                fire = (drift2 - self.threshold ** 2).sum() >= 0.0
+                votes = (drift2 - self.threshold ** 2).sum()
             if at_cadence:
+                votes = self._fleet_reduce(votes)
+                fire = votes > 0 if protocol == "GM" else votes >= 0.0
                 g, new_ef = self._shipped_allreduce(flat, ef)
                 params = self._unflat(torch.where(fire, g, flat))
                 est = torch.where(fire, g, est)
@@ -380,7 +423,8 @@ class SPMDTrainer:
             flat = self._flat(params)
             allowed = has_data
             if protocol == "SSP":
-                allowed = allowed & ((clock - clock.min()) < self.staleness)
+                slowest = self._fleet_reduce(clock.min(), "min")
+                allowed = allowed & ((clock - slowest) < self.staleness)
             accepted = allowed.to(torch.float32)
             clock = clock + allowed.to(torch.int32)
             # refused and idle workers keep their exact previous state
@@ -394,7 +438,7 @@ class SPMDTrainer:
             # the fold collective is gated on a one-scalar vote: a step
             # where no worker folds adds zeros, as the JAX lax.cond skips it
             my_turn = allowed & (clock % self.sync_every == 0)
-            any_fold = my_turn.to(torch.float32).sum() > 0.0
+            any_fold = self._fleet_reduce(my_turn.to(torch.float32).sum()) > 0.0
             turn = my_turn[:, None]
             contrib = torch.where(turn, flat - est, torch.zeros_like(flat))
             if qdq is None:
@@ -509,13 +553,14 @@ class SPMDTrainer:
         return self._fitted_host
 
     def worker_clocks(self) -> np.ndarray:
-        """Per-worker progress clocks [dp] (steps with data consumed)."""
+        """Per-worker progress clocks [dp_local] (steps with data
+        consumed)."""
         return self.state["clock"].cpu().numpy()
 
     def last_accepted(self) -> np.ndarray:
-        """Bool [dp]: whether each worker consumed its batch on the latest
-        step. Under SSP a worker at the staleness bound refuses it; the
-        host requeues it and calls :meth:`note_requeued`."""
+        """Bool [dp_local]: whether each worker consumed its batch on the
+        latest step. Under SSP a worker at the staleness bound refuses it;
+        the host requeues it and calls :meth:`note_requeued`."""
         return self.state["accepted"].cpu().numpy() > 0.0
 
     def release_stragglers(self) -> None:
@@ -523,7 +568,8 @@ class SPMDTrainer:
         ``SSPParameterServer.on_terminate``): lift every worker's clock to
         the fleet max so the bound stops refusing final drains."""
         clock = self.state["clock"]
-        self.state = {**self.state, "clock": clock.max().expand_as(clock).clone()}
+        fastest = self._fleet_reduce(clock.max(), "max")
+        self.state = {**self.state, "clock": fastest.expand_as(clock).clone()}
 
     def note_requeued(self, n_rows: int) -> None:
         """Correct the fitted counter for rows a step refused (the host
@@ -533,21 +579,35 @@ class SPMDTrainer:
 
     def curve_slice(self) -> List[Tuple[float, int]]:
         """Drain the learning-curve points (the fleet-mean loss of each
-        step); the lazy losses come to the host in one copy."""
+        step); the lazy losses come to the host in one copy (in a fleet,
+        after one group sum of every point's local sums)."""
         fresh = self._curve
         self._curve = []
         if not fresh:
             return []
-        means = torch.cat([l.reshape(-1, self.dp).mean(dim=1) for l, _ in fresh]).tolist()
+        rows = [l.reshape(-1, self.dp_local) for l, _ in fresh]
+        if self.fleet:
+            sums = self._fleet_reduce(torch.cat([r.sum(dim=1) for r in rows]))
+            means = (sums / self.dp).tolist()
+        else:
+            means = torch.cat([r.mean(dim=1) for r in rows]).tolist()
         fitted: List[int] = []
         for _, f in fresh:
             fitted.extend(f if isinstance(f, list) else [f])
         return [(float(l), int(f)) for l, f in zip(means, fitted)]
 
     def _counters(self) -> Tuple[int, int, int]:
-        """(syncs summed over workers, worker 0's syncs, steps)."""
+        """(syncs summed over workers, worker 0's syncs, steps); in a fleet
+        one group sum, worker 0's values from process 0."""
         syncs = self.state["syncs"].cpu().numpy()
-        return int(syncs.sum()), int(syncs[0]), int(self.state["step"][0])
+        if not self.fleet:
+            return int(syncs.sum()), int(syncs[0]), int(self.state["step"][0])
+        first = self.mesh.process_id == 0
+        vec = torch.tensor([float(syncs.sum()), float(syncs[0]) if first else 0.0,
+                            float(self.state["step"][0]) if first else 0.0],
+                           dtype=torch.float64)
+        total, syncs0, steps = multihost.all_reduce(vec, "sum", self.mesh.group).tolist()
+        return int(total), int(syncs0), int(steps)
 
     def sync_count(self) -> int:
         """Parameter synchronizations executed (summed over workers for the
@@ -615,33 +675,59 @@ class SPMDTrainer:
     def _worker(self, tree, w: int = 0):
         return _map(lambda t: t[w], tree)
 
-    def global_flat_params(self) -> np.ndarray:
+    def worker0(self):
+        """``(params, preps)`` of the fleet's worker 0, the model that
+        serves and answers: views of this process's row 0 in one process;
+        in a fleet, process 0's values on every process (one group
+        broadcast of the leaves packed as float64, which holds every
+        float32 and int32 value exactly)."""
+        params = self._worker(self.state["params"])
+        preps = [self._worker(s) for s in self.state["preps"]]
+        if not self.fleet:
+            return params, preps
+        trees = [params] + preps
+        leaves = [leaf for tree in trees for leaf in _leaves(tree)]
+        packed = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+        packed = multihost.broadcast(packed, 0, self.mesh.group)
+        out, pos = [], 0
+        for t in leaves:
+            out.append(packed[pos : pos + t.numel()].reshape(t.shape).to(t.dtype))
+            pos += t.numel()
+        it = iter(out)
+        trees = [_rebuild(tree, it) for tree in trees]
+        return trees[0], trees[1:]
+
+    def global_flat_params(self, worker0=None) -> np.ndarray:
         """Model of worker 0 (post-sync replicas agree), ``ravel_pytree``
-        order, unpadded; a host copy."""
-        leaves = _leaves(self._worker(self.state["params"]))
+        order, unpadded; a host copy. ``worker0``: a :meth:`worker0` result
+        already in hand."""
+        params, _ = worker0 or self.worker0()
+        leaves = _leaves(params)
         return torch.cat([t.reshape(-1).to(torch.float32) for t in leaves]).cpu().numpy()
 
     def shard_params(self) -> list:
-        """Per-worker params trees (host copies)."""
+        """Per-worker params trees (host copies) of this process's workers."""
         return [_map(lambda t: t.cpu().numpy(), self._worker(self.state["params"], w))
-                for w in range(self.dp)]
+                for w in range(self.dp_local)]
 
-    def _serve_input(self, x):
+    def _serve_input(self, x, preps):
         """Worker 0's features: through its preprocessor states."""
         z = self._batch(x)
-        for prep, s in zip(self.preps, self.state["preps"]):
-            z = prep.transform(self._worker(s), z)
+        for prep, s in zip(self.preps, preps):
+            z = prep.transform(s, z)
         return z
 
-    def predict(self, x) -> np.ndarray:
-        """Serve with the worker-0 model (post-sync replicas agree)."""
-        z = self._serve_input(x)
-        return self.learner.predict(self._worker(self.state["params"]), z).cpu().numpy()
+    def predict(self, x, worker0=None) -> np.ndarray:
+        """Serve with the worker-0 model (post-sync replicas agree).
+        ``worker0``: a :meth:`worker0` result already in hand."""
+        params, preps = worker0 or self.worker0()
+        z = self._serve_input(x, preps)
+        return self.learner.predict(params, z).cpu().numpy()
 
-    def evaluate(self, x, y, mask) -> Tuple[float, float]:
+    def evaluate(self, x, y, mask, worker0=None) -> Tuple[float, float]:
         """Loss/score of the worker-0 model on a host-side holdout set."""
-        z = self._serve_input(x)
-        params = self._worker(self.state["params"])
+        params, preps = worker0 or self.worker0()
+        z = self._serve_input(x, preps)
         y = self._to_device(y, torch.float32)
         mask = self._to_device(mask, torch.float32)
         return (float(self.learner.loss(params, z, y, mask)),

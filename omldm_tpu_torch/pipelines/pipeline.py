@@ -131,15 +131,17 @@ def fleet_state_from_numpy(tree, trainer) -> dict:
     leaves ``[dp, hub, ...]``) -> the port's fleet state, leaves ``[dp,
     ...]`` on ``trainer``'s device: hub slot 0 is kept (the hub shards of a
     worker hold the same values), an NN's optax state takes the port's
-    layout as in :func:`state_from_numpy`. Load it with
+    layout as in :func:`state_from_numpy`. A process of a fleet keeps its
+    own rows of the ``dp`` workers, ``[dp_local, ...]``. Load it with
     ``trainer.load_state``."""
-    dp = trainer.dp
+    dp, local = trainer.dp, trainer.dp_local
+    lo = trainer.mesh.process_id * local
 
     def to_tensor(a):
         a = np.asarray(a)
         if a.shape[:1] != (dp,) or a.ndim < 2:
             raise ValueError(f"fleet leaf of shape {a.shape} is not [dp={dp}, hub, ...]")
-        a = a[:, 0]
+        a = a[lo : lo + local, 0]
         if np.issubdtype(a.dtype, np.floating):
             a = a.astype(np.float32)
         return torch.from_numpy(np.array(a)).to(trainer.device)

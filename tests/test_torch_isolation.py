@@ -44,6 +44,7 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.utils.tracing, omldm_tpu_torch.runtime.ingest_shard\n"
         "import omldm_tpu_torch.runtime.kafka_io, omldm_tpu_torch.runtime.loadgen\n"
         "import omldm_tpu_torch.runtime.slo, omldm_tpu_torch.load_harness\n"
+        "import omldm_tpu_torch.parallel.multihost, omldm_tpu_torch.runtime.distributed_job\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -493,7 +494,11 @@ def test_serving_plane_is_ported():
 ])
 def test_cli_refuses_unported_flags(argv, flag, tmp_path):
     """A CLI flag whose route or knob the port lacks raises SystemExit
-    naming it, before any job is built (the JAX CLI would honour it)."""
+    naming it, before any job is built (the JAX CLI would honour it). The
+    fleet's flags route to the fleet, which refuses a fleet named in part
+    (``--processes 2`` without a coordinator, a ``--processId`` or
+    ``--coordinator`` without ``--processes``) naming the flag, where the
+    JAX CLI would run one process."""
     from omldm_tpu_torch.__main__ import main
 
     train = tmp_path / "t.jsonl"

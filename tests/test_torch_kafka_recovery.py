@@ -308,8 +308,7 @@ def test_kafka_flags_no_longer_refused():
     assert "kafkaBrokers" not in cli.UNPORTED_ROUTE_FLAGS
     assert "profileSteps" not in cli.UNPORTED_ROUTE_FLAGS
     assert set(cli.UNPORTED_ROUTE_FLAGS) == {
-        "processes", "processId", "coordinator", "supervise", "compileCache",
-        "compileCacheMinSecs"}
+        "supervise", "compileCache", "compileCacheMinSecs"}
 
 
 def test_no_sources_message_names_kafka(tmp_path):
