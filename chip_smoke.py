@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits nonzero without a result):
                  each, started together (pa_scan.cu, flash_attention.cu,
                  scatter_add.cu); each pa_scan and flash kernel's registers,
                  spills and static shared memory from the -Xptxas -v log
-                 (no flash kernel instance may spill);
+                 (no flash kernel instance may spill). The script waits for
+                 flash_attention.cu (about a minute of nvcc) only after the
+                 sparse and CLI phases, and runs the flash phases (7-10,
+                 43-45) then;
   3. check       pa_scan against its plain PyTorch version on the card, at
                  (B, D+1) in {(1,29), (256,29), (256,1025), (255,4097)},
                  variants PA/PA-I/PA-II, C in {0.01, 0.5}, masks with trailing
@@ -504,8 +507,27 @@ Phases (any failure raises and the script exits nonzero without a result):
                  processes, card and CPU: scatter_add once a fleet step a
                  process, every integer statistic equal. Prints records/s
                  at 1 and 2 processes, each process's wall and group
-                 calls a step (fleet[...]: lines). With --fleet-only: the
-                 build and phase 48, then exit.
+                 calls a step (fleet[...]: lines).
+ 49. recovery    (after phase 48) the fleet's recovery half, 2 processes
+                 sharing the card over gloo (phase 48's bootstrap), the
+                 slice-1 Create on 20,000 records in chunks of 1,024 rows:
+                 (a) clean, faulted (--checkpointEvery 4 --failAfterChunks
+                 9, exit 3) and --restore true: the resumed run's integer
+                 statistics and holdout equal the clean run's, and each
+                 resumed process launches pa_scan once a fleet step it
+                 takes; (b) the snapshot restored at 1 process: fitted +
+                 holdout = the training rows, one rescale counted; (c)
+                 process 1's shard of ckpt-1 truncated: the restore falls
+                 back to ckpt-0 with --flightRecorder on recording
+                 candidate_rejected, and ends as the clean run; (d)
+                 --hangProcess 1 --collectiveTimeoutMs 5000: process 0 exits
+                 19 with a hang event, the frozen peer is SIGKILLed; (e) the
+                 card's snapshot restored on the CPU: every integer
+                 statistic equal; (f) the sparse fleet faulted and restored
+                 at its byte cursor: the clean run's statistics, scatter_add
+                 once a step. Prints each save's and restore's seconds
+                 (recovery[...]: lines). With --fleet-only: the build and
+                 phases 48-49, then exit.
 Phases 43-45 run right after phase 10 (their timings need the profiler's
 device records, which can come back empty after phases 41-42's traces).
 With --sequence-only: the build, phase 9 and phases 43-45, then exit.
@@ -530,8 +552,12 @@ With --overload-legs N, after the build: N trials of phase 39's timed legs
 (no burst, then burst), each leg's healthy serve p99, seconds and the full
 collections inside it, with full collections deferred as the phase runs
 them or, with --overload-collector on, left to the collector;
---overload-package DIR takes omldm_tpu_torch from DIR (another checkout,
-e.g. a parent commit unpacked with git archive); then exit.
+then exit.
+With --telemetry-legs N, after the build: N pairs of phase 41a's timed
+legs (unarmed, then armed), each pair's ratio and records/s, the 1.03x
+gate reported and not held; then exit.
+With either, --package DIR takes omldm_tpu_torch from DIR (another
+checkout, e.g. a parent commit unpacked with git archive).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -539,6 +565,7 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import gc
@@ -667,22 +694,32 @@ def phase_setup(torch):
 
 
 def phase_build(pa_scan, attention, sparse):
-    """One nvcc per source, all started together, then waited for."""
+    """One nvcc per source, all started together. Waits for pa_scan's and
+    scatter_add's builds (seconds) and returns the wait for flash
+    attention's (about a minute), which runs on beside the phases that need
+    no flash kernel; a build never waited for is stopped at exit."""
     t0 = time.perf_counter()
-    libraries = [("pa_scan.cu", pa_scan.LIBRARY), ("flash_attention.cu", attention.LIBRARY),
-                 ("scatter_add.cu", sparse.LIBRARY)]
-    for _, lib in libraries:
+    for lib in (pa_scan.LIBRARY, attention.LIBRARY, sparse.LIBRARY):
         lib.start()
+    atexit.register(attention.LIBRARY.stop)
+    _load_libraries([("pa_scan.cu", pa_scan.LIBRARY), ("scatter_add.cu", sparse.LIBRARY)], t0)
+    return lambda: _load_libraries([("flash_attention.cu", attention.LIBRARY)], t0)
+
+
+def _load_libraries(libraries, t0):
+    """Wait for each library's build and load it; log nvcc's seconds and
+    report, and the registers and spills of pa_scan's and flash's kernels."""
     for _, lib in libraries:
         lib.load()
-    log(f"build: {len(libraries)} sources in {time.perf_counter() - t0:.2f} s wall")
+    log(f"build: {', '.join(name for name, _ in libraries)} loaded "
+        f"{time.perf_counter() - t0:.2f} s after the builds started")
     for name, lib in libraries:
         log(f"build: {name}: nvcc {lib.build_seconds:.2f} s")
         for line in lib.build_log.splitlines():
             if line.strip():
                 log(f"  nvcc: {line.strip()}")
-    for lib, prefix in ((pa_scan.LIBRARY, "_kernel"), (attention.LIBRARY, "flash_")):
-        for kernel, info in ptxas_summary(lib.build_log, prefix).items():
+        prefix = {"pa_scan.cu": "_kernel", "flash_attention.cu": "flash_"}.get(name)
+        for kernel, info in (ptxas_summary(lib.build_log, prefix).items() if prefix else ()):
             log(f"build: ptxas {kernel}: {info}")
             # every flash instance must build without spills (the register
             # budget each design's tiles and column chunks are sized for)
@@ -6143,9 +6180,46 @@ def _trace_kernel_counts(path: Path, names):
     return counts
 
 
+def _telemetry_smoke_legs(torch, span_path: Path):
+    """Phase 41a's stream and its two legs, the unarmed and the armed run,
+    after the reference's warm-up runs. Returns (the armed spec, the
+    unarmed leg, the armed leg)."""
+    import numpy as np
+
+    r = TELEMETRY_SMOKE
+    rng = np.random.RandomState(13)
+    w = np.random.RandomState(42).randn(N_FEATURES)
+    tx = rng.randn(r["records"], N_FEATURES).astype(np.float32)
+    ty = (tx @ w > 0).astype(np.float32)
+    spec = f"statsEvery={r['stats_every']},traceSample=16,spanPath={span_path}"
+    par, batch, head = r["parallelism"], r["batch"], r["warmup"]
+    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch)
+    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch,
+               telemetry=f"statsEvery={r['stats_every']}")
+    return (spec, lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch),
+            lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch, telemetry=spec))
+
+
+def phase_telemetry_legs(torch, trials, tmp: Path):
+    """--telemetry-legs: phase 41a's paired legs alone, each pair's
+    unarmed/armed ratio and records/s, the 1.03x gate reported on each
+    pair and not held."""
+    import omldm_tpu_torch
+
+    log(f"telemetry-legs: package {Path(omldm_tpu_torch.__file__).parent}")
+    _, run_off, run_on = _telemetry_smoke_legs(torch, tmp / "spans.jsonl")
+    with _timed_legs():
+        for trial in range(trials):
+            off, on = run_off(), run_on()
+            ratio = off["examples_per_sec"] / max(on["examples_per_sec"], 1e-9)
+            log("telemetry-legs: " + json.dumps({
+                "trial": trial, "ratio": ratio,
+                "records_per_s": [off["examples_per_sec"], on["examples_per_sec"]],
+                "heartbeats": on["heartbeats"], "over_gate": ratio > 1.03}))
+
+
 def phase_telemetry(torch, pa_scan, events, slice_launches, slice_preds, tmp: Path):
     """Phase 41. Returns the pa_scan launches of (b) and (c)."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from omldm_tpu_torch.config import JobConfig
@@ -6155,19 +6229,9 @@ def phase_telemetry(torch, pa_scan, events, slice_launches, slice_preds, tmp: Pa
     # (a) the reference's smoke, its gates
     t_phase = time.perf_counter()
     r = TELEMETRY_SMOKE
-    rng = np.random.RandomState(13)
-    w = np.random.RandomState(42).randn(N_FEATURES)
-    tx = rng.randn(r["records"], N_FEATURES).astype(np.float32)
-    ty = (tx @ w > 0).astype(np.float32)
     span_path = tmp / "spans.jsonl"
-    spec = f"statsEvery={r['stats_every']},traceSample=16,spanPath={span_path}"
-    par, batch, head = r["parallelism"], r["batch"], r["warmup"]
-    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch)
-    _smoke_run(torch, "Synchronous", tx[:head], ty[:head], par, batch,
-               telemetry=f"statsEvery={r['stats_every']}")
-    best_off, best_on, ratios = _paired_trials(
-        r["trials"], lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch),
-        lambda: _smoke_run(torch, "Synchronous", tx, ty, par, batch, telemetry=spec))
+    spec, run_off, run_on = _telemetry_smoke_legs(torch, span_path)
+    best_off, best_on, ratios = _paired_trials(r["trials"], run_off, run_on)
     overhead = min(ratios)
     failures = [f"armed leg diverged on {k}: {best_on[k]} != unarmed {best_off[k]}"
                 for k in ("score", "fitted", "models_shipped", "bytes_on_wire", "num_of_blocks")
@@ -7148,7 +7212,11 @@ FLEET_ARGS = ["--batchSize", str(SLICE_CONFIG["batch_size"]), "--testSetSize", "
 # custom op pulls in on first use) inside "pump", "group" (every fabric
 # call) inside the others; "parse" is the packed batcher's or the COO
 # block's parse and staging, "join" the process group's join with the mesh
-# and the card's context
+# and the card's context. "calls" counts the calls of each part ("step":
+# this process's fleet steps, the restored ones not included). Each
+# snapshot saved and each restore prints its own line at once
+# ("fleet-save:", "fleet-restore:"), so a process an injected fault ends
+# leaves them too
 FLEET_BOOT = """
 import json, os, sys, time
 import omldm_tpu_torch.runtime.distributed_job as dj
@@ -7157,6 +7225,7 @@ from omldm_tpu_torch.ops import pa_scan, sparse
 from omldm_tpu_torch.parallel import multihost
 from omldm_tpu_torch.parallel.spmd import SPMDTrainer
 spent = {}
+calls = {}
 jobs = []
 def timed(owner, name, key):
     real = getattr(owner, name)
@@ -7167,7 +7236,24 @@ def timed(owner, name, key):
         finally:
             part = key + "_first" if key == "step" and "step_first" not in spent else key
             spent[part] = spent.get(part, 0.0) + time.perf_counter() - t
+            calls[key] = calls.get(key, 0) + 1
     setattr(owner, name, wrapper)
+def logged(name, tag):
+    real = getattr(dj.DistributedStreamJob, name)
+    def wrapper(self, *a, **k):
+        t = time.perf_counter()
+        out = real(self, *a, **k)
+        row = {"pid": self.pid, "s": time.perf_counter() - t}
+        if isinstance(out, str) and os.path.isdir(out):
+            row["snapshot"] = os.path.basename(out)
+            row["bytes"] = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        else:
+            row["cursor"] = out
+        print(tag + " " + json.dumps(row), flush=True)
+        return out
+    setattr(dj.DistributedStreamJob, name, wrapper)
+logged("save_checkpoint", "fleet-save:")
+logged("restore_checkpoint", "fleet-restore:")
 for owner, name, key in ((dj.DistributedStreamJob, "__init__", "join"),
                          (dj.DistributedStreamJob, "sync_requests", "control"),
                          (dj.DistributedStreamJob, "_pump_pipeline", "pump"),
@@ -7209,7 +7295,8 @@ if profile:
     prof.dump_stats(f"{profile}.p{job.pid}")
 print("fleet-process: " + json.dumps({
     "pid": job.pid, "processes": job.nproc, "device": str(job.device), "wall_s": wall,
-    "steps": sum(p.steps_run for p in job.pipelines.values()),
+    "steps": sum(p.steps_run for p in job.pipelines.values()), "calls": calls,
+    "rescales": job.rescales_performed,
     "pa_scan": pa_scan.launches, "pa_scan_batched": pa_scan.batched_launches,
     "scatter_add": sparse.launches["scatter_add"], "group_calls": multihost.group_calls,
     "host_s": spent,
@@ -7218,55 +7305,94 @@ sys.exit(rc)
 """
 
 
-def _fleet_run(tag: str, nproc: int, device: str, train: Path, reqs: Path, final: Path,
-               tmp: Path, profile: Path | None = None):
-    """``nproc`` processes of the fleet's file route (the CLI's flags, one
-    bootstrap each, a free localhost port); (report, predictions, query
-    responses, per-process rows, wall seconds of the launch, backends).
-    With ``profile``, each process runs under cProfile into
-    ``profile.p<pid>``."""
+def _fleet_launch(label: str, tag: str, nproc: int, device: str, train: Path, reqs: Path,
+                  tmp: Path, extra=(), expect: int = 0, stopped: int | None = None,
+                  env: dict | None = None):
+    """``nproc`` processes of the fleet's file route (the CLI's flags and
+    ``extra``, one FLEET_BOOT bootstrap each, a free localhost port), each
+    expected to exit ``expect``; process ``stopped`` is expected to freeze:
+    it must still be alive when the others have exited, and is SIGKILLed.
+    Returns a dict: the exit codes, the report, the predictions, the
+    fleet-process rows, the saves and restores (the bootstrap's
+    "fleet-save:" and "fleet-restore:" lines), stderr and the launch's wall
+    seconds."""
+    import signal
     import socket
 
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    perf, pred, resp = (tmp / f"{tag}_{k}.jsonl" for k in ("perf", "pred", "resp"))
-    flags = FLEET_ARGS + ["--device", device, "--trainingData", str(train),
-                          "--requests", str(reqs), "--requestsFinal", str(final),
-                          "--performanceOut", str(perf), "--predictionsOut", str(pred),
-                          "--responsesOut", str(resp), "--processes", str(nproc)]
+    perf, pred = (tmp / f"{tag}_{k}.jsonl" for k in ("perf", "pred"))
+    flags = FLEET_ARGS + ["--device", device, "--trainingData", str(train), "--requests",
+                          str(reqs), "--performanceOut", str(perf), "--predictionsOut",
+                          str(pred), "--processes", str(nproc), *map(str, extra)]
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", FLEET_BOOT, *flags, "--processId", str(pid),
          *(["--coordinator", f"127.0.0.1:{port}"] if nproc > 1 else [])],
         cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, **({"CHIP_SMOKE_FLEET_PROFILE": str(profile)} if profile else {})))
+        env=dict(os.environ, **(env or {})))
         for pid in range(nproc)]
-    outs = []
+    outs = {}
+    alive = None
     try:
-        outs = [p.communicate(timeout=FLEET_TIMEOUT_S) for p in procs]
+        for pid, p in enumerate(procs):
+            if pid != stopped:
+                outs[pid] = p.communicate(timeout=FLEET_TIMEOUT_S)
+        if stopped is not None:
+            alive = procs[stopped].poll() is None
+            os.kill(procs[stopped].pid, signal.SIGKILL)
+            outs[stopped] = procs[stopped].communicate(timeout=60)
     finally:
         for p in procs:  # a failed or stuck member must not hold the group
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    for p, (out, err) in zip(procs, outs):
-        check(p.returncode == 0, f"fleet[{tag}]: a process exited {p.returncode}:\n"
-              f"{err[-3000:]}")
-    rows = sorted((json.loads(line.split(" ", 1)[1]) for out, _ in outs
-                   for line in out.splitlines() if line.startswith("fleet-process: ")),
-                  key=lambda r: r["pid"])
-    check(len(rows) == nproc, f"fleet[{tag}]: {len(rows)} process lines for {nproc}")
-    backends = {line.rsplit(" over ", 1)[1] for _, err in outs for line in err.splitlines()
-                if line.startswith("[multihost p") and " over " in line}
-    report = json.loads(perf.read_text())
+    err = "\n".join(outs[i][1] for i in sorted(outs))
+    rcs = [p.returncode for p in procs]
+    for pid, rc in enumerate(rcs):
+        if pid != stopped:
+            check(rc == expect, f"{label}[{tag}]: process {pid} exited {rc}, not {expect}:\n"
+                  f"{err[-3000:]}")
+    if stopped is not None:
+        check(alive, f"{label}[{tag}]: process {stopped} exited {rcs[stopped]} instead of "
+              "freezing")
+
+    def lines(prefix):
+        return sorted((json.loads(line.split(" ", 1)[1]) for out, _ in outs.values()
+                       for line in out.splitlines() if line.startswith(prefix + " ")),
+                      key=lambda r: r["pid"])
+
+    rows = lines("fleet-process:")
+    if expect == 0:
+        check(len(rows) == nproc, f"{label}[{tag}]: {len(rows)} process lines for {nproc}")
     paths = [pred] if nproc == 1 else [Path(f"{pred}.p{i}") for i in range(nproc)]
-    preds = [json.loads(line) for path in paths for line in path.read_text().splitlines()]
+    return {"rcs": rcs, "report": json.loads(perf.read_text()) if perf.exists() else None,
+            "preds": [json.loads(line) for path in paths if path.exists()
+                      for line in path.read_text().splitlines()],
+            "rows": rows, "saves": lines("fleet-save:"), "restores": lines("fleet-restore:"),
+            "err": err, "wall": wall}
+
+
+def _fleet_run(tag: str, nproc: int, device: str, train: Path, reqs: Path, final: Path,
+               tmp: Path, profile: Path | None = None):
+    """``nproc`` processes of the fleet's file route with a final Query
+    (:func:`_fleet_launch`); (report, predictions, query responses,
+    per-process rows, wall seconds of the launch, backends). With
+    ``profile``, each process runs under cProfile into
+    ``profile.p<pid>``."""
+    resp = tmp / f"{tag}_resp.jsonl"
+    run = _fleet_launch("fleet", tag, nproc, device, train, reqs, tmp,
+                        ["--requestsFinal", final, "--responsesOut", resp],
+                        env={"CHIP_SMOKE_FLEET_PROFILE": str(profile)} if profile else None)
+    backends = {line.rsplit(" over ", 1)[1] for line in run["err"].splitlines()
+                if line.startswith("[multihost p") and " over " in line}
     responses = [json.loads(line) for line in resp.read_text().splitlines()]
-    return report, preds, responses, rows, wall, sorted(backends)
+    return (run["report"], run["preds"], responses, run["rows"], run["wall"],
+            sorted(backends))
 
 
 FLEET_TIMEOUT_S = 240
@@ -7398,6 +7524,181 @@ def phase_fleet(torch, sparse, seed: int, card: str, tmp: Path, profile_dir: Pat
             {f"fleet_sparse_2p_card_p{r['pid']}": r["scatter_add"] for r in sparse_card[3]})
 
 
+# --- phase 49: the fleet's recovery half --------------------------------------
+
+RECOVERY_RECORDS, RECOVERY_CHUNK = 20_000, 1024
+RECOVERY_FAULT = ["--checkpointEvery", "4", "--failAfterChunks", "9"]
+
+
+def _recovery_same(label: str, run, ref, holdout=True):
+    """``run`` against ``ref``: every integer statistic (and the holdout)
+    equal."""
+    sa, sb = run["report"]["statistics"][0], ref["report"]["statistics"][0]
+    for key in FLEET_INT_STATS:
+        check(sa[key] == sb[key], f"{label}: {key} {sa[key]} against {sb[key]}")
+    if holdout:
+        check(run["report"]["holdout"] == ref["report"]["holdout"],
+              f"{label}: holdout {run['report']['holdout']} against {ref['report']['holdout']}")
+
+
+def _recovery_launches(label: str, run, kernel: str) -> list:
+    """Each card process of ``run`` launched ``kernel`` once a fleet step it
+    took (``calls["step"]``: the restored steps are not this process's);
+    returns the launches."""
+    for r in run["rows"]:
+        steps = r["calls"].get("step", 0)
+        check(steps > 0 and r[kernel] == steps,
+              f"{label}: process {r['pid']} launched {kernel} {r[kernel]} times in {steps} "
+              "fleet steps")
+    return [r[kernel] for r in run["rows"]]
+
+
+def phase_fleet_recovery(torch, sparse, seed: int, card: str, tmp: Path):
+    """Phase 49: the fleet's recovery half on the card, 2 processes sharing
+    it over gloo, the slice-1 Create (28 features, PA-I perRecord) on
+    RECOVERY_RECORDS records in chunks of RECOVERY_CHUNK rows: (a) clean,
+    faulted and restored; (b) the snapshot restored at 1 process; (c) a
+    truncated shard's fallback, journalled; (d) a frozen process and the
+    survivor's HANG_EXIT; (e) the snapshot restored on the CPU; (f) the
+    sparse fleet faulted and restored. Returns the restored card
+    processes' pa_scan and scatter_add launches."""
+    t_phase = time.perf_counter()
+    events = make_events(RECOVERY_RECORDS, seed + 1, query_at=None)
+    create = json.loads(events[0][1])
+    create["learner"]["dataStructure"] = {"nFeatures": N_FEATURES}
+    train, reqs = write_stream_files([("requests", json.dumps(create))] + events[1:], tmp,
+                                     "recovery")
+    n_fore = sum(1 for st, _ in events if st == "forecastingData")
+    sparse_events = criteo_events(RECOVERY_RECORDS, seed + 1, query_at=None,
+                                  scatter_impl=stream_scatter_impl(sparse))
+    strain, sreqs = write_stream_files(sparse_events, tmp, "recovery_sparse")
+    s_fore = sum(1 for st, _ in sparse_events if st == "forecastingData")
+    ck, sck, cck = tmp / "ck", tmp / "sparse_ck", tmp / "corrupt_ck"
+    bb = tmp / "corrupt_bb"
+
+    first = {
+        "clean": (2, "cuda", (train, reqs), []),
+        "faulted": (2, "cuda", (train, reqs), ["--checkpointDir", ck, *RECOVERY_FAULT], 3),
+        "sparse_clean": (2, "cuda", (strain, sreqs), []),
+        "sparse_faulted": (2, "cuda", (strain, sreqs),
+                           ["--checkpointDir", sck, *RECOVERY_FAULT], 3),
+        "corrupt_faulted": (2, "cuda", (train, reqs), [
+            "--checkpointDir", cck, *RECOVERY_FAULT, "--corruptShardProcess", 1,
+            "--corruptShardSeq", 1, "--corruptShardMode", "truncate"], 3),
+    }
+
+    def launch(tag, spec):
+        nproc, device, (tr, rq), extra, *rest = spec
+        return _fleet_launch("recovery", tag, nproc, device, tr, rq, tmp,
+                             ["--chunkRows", RECOVERY_CHUNK, *extra], *rest)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+        runs = dict(zip(first, pool.map(launch, first, first.values())))
+    import shutil
+
+    for name in ("rescaled", "cpu"):
+        shutil.copytree(ck, tmp / f"ck_{name}")
+    second = {
+        "resumed": (2, "cuda", (train, reqs), ["--checkpointDir", ck, "--restore", "true"]),
+        "rescaled": (1, "cuda", (train, reqs), [
+            "--checkpointDir", tmp / "ck_rescaled", "--restore", "true"]),
+        "cpu": (2, "cpu", (train, reqs), ["--checkpointDir", tmp / "ck_cpu", "--restore",
+                                          "true"]),
+        "sparse_resumed": (2, "cuda", (strain, sreqs), [
+            "--checkpointDir", sck, "--restore", "true"]),
+        "fallback": (2, "cuda", (train, reqs), [
+            "--checkpointDir", cck, "--restore", "true", "--flightRecorder", "on",
+            "--blackboxPath", bb]),
+        "hang": (2, "cuda", (train, reqs), [
+            "--hangProcess", 1, "--hangAfterChunks", 3, "--collectiveTimeoutMs", 5000,
+            "--flightRecorder", "on", "--blackboxPath", tmp / "hang_bb"], 19, 1),
+    }
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+        runs.update(zip(second, pool.map(launch, second, second.values())))
+
+    training = RECOVERY_RECORDS
+    clean, resumed = runs["clean"], runs["resumed"]
+    # (a) the resumed run ends as the clean one; each of its processes took
+    # the clean run's steps (restored + its own) and launched pa_scan once
+    # for each of its own
+    check(len(runs["faulted"]["saves"]) == 4 and runs["faulted"]["rcs"] == [3, 3],
+          f"recovery[faulted]: {len(runs['faulted']['saves'])} saves, exits "
+          f"{runs['faulted']['rcs']}")
+    check("restored; resuming at row 8192" in resumed["err"],
+          "recovery[resumed]: not resumed at the second snapshot's row 8192")
+    _recovery_same("recovery[resumed vs clean]", resumed, clean)
+    check(len(resumed["preds"]) == len(clean["preds"]) == n_fore,
+          f"recovery[resumed]: {len(resumed['preds'])} predictions, clean "
+          f"{len(clean['preds'])}, {n_fore} forecasts")
+    check([r["steps"] for r in resumed["rows"]] == [r["steps"] for r in clean["rows"]],
+          "recovery[resumed]: the fleet's steps differ from the clean run's")
+    launches = {"resumed": _recovery_launches("recovery[resumed]", resumed, "pa_scan")}
+    # (b) 2 -> 1 on the card
+    rescaled = runs["rescaled"]
+    s = rescaled["report"]["statistics"][0]
+    check(s["fitted"] + rescaled["report"]["holdout"]["0"] == training
+          and rescaled["report"]["rescalesPerformed"] == 1
+          and len(rescaled["preds"]) == n_fore,
+          f"recovery[rescaled]: fitted {s['fitted']} + holdout "
+          f"{rescaled['report']['holdout']['0']} != {training}, or no rescale counted")
+    launches["rescaled"] = _recovery_launches("recovery[rescaled]", rescaled, "pa_scan")
+    # (c) the truncated shard of ckpt-1: the fleet falls back to ckpt-0
+    fallback = runs["fallback"]
+    check("falling back from ckpt-1 to ckpt-0" in fallback["err"]
+          and "restored; resuming at row 4096" in fallback["err"],
+          "recovery[fallback]: no fallback to ckpt-0")
+    _recovery_same("recovery[fallback vs clean]", fallback, clean)
+    journal = [json.loads(line) for path in sorted(bb.glob("blackbox-proc*.jsonl"))
+               for line in path.read_text().splitlines()]
+    rejected = [e for e in journal if e["kind"] == "restore"
+                and e["cause"] == "candidate_rejected"]
+    check([e["pid"] for e in rejected] == [1],
+          f"recovery[fallback]: candidate_rejected recorded by {[e['pid'] for e in rejected]}")
+    launches["fallback"] = _recovery_launches("recovery[fallback]", fallback, "pa_scan")
+    # (d) process 0 exits HANG_EXIT, its black box names the hang
+    hang = runs["hang"]
+    hang_events = [json.loads(line) for line in
+                   (tmp / "hang_bb" / "blackbox-proc0.jsonl").read_text().splitlines()]
+    check(any(e["kind"] == "hang" and e["cause"] == "collective_timeout"
+              for e in hang_events), "recovery[hang]: no hang event in process 0's black box")
+    # (e) the card's snapshot restored on the CPU: card = CPU
+    _recovery_same("recovery[resumed card vs cpu]", resumed, runs["cpu"])
+    equal = sum(a["value"] == b["value"] for a, b in zip(resumed["preds"], runs["cpu"]["preds"]))
+    # (f) the sparse fleet
+    sp = runs["sparse_resumed"]
+    check("restored; resuming at {'bytes': " in sp["err"],
+          "recovery[sparse]: not resumed at a byte cursor")
+    _recovery_same("recovery[sparse resumed vs clean]", sp, runs["sparse_clean"])
+    check(sp["report"]["statistics"][0]["fitted"] + sp["report"]["holdout"]["0"]
+          == RECOVERY_RECORDS - s_fore, "recovery[sparse]: rows not conserved")
+    launches["sparse"] = _recovery_launches("recovery[sparse]", sp, "scatter_add")
+    for label, r in runs.items():
+        log(f"recovery[{label}]: " + json.dumps({
+            "card": card, "exits": r["rcs"], "launch_wall_s": r["wall"],
+            "process_wall_s": [row["wall_s"] for row in r["rows"]],
+            "steps": [row["steps"] for row in r["rows"]],
+            "own_steps": [row["calls"].get("step", 0) for row in r["rows"]],
+            "pa_scan": [row["pa_scan"] for row in r["rows"]],
+            "scatter_add": [row["scatter_add"] for row in r["rows"]],
+            "saves": [{k: v[k] for k in ("pid", "snapshot", "s", "bytes")} for v in r["saves"]],
+            "restores": [{k: v[k] for k in ("pid", "s")} for v in r["restores"]],
+            **({k: r["report"]["statistics"][0][k] for k in FLEET_INT_STATS + ("score",)}
+               if r["report"] else {}),
+        }))
+    saves = [v["s"] for r in runs.values() for v in r["saves"]]
+    restores = [v["s"] for r in runs.values() for v in r["restores"]]
+    log(f"recovery: resumed = clean, fallback = clean, 2 -> 1 conserves {training} rows, "
+        f"card = CPU in every integer statistic ({equal}/{len(resumed['preds'])} predictions "
+        f"equal), HANG_EXIT; saves {min(saves):.4f}-{max(saves):.4f} s ({len(saves)}), "
+        f"restores {min(restores):.4f}-{max(restores):.4f} s ({len(restores)})")
+    log(f"recovery: phase 49 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"fleet_restored_2p_card_p{i}": n for i, n in enumerate(launches["resumed"])}
+            | {"fleet_rescaled_2_to_1_card": launches["rescaled"][0]}
+            | {f"fleet_fallback_2p_card_p{i}": n for i, n in enumerate(launches["fallback"])},
+            {f"fleet_sparse_restored_2p_card_p{i}": n
+             for i, n in enumerate(launches["sparse"])})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7414,15 +7715,18 @@ def main() -> int:
                         help="run N trials of phase 39's timed legs, then exit")
     parser.add_argument("--overload-collector", choices=("deferred", "on"),
                         default="deferred")
-    parser.add_argument("--overload-package", type=Path, default=None, metavar="DIR",
-                        help="with --overload-legs: the omldm_tpu_torch of DIR")
+    parser.add_argument("--telemetry-legs", type=int, default=0, metavar="N",
+                        help="run N pairs of phase 41a's timed legs, then exit")
+    parser.add_argument("--package", type=Path, default=None, metavar="DIR",
+                        help="with --overload-legs or --telemetry-legs: the "
+                             "omldm_tpu_torch of DIR")
     parser.add_argument("--sequence-only", action="store_true",
                         help="run phases 43-45 after the build (phase 9's LM for 45's "
                              "comparison), then exit")
     parser.add_argument("--kafka-only", action="store_true",
                         help="run phase 17 and phase 47 after the build, then exit")
     parser.add_argument("--fleet-only", action="store_true",
-                        help="run phase 48 after the build, then exit")
+                        help="run phases 48-49 after the build, then exit")
     args = parser.parse_args()
 
     import torch
@@ -7437,16 +7741,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
-    if args.overload_legs and args.overload_package is not None:
-        sys.path.insert(0, str(args.overload_package.resolve()))
+    if (args.overload_legs or args.telemetry_legs) and args.package is not None:
+        sys.path.insert(0, str(args.package.resolve()))
     from omldm_tpu_torch.ops import attention, pa_scan, sparse
     from omldm_tpu_torch.runtime import fast_ingest
 
     t_start = time.perf_counter()
     lap("start-up")
     card = phase_setup(torch)
-    phase_build(pa_scan, attention, sparse)
+    build_flash = phase_build(pa_scan, attention, sparse)
     lap("build")
+    if (args.ab_pa_scan is not None or args.overload_legs or args.telemetry_legs
+            or args.sequence_only or args.fleet_only or args.kafka_only):
+        build_flash()
+        lap("flash build")
     if args.ab_pa_scan is not None:
         ab = phase_ab_pa_scan(torch, pa_scan, args.ab_pa_scan)
         log(json.dumps({"ab_pa_scan": {f"{b}x{d}": {"this_ms": t, "other_ms": o}
@@ -7454,6 +7762,10 @@ def main() -> int:
         return 0
     if args.overload_legs:
         phase_overload_legs(torch, args.overload_legs, args.overload_collector)
+        return 0
+    if args.telemetry_legs:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_telemetry_") as tmp:
+            phase_telemetry_legs(torch, args.telemetry_legs, Path(tmp))
         return 0
     if args.sequence_only:
         _, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
@@ -7464,6 +7776,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
             phase_fleet(torch, sparse, args.seed, card, Path(tmp), args.profile)
             lap("fleet")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+            phase_fleet_recovery(torch, sparse, args.seed, card, Path(tmp))
+            lap("fleet recovery")
         return 0
     if args.kafka_only:
         events = make_events(args.records, args.seed, query_at=args.records // 2)
@@ -7489,18 +7804,6 @@ def main() -> int:
     launches, wall, slice_preds = phase_slice(torch, pa_scan, events)
     phase_parity(events[: args.parity_records + 1])
     lap("slice stream and parity")
-    flash_err = phase_flash_check(torch, attention)
-    lap("flash check")
-    flash_times = phase_flash_time(torch, attention)
-    lap("flash time")
-    flash_launches, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
-    phase_lm_parity(torch, args.seed)
-    lap("lm and lm-parity")
-    # phases 43-45 run here, beside the LM phases: their timings need
-    # torch.profiler's device records, which can come back empty after
-    # phases 41-42's device-only traces
-    coverage_err, coverage_times, moe_launches, f32_launches, graft_launches = \
-        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
     scatter_err = phase_sparse_check(torch, sparse)
     scatter_times = phase_sparse_time(torch, sparse)
     lap("sparse check and time")
@@ -7525,6 +7828,22 @@ def main() -> int:
         if args.profile is not None:
             phase_cli_profile(torch, cli, cli_sparse, args.profile)
             lap("cli profiles")
+    # the flash phases come after the sparse and CLI phases, which need no
+    # flash kernel, so flash attention's nvcc runs on beside them
+    build_flash()
+    lap("flash build")
+    flash_err = phase_flash_check(torch, attention)
+    lap("flash check")
+    flash_times = phase_flash_time(torch, attention)
+    lap("flash time")
+    flash_launches, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
+    phase_lm_parity(torch, args.seed)
+    lap("lm and lm-parity")
+    # phases 43-45 run here, beside the LM phases: their timings need
+    # torch.profiler's device records, which can come back empty after
+    # phases 41-42's device-only traces
+    coverage_err, coverage_times, moe_launches, f32_launches, graft_launches = \
+        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
     learner_rows = phase_learners(torch, args.seed)
     lap("learners")
     protocol_rows, sync_pa_launches, sync_scatter_launches = phase_protocols(
@@ -7626,6 +7945,10 @@ def main() -> int:
         fleet_pa_launches, fleet_scatter_launches = phase_fleet(torch, sparse, args.seed, card,
                                                                 Path(tmp), args.profile)
         lap("fleet")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+        recovery_pa_launches, recovery_scatter_launches = phase_fleet_recovery(
+            torch, sparse, args.seed, card, Path(tmp))
+        lap("fleet recovery")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -7663,6 +7986,7 @@ def main() -> int:
             "kafka_profile_window": kafka_profile_launches,
             "storm_per_record_solo": storm_solo,
             **fleet_pa_launches,
+            **recovery_pa_launches,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -7727,6 +8051,7 @@ def main() -> int:
         "sparse_recovery_final_incarnation": rescale_launches["sparse_recovery"],
         "sparse_overload_armed_first_records": overload_scatter,
         **fleet_scatter_launches,
+        **recovery_scatter_launches,
     }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -66,10 +66,13 @@ live position, its request partitions rewound.
 Fleet: ``--processes N --processId i --coordinator host:port`` (any of
 the three) hands the command to the multi-process fleet's file route,
 ``runtime.distributed_job.run_distributed``, as the JAX CLI does; every
-process runs the same command with its own ``--processId``. There the
-flags of the fleet's later half (checkpoints, rescale, Kafka, heartbeats,
-the watchdog, the recorder, overload, the profiler, the fault injector)
-are refused by name.
+process runs the same command with its own ``--processId``. The fleet
+checkpoints (``--checkpointDir D --checkpointEvery K``), restores
+(``--restore true``, also at another process count), beats
+(``--heartbeatDir``), guards its collectives (``--collectiveTimeoutMs``),
+journals (``--flightRecorder``) and injects faults (``--failAfterChunks``
+and the rest of the JAX fleet's injector flags); the flags of its Kafka
+drive and of its supervisor (``--fleetDegraded``) are refused by name.
 
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
 CUDA raises. Flags of the JAX CLI whose route or knob the port does not

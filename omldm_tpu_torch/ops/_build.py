@@ -8,7 +8,8 @@ so a changed source or header is rebuilt and an unchanged one is reused.
 
 :meth:`KernelLibrary.start` launches ``nvcc`` in the background and
 :meth:`KernelLibrary.load` waits for it, so a caller can start every build
-at once and wait for them together. ``load`` alone builds synchronously.
+at once and wait for each when it first needs it; :meth:`KernelLibrary.stop`
+ends one never waited for. ``load`` alone builds synchronously.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -84,6 +85,17 @@ class KernelLibrary:
             [nvcc(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+
+    def stop(self) -> None:
+        """End a build that :meth:`start` launched and nothing waited for
+        (a caller leaving before it needed the library); a no-op otherwise."""
+        if self._proc is None:
+            return
+        self._proc.kill()
+        self._proc.wait()
+        self._proc = None
+        if self._tmp is not None:
+            self._tmp.unlink(missing_ok=True)
 
     def load(self) -> ctypes.CDLL:
         """Wait for (or run) the build, then load and configure the library."""

@@ -627,7 +627,12 @@ class StreamJob:
             if net_id in self.spmd_bridges:
                 continue
             merged = self.hub_manager.network_statistics(net_id)
-            s = copy.deepcopy(merged) if merged is not None else Statistics(pipeline=net_id)
+            # every field but the two curve lists is a scalar, so copying the
+            # lists makes a deep copy (deepcopy walks the curve point by
+            # point, a cost that grows with the stream, on every beat)
+            s = (dataclasses.replace(merged, learning_curve=list(merged.learning_curve),
+                                     lcx=list(merged.lcx))
+                 if merged is not None else Statistics(pipeline=net_id))
             fitted = 0
             for spoke in self.spokes:
                 net = spoke.nets.get(net_id)

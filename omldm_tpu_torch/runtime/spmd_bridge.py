@@ -274,14 +274,18 @@ def make_spmd_bridge(request: Request, dim, config, emit_prediction,
     return cls(request, dim, config, emit_prediction, emit_response, device)
 
 
-def _line_aligned_chunks(path: str, chunk_bytes: int):
+def _line_aligned_chunks(path: str, chunk_bytes: int, start_offset: int = 0):
     """Yield (buf, stop) line-aligned regions of a JSON-lines file from one
     reusable read buffer (readinto + carried partial line; grows when a
     single line exceeds the buffer). Shared by the dense and sparse bulk
-    ingest routes so the subtle carry logic exists once."""
+    ingest routes so the subtle carry logic exists once. ``start_offset``
+    resumes mid-file at a known line-aligned byte position (the fleet's
+    checkpoint cursors record one)."""
     buf = bytearray(chunk_bytes)
     carry = 0
     with open(path, "rb") as f:
+        if start_offset:
+            f.seek(start_offset)
         while True:
             if carry >= len(buf):  # one line longer than the buffer
                 buf.extend(bytes(len(buf)))

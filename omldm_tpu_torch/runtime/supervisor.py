@@ -21,9 +21,15 @@ broker does across restarts and rebalances (drop, duplicate, reorder, and
 poisoned record values), on the same seeded schedule; the Kafka route arms
 it with ``OMLDM_CHAOS_KAFKA`` (:func:`maybe_chaos_consumer`).
 
-The rest of the JAX module -- the fleet supervisor and autoscaler and the
-process fault injector -- arrives with the distributed fleet (ROADMAP
-queue 1, item 4).
+:class:`DistributedFaultInjector` fires faults inside the fleet's real
+worker processes (a crash, a torn or lost checkpoint shard, a frozen
+worker, a refused launch), armed from CLI flags and driven by the drive
+loops at synchronized pump points; :data:`RESCALE_EXIT` is the exit code
+of a fleet that checkpointed to be relaunched at another process count.
+
+The rest of the JAX module -- the fleet supervisor and autoscaler, and the
+injector's broker severing -- arrives with the fleet's Kafka drive and its
+supervisor (ROADMAP queue 1, items 4.2 and 4.3).
 """
 
 from __future__ import annotations
@@ -37,6 +43,157 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from omldm_tpu_torch.runtime.codec import EncodedLeaf
+
+# exit code a worker fleet uses to signal "checkpointed and exiting for a
+# supervised relaunch at a new process count" (distributed_job's
+# _maybe_rescale_exit) -- distinct from failure codes so a restart policy
+# does not burn an attempt on a planned rescale
+RESCALE_EXIT = 17
+
+
+class DistributedFaultInjector:
+    """Flag-driven deterministic fault injection for the multi-process job.
+
+    The single-process :class:`~omldm_tpu_torch.runtime.recovery.FaultInjector`
+    patches spokes in-process; the fleet needs faults that fire inside REAL
+    worker processes, so this one is armed from CLI flags and driven by the
+    drive loops at synchronized pump points:
+
+    - ``--failProcess p --failAfterRecords N``: process ``p`` hard-exits
+      (code 3) at the first pump point after ingesting >= N records -- the
+      chosen-worker crash (a lost TaskManager).
+    - ``--failAfterChunks k``: EVERY process exits after chunk ``k`` (the
+      whole-deployment cut used by the checkpoint-resume tests).
+    - ``--corruptShardProcess p --corruptShardSeq k`` (+
+      ``--corruptShardMode truncate|withhold``): after checkpoint ``k``
+      commits, process ``p`` truncates (or deletes) its own proc shard in
+      that snapshot -- the torn-write or lost-file disk fault that restore
+      must survive by falling back to the previous complete snapshot.
+    - ``--hangProcess p --hangAfterChunks k``: process ``p`` SIGSTOPs
+      ITSELF at chunk ``k`` -- alive but frozen: never beating, never
+      exiting, wedging every peer's next collective. Drives the survivors'
+      collective watchdog (HANG_EXIT). One-shot ACROSS incarnations when
+      ``--faultStateDir`` names a directory for the marker file (without
+      it, every incarnation of process ``p`` hangs again).
+    - ``--refuseLaunchProcess p --refuseLaunchCount n``: process ``p``
+      hard-exits at injector construction -- before its first heartbeat --
+      for the first ``n`` incarnations (counted in ``--faultStateDir``):
+      the un-launchable-slot fault.
+
+    All triggers are one-shot and deterministic given a fixed chunk size.
+    """
+
+    EXIT_CODE = 3
+
+    def __init__(self, flags: Dict[str, str], pid: int):
+        self.pid = pid
+        self.fail_process = int(flags.get("failProcess", "-1"))
+        self.fail_after_records = int(flags.get("failAfterRecords", "0"))
+        self.fail_after_chunks = int(flags.get("failAfterChunks", "0"))
+        self.corrupt_process = int(flags.get("corruptShardProcess", "-1"))
+        self.corrupt_seq = int(flags.get("corruptShardSeq", "-1"))
+        self.corrupt_mode = flags.get("corruptShardMode", "truncate")
+        self.hang_process = int(flags.get("hangProcess", "-1"))
+        self.hang_after_chunks = int(flags.get("hangAfterChunks", "0"))
+        self.refuse_launch_process = int(flags.get("refuseLaunchProcess", "-1"))
+        self.refuse_launch_count = int(flags.get("refuseLaunchCount", "0"))
+        # cross-incarnation fault state (markers, counters): a relaunched
+        # fleet re-runs the injector with the SAME flags, so one-shot faults
+        # need disk state to stay one-shot
+        self.fault_state_dir = flags.get("faultStateDir", "")
+        self.records_seen = 0
+        self._hung = False
+
+    def note_records(self, n: int) -> None:
+        """Count records this process's ingest moved past a pump point."""
+        self.records_seen += int(n)
+
+    def _once(self, name: str) -> bool:
+        """True exactly once across incarnations (a marker file in the
+        fault state dir); without a state dir, True every incarnation."""
+        if not self.fault_state_dir:
+            return True
+        marker = os.path.join(self.fault_state_dir, name)
+        try:
+            os.makedirs(self.fault_state_dir, exist_ok=True)
+            fd = os.open(marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            os.close(fd)
+            return True
+        except OSError:
+            return False  # marker exists (or undrivable dir): already fired
+
+    def on_launch(self) -> None:
+        """Called once at worker startup, BEFORE the first heartbeat: the
+        launch-refusal fault exits here, so a supervisor's classifier sees
+        a process that died without ever coming up."""
+        if self.refuse_launch_process != self.pid or self.refuse_launch_count <= 0:
+            return
+        counter = os.path.join(self.fault_state_dir or ".", f"refused.p{self.pid}")
+        n = 0
+        try:
+            with open(counter) as f:
+                n = int(f.read().strip() or 0)
+        except (OSError, ValueError):
+            n = 0
+        if n >= self.refuse_launch_count:
+            return
+        try:
+            if self.fault_state_dir:
+                os.makedirs(self.fault_state_dir, exist_ok=True)
+            with open(counter, "w") as f:
+                f.write(str(n + 1))
+        except OSError:
+            pass
+        self._die(f"worker {self.pid} refused launch ({n + 1}/{self.refuse_launch_count})")
+
+    def _die(self, why: str) -> None:
+        print(f"[fault-injector p{self.pid}] injected crash: {why}", file=sys.stderr,
+              flush=True)
+        # hard exit, like a SIGKILLed or OOMed worker: no atexit, no flush
+        # of in-flight state -- recovery must come from the disk truth
+        os._exit(self.EXIT_CODE)
+
+    def on_chunk(self, chunk_idx: int) -> None:
+        """Called at every synchronized pump point (after the checkpoint
+        cadence ran for this chunk)."""
+        if self.fail_after_chunks and chunk_idx + 1 >= self.fail_after_chunks:
+            self._die(f"after chunk {chunk_idx + 1} (all processes)")
+        if (self.fail_process == self.pid and self.fail_after_records > 0
+                and self.records_seen >= self.fail_after_records):
+            self._die(f"worker {self.pid} after {self.records_seen} records")
+        if (self.hang_process == self.pid and self.hang_after_chunks
+                and chunk_idx + 1 >= self.hang_after_chunks and not self._hung
+                and self._once(f"hang.p{self.pid}")):
+            self._hung = True
+            print(f"[fault-injector p{self.pid}] injected hang: SIGSTOP after chunk "
+                  f"{chunk_idx + 1} (process stays alive, frozen -- no beats, no exit)",
+                  file=sys.stderr, flush=True)
+            from omldm_tpu_torch.runtime import selfheal
+
+            selfheal.sigstop_self()
+
+    def on_checkpoint(self, ckpt_dir: str) -> None:
+        """Called after a distributed snapshot commits (post-barrier)."""
+        if self.corrupt_process != self.pid or self.corrupt_seq < 0:
+            return
+        try:
+            seq = int(os.path.basename(ckpt_dir).split("-", 1)[1])
+        except (IndexError, ValueError):
+            return
+        if seq != self.corrupt_seq:
+            return
+        shard = os.path.join(ckpt_dir, f"proc{self.pid}.npz")
+        self.corrupt_seq = -1  # one-shot
+        if self.corrupt_mode == "withhold":
+            os.unlink(shard)
+            verb = "withheld"
+        else:
+            size = os.path.getsize(shard)
+            with open(shard, "r+b") as f:
+                f.truncate(max(size // 2, 1))
+            verb = f"truncated to {max(size // 2, 1)}B"
+        print(f"[fault-injector p{self.pid}] {verb} checkpoint shard {shard}",
+              file=sys.stderr, flush=True)
 
 _CHAOS_PARAMS = ("drop", "dup", "reorder", "delay")
 # corruption (poison) fault classes -- distinct from the loss classes
@@ -518,9 +675,11 @@ def maybe_chaos_consumer(
 
 
 __all__ = [
+    "RESCALE_EXIT",
     "BurstInjector",
     "ChaosChannel",
     "ChaosConsumer",
+    "DistributedFaultInjector",
     "maybe_chaos_consumer",
     "parse_chaos_spec",
 ]

@@ -41,6 +41,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from omldm_tpu_torch.utils.tracing import linear_percentiles
+
 # canonical hot-loop phase names; PhaseProfile accepts any name, these are
 # the ones the runtime wires
 PHASES = (
@@ -210,8 +212,7 @@ class _Ring:
     def percentiles(self, qs=(50.0, 99.0)) -> Tuple[float, ...]:
         if self._n == 0:
             return tuple(0.0 for _ in qs)
-        p = np.percentile(self._ring[: self._n], qs)
-        return tuple(float(v) for v in np.atleast_1d(p))
+        return linear_percentiles(np.sort(self._ring[: self._n]), qs)
 
     def merge(self, other: "_Ring") -> None:
         self.count += other.count

@@ -1,10 +1,12 @@
 """The runtime's injectable clocks (the port's copy of the part of the JAX
-package's ``utils/clock.py`` that the serving plane and the flight recorder
-use).
+package's ``utils/clock.py`` that the serving plane, the flight recorder
+and the fleet's hang watchdog use).
 
 :data:`PERF` is the system clock the serving plane's ``maxDelayMs``
 deadline and latency accounting default to; :data:`WALL` stamps the flight
-recorder's events (timestamps that cross processes). :class:`ManualClock` is the
+recorder's events (timestamps that cross processes); :data:`MONOTONIC`
+times the hang watchdog's deadlines (durations that must survive a step of
+the system clock). :class:`ManualClock` is the
 deterministic test double: a callable a plane accepts wherever a clock is
 injectable, moved forward with ``advance()`` instead of sleeping.
 """
@@ -20,6 +22,7 @@ Clock = Callable[[], float]
 # time.perf_counter, so a test that patches it moves every default clock
 PERF: Clock = time.perf_counter
 WALL: Clock = time.time
+MONOTONIC: Clock = time.monotonic
 
 
 class ManualClock:

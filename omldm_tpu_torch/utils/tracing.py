@@ -19,6 +19,25 @@ import time
 from typing import Dict, List, Optional
 
 
+def linear_percentiles(ordered, qs) -> tuple:
+    """Percentiles ``qs`` (0-100) of an ascending, non-empty sequence of
+    floats by numpy's default ``linear`` method, value for value
+    (``np.percentile``'s virtual index and its two-sided lerp). A
+    heartbeat reads several small rings; ``np.percentile`` spends tens of
+    microseconds of argument handling on each, this a few."""
+    n = len(ordered)
+    out = []
+    for q in qs:
+        v = (n - 1) * (q / 100)
+        lo = int(v)
+        hi = min(lo + 1, n - 1)
+        t = v - lo
+        a = float(ordered[lo])
+        d = float(ordered[hi]) - a
+        out.append(float(ordered[hi]) - d * (1 - t) if t >= 0.5 else a + d * t)
+    return tuple(out)
+
+
 def trace_path(log_dir: str) -> str:
     """The Chrome trace :func:`trace` writes into ``log_dir``."""
     return os.path.join(log_dir, f"trace-{os.getpid()}.json")
@@ -159,11 +178,12 @@ class StepTimer:
                     "steps_per_sec": 0.0}
         d = np.asarray(self._durations_ms)
         mean = float(d.mean())
+        p50, p99 = linear_percentiles(np.sort(d), (50.0, 99.0))
         return {
             "count": self._total,
             "mean_ms": mean,
-            "p50_ms": float(np.percentile(d, 50)),
-            "p99_ms": float(np.percentile(d, 99)),
+            "p50_ms": p50,
+            "p99_ms": p99,
             "steps_per_sec": 1000.0 / mean if mean > 0 else 0.0,
         }
 
@@ -173,12 +193,10 @@ class StepTimer:
         sorting the whole window (past one wrap the ring's order scrambles
         recency a little, which a pressure signal tolerates); 0.0 when
         empty."""
-        import numpy as np
-
         if not self._durations_ms:
             return 0.0
-        tail = self._durations_ms[-min(window, len(self._durations_ms)):]
-        return float(np.percentile(np.asarray(tail), 99))
+        tail = sorted(self._durations_ms[-min(window, len(self._durations_ms)):])
+        return linear_percentiles(tail, (99.0,))[0]
 
     def reset(self) -> None:
         self._durations_ms = []

@@ -72,6 +72,23 @@ def test_changed_source_and_flags_change_target(csrc_copy, monkeypatch):
     assert _library(csrc_copy)._target() != base
 
 
+def test_stop_ends_an_unfinished_build(tmp_path, monkeypatch):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nsleep 60\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.KernelLibrary("pa_scan.cu", lambda lib: None)
+    lib.stop()  # nothing started: a no-op
+    lib.start()
+    proc = lib._proc
+    assert proc is not None and proc.poll() is None
+    lib.stop()
+    assert proc.returncode is not None and lib._proc is None
+    assert not any((tmp_path / "build").glob("*.tmp.so"))
+    lib.stop()
+
+
 def _run_dtype_table(top=512):
     """{(dtype code, head width): (design, built width)} for every width
     1..top, read from run_dtype's `if (dh <= W) return ...` lines: the

@@ -339,6 +339,191 @@ def test_fleet_refuses_later_flags_by_name(flag, tmp_path):
         main(FLEET + ["--device", "cpu", *_files(tmp_path), f"--{flag}", "x"])
 
 
+# the flags of the fleet's recovery half: each is accepted and reaches its
+# part
+RECOVERY_FLAGS = (
+    "checkpointDir", "checkpointEvery", "restore", "rescaleRestore", "rescaleCount",
+    "rescaleSignalDir", "heartbeatDir", "collectiveTimeoutMs", "collectiveWarmupMs",
+    "flightRecorder", "blackboxPath", "overload", "profileDir", "failProcess",
+    "failAfterRecords", "failAfterChunks", "corruptShardProcess", "corruptShardSeq",
+    "corruptShardMode", "hangProcess", "hangAfterChunks", "refuseLaunchProcess",
+    "refuseLaunchCount", "faultStateDir")
+
+
+class _Injected(Exception):
+    """An injected crash, raised where the injector would end the process."""
+
+
+def _one_process_fleet(tmp_path, monkeypatch, extra):
+    """``python -m omldm_tpu_torch --processes 1 --device cpu`` in this
+    process on 20 rows in chunks of 4; (the job, process 0's report or
+    None, the SystemExit code or the injected crash's message). The
+    injector's hard exit and SIGSTOP are caught instead of taken."""
+    from omldm_tpu_torch.__main__ import main
+    from omldm_tpu_torch.runtime import distributed_job as dj
+    from omldm_tpu_torch.runtime.supervisor import DistributedFaultInjector
+
+    jobs = []
+    init = dj.DistributedStreamJob.__init__
+
+    def caught(self, *a, **k):
+        init(self, *a, **k)
+        jobs.append(self)
+
+    def die(self, why):
+        raise _Injected(why)
+
+    monkeypatch.setattr(dj.DistributedStreamJob, "__init__", caught)
+    monkeypatch.setattr(DistributedFaultInjector, "_die", die)
+    perf = tmp_path / f"perf{len(list(tmp_path.glob('perf*')))}.jsonl"
+    outcome = 0
+    try:
+        main(["--processes", "1", "--device", "cpu", "--chunkRows", "4",
+              "--performanceOut", str(perf), *_files(tmp_path), *extra])
+    except SystemExit as exc:
+        outcome = exc.code
+    except _Injected as exc:
+        outcome = str(exc)
+    report = json.loads(perf.read_text()) if perf.exists() else None
+    return jobs[-1], report, outcome
+
+
+def _rows_accounted(report):
+    return _stat(report)["fitted"] + report["holdout"]["0"] == 20
+
+
+@pytest.mark.parametrize("flag", RECOVERY_FLAGS)
+def test_fleet_accepts_recovery_flags(flag, tmp_path, monkeypatch, capsys):
+    """Each flag of the fleet's recovery half is accepted by the CLI and
+    reaches its part in a one-process CPU fleet."""
+    assert flag not in FLEET_LATER_FLAGS
+    ck, fs = tmp_path / "ck", tmp_path / "fault"
+    stops = []
+    monkeypatch.setattr("omldm_tpu_torch.runtime.selfheal.sigstop_self",
+                        lambda: stops.append(True))
+
+    def run(*extra):
+        return _one_process_fleet(tmp_path, monkeypatch, [str(a) for a in extra])
+
+    if flag in ("checkpointDir", "checkpointEvery"):
+        every = 1 if flag == "checkpointDir" else 2
+        _, report, rc = run("--checkpointDir", ck, "--checkpointEvery", every)
+        assert rc == 0 and _rows_accounted(report)
+        last = 4 if every == 1 else 1  # 5 chunks of 4 rows
+        assert (ck / "LATEST").read_text() == f"ckpt-{last}"
+        assert sorted(os.listdir(ck))[-1] == f"ckpt-{last}"
+        assert len(os.listdir(ck)) == 1 + min(last + 1, 3)  # JobConfig.checkpoint_keep
+    elif flag == "restore":
+        _, _, rc = run("--checkpointDir", ck, "--checkpointEvery", 1, "--failAfterChunks", 3)
+        assert rc == "after chunk 3 (all processes)"
+        _, report, rc = run("--checkpointDir", ck, "--restore", "true")
+        assert rc == 0 and _rows_accounted(report)
+        assert "restored; resuming at row 12" in capsys.readouterr().err
+    elif flag == "rescaleRestore":
+        run("--checkpointDir", ck, "--checkpointEvery", 1, "--failAfterChunks", 3)
+        manifest = json.loads((ck / "ckpt-2" / "manifest.json").read_text())
+        manifest["processes"] = 2  # a snapshot of another process count
+        (ck / "ckpt-2" / "manifest.json").write_text(json.dumps(manifest))
+        job, report, rc = run("--checkpointDir", ck, "--restore", "true",
+                              "--rescaleRestore", "false")
+        assert rc == 0 and job.rescale_restore is False and _rows_accounted(report)
+        assert report["rescalesPerformed"] == 0
+        err = capsys.readouterr().err
+        assert "(--rescaleRestore false) -- starting fresh" in err
+    elif flag == "rescaleCount":
+        _, report, rc = run("--rescaleCount", 4)
+        assert rc == 0 and report["rescalesPerformed"] == 4
+        assert _stat(report)["rescalesPerformed"] == 4
+    elif flag == "rescaleSignalDir":
+        sig = tmp_path / "sig"
+        sig.mkdir()
+        (sig / "RESCALE").write_text("2")
+        _, report, rc = run("--checkpointDir", ck, "--rescaleSignalDir", sig)
+        assert rc == 17 and report is None
+        assert (ck / "LATEST").read_text() == "ckpt-0"
+    elif flag == "heartbeatDir":
+        _, _, rc = run("--heartbeatDir", tmp_path / "hb")
+        epoch, level, *tail = (tmp_path / "hb" / "proc0.hb").read_text().split()
+        assert rc == 0 and float(epoch) > 0 and level == "0"
+        assert [t.split("=")[0] for t in tail] == [
+            "serveP99", "imbalance", "backlog", "events", "alerts"]
+    elif flag in ("collectiveTimeoutMs", "collectiveWarmupMs"):
+        extra = ["--collectiveWarmupMs", 90000] if flag == "collectiveWarmupMs" else []
+        job, report, rc = run("--collectiveTimeoutMs", 60000, *extra)
+        wd = job.watchdog
+        assert rc == 0 and wd is not None and not wd.fired and wd._stop.is_set()
+        assert wd.timeout_s == 60.0 and wd.warmup_s == (90.0 if extra else 120.0)
+        # the Create's deploy re-grants the allowance ("control" entered
+        # before it); the drive's phases warmed after it
+        assert {"pump", "flush", "report"} <= wd._warmed
+    elif flag in ("flightRecorder", "blackboxPath"):
+        spec = "on" if flag == "flightRecorder" else "cap=16"
+        job, _, rc = run("--flightRecorder", spec, "--blackboxPath", tmp_path / "bb")
+        assert rc == 0 and job.events.cap == (16 if spec == "cap=16" else 4096)
+        lines = (tmp_path / "bb" / "blackbox-proc0.jsonl").read_text().splitlines()
+        assert json.loads(lines[-1])["kind"] == "terminate"
+    elif flag == "overload":
+        job, _, rc = run("--overload", "backlogHigh=1,backlogCritical=2",
+                         "--heartbeatDir", tmp_path / "hb")
+        assert rc == 0 and job.overload_cfg.backlog_high == 1
+        # the last chunk staged rows before its pump: the window's peak
+        assert (tmp_path / "hb" / "proc0.hb").read_text().split()[1] == "2"
+    elif flag == "profileDir":
+        _, _, rc = run("--profileDir", tmp_path / "prof")
+        assert rc == 0 and list((tmp_path / "prof" / "proc0").glob("trace-*.json"))
+    elif flag in ("failProcess", "failAfterRecords"):
+        after = 8 if flag == "failProcess" else 12
+        _, report, rc = run("--failProcess", 0, "--failAfterRecords", after)
+        assert rc == f"worker 0 after {after} records" and report is None
+    elif flag == "failAfterChunks":
+        _, _, rc = run("--failAfterChunks", 2)
+        assert rc == "after chunk 2 (all processes)"
+    elif flag in ("corruptShardProcess", "corruptShardSeq", "corruptShardMode"):
+        seq = 2 if flag == "corruptShardSeq" else 1
+        mode = "withhold" if flag == "corruptShardMode" else "truncate"
+        _, _, rc = run("--checkpointDir", ck, "--checkpointEvery", 1, "--corruptShardProcess",
+                       0, "--corruptShardSeq", seq, "--corruptShardMode", mode)
+        assert rc == 0
+        for k in (2, 3, 4):
+            shard = ck / f"ckpt-{k}" / "proc0.npz"
+            if k != seq:
+                assert dj_sha(shard) == json.loads(shard.with_suffix(".json").read_text())[
+                    "sha256"]
+            elif mode == "withhold":
+                assert not shard.exists()
+            else:
+                assert dj_sha(shard) != json.loads(shard.with_suffix(".json").read_text())[
+                    "sha256"]
+    elif flag in ("hangProcess", "hangAfterChunks"):
+        after = 2 if flag == "hangProcess" else 4
+        _, _, rc = run("--hangProcess", 0, "--hangAfterChunks", after)
+        assert rc == 0 and stops == [True]
+        assert f"injected hang: SIGSTOP after chunk {after}" in capsys.readouterr().err
+    elif flag in ("refuseLaunchProcess", "refuseLaunchCount"):
+        count = 1 if flag == "refuseLaunchProcess" else 2
+        for i in range(count):
+            _, _, rc = run("--refuseLaunchProcess", 0, "--refuseLaunchCount", count,
+                           "--faultStateDir", fs)
+            assert rc == f"worker 0 refused launch ({i + 1}/{count})"
+        _, report, rc = run("--refuseLaunchProcess", 0, "--refuseLaunchCount", count,
+                            "--faultStateDir", fs)
+        assert rc == 0 and _rows_accounted(report)
+        assert (fs / "refused.p0").read_text() == str(count)
+    elif flag == "faultStateDir":
+        for _ in range(2):
+            _, _, rc = run("--hangProcess", 0, "--hangAfterChunks", 1, "--faultStateDir", fs)
+            assert rc == 0
+        assert stops == [True] and (fs / "hang.p0").exists()  # one-shot across runs
+    else:
+        raise AssertionError(f"no check for --{flag}")
+
+
+def dj_sha(path):
+    from omldm_tpu_torch.runtime.distributed_job import _file_sha256
+
+    return _file_sha256(str(path))
+
+
 @pytest.mark.parametrize("argv,message", [
     (["--processes", "2", "--processId", "0"], "needs --coordinator"),
     (["--processes", "2", "--coordinator", "127.0.0.1:1"], "needs --processId"),

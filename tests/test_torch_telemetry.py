@@ -27,10 +27,12 @@ from omldm_tpu.api.requests import TrainingConfiguration as JTrainingConfigurati
 from omldm_tpu.config import JobConfig as JaxJobConfig
 from omldm_tpu.runtime import StreamJob as JaxStreamJob
 from omldm_tpu.runtime import telemetry as jtel
+from omldm_tpu.utils import tracing as jtracing
 from omldm_tpu_torch.api.requests import TrainingConfiguration
 from omldm_tpu_torch.config import JobConfig
 from omldm_tpu_torch.runtime import StreamJob
 from omldm_tpu_torch.runtime import telemetry as ttel
+from omldm_tpu_torch.utils import tracing as ttracing
 
 DIM = 6
 SIDES = ("jax", "port")
@@ -212,6 +214,29 @@ class TestMetricsRegistry:
         assert merged["histograms"]["lat"]["count"] == 101
 
 
+class TestPercentiles:
+    @pytest.mark.parametrize("n", [1, 2, 3, 7, 256, 1000, 4096])
+    def test_linear_percentiles_equal_numpy(self, n):
+        rng = np.random.RandomState(n)
+        # ties and a heavy tail, as latency rings hold
+        vals = np.round(rng.lognormal(size=n), 2 if n % 2 else 6)
+        qs = (0.0, 1.0, 25.0, 50.0, 75.0, 99.0, 99.9, 100.0)
+        got = ttracing.linear_percentiles(np.sort(vals), qs)
+        assert got == tuple(float(v) for v in np.percentile(vals, qs))
+        assert all(type(v) is float for v in got)
+
+    def test_step_timer_recent_p99_equals_jax(self):
+        rng = np.random.RandomState(3)
+        timers = (ttracing.StepTimer("t", cap=300), jtracing.StepTimer("t", cap=300))
+        for d in rng.exponential(size=700):
+            for t in timers:
+                t.record(float(d))
+            if rng.rand() < 0.05:
+                assert timers[0].recent_p99() == timers[1].recent_p99()
+        assert timers[0].recent_p99(window=17) == timers[1].recent_p99(window=17)
+        assert timers[0].summary() == timers[1].summary()
+
+
 class TestPhaseProfile:
     def test_table_shares_and_coverage(self):
         tables = []
@@ -308,6 +333,23 @@ class TestHeartbeatCadence:
         assert row["fitted"] > 0 and row["programLaunches"] > 0
         assert row["score"] == 0.0  # heartbeats never score the holdout
         assert set(row) == set(docs["jax"]["statistics"][0])
+
+    def test_heartbeat_statistics_are_detached_copies(self):
+        runs = _both(telemetry="statsEvery=64", n=200, protocol="Synchronous", parallelism=2)
+        job = runs["port"][0]
+        [snap] = job.heartbeat_statistics()
+        [jsnap] = runs["jax"][0].heartbeat_statistics()
+        assert _int_stats(snap.to_dict()) == _int_stats(jsnap.to_dict())
+        assert len(snap.lcx) == len(jsnap.lcx) > 0
+        merged = job.hub_manager.network_statistics(0)
+        curve, lcx = list(merged.learning_curve), list(merged.lcx)
+        snap.learning_curve.append(-1.0)
+        snap.lcx.clear()
+        snap.update_stats(models_shipped=1_000)
+        assert merged.learning_curve == curve and merged.lcx == lcx
+        [again] = job.heartbeat_statistics()
+        assert again.learning_curve == curve and again.lcx == lcx
+        assert again.models_shipped == snap.models_shipped - 1_000
 
     def test_final_report_schema_unchanged(self):
         runs = _both(telemetry="statsEvery=64", n=200)
