@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--records N] [--parity-records N]
                           [--lm-steps N] [--profile DIR] [--sequence-only]
-                          [--kafka-only] [--fleet-only]
+                          [--kafka-only] [--fleet-only] [--selfheal-only]
 
 Phases (any failure raises and the script exits nonzero without a result):
   1. setup       card name and power limit, torch/CUDA versions, TF32 off;
@@ -225,7 +225,7 @@ Phases (any failure raises and the script exits nonzero without a result):
                  device busy time, host time, the plain version, the bound;
  28. multi-tenant MT_RUN: 64 same-spec Creates (PA-I, C 0.01, perRecord,
                  Synchronous, every other one serving-armed) at
-                 parallelism 2, dim 28, the first 25,000 of 50,000
+                 parallelism 2, dim 28, the first 12,500 of 50,000
                  HIGGS-shaped rows (MT_RUN's main_records) through
                  the packed route, every tenth a forecast, with cohorts
                  auto (vmap; one cohort of 64 a spoke, one batched pa_scan
@@ -477,7 +477,7 @@ Phases (any failure raises and the script exits nonzero without a result):
                  trace stops once, names pa_gram_kernel, pa_chain_kernel
                  and pa_update_kernel each as often as pa_scan launched in
                  the window, and gives the window's idle share; (e) the
-                 load harness's default storm (seed 7, 256 tenants, 1,024
+                 load harness's default storm (seed 7, 128 tenants, 1,024
                  records, chunk rows 64) through run_inprocess_storm on the
                  card, again on the card and on the CPU: the SLO report
                  passes (the hot tenants may shed, no row stranded), the
@@ -528,6 +528,38 @@ Phases (any failure raises and the script exits nonzero without a result):
                  once a step. Prints each save's and restore's seconds
                  (recovery[...]: lines). With --fleet-only: the build and
                  phases 48-49, then exit.
+ 50. selfheal    (after phase 49) the self-healing fleet, its legs side by
+                 side (started 2 s apart, those with most relaunches
+                 first), each fleet on its own file-backed broker
+                 (tests/fskafka.py) and coordinator port, 2 processes sharing
+                 the card over gloo, each a python -c bootstrap (BOOT_KAFKA)
+                 writing its row to a file however it ends: (a) the
+                 fleet's Kafka drive, phase 49's records on 2 partitions,
+                 card and CPU: fitted + holdout = the training rows, pa_scan
+                 once a fleet step on each card process, card = CPU in every
+                 integer statistic, >= 99% predictions equal, records/s from
+                 the first consumed record to the report; (b) the same under
+                 --supervise true with process 0 killed after 9,500 records
+                 (snapshots every 4 windows): one relaunch, (a)'s statistics,
+                 each forecast of (a) once on the predictions topic (EMITTED)
+                 and >= 99% of its answers equal (a)'s, the time from the
+                 kill to the HEAL event split into detection, spawn, imports, the card's context, the join, the restore
+                 and the first beat; (c) --severBrokerAfterChunks 2: exit 0,
+                 dropped sends, the report on its file; (d) the self-heal
+                 chain of tests/test_selfheal.py (a frozen process, 2 -> 1
+                 -> probe -> 2): its lines in order, strike < degrade < probe
+                 in the final bundle, conservation, exactly once, back at 2
+                 and not degraded; (e) the autoscale run of
+                 tests/test_autoscale.py (1 -> 2 -> 1): 2 rescales,
+                 conservation, exactly once; (f) the JAX CI gate's
+                 supervised storm (16 tenants) through
+                 load_harness.run_supervised_storm: the SLO report passes.
+                 (g) phase 49's sparse stream under the supervisor:
+                 scatter_add once a step a process. pa_scan once a step in
+                 every process of every incarnation (selfheal[...]: lines).
+                 With --selfheal-only: the build, (b) alone on an otherwise
+                 idle host (its time to recover by part, its checks but the
+                 comparison with (a)), phase 50, then exit.
 Phases 43-45 run right after phase 10 (their timings need the profiler's
 device records, which can come back empty after phases 41-42's traces).
 With --sequence-only: the build, phase 9 and phases 43-45, then exit.
@@ -2833,7 +2865,8 @@ def phase_cli_profile(torch, cli, cli_sparse, out_dir: Path):
 # records, data kind, width): BASELINE
 # configs 1, 2 and 4 (benchmarks/run_benchmarks.py:95-130; one pipeline, so
 # parallelism 1, their batch 4096), the bench job's Softmax under
-# Synchronous (:857-877; engine left at host), then every other learner and
+# Synchronous (:857-877; engine left at host; 200,000 records, cut from
+# 400,000 for the script's time limit), then every other learner and
 # preprocessor at the reference's parallelism 16.
 LEARNER_RUNS = [
     ("config1_softmax", {"name": "Softmax",
@@ -2846,7 +2879,7 @@ LEARNER_RUNS = [
      [], {}, 1, 4096, 100_000, "binary", 18),
     ("bench_softmax_sync", {"name": "Softmax",
                             "hyperParameters": {"learningRate": 0.05, "nClasses": 2}},
-     [], {"protocol": "Synchronous"}, 16, 4096, 400_000, "binary", 28),
+     [], {"protocol": "Synchronous"}, 16, 4096, 200_000, "binary", 28),
     ("regressor_pa", {"name": "RegressorPA", "hyperParameters": {"C": 0.1, "epsilon": 0.1}},
      [], {"perRecord": True}, 16, 256, 20_000, "regression", 28),
     ("nn", {"name": "NN"}, [], {}, 16, 256, 50_000, "nonlinear", 28),
@@ -4117,9 +4150,9 @@ BATCHED_GROUPED_CHECK = (96, 16_384, 29, 40)
 # Synchronous at parallelism 2, dim 28 (the bench job's width), every tenth
 # record a forecast, serving armed on every other tenant
 # the cohort run takes the stream's first main_records rows (cut from
-# 50,000 for the script's time limit); the stream itself stays the
+# 50,000, then 25,000, for the script's time limit); the stream itself stays the
 # 50,000-row draw, so every run of the phase sees the rows it saw before
-MT_RUN = dict(nets=64, records=50_000, main_records=25_000, parallelism=2, batch=256,
+MT_RUN = dict(nets=64, records=50_000, main_records=12_500, parallelism=2, batch=256,
               test_set_size=64, prefix_records=5_000)
 MT_LEARNER = {"name": "PA", "hyperParameters": {"C": 0.01, "variant": "PA-I"}}
 MT_SERVING = {"maxBatch": 64, "maxDelayMs": 5}
@@ -4463,16 +4496,15 @@ def _quality_parity(label, a, b):
 
 def _busy_s(torch, fn):
     """Device busy seconds (torch.profiler: every kernel, copy and memset)
-    while ``fn`` runs; the device's activity alone is traced (the host's
-    ops would cost minutes to aggregate on these runs)."""
-    from torch.autograd import DeviceType
+    while ``fn`` runs; the device's activity alone is traced, and summed
+    from the raw trace (:func:`_kineto_busy_s`: ``key_averages`` took tens
+    of seconds on these runs' launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as tp:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in tp.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    busy = _kineto_busy_s(tp)
     check(busy > 0, "torch.profiler traced no device time")
     return busy
 
@@ -6533,11 +6565,13 @@ KAFKA_RUN = dict(timeout_ms=2_000, chaos="seed=7,drop=0.02,dup=0.05,reorder=0.05
                  breakdown_records=5_000)  # cut from 10,000 for the time limit
 KAFKA_TOPICS = ("requests", "trainingData", "forecastingData")
 # the load harness's default storm (benchmarks/load_harness.py:64-98,
-# :367-372) and the composition-identity storm of tests/test_load_harness.py
+# :367-372), cut from 256 tenants to 128 for the script's time limit (its
+# three runs took ~58 s at 256, terminate evaluating ~4,192 nets one by
+# one), and the composition-identity storm of tests/test_load_harness.py
 # cut from 256 tenants to 64 (its pair of runs took 30 s at 256 on the
 # card, the deploys and terminate evaluations of 4,096 nets; the CPU tests
 # hold it at 256)
-STORM = dict(seed=7, tenants=256, records=1_024, chunk_rows=64)
+STORM = dict(seed=7, tenants=128, records=1_024, chunk_rows=64)
 # 47f's perRecord storm, cut to 64 tenants for the script's time limit
 STORM_PER_RECORD = dict(STORM, tenants=64)
 STORM_IDENTITY = dict(seed=5, tenants=64, records=128, chunk_rows=64, n_features=4,
@@ -7592,7 +7626,9 @@ def phase_fleet_recovery(torch, sparse, seed: int, card: str, tmp: Path):
         return _fleet_launch("recovery", tag, nproc, device, tr, rq, tmp,
                              ["--chunkRows", RECOVERY_CHUNK, *extra], *rest)
 
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    # every launch of a wave at once: a fleet process's start-up (imports,
+    # the card's context) is most of its launch, and runs beside the others
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(first)) as pool:
         runs = dict(zip(first, pool.map(launch, first, first.values())))
     import shutil
 
@@ -7613,7 +7649,7 @@ def phase_fleet_recovery(torch, sparse, seed: int, card: str, tmp: Path):
             "--hangProcess", 1, "--hangAfterChunks", 3, "--collectiveTimeoutMs", 5000,
             "--flightRecorder", "on", "--blackboxPath", tmp / "hang_bb"], 19, 1),
     }
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(second)) as pool:
         runs.update(zip(second, pool.map(launch, second, second.values())))
 
     training = RECOVERY_RECORDS
@@ -7699,11 +7735,605 @@ def phase_fleet_recovery(torch, sparse, seed: int, card: str, tmp: Path):
              for i, n in enumerate(launches["sparse"])})
 
 
+# --- phase 50: the self-healing fleet -------------------------------------------
+
+# every fleet process of phase 50 runs this bootstrap (a direct launch's
+# command, and the supervisor's --workerBoot): tests/fskafka.py installed as
+# the ``kafka`` module, then the fleet's run_distributed. It writes one row
+# (a JSON file of its own under $CHIP_SMOKE_ROWS: the fleet's processes share
+# stdout, where a long report line is no atomic write) however the process
+# ends (a clean exit, an injected crash's or the hang watchdog's os._exit, a
+# rescale's SystemExit): its fleet
+# steps ("steps", SPMDTrainer.step calls: the restored ones not included),
+# its pa_scan and scatter_add launches, and wall timestamps ("t") of its
+# start, the imports, the card's context (a first tensor on the card), the
+# group's join, the restore, the first heartbeat, the first record consumed
+# from a data topic, the report and the exit -- the parts of a relaunch
+BOOT_KAFKA = """
+import json, os, sys, time
+T = {"start": time.time()}
+sys.path.insert(0, os.environ["CHIP_SMOKE_TESTS"])
+import fskafka
+fskafka.install()
+import torch
+import omldm_tpu_torch.runtime.distributed_job as dj
+from omldm_tpu_torch.ops import pa_scan, sparse
+from omldm_tpu_torch.parallel.spmd import SPMDTrainer
+T["imported"] = time.time()
+argv = sys.argv[1:]
+device = argv[argv.index("--device") + 1] if "--device" in argv else "cuda"
+if device.startswith("cuda"):
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+T["context"] = time.time()
+jobs, steps = [], [0]
+def after(owner, name, key=None, once=False, count=None):
+    real = getattr(owner, name)
+    def wrapper(*a, **k):
+        out = real(*a, **k)
+        if key and not (once and key in T):
+            T[key] = time.time()
+        if count is not None:
+            count[0] += 1
+        return out
+    setattr(owner, name, wrapper)
+init = dj.DistributedStreamJob.__init__
+def caught(self, *a, **k):
+    init(self, *a, **k)
+    jobs.append(self)
+    T["joined"] = time.time()
+dj.DistributedStreamJob.__init__ = caught
+after(dj.DistributedStreamJob, "restore_checkpoint", "restored")
+after(dj.DistributedStreamJob, "merged_report", "report")
+after(dj, "_heartbeat", "first_beat", once=True)
+after(SPMDTrainer, "step", count=steps)
+# a real consumer blocks consumer_timeout_ms in an idle poll; the fake
+# returns at once, which would make an idle window a few milliseconds
+made = fskafka.KafkaConsumer.__init__
+def make(self, *a, consumer_timeout_ms=1000, **k):
+    made(self, *a, consumer_timeout_ms=consumer_timeout_ms, **k)
+    self.idle_s = consumer_timeout_ms / 1000.0
+fskafka.KafkaConsumer.__init__ = make
+poll = fskafka.KafkaConsumer.__next__
+def polled(self):
+    try:
+        rec = poll(self)
+    except StopIteration:
+        time.sleep(self.idle_s)
+        raise
+    if "first_record" not in T and rec.topic != "requests":
+        T["first_record"] = time.time()
+    return rec
+fskafka.KafkaConsumer.__next__ = polled
+# the answers this process published on the predictions topic, in order
+sent = []
+send = fskafka.KafkaProducer.send
+def sending(self, topic, value):
+    send(self, topic, value)
+    if topic == "predictions":
+        sent.append(json.loads(value)["value"])
+fskafka.KafkaProducer.send = sending
+def row(rc):
+    T["exit"] = time.time()
+    job = jobs[0] if jobs else None
+    path = os.path.join(os.environ["CHIP_SMOKE_ROWS"], f"{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump({
+            "pid": job.pid if job else int(argv[argv.index("--processId") + 1]),
+            "processes": job.nproc if job else None, "device": device, "rc": rc,
+            "steps": steps[0], "pa_scan": pa_scan.launches,
+            "scatter_add": sparse.launches["scatter_add"],
+            "rescales": job.rescales_performed if job else None,
+            "degraded": job.fleet_degraded if job else None, "sent": sent, "t": T}, f)
+    os.replace(path + ".tmp", path)
+real_exit = os._exit
+def hard_exit(code):
+    row(code)
+    real_exit(code)
+os._exit = hard_exit
+try:
+    rc = dj.run_distributed(argv)
+except SystemExit as exc:
+    row(exc.code if isinstance(exc.code, int) else 1)
+    raise
+except BaseException:
+    row(1)
+    raise
+row(rc)
+sys.exit(rc)
+"""
+
+# (a)-(c): phase 49's records (the slice-1 Create, 28 features, PA-I
+# perRecord) over 2 trainingData partitions, each forecast inline at its
+# place; windows of SELFHEAL["chunk"] records. (b)'s crash: process 0 at
+# its 10th window (9,500 records), past the snapshots at windows 4 and 8,
+# so the relaunch restores window 8 and the crash (armed again in each
+# incarnation) cannot come back. (d): tests/test_selfheal.py:694-806's
+# flags, 6,000 records on 4 partitions; (e): tests/test_autoscale.py:
+# 259-336's, 8,000 records on 4 partitions; (f): the JAX CI gate's
+# supervised storm (benchmarks/protocol_comparison.py:1609-1620)
+SELFHEAL = dict(records=RECOVERY_RECORDS, chunk=1024, fail_after=9_500, chain_records=6_000,
+                autoscale_records=8_000, storm=dict(seed=3, tenants=16, records=192,
+                                                    chunk_rows=32, processes=1))
+KAFKA_FLEET = ["--kafkaBrokers", "fs://local", "--kafkaPollMs", "50", "--idleWindows", "4"]
+CHAIN_FLAGS = ["--slotStrikes", "1", "--minProcesses", "1", "--probeAfterMs", "2000",
+               "--probeWindowMs", "1500", "--collectiveTimeoutMs", "5000",
+               "--killDeadlineMs", "1000", "--hangProcess", "1", "--hangAfterChunks", "6",
+               "--checkpointEvery", "2", "--chunkRows", "100", "--idleWindows", "60",
+               "--batchSize", "64", "--testSetSize", "32", "--restartAttempts", "2",
+               "--restartDelayMs", "50"]
+AUTOSCALE_FLAGS = ["--autoscale", "true", "--minProcesses", "1", "--maxProcesses", "2",
+                   "--scaleUpAfterMs", "200", "--scaleDownAfterMs", "1200",
+                   "--scaleCooldownMs", "400", "--overload", "backlogHigh=40,backlogCritical=80",
+                   "--checkpointEvery", "8", "--chunkRows", "100", "--idleWindows", "60",
+                   "--batchSize", "64", "--testSetSize", "32", "--restartAttempts", "2",
+                   "--restartDelayMs", "50"]
+SELFHEAL_TIMEOUT_S = 300
+# seconds between the starts of phase 50's legs
+SELFHEAL_GAP_S = 2.0
+
+
+def _kafka_broker(tmp: Path, tag: str, events, partitions: int, sparse=False) -> Path:
+    """A broker directory of its own: the Create on requests, the data
+    records (forecasts inline) dealt record i to trainingData partition
+    i % partitions. A ``sparse`` stream keeps its Create as it is and its
+    forecasts on forecastingData, where a record is always a forecast."""
+    if sparse:
+        topics = {t: [p for st, p in events if st == t] for t in KAFKA_TOPICS}
+    else:
+        topics = _topic_lines(events, inline_forecasts=True)
+    broker = tmp / f"broker_{tag}"
+    broker.mkdir(parents=True)
+    for topic in ("requests", "forecastingData"):
+        if topics[topic]:
+            (broker / f"{topic}--0.log").write_text("".join(f"{x}\n" for x in topics[topic]))
+    for p in range(partitions):
+        (broker / f"trainingData--{p}.log").write_text(
+            "".join(f"{x}\n" for x in topics["trainingData"][p::partitions]))
+    return broker
+
+
+def _kafka_env(broker: Path, rows: Path) -> dict:
+    rows.mkdir(parents=True)
+    return dict(os.environ, FSKAFKA_DIR=str(broker), CHIP_SMOKE_ROWS=str(rows),
+                CHIP_SMOKE_TESTS=str(Path(__file__).resolve().parent / "tests"))
+
+
+def _process_rows(rows: Path):
+    """The rows BOOT_KAFKA's processes wrote, in the order they ended."""
+    found = [json.loads(p.read_text()) for p in rows.glob("*.json")]
+    return sorted(found, key=lambda r: r["t"]["exit"])
+
+
+def _kafka_fleet(label: str, tag: str, nproc: int, device: str, broker: Path, tmp: Path,
+                 extra=(), files=True):
+    """``nproc`` processes of the fleet's Kafka drive (BOOT_KAFKA, a free
+    localhost port, the outputs on file sinks unless ``files`` is False),
+    each expected to exit 0. A dict: the exit codes, the report, the
+    predictions, the processes' rows, stderr, the launch's wall seconds."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    perf, pred = tmp / f"{tag}_perf.jsonl", tmp / f"{tag}_pred.jsonl"
+    flags = FLEET_ARGS + KAFKA_FLEET + ["--device", device, "--chunkRows",
+                                        str(SELFHEAL["chunk"]), "--processes", str(nproc)]
+    if files:
+        flags += ["--performanceOut", str(perf), "--predictionsOut", str(pred)]
+    flags += [str(a) for a in extra]
+    env = _kafka_env(broker, tmp / f"{tag}_rows")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", BOOT_KAFKA, *flags, "--processId", str(pid),
+         *(["--coordinator", f"127.0.0.1:{port}"] if nproc > 1 else [])],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for pid in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SELFHEAL_TIMEOUT_S))
+    finally:
+        for p in procs:  # a failed member must not hold the group
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    err = "\n".join(e for _, e in outs)
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0] * nproc, f"{label}[{tag}]: exits {rcs}:\n{err[-3000:]}")
+    rows = sorted(_process_rows(tmp / f"{tag}_rows"), key=lambda r: r["pid"])
+    check(len(rows) == nproc, f"{label}[{tag}]: {len(rows)} process rows for {nproc}")
+    paths = [pred] if nproc == 1 else [Path(f"{pred}.p{i}") for i in range(nproc)]
+    by_pid = [[json.loads(line) for line in path.read_text().splitlines()]
+              if path.exists() else [] for path in paths]
+    return {"rcs": rcs, "report": json.loads(perf.read_text()) if perf.exists() else None,
+            "preds": [p for preds in by_pid for p in preds], "by_pid": by_pid,
+            "rows": rows, "err": err, "wall": time.perf_counter() - t0}
+
+
+def _supervised_fleet(label: str, tag: str, nproc: int, broker: Path, tmp: Path, extra,
+                      files=True, device="cuda"):
+    """``python -m omldm_tpu_torch --supervise true`` over the Kafka drive on
+    ``device``, the workers started by BOOT_KAFKA (``--workerBoot``); the
+    supervisor must exit 0. A dict as :func:`_kafka_fleet`'s, the rows of
+    every incarnation, the predictions of the final one's files (or the
+    predictions topic), the supervisor's log lines."""
+    perf, pred = tmp / f"{tag}_perf.jsonl", tmp / f"{tag}_pred.jsonl"
+    argv = ([sys.executable, "-m", "omldm_tpu_torch", "--supervise", "true", "--processes",
+             str(nproc), "--workerBoot", BOOT_KAFKA, "--device", device,
+             "--performanceOut", str(perf)] + FLEET_ARGS + KAFKA_FLEET
+            + (["--predictionsOut", str(pred)] if files else []) + [str(a) for a in extra])
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=Path(__file__).resolve().parent, capture_output=True,
+                         text=True, timeout=SELFHEAL_TIMEOUT_S,
+                         env=_kafka_env(broker, tmp / f"{tag}_rows"))
+    check(out.returncode == 0, f"{label}[{tag}]: the supervisor exited {out.returncode}:\n"
+          f"{out.stderr[-4000:]}")
+    report = json.loads(perf.read_text())
+    n = report["fleetProcesses"]
+    paths = [pred] if n == 1 else [Path(f"{pred}.p{i}") for i in range(n)]
+    preds = ([json.loads(line) for path in paths if path.exists()
+              for line in path.read_text().splitlines()] if files
+             else _read_topic(broker, "predictions"))
+    return {"report": report, "preds": preds, "rows": _process_rows(tmp / f"{tag}_rows"),
+            "err": out.stderr, "wall": time.perf_counter() - t0,
+            "log": [line for line in out.stderr.splitlines() if line.startswith("[supervisor]")]}
+
+
+def _selfheal_launches(label: str, rows, kernel: str = "pa_scan") -> list:
+    """Every process of every incarnation that took fleet steps on the card
+    launched ``kernel`` once a step it took; returns the launches."""
+    for r in rows:
+        want = r["steps"] if r["device"].startswith("cuda") else 0
+        check(r[kernel] == want, f"{label}: process {r['pid']} of {r['processes']} launched "
+              f"{kernel} {r[kernel]} times in {r['steps']} fleet steps")
+    check(any(r["steps"] > 0 for r in rows), f"{label}: no fleet step taken")
+    return [r[kernel] for r in rows]
+
+
+def _conserved(label: str, run, training: int, n_fore: int) -> None:
+    s = run["report"]["statistics"][0]
+    check(s["fitted"] + run["report"]["holdout"]["0"] == training,
+          f"{label}: fitted {s['fitted']} + holdout {run['report']['holdout']['0']} != "
+          f"{training}")
+    check(len(run["preds"]) == n_fore,
+          f"{label}: {len(run['preds'])} predictions for {n_fore} forecasts")
+
+
+def _published(label: str, kill) -> list:
+    """The predictions topic of (b) holds what the processes sent, and only
+    the relaunched fleet sent any: the killed incarnation died before its
+    sinks ran, and a restore that finds EMITTED.p<i> sends nothing again.
+    Returns the relaunched processes' rows, by process id."""
+    crash = next(r for r in kill["rows"] if r["rc"] == 3)
+    later = sorted((r for r in kill["rows"] if r["t"]["start"] > crash["t"]["exit"]),
+                   key=lambda r: r["pid"])
+    check([r["pid"] for r in later] == [0, 1],
+          f"{label}: relaunched processes {[r['pid'] for r in later]}")
+    sent = [len(r["sent"]) for r in kill["rows"]]
+    check(len(kill["preds"]) == sum(sent) == sum(len(r["sent"]) for r in later),
+          f"{label}: {len(kill['preds'])} predictions on the topic; sent by each process of "
+          f"each incarnation {sent}")
+    return later
+
+
+def _once_as(label: str, kill, clean) -> int:
+    """Each forecast the clean run answered is answered once on (b)'s
+    topic: each relaunched process sent as many answers as the clean run's
+    process of its id wrote, and at least 99% of them equal that process's
+    at the same place (a process answers its partitions' forecasts in their
+    order). Returns the equal answers."""
+    later = _published(label, kill)
+    equal = 0
+    for r, want in zip(later, clean["by_pid"]):
+        check(len(r["sent"]) == len(want), f"{label}: process {r['pid']} sent "
+              f"{len(r['sent'])} answers for the clean run's {len(want)}")
+        equal += sum(a == b["value"] for a, b in zip(r["sent"], want))
+    check(equal >= 0.99 * len(clean["preds"]),
+          f"{label}: {equal} of {len(clean['preds'])} answers equal the clean run's")
+    return equal
+
+
+def _recover_split(run, bundle_events) -> dict:
+    """(b)'s time to recover, from process 0's injected crash to the HEAL
+    event the supervisor records at the relaunched fleet's first beat, by
+    part: the supervisor's detection (to its RESTART event), the spawn (to
+    the worker's first line: the restart delay, fork and exec, the
+    interpreter), the imports, the card's context, the join, the restore
+    and the first beat -- each the relaunched process whose beat came
+    first."""
+    crash = next(r for r in run["rows"] if r["rc"] == 3)
+    t_crash = crash["t"]["exit"]
+    sup = [e for e in bundle_events if e.get("pid") == "sup"]
+    restart = next(e["wall"] for e in sup if e["kind"] == "restart")
+    heal = next(e["wall"] for e in sup if e["kind"] == "heal")
+    later = [r for r in run["rows"] if r["t"]["start"] > t_crash and "first_beat" in r["t"]]
+    first = min(later, key=lambda r: r["t"]["first_beat"])["t"]
+    return {"to_heal_s": heal - t_crash, "detect_s": restart - t_crash,
+            "spawn_s": first["start"] - restart, "imports_s": first["imported"] - first["start"],
+            "context_s": first["context"] - first["imported"],
+            "join_s": first["joined"] - first["context"],
+            "restore_s": first["restored"] - first["joined"],
+            "first_beat_s": first["first_beat"] - first["restored"],
+            "heal_poll_s": heal - first["first_beat"]}
+
+
+def _bundle_events(blackbox: Path) -> list:
+    bundles = sorted(blackbox.glob("incident-*.json"),
+                     key=lambda p: int(p.stem.split("-")[1]))
+    check(bundles, f"no incident bundle under {blackbox}")
+    return json.loads(bundles[-1].read_text())["timeline"]
+
+
+def _kill_checks(label: str, kill, clean, ck: Path, blackbox: Path):
+    """(b): one relaunch, the topic holding what the relaunched fleet sent,
+    both EMITTED markers; against ``clean`` (None: no comparison) the
+    statistics and the answers, each once. Returns the answers equal to the
+    clean run's (None without one) and the time to recover by part."""
+    failures = [line for line in kill["log"] if "fleet failure" in line]
+    check(len(failures) == 1 and "process 0 exited 3" in failures[0],
+          f"{label}: restarts {failures}")
+    equal = None
+    if clean is None:
+        _published(label, kill)
+    else:
+        _recovery_same(f"{label} vs clean", kill, clean)
+        equal = _once_as(label, kill, clean)
+    check(all((ck / f"EMITTED.p{i}").exists() for i in range(2)),
+          f"{label}: an EMITTED marker is missing")
+    return equal, _recover_split(kill, _bundle_events(blackbox))
+
+
+def _leg_clean(tmp, events, device, tag):
+    return _kafka_fleet("selfheal", tag, 2, device, _kafka_broker(tmp, tag, events, 2), tmp)
+
+
+def _leg_kill(tmp, events, device):
+    broker = _kafka_broker(tmp, "kill", events, 2)
+    return _supervised_fleet("selfheal", "kill", 2, broker, tmp, device=device, extra=[
+        "--checkpointDir", tmp / "kill_ck", "--checkpointEvery", 4, "--failProcess", 0,
+        "--failAfterRecords", SELFHEAL["fail_after"], "--restartAttempts", 2,
+        "--restartDelayMs", 50, "--heartbeatTimeoutMs", 120_000, "--flightRecorder", "on",
+        "--blackboxPath", tmp / "kill_bb", "--chunkRows", SELFHEAL["chunk"]], files=False)
+
+
+def _leg_sever(tmp, events, device):
+    broker = _kafka_broker(tmp, "sever", events, 2)
+    run = _kafka_fleet("selfheal", "sever", 2, device, broker, tmp,
+                       ["--severBrokerAfterChunks", 2, "--performanceOut",
+                        tmp / "sever_perf.jsonl"], files=False)
+    run["report"] = json.loads((tmp / "sever_perf.jsonl").read_text())
+    return run
+
+
+def _leg_chain(tmp, seed, device):
+    events = make_events(SELFHEAL["chain_records"] * 9 // 10, seed + 2, query_at=None)
+    broker = _kafka_broker(tmp, "chain", events, 4)
+    run = _supervised_fleet("selfheal", "chain", 2, broker, tmp, device=device,
+                            extra=CHAIN_FLAGS + [
+        "--faultStateDir", tmp / "chain_fault", "--flightRecorder", "on",
+        "--blackboxPath", tmp / "chain_bb", "--checkpointDir", tmp / "chain_ck"])
+    return run, events
+
+
+def _leg_autoscale(tmp, seed, device):
+    events = make_events(SELFHEAL["autoscale_records"] * 9 // 10, seed + 3, query_at=None)
+    broker = _kafka_broker(tmp, "autoscale", events, 4)
+    run = _supervised_fleet("selfheal", "autoscale", 1, broker, tmp, device=device,
+                            extra=AUTOSCALE_FLAGS + [
+        "--checkpointDir", tmp / "autoscale_ck"])
+    return run, events
+
+
+def _leg_sparse(tmp, sparse, seed, device):
+    events = criteo_events(SELFHEAL["records"], seed + 1, query_at=None,
+                           scatter_impl=stream_scatter_impl(sparse))
+    broker = _kafka_broker(tmp, "sparse", events, 2, sparse=True)
+    run = _supervised_fleet("selfheal", "sparse", 2, broker, tmp, device=device, extra=[
+        "--checkpointDir", tmp / "sparse_ck", "--checkpointEvery", 4, "--restartAttempts", 1,
+        "--heartbeatTimeoutMs", 120_000, "--chunkRows", SELFHEAL["chunk"]])
+    return run, events
+
+
+def _leg_storm(tmp, device):
+    from omldm_tpu_torch import load_harness
+    from omldm_tpu_torch.runtime.slo import SLOBudgets
+
+    spec = SELFHEAL["storm"]
+    storm = load_harness.build_composed_storm(**spec)
+    budgets = SLOBudgets(heal_after_fault_s=120.0, expected_heals=2,
+                         allow_shed_tenants=storm.hot_tenant_ids(), max_stranded_rows=0)
+    t0 = time.perf_counter()
+    report, merged, _ = load_harness.run_supervised_storm(
+        storm, str(tmp / "storm"), budgets, processes=spec["processes"],
+        timeout_s=SELFHEAL_TIMEOUT_S, device=device)
+    return report, merged, time.perf_counter() - t0
+
+
+def phase_selfheal_idle(seed: int, card: str, tmp: Path, device: str = "cuda") -> None:
+    """(b) on its own, no other leg beside it: the time to recover of one
+    relaunch on an otherwise idle host, by part. Held to one relaunch,
+    conservation, each forecast once on the topic, both EMITTED markers and
+    pa_scan once a step; the comparison with the clean run's answers is
+    phase 50's."""
+    events = make_events(SELFHEAL["records"], seed + 1, query_at=None)
+    n_fore = sum(1 for st, _ in events if st == "forecastingData")
+    kill = _leg_kill(tmp, events, device)
+    _, split = _kill_checks("selfheal[kill-idle]", kill, None, tmp / "kill_ck",
+                            tmp / "kill_bb")
+    _conserved("selfheal[kill-idle]", kill, SELFHEAL["records"], n_fore)
+    launches = _selfheal_launches("selfheal[kill-idle]", kill["rows"])
+    log("selfheal[kill-idle]: " + json.dumps({
+        "card": card, "wall_s": kill["wall"], "recover": split, "pa_scan": launches,
+        "incarnations": [[r["processes"], r["pid"], r["rc"], r["steps"]] for r in kill["rows"]]}))
+
+
+def phase_selfheal(torch, sparse, seed: int, card: str, tmp: Path, device: str = "cuda"):
+    """Phase 50: the self-healing fleet on the card, its legs side by side,
+    each fleet on a broker directory and a coordinator port of its own, two
+    processes sharing the card over gloo: (a) the fleet's Kafka drive on
+    phase 49's records, card and CPU; (b) the same under the supervisor
+    with process 0 killed mid-stream; (c) the broker severed; (d) the
+    self-heal chain 2 -> 1 -> probe -> 2; (e) autoscale 1 -> 2 -> 1; (f)
+    the load harness's supervised storm; (g) phase 49's sparse stream under
+    the supervisor. ``device`` is the card's (a debugging run on a host
+    without one passes "cpu"). Returns the card processes' pa_scan and
+    scatter_add launches by leg."""
+    t_phase, t_wall = time.perf_counter(), time.time()
+    training = SELFHEAL["records"]
+    # the legs start SELFHEAL_GAP_S apart, those with the most relaunches
+    # first (their streams are drawn in their threads), so that their
+    # interpreters do not all import torch at once; the draw of the others'
+    # stream runs while the first three start
+    first = [("chain", _leg_chain, (tmp, seed, device)),
+             ("autoscale", _leg_autoscale, (tmp, seed, device)),
+             ("storm", _leg_storm, (tmp, device))]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        futures = {}
+
+        def start(legs):
+            for name, leg, leg_args in legs:
+                if futures:
+                    time.sleep(SELFHEAL_GAP_S)
+                futures[name] = pool.submit(leg, *leg_args)
+
+        start(first)
+        events = make_events(training, seed + 1, query_at=None)
+        n_fore = sum(1 for st, _ in events if st == "forecastingData")
+        start([("kill", _leg_kill, (tmp, events, device)),
+               ("sparse", _leg_sparse, (tmp, sparse, seed, device)),
+               ("clean", _leg_clean, (tmp, events, device, "clean_card")),
+               ("cpu", _leg_clean, (tmp, events, "cpu", "clean_cpu")),
+               ("sever", _leg_sever, (tmp, events, device))])
+        clean, cpu = futures["clean"].result(), futures["cpu"].result()
+        kill, sever = futures["kill"].result(), futures["sever"].result()
+        (chain, chain_events), (scale, scale_events) = (futures["chain"].result(),
+                                                        futures["autoscale"].result())
+        storm_report, storm_merged, storm_s = futures["storm"].result()
+        sparse_run, sparse_events = futures["sparse"].result()
+    launches = {}
+    # (a) conservation, a launch a step, card = CPU
+    for label, run in (("clean_card", clean), ("clean_cpu", cpu)):
+        _conserved(f"selfheal[{label}]", run, training, n_fore)
+    launches["kafka"] = _selfheal_launches("selfheal[clean_card]", clean["rows"])
+    _selfheal_launches("selfheal[clean_cpu]", cpu["rows"])
+    _recovery_same("selfheal[card vs cpu]", clean, cpu)
+    equal = sum(a["value"] == b["value"] for a, b in zip(clean["preds"], cpu["preds"]))
+    check(equal >= 0.99 * n_fore, f"selfheal: {equal} of {n_fore} predictions card = CPU")
+    start = min(r["t"]["first_record"] for r in clean["rows"])
+    end = max(r["t"]["report"] for r in clean["rows"])
+    rate = (training + n_fore) / (end - start)
+    # (b) one relaunch, the clean run's statistics, each of the clean run's
+    # forecasts once on the predictions topic with its answer, EMITTED.p<i>
+    # written by both processes
+    kill_equal, split = _kill_checks("selfheal[kill]", kill, clean, tmp / "kill_ck",
+                                     tmp / "kill_bb")
+    launches["kill"] = _selfheal_launches("selfheal[kill]", kill["rows"])
+    # (c) the severed broker
+    check("severed file-backed broker" in sever["err"] and "dropping record" in sever["err"],
+          "selfheal[sever]: no sever or no dropped send")
+    s = sever["report"]["statistics"][0]
+    check(0 < s["fitted"] + sever["report"]["holdout"]["0"] <= training,
+          f"selfheal[sever]: fitted {s['fitted']}")
+    # (d) the chain, in order, and in the final bundle strike < degrade <
+    # probe; conservation, exactly once, full width, healed
+    order = ["injected hang: SIGSTOP", "collective watchdog: no progress",
+             "blaming wedged process 1", "degrading fleet 2 -> 1",
+             "redistributing a 2-process snapshot", "probing back 1 -> 2", "re-expansion probe",
+             "fleet healed at 2"]
+    at = [chain["err"].find(line) for line in order]
+    check(all(i >= 0 for i in at) and at[:4] == sorted(at[:4]) and at[5:] == sorted(at[5:]),
+          f"selfheal[chain]: the chain's lines at {dict(zip(order, at))}")
+    kinds = [e["kind"] for e in _bundle_events(tmp / "chain_bb")]
+    chain_kinds = [k for k in kinds if k in ("strike", "degrade", "probe")]
+    check(chain_kinds[:3] == ["strike", "degrade", "probe"],
+          f"selfheal[chain]: the final bundle's chain {chain_kinds}")
+    c_fore = sum(1 for st, _ in chain_events if st == "forecastingData")
+    _conserved("selfheal[chain]", chain, SELFHEAL["chain_records"] - c_fore, c_fore)
+    check(chain["report"]["fleetProcesses"] == 2 and chain["report"]["fleetDegraded"] == 0,
+          f"selfheal[chain]: ends at {chain['report']['fleetProcesses']} processes, degraded "
+          f"{chain['report']['fleetDegraded']}")
+    launches["chain"] = _selfheal_launches("selfheal[chain]", chain["rows"])
+    # (e) out and back
+    a_fore = sum(1 for st, _ in scale_events if st == "forecastingData")
+    _conserved("selfheal[autoscale]", scale, SELFHEAL["autoscale_records"] - a_fore, a_fore)
+    check(scale["report"]["rescalesPerformed"] == 2 and scale["report"]["fleetProcesses"] == 1,
+          f"selfheal[autoscale]: {scale['report']['rescalesPerformed']} rescales, ends at "
+          f"{scale['report']['fleetProcesses']}")
+    check(any("rescaling fleet 1 -> 2" in ln for ln in scale["log"])
+          and any("rescaling fleet 2 -> 1" in ln for ln in scale["log"]),
+          f"selfheal[autoscale]: {scale['log']}")
+    launches["autoscale"] = _selfheal_launches("selfheal[autoscale]", scale["rows"])
+    # (g) the sparse supervised fleet: scatter_add once a step
+    s_fore = sum(1 for st, _ in sparse_events if st == "forecastingData")
+    _conserved("selfheal[sparse]", sparse_run, SELFHEAL["records"] - s_fore, s_fore)
+    check(not any("fleet failure" in ln for ln in sparse_run["log"]),
+          f"selfheal[sparse]: {sparse_run['log']}")
+    launches["sparse"] = _selfheal_launches("selfheal[sparse]", sparse_run["rows"],
+                                            "scatter_add")
+    # (f) the storm's SLO verdicts
+    check(storm_report.passed, f"selfheal[storm]: {[c.to_dict() for c in storm_report.failing()]}")
+    heal = next(c for c in storm_report.checks if c.name == "heal_after_fault")
+    log("selfheal[kafka]: " + json.dumps({
+        "card": card, "records": training + n_fore, "records_per_s": rate,
+        "launch_wall_s": [clean["wall"], cpu["wall"]],
+        "steps": [r["steps"] for r in clean["rows"]], "pa_scan": launches["kafka"],
+        "predictions_equal": equal,
+        **{k: clean["report"]["statistics"][0][k] for k in FLEET_INT_STATS + ("score",)},
+        "holdout": clean["report"]["holdout"]}))
+    log("selfheal[kill]: " + json.dumps({
+        "card": card, "wall_s": kill["wall"],
+        "restarts": sum("fleet failure" in line for line in kill["log"]),
+        "predictions_equal_clean": kill_equal,
+        "recover": split, "pa_scan": launches["kill"],
+        "incarnations": [[r["processes"], r["pid"], r["rc"], r["steps"]] for r in kill["rows"]],
+        "predictions_on_topic": len(kill["preds"])}))
+    log("selfheal[sever]: " + json.dumps({"wall_s": sever["wall"], "fitted": s["fitted"],
+                                           "holdout": sever["report"]["holdout"]}))
+    log("selfheal[chain]: " + json.dumps({
+        "wall_s": chain["wall"], "log": chain["log"], "bundle_chain": chain_kinds[:6],
+        "pa_scan": launches["chain"],
+        "incarnations": [[r["processes"], r["pid"], r["rc"], r["steps"]] for r in chain["rows"]]}))
+    log("selfheal[autoscale]: " + json.dumps({
+        "wall_s": scale["wall"], "log": scale["log"], "pa_scan": launches["autoscale"],
+        "incarnations": [[r["processes"], r["pid"], r["rc"], r["steps"]] for r in scale["rows"]]}))
+    log("selfheal[sparse]: " + json.dumps({
+        "wall_s": sparse_run["wall"], "scatter_add": launches["sparse"],
+        "steps": [r["steps"] for r in sparse_run["rows"]],
+        **{k: sparse_run["report"]["statistics"][0][k] for k in FLEET_INT_STATS + ("score",)}}))
+    log("selfheal[storm]: " + json.dumps({
+        "wall_s": storm_s, "passed": storm_report.passed, "core": storm_report.core_digest(),
+        "heals": heal.detail["heals"], "heal_s": heal.detail["healSeconds"],
+        "fleetProcesses": storm_merged["fleetProcesses"]}))
+    # each process's start, end of imports and exit, in seconds from the
+    # phase's start: where the legs' relaunches wait on the host
+    log("selfheal[timeline]: " + json.dumps({
+        name: [[r["processes"], r["pid"]] + [round(r["t"][k] - t_wall, 2)
+                                             for k in ("start", "imported", "exit")]
+               for r in sorted(run["rows"], key=lambda r: r["t"]["start"])]
+        for name, run in (("clean_card", clean), ("clean_cpu", cpu), ("kill", kill),
+                          ("sever", sever), ("chain", chain), ("autoscale", scale),
+                          ("sparse", sparse_run))}))
+    log(f"selfheal: {rate:.0f} records/s over the Kafka drive at 2 processes; recovered in "
+        f"{split['to_heal_s']:.2f} s (spawn {split['spawn_s']:.2f}, imports "
+        f"{split['imports_s']:.2f}, context {split['context_s']:.2f}, join {split['join_s']:.2f}, "
+        f"restore {split['restore_s']:.2f}, first beat {split['first_beat_s']:.2f}); chain, "
+        f"autoscale and storm passed")
+    log(f"selfheal: phase 50 took {time.perf_counter() - t_phase:.1f} s")
+    return ({f"selfheal_kafka_2p_card_p{i}": n for i, n in enumerate(launches["kafka"])} | {
+        "selfheal_supervised_kill_all_incarnations": sum(launches["kill"]),
+        "selfheal_chain_all_incarnations": sum(launches["chain"]),
+        "selfheal_autoscale_all_incarnations": sum(launches["autoscale"])},
+            {f"selfheal_sparse_supervised_2p_card_p{r['pid']}": r["scatter_add"]
+             for r in sparse_run["rows"]})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    # cut from 100,000 for the script's time limit
-    parser.add_argument("--records", type=int, default=50_000)
+    # cut from 100,000, then 50,000, for the script's time limit
+    parser.add_argument("--records", type=int, default=25_000)
     parser.add_argument("--parity-records", type=int, default=5_000)
     parser.add_argument("--lm-steps", type=int, default=8)
     parser.add_argument("--bench-records", type=int, default=BENCH_RECORDS)
@@ -7727,6 +8357,8 @@ def main() -> int:
                         help="run phase 17 and phase 47 after the build, then exit")
     parser.add_argument("--fleet-only", action="store_true",
                         help="run phases 48-49 after the build, then exit")
+    parser.add_argument("--selfheal-only", action="store_true",
+                        help="run phase 50 after the build, then exit")
     args = parser.parse_args()
 
     import torch
@@ -7779,6 +8411,15 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
             phase_fleet_recovery(torch, sparse, args.seed, card, Path(tmp))
             lap("fleet recovery")
+        return 0
+    if args.selfheal_only:
+        # phase 50 needs no flash kernel: its nvcc runs on beside the phase
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_selfheal_") as tmp:
+            phase_selfheal_idle(args.seed, card, Path(tmp) / "idle")
+            lap("supervised kill alone")
+            phase_selfheal(torch, sparse, args.seed, card, Path(tmp))
+            lap("self-healing fleet")
+        build_flash()
         return 0
     if args.kafka_only:
         events = make_events(args.records, args.seed, query_at=args.records // 2)
@@ -7949,6 +8590,10 @@ def main() -> int:
         recovery_pa_launches, recovery_scatter_launches = phase_fleet_recovery(
             torch, sparse, args.seed, card, Path(tmp))
         lap("fleet recovery")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_selfheal_") as tmp:
+        selfheal_pa_launches, selfheal_scatter_launches = phase_selfheal(
+            torch, sparse, args.seed, card, Path(tmp))
+        lap("self-healing fleet")
     ckpt_tmp.cleanup()
     if args.profile is not None:
         for name, stream_events, unprofiled in (("slice", events, wall),
@@ -7987,6 +8632,7 @@ def main() -> int:
             "storm_per_record_solo": storm_solo,
             **fleet_pa_launches,
             **recovery_pa_launches,
+            **selfheal_pa_launches,
         },
         "max_abs_err": max_err,
         **times[main_shape],
@@ -8052,6 +8698,7 @@ def main() -> int:
         "sparse_overload_armed_first_records": overload_scatter,
         **fleet_scatter_launches,
         **recovery_scatter_launches,
+        **selfheal_scatter_launches,
     }
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ imports). It mirrors the reference's layout and names module by module:
                                         mesh) and the sequence-model trainer
     - ``omldm_tpu_torch.runtime``       stream runtime: spokes, hubs, the job,
                                         the SPMD bridges, ingest, serving,
-                                        supervised recovery
+                                        supervised recovery, the multi-process
+                                        fleet and its supervisor
     - ``omldm_tpu_torch.checkpoint``    job snapshots, rescale-merge restore
     - ``omldm_tpu_torch.models``        the transformer LM
     - ``omldm_tpu_torch.ops``           hand-written CUDA kernels (``csrc/``),

@@ -64,21 +64,29 @@ partition) offsets; without one the next incarnation starts fresh at the
 live position, its request partitions rewound.
 
 Fleet: ``--processes N --processId i --coordinator host:port`` (any of
-the three) hands the command to the multi-process fleet's file route,
-``runtime.distributed_job.run_distributed``, as the JAX CLI does; every
-process runs the same command with its own ``--processId``. The fleet
-checkpoints (``--checkpointDir D --checkpointEvery K``), restores
-(``--restore true``, also at another process count), beats
-(``--heartbeatDir``), guards its collectives (``--collectiveTimeoutMs``),
-journals (``--flightRecorder``) and injects faults (``--failAfterChunks``
-and the rest of the JAX fleet's injector flags); the flags of its Kafka
-drive and of its supervisor (``--fleetDegraded``) are refused by name.
+the three, or ``--supervise``) hands the command to the multi-process
+fleet, ``runtime.distributed_job.run_distributed``, as the JAX CLI does;
+every process runs the same command with its own ``--processId``. The
+fleet reads a file or, with ``--kafkaBrokers``, its partitions of the
+topics (``--idleWindows N`` agreed idle windows end it), checkpoints
+(``--checkpointDir D --checkpointEvery K``), restores (``--restore true``,
+also at another process count), beats (``--heartbeatDir``), guards its
+collectives (``--collectiveTimeoutMs``), journals (``--flightRecorder``)
+and injects faults (``--failAfterChunks``, ``--severBrokerAfterChunks``
+and the rest of the JAX fleet's injector flags). ``--supervise true
+--processes N`` makes this process the fleet's supervisor
+(``runtime.supervisor``): it launches the N workers, restarts the fleet
+from its newest snapshot on a failure (``--restartAttempts``,
+``--heartbeatTimeoutMs``), shrinks it to the survivors and probes back
+(``--slotStrikes``), rescales it on sustained pressure (``--autoscale``),
+and starts the workers with ``--workerBoot CODE`` (``python -c CODE``)
+when given.
 
 ``--device`` (default ``cuda``) is the port's own flag: without a card,
-CUDA raises. Flags of the JAX CLI whose route or knob the port does not
-have (the fleet's supervisor, the XLA compile cache, JAX-only
-``JobConfig`` fields) raise ``SystemExit`` naming the flag instead of
-being ignored.
+CUDA raises; a supervisor passes it on to its workers. Flags of the JAX
+CLI whose route or knob the port does not have (the XLA compile cache,
+JAX-only ``JobConfig`` fields) raise ``SystemExit`` naming the flag
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -100,12 +108,13 @@ from omldm_tpu_torch.utils.tracing import ProfileWindow, trace
 
 _STREAMS = (TRAINING_STREAM, FORECASTING_STREAM, REQUEST_STREAM)
 
-# flags that make a command one process of the fleet
-FLEET_FLAGS = ("processes", "processId", "coordinator")
+# flags that make a command one process of the fleet, or its supervisor
+FLEET_FLAGS = ("processes", "processId", "coordinator", "supervise")
 
-# routes of the JAX CLI the port does not have: flag -> what it arms there
+# routes of the JAX CLI the port does not have: flag -> what it arms there.
+# The port compiles no XLA program; its kernels' build cache is keyed by
+# their sources (ops._build) and needs no flag
 UNPORTED_ROUTE_FLAGS = {
-    "supervise": "the multi-process fleet's supervisor",
     "compileCache": "the XLA compile cache",
     "compileCacheMinSecs": "the XLA compile cache",
 }

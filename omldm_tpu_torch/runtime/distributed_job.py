@@ -1,13 +1,13 @@
 """Multi-process streaming deployment: N ingest partitions, one fleet.
 
-Counterpart of ``omldm_tpu/runtime/distributed_job.py``, its core and its
-file route. The reference's Flink job runs N parallel subtasks fed by
+Counterpart of ``omldm_tpu/runtime/distributed_job.py``. The reference's Flink job runs N parallel subtasks fed by
 partitioned topics (README.md:21-29); the deployment here is one Python
 process a card (or a share of one), joined in one ``torch.distributed``
 process group (``parallel.multihost``):
 
 - each process owns an ingest partition -- row ``i`` of a shared JSON-lines
-  file belongs to process ``i % N`` -- and stages its rows as its
+  file belongs to process ``i % N``, or, on the Kafka route, partition
+  ``p`` of a topic belongs to process ``p % N`` -- and stages its rows as its
   ``[dp_local, B, D]`` rows of the fleet's micro-batch, trained by the
   port's :class:`~omldm_tpu_torch.parallel.spmd.SPMDTrainer` on a fleet
   mesh: the protocol's reductions cross processes through the group;
@@ -44,9 +44,14 @@ FlinkSpoke.scala:233-334's operator state):
   (``--flightRecorder``), the staging backlog's overload level
   (``--overload``) and the process fault injector.
 
-Not here yet: the Kafka drive (ROADMAP queue 1, item 4.2) and the fleet
-supervisor (item 4.3); the CLI refuses their flags by name
-(``FLEET_LATER_FLAGS``).
+The Kafka route (``--kafkaBrokers``): process 0 polls the requests topic
+and broadcasts each window's lines, every process polls its partitions, the
+windows pump in lockstep, the checkpoint cursor holds the per-partition
+offsets, and the fleet ends after ``--idleWindows`` agreed idle windows.
+Outputs without a file sink publish to the output topics; an
+``EMITTED.p<i>`` marker beside the checkpoints keeps a restored
+incarnation from publishing them twice. ``--supervise true`` hands the
+command to the fleet supervisor (``runtime.supervisor``).
 
 CLI (the flags of ``python -m omldm_tpu_torch``'s fleet mode)::
 
@@ -55,6 +60,7 @@ CLI (the flags of ``python -m omldm_tpu_torch``'s fleet mode)::
         --requests reqs.jsonl --trainingData train.jsonl \\
         --performanceOut perf.jsonl [--device cpu] \\
         [--checkpointDir D --checkpointEvery K] [--restore true]
+        [--kafkaBrokers B --idleWindows N] [--supervise true]
 """
 
 from __future__ import annotations
@@ -87,14 +93,6 @@ CONTROL_CAP = 1 << 16  # fixed broadcast buffer: 64 KiB of request lines
 
 # rows read from the source between synchronized pump points
 CHUNK_ROWS = 4096
-
-# flags of the JAX fleet whose part is not ported yet: flag -> what it arms
-FLEET_LATER_FLAGS = {
-    **{k: "the fleet's Kafka drive" for k in (
-        "kafkaBrokers", "kafkaTrainTopic", "kafkaForecastTopic", "kafkaRequestTopic",
-        "kafkaPollMs", "idleWindows", "startupIdleWindows", "severBrokerAfterChunks")},
-    "fleetDegraded": "the self-healing fleet supervisor",
-}
 
 
 # --- elastic rescale-restore helpers (pure) ---------------------------------
@@ -339,6 +337,9 @@ class DistributedStreamJob:
         # unsupervised rescale-restore counts itself
         self.rescales_performed = 0
         self._rescale_count_pinned = False
+        # slots a supervisor shrank away from the configured width
+        # (--fleetDegraded, authoritative; 0 = full width)
+        self.fleet_degraded = 0
         # telemetry writes the disk refused (heartbeat files), survived as
         # a dropped-write counter instead of a dead worker
         self.hb_write_errors = 0
@@ -987,6 +988,7 @@ class DistributedStreamJob:
             # and the fleet's width now
             rescales_performed=self.rescales_performed,
             fleet_processes=self.nproc,
+            fleet_degraded=self.fleet_degraded,
             # telemetry writes the disk refused: heartbeats and ring dumps
             blackbox_write_errors=self.hb_write_errors + (
                 self.events.write_errors if self.events is not None else 0),
@@ -1022,9 +1024,9 @@ class DistributedStreamJob:
         report["processes"] = self.nproc
         report["fleetProcesses"] = self.nproc
         report["rescalesPerformed"] = self.rescales_performed
-        # slots a supervisor shrank away from the configured width (the
-        # supervisor, ROADMAP queue 1 item 4.3, pins it; 0 = full width)
-        report["fleetDegraded"] = 0
+        # slots a supervisor shrank away from the configured width (0 =
+        # full width; pinned by the supervisor's --fleetDegraded)
+        report["fleetDegraded"] = self.fleet_degraded
         report["holdout"] = holdout
         # LOCAL count (process 0's workers): > 0 proves the SSP requeue ran
         report["requeuedLocal"] = requeued_local
@@ -1645,12 +1647,16 @@ def _sparse_tools(job: DistributedStreamJob):
 
 
 def _consume_sparse_block(job: DistributedStreamJob, parser, vec, block: bytes,
-                          line_base: int, nproc: int, pid: int) -> int:
+                          line_base: int, nproc: int, pid: int,
+                          force_forecast: bool = False) -> int:
     """Parse a line-aligned COO block, keep this process's stride (row
-    ``line_base + i`` belongs to process ``(line_base + i) % nproc``), and
-    buffer its training and forecast rows for every pipeline. Rows the C
-    parser defers (valid == 2) go through the Python codec at their stream
-    position. Returns the number of lines consumed."""
+    ``line_base + i`` belongs to process ``(line_base + i) % nproc``; the
+    Kafka route passes nproc=1, its partitions already split the stream),
+    and buffer its training and forecast rows for every pipeline
+    (``force_forecast``: every row is a forecast, the forecast topic's
+    rule). Rows the C parser defers (valid == 2) go through the Python
+    codec at their stream position. Returns the number of lines
+    consumed."""
     from omldm_tpu_torch.api.data import FORECASTING, DataInstance
     from omldm_tpu_torch.runtime.vectorizer import F32_MAX
 
@@ -1660,8 +1666,12 @@ def _consume_sparse_block(job: DistributedStreamJob, parser, vec, block: bytes,
         return 0
     mine = ((line_base + np.arange(n)) % nproc) == pid
     fast = mine & (valid == 1)
-    train = fast & (op == 0)
-    fore = fast & (op != 0)
+    if force_forecast:
+        fore = fast
+        train = np.zeros_like(fast)
+    else:
+        train = fast & (op == 0)
+        fore = fast & (op != 0)
     fallback = np.nonzero(mine & (valid == 2))[0]
     lines = block.split(b"\n") if fallback.size else None
     prev = 0
@@ -1679,7 +1689,7 @@ def _consume_sparse_block(job: DistributedStreamJob, parser, vec, block: bytes,
         inst = DataInstance.from_json(lines[s].decode("utf-8", errors="replace"))
         if inst is not None:
             i1, v1 = vec.vectorize(inst)
-            if inst.operation == FORECASTING:
+            if force_forecast or inst.operation == FORECASTING:
                 job.handle_forecast_rows_sparse(i1[None], v1[None])
             else:
                 yv = (0.0 if inst.target is None
@@ -1780,6 +1790,377 @@ def _drive_file(job: DistributedStreamJob, flags: Dict[str, str]) -> None:
     job.flush()
 
 
+def _tp_key(tp) -> str:
+    return f"{tp.topic}:{tp.partition}"
+
+
+def _drive_kafka(job: DistributedStreamJob, flags: Dict[str, str]) -> None:
+    """Partitioned Kafka ingest: each process consumes an ASSIGNED set of
+    partitions (partition index mod nproc -- Flink's static per-subtask
+    assignment, KafkaUtils.scala:11-31 / README.md:22-26, not a broker-side
+    group rebalance), tracks per-partition offsets for checkpointing, and
+    pumps at synchronized poll windows. Mid-stream requests are polled from
+    the requests topic by process 0 and broadcast over the group each
+    window. Record values go through the C bulk parser (PackedBatcher), one
+    batcher a topic, so forecast-topic records are forced to the forecast
+    operation as in the single-process sources. Needs a module importable
+    as ``kafka`` (kafka-python's surface); without one this raises
+    ImportError: there is no fallback to the file route."""
+    try:
+        from kafka import KafkaConsumer, TopicPartition
+    except ImportError as e:
+        raise ImportError(
+            "Kafka ingest needs the 'kafka-python' package (or an injected compatible "
+            "module); use --trainingData file replay otherwise.") from e
+    from omldm_tpu_torch.runtime.fast_ingest import PackedBatcher
+    from omldm_tpu_torch.runtime.kafka_io import CONNECT_RETRY, _partitions_with_retry
+    from omldm_tpu_torch.runtime.supervisor import maybe_chaos_consumer
+
+    brokers = flags["kafkaBrokers"]
+    train_topic = flags.get("kafkaTrainTopic", "trainingData")
+    fore_topic = flags.get("kafkaForecastTopic", "forecastingData")
+    req_topic = flags.get("kafkaRequestTopic", "requests")
+    poll_ms = int(flags.get("kafkaPollMs", "300"))
+
+    offsets: Dict[str, int] = {}
+    req_offsets: Dict[str, int] = {}
+    if _flag_true(flags, "restore") and flags.get("checkpointDir"):
+        cur = job.restore_checkpoint(flags["checkpointDir"])
+        if cur is not None:
+            offsets = dict(cur.get("data", {}))
+            req_offsets = dict(cur.get("requests", {}))
+            job._warn(f"restored; resuming at offsets {offsets}")
+
+    injector = _make_injector(job, flags)
+    consumer = KafkaConsumer(bootstrap_servers=brokers, consumer_timeout_ms=poll_ms)
+    # broker chaos (--kafkaChaos / OMLDM_CHAOS_KAFKA): seeded drop/dup/
+    # reorder on the DATA record stream -- dropped records' offsets are never
+    # recorded, so a checkpoint/restore replays them: at-least-once, the
+    # reference's Kafka source contract. The requests consumer stays clean
+    consumer = maybe_chaos_consumer(consumer, flags, name=f"kafka-p{job.pid}")
+
+    def _partitions(client, topic, retries=5):
+        # metadata through the shared backoff helper; [] after the budget
+        policy = dataclasses.replace(CONNECT_RETRY, attempts=retries)
+        return sorted(_partitions_with_retry(client, topic, policy) or [])
+
+    def _seek_or_resume(client, tp, saved_offsets):
+        """Seek to the snapshot offset, else to the LOG START -- recording
+        the broker-reported position (not a literal 0: a retention-trimmed
+        partition starts later)."""
+        saved = saved_offsets.get(_tp_key(tp))
+        if saved is not None:
+            client.seek(tp, saved)
+            return
+        # bounded experiment streams consume from the start (the
+        # reference's runs pre-load partitioned topics, README.md:22-26)
+        client.seek_to_beginning(tp)
+        try:
+            saved_offsets[_tp_key(tp)] = int(client.position(tp))
+        except Exception:
+            saved_offsets[_tp_key(tp)] = 0
+
+    # partition -> process: partition p of topic t belongs to process
+    # (p + base) % nproc, PER TOPIC. Process 0's metadata view is
+    # AUTHORITATIVE and travels over the group: independently retried views
+    # can diverge on freshly created topics and would double-assign or drop
+    # partitions. Topics still absent (created later) are re-probed every
+    # window until found. The stripe base advances by each discovered
+    # group's size, so single-partition topics spread across processes
+    assigned: List[Any] = []
+    undiscovered = [train_topic, fore_topic]
+    stripe_base = [0]
+
+    def _assign_partitions(retries: int) -> None:
+        payload: List[str] = []
+        if job.pid == 0:
+            found = {topic: _partitions(consumer, topic, retries) for topic in undiscovered}
+            payload = [json.dumps({"assign": found})]
+        [line] = job._broadcast_lines(payload)
+        found = json.loads(line)["assign"]
+        changed = False
+        # the stable (train, fore) order, not dict order
+        for topic in [t for t in (train_topic, fore_topic) if t in found]:
+            parts = found[topic]
+            if not parts:
+                continue
+            undiscovered.remove(topic)
+            changed = True
+            base = stripe_base[0]
+            stripe_base[0] += len(parts)
+            assigned.extend(TopicPartition(topic, p) for p in parts
+                            if (p + base) % job.nproc == job.pid)
+        if changed and assigned:
+            consumer.assign(assigned)
+            for tp in assigned:
+                _seek_or_resume(consumer, tp, offsets)
+
+    _assign_partitions(retries=5)
+    # process 0 owns the request topic (a single-partition control stream);
+    # its offsets are checkpointed too: replaying the whole topic on a
+    # restore would re-run Updates and re-answer Queries
+    req_consumer = None
+    req_assigned = [False]
+    if job.pid == 0:
+        req_consumer = KafkaConsumer(bootstrap_servers=brokers, consumer_timeout_ms=poll_ms)
+
+    def _assign_requests(retries: int) -> None:
+        # process 0 alone (no group call): only it polls the topic
+        if req_consumer is None or req_assigned[0]:
+            return
+        req_tps = [TopicPartition(req_topic, p)
+                   for p in _partitions(req_consumer, req_topic, retries)]
+        if req_tps:
+            req_assigned[0] = True
+            req_consumer.assign(req_tps)
+            for tp in req_tps:
+                _seek_or_resume(req_consumer, tp, req_offsets)
+
+    _assign_requests(retries=5)
+
+    chunk_rows = int(flags.get("chunkRows", str(CHUNK_ROWS)))
+    # batchers are built once the stream width is known (the first Create
+    # may arrive on the requests topic mid-run); until then the data
+    # partitions are not polled, and their records wait in the broker. A
+    # sparse stream takes the COO parser (the partition assignment already
+    # partitioned the stream: no row striding, nproc=1 in the helper)
+    batchers: Dict[str, Any] = {}
+    sparse_tools = [None]
+
+    def _ensure_batchers():
+        if not batchers and job.dim is not None:
+            if job.stream_mode == "sparse":
+                sparse_tools[0] = _sparse_tools(job)
+                batchers[train_topic] = "sparse"
+                batchers[fore_topic] = "sparse"
+            else:
+                batchers[train_topic] = PackedBatcher(job.dim, chunk_rows, job.hash_dims)
+                batchers[fore_topic] = PackedBatcher(job.dim, chunk_rows, job.hash_dims)
+        return bool(batchers)
+
+    def _feed(topic, batches):
+        for bx, by, bop in batches:
+            if topic == fore_topic:
+                job.handle_forecast_rows(bx)
+            else:
+                train = bop == 0
+                if train.any():
+                    job.handle_partition_rows(bx[train], by[train])
+                if (~train).any():
+                    job.handle_forecast_rows(bx[~train])
+
+    def _feed_window(topic, wb):
+        """One bulk parse a topic a poll window."""
+        if batchers[topic] == "sparse":
+            parser, vec = sparse_tools[0]
+            _consume_sparse_block(job, parser, vec, bytes(wb), 0, 1, 0,
+                                  force_forecast=(topic == fore_topic))
+        else:
+            _feed(topic, batchers[topic].feed_buffer(wb, 0, len(wb)))
+
+    chunk_idx = 0
+    idle_windows = 0
+    idle_limit = int(flags.get("idleWindows", "2"))
+    startup_limit = int(flags.get("startupIdleWindows", "600"))
+    # restores count as deployed: the manifest already rebuilt pipelines
+    ever_deployed = bool(job.pipelines)
+    # upstream backpressure (runtime/overload.py): while this process's
+    # staging backlog is past backlogCritical its DATA partitions pause --
+    # records wait in the broker (offsets unrecorded, replayable) while
+    # pump() drains the backlog; the requests consumer never pauses
+    data_paused = [False]
+    overload_armed = job.overload_cfg is not None
+    while True:
+        # 1. control plane: new request lines, broadcast to everyone
+        req_lines: List[str] = []
+        if req_consumer is not None:
+            _assign_requests(retries=1)
+            while True:
+                try:
+                    rec = next(req_consumer)
+                except StopIteration:
+                    break
+                req_offsets[_tp_key(rec)] = rec.offset + 1
+                v = rec.value
+                req_lines.append(v.decode("utf-8", "replace") if isinstance(v, bytes) else v)
+        job.sync_requests(req_lines)
+        # 1b. late partition discovery (one attempt a window; the decision
+        # is broadcast, so every process issues the same group calls)
+        if undiscovered:
+            _assign_partitions(retries=1)
+            # a re-assign rebuilds the consumer's partition state and drops
+            # a standing pause: mark the valve open so the block below
+            # re-issues it while the level is still CRITICAL
+            data_paused[0] = False
+        # 1c. the overload valve (pause/resume are best-effort: a consumer
+        # without them relies on the chunk_rows poll bound)
+        if overload_armed and assigned:
+            level = job.overload_level()
+            if level >= 2 and not data_paused[0]:
+                pause = getattr(consumer, "pause", None)
+                if pause is not None:
+                    pause(*assigned)
+                    data_paused[0] = True
+                    job._warn(f"overload CRITICAL (backlog {job.backlog_rows()} rows): pausing "
+                              "data consumption")
+                    job._record_event(ev.PAUSE, "overload_critical", backlog=job.backlog_rows())
+            elif level < 2 and data_paused[0]:
+                resume = getattr(consumer, "resume", None)
+                if resume is not None:
+                    resume(*assigned)
+                data_paused[0] = False
+                job._warn("overload cleared: resuming data consumption")
+                job._record_event(ev.PAUSE, "overload_cleared")
+        # 2. data: this window's records from the assigned partitions,
+        # ACCUMULATED into one line buffer a topic and parsed with one bulk
+        # C call a topic a window
+        had_rows = 0
+        polled = 0
+        win_bufs = {t: bytearray() for t in batchers} if _ensure_batchers() else {}
+        while win_bufs and polled < chunk_rows:
+            try:
+                rec = next(consumer)
+            except StopIteration:
+                break
+            polled += 1
+            had_rows = 1
+            offsets[_tp_key(rec)] = rec.offset + 1
+            wb = win_bufs.get(rec.topic)
+            if wb is None:
+                continue
+            v = rec.value
+            wb += v if isinstance(v, bytes) else str(v).encode()
+            if not wb.endswith(b"\n"):
+                wb += b"\n"
+        for topic, wb in win_bufs.items():
+            if wb:
+                _feed_window(topic, wb)
+        for topic, b in batchers.items():
+            if b == "sparse":
+                continue  # the COO parser consumes whole windows, no tail
+            tail = b.flush()
+            if tail:
+                _feed(topic, [tail])
+        # 3. synchronized pump + checkpoint cadence
+        job.pump()
+        _chunk_tick(job, flags, chunk_idx, {"data": offsets, "requests": req_offsets}, injector,
+                    records=polled)
+        chunk_idx += 1
+        # 4. agreed termination after idleWindows globally idle poll windows
+        # (the silence timer of StatisticsOperator.scala:135-142, counted
+        # in agreed windows). Before ANY pipeline exists the larger startup
+        # bound applies: a live job must not die waiting for its Create
+        globally_quiet = job._collective_reduce([float(had_rows + len(req_lines))],
+                                                "sum")[0] == 0
+        if overload_armed:
+            # a backpressure PAUSE is not idleness: the fleet is overloaded,
+            # not done (agreed, so the break stays lockstep)
+            if job._collective_reduce([float(data_paused[0])], "max")[0] > 0:
+                globally_quiet = False
+        ever_deployed = ever_deployed or bool(job.pipelines)
+        if globally_quiet:
+            idle_windows += 1
+            limit = idle_limit if ever_deployed else startup_limit
+            if idle_windows >= limit:
+                if not ever_deployed:
+                    job._warn("no Create arrived within the startup idle bound; terminating "
+                              "with nothing deployed")
+                break
+        else:
+            idle_windows = 0
+    job.flush()
+    consumer.close()
+    if req_consumer is not None:
+        req_consumer.close()
+
+
+def _output_sinks(job: DistributedStreamJob, flags: Dict[str, str]):
+    """The output-topic producer of the Kafka route (None off it, or when
+    no producer connects within the shared connect backoff: a broker gone
+    at shutdown must not lose the file outputs)."""
+    if not flags.get("kafkaBrokers"):
+        return None
+    try:
+        from kafka import KafkaProducer
+
+        from omldm_tpu_torch.runtime.kafka_io import CONNECT_RETRY, ProducerSinks
+        from omldm_tpu_torch.utils.backoff import with_backoff
+
+        return ProducerSinks(with_backoff(
+            lambda: KafkaProducer(bootstrap_servers=flags["kafkaBrokers"]),
+            retry_on=(Exception,), policy=CONNECT_RETRY))
+    except Exception as exc:
+        job._warn(f"output-topic producer unavailable: {exc}")
+        return None
+
+
+def _write_outputs(job: DistributedStreamJob, flags: Dict[str, str], restoring: bool) -> None:
+    """Predictions a process (suffixed ``.p<i>`` in a fleet: a shared path
+    would keep only the last writer's rows), responses and performance from
+    process 0. On the Kafka route an output WITHOUT a file sink publishes
+    to the reference's output topics (README.md:21-26,
+    FlinkLearning.scala:137-144); an explicit file sink takes precedence,
+    the single-process CLI's rule.
+
+    Exactly once a restart: a process that published its topic outputs and
+    then died before a clean exit leaves ``EMITTED.p<i>`` beside the
+    checkpoints, and the restored incarnation honours it instead of
+    publishing again. A fresh run unlinks a stale marker. The marker is not
+    written when the producer dropped sends: those outputs never arrived,
+    so a restored incarnation against a healed broker publishes them.
+    File sinks need no marker: they are rewritten whole."""
+    marker = None
+    if flags.get("checkpointDir"):
+        marker = os.path.join(flags["checkpointDir"], f"EMITTED.p{job.pid}")
+        if not restoring:
+            try:
+                os.unlink(marker)  # a stale marker from an earlier job
+            except OSError:
+                pass
+    already_emitted = marker is not None and os.path.exists(marker)
+    sinks = _output_sinks(job, flags)
+    if already_emitted and sinks is not None:
+        job._warn("outputs already published to the topics by a previous incarnation; "
+                  "skipping topic publication (exactly-once)")
+    want_preds_file = bool(flags.get("predictionsOut"))
+    publish = sinks is not None and not already_emitted
+    if want_preds_file or publish:
+        payloads = [{"mlpId": net_id, "value": v} for net_id, v in job.orphan_predictions] + [
+            {"mlpId": net_id, "value": v}
+            for net_id in sorted(job.pipelines) for v in job.pipelines[net_id].predictions]
+        if want_preds_file:
+            path = flags["predictionsOut"]
+            if job.nproc > 1:
+                path = f"{path}.p{job.pid}"
+            with open(path, "w") as f:
+                for obj in payloads:
+                    f.write(json.dumps(obj) + "\n")
+        else:
+            for obj in payloads:
+                sinks.on_prediction(obj)
+    report = job.merged_report()
+    if report is not None:
+        if flags.get("responsesOut"):
+            with open(flags["responsesOut"], "w") as f:
+                for resp in job.responses:
+                    f.write(resp.to_json() + "\n")
+        elif publish:
+            for resp in job.responses:
+                sinks.on_response(resp)
+        if flags.get("performanceOut"):
+            with open(flags["performanceOut"], "w") as f:
+                f.write(json.dumps(report) + "\n")
+        elif publish:
+            sinks.on_performance(report)
+        print(json.dumps(report))
+    if marker is not None and publish and not sinks.dropped:
+        # published: a crash between here and the exit must not publish
+        # again on the next restore
+        _atomic_write_bytes(marker, b"published\n")
+    if sinks is not None:
+        sinks.close()
+
+
 def fleet_flags(flags: Dict[str, str]) -> Tuple[Optional[str], Optional[int], Optional[int]]:
     """(coordinator, processes, process id) of a fleet launch, or Nones for
     one process. ``--processes`` above 1 needs ``--coordinator`` and
@@ -1805,30 +2186,32 @@ def fleet_flags(flags: Dict[str, str]) -> Tuple[Optional[str], Optional[int], Op
     return flags["coordinator"], nproc, pid
 
 
-def refuse_fleet_later(flags: Dict[str, str]) -> None:
-    """SystemExit naming the first flag of the fleet's later half."""
-    for key, what in FLEET_LATER_FLAGS.items():
-        if key in flags:
-            raise SystemExit(f"--{key}: {what} is not ported to omldm_tpu_torch's fleet")
-
-
 def run_distributed(argv: Optional[List[str]] = None) -> int:
-    """The fleet's file route: every process runs the same command with its
-    own ``--processId``. Returns 0; raises SystemExit for a flag it refuses
-    and ``SystemExit(RESCALE_EXIT)`` after honouring a rescale signal; an
-    injected crash or a watchdog expiry ends the process where it
-    fires."""
+    """One process of the fleet, on the file route or the Kafka route
+    (``--kafkaBrokers``): every process runs the same command with its own
+    ``--processId``. With ``--supervise true`` this process becomes the
+    fleet supervisor instead (``runtime.supervisor.supervise_from_flags``:
+    it spawns and watches the workers and never joins the group). Returns
+    0 (the supervisor: its exit code); raises SystemExit for a flag it
+    refuses and ``SystemExit(RESCALE_EXIT)`` after honouring a rescale
+    signal; an injected crash or a watchdog expiry ends the process where
+    it fires."""
     from omldm_tpu_torch.__main__ import parse_flags, refuse_unported
     from omldm_tpu_torch.utils.tracing import trace
 
     flags = parse_flags(list(argv or []))
     refuse_unported(flags)
-    refuse_fleet_later(flags)
+    if _flag_true(flags, "supervise"):
+        from omldm_tpu_torch.runtime.supervisor import supervise_from_flags
+
+        return supervise_from_flags(flags)
     coordinator, nproc, pid = fleet_flags(flags)
-    if "trainingData" not in flags:
-        raise SystemExit("--trainingData is required in file mode")
-    if "requests" not in flags and not _flag_true(flags, "restore"):
-        raise SystemExit("--requests is required (or --restore with a checkpoint)")
+    kafka = bool(flags.get("kafkaBrokers"))
+    if not kafka:
+        if "trainingData" not in flags:
+            raise SystemExit("--trainingData is required in file mode")
+        if "requests" not in flags and not _flag_true(flags, "restore"):
+            raise SystemExit("--requests is required (or --restore with a checkpoint)")
     config = JobConfig(
         job_name=flags.get("jobName", "OMLDM"),
         batch_size=int(flags.get("batchSize", "256")),
@@ -1850,6 +2233,9 @@ def run_distributed(argv: Optional[List[str]] = None) -> int:
         if "rescaleCount" in flags:
             job.rescales_performed = int(flags["rescaleCount"] or 0)
             job._rescale_count_pinned = True
+        # --fleetDegraded: the supervisor's degraded-width gauge
+        if "fleetDegraded" in flags:
+            job.fleet_degraded = int(flags["fleetDegraded"] or 0)
         # --collectiveTimeoutMs arms the hang watchdog; the first guard
         # entry a phase gets --collectiveWarmupMs (a first step's warm-up)
         hang_ms = float(flags.get("collectiveTimeoutMs", "0") or 0)
@@ -1869,7 +2255,9 @@ def run_distributed(argv: Optional[List[str]] = None) -> int:
                      and os.path.exists(os.path.join(flags["checkpointDir"], "LATEST")))
         if not restoring:
             _sync_requests_from_flags(job, flags)
-            if not job.pipelines:
+            # on the Kafka route the Create may arrive on the requests topic
+            # (--startupIdleWindows bounds the wait)
+            if not job.pipelines and not kafka:
                 raise SystemExit(
                     "no pipeline deployed: the requests file must contain at least one valid "
                     f"Create/Update with dataStructure.nFeatures ({flags.get('requests')!r})")
@@ -1879,7 +2267,9 @@ def run_distributed(argv: Optional[List[str]] = None) -> int:
         if profile_dir:
             profile_dir = os.path.join(profile_dir, f"proc{job.pid}")
         with trace(profile_dir, job.device):
-            if job.stream_mode == "sparse" or (restoring and _manifest_is_sparse(flags)):
+            if kafka:
+                _drive_kafka(job, flags)
+            elif job.stream_mode == "sparse" or (restoring and _manifest_is_sparse(flags)):
                 _drive_file_sparse(job, flags)
             else:
                 _drive_file(job, flags)
@@ -1892,28 +2282,7 @@ def run_distributed(argv: Optional[List[str]] = None) -> int:
                 with open(flags["requestsFinal"]) as f:
                     final_lines = [line.strip() for line in f if line.strip()]
             job.sync_requests(final_lines)
-        # predictions per process (suffixed: a shared path would keep only
-        # the last writer's rows), responses and performance from process 0
-        if flags.get("predictionsOut"):
-            path = flags["predictionsOut"]
-            if job.nproc > 1:
-                path = f"{path}.p{job.pid}"
-            with open(path, "w") as f:
-                for net_id, v in job.orphan_predictions:
-                    f.write(json.dumps({"mlpId": net_id, "value": v}) + "\n")
-                for net_id in sorted(job.pipelines):
-                    for v in job.pipelines[net_id].predictions:
-                        f.write(json.dumps({"mlpId": net_id, "value": v}) + "\n")
-        report = job.merged_report()
-        if report is not None:
-            if flags.get("responsesOut"):
-                with open(flags["responsesOut"], "w") as f:
-                    for resp in job.responses:
-                        f.write(resp.to_json() + "\n")
-            if flags.get("performanceOut"):
-                with open(flags["performanceOut"], "w") as f:
-                    f.write(json.dumps(report) + "\n")
-            print(json.dumps(report))
+        _write_outputs(job, flags, restoring)
         # the terminate-time ring is this process's last word in an incident
         if job.events is not None:
             job.events.record(ev.TERMINATE, "drive_complete")

@@ -1,10 +1,13 @@
-"""Failure classification and the restart policy of supervised recovery.
+"""The self-healing policy layer: failure classification, slot strikes,
+shrink-to-survivors, probed re-expansion, hang watchdogs, kill escalation.
 
-Counterpart of the part of ``omldm_tpu/runtime/selfheal.py`` that the
-in-process supervisor (``runtime.recovery.JobSupervisor``) uses. The
-reference's failure story is crash-stop: ``JobTerminator.scala:6-10``
-throws and Flink restarts the whole job with a fixed-delay strategy
-(Job.scala:14).
+Counterpart of ``omldm_tpu/runtime/selfheal.py``. The reference's failure
+story is crash-stop: ``JobTerminator.scala:6-10`` throws and Flink restarts
+the whole job with a fixed-delay strategy (Job.scala:14), so one
+permanently bad slot burns the restart budget until the job dies. The
+supervisors (``runtime.supervisor.DistributedJobSupervisor``,
+``runtime.recovery.JobSupervisor``) consume this pure half; the fleet's
+workers arm its hang watchdog.
 
 - :func:`classify_exception` -- the failure taxonomy: ``crash`` (a failure
   after the attempt had made progress), ``hang`` (a timeout shape) and
@@ -15,15 +18,18 @@ throws and Flink restarts the whole job with a fixed-delay strategy
   slot's watchdog uses.
 - :class:`RestartPolicy` -- exponential backoff (Flink's fixed delay is
   ``growth=1``) with deterministic, seeded jitter.
+- :class:`SelfHealPolicy` -- per-slot strike accounting with a
+  strike/degrade/probe state machine: ``strike_threshold`` consecutive
+  failures blamed on one slot DEGRADE the fleet to the survivors through
+  restore-with-rescale; a degraded fleet PROBES back toward the configured
+  width, which heals after ``probe_window_s`` of health or re-degrades at
+  once. Pure and clock-injectable.
 - :class:`HangWatchdog` -- the fleet worker's deadline around group
   collectives: a worker stuck waiting on a killed or stopped peer dumps
   its black box and exits :data:`HANG_EXIT` instead of wedging forever.
+- :func:`kill_escalate` -- SIGTERM, a deadline, then SIGKILL, so a stopped
+  or wedged worker cannot stall the supervisor's restart path.
 - :func:`sigstop_self` -- the hang fault injector's trigger.
-
-The supervisor's half of the JAX module -- ``SelfHealPolicy`` (slot
-strikes, shrink-to-survivors, probed re-expansion) and ``kill_escalate``
--- waits for the fleet supervisor (ROADMAP queue 1, item 4.3), its only
-caller.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import dataclasses
 import os
 import signal
 import threading
-from typing import Callable, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from omldm_tpu_torch.utils import clock as uclock
 from omldm_tpu_torch.utils.backoff import BackoffPolicy, seeded_rng
@@ -107,6 +114,176 @@ class RestartPolicy:
     def rng(self) -> Callable[[], float]:
         seed = self.seed if self.seed is not None else os.getpid()
         return seeded_rng(seed, "restart")
+
+
+# --- slot strikes + degrade/probe state machine -----------------------------
+
+
+class SelfHealPolicy:
+    """Per-slot strike accounting and the degrade/probe state machine.
+
+    Pure and clock-injectable (no I/O, no processes): the supervisor feeds
+    it classified failures and poll ticks, it answers with target process
+    counts. State:
+
+    - FULL: the fleet runs at ``configured`` width. Each failure strikes
+      its blamed slots; a slot reaching ``strike_threshold`` CONSECUTIVE
+      strikes joins the bad set and :meth:`note_failure` returns the
+      shrink target ``nproc - |newly bad|`` (floored at
+      ``min_processes``). Strikes are per slot id and reset on any width
+      change (a shrink renumbers the survivors).
+    - DEGRADED (``degraded_by > 0``): after ``probe_after_s`` of degraded
+      running, :meth:`probe_target` answers the configured width -- the
+      supervisor signals a restore-with-rescale back to full.
+    - PROBING: a failure inside the probe (before ``probe_window_s`` of
+      healthy running since the probe fleet spawned) RE-DEGRADES at once
+      (no fresh strike budget for a slot that just proved itself bad);
+      ``probe_window_s`` of health HEALS -- strikes and the degraded width
+      both clear.
+
+    ``strikes`` survives fleet restarts by living here, in the supervisor
+    process, not in any worker."""
+
+    def __init__(
+        self,
+        strike_threshold: int,
+        configured: int,
+        *,
+        min_processes: int = 1,
+        probe_after_s: float = 30.0,
+        probe_window_s: float = 10.0,
+        clock: Callable[[], float] = uclock.MONOTONIC,
+    ):
+        if strike_threshold < 1:
+            raise ValueError(f"slotStrikes must be >= 1, got {strike_threshold}")
+        if min_processes < 1:
+            raise ValueError(f"minProcesses must be >= 1, got {min_processes}")
+        if configured < min_processes:
+            raise ValueError(f"configured width {configured} < minProcesses {min_processes}")
+        self.strike_threshold = strike_threshold
+        self.configured = configured
+        self.min_processes = min_processes
+        self.probe_after_s = probe_after_s
+        self.probe_window_s = probe_window_s
+        self._clock = clock
+        self.strikes: Dict[int, int] = {}
+        self.degraded_by = 0
+        self.probing = False
+        self._probe_spawned: Optional[float] = None
+        self._degraded_at: Optional[float] = None
+        # counters (the supervisor mirrors them into its strike file and
+        # decision events)
+        self.degrades = 0
+        self.probes = 0
+        self.probe_failures = 0
+        self.heals = 0
+
+    @property
+    def degraded(self) -> bool:
+        return self.degraded_by > 0
+
+    def snapshot(self) -> dict:
+        """JSON-shaped state for the supervisor's strike file."""
+        return {
+            "strikes": {str(k): v for k, v in self.strikes.items()},
+            "degradedBy": self.degraded_by,
+            "probing": self.probing,
+            "degrades": self.degrades,
+            "probes": self.probes,
+            "probeFailures": self.probe_failures,
+            "heals": self.heals,
+        }
+
+    def note_failure(
+        self,
+        slots: Sequence[int],
+        kinds: Optional[Dict[int, str]] = None,
+        nproc: Optional[int] = None,
+        now: Optional[float] = None,
+    ) -> Optional[int]:
+        """Charge a classified fleet failure to its blamed slots; returns
+        the process count to DEGRADE to, or None (restart at the current
+        width through the normal restart policy). ``kinds`` maps slot ->
+        failure class (recorded by the caller; the policy treats every
+        class the same -- consecutive failures of one slot are the signal,
+        whatever their shape)."""
+        now = self._clock() if now is None else now
+        nproc = self.configured - self.degraded_by if nproc is None else nproc
+        if self.probing:
+            # a failure inside the probe window: the bad slot is still bad.
+            # Re-degrade at once to the width that was healthy -- no fresh
+            # strike budget, no restart attempt burned
+            self.probing = False
+            self._probe_spawned = None
+            self.probe_failures += 1
+            self._degraded_at = now
+            target = max(self.configured - self.degraded_by, self.min_processes)
+            return target if target < nproc else None
+        if not slots:
+            return None
+        newly_bad: List[int] = []
+        for slot in slots:
+            self.strikes[slot] = self.strikes.get(slot, 0) + 1
+            if self.strikes[slot] >= self.strike_threshold:
+                newly_bad.append(slot)
+        if not newly_bad:
+            return None
+        target = max(nproc - len(newly_bad), self.min_processes)
+        if target >= nproc:
+            # already at the floor: nothing to shrink away; the restart
+            # policy (and its attempt budget) owns this slot
+            return None
+        self.degraded_by += nproc - target
+        self.degrades += 1
+        self._degraded_at = now
+        # the shrink renumbers every surviving slot: stale per-slot counts
+        # would blame the wrong survivors
+        self.strikes.clear()
+        return target
+
+    def note_healthy_attempt(self) -> None:
+        """A fleet attempt ran to clean completion: consecutive-failure
+        streaks are over."""
+        self.strikes.clear()
+
+    def probe_target(self, nproc: int, now: Optional[float] = None) -> Optional[int]:
+        """The width to probe back toward, once the degraded fleet has run
+        quietly for ``probe_after_s`` -- or None (hold)."""
+        now = self._clock() if now is None else now
+        if (not self.degraded or self.probing or nproc >= self.configured
+                or self._degraded_at is None or now - self._degraded_at < self.probe_after_s):
+            return None
+        return self.configured
+
+    def note_probe_signaled(self) -> None:
+        """The supervisor wrote the probe's rescale signal: the next
+        relaunch is the probe fleet."""
+        self.probing = True
+        self._probe_spawned = None
+        self.probes += 1
+
+    def note_spawn(self, now: Optional[float] = None) -> None:
+        """A fleet incarnation spawned; if it is the probe fleet, the probe
+        window starts here (not at signal time -- the checkpoint and
+        relaunch latency must not eat the window)."""
+        if self.probing and self._probe_spawned is None:
+            self._probe_spawned = self._clock() if now is None else now
+
+    def tick_healthy(self, now: Optional[float] = None) -> bool:
+        """Poll-loop tick while the fleet runs: True exactly once when a
+        probe has stayed healthy for ``probe_window_s`` -- the HEAL
+        transition (strikes and the degraded width both clear)."""
+        if not self.probing or self._probe_spawned is None:
+            return False
+        now = self._clock() if now is None else now
+        if now - self._probe_spawned < self.probe_window_s:
+            return False
+        self.probing = False
+        self._probe_spawned = None
+        self.degraded_by = 0
+        self.strikes.clear()
+        self.heals += 1
+        return True
 
 
 # --- worker-side hang watchdog ----------------------------------------------
@@ -232,6 +409,47 @@ class _WatchdogGuard:
     def __exit__(self, *exc):
         self._wd._disarm()
         return False
+
+
+# --- supervisor-side kill escalation ----------------------------------------
+
+
+def kill_escalate(
+    procs: Sequence[Any],
+    term_deadline_s: float = 5.0,
+    *,
+    poll_s: float = 0.02,
+    clock: Callable[[], float] = uclock.MONOTONIC,
+    sleep: Callable[[float], None] = time.sleep,
+) -> List[int]:
+    """Terminate a fleet: SIGTERM everyone, give the polite ones
+    ``term_deadline_s`` to exit, SIGKILL the stragglers, reap everything.
+    Returns the indices that needed the SIGKILL.
+
+    The escalation makes the supervisor's restart path hang-safe: SIGTERM
+    is only QUEUED for a SIGSTOP'd process (it would stay stopped forever),
+    and a worker wedged in a native collective may never run its signal
+    handler -- SIGKILL takes both down. ``procs`` are
+    ``subprocess.Popen``-shaped (poll/terminate/kill/wait)."""
+    for p in procs:
+        if p.poll() is None:
+            try:
+                p.terminate()
+            except OSError:
+                pass
+    deadline = clock() + max(term_deadline_s, 0.0)
+    escalated: List[int] = []
+    for i, p in enumerate(procs):
+        while p.poll() is None and clock() < deadline:
+            sleep(poll_s)
+        if p.poll() is None:
+            escalated.append(i)
+            try:
+                p.kill()
+            except OSError:
+                pass
+            p.wait()
+    return escalated
 
 
 def sigstop_self() -> None:

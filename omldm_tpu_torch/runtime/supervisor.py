@@ -1,7 +1,30 @@
-"""The in-process chaos channel: seeded faults on the hub<->spoke bridge.
+"""The fleet supervisor, the fleet's fault injector, and the chaos channels.
 
-Counterpart of the chaos half of ``omldm_tpu/runtime/supervisor.py``. The
-reference's psMessages edge is a Kafka topic (Job.scala:76-87): at least
+Counterpart of ``omldm_tpu/runtime/supervisor.py``. The reference gets
+fault tolerance from Flink: the JobManager detects a lost TaskManager or a
+heartbeat loss, applies the restart strategy
+(``RestartStrategies.fixedDelayRestart(attempts, delay)``, Job.scala:14),
+restores every operator from the latest completed checkpoint and rewinds
+the Kafka sources to the checkpointed offsets.
+
+:class:`DistributedJobSupervisor` plays the JobManager for the fleet
+(``runtime.distributed_job``): it launches the N worker processes
+(``python -m omldm_tpu_torch.runtime.distributed_job``), watches their exit
+codes and heartbeat files, and on a failure kills the whole fleet and
+relaunches it with ``--restore true`` under the shared restart policy. On
+top of that it classifies failures, strikes bad slots and shrinks the fleet
+to the survivors, probes back to full width (``runtime.selfheal``), and
+rescales on sustained pressure (:class:`AutoscalePolicy`). It reads files
+and waits on processes: it never joins the group and never touches a
+device. :func:`supervise_from_flags` is the CLI's ``--supervise``.
+
+Output dedupe: final outputs are emitted once per SUCCESSFUL incarnation.
+File sinks are rewritten whole, so restarts dedupe themselves; topic
+publication is guarded by ``EMITTED.p<i>`` markers beside the checkpoints
+(written after a process publishes, honoured on restore), so a crash
+between publication and exit does not publish twice.
+
+The reference's psMessages edge is a Kafka topic (Job.scala:76-87): at least
 once, so a message may be duplicated, delayed, reordered or lost.
 :class:`ChaosChannel` makes the in-process bridge misbehave that way, and
 corrupts payloads on request (a NaN in a shipped parameter vector, or a
@@ -19,36 +42,938 @@ handles the tenant-addressed copies it returns.
 :class:`ChaosConsumer` makes a Kafka-style consumer misbehave the way a
 broker does across restarts and rebalances (drop, duplicate, reorder, and
 poisoned record values), on the same seeded schedule; the Kafka route arms
-it with ``OMLDM_CHAOS_KAFKA`` (:func:`maybe_chaos_consumer`).
+it with ``OMLDM_CHAOS_KAFKA``, the fleet also with ``--kafkaChaos``
+(:func:`maybe_chaos_consumer`).
 
 :class:`DistributedFaultInjector` fires faults inside the fleet's real
 worker processes (a crash, a torn or lost checkpoint shard, a frozen
-worker, a refused launch), armed from CLI flags and driven by the drive
-loops at synchronized pump points; :data:`RESCALE_EXIT` is the exit code
-of a fleet that checkpointed to be relaunched at another process count.
+worker, a refused launch, a severed file-backed broker), armed from CLI
+flags and driven by the drive loops at synchronized pump points;
+:data:`RESCALE_EXIT` is the exit code of a fleet that checkpointed to be
+relaunched at another process count.
 
-The rest of the JAX module -- the fleet supervisor and autoscaler, and the
-injector's broker severing -- arrives with the fleet's Kafka drive and its
-supervisor (ROADMAP queue 1, items 4.2 and 4.3).
+CLI: one command supervises the whole fleet::
+
+    python -m omldm_tpu_torch --supervise true --processes 2 \\
+        --requests reqs.jsonl --trainingData train.jsonl \\
+        --checkpointDir /ckpts --checkpointEvery 50 \\
+        --restartAttempts 3 --restartDelayMs 1000 --heartbeatTimeoutMs 60000
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import shutil
+import socket
+import subprocess
 import sys
+import tempfile
+import time
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from omldm_tpu_torch.runtime import events as ev
 from omldm_tpu_torch.runtime.codec import EncodedLeaf
+from omldm_tpu_torch.runtime.selfheal import (
+    CRASH,
+    HANG,
+    HANG_EXIT,
+    LAUNCH,
+    RestartPolicy,
+    SelfHealPolicy,
+    classify_failure,
+    kill_escalate,
+)
+from omldm_tpu_torch.utils import clock as uclock
+from omldm_tpu_torch.utils.backoff import with_backoff
 
 # exit code a worker fleet uses to signal "checkpointed and exiting for a
 # supervised relaunch at a new process count" (distributed_job's
 # _maybe_rescale_exit) -- distinct from failure codes so a restart policy
 # does not burn an attempt on a planned rescale
 RESCALE_EXIT = 17
+
+
+# flags the supervisor consumes itself; everything else passes through to
+# the workers verbatim
+SUPERVISOR_ONLY_FLAGS = {
+    "supervise",
+    "restartAttempts",
+    "restartDelayMs",
+    "restartJitterMs",
+    "heartbeatTimeoutMs",
+    "workerBoot",
+    "supervisorDir",
+    # pressure-driven autoscaling (AutoscalePolicy knobs)
+    "autoscale",
+    "minProcesses",
+    "maxProcesses",
+    "scaleFactor",
+    "scaleUpAfterMs",
+    "scaleDownAfterMs",
+    "scaleCooldownMs",
+    "maxRescales",
+    # host-plane heartbeat-frame signal thresholds (AutoscalePolicy: serve
+    # p99 ms / tenant-imbalance excess treated as CRITICAL)
+    "scaleP99Ms",
+    "scaleImbalance",
+    # the self-healing fleet (runtime/selfheal.SelfHealPolicy knobs)
+    "slotStrikes",
+    "probeAfterMs",
+    "probeWindowMs",
+    "restartGrowth",
+    "restartSeed",
+    "killDeadlineMs",
+}
+
+# the module a worker process runs (never a module of the JAX package)
+WORKER_MODULE = "omldm_tpu_torch.runtime.distributed_job"
+
+
+class FleetFailure(RuntimeError):
+    """One failed attempt of the supervised fleet (cause + exit code +
+    per-slot failure classification, runtime/selfheal.classify_failure)."""
+
+    def __init__(self, cause: str, returncode: int, failed: Sequence[int],
+                 kinds: Optional[Dict[int, str]] = None):
+        super().__init__(cause)
+        self.cause = cause
+        self.returncode = returncode
+        self.failed = list(failed)
+        # slot -> failure class ("crash" | "hang" | "launch"); slots the
+        # detection path could not classify default to crash
+        self.kinds = dict(kinds or {})
+
+    def kind(self) -> str:
+        """The attempt's headline class: hang > launch > crash (a hang
+        implicates the fleet's liveness machinery, a launch failure will
+        repeat -- both more actionable than a generic crash)."""
+        kinds = set(self.kinds.values())
+        for k in (HANG, LAUNCH):
+            if k in kinds:
+                return k
+        return CRASH
+
+
+@dataclasses.dataclass
+class AttemptRecord:
+    """One detected fleet failure (the supervisor's incident log)."""
+
+    attempt: int  # 1-based attempt index that failed
+    cause: str  # "process 1 exited 3" | "heartbeat timeout on process 0"
+    failed: List[int]  # process ids implicated
+    at: float
+    restored: bool  # whether a checkpoint existed to restore from
+    kind: str = CRASH  # headline failure class (crash | hang | launch)
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@dataclasses.dataclass
+class RescaleRecord:
+    """One fleet rescale (the supervisor's scaling log): autoscale pressure
+    decisions and self-heal re-expansion probes both land here (probes ride
+    the same signal file, cooldown and maxRescales budget)."""
+
+    from_procs: int
+    to_procs: int
+    level: int  # folded fleet pressure level that drove the decision
+    at: float
+    cause: str = "pressure"  # "pressure" (autoscale) | "probe" (self-heal)
+
+
+class _FleetRescaled(RuntimeError):
+    """Internal control flow: the fleet checkpointed and exited with
+    RESCALE_EXIT; relaunch at ``target`` processes (not a failure)."""
+
+    def __init__(self, target: int, level: int):
+        super().__init__(f"fleet rescaling to {target} processes")
+        self.target = target
+        self.level = level
+
+
+@dataclasses.dataclass
+class DegradeRecord:
+    """One shrink-to-survivors transition (the supervisor's healing log)."""
+
+    from_procs: int
+    to_procs: int
+    slots: List[int]  # the struck-out slot ids (pre-shrink numbering)
+    kind: str  # headline failure class that struck them out
+    at: float
+
+
+class AutoscalePolicy:
+    """Pure pressure -> target-process-count policy (injectable clock, no
+    I/O).
+
+    The input is the FOLDED fleet pressure level at each supervisor poll
+    (the max over worker heartbeats: 0 OK / 1 ELEVATED / 2 CRITICAL, the
+    overload plane's ladder). Sustained CRITICAL for ``up_after_s`` scales
+    out by ``scale_factor`` (bounded by ``max_processes``); sustained OK
+    for ``down_after_s`` scales back in (floored at ``min_processes``).
+    ELEVATED holds steady -- the worker-local degradation ladder owns that
+    band. ``cooldown_s`` after each rescale gives the relaunched fleet time
+    to drain the backlog it inherited before the next decision; sustain
+    streaks reset across rescales and restarts (a fresh incarnation's
+    pressure must re-prove itself).
+
+    Host-plane signals: worker heartbeat frames carry more than the level
+    (``serveP99`` ms, ``imbalance`` fair-share excess, ``backlog`` rows --
+    :meth:`DistributedJobSupervisor.fleet_signals` folds them). With
+    ``serve_p99_critical_ms`` / ``imbalance_critical`` armed (> 0, off by
+    default), :meth:`decide` treats a folded signal at or over its
+    threshold as CRITICAL pressure even when the backlog level reads OK."""
+
+    def __init__(self, *, min_processes: int = 1, max_processes: int = 8,
+                 scale_factor: int = 2, up_after_s: float = 1.0, down_after_s: float = 5.0,
+                 cooldown_s: float = 2.0, serve_p99_critical_ms: float = 0.0,
+                 imbalance_critical: float = 0.0):
+        if min_processes < 1:
+            raise ValueError(f"minProcesses must be >= 1, got {min_processes}")
+        if max_processes < min_processes:
+            raise ValueError(f"maxProcesses {max_processes} < minProcesses {min_processes}")
+        if scale_factor < 2:
+            raise ValueError(f"scaleFactor must be >= 2, got {scale_factor}")
+        if serve_p99_critical_ms < 0:
+            raise ValueError(
+                f"serve_p99_critical_ms must be >= 0, got {serve_p99_critical_ms}")
+        if imbalance_critical < 0:
+            raise ValueError(f"imbalance_critical must be >= 0, got {imbalance_critical}")
+        self.min_processes = min_processes
+        self.max_processes = max_processes
+        self.scale_factor = scale_factor
+        self.up_after_s = up_after_s
+        self.down_after_s = down_after_s
+        self.cooldown_s = cooldown_s
+        self.serve_p99_critical_ms = serve_p99_critical_ms
+        self.imbalance_critical = imbalance_critical
+        self._crit_since: Optional[float] = None
+        self._calm_since: Optional[float] = None
+        self._last_rescale: Optional[float] = None
+
+    def reset(self) -> None:
+        """Forget sustain streaks (a fleet (re)launch: fresh evidence)."""
+        self._crit_since = None
+        self._calm_since = None
+
+    def note_rescaled(self, now: float) -> None:
+        self._last_rescale = now
+        self.reset()
+
+    def effective_level(self, level: int, signals: Optional[Dict[str, float]] = None) -> int:
+        """Fold the heartbeat-frame host signals into the pressure level: an
+        armed threshold at or over its limit reads as CRITICAL. UNKNOWN
+        (< 0) stays unknown -- signals only exist once somebody beat."""
+        if level < 0 or not signals:
+            return level
+        if (self.serve_p99_critical_ms > 0
+                and signals.get("serveP99", 0.0) >= self.serve_p99_critical_ms):
+            return 2
+        if self.imbalance_critical > 0 and signals.get("imbalance", 0.0) >= self.imbalance_critical:
+            return 2
+        return level
+
+    def decide(self, nproc: int, level: int, now: float,
+               signals: Optional[Dict[str, float]] = None) -> Optional[int]:
+        """The target process count to rescale to, or None (hold).
+        ``level < 0`` means UNKNOWN (no pressure evidence yet -- a fleet
+        still starting): both streaks clear and nothing fires. ``signals``
+        is the folded heartbeat-frame dict; armed host-signal thresholds
+        raise the effective level to CRITICAL (:meth:`effective_level`)."""
+        level = self.effective_level(level, signals)
+        if level < 0:
+            self._crit_since = None
+            self._calm_since = None
+            return None
+        if level >= 2:
+            self._calm_since = None
+            if self._crit_since is None:
+                self._crit_since = now
+        elif level <= 0:
+            self._crit_since = None
+            if self._calm_since is None:
+                self._calm_since = now
+        else:
+            self._crit_since = None
+            self._calm_since = None
+        if self._last_rescale is not None and now - self._last_rescale < self.cooldown_s:
+            return None
+        if (self._crit_since is not None and now - self._crit_since >= self.up_after_s
+                and nproc < self.max_processes):
+            return min(nproc * self.scale_factor, self.max_processes)
+        if (self._calm_since is not None and now - self._calm_since >= self.down_after_s
+                and nproc > self.min_processes):
+            return max(nproc // self.scale_factor, self.min_processes)
+        return None
+
+
+class DistributedJobSupervisor:
+    """Run the N-process fleet under a restart policy.
+
+    ``worker_args`` is the job's flag list WITHOUT the per-process plumbing
+    (``--processes/--processId/--coordinator/--restore`` are added per
+    attempt; a fresh coordinator port is drawn each time so a dying fleet's
+    socket never blocks its successor). ``worker_cmd`` overrides the
+    interpreter command prefix (default ``python -m
+    omldm_tpu_torch.runtime.distributed_job``) -- tests use it to install
+    the file-backed Kafka fake inside real subprocesses.
+
+    The supervisor reads files and waits on processes: it never joins the
+    workers' process group and never touches a device (a worker's
+    ``--device`` passes through to it). A worker that cannot reach its
+    device exits nonzero, and that is a failure like any other.
+
+    Restart policy: ``max_restarts`` relaunches at ``restart_delay_s``
+    backing off by ``restart_growth`` (+ seeded jitter), Flink's
+    fixedDelayRestart at growth 1.0. Restarts pass ``--restore true``: with
+    a ``--checkpointDir`` in ``worker_args`` the fleet resumes from the
+    newest consistent snapshot and replays the source from its cursor;
+    without one (or before the first snapshot) the relaunch is a fresh run.
+
+    Health channels: a worker exiting nonzero fails the attempt at once.
+    With ``heartbeat_timeout_s > 0`` the supervisor also passes each worker
+    ``--heartbeatDir`` and fails the attempt when a live worker's beat goes
+    stale -- a worker blocked in a collective whose peer died may never
+    exit on its own. A worker's clock starts at its spawn.
+
+    Autoscaling (an :class:`AutoscalePolicy`): the supervisor folds the
+    fleet's pressure level (each worker's heartbeat carries its
+    window-peak overload level) at every poll. A sustained decision writes
+    the target count into the ``RESCALE`` signal file; the workers agree on
+    it over their group at the next synchronized pump point, snapshot the
+    consistent cut and exit :data:`RESCALE_EXIT`; the supervisor relaunches
+    at the new ``--processes`` with ``--restore`` (restore-with-rescale
+    redistributes the snapshot), WITHOUT consuming a restart attempt.
+    Requires a ``--checkpointDir``; the cumulative count reaches the
+    workers' Statistics through ``--rescaleCount``.
+
+    Self-healing (a :class:`~omldm_tpu_torch.runtime.selfheal.SelfHealPolicy`,
+    ``--slotStrikes``): every FleetFailure is CLASSIFIED (a crash exit, a
+    heartbeat-silent hang, a never-beat launch failure; survivors'
+    HANG_EXITs blame the wedged peer) and charged to its slots;
+    ``strike_threshold`` consecutive failures of one slot DEGRADE the fleet
+    to the survivors through the restore-with-rescale relaunch -- a DEGRADE
+    event, no restart attempt charged. While degraded the supervisor PROBES
+    back toward the configured width through the RESCALE signal file; a
+    probe healthy for the probe window clears the strikes, a failed probe
+    re-degrades at once. Fleet kills escalate SIGTERM -> SIGKILL after
+    ``kill_deadline_s``, so a SIGSTOP'd worker cannot stall the restart
+    path.
+    """
+
+    def __init__(
+        self,
+        worker_args: Sequence[str],
+        num_processes: int,
+        *,
+        max_restarts: int = 3,
+        restart_delay_s: float = 0.0,
+        restart_jitter_s: float = 0.0,
+        heartbeat_timeout_s: float = 0.0,
+        worker_cmd: Optional[Sequence[str]] = None,
+        env: Optional[Dict[str, str]] = None,
+        cwd: Optional[str] = None,
+        run_dir: Optional[str] = None,
+        poll_interval_s: float = 0.05,
+        autoscale: Optional[AutoscalePolicy] = None,
+        max_rescales: int = 32,
+        blackbox_dir: Optional[str] = None,
+        selfheal: Optional[SelfHealPolicy] = None,
+        restart_growth: float = 2.0,
+        restart_seed: Optional[int] = None,
+        kill_deadline_s: float = 5.0,
+        clock=None,
+        wall=None,
+    ):
+        # injectable clocks (utils/clock.py): ``clock`` paces the monotonic
+        # policy windows (autoscale sustain, self-heal probes), ``wall``
+        # stamps what crosses processes (beat-file ages, incident floors)
+        self._clock = uclock.resolve(clock, uclock.MONOTONIC)
+        self._wall = uclock.resolve(wall, uclock.WALL)
+        if num_processes < 1:
+            raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+        self.worker_args = list(worker_args)
+        self.nproc = num_processes
+        self.max_restarts = max_restarts
+        self.restart_delay_s = restart_delay_s
+        self.restart_jitter_s = restart_jitter_s
+        self.heartbeat_timeout_s = heartbeat_timeout_s
+        self.worker_cmd = list(worker_cmd or [sys.executable, "-m", WORKER_MODULE])
+        self.env = env
+        self.cwd = cwd
+        self.poll_interval_s = poll_interval_s
+        self._own_run_dir = run_dir is None
+        self.run_dir = run_dir or tempfile.mkdtemp(prefix="omldm-supervise-")
+        os.makedirs(self.run_dir, exist_ok=True)
+        self.hb_dir = os.path.join(self.run_dir, "heartbeats")
+        self.failures: List[AttemptRecord] = []
+        self.autoscale = autoscale
+        self.max_rescales = max_rescales
+        self.rescales: List[RescaleRecord] = []
+        self.degrades: List[DegradeRecord] = []
+        # self-healing: classified slot strikes + shrink-to-survivors +
+        # probed re-expansion. None = the plain restart behaviour
+        self.selfheal = selfheal
+        # restart backoff (the shared RestartPolicy), derived from these
+        # attributes at run() time so pre-run mutation keeps working
+        self.restart_growth = restart_growth
+        self.restart_seed = restart_seed
+        self.kill_deadline_s = kill_deadline_s
+        # flight recorder: with a black-box directory (the --blackboxPath
+        # the workers dump their rings into) the supervisor keeps its OWN
+        # decision journal and gathers the worker dumps and that journal
+        # into one incident bundle on every failure, rescale and degrade,
+        # and at the end of the run. None = no recorder object
+        self.blackbox_dir = blackbox_dir
+        self.journal = None
+        self.bundles: List[str] = []
+        # set after a fleet failure; the relaunched fleet's first heartbeat
+        # records a HEAL event closing the restart window
+        self._heal_pending = False
+        # dumps older than this run never enter a bundle (a reused
+        # black-box directory)
+        self._blackbox_floor = self._wall()
+        if blackbox_dir:
+            self.journal = ev.EventJournal(cap=1024, pid="sup", path=blackbox_dir)
+        if autoscale is not None and not self._checkpoint_root():
+            # a rescale relaunch without a checkpoint would lose all state:
+            # refuse at construction, not mid-burst
+            raise ValueError("autoscale requires --checkpointDir in the worker args "
+                             "(rescale relaunches restore from the latest snapshot)")
+        if selfheal is not None and not self._checkpoint_root():
+            raise ValueError("slotStrikes requires --checkpointDir in the worker args "
+                             "(shrink-to-survivors restores the snapshot across the "
+                             "surviving process count)")
+
+    def _log(self, msg: str) -> None:
+        print(f"[supervisor] {msg}", file=sys.stderr, flush=True)
+
+    def _record(self, kind: str, cause: str, **fields) -> None:
+        if self.journal is not None:
+            self.journal.record(kind, cause, **fields)
+
+    def gather_incident(self, reason: str) -> Optional[str]:
+        """Gather the workers' black-box ring dumps plus the supervisor's
+        own decision log into ONE incident bundle (the fleet timeline,
+        merge-sorted on the transport stamps; runtime/events.py). Called on
+        every fleet failure, rescale and degrade, and at run end; returns
+        the bundle path, or None when no black box is armed."""
+        if not self.blackbox_dir or self.journal is None:
+            return None
+        streams = ev.gather_blackbox(self.blackbox_dir, min_mtime=self._blackbox_floor)
+        if self.journal.events:
+            streams.append(self.journal.tail())
+        path = ev.write_bundle(
+            os.path.join(self.blackbox_dir, f"incident-{len(self.bundles)}.json"),
+            streams,
+            meta={"reason": reason, "processes": self.nproc, "restarts": len(self.failures),
+                  "rescales": len(self.rescales), "degrades": len(self.degrades)},
+        )
+        if path is not None:
+            self.bundles.append(path)
+        return path
+
+    # --- one attempt -------------------------------------------------------
+
+    def _worker_argv(self, pid: int, port: int, restore: bool) -> List[str]:
+        args = list(self.worker_cmd) + list(self.worker_args)
+        args += ["--processes", str(self.nproc), "--processId", str(pid)]
+        if self.nproc > 1:
+            args += ["--coordinator", f"127.0.0.1:{port}"]
+        if restore:
+            args += ["--restore", "true"]
+        if self._beats_armed():
+            args += ["--heartbeatDir", self.hb_dir]
+        if self._signal_armed():
+            args += ["--rescaleSignalDir", self.run_dir,
+                     "--rescaleCount", str(len(self.rescales))]
+        if self.selfheal is not None:
+            # the degraded-width gauge rides to Statistics and the report as
+            # --rescaleCount does: slots this LAUNCH is short of the
+            # configured width (a probe fleet launches at full width: 0)
+            args += ["--fleetDegraded", str(max(self.selfheal.configured - self.nproc, 0))]
+        return args
+
+    def _beats_armed(self) -> bool:
+        # the heartbeat files are the pressure channel AND the failure
+        # classification channel (launch = never beat, hang = silent), so
+        # the autoscaler and the self-heal policy arm them without a timeout
+        return (self.heartbeat_timeout_s > 0 or self.autoscale is not None
+                or self.selfheal is not None)
+
+    def _signal_armed(self) -> bool:
+        # the RESCALE signal file has two writers: autoscale decisions and
+        # self-heal re-expansion probes
+        return self.autoscale is not None or self.selfheal is not None
+
+    def _checkpoint_root(self) -> Optional[str]:
+        root = None
+        for i, arg in enumerate(self.worker_args):
+            if arg == "--checkpointDir" and i + 1 < len(self.worker_args):
+                root = self.worker_args[i + 1]
+        return root
+
+    def _signal_path(self) -> str:
+        return os.path.join(self.run_dir, "RESCALE")
+
+    def _read_signal(self) -> int:
+        """Target count in the standing signal file (0 = none or garbled)."""
+        try:
+            with open(self._signal_path()) as f:
+                return int(f.read().strip() or 0)
+        except (OSError, ValueError):
+            return 0
+
+    def _beat_path(self, pid: int) -> str:
+        return os.path.join(self.hb_dir, f"proc{pid}.hb")
+
+    def _beat_age(self, pid: int, spawned_at: float, now: float) -> float:
+        # wall clock throughout: beat files only expose epoch mtimes
+        try:
+            return now - os.path.getmtime(self._beat_path(pid))
+        except OSError:
+            return now - spawned_at  # no beat yet: the clock runs from spawn
+
+    def _beat_frame(self, pid: int) -> Optional[Dict[str, float]]:
+        """This worker's last heartbeat METRICS FRAME: ``{"level",
+        "serveP99", "imbalance", "backlog", "events", "alerts"}``. The file
+        body is ``<epoch> <level> [key=value ...]``
+        (distributed_job._heartbeat); a two-token beat parses with zero
+        signals, a bare-epoch or torn beat reads level 0 (never a crash).
+        None when the worker has not beaten yet."""
+        try:
+            with open(self._beat_path(pid)) as f:
+                parts = f.read().split()
+        except OSError:
+            return None
+        frame = {"level": 0.0, "serveP99": 0.0, "imbalance": 0.0,
+                 "backlog": 0.0, "events": 0.0, "alerts": 0.0}
+        try:
+            if len(parts) > 1:
+                frame["level"] = float(parts[1])
+        except ValueError:
+            return frame  # torn or garbled: level 0, no signals
+        for token in parts[2:]:
+            key, sep, value = token.partition("=")
+            if not sep or key not in frame:
+                continue
+            try:
+                frame[key] = float(value)
+            except ValueError:
+                pass  # one torn token must not discard the rest
+        return frame
+
+    def _beat_level(self, pid: int) -> Optional[int]:
+        """This worker's last pressure level (None before its first beat)."""
+        frame = self._beat_frame(pid)
+        return None if frame is None else int(frame["level"])
+
+    def fleet_pressure(self) -> int:
+        """The folded fleet pressure level: the max over every worker's
+        heartbeat-reported window peak. -1 while NO worker has beaten yet --
+        a starting fleet reads as unknown, not calm, or the scale-in streak
+        would start during start-up."""
+        levels = [lvl for lvl in (self._beat_level(pid) for pid in range(self.nproc))
+                  if lvl is not None]
+        return max(levels) if levels else -1
+
+    def fleet_signals(self) -> Optional[Dict[str, float]]:
+        """The folded heartbeat-frame signals across the fleet: the worst
+        serve p99 and imbalance (max), the total backlog (sum), the worst
+        level. None while no worker has beaten yet."""
+        frames = [f for f in (self._beat_frame(pid) for pid in range(self.nproc))
+                  if f is not None]
+        if not frames:
+            return None
+        return {
+            "level": max(f["level"] for f in frames),
+            "serveP99": max(f["serveP99"] for f in frames),
+            "imbalance": max(f["imbalance"] for f in frames),
+            "backlog": sum(f["backlog"] for f in frames),
+        }
+
+    def _kill_fleet(self, procs: List[subprocess.Popen]) -> None:
+        # SIGTERM -> deadline -> SIGKILL: a SIGSTOP'd or natively wedged
+        # worker never honours SIGTERM
+        escalated = kill_escalate(procs, self.kill_deadline_s)
+        if escalated:
+            self._log("process " + ", ".join(map(str, escalated))
+                      + " ignored SIGTERM (stopped/wedged); escalated to SIGKILL")
+
+    def _ever_beat(self, pid: int) -> Optional[bool]:
+        """Whether this worker beat at least once THIS attempt (the
+        heartbeat dir is wiped at every attempt start). None when beats are
+        unarmed -- launch and crash are then indistinguishable."""
+        if not self._beats_armed():
+            return None
+        return os.path.exists(self._beat_path(pid))
+
+    def _classify_exits(self, codes: List[Optional[int]], bad: List[int]) -> FleetFailure:
+        """The classified FleetFailure for bad exit codes. HANG_EXIT is a
+        VICTIM's code ("my peer is wedged; I refuse to block forever"):
+        when every bad exit is a HANG_EXIT and some process is still alive,
+        the blame lands on the live (wedged) processes, not the honest
+        survivors."""
+        live = [i for i, rc in enumerate(codes) if rc is None]
+        hang_exits = [i for i in bad if codes[i] == HANG_EXIT]
+        if hang_exits and len(hang_exits) == len(bad) and live:
+            return FleetFailure(
+                "process " + ", ".join(f"{i} exited HANG_EXIT" for i in hang_exits)
+                + "; blaming wedged process " + ", ".join(map(str, live)),
+                returncode=HANG_EXIT, failed=live, kinds={i: HANG for i in live})
+        kinds = {i: classify_failure(returncode=codes[i], ever_beat=self._ever_beat(i))
+                 for i in bad}
+        return FleetFailure("process " + ", ".join(f"{i} exited {codes[i]}" for i in bad),
+                            returncode=codes[bad[0]], failed=bad, kinds=kinds)
+
+    def _run_attempt(self, restore: bool) -> None:
+        """Spawn the fleet and block until success (all exit 0), a detected
+        failure (raises :class:`FleetFailure`), or an agreed rescale exit
+        (raises :class:`_FleetRescaled` once every worker has exited)."""
+        if self._beats_armed():
+            shutil.rmtree(self.hb_dir, ignore_errors=True)
+            os.makedirs(self.hb_dir, exist_ok=True)
+        if self.autoscale is not None:
+            self.autoscale.reset()
+        ok_codes = (0,) if not self._signal_armed() else (0, RESCALE_EXIT)
+        pending_target = 0  # a written-but-not-yet-honoured rescale signal
+        decision_level = 0
+        port = _free_port()
+        spawned_at = self._wall()
+        procs = [subprocess.Popen(self._worker_argv(pid, port, restore), env=self.env,
+                                  cwd=self.cwd)
+                 for pid in range(self.nproc)]
+        if self.selfheal is not None:
+            # a probe fleet's health window starts at ITS spawn
+            self.selfheal.note_spawn(self._clock())
+        try:
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = [i for i, rc in enumerate(codes) if rc is not None and rc not in ok_codes]
+                if bad:
+                    raise self._classify_exits(codes, bad)
+                if all(rc == 0 for rc in codes):
+                    return
+                if (self._signal_armed() and all(rc is not None for rc in codes)
+                        and any(rc == RESCALE_EXIT for rc in codes)):
+                    # the fleet checkpointed the agreed cut and exited to be
+                    # relaunched at the signalled count
+                    raise _FleetRescaled(pending_target or self._read_signal() or self.nproc,
+                                         decision_level)
+                if self._heal_pending and self._beats_armed():
+                    # hb_dir is wiped at attempt start, so any beat file
+                    # proves THIS incarnation came up: that is the heal
+                    if any(os.path.exists(self._beat_path(i)) for i in range(self.nproc)):
+                        self._record(ev.HEAL, "first_heartbeat", attempt=len(self.failures),
+                                     processes=self.nproc)
+                        self._heal_pending = False
+                if self.heartbeat_timeout_s > 0:
+                    now = self._wall()
+                    stale = [i for i, rc in enumerate(codes)
+                             if rc is None
+                             and self._beat_age(i, spawned_at, now) > self.heartbeat_timeout_s]
+                    if stale:
+                        raise FleetFailure(
+                            "heartbeat timeout on process " + ", ".join(map(str, stale)),
+                            returncode=1, failed=stale, kinds={i: HANG for i in stale})
+                if self.selfheal is not None and not pending_target:
+                    # probed re-expansion: a degraded fleet that has run
+                    # quietly for probeAfterMs is signalled back toward the
+                    # configured width (the autoscaler's signal file)
+                    mono = self._clock()
+                    if self.selfheal.tick_healthy(mono):
+                        self._log(f"probe healthy for {self.selfheal.probe_window_s:.1f}s: fleet "
+                                  f"healed at {self.nproc} processes; slot strikes cleared")
+                        self._record(ev.PROBE, "probe_healthy", processes=self.nproc)
+                        self._write_strike_file()
+                    target = self.selfheal.probe_target(self.nproc, mono)
+                    if len(self.rescales) >= self.max_rescales:
+                        # probes ride the rescale budget; once it is spent
+                        # the fleet stays at the degraded width
+                        target = None
+                    if target is not None and target != self.nproc:
+                        pending_target = target
+                        self.selfheal.note_probe_signaled()
+                        self._record(ev.PROBE, "probe_signaled", from_procs=self.nproc,
+                                     target=target)
+                        with open(self._signal_path(), "w") as f:
+                            f.write(str(target))
+                        self._log(f"degraded fleet quiet for {self.selfheal.probe_after_s:.1f}s: "
+                                  f"probing back {self.nproc} -> {target} processes")
+                if self.autoscale is not None and not pending_target:
+                    # ONE frame read a worker a poll: the level is folded
+                    # inside the signals
+                    signals = self.fleet_signals()
+                    level = int(signals["level"]) if signals else -1
+                    target = self.autoscale.decide(self.nproc, level, self._clock(),
+                                                   signals=signals)
+                    if target is not None and target != self.nproc:
+                        pending_target = target
+                        decision_level = self.autoscale.effective_level(level, signals)
+                        self._record(ev.SCALE, "pressure_sustained", from_procs=self.nproc,
+                                     target=target, level=decision_level)
+                        with open(self._signal_path(), "w") as f:
+                            f.write(str(target))
+                        self._log(f"fleet pressure level {level} sustained: signaling rescale "
+                                  f"{self.nproc} -> {target} processes")
+                time.sleep(self.poll_interval_s)
+        finally:
+            self._kill_fleet(procs)
+
+    # --- the restart policy ------------------------------------------------
+
+    def _checkpoint_exists(self) -> bool:
+        root = self._checkpoint_root()
+        return bool(root) and os.path.exists(os.path.join(root, "LATEST"))
+
+    # --- self-healing: strikes, shrink-to-survivors, probes ---------------
+
+    def _write_strike_file(self) -> None:
+        """Persist the strike and degrade state into the run dir (for an
+        operator; the policy state itself lives in this process).
+        Best-effort."""
+        if self.selfheal is None:
+            return
+        try:
+            with open(os.path.join(self.run_dir, "STRIKES"), "w") as f:
+                f.write(json.dumps(self.selfheal.snapshot()))
+        except OSError:
+            pass
+
+    def _note_strikes(self, exc: FleetFailure) -> Optional[int]:
+        """Charge a classified fleet failure to its blamed slots; returns the
+        shrink-to-survivors target (None = the normal restart policy). Every
+        classification is journalled as a STRIKE event."""
+        if self.selfheal is None:
+            return None
+        was_probing = self.selfheal.probing
+        if was_probing:
+            # a failure with a probe in flight voids the probe: the standing
+            # signal must not be honoured by the NEXT incarnation
+            try:
+                os.unlink(self._signal_path())
+            except OSError:
+                pass
+        target = self.selfheal.note_failure(exc.failed, exc.kinds, self.nproc, self._clock())
+        for slot in exc.failed:
+            self._record(ev.STRIKE, exc.kinds.get(slot, CRASH), worker=slot,
+                         strikes=self.selfheal.strikes.get(slot, 0)
+                         or self.selfheal.strike_threshold,
+                         error=exc.cause)
+        if was_probing and target is not None:
+            self._record(ev.PROBE, "probe_failed", target=target, error=exc.cause)
+            self._log(f"re-expansion probe failed ({exc.cause}); re-degrading to {target} "
+                      "processes immediately")
+        self._write_strike_file()
+        return target
+
+    def _apply_degrade(self, exc: FleetFailure, target: int) -> None:
+        """Commit a shrink-to-survivors: journal the DEGRADE, bundle the dead
+        fleet's rings, and relaunch at the survivor count through
+        restore-with-rescale -- WITHOUT consuming a restart attempt."""
+        self.degrades.append(DegradeRecord(from_procs=self.nproc, to_procs=target,
+                                           slots=list(exc.failed), kind=exc.kind(),
+                                           at=self._wall()))
+        self._log(f"slot {', '.join(map(str, exc.failed))} struck out ({exc.kind()}: "
+                  f"{exc.cause}); degrading fleet {self.nproc} -> {target} processes "
+                  "(shrink-to-survivors; restore-with-rescale relaunch)")
+        self._record(ev.DEGRADE, exc.kind(), from_procs=self.nproc, to_procs=target,
+                     slots=list(exc.failed), error=exc.cause)
+        # the dead fleet's rings are about to be overwritten by the degraded
+        # incarnation's dumps: bundle them now
+        self.gather_incident("degrade")
+        self.nproc = target
+        if self.autoscale is not None:
+            # a degrade is a rescale for autoscale pacing
+            self.autoscale.note_rescaled(self._clock())
+        self._write_strike_file()
+
+    def _apply_rescale(self, rescaled: _FleetRescaled) -> None:
+        """Commit a rescale: clear the signal, record the decision, move the
+        fleet width, start the cooldown clock."""
+        if len(self.rescales) >= self.max_rescales:
+            raise FleetFailure(f"autoscale rescale budget exhausted ({self.max_rescales} "
+                               "rescales)", returncode=1, failed=[])
+        try:
+            os.unlink(self._signal_path())
+        except OSError:
+            pass
+        probe = self.selfheal is not None and self.selfheal.probing
+        self.rescales.append(RescaleRecord(from_procs=self.nproc, to_procs=rescaled.target,
+                                           level=rescaled.level, at=self._wall(),
+                                           cause="probe" if probe else "pressure"))
+        self._log(f"rescaling fleet {self.nproc} -> {rescaled.target} processes "
+                  f"({'re-expansion probe' if probe else 'pressure-driven'}; rescale "
+                  f"{len(self.rescales)})")
+        self._record(ev.RESCALE, "probe_agreed" if probe else "pressure_driven",
+                     from_procs=self.nproc, to_procs=rescaled.target, level=rescaled.level)
+        self.gather_incident("rescale")
+        self.nproc = rescaled.target
+        if self.autoscale is not None:
+            self.autoscale.note_rescaled(self._clock())
+
+    def run(self) -> int:
+        """Supervise to completion. Returns 0 on success; raises the last
+        :class:`FleetFailure` once ``max_restarts`` is exhausted. Rescales
+        and degrades relaunch WITHOUT consuming a restart attempt."""
+        state = {"first": True}
+
+        def attempt() -> int:
+            restore = not state["first"]
+            state["first"] = False
+            while True:
+                if restore:
+                    self._log("relaunching fleet" + (
+                        " from latest consistent checkpoint" if self._checkpoint_exists()
+                        else " fresh (no checkpoint taken before the failure)"))
+                try:
+                    self._run_attempt(restore=restore)
+                    if self.selfheal is not None:
+                        # a clean completion ends every failure streak
+                        self.selfheal.note_healthy_attempt()
+                        self._write_strike_file()
+                    return 0
+                except _FleetRescaled as rescaled:
+                    self._apply_rescale(rescaled)
+                    restore = True
+                except FleetFailure as exc:
+                    # a struck-out slot shrinks the fleet to the survivors
+                    # INSTEAD of burning a restart on a width that keeps
+                    # failing
+                    target = self._note_strikes(exc)
+                    if target is None:
+                        raise
+                    self._apply_degrade(exc, target)
+                    restore = True
+
+        def on_retry(exc: Exception, next_attempt: int) -> None:
+            record = AttemptRecord(
+                attempt=next_attempt - 1, cause=str(exc), failed=getattr(exc, "failed", []),
+                at=self._wall(), restored=self._checkpoint_exists(),
+                kind=exc.kind() if isinstance(exc, FleetFailure) else CRASH)
+            self.failures.append(record)
+            self._log(f"fleet failure ({record.kind}: {record.cause}); restart "
+                      f"{record.attempt}/{self.max_restarts}")
+            self._record(ev.RESTART, "fleet_failure", error=record.cause,
+                         failed=list(record.failed), attempt=record.attempt,
+                         restored=record.restored, failure_kind=record.kind)
+            # the next attempt's first heartbeat closes this restart's heal
+            # window (the load harness reads the restart -> heal delta)
+            self._heal_pending = True
+            # bundle the dead fleet's rings BEFORE the relaunch overwrites them
+            self.gather_incident("worker_death")
+
+        restart_policy = RestartPolicy(
+            max_restarts=self.max_restarts,
+            base_delay_s=self.restart_delay_s,
+            growth=self.restart_growth,
+            jitter_s=self.restart_jitter_s,
+            seed=self.restart_seed,
+        )
+        try:
+            return with_backoff(attempt, policy=restart_policy.backoff(),
+                                retry_on=(FleetFailure,), on_retry=on_retry,
+                                rng=restart_policy.rng())
+        except FleetFailure as exc:
+            # the terminal failure is an incident too
+            self.failures.append(AttemptRecord(
+                attempt=len(self.failures) + 1, cause=exc.cause, failed=exc.failed,
+                at=self._wall(), restored=self._checkpoint_exists(), kind=exc.kind()))
+            self._log(f"giving up after {len(self.failures)} failed attempt(s): {exc.cause}")
+            self._record(ev.RESTART, "restarts_exhausted", error=exc.cause,
+                         attempts=len(self.failures))
+            raise
+        finally:
+            # the end-of-run bundle on EVERY exit path: the run an operator
+            # most wants a bundle for is the one that did not end cleanly
+            self.gather_incident("run_end")
+            if self._own_run_dir:
+                shutil.rmtree(self.run_dir, ignore_errors=True)
+
+
+def supervise_from_flags(flags: Dict[str, str]) -> int:
+    """CLI adapter: ``--supervise`` turns the launcher process into the
+    fleet supervisor (it never joins the group or touches a device). Every
+    flag that is not the supervisor's own passes through to every worker.
+    Returns the exit code for the CLI; exhausted restarts exit with the
+    last failed worker's code."""
+    nproc = int(flags.get("processes", "1"))
+    worker_args: List[str] = []
+    for key, value in flags.items():
+        if key in SUPERVISOR_ONLY_FLAGS or key in ("processes", "processId", "coordinator",
+                                                   "restore"):
+            continue
+        worker_args += [f"--{key}", value]
+    worker_cmd = None
+    if flags.get("workerBoot"):
+        # bootstrap code for the worker interpreters (tests install the
+        # file-backed Kafka fake before the port's imports resolve)
+        worker_cmd = [sys.executable, "-c", flags["workerBoot"]]
+    autoscale = None
+    if flags.get("autoscale", "").lower() in ("true", "1", "yes", "on"):
+        if not flags.get("checkpointDir"):
+            raise SystemExit("--autoscale requires --checkpointDir (rescale relaunches "
+                             "restore the fleet from the latest snapshot)")
+        autoscale = AutoscalePolicy(
+            min_processes=int(flags.get("minProcesses", "1")),
+            max_processes=int(flags.get("maxProcesses", "8")),
+            scale_factor=int(flags.get("scaleFactor", "2")),
+            up_after_s=float(flags.get("scaleUpAfterMs", "1000")) / 1000.0,
+            down_after_s=float(flags.get("scaleDownAfterMs", "5000")) / 1000.0,
+            cooldown_s=float(flags.get("scaleCooldownMs", "2000")) / 1000.0,
+            # host-plane heartbeat-frame thresholds (off by default): the
+            # fleet's own frames carry serveP99; imbalance reads 0 there
+            serve_p99_critical_ms=float(flags.get("scaleP99Ms", "0")),
+            imbalance_critical=float(flags.get("scaleImbalance", "0")),
+        )
+    selfheal = None
+    strikes = int(flags.get("slotStrikes", "0") or 0)
+    if strikes > 0:
+        if not flags.get("checkpointDir"):
+            raise SystemExit("--slotStrikes requires --checkpointDir (shrink-to-survivors "
+                             "restores the snapshot across the surviving process count)")
+        selfheal = SelfHealPolicy(
+            strikes, nproc,
+            min_processes=int(flags.get("minProcesses", "1")),
+            probe_after_s=float(flags.get("probeAfterMs", "30000")) / 1000.0,
+            probe_window_s=float(flags.get("probeWindowMs", "10000")) / 1000.0,
+        )
+    sup = DistributedJobSupervisor(
+        worker_args,
+        nproc,
+        max_restarts=int(flags.get("restartAttempts", "3")),
+        restart_delay_s=float(flags.get("restartDelayMs", "0")) / 1000.0,
+        restart_jitter_s=float(flags.get("restartJitterMs", "0")) / 1000.0,
+        heartbeat_timeout_s=float(flags.get("heartbeatTimeoutMs", "0")) / 1000.0,
+        worker_cmd=worker_cmd,
+        run_dir=flags.get("supervisorDir"),
+        autoscale=autoscale,
+        max_rescales=int(flags.get("maxRescales", "32")),
+        # the workers dump their journal rings here (the passthrough
+        # --blackboxPath); the supervisor gathers them with its own log
+        blackbox_dir=flags.get("blackboxPath"),
+        selfheal=selfheal,
+        # exponential backoff (growth 1.0 is the reference's fixed delay);
+        # --restartSeed pins the jitter stream (unset: derived from the pid)
+        restart_growth=float(flags.get("restartGrowth", "2.0")),
+        restart_seed=int(flags["restartSeed"]) if "restartSeed" in flags else None,
+        kill_deadline_s=float(flags.get("killDeadlineMs", "5000")) / 1000.0,
+    )
+    try:
+        return sup.run()
+    except FleetFailure as exc:
+        return exc.returncode or 1
 
 
 class DistributedFaultInjector:
@@ -93,6 +1018,7 @@ class DistributedFaultInjector:
         self.corrupt_process = int(flags.get("corruptShardProcess", "-1"))
         self.corrupt_seq = int(flags.get("corruptShardSeq", "-1"))
         self.corrupt_mode = flags.get("corruptShardMode", "truncate")
+        self.sever_after_chunks = int(flags.get("severBrokerAfterChunks", "0"))
         self.hang_process = int(flags.get("hangProcess", "-1"))
         self.hang_after_chunks = int(flags.get("hangAfterChunks", "0"))
         self.refuse_launch_process = int(flags.get("refuseLaunchProcess", "-1"))
@@ -102,6 +1028,7 @@ class DistributedFaultInjector:
         # need disk state to stay one-shot
         self.fault_state_dir = flags.get("faultStateDir", "")
         self.records_seen = 0
+        self._severed = False
         self._hung = False
 
     def note_records(self, n: int) -> None:
@@ -161,6 +1088,10 @@ class DistributedFaultInjector:
         if (self.fail_process == self.pid and self.fail_after_records > 0
                 and self.records_seen >= self.fail_after_records):
             self._die(f"worker {self.pid} after {self.records_seen} records")
+        if (self.sever_after_chunks and chunk_idx + 1 >= self.sever_after_chunks
+                and not self._severed and self.pid == 0):
+            self._severed = True
+            self._sever_broker()
         if (self.hang_process == self.pid and self.hang_after_chunks
                 and chunk_idx + 1 >= self.hang_after_chunks and not self._hung
                 and self._once(f"hang.p{self.pid}")):
@@ -194,6 +1125,22 @@ class DistributedFaultInjector:
             verb = f"truncated to {max(size // 2, 1)}B"
         print(f"[fault-injector p{self.pid}] {verb} checkpoint shard {shard}",
               file=sys.stderr, flush=True)
+
+    def _sever_broker(self) -> None:
+        broker = os.environ.get("FSKAFKA_DIR")
+        if broker and os.path.isdir(broker):
+            os.rename(broker, broker + ".severed")
+            # leave a plain FILE at the broker path: consumers list no
+            # partitions (permanently idle) and producer appends raise -- a
+            # dead broker, not a fresh empty one the next send recreates
+            with open(broker, "w"):
+                pass
+            print(f"[fault-injector p{self.pid}] severed file-backed broker {broker}",
+                  file=sys.stderr, flush=True)
+        else:
+            print(f"[fault-injector p{self.pid}] severBroker requested but no file-backed "
+                  "broker to sever (FSKAFKA_DIR unset)", file=sys.stderr, flush=True)
+
 
 _CHAOS_PARAMS = ("drop", "dup", "reorder", "delay")
 # corruption (poison) fault classes -- distinct from the loss classes
@@ -649,15 +1596,17 @@ class ChaosConsumer:
 
 def maybe_chaos_consumer(
     consumer,
+    flags: Optional[Dict[str, str]] = None,
     env_var: str = "OMLDM_CHAOS_KAFKA",
     name: str = "kafka",
     poison_exempt_topics=(),
 ):
     """Wrap ``consumer`` in a :class:`ChaosConsumer` when broker chaos is
-    armed by the env var; otherwise return it untouched.
+    armed (the fleet's ``--kafkaChaos`` flag, or the env var, which reaches
+    supervised worker subprocesses); otherwise return it untouched.
     ``poison_exempt_topics`` names topics the poison class must never
     mutate -- callers pass their request/control topics."""
-    spec = parse_chaos_spec(os.environ.get(env_var, ""))
+    spec = parse_chaos_spec((flags or {}).get("kafkaChaos") or os.environ.get(env_var, ""))
     if spec is None:
         return consumer
     params = spec["up"]
@@ -676,10 +1625,19 @@ def maybe_chaos_consumer(
 
 __all__ = [
     "RESCALE_EXIT",
+    "SUPERVISOR_ONLY_FLAGS",
+    "WORKER_MODULE",
+    "AttemptRecord",
+    "AutoscalePolicy",
     "BurstInjector",
     "ChaosChannel",
     "ChaosConsumer",
+    "DegradeRecord",
     "DistributedFaultInjector",
+    "DistributedJobSupervisor",
+    "FleetFailure",
+    "RescaleRecord",
     "maybe_chaos_consumer",
     "parse_chaos_spec",
+    "supervise_from_flags",
 ]

@@ -1,20 +1,22 @@
 """The runtime's injectable clocks (the port's copy of the part of the JAX
-package's ``utils/clock.py`` that the serving plane, the flight recorder
-and the fleet's hang watchdog use).
+package's ``utils/clock.py`` that the serving plane, the flight recorder,
+the fleet's hang watchdog and the fleet supervisor's policies use).
 
 :data:`PERF` is the system clock the serving plane's ``maxDelayMs``
 deadline and latency accounting default to; :data:`WALL` stamps the flight
 recorder's events (timestamps that cross processes); :data:`MONOTONIC`
-times the hang watchdog's deadlines (durations that must survive a step of
-the system clock). :class:`ManualClock` is the
-deterministic test double: a callable a plane accepts wherever a clock is
-injectable, moved forward with ``advance()`` instead of sleeping.
+times the hang watchdog's deadlines and the supervisor's autoscale and
+self-heal windows (durations that must survive a step of the system
+clock). :func:`resolve` turns an injected ``None`` into the named default.
+:class:`ManualClock` is the deterministic test double: a callable a plane
+accepts wherever a clock is injectable, moved forward with ``advance()``
+instead of sleeping.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 Clock = Callable[[], float]
 
@@ -23,6 +25,11 @@ Clock = Callable[[], float]
 PERF: Clock = time.perf_counter
 WALL: Clock = time.time
 MONOTONIC: Clock = time.monotonic
+
+
+def resolve(clock: Optional[Clock], default: Clock = MONOTONIC) -> Clock:
+    """The injected clock, or the named system default when ``None``."""
+    return default if clock is None else clock
 
 
 class ManualClock:

@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from omldm_tpu_torch.runtime.distributed_job import FLEET_LATER_FLAGS
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL, ATOL, SCORE_TOL = 2e-4, 2e-5, 1e-5
@@ -327,12 +326,11 @@ def _files(tmp_path):
 FLEET = ["--processes", "2", "--processId", "0", "--coordinator", "127.0.0.1:1"]
 
 
-@pytest.mark.parametrize("flag", sorted(FLEET_LATER_FLAGS) + [
-    "supervise", "compileCache", "compileCacheMinSecs"])
+@pytest.mark.parametrize("flag", ["compileCache", "compileCacheMinSecs"])
 def test_fleet_refuses_later_flags_by_name(flag, tmp_path):
-    """In fleet mode each flag of the fleet's later half, the supervisor and
-    the compile cache raise SystemExit naming the flag, before any group
-    is joined."""
+    """In fleet mode the XLA compile cache's flags, the only fleet flags the
+    port lacks, raise SystemExit naming the flag, before any group is
+    joined."""
     from omldm_tpu_torch.__main__ import main
 
     with pytest.raises(SystemExit, match=f"--{flag}"):
@@ -396,7 +394,9 @@ def _rows_accounted(report):
 def test_fleet_accepts_recovery_flags(flag, tmp_path, monkeypatch, capsys):
     """Each flag of the fleet's recovery half is accepted by the CLI and
     reaches its part in a one-process CPU fleet."""
-    assert flag not in FLEET_LATER_FLAGS
+    from omldm_tpu_torch.__main__ import UNPORTED_ROUTE_FLAGS
+
+    assert flag not in UNPORTED_ROUTE_FLAGS
     ck, fs = tmp_path / "ck", tmp_path / "fault"
     stops = []
     monkeypatch.setattr("omldm_tpu_torch.runtime.selfheal.sigstop_self",

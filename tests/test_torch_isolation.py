@@ -488,7 +488,7 @@ def test_serving_plane_is_ported():
     (["--processes", "2"], "processes"),
     (["--processId", "0"], "processId"),
     (["--coordinator", "localhost:1234"], "coordinator"),
-    (["--supervise"], "supervise"),
+    (["--processes", "2", "--processId", "0"], "coordinator"),
     (["--compileCache", "off"], "compileCache"),
     (["--compileCacheMinSecs", "1"], "compileCacheMinSecs"),
 ])
@@ -913,3 +913,121 @@ def test_chip_smoke_recovery_shapes():
     assert set(chip_smoke.UNSNAPSHOTTED_TALLIES) == {
         "programLaunches", "forecastsServed", "bytesShipped", "bytesOnWire"}
     assert (chip_smoke.REC_RTOL, chip_smoke.REC_ATOL) == (1e-5, 1e-6)
+
+
+# --- the self-healing fleet: the supervisor holds nothing on the card --------
+
+SUPERVISOR_FILES = [ROOT / "omldm_tpu_torch" / "runtime" / "supervisor.py",
+                    ROOT / "omldm_tpu_torch" / "runtime" / "selfheal.py"]
+
+
+def test_fleet_supervisor_modules_pull_in_no_jax():
+    code = (
+        "import sys\n"
+        "import omldm_tpu_torch.runtime.supervisor as sup, omldm_tpu_torch.runtime.selfheal\n"
+        "import omldm_tpu_torch.load_harness, omldm_tpu_torch.runtime.distributed_job\n"
+        "import omldm_tpu_torch.utils.clock\n"
+        "assert sup.supervise_from_flags and sup.AutoscalePolicy and sup.FleetFailure\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", SUPERVISOR_FILES, ids=lambda p: p.name)
+def test_supervisor_references_no_card(path):
+    """The supervisor reads files and waits on processes: neither module
+    names torch, its CUDA API or a device (in code: the docstrings may say
+    that the workers' --device passes through)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not set(_imported_roots(path)) & {"torch", "jax", "omldm_tpu"}
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            names.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            names.add(node.attr)
+        elif isinstance(node, ast.arg):
+            names.add(node.arg)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    assert not {n for n in names if "cuda" in n.lower() or "device" in n.lower()}
+    assert "torch" not in names
+
+
+def test_supervisor_worker_commands_name_the_port(tmp_path):
+    """The worker command of the supervisor and of the load harness's
+    supervised leg names omldm_tpu_torch, never the JAX package."""
+    from omldm_tpu_torch import load_harness
+    from omldm_tpu_torch.runtime.supervisor import WORKER_MODULE, DistributedJobSupervisor
+
+    assert WORKER_MODULE == "omldm_tpu_torch.runtime.distributed_job"
+    sup = DistributedJobSupervisor(["--trainingData", "t.jsonl"], 2, run_dir=str(tmp_path))
+    storm = load_harness.build_composed_storm(3, tenants=4, records=64, chunk_rows=32,
+                                              processes=1)
+    for cmd in (sup._worker_argv(1, 1234, restore=True),
+                load_harness.supervised_storm_argv(storm, str(tmp_path / "storm"))):
+        modules = [cmd[i + 1] for i, a in enumerate(cmd[:-1]) if a == "-m"]
+        assert modules and all(m.split(".")[0] == "omldm_tpu_torch" for m in modules), cmd
+        assert not any(a == "omldm_tpu" or a.startswith("omldm_tpu.") for a in cmd), cmd
+
+
+def test_supervised_fleet_passes_the_device_through(tmp_path):
+    """``--device cpu`` reaches every worker the supervisor launches; with
+    no ``--device`` the workers keep their default, the card."""
+    from omldm_tpu_torch.runtime.supervisor import supervise_from_flags
+
+    for device, want in (("cpu", "cpu"), (None, None)):
+        log = tmp_path / f"argv_{device}.log"
+        boot = ("import sys; a = sys.argv[1:]; "
+                f"open({str(log)!r}, 'a').write(a[a.index('--device') + 1] "
+                "if '--device' in a else 'none'); open(" + repr(str(log)) + ", 'a').write(' ')")
+        flags = {"supervise": "true", "processes": "2", "restartAttempts": "0",
+                 "supervisorDir": str(tmp_path / f"run_{device}"), "workerBoot": boot}
+        if device:
+            flags["device"] = device
+        assert supervise_from_flags(flags) == 0
+        assert log.read_text().split() == [want or "none"] * 2
+
+
+def test_chip_smoke_has_the_selfheal_phase():
+    chip_smoke = _chip_smoke()
+    assert callable(chip_smoke.phase_selfheal)
+    main = (ROOT / "chip_smoke.py").read_text().split("def main")[1]
+    assert "phase_selfheal(" in main and "**selfheal_pa_launches" in main
+    assert "**selfheal_scatter_launches" in main
+
+
+def test_chip_smoke_selfheal_shapes():
+    """Phase 50 runs phase 49's records over 2 partitions, kills process 0
+    past the second snapshot (so one relaunch ends the run), and takes the
+    chain's and the autoscaler's flags from tests/test_selfheal.py and
+    tests/test_autoscale.py and the storm of the JAX CI gate."""
+    chip_smoke = _chip_smoke()
+    sh = chip_smoke.SELFHEAL
+    assert sh["records"] == chip_smoke.RECOVERY_RECORDS == 20_000
+    per_process = (sh["records"] + sh["records"] // 9) // 2
+    restored_at = 8 * sh["chunk"]  # the snapshot before the crash
+    assert restored_at < sh["fail_after"] <= per_process
+    assert per_process - restored_at < sh["fail_after"]  # no second crash
+    assert (sh["chain_records"], sh["autoscale_records"]) == (6_000, 8_000)
+    assert sh["storm"] == dict(seed=3, tenants=16, records=192, chunk_rows=32, processes=1)
+    chain = dict(zip(chip_smoke.CHAIN_FLAGS[::2], chip_smoke.CHAIN_FLAGS[1::2]))
+    assert chain["--slotStrikes"] == "1" and chain["--hangProcess"] == "1"
+    assert (chain["--probeAfterMs"], chain["--probeWindowMs"]) == ("2000", "1500")
+    assert chain["--collectiveTimeoutMs"] == "5000" and chain["--hangAfterChunks"] == "6"
+    scale = dict(zip(chip_smoke.AUTOSCALE_FLAGS[::2], chip_smoke.AUTOSCALE_FLAGS[1::2]))
+    assert scale["--maxProcesses"] == "2" and scale["--scaleDownAfterMs"] == "1200"
+    assert scale["--overload"] == "backlogHigh=40,backlogCritical=80"
+
+
+def test_chip_smoke_selfheal_boot_names_the_port():
+    chip_smoke = _chip_smoke()
+    tree = ast.parse(chip_smoke.BOOT_KAFKA)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "omldm_tpu_torch" in roots and not roots & {"jax", "omldm_tpu"}

@@ -15,6 +15,8 @@ package, so a tenant's answers are matched by record). Its replay gives
 an identical core, another seed a different one, and the unarmed plane
 matrix is bit-transparent at 256 tenants. Without a device the leg wants CUDA."""
 
+import json
+
 import pytest
 
 from benchmarks import load_harness as jax_harness
@@ -123,3 +125,120 @@ def test_leg_wants_cuda_without_device(monkeypatch):
         port_harness.run_inprocess_storm(storm)
     with pytest.raises(Exception):
         port_harness.run_composition_identity(storm)
+
+
+# --- the supervised leg ---------------------------------------------------------
+#
+# tests/test_load_harness.py's TestSupervisedLeg on the port: the composed
+# fault storm (a refused launch, then a mid-stream crash) through the
+# supervised fleet, the port's workers on the CPU. The 6-tenant storm runs
+# unmarked (the JAX suite marks it slow, and its CI's --slo-smoke gate runs
+# it as a hard failure); it runs beside the JAX leg on the same storm, and
+# the two report cores are equal. The replay and 2-process cases stay slow,
+# as in the JAX suite.
+
+
+def _supervised_budgets(cls, storm):
+    return cls(heal_after_fault_s=120.0,
+               # the launch refusal + the crash (which fires again in each
+               # fresh incarnation until its record position is past the
+               # restore cursor): at least two observed heals
+               expected_heals=2, allow_shed_tenants=storm.hot_tenant_ids(),
+               max_stranded_rows=0)
+
+
+def _port_storm(tmp, seed=3, processes=1):
+    storm = port_harness.build_composed_storm(seed, tenants=6, records=192, chunk_rows=32,
+                                              processes=processes)
+    return port_harness.run_supervised_storm(storm, str(tmp), _supervised_budgets(
+        SLOBudgets, storm), processes=processes, device="cpu")
+
+
+def _jax_storm(tmp, seed=3):
+    storm = jax_harness.build_composed_storm(seed, tenants=6, records=192, chunk_rows=32,
+                                             processes=1)
+    return jax_harness.run_supervised_storm(storm, str(tmp), _supervised_budgets(
+        JaxSLOBudgets, storm), processes=1)
+
+
+@pytest.fixture(scope="module")
+def supervised(tmp_path_factory):
+    import concurrent.futures
+
+    tmp = tmp_path_factory.mktemp("supervised_storm")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        port_f = pool.submit(_port_storm, tmp / "port")
+        jax_f = pool.submit(_jax_storm, tmp / "jax")
+        return {"port": port_f.result(), "jax": jax_f.result(), "dir": tmp / "port"}
+
+
+def test_composed_fault_storm_passes_slo(supervised):
+    report, merged, stderr = supervised["port"]
+    storm = port_harness.build_composed_storm(3, tenants=6, records=192, chunk_rows=32,
+                                              processes=1)
+    assert {f.kind for f in storm.spec.faults} == {"launch", "crash"}
+    assert report.passed, [c.to_dict() for c in report.failing()]
+    # restarts really happened (the faults fired)
+    assert merged is not None
+    assert "refused launch" in stderr and "injected crash" in stderr
+    heal = next(c for c in report.checks if c.name == "heal_after_fault")
+    assert heal.detail["heals"] >= 2
+    # every forecast answered exactly once across the incarnations
+    assert {c.name: c.ok for c in report.checks}["exactly_once_outputs"]
+
+
+def test_supervised_core_digest_equals_jax(supervised):
+    report, merged, _ = supervised["port"]
+    jreport, jmerged, _ = supervised["jax"]
+    assert jreport.passed
+    assert report.core_digest() == jreport.core_digest()
+    assert report.to_dict()["deterministic"] == jreport.to_dict()["deterministic"]
+    for key in ("fitted", "numOfBlocks", "modelsShipped", "bytesShipped"):
+        assert ([s[key] for s in merged["statistics"]]
+                == [s[key] for s in jmerged["statistics"]]), key
+
+
+def test_supervised_worker_command_names_the_port(tmp_path):
+    storm = port_harness.build_composed_storm(3, tenants=6, records=64, chunk_rows=32,
+                                              processes=2)
+    cmd = port_harness.supervised_storm_argv(storm, str(tmp_path), processes=2, device="cpu")
+    assert cmd[1:3] == ["-m", "omldm_tpu_torch.runtime.distributed_job"]
+    assert cmd[cmd.index("--device") + 1] == "cpu"
+    assert cmd[cmd.index("--processes") + 1] == "2"
+    assert "--supervise" in cmd and not any(a.startswith("omldm_tpu.") for a in cmd)
+    # the card unless the caller asks for the CPU: no --device by default
+    assert "--device" not in port_harness.supervised_storm_argv(storm, str(tmp_path))
+
+
+def test_harness_cli_gates_on_the_report(supervised, monkeypatch, tmp_path, capsys):
+    """``python -m omldm_tpu_torch.load_harness``: the composed storm's
+    budgets, the report as JSON, exit 0 when it passes and 1 when not."""
+    seen = {}
+
+    def fake(storm, out_dir, budgets, processes, device):
+        seen.update(out_dir=out_dir, budgets=budgets, processes=processes, device=device,
+                    tenants=storm.spec.tenants)
+        return supervised["port"]
+
+    monkeypatch.setattr(port_harness, "run_supervised_storm", fake)
+    assert port_harness.main(["--tenants", "6", "--records", "192", "--chunk-rows", "32",
+                              "--seed", "3", "--out", str(tmp_path), "--device", "cpu",
+                              "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["passed"] and out["coreDigest"] == supervised["port"][0].core_digest()
+    assert seen["device"] == "cpu" and seen["tenants"] == 6
+    assert seen["budgets"].expected_heals == 2 and seen["budgets"].max_stranded_rows == 0
+
+
+@pytest.mark.slow
+def test_supervised_replay_identical_core(supervised, tmp_path):
+    report, _, _ = _port_storm(tmp_path / "b")
+    assert report.passed
+    assert report.core_digest() == supervised["port"][0].core_digest()
+
+
+@pytest.mark.slow
+def test_two_process_storm_passes_slo(tmp_path):
+    report, merged, _ = _port_storm(tmp_path, seed=9, processes=2)
+    assert report.passed, [c.to_dict() for c in report.failing()]
+    assert merged["fleetProcesses"] == 2
