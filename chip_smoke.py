@@ -440,6 +440,33 @@ Phases (any failure raises and the script exits nonzero without a result):
                  equal, parameters within LM_PARITY_ATOL, losses within
                  1e-5; (c) GRAFT_MOE_CONFIG (dh 8, the JAX package's MoE
                  dry-run width) 3 steps on the card, finite falling losses.
+ 51. seqpar      (after phase 45) SeqTrainer's mesh with its processes
+                 sharing the card over gloo (seqpar_child, 2 + 4 started
+                 together; each builds its trainer and takes its first,
+                 untimed step, then the 2 time theirs while the 4 wait,
+                 then the 4 time theirs): (a) 2
+                 processes at sp 2: ring and Ulysses attention, forward
+                 and gradients, at bf16 (2, 4096, 4, 128) and float32 (1,
+                 1024, 4, 64) causal, each chunk against the whole
+                 sequence's single-process attention() and mha_reference
+                 in float32 (bf16 phase 43's limits, float32 1e-5 forward
+                 and 1e-4 gradients); flash launches s + 1 (ring, sp index
+                 s) or 1 (Ulysses) of each kernel; (b) the same 2 at
+                 (2, 1, 1): LM_MOE_CONFIG without remat, 3 steps at
+                 capacity 8.0 (= experts) against the single-process
+                 trainer (loss 0.15), and a step at 1.25 and its dropped
+                 share; (c) 4
+                 processes at (1, 2, 2): phase 9's LM with the ring, then
+                 Ulysses, 3 steps against the single-process trainer (loss
+                 0.15), and float32 at 2 layers and context 256 (a
+                 step's loss within 1e-4 and a leaf's parameters within
+                 2e-4, or up to twice the single process on the CPU's
+                 distance at that step and count in that leaf: Adam's
+                 sign on near-cancelled gradients); flash
+                 launches a layer and group
+                 calls a step asserted; ms a step (the slowest process's,
+                 to a synchronize), tokens/s beside phase 9's, gloo bytes
+                 a step (seqpar[...]: lines, one seqpar: JSON line).
  47. kafka       (47d runs after phase 40, before phases 41-42: its
                  profile window needs torch.profiler's device records; the
                  rest after phase 42, so that the reference smokes' timed
@@ -562,7 +589,7 @@ Phases (any failure raises and the script exits nonzero without a result):
                  comparison with (a)), phase 50, then exit.
 Phases 43-45 run right after phase 10 (their timings need the profiler's
 device records, which can come back empty after phases 41-42's traces).
-With --sequence-only: the build, phase 9 and phases 43-45, then exit.
+With --sequence-only: the build, phase 9 and phases 43-45 and 51, then exit.
 With --profile DIR, after phase 20: phases 17, 19 and 20's CLI runs under
 cProfile, parsing on the main thread (host seconds by function: parse,
 the record route's vectorize, holdout, stage, fit, serve, the sink); after
@@ -1854,8 +1881,7 @@ def _grad_peak(torch, trainer, tok, tgt, mask):
 
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(trainer.params)]
     params = tree_unflatten(trainer.params, leaves)
-    batch = [trainer._as_device(a, dt) for a, dt in ((tok, torch.long), (tgt, torch.long),
-                                                      (mask, torch.float32))]
+    batch = trainer._batch(tok, tgt, mask)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2054,15 +2080,611 @@ def phase_lm_f32_and_parity(torch, attention, seed, bf16_ms):
     return launches, g_launches
 
 
-def phase_sequence_family(torch, attention, seed, lm_ms, profile_dir=None):
-    """Phases 43-45, each lapped."""
+def phase_sequence_family(torch, attention, seed, lm_ms, card, profile_dir=None):
+    """Phases 43-45 and 51, each lapped."""
     coverage_err, coverage_times = phase_flash_coverage(torch, attention)
     lap("flash coverage")
     moe_launches = phase_lm_moe(torch, attention, seed, profile_dir)
     lap("lm-moe")
     f32_launches, graft_launches = phase_lm_f32_and_parity(torch, attention, seed, lm_ms)
     lap("lm-f32 and lm-moe-parity")
-    return coverage_err, coverage_times, moe_launches, f32_launches, graft_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seqpar_") as tmp:
+        seqpar_launches = phase_seqpar(torch, attention, seed, lm_ms, card, Path(tmp))
+    lap("seqpar")
+    return (coverage_err, coverage_times, moe_launches, f32_launches, graft_launches,
+            seqpar_launches)
+
+
+# --- phase 51: sequence parallelism on one card -------------------------------
+
+# the legs' shapes and configs (``seqpar_spec``): (a) ring and Ulysses at
+# phase 43's bf16 shape and at the JAX tests' float32 tolerance on a
+# float32 shape, 2 processes at sp 2; (b) phase 44's Switch-Base-8 LM
+# without remat at (2, 1, 1), at a capacity no token can pass for the
+# parity, then one step at 1.25; (c) the
+# slice-2 LM at (1, 2, 2), ring then Ulysses, and a float32 leg at 2 layers
+# and context 256
+SEQPAR_KERNEL_CASES = [("bfloat16", 2, 4096, 4, 128), ("float32", 1, 1024, 4, 64)]
+SEQPAR_F32_ATOL = (1e-5, 1e-4)  # forward, gradients: tests/test_ring_attention.py's
+SEQPAR_EP_MESH = (2, 1, 1)
+SEQPAR_EP_CONFIG = dict(LM_MOE_CONFIG, remat=False)
+# capacity factor = n_experts gives every expert the whole of a process's
+# tokens, so none can drop: the rule of tests/test_transformer.py's EP test
+# (4.0 at its 4 experts); at 8 experts 4.0 lets a process's expert take half
+# its tokens, and the parity run's routes outgrew that by its third step
+SEQPAR_EP_PARITY_CAPACITY = float(SEQPAR_EP_CONFIG["n_experts"])
+SEQPAR_LM_MESH = (1, 2, 2)
+SEQPAR_STEPS = 3
+SEQPAR_BF16_LOSS_ATOL = 0.15  # tests/test_transformer.py's bf16 sharded tolerance
+SEQPAR_F32_LOSS_ATOL, SEQPAR_F32_PARAM_ATOL = 1e-4, 2e-4  # its float32 sharded-step ones
+# At full width Adam turns the rounding of a gradient that nearly cancels
+# into a step of +-lr either way: the single-process trainer on the CPU
+# differs from itself on the card past 2e-4 in ~1,200 of 14.2M parameters
+# after 3 steps, and its third loss by 3.5e-4 (an H100 80GB HBM3 at 700 W
+# against this script's host). That summation-order floor is measured in
+# the same call, a leaf and a step at a time: a mesh run may leave at most
+# this many times as many elements of a leaf past SEQPAR_F32_PARAM_ATOL as
+# the floor leaves in the same leaf, and a step's loss may differ by
+# SEQPAR_F32_LOSS_ATOL or this many times the floor's at that step, the
+# larger
+SEQPAR_F32_FLOOR_FACTOR = 2
+SEQPAR_F32_CONFIG = dict(LM_CONFIG, dtype="float32", n_layers=2)
+SEQPAR_F32_LEN = 256
+SEQPAR_TIMEOUT_S = 150
+# a process of phase 51: chip_smoke's own child entry, from the checkout
+SEQPAR_BOOT = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+               "sys.exit(chip_smoke.seqpar_child(*sys.argv[2:]))")
+
+
+def seqpar_spec(seed: int) -> dict:
+    """Phase 51's legs as its processes read them (JSON)."""
+    return {"seed": seed, "kernel_cases": SEQPAR_KERNEL_CASES,
+            "ep_config": SEQPAR_EP_CONFIG, "ep_capacity": SEQPAR_EP_PARITY_CAPACITY,
+            "ep_mesh": SEQPAR_EP_MESH, "lm_config": LM_CONFIG, "lm_mesh": SEQPAR_LM_MESH,
+            "batch": LM_BATCH, "len": LM_LEN, "steps": SEQPAR_STEPS,
+            "f32_config": SEQPAR_F32_CONFIG, "f32_len": SEQPAR_F32_LEN}
+
+
+def ring_launches(s: int, sp: int, causal: bool = True) -> int:
+    """Flash forward launches a ring attention call makes at sp index s:
+    the chunk pairs with src <= s under causal (the others are wholly
+    masked), every pair without; dQ and dK/dV launch as often."""
+    return s + 1 if causal else sp
+
+
+def seqpar_group_calls(cfg: dict, dp: int, sp: int, tp: int) -> int:
+    """Group calls a process makes in one SeqTrainer step on a (dp, sp, tp)
+    mesh (``multihost.group_calls``): a layer's tp pair (the sum after the
+    attention and after a dense MLP in the forward, the all-reduce where
+    each enters in the backward), its ring shifts (sp - 1 forward; the K/V
+    and the dK/dV accumulators sp - 1 each and the last hop home backward)
+    or Ulysses' four all_to_alls each way, the MoE's two each way over ep =
+    dp; remat runs a layer's forward collectives twice; then classify's sp
+    mean, the loss's sum over dp and sp (classify's over dp), and one
+    gradient all-reduce over each of dp and sp."""
+    moe = cfg.get("n_experts", 0) > 0
+    fwd = bwd = 0
+    if tp > 1:
+        fwd += 1 if moe else 2
+        bwd += 1 if moe else 2
+    if sp > 1:
+        ulysses = cfg.get("seq_parallel", "ring") == "ulysses"
+        fwd += 4 if ulysses else sp - 1
+        bwd += 4 if ulysses else 2 * (sp - 1) + 1
+    if moe and dp > 1:
+        fwd += 2
+        bwd += 2
+    calls = cfg["n_layers"] * (fwd * (2 if cfg.get("remat") else 1) + bwd)
+    classify = cfg.get("objective", "lm") == "classify"
+    calls += int(classify and sp > 1)
+    calls += int(dp > 1) + int(sp > 1 and not classify)
+    return calls + int(dp > 1) + int(sp > 1)
+
+
+def _seqpar_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fwd_bwd(fn, q, k, v, g):
+    """out and (dq, dk, dv) of ``fn(q, k, v, causal=True)`` with cotangent g."""
+    q, k, v = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = fn(q, k, v, causal=True)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in (q, k, v)]
+
+
+def _seqpar_kernel_refs(torch, attention, mesh, spec, dev):
+    """Leg (a)'s draws in one process of the sp group, and for each case the
+    whole sequence's single-process ``attention()`` (the same kernels) and
+    ``mha_reference`` in float32, sliced to this process's chunk: (dtype,
+    shape, (q, k, v, g) chunks, {reference: [out, dq, dk, dv]})."""
+    s, n = mesh.coords["sp"], mesh.shape["sp"]
+    cases = []
+    for dtype, b, length, h, dh in spec["kernel_cases"]:
+        gen = torch.Generator(device=dev).manual_seed(spec["seed"] + length)
+        q, k, v, g = (torch.randn((b, length, h, dh), generator=gen, device=dev)
+                      .to(getattr(torch, dtype)) for _ in range(4))
+        own = slice(s * (length // n), (s + 1) * (length // n))
+        refs = {"single": _fwd_bwd(attention.attention, q, k, v, g),
+                "plain_f32": _fwd_bwd(attention.mha_reference,
+                                      *(x.float() for x in (q, k, v, g)))}
+        cases.append((dtype, [b, length, h, dh], [x[:, own] for x in (q, k, v, g)],
+                      {name: [r[:, own] for r in ref] for name, ref in refs.items()}))
+    return cases
+
+
+def _seqpar_kernel_legs(torch, attention, mesh, cases, dev):
+    """Leg (a) in one process of the sp group: for each case of
+    :func:`_seqpar_kernel_refs`, ring and Ulysses attention, forward and
+    gradients on this process's chunk, timed and held against both
+    references."""
+    from omldm_tpu_torch.ops.ring_attention import ring_attention
+    from omldm_tpu_torch.ops.ulysses import ulysses_attention
+
+    group, s = mesh.groups["sp"], mesh.coords["sp"]
+    rows, launched = [], dict.fromkeys(attention.launches, 0)
+    for dtype, shape, (q, k, v, g), refs in cases:
+        for strategy, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            chunk = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+            _seqpar_sync(torch, dev)
+            for name in attention.launches:
+                attention.launches[name] = 0
+            t0 = time.perf_counter()
+            out = fn(*chunk, group, causal=True)
+            out.backward(g)
+            _seqpar_sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            counted = dict(attention.launches)
+            for name in launched:
+                launched[name] += counted[name]
+            got = [out.detach()] + [x.grad for x in chunk]
+            errors = {ref_name: [flash_errors(torch, a, r) for a, r in zip(got, ref)]
+                      for ref_name, ref in refs.items()}
+            rows.append({"dtype": dtype, "shape": shape, "strategy": strategy,
+                         "sp_index": s, "launches": counted, "fwd_bwd_ms": ms,
+                         "errors": errors})
+    return rows, launched
+
+
+def _seqpar_turn(job: Path, mark: str, go: str, timeline: dict):
+    """Marks this process ready (``job/<mark>.ready``) and waits for the
+    parent's ``job/<go>``: the untimed build and first step of every process
+    are done before any process times a step."""
+    timeline["ready"] = time.time()
+    (job / f"{mark}.ready").touch()
+    deadline = time.time() + SEQPAR_TIMEOUT_S
+    while not (job / go).exists():
+        check(time.time() < deadline, f"seqpar: no {go} from the parent")
+        time.sleep(0.05)
+    timeline[go] = time.time()
+
+
+def _seqpar_steps(torch, attention, multihost, tr, batches, dev, before_timed=None):
+    """Steps a trainer over (tok, tgt, mask) batches: the first untimed, the
+    rest timed to a synchronize, with the flash launches, group calls and
+    group bytes of the timed ones; ``before_timed`` runs between the two."""
+    tok, tgt, mask = batches
+    losses = [float(tr.step(tok[0], tgt[0], mask[0]))]
+    _seqpar_sync(torch, dev)
+    if before_timed is not None:
+        before_timed()
+    for name in attention.launches:
+        attention.launches[name] = 0
+    multihost.group_calls = multihost.group_bytes = 0
+    t0 = time.perf_counter()
+    timed = [tr.step(tok[i], tgt[i], mask[i]) for i in range(1, len(tok))]
+    _seqpar_sync(torch, dev)
+    wall = time.perf_counter() - t0
+    return {"losses": losses + [float(x) for x in timed], "timed_steps": len(timed),
+            "ms_per_step": wall / len(timed) * 1e3, "launches": dict(attention.launches),
+            "group_calls": multihost.group_calls, "group_bytes": multihost.group_bytes}
+
+
+def seqpar_child(role, pid, nproc, port, job_dir, device="cuda") -> int:
+    """One process of phase 51 (``SEQPAR_BOOT``): joins the gloo group of
+    the processes sharing the card, runs its role's legs and writes its
+    results to ``job_dir/<role>_<pid>.pkl``. Role "kernels": legs (a) and
+    (b), timed once ``job_dir/go_kernels`` exists; role "lm": leg (c), its
+    timed steps once ``job_dir/go`` exists. The parent writes go_kernels
+    when every process of both roles has taken its first, untimed step,
+    and go when the "kernels" processes have written their results, so
+    each role's timed work has the card to itself."""
+    import pickle
+
+    import torch
+
+    from omldm_tpu_torch.models import transformer
+    from omldm_tpu_torch.models.transformer import TransformerConfig
+    from omldm_tpu_torch.ops import attention
+    from omldm_tpu_torch.parallel import multihost
+    from omldm_tpu_torch.parallel.seq_trainer import SeqTrainer, make_seq_mesh
+
+    pid, nproc, job = int(pid), int(nproc), Path(job_dir)
+    timeline = {"imported": time.time()}
+    # six processes share the host's cores: one thread each, or their
+    # threads spin against each other around every group call
+    torch.set_num_threads(1)
+    spec = json.loads((job / "spec.json").read_text())
+    multihost.initialize_multihost(f"127.0.0.1:{port}", nproc, pid, device=device,
+                                   connect_timeout_s=120)
+    dev = multihost.process_device(device, pid)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed, b, length, steps = spec["seed"], spec["batch"], spec["len"], spec["steps"]
+    out = {"pid": pid, "timeline": timeline}
+    timeline["joined"] = time.time()
+
+    def trainer(cfg, mesh, **change):
+        return SeqTrainer(TransformerConfig(**dict(cfg, **change)), mesh=mesh, device=dev,
+                          lr=LM_LR, seed=seed)
+
+    if role == "kernels":
+        sp_mesh = make_seq_mesh(1, nproc, 1)
+        cases = _seqpar_kernel_refs(torch, attention, sp_mesh, spec, dev)
+        mesh = make_seq_mesh(*spec["ep_mesh"])
+        cfg = spec["ep_config"]
+        batches = copy_task_batches(steps, b, length, cfg["vocab_size"], seed + 51)
+        drop = trainer(cfg, mesh)
+        with _moe_routes(transformer) as routes:
+            drop.step(batches[0][0], batches[1][0], batches[2][0])
+        out["ep_dropped"] = [float(1.0 - keep.float().mean()) for _, keep
+                             in routes[:cfg["n_layers"]]]
+        del drop
+        timeline["ep_drop"] = time.time()
+
+        def kernel_legs():
+            # the EP parity's first step is done: its timed steps, and the
+            # kernel legs before them, wait for the parent's go_kernels
+            _seqpar_turn(job, f"{role}_{pid}", "go_kernels", timeline)
+            out["kernels"], out["kernel_launches"] = _seqpar_kernel_legs(
+                torch, attention, sp_mesh, cases, dev)
+            timeline["kernel_legs"] = time.time()
+
+        with _moe_routes(transformer) as routes:
+            out["ep"] = _seqpar_steps(torch, attention, multihost,
+                                      trainer(cfg, mesh, capacity_factor=spec["ep_capacity"]),
+                                      batches, dev, kernel_legs)
+        out["ep"]["dropped"] = sum(int((~keep).sum()) for _, keep in routes)
+        timeline["ep_parity"] = time.time()
+    else:
+        mesh = make_seq_mesh(*spec["lm_mesh"])
+
+        def wait_for_go():
+            # the first leg's build and untimed step overlap the other role's
+            # set-up; its timed steps wait for the card to themselves
+            _seqpar_turn(job, f"{role}_{pid}", "go", timeline)
+
+        for strategy in ("ring", "ulysses"):
+            cfg = spec["lm_config"]
+            batches = copy_task_batches(steps, b, length, cfg["vocab_size"], seed + 52)
+            out[strategy] = _seqpar_steps(torch, attention, multihost,
+                                          trainer(cfg, mesh, seq_parallel=strategy),
+                                          batches, dev,
+                                          wait_for_go if strategy == "ring" else None)
+            timeline[strategy] = time.time()
+            cfg = spec["f32_config"]
+            batches = copy_task_batches(steps, b, spec["f32_len"], cfg["vocab_size"], seed + 53)
+            tr = trainer(cfg, mesh, seq_parallel=strategy)
+            out[f"f32_{strategy}"] = _seqpar_steps(torch, attention, multihost, tr, batches, dev)
+            params = tr.host_params()  # every process gathers; process 0 keeps it
+            if pid == 0:
+                out[f"f32_{strategy}"]["params"] = params
+            timeline[f"f32_{strategy}"] = time.time()
+        out["sp_index"] = mesh.coords["sp"]
+    with open(job / f"{role}_{pid}.tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(job / f"{role}_{pid}.tmp", job / f"{role}_{pid}.pkl")  # whole when seen
+    multihost.shutdown_multihost()
+    return 0
+
+
+class _SeqparLaunch:
+    """``nproc`` phase 51 processes of one role, their output in files (a
+    pipe left unread could stall a process inside a collective)."""
+
+    def __init__(self, role, nproc, job: Path, device):
+        import socket
+
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        self.role, self.job = role, job
+        repo = str(Path(__file__).resolve().parent)
+        self.procs = []
+        for pid in range(nproc):
+            with open(job / f"{role}_{pid}.log", "w") as log_file:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", SEQPAR_BOOT, repo, role, str(pid), str(nproc),
+                     str(port), str(job), device], cwd=repo, stdout=log_file,
+                    stderr=subprocess.STDOUT))
+
+    def written(self, suffix="pkl"):
+        """Wait until every process has written its ``<role>_<pid>.<suffix>``
+        (its results, or with "ready" its :func:`_seqpar_turn` mark; the
+        exit, a second after the results, is left to :meth:`results`) or
+        one has failed."""
+        deadline = time.time() + SEQPAR_TIMEOUT_S
+        paths = [self.job / f"{self.role}_{pid}.{suffix}" for pid in range(len(self.procs))]
+        while not all(path.exists() for path in paths):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p in self.procs):
+                return
+            time.sleep(0.05)
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def results(self):
+        import pickle
+
+        try:
+            deadline = time.time() + SEQPAR_TIMEOUT_S
+            for p in self.procs:
+                p.wait(timeout=max(deadline - time.time(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.kill()
+        for pid, p in enumerate(self.procs):
+            text = (self.job / f"{self.role}_{pid}.log").read_text()
+            check(p.returncode == 0, f"seqpar[{self.role}]: process {pid} exited "
+                  f"{p.returncode}:\n{text[-3000:]}")
+        rows = []
+        for pid in range(len(self.procs)):
+            with open(self.job / f"{self.role}_{pid}.pkl", "rb") as f:
+                rows.append(pickle.load(f))
+        return rows
+
+
+def _seqpar_reference(torch, cfg, seed, batches, device):
+    """The single-process trainer on the same draw and batches: its losses
+    and its parameters."""
+    tr = _lm_trainer(seed, device=device, **cfg)
+    tok, tgt, mask = batches
+    losses = [float(tr.step(tok[i], tgt[i], mask[i])) for i in range(len(tok))]
+    return losses, tr.host_params()
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) pairs in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _past_by_leaf(tree, ref):
+    """{leaf path: [max |a - ref|, elements past SEQPAR_F32_PARAM_ATOL]}."""
+    import numpy as np
+
+    out = {}
+    for (path, a), (_, r) in zip(_named_leaves(tree), _named_leaves(ref)):
+        d = np.abs(np.asarray(a, np.float64) - np.asarray(r, np.float64))
+        out[path] = [float(d.max()), int((d > SEQPAR_F32_PARAM_ATOL).sum())]
+    return out
+
+
+def _f32_leg_checks(leg, losses, ref_losses, floor_losses, params, ref_params, floor_params):
+    """The float32 LM leg against the single process on the card, a step and
+    a leaf at a time: each step's loss (``losses`` [processes, steps])
+    within SEQPAR_F32_LOSS_ATOL or SEQPAR_F32_FLOOR_FACTOR times the single
+    process on the CPU's distance at that step, the larger; each leaf's
+    count of elements past SEQPAR_F32_PARAM_ATOL at most the factor times
+    the count of the same leaf on the CPU. Returns the readings."""
+    import numpy as np
+
+    ref = np.asarray(ref_losses, np.float64)
+    err = np.abs(np.asarray(losses, np.float64) - ref).max(axis=0)
+    floor_err = np.abs(np.asarray(floor_losses, np.float64) - ref)
+    limit = np.maximum(SEQPAR_F32_LOSS_ATOL, SEQPAR_F32_FLOOR_FACTOR * floor_err)
+    got, floor = _past_by_leaf(params, ref_params), _past_by_leaf(floor_params, ref_params)
+    readings = {"loss_diff_by_step": err.tolist(), "loss_limit_by_step": limit.tolist(),
+                "cpu_floor_loss_diff_by_step": floor_err.tolist(),
+                "params_max_abs_diff": max(v[0] for v in got.values()),
+                "params_past_atol": sum(v[1] for v in got.values()),
+                "cpu_floor_max_abs_diff": max(v[0] for v in floor.values()),
+                "cpu_floor_past_atol": sum(v[1] for v in floor.values()),
+                # leaf: [past in the mesh run, past in the CPU floor]
+                "past_by_leaf": {k: [got[k][1], floor[k][1]] for k in got}}
+    for i, (e, lim) in enumerate(zip(err, limit)):
+        check(e <= lim, f"seqpar[{leg}]: step {i}'s loss differs from the single process's by "
+              f"{e:.3e} (limit {lim:.3e}; the single process on the CPU: {floor_err[i]:.3e})")
+    for path, (n, n_floor) in readings["past_by_leaf"].items():
+        check(n <= SEQPAR_F32_FLOOR_FACTOR * n_floor,
+              f"seqpar[{leg}]: {n} elements of {path} past {SEQPAR_F32_PARAM_ATOL} (max |d| "
+              f"{got[path][0]:.3e}); the single process on the CPU: {n_floor}")
+    return readings
+
+
+def _kernel_leg_checks(row):
+    """Tolerances of leg (a): bf16 phase 43's (rel L2, worst element)
+    against both references; float32 the JAX tests' absolute ones."""
+    for ref_name, errs in row["errors"].items():
+        for what, (max_abs, l2, elem) in zip(("out", "dq", "dk", "dv"), errs):
+            label = (f"seqpar[kernels]: {row['strategy']} {row['dtype']} {row['shape']} at sp "
+                     f"index {row['sp_index']}, {what} against {ref_name}")
+            if row["dtype"] == "float32":
+                limit = SEQPAR_F32_ATOL[0] if what == "out" else SEQPAR_F32_ATOL[1]
+                check(max_abs <= limit, f"{label}: max |d| {max_abs:.3e} > {limit}")
+            else:
+                tol = FLASH_TOL["bfloat16"]
+                check(l2 <= tol[0] and elem <= tol[1],
+                      f"{label}: rel L2 {l2:.3e}, worst element {elem:.3e} past {tol[:2]}")
+
+
+def phase_seqpar(torch, attention, seed, lm_ms, card, tmp: Path, spec=None, device="cuda"):
+    """Phase 51: sequence parallelism with the processes sharing one card over
+    gloo: (a) ring and Ulysses on the flash kernels at sp 2 against the
+    single-process kernels and mha_reference; (b) the expert-parallel MoE
+    LM at (2, 1, 1) against the single-process trainer (capacity 8.0), and
+    the dropped share at 1.25; (c) the LM at (1, 2, 2), ring and Ulysses,
+    against the single-process trainer over the same batches (bf16 loss
+    0.15; the float32 leg by :func:`_f32_leg_checks`). Each role's timed
+    work has the card to itself (:func:`seqpar_child`). Flash launches a
+    layer (ring s + 1 at sp index s, Ulysses 1; dQ and dK/dV as the
+    forward) and group calls a step are asserted. Returns the flash
+    launches of its legs by kernel (the ``seqpar`` path)."""
+    import numpy as np
+
+    spec = spec or seqpar_spec(seed)
+    job = tmp / "seqpar"
+    job.mkdir()
+    (job / "spec.json").write_text(json.dumps(spec))
+    t_phase, t_wall = time.perf_counter(), time.time()
+    parent = {}
+    kernels = _SeqparLaunch("kernels", 2, job, device)
+    lm = _SeqparLaunch("lm", 4, job, device)
+    try:
+        b, length, steps = spec["batch"], spec["len"], spec["steps"]
+        ep_cfg = dict(spec["ep_config"], capacity_factor=spec["ep_capacity"])
+        ep_ref, _ = _seqpar_reference(torch, ep_cfg, seed, copy_task_batches(
+            steps, b, length, ep_cfg["vocab_size"], seed + 51), device)
+        lm_ref, _ = _seqpar_reference(torch, spec["lm_config"], seed, copy_task_batches(
+            steps, b, length, spec["lm_config"]["vocab_size"], seed + 52), device)
+        f32_batches = copy_task_batches(steps, b, spec["f32_len"],
+                                        spec["f32_config"]["vocab_size"], seed + 53)
+        f32_ref, f32_params = _seqpar_reference(torch, spec["f32_config"], seed, f32_batches,
+                                                device)
+        # the summation-order floor: the same single-process run on the CPU
+        parent["card_references"] = time.time()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)  # the card's processes start beside it
+        try:
+            floor_losses, f32_floor = _seqpar_reference(torch, spec["f32_config"], seed,
+                                                        f32_batches, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+        parent["cpu_floor"] = time.time()
+        kernels.written("ready")
+        lm.written("ready")
+        parent["ready"] = time.time()
+        (job / "go_kernels").touch()
+        kernels.written()
+        parent["kernels_written"] = time.time()
+        (job / "go").touch()
+        rows_a = kernels.results()
+        rows_c = lm.results()
+        parent["lm_done"] = time.time()
+    finally:
+        kernels.kill()
+        lm.kill()
+    on_card = device == "cuda"
+    launched = dict.fromkeys(attention.launches, 0)
+
+    # (a) the kernel legs
+    for row in (r for p in rows_a for r in p["kernels"]):
+        _kernel_leg_checks(row)
+        want = ring_launches(row["sp_index"], 2) if row["strategy"] == "ring" else 1
+        check(not on_card or row["launches"] == dict.fromkeys(launched, want),
+              f"seqpar[kernels]: {row['strategy']} at sp index {row['sp_index']} launched "
+              f"{row['launches']}, expected {want} of each")
+        worst = {ref: [max(e[0] for e in errs[:1]), max(e[0] for e in errs[1:])]
+                 for ref, errs in row["errors"].items()}
+        log(f"seqpar[kernels]: {row['strategy']} {row['dtype']} {row['shape']} causal, sp "
+            f"index {row['sp_index']}: launches {row['launches']}; forward and backward "
+            f"{row['fwd_bwd_ms']:.3f} ms; worst |d| (out, grads) {worst}; (max, rel L2, "
+            f"element) " + json.dumps(row["errors"]))
+    for p in rows_a:
+        for name in launched:
+            launched[name] += p["kernel_launches"][name]
+
+    # (b) expert parallelism
+    ep_cfg = spec["ep_config"]
+    for p in rows_a:
+        ep = p["ep"]
+        err = float(np.abs(np.asarray(ep["losses"]) - np.asarray(ep_ref)).max())
+        want = ep_cfg["n_layers"] * ep["timed_steps"]
+        calls = seqpar_group_calls(ep_cfg, *spec["ep_mesh"]) * ep["timed_steps"]
+        log(f"seqpar[ep]: process {p['pid']} at {tuple(spec['ep_mesh'])}, capacity "
+            f"{spec['ep_capacity']}: losses {ep['losses']} against the single process's "
+            f"{ep_ref} (max |d| {err:.3e}, atol {SEQPAR_BF16_LOSS_ATOL}), {ep['dropped']} tokens "
+            f"dropped; {ep['ms_per_step']:.3f} "
+            f"ms a step; launches {ep['launches']}; group calls {ep['group_calls']}, "
+            f"{ep['group_bytes'] / ep['timed_steps']:.0f} bytes a step; dropped share at "
+            f"capacity {ep_cfg['capacity_factor']} by layer {p['ep_dropped']}; {card}")
+        check(ep["dropped"] == 0, f"seqpar[ep]: {ep['dropped']} tokens dropped at capacity "
+              f"{spec['ep_capacity']}")
+        check(err <= SEQPAR_BF16_LOSS_ATOL, f"seqpar[ep]: losses differ by {err}")
+        check(not on_card or all(v == want for v in ep["launches"].values()),
+              f"seqpar[ep]: launches {ep['launches']}, expected {want} each")
+        check(ep["group_calls"] == calls, f"seqpar[ep]: {ep['group_calls']} group calls, "
+              f"expected {calls}")
+        for name in launched:
+            launched[name] += ep["launches"][name]
+
+    # (c) the LM legs
+    summary = {"card": card, "phase9_ms_per_step": lm_ms}
+    for leg in ("ring", "ulysses", "f32_ring", "f32_ulysses"):
+        f32 = leg.startswith("f32")
+        cfg = dict(spec["f32_config"] if f32 else spec["lm_config"],
+                   seq_parallel=leg.rsplit("_", 1)[-1])
+        ref = f32_ref if f32 else lm_ref
+        ms = max(p[leg]["ms_per_step"] for p in rows_c)
+        tokens = b * (spec["f32_len"] if f32 else length)
+        calls = seqpar_group_calls(cfg, *spec["lm_mesh"])
+        losses = [p[leg]["losses"] for p in rows_c]
+        err = float(np.abs(np.asarray(losses) - np.asarray(ref)).max())
+        per_layer = {}
+        for p in rows_c:
+            row = p[leg]
+            n = row["timed_steps"]
+            want = ring_launches(p["sp_index"], spec["lm_mesh"][1]) \
+                if cfg["seq_parallel"] == "ring" else 1
+            per_layer[p["pid"]] = {k: v / (n * cfg["n_layers"]) for k, v in row["launches"].items()}
+            check(not on_card or all(v == want for v in per_layer[p["pid"]].values()),
+                  f"seqpar[{leg}]: process {p['pid']} at sp index {p['sp_index']} launched "
+                  f"{per_layer[p['pid']]} a layer, expected {want}")
+            check(row["group_calls"] == calls * n, f"seqpar[{leg}]: process {p['pid']} made "
+                  f"{row['group_calls']} group calls in {n} steps, expected {calls} a step")
+            if not f32:
+                for name in launched:
+                    launched[name] += row["launches"][name]
+        line = {"mesh": spec["lm_mesh"], "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+                "vs_phase9": ms / lm_ms if not f32 else None, "losses": rows_c[0][leg]["losses"],
+                "single_losses": ref, "loss_max_abs_diff": err, "launches_per_layer": per_layer,
+                "group_calls_per_step": calls,
+                "group_bytes_per_step": max(p[leg]["group_bytes"] / p[leg]["timed_steps"]
+                                            for p in rows_c)}
+        if f32:
+            line.update(_f32_leg_checks(leg, losses, ref, floor_losses, rows_c[0][leg]["params"],
+                                        f32_params, f32_floor))
+        else:
+            check(err <= SEQPAR_BF16_LOSS_ATOL, f"seqpar[{leg}]: losses differ from the single "
+                  f"process's by {err} (limit {SEQPAR_BF16_LOSS_ATOL})")
+        summary[leg] = line
+        log(f"seqpar[{leg}]: {tuple(spec['lm_mesh'])}, {cfg['n_layers']} layers, context "
+            f"{tokens // b}: {ms:.3f} ms a step (slowest process), {tokens / ms * 1e3:.0f} "
+            f"tokens/s" + ("" if f32 else f" against phase 9's single process {lm_ms:.3f} ms "
+                           f"({ms / lm_ms:.2f}x)")
+            + f"; losses max |d| {err:.3e} from the single process"
+            + (f" (by step {line['loss_diff_by_step']}, limits {line['loss_limit_by_step']}; "
+               f"the single process on the CPU: {line['cpu_floor_loss_diff_by_step']}); "
+               f"parameters max |d| {line['params_max_abs_diff']:.3e}, "
+               f"{line['params_past_atol']} past {SEQPAR_F32_PARAM_ATOL} (the single process "
+               f"on the CPU: {line['cpu_floor_max_abs_diff']:.3e}, "
+               f"{line['cpu_floor_past_atol']}); past by leaf [mesh, CPU] "
+               + json.dumps(line["past_by_leaf"]) if f32
+               else f" (limit {SEQPAR_BF16_LOSS_ATOL})")
+            + f"; {calls} group calls and "
+            f"{line['group_bytes_per_step']:.0f} gloo bytes a step; launches a layer "
+            f"{per_layer}; {card}")
+    # seconds from the phase's start: the parent's marks, each process's
+    timeline = {"parent": {k: round(v - t_wall, 3) for k, v in parent.items()}}
+    for role, rows in (("kernels", rows_a), ("lm", rows_c)):
+        for p in rows:
+            timeline[f"{role}{p['pid']}"] = {k: round(v - t_wall, 3)
+                                             for k, v in p["timeline"].items()}
+    log("seqpar[timeline]: " + json.dumps(timeline))
+    summary["seqpar_launches"] = launched
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log("seqpar: " + json.dumps(summary))
+    return launched
 
 
 # --- the sparse (padded-COO) path ------------------------------------------------
@@ -6186,6 +6808,12 @@ def _paired_trials(trials, run_off, run_on):
     return best_off, best_on, ratios
 
 
+def _ratios_text(ratios) -> str:
+    """Every pair's off/on ratio for a gate's failure message, so that the
+    error stream alone shows how the pairs spread."""
+    return ", ".join(f"{r:.3f}" for r in ratios)
+
+
 def _kineto_busy_s(prof) -> float:
     """Device busy seconds of a finished torch.profiler run: the sum of its
     device events' durations (kernels, copies, memsets), read from the raw
@@ -6269,7 +6897,8 @@ def phase_telemetry(torch, pa_scan, events, slice_launches, slice_preds, tmp: Pa
                 for k in ("score", "fitted", "models_shipped", "bytes_on_wire", "num_of_blocks")
                 if best_off[k] != best_on[k]]
     if overhead > 1.03:
-        failures.append(f"telemetry-armed throughput {overhead:.3f}x slower than unarmed")
+        failures.append(f"telemetry-armed throughput {overhead:.3f}x slower than unarmed "
+                        f"(pairs {_ratios_text(ratios)})")
     # a heartbeat acts at the first block boundary past statsEvery records
     expected_beats = max(r["records"] // max(r["stats_every"], PACKED_CHUNK) - 1, 1)
     if best_on["heartbeats"] < expected_beats:
@@ -6467,7 +7096,8 @@ def phase_flight_recorder(torch, pa_scan, seed, guard_cohort, lifecycle_launches
     if clean_on["score"] != clean_off["score"]:
         failures.append(f"armed clean score {clean_on['score']} != {clean_off['score']}")
     if overhead > 1.03:
-        failures.append(f"events-armed clean throughput {overhead:.3f}x slower than unarmed")
+        failures.append(f"events-armed clean throughput {overhead:.3f}x slower than unarmed "
+                        f"(pairs {_ratios_text(ratios)})")
     if clean_on["events_recorded"] < 1:
         failures.append("the armed clean leg recorded no event")
     legs = {}
@@ -8351,8 +8981,8 @@ def main() -> int:
                         help="with --overload-legs or --telemetry-legs: the "
                              "omldm_tpu_torch of DIR")
     parser.add_argument("--sequence-only", action="store_true",
-                        help="run phases 43-45 after the build (phase 9's LM for 45's "
-                             "comparison), then exit")
+                        help="run phases 43-45 and 51 after the build (phase 9's LM for "
+                             "45's and 51's comparisons), then exit")
     parser.add_argument("--kafka-only", action="store_true",
                         help="run phase 17 and phase 47 after the build, then exit")
     parser.add_argument("--fleet-only", action="store_true",
@@ -8402,7 +9032,7 @@ def main() -> int:
     if args.sequence_only:
         _, trainer, lm_ms = phase_lm(torch, attention, args.lm_steps, args.seed)
         del trainer
-        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
+        phase_sequence_family(torch, attention, args.seed, lm_ms, card, args.profile)
         return 0
     if args.fleet_only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
@@ -8483,8 +9113,9 @@ def main() -> int:
     # phases 43-45 run here, beside the LM phases: their timings need
     # torch.profiler's device records, which can come back empty after
     # phases 41-42's device-only traces
-    coverage_err, coverage_times, moe_launches, f32_launches, graft_launches = \
-        phase_sequence_family(torch, attention, args.seed, lm_ms, args.profile)
+    coverage_err, coverage_times, moe_launches, f32_launches, graft_launches, \
+        seqpar_launches = phase_sequence_family(torch, attention, args.seed, lm_ms, card,
+                                                args.profile)
     learner_rows = phase_learners(torch, args.seed)
     lap("learners")
     protocol_rows, sync_pa_launches, sync_scatter_launches = phase_protocols(
@@ -8670,7 +9301,8 @@ def main() -> int:
                                  "lm_loaded_from_checkpoint": lm_ckpt_launches[name],
                                  "lm_moe_remat": moe_launches[name],
                                  "lm_float32": f32_launches[name],
-                                 "graft_moe_dh8": graft_launches[name]},
+                                 "graft_moe_dh8": graft_launches[name],
+                                 "seqpar": seqpar_launches[name]},
             "max_abs_err": max(flash_err[name], coverage_err[name]),
             **flash_times[(b, lq, h, dh, name)],
             # phase 43's other (dtype, head width) designs, timed as phase 8

@@ -1,5 +1,7 @@
 """Sequence-model family: the transformer (dense MLP or switch-MoE blocks,
-optional remat) and its KV-cache decoding (dense configs), single device."""
+optional remat; on one device or over a ``("dp", "sp", "tp")`` mesh of
+processes, ``AxisSpec``) and its KV-cache decoding (dense configs, one
+device)."""
 
 from omldm_tpu_torch.models.decode import forward_with_cache, generate, init_kv_cache
 from omldm_tpu_torch.models.transformer import (

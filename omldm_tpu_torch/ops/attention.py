@@ -463,6 +463,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False,
     return dq, dk, dv
 
 
+def row_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta_i = rowsum(dO * O)`` of [B, Lq, H, Dh] tensors as the
+    contiguous float32 [B*H, Lq] the backward kernels take, in plain torch
+    as the JAX package computes it. (At B = 1 the transposed rows reshape
+    to a strided view, which the kernels refuse: hence the copy.)"""
+    b, lq, h, _ = out.shape
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward kernel, and the dQ and
     dK/dV kernels recomputing P from the saved logsumexp (the JAX package's
@@ -479,10 +488,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.contiguous()  # autograd may hand over an expanded or strided cotangent
-        b, lq, h, _ = q.shape
-        # delta_i = rowsum(dO * O), in plain torch as the JAX package does
-        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq)
-        dq, dk, dv = flash_attention_bwd(q, k, v, g, lse, delta, *ctx.mask)
+        dq, dk, dv = flash_attention_bwd(q, k, v, g, lse, row_delta(g, out), *ctx.mask)
         return dq, dk, dv, None, None, None
 
 

@@ -16,12 +16,21 @@ here), and the control plane's frames are group broadcasts.
 - :func:`choose_backend` -- the backend rule, a pure function: gloo on the
   CPU and for processes that share a card, NCCL when each process has a
   card of its own (NCCL refuses two ranks on one device).
-- :func:`all_reduce`, :func:`broadcast`, :func:`all_gather` -- the fabric.
+- :func:`all_reduce`, :func:`broadcast`, :func:`all_gather`,
+  :func:`ring_shift` (send to the next process of a group, receive from the
+  previous one) and :func:`all_to_all` (the JAX ``all_to_all`` with
+  ``tiled=True``) -- the fabric.
   Each passes its operand through :func:`on_backend_device`, the one stated
   route between a tensor's device and the backend's: gloo takes host
   tensors, so a CUDA operand is copied to the host and back on every call;
   NCCL takes card tensors, so a host operand (a control frame) goes to the
   card and back.
+- :class:`EnterGroup`, :class:`SumOverGroup`, :class:`MeanOverGroup`,
+  :class:`AllToAll` -- the collectives a sharded model differentiates
+  through (``torch.autograd.Function``s): Megatron's conjugate pair (the
+  identity forward with an all-reduce backward, and the all-reduce forward
+  with the identity backward), a mean whose backward divides as its forward
+  does, and an ``all_to_all`` whose backward is its inverse.
 - :func:`make_multihost_mesh`, :func:`host_local_array` -- the
   dp-across-processes layout under the JAX package's names.
 
@@ -127,6 +136,9 @@ def shutdown_multihost() -> None:
 #: group collectives this process has entered (every fabric call counts one;
 #: a caller sets it to 0 and reads it back to count the calls of a run)
 group_calls = 0
+#: bytes of the operands this process has handed to the fabric (as
+#: ``group_calls``: set to 0 and read back)
+group_bytes = 0
 
 
 def _backend_device(group=None) -> torch.device:
@@ -143,8 +155,9 @@ def on_backend_device(tensor: torch.Tensor, op, group=None) -> torch.Tensor:
     frame, a counter vector) goes to the card and back. ``op`` works in
     place and returns None, or returns a new tensor; the result comes back
     on ``tensor``'s device (in place, for an in-place ``op``)."""
-    global group_calls
+    global group_calls, group_bytes
     group_calls += 1
+    group_bytes += tensor.numel() * tensor.element_size()
     where = _backend_device(group)
     moved = tensor.contiguous()
     if moved.device != where:
@@ -182,8 +195,8 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     return on_backend_device(tensor, bcast, group)
 
 
-def all_gather(tensor: torch.Tensor, group=None) -> torch.Tensor:
-    """Every process's ``tensor`` (equal shapes), concatenated along dim 0
+def all_gather(tensor: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Every process's ``tensor`` (equal shapes), concatenated along ``dim``
     in process order."""
     n = dist.get_world_size(group)
 
@@ -192,7 +205,113 @@ def all_gather(tensor: torch.Tensor, group=None) -> torch.Tensor:
         dist.all_gather(parts, t, group=group)
         return torch.cat(parts)
 
-    return on_backend_device(tensor, gather, group)
+    out = on_backend_device(tensor.movedim(dim, 0), gather, group)
+    return out.movedim(0, dim)
+
+
+def ring_shift(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` sent to the next process of ``group`` (rank ``r + 1`` mod
+    its size) while the previous one's is received: the JAX ``ppermute``
+    over the ring ``[(j, j + 1 mod n)]``. Returns the received tensor."""
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    send_to = dist.get_global_rank(group, (rank + 1) % n) if group is not None else (rank + 1) % n
+    recv_from = dist.get_global_rank(group, (rank - 1) % n) if group is not None else (rank - 1) % n
+
+    def shift(t):
+        received = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, send_to, group=group),
+               dist.P2POp(dist.irecv, received, recv_from, group=group)]
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+        return received
+
+    return on_backend_device(tensor, shift, group)
+
+
+def all_to_all(tensor: torch.Tensor, split_dim: int, concat_dim: int,
+               group=None) -> torch.Tensor:
+    """The JAX ``all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``tensor`` is cut into ``n`` equal blocks along ``split_dim``, block
+    ``i`` goes to process ``i`` of ``group``, and the blocks received are
+    concatenated along ``concat_dim`` in process order."""
+    n = dist.get_world_size(group)
+    if tensor.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(tensor.shape)} does "
+                         f"not split into {n} blocks")
+    blocks = tensor.movedim(split_dim, 0)
+    blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:])
+
+    def exchange(t):
+        received = torch.empty_like(t)
+        dist.all_to_all_single(received, t, group=group)
+        return received
+
+    received = on_backend_device(blocks, exchange, group)
+    return torch.cat([b.movedim(0, split_dim) for b in received.unbind(0)], dim=concat_dim)
+
+
+# --- the collectives a sharded model differentiates through ---
+
+
+class EnterGroup(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward and an all-reduce of the
+    gradient over ``group``, where a replicated activation enters a block
+    whose weights are split over the group (each process's gradient is
+    then a part of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), group=ctx.group), None
+
+
+class SumOverGroup(torch.autograd.Function):
+    """Megatron's ``g``: the sum over ``group`` forward (every process gets
+    the same value) and the identity backward -- the JAX ``psum``, whose
+    transpose hands every process the cotangent of its own part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class MeanOverGroup(torch.autograd.Function):
+    """The JAX ``pmean`` over ``group``: the mean forward and, since every
+    process holds the same cotangent downstream of it, its backward divides
+    by the group's size as the forward did."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group=group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`, differentiable: its backward is the inverse
+    exchange (the split and concatenated dimensions swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims = (split_dim, concat_dim, group)
+        return all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group = ctx.dims
+        return all_to_all(g, concat_dim, split_dim, group), None, None, None
 
 
 # --- the dp-across-processes layout ---

@@ -3,7 +3,8 @@
 - ``adam_update``: the sequence trainers' Adam, counterpart of
   ``omldm_tpu/parallel/optim.py``: the same bias-corrected update and the
   same ``{"mu", "nu", "count"}`` tree (moments shaped like the parameters,
-  an int32 step count), so a JAX optimizer state carries across.
+  an int32 step count), so a JAX optimizer state carries across; on a mesh
+  the moments are split as the parameters are (``adam_opt_specs``).
 - ``optax_adam_update`` and ``trace_update``: the NN learner's optimizers,
   a copy of the arithmetic of ``optax.adam`` (``scale_by_adam``, then the
   learning rate) and ``optax.sgd`` (``trace``, then the learning rate),
@@ -22,6 +23,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from omldm_tpu_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
+
+
+def adam_opt_specs(pspecs: Any) -> Dict[str, Any]:
+    """Where :func:`init_adam_state`'s tree is split over a mesh: the moments
+    as the parameters (``pspecs``), the step count whole."""
+    return {"mu": pspecs, "nu": pspecs, "count": None}
 
 
 def init_adam_state(params: Any) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
-"""chip_smoke.py's sequence-model phases (43-45), checked on the CPU without
-a card: what they cover, how their bounds are counted, and the CPU halves
-of their helpers (the batch-chunked twin, the route recorder).
+"""chip_smoke.py's sequence-model phases (43-45 and 51), checked on the CPU
+without a card: what they cover, how their bounds are counted, and the CPU
+halves of their helpers (the batch-chunked twin, the route recorder, phase
+51's processes at a small size).
 """
 
 import sys
@@ -28,10 +29,12 @@ def cs():
 
 
 @pytest.mark.parametrize("phase", ["phase_flash_coverage", "phase_lm_moe",
-                                   "phase_lm_f32_and_parity", "phase_sequence_family"])
+                                   "phase_lm_f32_and_parity", "phase_sequence_family",
+                                   "phase_seqpar"])
 def test_sequence_phases_are_driven(cs, phase):
     """Each phase exists and main() reaches it (through
-    phase_sequence_family, which main calls right after phase 10)."""
+    phase_sequence_family, which main calls right after phase 10, and
+    under --sequence-only)."""
     assert callable(getattr(cs, phase))
     src = (ROOT / "chip_smoke.py").read_text()
     main = src.split("def main")[1]
@@ -202,3 +205,123 @@ def test_float32_cases_are_held_to_a_float64_twin(cs, causal):
         assert b.dtype == torch.float64
         err, l2, elem = cs.flash_errors(torch, a, b)
         assert 0 < err and l2 <= 2e-6 and elem <= 2e-5
+
+
+def test_seqpar_legs_and_their_shapes(cs):
+    """Phase 51's legs: (a) phase 43's bf16 shape (2, 4096, 4, 128) and the
+    float32 (1, 1024, 4, 64) held to the JAX tests' 1e-5 / 1e-4; (b) phase
+    44's Switch-Base-8 LM without remat at (2, 1, 1), capacity 8.0 for the
+    parity; (c) the slice-2 LM at (1, 2, 2), and a float32 leg at 2 layers
+    and context 256; every leg from --seed."""
+    spec = cs.seqpar_spec(7)
+    assert spec["seed"] == 7
+    assert spec["kernel_cases"][0] == ("bfloat16", *cs.FLASH_TIME_SHAPES[1])
+    assert spec["kernel_cases"][1] == ("float32", 1, 1024, 4, 64)
+    assert cs.SEQPAR_F32_ATOL == (1e-5, 1e-4)
+    assert spec["ep_config"] == dict(cs.LM_MOE_CONFIG, remat=False)
+    assert spec["ep_config"]["n_experts"] == 8 and spec["ep_config"]["capacity_factor"] == 1.25
+    # the JAX EP test's parity rule, capacity factor = experts (its 4.0 at 4):
+    # every expert may take all of a process's tokens, so none drops
+    assert spec["ep_capacity"] == 8.0 and spec["ep_mesh"] == (2, 1, 1)
+    assert spec["lm_config"] == cs.LM_CONFIG and spec["lm_mesh"] == (1, 2, 2)
+    assert (spec["batch"], spec["len"], spec["steps"]) == (cs.LM_BATCH, cs.LM_LEN, 3)
+    assert spec["f32_config"] == dict(cs.LM_CONFIG, dtype="float32", n_layers=2)
+    assert spec["f32_len"] == 256
+    assert cs.SEQPAR_BF16_LOSS_ATOL == 0.15
+    assert (cs.SEQPAR_F32_LOSS_ATOL, cs.SEQPAR_F32_PARAM_ATOL) == (1e-4, 2e-4)
+    assert cs.SEQPAR_F32_FLOOR_FACTOR == 2
+    # Ulysses at (1, 2, 2): 4 heads over tp 2 leave 2 a process, which sp 2 divides
+    cfg = tt.TransformerConfig(**dict(cs.LM_CONFIG, seq_parallel="ulysses"))
+    assert (cfg.n_heads // spec["lm_mesh"][2]) % spec["lm_mesh"][1] == 0
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_launch_rule(cs, sp):
+    """The ring launches s + 1 forward kernels at sp index s under causal
+    (sp without), as the port's schedule runs its live pairs; dQ and dK/dV
+    as many; Ulysses one each (checked in phase 51 as ring_launches says)."""
+    from omldm_tpu_torch.ops.ring_attention import live_pairs
+
+    for s in range(sp):
+        for causal in (True, False):
+            live = sum(lv for *_, lv in live_pairs(s, sp, causal))
+            assert cs.ring_launches(s, sp, causal) == live == (s + 1 if causal else sp)
+
+
+@pytest.mark.parametrize("leg,mesh,calls", [
+    (dict(seq_parallel="ring"), (1, 2, 2), 34),
+    (dict(seq_parallel="ulysses"), (1, 2, 2), 50),
+    (dict(n_experts=8), (2, 1, 1), 18),
+    (dict(n_experts=8, remat=True), (2, 1, 1), 26),
+    (dict(objective="classify"), (2, 2, 1), 20),
+])
+def test_group_calls_a_step(cs, leg, mesh, calls):
+    """Group calls a step a process of the 4-layer LM: (1, 2, 2) ring, per
+    layer the tp pair 2 + 2 and the ring 1 + 3, then the loss's sp sum and
+    the sp gradient all-reduce; Ulysses 4 + 4 a layer for the ring's 1 + 3;
+    the MoE at (2, 1, 1) 2 + 2 a layer (remat: the forward's twice), the
+    loss over dp and the dp all-reduce; classify at (2, 2, 1) the sp mean
+    and no loss sum over sp. tests/test_torch_seq_parallel.py holds the
+    count to the processes' own on every mesh it runs."""
+    assert cs.seqpar_group_calls(dict(cs.LM_CONFIG, **leg), *mesh) == calls
+
+
+def test_kernel_leg_tolerances(cs):
+    """Leg (a)'s checks: float32 by the JAX tests' absolute 1e-5 (output) and
+    1e-4 (gradients); bf16 by phase 43's rel L2 and worst element."""
+    ok = [(0.0, 0.0, 0.0)] * 4
+    row = {"strategy": "ring", "dtype": "float32", "shape": [1, 1024, 4, 64], "sp_index": 1,
+           "errors": {"single": ok, "plain_f32": [(9e-6, 0, 0)] + [(9e-5, 0, 0)] * 3}}
+    cs._kernel_leg_checks(row)
+    row["errors"]["plain_f32"] = [(2e-5, 0, 0)] + [(9e-5, 0, 0)] * 3
+    with pytest.raises(cs.SmokeFailure, match="out against plain_f32"):
+        cs._kernel_leg_checks(row)
+    bf16 = dict(row, dtype="bfloat16", errors={"single": ok, "plain_f32": [(1.0, 9e-3, 9e-2)] * 4})
+    cs._kernel_leg_checks(bf16)
+    bf16["errors"]["single"] = ok[:3] + [(0.1, 2e-2, 1e-3)]
+    with pytest.raises(cs.SmokeFailure, match="dv against single"):
+        cs._kernel_leg_checks(bf16)
+
+
+def test_f32_leg_held_a_leaf_and_a_step_at_a_time(cs):
+    """The float32 LM leg's checks: a leaf may leave at most twice as many
+    elements past 2e-4 as the single process on the CPU leaves in that same
+    leaf, so the floor's count in a large leaf hides no fault in a small one
+    (a 512-element gain); a step's loss within 1e-4, or twice the floor's
+    distance at that step where that is larger."""
+    import numpy as np
+
+    def tree(head_past=0, gain_past=0, col=0):
+        t = {"head": np.zeros((64, 32), np.float32),
+             "layers": [{"ln1_g": np.ones(512, np.float32)}]}
+        t["head"][:head_past, col] += 1e-3
+        t["layers"][0]["ln1_g"][:gain_past] += 1e-3
+        return t
+
+    ref, floor = tree(), tree(head_past=10)
+    losses, ref_l, floor_l = [[10.0, 7.00009, 7.0007]], [10.0, 7.0, 7.0], [10.0, 7.00005, 7.0004]
+    got = cs._f32_leg_checks("f32_ring", losses, ref_l, floor_l, tree(20, col=1), ref, floor)
+    assert got["past_by_leaf"] == {"head": [20, 10], "layers.0.ln1_g": [0, 0]}
+    assert (got["params_past_atol"], got["cpu_floor_past_atol"]) == (20, 10)
+    np.testing.assert_allclose(got["loss_limit_by_step"], [1e-4, 1e-4, 8e-4], rtol=1e-3)
+    with pytest.raises(cs.SmokeFailure, match="1 elements of layers.0.ln1_g"):
+        cs._f32_leg_checks("f32_ring", losses, ref_l, floor_l, tree(gain_past=1), ref, floor)
+    with pytest.raises(cs.SmokeFailure, match="21 elements of head"):
+        cs._f32_leg_checks("f32_ring", losses, ref_l, floor_l, tree(21, col=1), ref, floor)
+    with pytest.raises(cs.SmokeFailure, match="step 1's loss"):
+        cs._f32_leg_checks("f32_ring", [[10.0, 7.00015, 7.0]], ref_l, floor_l, ref, ref, floor)
+
+
+def test_seqpar_phase_runs_on_the_cpu_at_a_small_size(cs, tmp_path):
+    """Phase 51's processes and checks end to end on the CPU (the kernels'
+    plain twins, so no launch is counted): 2 processes for legs (a)-(b), 4
+    for (c), at a small width; every comparison and group-call count holds."""
+    small = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_len=128,
+                 dtype="bfloat16", loss_chunk=16)
+    spec = {"seed": 0, "kernel_cases": [("bfloat16", 1, 64, 4, 16), ("float32", 1, 64, 4, 8)],
+            "ep_config": dict(small, n_experts=4, capacity_factor=1.25, remat=False),
+            "ep_capacity": 4.0, "ep_mesh": [2, 1, 1], "lm_config": small, "lm_mesh": [1, 2, 2],
+            "batch": 4, "len": 32, "steps": 3, "f32_config": dict(small, dtype="float32"),
+            "f32_len": 16}
+    launched = cs.phase_seqpar(torch, tatt, 0, 1.0, "cpu", tmp_path, spec, device="cpu")
+    assert launched == dict.fromkeys(tatt.launches, 0)

@@ -45,6 +45,8 @@ def test_import_pulls_in_no_jax():
         "import omldm_tpu_torch.runtime.kafka_io, omldm_tpu_torch.runtime.loadgen\n"
         "import omldm_tpu_torch.runtime.slo, omldm_tpu_torch.load_harness\n"
         "import omldm_tpu_torch.parallel.multihost, omldm_tpu_torch.runtime.distributed_job\n"
+        "import omldm_tpu_torch.parallel.seq_trainer, omldm_tpu_torch.ops.ring_attention\n"
+        "import omldm_tpu_torch.ops.ulysses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'omldm_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -249,6 +251,18 @@ def test_chip_smoke_flash_checks_cover_the_slice_shapes():
         vocab_size=8192, d_model=512, n_heads=4, n_layers=4, d_ff=2048, max_len=2048,
         dtype="bfloat16", loss_chunk=1024)
     assert (chip_smoke.LM_BATCH, chip_smoke.LM_LEN) == (8, 1024)
+
+
+def test_armed_overhead_failures_name_every_pair():
+    """Phases 41a and 42a fail with every pair's off/on ratio in the
+    message (the gate itself is the best pair against 1.03)."""
+    chip_smoke = _chip_smoke()
+    assert chip_smoke._ratios_text([1.10612, 1.2, 0.98]) == "1.106, 1.200, 0.980"
+    text = (ROOT / "chip_smoke.py").read_text()
+    for plane in ("telemetry-armed throughput", "events-armed clean throughput"):
+        at = text.index(f'"{plane} {{overhead:.3f}}x slower than unarmed "')
+        assert "_ratios_text(ratios)" in text[at:at + 200]
+        assert "if overhead > 1.03:" in text[at - 200:at]
 
 
 def test_chip_smoke_flash_bound():
@@ -979,9 +993,10 @@ def test_supervised_fleet_passes_the_device_through(tmp_path):
 
     for device, want in (("cpu", "cpu"), (None, None)):
         log = tmp_path / f"argv_{device}.log"
+        # one append a worker: the two workers write the log at once
         boot = ("import sys; a = sys.argv[1:]; "
-                f"open({str(log)!r}, 'a').write(a[a.index('--device') + 1] "
-                "if '--device' in a else 'none'); open(" + repr(str(log)) + ", 'a').write(' ')")
+                f"open({str(log)!r}, 'a').write((a[a.index('--device') + 1] "
+                "if '--device' in a else 'none') + ' ')")
         flags = {"supervise": "true", "processes": "2", "restartAttempts": "0",
                  "supervisorDir": str(tmp_path / f"run_{device}"), "workerBoot": boot}
         if device:

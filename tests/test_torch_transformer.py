@@ -239,8 +239,9 @@ def test_unported_options_raise(change, name):
 @pytest.mark.parametrize("fn", ["transformer_hidden", "transformer_forward",
                                 "lm_loss", "classify_loss"])
 def test_mesh_axes_raise(fn):
-    """The mesh axes are not ported: a caller that passes the JAX package's
-    ``axes=AxisSpec(...)`` is refused, not run on one device."""
+    """The port's axes are process groups (``AxisSpec`` of groups): a
+    caller that passes the JAX package's axis names is refused, not run on
+    one device."""
     _, tcfg = _cfgs()
     params = tt.init_transformer(tcfg, torch.Generator().manual_seed(0), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
@@ -249,6 +250,8 @@ def test_mesh_axes_raise(fn):
             "classify_loss": (tok, torch.zeros((1,), dtype=torch.long))}[fn]
     with pytest.raises(TypeError, match="axes"):
         getattr(tt, fn)(tcfg, params, *args, axes={"sp": "sp"})
+    with pytest.raises(TypeError, match="axis name"):
+        tt.AxisSpec(sp="sp")
 
 
 def test_config_takes_dtype_names_and_init_shapes():
@@ -264,11 +267,14 @@ def test_config_takes_dtype_names_and_init_shapes():
 
 @pytest.mark.parametrize("knob", [{"seq_parallel": "ulysses"}, {"seq_parallel": "ring"}])
 def test_jax_only_config_knobs_do_not_exist(knob):
-    """The knob of the JAX TransformerConfig that only unported paths read
-    (the sequence-parallel strategy: ring or Ulysses attention over
-    devices) is not silently accepted, whichever value it is given."""
-    with pytest.raises(TypeError):
-        tt.TransformerConfig(**knob)
+    """No knob of the JAX TransformerConfig is left that only the JAX
+    package reads: the port's config has every field of the JAX one, and
+    the sequence-parallel strategy (ring or Ulysses attention over an sp
+    group) takes both of its values."""
+    assert {f.name for f in dataclasses.fields(jt.TransformerConfig)} == \
+        {f.name for f in dataclasses.fields(tt.TransformerConfig)}
+    assert tt.TransformerConfig(**knob).seq_parallel == knob["seq_parallel"]
+    assert tt.TransformerConfig().seq_parallel == jt.TransformerConfig().seq_parallel == "ring"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
