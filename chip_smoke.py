@@ -414,14 +414,19 @@ Phases (any failure raises and the script exits nonzero without a result):
                  float32 (square and ragged); and B * H = 131,072 on each
                  design (32,768 x 64 x 4: bf16 dh 64 sm90, float32 dh 8
                  mma; the twin in batch chunks); then FLASH_WIDE_CHECKS
-                 with their own readings: the wide instance at dh 320 and
-                 512 in both dtypes (2 x 1024 x 2, and ragged 1000/1100)
-                 and a bf16 dh-128 case whose views are 2 bytes off
-                 16-byte alignment (it must run mma.sync): every (dtype,
-                 built width, design) run_dtype reaches; then
+                 with their own readings: past 256 (the wide forward, the
+                 cluster design's dQ and dK/dV) dh 320 and 512 in both
+                 dtypes (2 x 1024 x 2, and ragged 1000/1100), bf16 dh 300
+                 (rows not whole 16-byte groups) and float32 dh 1100 (past
+                 the cluster's 8 slices), each backward run twice and
+                 bitwise equal; and a bf16 dh-128 case whose views are 2
+                 bytes off 16-byte alignment (it must run mma.sync): every
+                 (pass, dtype, built width, design) run_dtype reaches, each
+                 pass's launches counted by design; then
                  FLASH_COVERAGE_TIME timed as phase 8 (20 launches a turn)
                  with each design's bound and SDPA (the SDPA backends that
-                 take each shape named);
+                 take each shape named), the cluster design's split,
+                 shared memory and exchange bytes a tile beside it;
  44. lm-moe      SeqTrainer at LM_MOE_CONFIG (phase 9's LM with 8 switch
                  experts, capacity 1.25, remat): a warm-up step and 8
                  steps; the warm-up batch's loss falls; flash launches
@@ -625,6 +630,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import concurrent.futures
 import contextlib
 import gc
@@ -1332,7 +1338,8 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
                                        packed=packed, misaligned=misaligned)
             check(not packed or q.data_ptr() + h * dh * q.element_size() == k.data_ptr(),
                   "the packed case's k is not a view into the qkv projection")
-            design = attention.kernel_design(q, k, v, g)
+            designs = {w: attention.kernel_design(q, k, v, g, which=w) for w in ("fwd", "dq", "dkdv")}
+            design = designs["fwd"]
             if misaligned:
                 check(q.data_ptr() % 16 == q.element_size() and design == "mma",
                       f"{name}: a view {q.data_ptr() % 16} bytes off alignment runs {design}")
@@ -1341,9 +1348,16 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
             dq, dk, dv = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
             torch.cuda.synchronize()
-            check(attention.design_launches[design] == by_design[design] + 3,
-                  f"{name}: {design} launched {attention.design_launches[design] - by_design[design]}"
-                  " of the three passes")
+            want = collections.Counter(designs.values())
+            got = {d: attention.design_launches[d] - by_design[d] for d in attention.design_launches}
+            check(all(got[d] == want.get(d, 0) for d in got),
+                  f"{name}: the passes launched {got} by design, not {dict(want)} ({designs})")
+            if attention.kernel_width(dh) == attention.WIDE:
+                # one order of summation, no atomics: a second run is bitwise the first
+                again = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
+                check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+                      f"{name} causal={causal}: a second backward run differs from the first")
+                del again
             rq, rk, rv, rg, lse2, delta2 = reference_inputs(
                 dtype, q, k, v, g, lse.reshape(b, h, lq), delta.reshape(b, h, lq))
             if b * h <= 64:
@@ -1387,6 +1401,7 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
                 check(lse.reshape(b, h, lq)[:, :, :ko - qo].max().item() < attention.NEG_INF / 2,
                       "rows that see no key must have an lse near NEG_INF")
             width = attention.kernel_width(dh)
+            design = "/".join(dict.fromkeys(designs.values()))
             log(f"{label}: {name} {(b, lq, lk, h, dh)} {dtype} ({design} at {width}) "
                 f"causal={causal} q_offset={qo} kv_offset={ko}{' packed' if packed else ''}"
                 f"{' misaligned' if misaligned else ''}: "
@@ -1542,6 +1557,17 @@ def sdpa_backends(torch, q, k, v):
     return took
 
 
+def expected_kernel(attention, name, dtype, dh):
+    """The kernel a pass (``name``: flash_fwd, flash_dq or flash_dkdv)
+    launches at (dtype, dh) on views the Hopper design takes, as run_dtype
+    dispatches: the sm90 kernel, the cluster design's past 256 (dQ, dK/dV),
+    the wide forward past 256, else the mma.sync instance."""
+    design = attention.pass_design(name[len("flash_"):], dtype, dh)
+    if design in ("sm90", "cluster"):
+        return f"{name}_{design}_kernel"
+    return f"{name}_wide_kernel" if attention.kernel_width(dh) == attention.WIDE else f"{name}_kernel"
+
+
 def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5, detail=True):
     """Phase 8's timing at one causal shape and dtype: {(b, lq, h, dh, name):
     {ms, plain_ms, bound_ms, bound_by, library_ms}}; checks that each pass
@@ -1554,7 +1580,9 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
 
     out = {}
     tag = "bf16" if dtype == "bfloat16" else "f32"
-    design = attention.KERNEL_DESIGNS[(getattr(torch, dtype), dh)]
+    designs = {f"flash_{w}": attention.pass_design(w, getattr(torch, dtype), dh)
+               for w in ("fwd", "dq", "dkdv")}
+    design = designs["flash_fwd"]
     q, k, v, g = _flash_inputs(torch, b, lq, lq, h, dh, dtype, seed=123)
     o, lse = attention.flash_attention(q, k, v, True, return_lse=True)
     delta = (g.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
@@ -1591,9 +1619,7 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
         if detail:
             for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
                 log(f"flash-time: {name} at {(b, lq, h, dh)} launches {kernel[:70]}: {attrs}")
-        # each pass launches the design run_dtype dispatches (dtype, dh) to
-        want = (f"{name}_sm90_kernel" if design == "sm90" else f"{name}_wide_kernel"
-                if attention.kernel_width(dh) == attention.WIDE else f"{name}_kernel")
+        want = expected_kernel(attention, name, getattr(torch, dtype), dh)
         check(any(want in kernel for kernel in names[name]),
               f"{name} at {(b, lq, h, dh)} {tag} launched {list(names[name])}, not {want}")
     for name in passes:
@@ -1607,7 +1633,22 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
             "library_ms": lib,
         }
         tflops = flash_flops(name, b, lq, lq, h, dh, True) / (times[name] * 1e-3) / 1e12
-        log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} ({design}): kernel "
+        if designs[name] == "cluster":
+            plan = attention.wide_bwd_plan(getattr(torch, dtype), dh)
+            # the launch as the trace records it: wide_bwd_plan's grid z and shared memory
+            for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
+                if "cluster_kernel" in kernel and "grid" in attrs and "shared memory" in attrs:
+                    check(attrs["grid"][2] == plan["cluster"]
+                          and attrs["shared memory"] == plan["smem"][name[6:]],
+                          f"{name} at {(b, lq, h, dh)} launched {attrs}, not wide_bwd_plan's "
+                          f"{plan['cluster']} CTAs of {plan['smem'][name[6:]]} bytes")
+            log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} (cluster): {plan['cluster']} "
+                f"CTAs a cluster of {plan['per_cta']} {plan['slice']}-column slice(s) each, "
+                f"{plan['smem'][name[6:]]} bytes of shared memory a CTA; the exchange reads "
+                f"{plan['exchange'][name[6:]]:.0f} bytes a CTA a tile from its peers; "
+                f"{flash_bound_ms(name, b, lq, lq, h, dh, True, dtype)[0] / times[name]:.4f} "
+                f"of the bound")
+        log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} ({designs[name]}): kernel "
             f"{times[name]:.6f} ms, {tflops:.1f} TFLOP/s, bound {bound:.6f} ms ({by}), "
             f"{bound / times[name]:.4f} of the bound; plain "
             f"{out[(b, lq, h, dh, name)]['plain_ms']:.6f} ms; library {lib:.6f} ms "
@@ -1796,15 +1837,25 @@ FLASH_COVERAGE_CHECKS = [
     ("bh131072", 32768, 64, 64, 4, 64, "bfloat16", 0, 0),
     ("bh131072_mma", 32768, 64, 64, 4, 8, "float32", 0, 0),
 ]
-# the wide instance (every head width past 256, one instance a type): dh
-# 320 (a ragged last chunk in both types) and 512 in both dtypes, square and
-# ragged, each causal and not; and a bf16 dh-128 case whose views are 2
-# bytes off 16-byte alignment (the Hopper width on mma.sync)
+# past head width 256 (the wide forward, the cluster design's dQ and
+# dK/dV): dh 320 (a ragged last chunk and slice in both types) and 512 in
+# both dtypes, square and ragged, each causal and not; a bf16 dh-128 case
+# whose views are 2 bytes off 16-byte alignment (the Hopper width on
+# mma.sync); bf16 dh 300, whose rows are not whole 16-byte groups (plain
+# loads in place of cp.async), at q_offset 100 (causal: each query sees
+# 100 keys more, and each key tile's first query tile moves); and float32
+# dh 1100, past the cluster's reach (9 slices: 5 CTAs of 2 slices, each
+# sweeping twice), at kv_offset 100 (causal: queries 0-99 see no key; the
+# clusters of the first query tile and of the last key tile sweep nothing
+# and store zeros). Every case past 256 runs its backward twice, and the
+# runs must be bitwise equal.
 FLASH_WIDE_CHECKS = [
     *[(f"{dtype}_dh{dh}{tag}", 2, lq, lk, 2, dh, dtype, 0, 0)
       for dtype in ("bfloat16", "float32") for dh in (320, 512)
       for tag, lq, lk in (("", 1024, 1024), ("_ragged", 1000, 1100))],
     ("misaligned_dh128", 2, 1024, 1024, 4, 128, "bfloat16", 0, 0),
+    ("bfloat16_dh300_rows", 2, 1024, 1024, 2, 300, "bfloat16", 100, 0),
+    ("float32_dh1100_per_cta", 2, 1024, 1024, 2, 1100, "float32", 0, 100),
 ]
 # (B, L, H, Dh, dtype) timed as phase 8 times its shapes
 FLASH_COVERAGE_TIME = [(8, 1024, 4, 128, "float32"), (2, 1024, 4, 8, "bfloat16"),
@@ -1835,12 +1886,19 @@ def phase_flash_coverage(torch, attention):
         readings = {dtype: [0.0, 0.0, 0.0] for dtype in FLASH_TOL}
         for name in attention.launches:
             attention.launches[name] = 0
+        before = attention.design_launches["cluster"]
         n = run_flash_checks(torch, attention, cases, worst, readings, label, seed0=seed0)
-        check(all(v == 2 * len(cases) for v in attention.launches.values()),
-              f"{label}: launches {attention.launches}, expected {2 * len(cases)} each")
+        # each case causal and not; a case past 256 runs its backward twice
+        wide = sum(attention.kernel_width(c[5]) == attention.WIDE for c in cases)
+        want = {"flash_fwd": 2 * len(cases), "flash_dq": 2 * len(cases) + 2 * wide,
+                "flash_dkdv": 2 * len(cases) + 2 * wide}
+        check(attention.launches == want, f"{label}: launches {attention.launches}, expected {want}")
+        ran = attention.design_launches["cluster"] - before
+        check(ran == 8 * wide, f"{label}: the cluster design ran {ran} passes, not {8 * wide}")
         log(f"{label}: {n} cases pass; largest readings (rel L2, worst element, lse) "
             f"{readings} against the limits {FLASH_TOL}; float32 worst element "
-            f"{readings['float32'][1]:.4e}")
+            f"{readings['float32'][1]:.4e}; the cluster design ran {ran} passes (dQ and "
+            f"dK/dV of {wide} cases, each causal and not, twice)")
     times = {}
     for b, lq, h, dh, dtype in FLASH_COVERAGE_TIME:
         for key, val in flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=20,

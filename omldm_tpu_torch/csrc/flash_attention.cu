@@ -1,9 +1,12 @@
 // Flash attention for Hopper: forward, dQ and dK/dV, CUDA C++ for sm_90a.
 //
 // Replaces the three TPU kernels of omldm_tpu/ops/attention.py:
-//   flash_fwd_sm90_kernel,  flash_fwd_kernel  <- _flash_kernel          (wrapper flash_attention_pallas)
-//   flash_dq_sm90_kernel,   flash_dq_kernel   <- _flash_bwd_dq_kernel   (wrapper _flash_diff_bwd)
-//   flash_dkdv_sm90_kernel, flash_dkdv_kernel <- _flash_bwd_dkdv_kernel (wrapper _flash_diff_bwd)
+//   flash_fwd_sm90_kernel,  flash_fwd_kernel,  flash_fwd_wide_kernel     <- _flash_kernel
+//                                                                           (wrapper flash_attention_pallas)
+//   flash_dq_sm90_kernel,   flash_dq_kernel,   flash_dq_cluster_kernel   <- _flash_bwd_dq_kernel
+//                                                                           (wrapper _flash_diff_bwd)
+//   flash_dkdv_sm90_kernel, flash_dkdv_kernel, flash_dkdv_cluster_kernel <- _flash_bwd_dkdv_kernel
+//                                                                           (wrapper _flash_diff_bwd)
 // on q [B, Lq, H, Dh], k/v [B, Lk, H, Dh] (any Dh from 1 up, bfloat16 or
 // float32, any B * H), with the causal mask on absolute positions q_offset + row >=
 // kv_offset + col, keys past Lk masked, and p = 0 wherever s <= NEG_INF / 2
@@ -14,9 +17,10 @@
 // with no instance of its own runs the next built one with Q, K, V and dO
 // zero-padded in shared memory (zero columns change neither S nor dP), the
 // padded output columns never stored, and the softmax scale 1/sqrt(Dh) of
-// the true width (the caller passes it). Every width past 256 runs the wide
-// instance, which loops over Dh at run time. run_dtype says which design
-// runs each (dtype, Dh) and view.
+// the true width (the caller passes it). Past 256 the forward runs the wide
+// instance, which loops over Dh at run time, and dQ and dK/dV the cluster
+// design, which splits Dh across the CTAs of a thread-block cluster.
+// run_dtype says which design runs each pass of each (dtype, Dh) and view.
 //
 //   forward: S = Q K^T * scale, online softmax over K tiles with f32 running
 //            max m, denominator l and accumulator; out = acc / max(l, 1e-30),
@@ -35,7 +39,9 @@
 // 1.5x and 2x the forward's products on a little more data. Only warpgroup
 // wgmma reaches the tensor cores' rate, and only copies that run beside the
 // products keep them fed: that is the Hopper design. The mma.sync design
-// covers the widths and types it does not.
+// covers the widths and types it does not up to 256. Past 256 a CTA cannot
+// hold a whole row of a tile: the cluster design keeps each score computed
+// once all the same (below).
 //
 // Hopper design (bfloat16 at Dh 33 to 128 whose rows are whole 16-byte
 // groups, Dh % 8 == 0, in the instances at 64 and 128, where every view's
@@ -114,19 +120,54 @@
 //     as zeros, are masked, and are never stored. Rows that are whole
 //     16-byte groups (every base, stride and the width) load 16 bytes a
 //     thread; others, such as Dh 12 in bf16, one element at a time.
-//   - The wide instance (every Dh past 256, one instance a type): a 64-row
-//     float32 K tile of 512 columns alone would take ~132 KB of shared
-//     memory, so its tiles hold one column chunk of a row -- 64 columns in
-//     float32, 128 in bf16 -- and a loop over Dh at run time accumulates S
-//     (and dP, and in dK/dV their transposes) chunk after chunk into the
-//     same registers, each output one ascending chain over Dh as in the
-//     built instances. Each CTA still owns one output column chunk on grid
-//     z (that chunk's width in the forward and dQ, 64 in dK/dV), and its
-//     products with P and dS read only that chunk of V or K (forward, dQ)
-//     or of dO and Q (dK/dV). Every CTA of a row recomputes S over the
-//     whole width: right and slow (Dh / 64 recomputations in float32).
+//   - The wide instance (the forward at every Dh past 256, one instance a
+//     type): a 64-row float32 K tile of 512 columns alone would take ~132 KB
+//     of shared memory, so its tiles hold one column chunk of a row -- 64
+//     columns in float32, 128 in bf16 -- and a loop over Dh at run time
+//     accumulates S chunk after chunk into the same registers, each score
+//     one ascending chain over Dh as in the built instances. Each CTA owns
+//     one output column chunk on grid z, and its product with P reads only
+//     that chunk of V. Every CTA of a row recomputes S over the whole width
+//     (Dh / 64 recomputations in float32): the next redesign.
 //
-// Both designs: inputs by strides ([B, L, H, Dh] with unit stride on Dh;
+// Cluster design (dQ and dK/dV at every Dh past 256, bfloat16 and float32):
+// the wide loop's backward recomputed S and dP in each of its Dh / 64 (or
+// 128) column-chunk CTAs (4.5-5.7x the products at Dh 512) and reloaded
+// the operands that stay fixed through its sweep every tile. At Dh 512 the
+// function is bound by its operations (bf16 tensor cores, float32 FFMA at
+// 67 TFLOP/s), not its bytes: the design does each product once, and pays
+// for it with an exchange a tile -- (C - 1) / C of the f32 S and dP
+// partials and of P and dS read from the cluster's other C - 1 CTAs, and
+// two cluster barriers. The width is split, not repeated:
+//   - One cluster of CTAs per (b*h, 64-row tile): query rows in dQ, keys in
+//     dK/dV. CTA r owns slice r of Dh (kSlice = 128 columns; the last one
+//     ragged, its columns past Dh loaded as zeros and never stored); the
+//     slices on grid z form the cluster, its size set at launch. Past 8
+//     slices (Dh 1024) a CTA owns ceil(slices / 8) of them and sweeps once
+//     for each, so a cluster never exceeds the portable 8 CTAs.
+//   - A CTA's fixed tiles (Q and dO in dQ, K and V in dK/dV) load once; the
+//     sweep's tiles (K and V, or Q, dO and their lse and delta rows) stream
+//     through a 2-stage cp.async ring, the next tile's copies beside this
+//     tile's products (plain loads where the rows are not whole 16-byte
+//     groups, such as bf16 Dh 300).
+//   - Each CTA computes the partial S and dP (S^T and dP^T) of its slice in
+//     f32 into its own shared memory. The cluster sums them through
+//     distributed shared memory: after a cluster barrier each CTA sums its
+//     share of the tile's elements (shared out in rank order) over every
+//     CTA's partial in rank order, slice 0 first, all its peers' loads in
+//     flight at once; applies the mask and P = exp(scale S - lse), dS =
+//     P (dP - delta); and writes P and dS, rounded to the operand type,
+//     into its shared memory. After a second barrier every CTA gathers the
+//     others' shares. Every element is summed once in one order: all CTAs
+//     hold the same P and dS, no atomics, two runs are bitwise equal.
+//   - Each CTA then applies its slice only: dQ += dS K[:, slice], or
+//     dV += P^T dO[:, slice] and dK += dS^T Q[:, slice]. bf16 products run
+//     on mma.sync (8 warps, each 16 rows and half the columns); float32 on
+//     exact FFMA register micro-tiles read from shared memory as float4
+//     (no TF32), each score of S and dP four chains of a quarter of the
+//     slice, summed pairwise (the float32 worst element at dh 1100).
+//
+// Every design: inputs by strides ([B, L, H, Dh] with unit stride on Dh;
 // the Hopper design also needs 16-byte aligned rows for its tensor maps);
 // outputs contiguous [B, L, H, Dh]; lse and delta
 // contiguous f32 [B*H, Lq]. Rounding points follow the JAX kernels: scores,
@@ -134,6 +175,7 @@
 // operand type before the P V and P^T dO products, dS before the dS K and
 // dS^T Q products.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,6 +185,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
@@ -167,6 +210,7 @@ struct Params {
   int H, Lq, Lk, causal, q_offset, kv_offset;
   int dh;   // the true head width (the instance's DH may be wider)
   int vec;  // every row of q, k, v and dout is whole 16-byte groups at 16-byte aligned addresses
+  int per_cta;  // the cluster design: head-width slices a CTA owns
   float scale;
 };
 
@@ -664,8 +708,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
 template <typename T> struct WideChunk;
 template <> struct WideChunk<bf16> { static constexpr int value = 128; };
 template <> struct WideChunk<float> { static constexpr int value = 64; };
-constexpr int kWideDqKeys = 32;    // dQ keys per tile (S and dP beside a 128-column bf16 chunk)
-constexpr int kWideBwdCols = 64;   // dK/dV output columns per CTA
 
 template <int N>
 __device__ __forceinline__ void clear(float (&c)[N][4]) {
@@ -802,137 +844,527 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(const Params p
   store_rows<T, CH>(static_cast<T*>(p.out), o, b, h, q0 + warp * 16, p.Lq, p, c0, 1.f);
 }
 
+// ---- the cluster design: dQ and dK/dV past head width 256 -------------------
+//
+// (the design: see the head of this file)
+
+constexpr int kSlice = 128;        // head-width columns of one slice
+constexpr int kClusterMax = 8;     // CTAs of a cluster (the portable limit)
+constexpr int kClRows = 64;        // the CTA's fixed rows: queries (dQ), keys (dK/dV)
+constexpr int kClThreads = 256;    // 8 warps
+template <typename T> struct ClTile;  // rows of the sweep's tiles: keys (dQ), queries (dK/dV)
+template <> struct ClTile<bf16> { static constexpr int value = 64; };
+template <> struct ClTile<float> { static constexpr int value = 32; };
+
+// Shared memory of one CTA: the two fixed tiles (Q and dO in dQ, K and V in
+// dK/dV), a 2-stage ring of the two streamed tiles, the two f32 partials,
+// P and/or dS in the operand type, and two stages of lse and delta rows.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_wide_kernel(const Params p) {
-  constexpr int CH = WideChunk<T>::value, BK = kWideDqKeys;
-  constexpr int LD = CH + kPad;
+struct ClLayout {
+  static constexpr int N = ClTile<T>::value;
+  static constexpr int LD = kSlice + 16 / sizeof(T);  // slice tiles' row stride (16 bytes of padding)
+  static constexpr int LDF = N + 4;                   // the f32 partials' row stride
+  static constexpr int LDP = N + 16 / sizeof(T);      // P's and dS's row stride
+  static constexpr size_t kFixed = (size_t)kClRows * LD * sizeof(T);
+  static constexpr size_t kStream = (size_t)N * LD * sizeof(T);
+  static constexpr size_t kPartial = (size_t)kClRows * LDF * 4;
+  static constexpr size_t kOperand = (size_t)kClRows * LDP * sizeof(T);
+  static constexpr size_t kRows = 2 * 2 * kClRows * 4;
+  static constexpr size_t bytes(bool kv) {
+    return 2 * kFixed + 4 * kStream + 2 * kPartial + (kv ? 2 : 1) * kOperand + kRows;
+  }
+};
+
+// Per-dtype product engines. bf16: mma.sync m16n8k16, warp w owning rows
+// 16 (w % 4) and half w / 4 of the columns. float32: exact FFMA on register
+// micro-tiles read from shared memory as float4.
+template <typename T> struct ClFrag;
+template <> struct ClFrag<bf16> {
+  typedef float Parts[8][4];  // S then dP: 16 rows x 32 columns each of the 64 x 64 partials
+  typedef float Acc[8][4];    // 16 rows x 64 columns of a 64 x 128 accumulator
+};
+template <> struct ClFrag<float> {
+  typedef float Parts[8][8];  // rows rb + 8 i, 8 columns of S (warps 0-3) or dP (4-7), one quarter of k
+  typedef float Acc[4][8];    // rows ty + 16 i, columns 4 tx + j and 64 + 4 tx + j
+};
+
+template <int A, int B>
+__device__ __forceinline__ void fill0(float (&c)[A][B]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j) c[i][j] = 0.f;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, lane l giving the
+// address of one 16-byte row (matrix l / 8); .trans transposes each.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(sm90::smem_addr(p)));
+}
+
+// The A fragment of rows row0 .. row0 + 15, columns k0 .. k0 + 15 of a
+// row-major tile (load_a's layout).
+__device__ __forceinline__ void ldsm_a(FragA<bf16>& a, const bf16* s, int ld, int row0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm4(a.x, s + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// The B fragments of output columns n0 .. n0 + 7 (b[0]) and n0 + 8 .. n0 + 15
+// (b[1]), reduction k0 .. k0 + 15, from a tile stored [n][k] (load_b_nk's
+// layout) ...
+__device__ __forceinline__ void ldsm_b_nk(FragB<bf16> (&b)[2], const bf16* s, int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t r[4];
+  ldsm4(r, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
+  b[0].x[0] = r[0]; b[0].x[1] = r[1]; b[1].x[0] = r[2]; b[1].x[1] = r[3];
+}
+
+// ... and from a tile stored [k][n] (load_b_kn's layout).
+__device__ __forceinline__ void ldsm_b_kn(FragB<bf16> (&b)[2], const bf16* s, int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t r[4];
+  ldsm4_trans(r, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+  b[0].x[0] = r[0]; b[0].x[1] = r[1]; b[1].x[0] = r[2]; b[1].x[1] = r[3];
+}
+
+// c += the next kSlice terms of the partial S = A0 . B0^T and dP = A1 . B1^T
+// (A: the 64 x kSlice fixed tiles, B: the N x kSlice streamed ones).
+__device__ __forceinline__ void parts_add(float (&c)[8][4], const bf16* A0, const bf16* A1, const bf16* B0,
+                                          const bf16* B1) {
+  constexpr int LD = ClLayout<bf16>::LD;
+  const int warp = threadIdx.x >> 5, wr = warp & 3, wc = warp >> 2;
+#pragma unroll 2
+  for (int kk = 0; kk < kSlice; kk += 16) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      FragA<bf16> a;
+      ldsm_a(a, m ? A1 : A0, LD, 16 * wr, kk);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        FragB<bf16> b[2];
+        ldsm_b_nk(b, m ? B1 : B0, LD, 32 * wc + 8 * j, kk);
+        mma(c[4 * m + j], a, b[0]);
+        mma(c[4 * m + j + 1], a, b[1]);
+      }
+    }
+  }
+}
+
+// float32: warp w computes partial w / 4 (S or dP) at columns 8 (w % 4) ..
+// + 7 and every row; lane 4 rb + q owns rows rb + 8 i over a quarter of the
+// slice's columns (float4 groups g with g % 8 in {2q, 2q + 1}: 16
+// conflict-free float4 loads for 256 FMAs a step). The four quarters, four
+// chains of 32 terms a score, are summed pairwise by parts_store: short
+// chains keep the rounding of S and dP (and of dS = P (dP - delta), where
+// dP and delta nearly cancel) within FLASH_TOL's float32 limit at dh 1100.
+__device__ __forceinline__ void parts_add(float (&c)[8][8], const float* A0, const float* A1, const float* B0,
+                                          const float* B1) {
+  constexpr int LD = ClLayout<float>::LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane & 3;
+  const float* A = (warp >> 2 ? A1 : A0) + (lane >> 2) * LD;
+  const float* B = (warp >> 2 ? B1 : B0) + 8 * (warp & 3) * LD;
+#pragma unroll 1
+  for (int st = 0; st < kSlice / 16; ++st) {
+    const int k = 4 * (8 * (st >> 1) + 2 * q + (st & 1));
+    float4 y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = *reinterpret_cast<const float4*>(B + j * LD + k);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(A + 8 * i * LD + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[i][j] = fmaf(lane4(x, e), lane4(y[j], e), c[i][j]);
+    }
+  }
+}
+
+// Stores this thread's share of the partial S and dP into this CTA's
+// shared memory (row-major, row stride LDF).
+__device__ __forceinline__ void parts_store(float (&c)[8][4], float* part0, float* part1) {
+  constexpr int LDF = ClLayout<bf16>::LDF;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 16 * (warp & 3) + (lane >> 2), col = 32 * (warp >> 2) + 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    float* part = m ? part1 : part0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* f = c[4 * m + j];
+      *reinterpret_cast<float2*>(part + row * LDF + col + 8 * j) = make_float2(f[0], f[1]);
+      *reinterpret_cast<float2*>(part + (row + 8) * LDF + col + 8 * j) = make_float2(f[2], f[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void parts_store(float (&c)[8][8], float* part0, float* part1) {
+  constexpr int LDF = ClLayout<float>::LDF;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane & 3;
+  // the quarters' sums, (q0 + q1) + (q2 + q3) in every lane of the four
+  // (addition commutes: each lane gets the same bits)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[i][j] += __shfl_xor_sync(kFull, c[i][j], 1);
+      c[i][j] += __shfl_xor_sync(kFull, c[i][j], 2);
+    }
+  float* part = (warp >> 2 ? part1 : part0) + (lane >> 2) * LDF + 8 * (warp & 3);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i >> 1 != q) continue;  // lane q stores rows rb + 8 i for i = 2q, 2q + 1
+    *reinterpret_cast<float4*>(part + 8 * i * LDF) = make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+    *reinterpret_cast<float4*>(part + 8 * i * LDF + 4) = make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
+  }
+}
+
+// acc[64 x kSlice] += Pm[64 x N] . B[N x kSlice] (Pm: P or dS in the operand type).
+__device__ __forceinline__ void acc_add(float (&acc)[8][4], const bf16* Pm, const bf16* B) {
+  constexpr int N = ClLayout<bf16>::N, LD = ClLayout<bf16>::LD, LDP = ClLayout<bf16>::LDP;
+  const int warp = threadIdx.x >> 5, wr = warp & 3, wc = warp >> 2;
+#pragma unroll
+  for (int kk = 0; kk < N; kk += 16) {
+    FragA<bf16> a;
+    ldsm_a(a, Pm, LDP, 16 * wr, kk);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      FragB<bf16> b[2];
+      ldsm_b_kn(b, B, LD, kk, 64 * wc + 8 * n);
+      mma(acc[n], a, b[0]);
+      mma(acc[n + 1], a, b[1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void acc_add(float (&acc)[4][8], const float* Pm, const float* B) {
+  constexpr int N = ClLayout<float>::N, LD = ClLayout<float>::LD, LDP = ClLayout<float>::LDP;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 1
+  for (int n = 0; n < N; n += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(Pm + (ty + 16 * i) * LDP + n);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 y0 = *reinterpret_cast<const float4*>(B + (n + e) * LD + 4 * tx);
+      const float4 y1 = *reinterpret_cast<const float4*>(B + (n + e) * LD + 64 + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xv = lane4(x[i], e);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(xv, lane4(y0, j), acc[i][j]);
+          acc[i][4 + j] = fmaf(xv, lane4(y1, j), acc[i][4 + j]);
+        }
+      }
+    }
+  }
+}
+
+// Stores a CTA's 64 x kSlice accumulator (rows from row0, columns from col0
+// of a contiguous [B, L, H, p.dh] output), times `mul`; rows past L and
+// columns past p.dh are not stored.
+__device__ __forceinline__ void acc_store(bf16* out, const float (&acc)[8][4], int b, int h, int row0, int L,
+                                          const Params& p, int col0, float mul) {
+  const int warp = threadIdx.x >> 5;
+  store_rows<bf16, 64>(out, acc, b, h, row0 + 16 * (warp & 3), L, p, col0 + 64 * (warp >> 2), mul);
+}
+
+__device__ __forceinline__ void acc_store(float* out, const float (&acc)[4][8], int b, int h, int row0, int L,
+                                          const Params& p, int col0, float mul) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= L) continue;
+    float* dst = out + (((long long)b * L + row) * p.H + h) * p.dh;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = col0 + 64 * half + 4 * tx;
+      store_cols(dst, col, p.dh, acc[i][4 * half] * mul, acc[i][4 * half + 1] * mul);
+      store_cols(dst, col + 2, p.dh, acc[i][4 * half + 2] * mul, acc[i][4 * half + 3] * mul);
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(bf16* dst, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack(v[0], v[1]), pack(v[2], v[3]));
+}
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void copy4(bf16* dst, const bf16* src) {
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+}
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sm90::smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Slice `chunk` (kSlice columns) of rows [row0, row0 + ROWS) of one (b, h)
+// slice into shared memory (row stride ClLayout<T>::LD); rows at or past
+// `rows` and columns at or past p.dh are zeros. By cp.async, 16 bytes a
+// thread, where every row is whole 16-byte groups (p.vec; the caller
+// commits and waits), else by plain loads one element at a time.
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_slice(T* s, const T* src, long long row_stride, int row0, int rows, int chunk,
+                                           const Params& p) {
+  constexpr int LD = ClLayout<T>::LD;
+  const int col0 = chunk * kSlice, cols = p.dh - col0;
+  if (p.vec) {
+    constexpr int kVec = 16 / sizeof(T), kPerRow = kSlice / kVec;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kClThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+      const bool in = row0 + r < rows && c < cols;
+      cp_async16(s + r * LD + c, in ? src + (long long)(row0 + r) * row_stride + col0 + c : src, in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < ROWS * kSlice; i += kClThreads) {
+      const int r = i / kSlice, c = i % kSlice;
+      s[r * LD + c] = row0 + r < rows && c < cols ? src[(long long)(row0 + r) * row_stride + col0 + c] : zero<T>();
+    }
+  }
+}
+
+// out = the float4 at `own` in every CTA of the cluster, summed in rank
+// order (slice 0 first); every peer's load in flight at once.
+__device__ __forceinline__ void sum_peers(const cg::cluster_group& cluster, float (&out)[4], float* own, int C) {
+  float4 a[kClusterMax];
+#pragma unroll
+  for (int q = 0; q < kClusterMax; ++q)
+    if (q < C) a[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, q));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kClusterMax; ++q)
+    if (q < C)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[e] += lane4(a[q], e);
+}
+
+// The dQ (KV false) and dK/dV (KV true) passes of the cluster design. The
+// CTA's fixed tiles are the A operands of the partial products (Q and dO in
+// dQ, K and V in dK/dV), the streamed tiles their B operands (K and V, Q and
+// dO); partial 0 is S (S^T), partial 1 dP (dP^T).
+template <typename T, bool KV>
+__device__ __forceinline__ void cluster_bwd(const Params& p) {
+  using Ly = ClLayout<T>;
+  constexpr int R = kClRows, N = Ly::N, LD = Ly::LD, LDF = Ly::LDF, LDP = Ly::LDP;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + kBlockQ * LD;
-  T* sK = sDO + kBlockQ * LD;
-  T* sV = sK + BK * LD;
-  T* sKc = sV + BK * LD;  // K[:, this CTA's chunk], the B operand of dS K
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  T* fix0 = reinterpret_cast<T*>(smem);
+  T* fix1 = fix0 + R * LD;
+  T* ring = fix1 + R * LD;  // [stage][tile 0 or 1]
+  float* part0 = reinterpret_cast<float*>(ring + 4 * N * LD);  // the partial S (S^T) and dP (dP^T)
+  float* part1 = part0 + R * LDF;
+  T* pm0 = reinterpret_cast<T*>(part1 + R * LDF);  // dS (dQ); P^T (dK/dV)
+  T* pm1 = pm0 + R * LDP;                          // dS^T (dK/dV)
+  float* rows = reinterpret_cast<float*>(pm0 + (KV ? 2 : 1) * R * LDP);  // [stage][lse, delta][R]
+  auto stream = [&](int stage, int i) { return ring + (2 * stage + i) * N * LD; };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int m = p.per_cta, n_chunks = (p.dh + kSlice - 1) / kSlice;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const int c0 = blockIdx.z * CH;
+  // the CTA's rows (dQ: longest causal sweeps first; dK/dV: the first key tiles have the longest)
+  const int base = KV ? blockIdx.y * R : (gridDim.y - 1 - blockIdx.y) * R;
+  const int t_begin = KV ? first_q_tile_needed(p, base, N) : 0;
+  const int t_end = KV ? (p.Lq + N - 1) / N : k_tiles_needed(p, base, R, N);
   const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const int n_c = (p.dh + CH - 1) / CH;
+  const float* lse_g = p.lse + (long long)bh * p.Lq;
+  const float* delta_g = p.delta + (long long)bh * p.Lq;
 
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse[r] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
-    delta[r] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
-  }
-  float dq[CH / 8][4];
-  clear(dq);
-  const int n_k = k_tiles_needed(p, q0, kBlockQ, BK);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    float s[BK / 8][4], dp[BK / 8][4];
-    clear(s);
-    clear(dp);
-    for (int c = 0; c < n_c; ++c) {  // S = Q K^T and dP = dO V^T, chunk after chunk of dh
-      __syncthreads();
-      load_chunk<T, CH, CH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
-      load_chunk<T, CH, CH, kBlockQ>(sDO, DO, p.do_sl, q0, p.Lq, c * CH, p);
-      load_chunk<T, CH, CH, BK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
-      load_chunk<T, CH, CH, BK>(sV, V, p.v_sl, k0, p.Lk, c * CH, p);
-      if (c == 0) load_chunk<T, CH, CH, BK>(sKc, K, p.k_sl, k0, p.Lk, c0, p);
-      __syncthreads();
-      gemm_abt_add<T, CH, BK>(s, sQ, warp * 16, sK);
-      gemm_abt_add<T, CH, BK>(dp, sDO, warp * 16, sV);
+  auto load_fixed = [&](int chunk) {
+    load_slice<T, R>(fix0, KV ? K : Q, KV ? p.k_sl : p.q_sl, base, KV ? p.Lk : p.Lq, chunk, p);
+    load_slice<T, R>(fix1, KV ? V : DO, KV ? p.v_sl : p.do_sl, base, KV ? p.Lk : p.Lq, chunk, p);
+  };
+  auto load_stream = [&](int stage, int tile, int chunk) {
+    load_slice<T, N>(stream(stage, 0), KV ? Q : K, KV ? p.q_sl : p.k_sl, tile * N, KV ? p.Lq : p.Lk, chunk, p);
+    load_slice<T, N>(stream(stage, 1), KV ? DO : V, KV ? p.do_sl : p.v_sl, tile * N, KV ? p.Lq : p.Lk, chunk, p);
+  };
+  // lse and delta of query rows [row0, row0 + count) into rows stage `stage`
+  auto load_rows = [&](int stage, int row0, int count) {
+    for (int i = threadIdx.x; i < count; i += kClThreads) {
+      const int row = row0 + i;
+      rows[2 * R * stage + i] = row < p.Lq ? lse_g[row] : 0.f;
+      rows[2 * R * stage + R + i] = row < p.Lq ? delta_g[row] : 0.f;
     }
+  };
+
+  // The exchange of one tile, its partials stored. A tile's G groups of 4
+  // elements are shared out in rank order: CTA q owns [q G / C, (q + 1) G /
+  // C). After the first cluster barrier every partial is written; CTA r
+  // sums its groups over every CTA's partials in rank order (slice 0
+  // first), so every CTA gets the same S and dP and from them the same P
+  // and dS, which it writes into its own shared memory. After the second
+  // barrier every share is written and no CTA reads a partial any more (the
+  // next tile's may be written); each CTA gathers the shares of the others.
+  // Those reads end before it arrives at the next tile's first barrier,
+  // before any share is written again.
+  auto exchange = [&](int stage, int tile0) {
+    constexpr int G = R * N / 4;
+    const float* lse = rows + 2 * R * stage;
+    const float* delta = lse + R;
+    cluster.sync();
+    for (int g = r * G / C + threadIdx.x; g < (r + 1) * G / C; g += kClThreads) {
+      const int row = 4 * g / N, col = 4 * g % N;
+      float sc[4], dp[4];
+      sum_peers(cluster, sc, part0 + row * LDF + col, C);
+      sum_peers(cluster, dp, part1 + row * LDF + col, C);
+      float pw[4], ds[4];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const float pw = weight(
-            masked(s[j][i] * p.scale, row0 + 8 * r, k0 + j * 8 + 2 * t + (i & 1), p), lse[r]);
-        s[j][i] = pw * (dp[j][i] - delta[r]);  // dS
+      for (int e = 0; e < 4; ++e) {
+        // dQ: rows are queries, columns keys; dK/dV: rows keys, columns queries
+        const int qrow = KV ? tile0 + col + e : base + row, key = KV ? base + row : tile0 + col + e;
+        const int ri = KV ? col + e : row;
+        pw[e] = weight(masked(sc[e] * p.scale, qrow, key, p), lse[ri]);
+        ds[e] = pw[e] * (dp[e] - delta[ri]);
       }
-    gemm_pb<T, CH, CH, BK>(dq, s, sKc);  // dQ += dS K[:, chunk]
+      if (KV) {
+        store4(pm0 + row * LDP + col, pw);
+        store4(pm1 + row * LDP + col, ds);
+      } else {
+        store4(pm0 + row * LDP + col, ds);
+      }
+    }
+    cluster.sync();
+    // the gather: every group of the tile outside this CTA's share, from its owner
+#pragma unroll
+    for (int i = 0; i < G / kClThreads; ++i) {
+      const int g = i * kClThreads + threadIdx.x;
+      int q = g * C / G;  // the owner: q G / C <= g < (q + 1) G / C
+      if ((q + 1) * G / C <= g) ++q;
+      if (q * G / C > g) --q;
+      if (q == r) continue;
+      const int off = (4 * g / N) * LDP + 4 * g % N;
+      copy4(pm0 + off, cluster.map_shared_rank(pm0, q) + off);
+      if (KV) copy4(pm1 + off, cluster.map_shared_rank(pm1, q) + off);
+    }
+    __syncthreads();
+  };
+
+  typename ClFrag<T>::Parts parts;  // this thread's share of the partial S and dP
+  typename ClFrag<T>::Acc acc0, acc1;  // dQ; dK and dV
+  // the products with P and dS: their B operands are the streamed tiles at `stage`
+  auto apply = [&](int stage) {
+    if (KV) {
+      acc_add(acc1, pm0, stream(stage, 1));  // dV += P^T dO
+      acc_add(acc0, pm1, stream(stage, 0));  // dK += dS^T Q
+    } else {
+      acc_add(acc0, pm0, stream(stage, 0));  // dQ += dS K
+    }
+  };
+  auto store = [&](int chunk) {
+    if (KV) {
+      acc_store(static_cast<T*>(p.dk), acc0, b, h, base, p.Lk, p, chunk * kSlice, p.scale);
+      acc_store(static_cast<T*>(p.dv), acc1, b, h, base, p.Lk, p, chunk * kSlice, 1.f);
+    } else {
+      acc_store(static_cast<T*>(p.dq), acc0, b, h, base, p.Lq, p, chunk * kSlice, p.scale);
+    }
+  };
+
+  fill0(acc0);
+  fill0(acc1);
+  if (!KV) load_rows(0, base, R);
+  if (m == 1) {
+    // one slice a CTA: the fixed tiles load once, the streamed ones through
+    // a 2-stage ring (the next tile's copies run beside this tile's work)
+    load_fixed(r);
+    if (t_begin < t_end) {
+      load_stream(0, t_begin, r);
+      if (KV) load_rows(0, t_begin * N, N);
+    }
+    cp_async_commit();
+    for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+      const int s = it & 1;
+      if (t + 1 < t_end) {
+        load_stream(s ^ 1, t + 1, r);
+        if (KV) load_rows(s ^ 1, (t + 1) * N, N);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      fill0(parts);
+      parts_add(parts, fix0, fix1, stream(s, 0), stream(s, 1));
+      parts_store(parts, part0, part1);
+      exchange(KV ? s : 0, t * N);
+      apply(s);
+      __syncthreads();  // stage s is free for the copies of tile t + 2
+    }
+    cp_async_wait<0>();
+    cluster.sync();  // no CTA leaves while a peer may still read its shared memory
+    store(r);
+    return;
   }
-  store_rows<T, CH>(static_cast<T*>(p.dq), dq, b, h, q0 + warp * 16, p.Lq, p, c0, p.scale);
+  // per_cta slices a CTA (past kClusterMax slices): one sweep for each
+  // slice it owns, each tile's partial summed over all its slices (their
+  // tiles loaded one after another through stage 0); the slice the sweep
+  // accumulates has its B operands in stage 1
+  const int first = r * m, last = min(first + m, n_chunks);
+  for (int j = 0; j < m; ++j) {
+    const int o = first + j;
+    for (int t = t_begin; t < t_end; ++t) {
+      __syncthreads();  // every warp is done with the last tile's stages
+      if (o < n_chunks) load_stream(1, t, o);
+      if (KV) load_rows(0, t * N, N);
+      fill0(parts);
+      for (int c = first; c < last; ++c) {
+        if (c > first) __syncthreads();
+        load_fixed(c);
+        load_stream(0, t, c);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        parts_add(parts, fix0, fix1, stream(0, 0), stream(0, 1));
+      }
+      parts_store(parts, part0, part1);
+      exchange(0, t * N);
+      if (o < n_chunks) apply(1);
+    }
+    if (o < n_chunks) store(o);
+    fill0(acc0);
+    fill0(acc1);
+  }
+  cluster.sync();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkdv_wide_kernel(const Params p) {
-  constexpr int CH = WideChunk<T>::value, DC = kWideBwdCols;
-  constexpr int LD = CH + kPad, LDC = DC + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kBlockK * LD;
-  T* sQ = sV + kBlockK * LD;
-  T* sDO = sQ + kBlockQB * LD;
-  T* sQc = sDO + kBlockQB * LD;    // Q[:, this CTA's chunk], the B operand of dS^T Q
-  T* sDOc = sQc + kBlockQB * LDC;  // dO[:, this CTA's chunk], the B operand of P^T dO
-  float* sLse = reinterpret_cast<float*>(sDOc + kBlockQB * LDC);
-  float* sDelta = sLse + kBlockQB;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * kBlockK;
-  const int c0 = blockIdx.z * DC;
-  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* DO = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int key0 = k0 + warp * 16 + (lane >> 2);
-  const int n_c = (p.dh + CH - 1) / CH;
+__global__ void __launch_bounds__(kClThreads, 1) flash_dq_cluster_kernel(const Params p) {
+  cluster_bwd<T, false>(p);
+}
 
-  float dk[DC / 8][4], dv[DC / 8][4];
-  clear(dk);
-  clear(dv);
-  const int n_q = (p.Lq + kBlockQB - 1) / kBlockQB;
-  for (int qt = first_q_tile_needed(p, k0, kBlockQB); qt < n_q; ++qt) {
-    const int q0 = qt * kBlockQB;
-    // S^T = K Q^T and dP^T = V dO^T, chunk after chunk of dh: rows are this
-    // warp's keys, columns the tile's queries
-    float st[kBlockQB / 8][4], dpt[kBlockQB / 8][4];
-    clear(st);
-    clear(dpt);
-    for (int c = 0; c < n_c; ++c) {
-      __syncthreads();
-      load_chunk<T, CH, CH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
-      load_chunk<T, CH, CH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, c * CH, p);
-      load_chunk<T, CH, CH, kBlockQB>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
-      load_chunk<T, CH, CH, kBlockQB>(sDO, DO, p.do_sl, q0, p.Lq, c * CH, p);
-      if (c == 0) {
-        load_chunk<T, DC, DC, kBlockQB>(sQc, Q, p.q_sl, q0, p.Lq, c0, p);
-        load_chunk<T, DC, DC, kBlockQB>(sDOc, DO, p.do_sl, q0, p.Lq, c0, p);
-        if (threadIdx.x < kBlockQB) {
-          const int row = q0 + threadIdx.x;
-          sLse[threadIdx.x] = row < p.Lq ? p.lse[(long long)bh * p.Lq + row] : 0.f;
-          sDelta[threadIdx.x] = row < p.Lq ? p.delta[(long long)bh * p.Lq + row] : 0.f;
-        }
-      }
-      __syncthreads();
-      gemm_abt_add<T, CH, kBlockQB>(st, sK, warp * 16, sQ);
-      gemm_abt_add<T, CH, kBlockQB>(dpt, sV, warp * 16, sDO);
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockQB / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = j * 8 + 2 * t + (i & 1);
-        st[j][i] = weight(masked(st[j][i] * p.scale, q0 + col, key0 + 8 * (i >> 1), p), sLse[col]);
-      }
-    gemm_pb<T, DC, DC, kBlockQB>(dv, st, sDOc);  // dV += P^T dO[:, chunk]
-#pragma unroll
-    for (int j = 0; j < kBlockQB / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[j][i] *= dpt[j][i] - sDelta[j * 8 + 2 * t + (i & 1)];  // dS^T
-    gemm_pb<T, DC, DC, kBlockQB>(dk, st, sQc);  // dK += dS^T Q[:, chunk]
-  }
-  store_rows<T, DC>(static_cast<T*>(p.dk), dk, b, h, k0 + warp * 16, p.Lk, p, c0, p.scale);
-  store_rows<T, DC>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p, c0, 1.f);
+template <typename T>
+__global__ void __launch_bounds__(kClThreads, 1) flash_dkdv_cluster_kernel(const Params p) {
+  cluster_bwd<T, true>(p);
 }
 
 // ---- Hopper kernels: bfloat16 at Dh 64 and 128 (and the widths padded to them) ----
@@ -1411,6 +1843,20 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Arg& arg, c
   return (int)cudaGetLastError();
 }
 
+template <typename Kernel>
+int launch_cluster(Kernel kernel, const cudaLaunchConfig_t& cfg, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The mma.sync design, all three passes: (b*h, tile, column chunk) grids,
 // as many chunks as hold columns of the true width.
 template <typename T, int DH>
@@ -1472,28 +1918,48 @@ int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
   return launch(flash_dkdv_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
 }
 
-// The wide instance, all three passes: (b*h, tile, column chunk) grids as
-// in run_mma, every chunk of the true width its own CTA.
+// The wide instance's forward: (b*h, tile, column chunk) grids as in
+// run_mma, every chunk of the true width its own CTA.
 template <typename T>
-int run_wide(int which, const Params& p, int BH, cudaStream_t stream) {
+int run_wide(const Params& p, int BH, cudaStream_t stream) {
   constexpr int CH = WideChunk<T>::value;
-  constexpr size_t row = (CH + kPad) * sizeof(T), out_row = (kWideBwdCols + kPad) * sizeof(T);
-  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ, n_k = (p.Lk + kBlockK - 1) / kBlockK;
-  if (n_q > 65535 || n_k > 65535) return (int)cudaErrorInvalidValue;
-  switch (which) {
-    case 0:
-      return launch(flash_fwd_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
-                    (kBlockQ + 2 * kBlockK) * row, p, stream);
-    case 1:
-      return launch(flash_dq_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
-                    (2 * kBlockQ + 3 * kWideDqKeys) * row, p, stream);
-    case 2:
-      return launch(flash_dkdv_wide_kernel<T>, dim3(BH, n_k, (p.dh + kWideBwdCols - 1) / kWideBwdCols),
-                    kThreads,
-                    (2 * kBlockK + 2 * kBlockQB) * row + 2 * kBlockQB * out_row + 2 * kBlockQB * sizeof(float),
-                    p, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  constexpr size_t row = (CH + kPad) * sizeof(T);
+  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ;
+  if (n_q > 65535) return (int)cudaErrorInvalidValue;
+  return launch(flash_fwd_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
+                (kBlockQ + 2 * kBlockK) * row, p, stream);
+}
+
+// The cluster design's dQ (which 1) and dK/dV (which 2): a (b*h, 64-row
+// tile, slice) grid whose slices on z form one cluster. n slices of kSlice
+// columns cover dh; a CTA owns per_cta = ceil(n / kClusterMax) of them (1
+// up to dh 1024), so a cluster is ceil(n / per_cta) <= kClusterMax CTAs.
+// Returns the occupancy query's error, or cudaErrorInvalidConfiguration
+// where no such cluster fits on the card, rather than launch a grid that
+// cannot be scheduled.
+template <typename T>
+int run_cluster(int which, const Params& p0, int BH, cudaStream_t stream) {
+  if (which != 1 && which != 2) return (int)cudaErrorInvalidValue;
+  Params p = p0;
+  const int n = (p.dh + kSlice - 1) / kSlice;
+  p.per_cta = (n + kClusterMax - 1) / kClusterMax;
+  const int cluster = (n + p.per_cta - 1) / p.per_cta;
+  const int tiles = ((which == 1 ? p.Lq : p.Lk) + kClRows - 1) / kClRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BH, tiles, cluster);
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = ClLayout<T>::bytes(which == 2);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return which == 1 ? launch_cluster(flash_dq_cluster_kernel<T>, cfg, p)
+                    : launch_cluster(flash_dkdv_cluster_kernel<T>, cfg, p);
 }
 
 // Whether the views fit the Hopper design's tensor maps: every row whole
@@ -1522,13 +1988,15 @@ int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t
     if (dh <= 64) return dh % 8 == 0 && tma ? run_sm90<64>(which, p, B, stream) : run_mma<bf16, 64>(which, p, BH, stream);
     if (dh <= 128) return dh % 8 == 0 && tma ? run_sm90<128>(which, p, B, stream) : run_mma<bf16, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<bf16, 256>(which, p, BH, stream);
-    return run_wide<bf16>(which, p, BH, stream);
+    if (which != 0) return run_cluster<bf16>(which, p, BH, stream);
+    return run_wide<bf16>(p, BH, stream);
   } else if (dtype == 0) {
     if (dh <= 32) return run_mma<float, 32>(which, p, BH, stream);
     if (dh <= 64) return run_mma<float, 64>(which, p, BH, stream);
     if (dh <= 128) return run_mma<float, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<float, 256>(which, p, BH, stream);
-    return run_wide<float>(which, p, BH, stream);
+    if (which != 0) return run_cluster<float>(which, p, BH, stream);
+    return run_wide<float>(p, BH, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1570,6 +2038,7 @@ int omldm_flash_attention(int which, int dtype, int dh, int B, int H, int Lq, in
   p.H = H; p.Lq = Lq; p.Lk = Lk; p.causal = causal;
   p.q_offset = q_offset; p.kv_offset = kv_offset; p.scale = scale;
   p.dh = dh;
+  p.per_cta = 1;
   const int size = dtype == 1 ? 2 : 4;
   p.vec = rows_of_16(q, strides, dh, size) && rows_of_16(k, strides + 3, dh, size) &&
           rows_of_16(v, strides + 6, dh, size) && rows_of_16(dout, strides + 9, dh, size);

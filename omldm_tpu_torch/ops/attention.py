@@ -20,12 +20,14 @@ Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
 
 The kernels take any head width from 1 up in float32 or bfloat16, and any
 B * H: ``kernel_width`` gives the built width a head width runs at (the
-wide instance past 256), ``KERNEL_DESIGNS`` which of the two CUDA designs
-runs a (dtype, head width), and ``kernel_design`` which one runs a call's
-views (a Hopper width whose views the tensor maps cannot take runs
-mma.sync); ``sm90_tile_plan`` and ``tensor_map_geometry`` restate on the
-host what the Hopper design's loops visit and which TMA tensor map it
-encodes.
+wide instance past 256), ``KERNEL_DESIGNS`` which CUDA design runs a
+(dtype, head width) up to 256 and the forward past it, ``pass_design``
+which one each pass runs (dQ and dK/dV past 256: the cluster design), and
+``kernel_design`` which one runs a call's views (a Hopper width whose views
+the tensor maps cannot take runs mma.sync); ``sm90_tile_plan``,
+``tensor_map_geometry`` and ``wide_bwd_plan`` restate on the host what the
+Hopper design's loops visit, which TMA tensor map it encodes, and how the
+cluster design splits a head width.
 
 A CUDA tensor the kernels cannot take (dtype, layout) raises; nothing falls
 back to the plain version. Every kernel launch counts in :data:`launches`,
@@ -47,14 +49,19 @@ NEG_INF = -1e30
 #: kernel launches by name (CUDA tensors only)
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0}
 #: the same launches by the design that ran them (``kernel_design``)
-design_launches = {"sm90": 0, "mma": 0}
+design_launches = {"sm90": 0, "mma": 0, "cluster": 0}
 
 #: the widths instances are built at; a head width with none of its own runs
 #: the next of them, zero-padded in shared memory (``kernel_width``)
 KERNEL_WIDTHS = (32, 64, 128, 256)
 #: the instance every head width past 256 runs: its tiles hold one column
-#: chunk of a row (64 float32, 128 bf16) and it loops over the width
+#: chunk of a row (64 float32, 128 bf16) and it loops over the width (the
+#: forward); dQ and dK/dV there run the cluster design (``wide_bwd_plan``)
 WIDE = "wide"
+#: the design of dQ and dK/dV past 256: the head width split into slices
+#: across a thread-block cluster, S and dP summed once in distributed
+#: shared memory
+CLUSTER = "cluster"
 
 
 def kernel_width(dh: int):
@@ -83,6 +90,80 @@ KERNEL_DESIGNS = {(dtype, dh): _design(dtype, dh)
                   for dh in range(1, 2 * KERNEL_WIDTHS[-1] + 1)}
 
 
+_PASSES = ("fwd", "dq", "dkdv")
+
+
+def pass_design(which: str, dtype: torch.dtype, dh: int) -> str:
+    """The design ``run_dtype`` dispatches one pass ("fwd", "dq" or "dkdv")
+    of (dtype, head width) to on views that are whole 16-byte groups:
+    ``KERNEL_DESIGNS``' design, except dQ and dK/dV past 256, which run the
+    cluster design."""
+    if which not in _PASSES:
+        raise ValueError(f"pass_design: which is 'fwd', 'dq' or 'dkdv', not {which!r}")
+    if which != "fwd" and kernel_width(dh) == WIDE:
+        return CLUSTER
+    return _design(dtype, dh)
+
+
+#: the cluster design (csrc/flash_attention.cu kSlice, kClusterMax,
+#: kClRows, kClThreads, ClTile): head-width columns of a slice, CTAs of a
+#: cluster at most, a CTA's fixed rows (queries in dQ, keys in dK/dV), its
+#: threads, and the rows of the sweep's tiles by dtype
+CLUSTER_SLICE = 128
+CLUSTER_MAX = 8
+CLUSTER_ROWS = 64
+CLUSTER_THREADS = 256
+CLUSTER_TILE = {torch.bfloat16: 64, torch.float32: 32}
+#: shared memory a CTA may take on an H100
+SMEM_LIMIT = 232_448
+
+
+def _cluster_smem(dtype: torch.dtype, kv: bool) -> int:
+    """ClLayout<T>::bytes: the two fixed tiles, a 2-stage ring of the two
+    streamed tiles, the two f32 partials (S, dP), P and/or dS in the operand
+    type, two stages of lse and delta rows."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    n, pad = CLUSTER_TILE[dtype], 16 // size
+    ld = CLUSTER_SLICE + pad
+    fixed = CLUSTER_ROWS * ld * size
+    streamed = n * ld * size
+    partial = CLUSTER_ROWS * (n + 4) * 4
+    operand = CLUSTER_ROWS * (n + pad) * size
+    return 2 * fixed + 4 * streamed + 2 * partial + (2 if kv else 1) * operand + 2 * 2 * CLUSTER_ROWS * 4
+
+
+def wide_bwd_plan(dtype: torch.dtype, dh: int) -> dict:
+    """How the cluster design runs dQ and dK/dV at a head width past 256,
+    as ``run_cluster`` and ``cluster_bwd`` split it: ``slices`` slices of
+    ``slice`` columns cover [0, dh) (the last one ragged); a CTA owns
+    ``per_cta`` of them (more than one only past ``CLUSTER_MAX`` slices,
+    and then it sweeps once for each); ``cluster`` CTAs a (b*h, 64-row
+    tile); ``columns[r]`` the [start, end) column ranges CTA r owns;
+    ``smem`` each CTA's shared-memory bytes by pass; ``exchange`` the bytes
+    a CTA reads from its peers' shared memory a tile by pass (their f32 S
+    and dP partials of the elements it owns, then their shares of dS, or P
+    and dS, in the operand type), averaged over the cluster's CTAs."""
+    if kernel_width(dh) != WIDE:
+        raise ValueError(f"wide_bwd_plan: head width {dh} is not past {KERNEL_WIDTHS[-1]}")
+    if dtype not in CLUSTER_TILE:
+        raise ValueError(f"wide_bwd_plan: dtype {dtype} is not float32 or bfloat16")
+    n = -(-dh // CLUSTER_SLICE)
+    per_cta = -(-n // CLUSTER_MAX)
+    cluster = -(-n // per_cta)
+    columns = [[(c * CLUSTER_SLICE, min(dh, (c + 1) * CLUSTER_SLICE))
+                for c in range(r * per_cta, min(n, (r + 1) * per_cta))] for r in range(cluster)]
+    size = 2 if dtype == torch.bfloat16 else 4
+    cells = CLUSTER_ROWS * CLUSTER_TILE[dtype]
+    share = (cluster - 1) / cluster
+    return {
+        "slice": CLUSTER_SLICE, "slices": n, "per_cta": per_cta, "cluster": cluster,
+        "columns": columns,
+        "smem": {"dq": _cluster_smem(dtype, False), "dkdv": _cluster_smem(dtype, True)},
+        "exchange": {"dq": share * cells * (2 * 4 + size),
+                     "dkdv": share * cells * (2 * 4 + 2 * size)},
+    }
+
+
 def _rows_of_16(t: torch.Tensor) -> bool:
     """rows_of_16 in csrc/flash_attention.cu: the base, the three outer
     strides and the width of a [B, L, H, Dh] view are whole 16-byte groups."""
@@ -91,14 +172,14 @@ def _rows_of_16(t: torch.Tensor) -> bool:
             and all(s * size % 16 == 0 for s in t.stride()[:3]))
 
 
-def kernel_design(*views: torch.Tensor) -> str:
-    """The design a call on these views runs, as ``run_dtype`` picks it:
-    ``KERNEL_DESIGNS``' design for (dtype, head width), except that a Hopper
-    width runs mma.sync at the same width where any view's rows are not
-    whole 16-byte groups at 16-byte aligned addresses or a TMA tensor map
-    would refuse it (``tensor_map_geometry``). The views are q, k, v and,
-    for the backward passes, dout."""
-    design = _design(views[0].dtype, views[0].shape[-1])
+def kernel_design(*views: torch.Tensor, which: str = "fwd") -> str:
+    """The design a call of pass ``which`` on these views runs, as
+    ``run_dtype`` picks it: ``pass_design``'s, except that a Hopper width
+    runs mma.sync at the same width where any view's rows are not whole
+    16-byte groups at 16-byte aligned addresses or a TMA tensor map would
+    refuse it (``tensor_map_geometry``). The views are q, k, v and, for the
+    backward passes, dout."""
+    design = pass_design(which, views[0].dtype, views[0].shape[-1])
     if design == "sm90":
         for t in views:
             if not _rows_of_16(t):
@@ -378,7 +459,8 @@ def _launch(which, dtype, q, k, v, causal, q_offset, kv_offset, dout=None,
         )
     if rc != 0:
         raise RuntimeError(f"flash attention kernel {which} launch failed: CUDA error {rc}")
-    design_launches[kernel_design(q, k, v, *(() if dout is None else (dout,)))] += 1
+    design_launches[kernel_design(q, k, v, *(() if dout is None else (dout,)),
+                                  which=_PASSES[which])] += 1
 
 
 def _check_device(fn: str, q: torch.Tensor) -> bool:

@@ -316,6 +316,32 @@ def test_grads_match_pallas_backward_at_wide_widths(dh, causal):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), atol=1e-5)
 
 
+# the offsets of phase 43's two newest wide cases on the card, at this
+# size: a query offset (bf16 dh 300 there) and a key offset that leaves the
+# first 12 query rows seeing no key and the last 12 keys seen by no query
+# (float32 dh 1100, past the cluster's reach of 8 slices of 128)
+WIDE_OFFSETS = [(300, 12, 0), (1100, 0, 12)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,qo,ko", WIDE_OFFSETS, ids=["dh300_q_offset", "dh1100_kv_offset"])
+def test_grads_match_pallas_backward_at_wide_offsets(dh, qo, ko, causal):
+    """float32 gradients through FlashAttention at a width past 256 with a
+    query or key offset, against jax.vjp of the Pallas dQ and dK/dV
+    kernels at atol 1e-5; rows that see no key get zero dQ."""
+    q, k, v, g = _inputs(1, 40, 40, 2, dh, seed=7 * dh)
+    _, vjp = jax.vjp(lambda q, k, v: jatt._flash_diff(q, k, v, causal, qo, ko, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    tatt.attention(tq, tk, tv, causal, qo, ko).backward(torch.from_numpy(g))
+    for jg, t in zip(jgrads, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), atol=1e-5)
+    if causal and ko > qo:
+        assert tq.grad[:, :ko - qo].abs().max().item() == 0.0
+        assert tk.grad[:, -(ko - qo):].abs().max().item() == 0.0
+
+
 def _bf16(a):
     """numpy float32 rounded to bf16 and back, so both packages start from
     the same bf16 values."""

@@ -5,12 +5,14 @@ attention source dispatches, checked on the CPU without nvcc.
   ``csrc/`` and the nvcc flags, so a changed header or flag never reuses a
   stale library.
 - ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches every (dtype,
-  head width) pair of ``KERNEL_DESIGNS`` (widths 1..512) to the design it
-  names at ``kernel_width`` (the wide instance past 256), takes the Hopper
+  head width) pair of ``KERNEL_DESIGNS`` (widths 1..512), pass by pass, to
+  the design ``pass_design`` names at ``kernel_width`` (past 256 the wide
+  forward and the cluster design's dQ and dK/dV), takes the Hopper
   design only where the views fit its tensor maps (as ``kernel_design``
   does), the Hopper dispatch launches a Hopper kernel for
   each of the three passes, and the source's sm90 tile sizes are the ones
-  ``sm90_tile_plan`` models.
+  ``sm90_tile_plan`` models; ``wide_bwd_plan`` restates the cluster
+  design's constants, shared memory and split of the width.
 """
 
 import re
@@ -90,11 +92,13 @@ def test_stop_ends_an_unfinished_build(tmp_path, monkeypatch):
 
 
 def _run_dtype_table(top=512):
-    """{(dtype code, head width): (design, built width)} for every width
-    1..top, read from run_dtype's `if (dh <= W) return ...` lines: the
-    mma.sync instance at W, or the Hopper one where `dh % 8 == 0 && tma ?`
-    picks it (for views that fit its tensor maps); then its closing
-    `return run_wide<...>` for every wider width."""
+    """{(dtype code, head width): {pass: (design, built width)}} for every
+    width 1..top and each pass ("fwd", "dq", "dkdv"), read from run_dtype's
+    `if (dh <= W) return ...` lines (every pass): the mma.sync instance at
+    W, or the Hopper one where `dh % 8 == 0 && tma ?` picks it (for views
+    that fit its tensor maps); then, for every wider width, its `if (which
+    != 0) return run_cluster<...>` line (dQ and dK/dV) and its closing
+    `return run_wide<...>` (the forward)."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int run_dtype("):]
     body = body[:body.index("\n}\n")]
@@ -107,12 +111,17 @@ def _run_dtype_table(top=512):
             assert f"<{width}>" in line or f", {width}>" in line, line
             for dh in range(lo, width + 1):
                 sm90 = "dh % 8 == 0 && tma ? run_sm90<" in line and dh % 8 == 0
-                table[(int(code), dh)] = ("sm90" if sm90 else "mma", width)
+                design = ("sm90" if sm90 else "mma", width)
+                table[(int(code), dh)] = {w: design for w in ("fwd", "dq", "dkdv")}
             lo = width + 1
-        wide = re.findall(r"\n    return (run_wide<\w+>)\(which, p, BH, stream\);", block)
-        assert wide == [f"run_wide<{'bf16' if code == '1' else 'float'}>"], block
+        t = "bf16" if code == "1" else "float"
+        rest = block[block.rindex("if (dh <= "):].split("\n", 1)[1]
+        assert [line.strip() for line in rest.strip().splitlines()] == [
+            f"if (which != 0) return run_cluster<{t}>(which, p, BH, stream);",
+            f"return run_wide<{t}>(p, BH, stream);"], rest
         for dh in range(lo, top + 1):
-            table[(int(code), dh)] = ("mma", tatt.WIDE)
+            table[(int(code), dh)] = {"fwd": ("mma", tatt.WIDE), "dq": ("cluster", tatt.WIDE),
+                                      "dkdv": ("cluster", tatt.WIDE)}
     return table
 
 
@@ -121,11 +130,90 @@ def test_dispatch_matches_kernel_head_dims_and_designs():
     codes = {torch.float32: 0, torch.bfloat16: 1}
     assert set(table) == {(codes[dt], dh) for dt, dh in tatt.KERNEL_DESIGNS}
     for (dt, dh), design in tatt.KERNEL_DESIGNS.items():
-        assert table[(codes[dt], dh)] == (design, tatt.kernel_width(dh)), (dt, dh)
+        for which in ("fwd", "dq", "dkdv"):
+            assert table[(codes[dt], dh)][which] == (
+                tatt.pass_design(which, dt, dh), tatt.kernel_width(dh)), (dt, dh, which)
+        assert table[(codes[dt], dh)]["fwd"][0] == design
     # the Hopper design is bf16 only, at the widths padded to 64 and 128
     # whose rows are whole 16-byte groups; float32 keeps its exact emulation
     assert {k for k, v in tatt.KERNEL_DESIGNS.items() if v == "sm90"} == {
         (torch.bfloat16, dh) for dh in range(40, 129, 8)}
+    # past 256 the backward passes run the cluster design, in both dtypes
+    assert {(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS
+            if tatt.pass_design("dq", dt, dh) == "cluster"} == {
+        (dt, dh) for dt in (torch.bfloat16, torch.float32) for dh in range(257, 513)}
+
+
+def _cluster_source():
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    consts = {name: int(val) for name, val in
+              re.findall(r"constexpr int (kSlice|kClusterMax|kClRows|kClThreads) = (\d+);", src)}
+    tiles = dict(re.findall(r"struct ClTile<(bf16|float)> \{ static constexpr int value = (\d+); \}", src))
+    return src, consts, {k: int(v) for k, v in tiles.items()}
+
+
+def test_wide_bwd_plan_is_the_source_constants():
+    """wide_bwd_plan restates the cluster design's constants, its shared
+    memory layout and run_cluster's split of the width."""
+    src, consts, tiles = _cluster_source()
+    assert consts == {"kSlice": tatt.CLUSTER_SLICE, "kClusterMax": tatt.CLUSTER_MAX,
+                      "kClRows": tatt.CLUSTER_ROWS, "kClThreads": tatt.CLUSTER_THREADS}
+    assert tiles == {"bf16": tatt.CLUSTER_TILE[torch.bfloat16],
+                     "float": tatt.CLUSTER_TILE[torch.float32]}
+    layout = src[src.index("struct ClLayout {"):]
+    layout = layout[:layout.index("\n};\n")]
+    for line in ("LD = kSlice + 16 / sizeof(T);", "LDF = N + 4;", "LDP = N + 16 / sizeof(T);",
+                 "kFixed = (size_t)kClRows * LD * sizeof(T);",
+                 "kStream = (size_t)N * LD * sizeof(T);",
+                 "kPartial = (size_t)kClRows * LDF * 4;",
+                 "kOperand = (size_t)kClRows * LDP * sizeof(T);",
+                 "kRows = 2 * 2 * kClRows * 4;",
+                 "return 2 * kFixed + 4 * kStream + 2 * kPartial + (kv ? 2 : 1) * kOperand + kRows;"):
+        assert line in layout, line
+    run = src[src.index("int run_cluster("):]
+    run = run[:run.index("\n}\n")]
+    for line in ("const int n = (p.dh + kSlice - 1) / kSlice;",
+                 "p.per_cta = (n + kClusterMax - 1) / kClusterMax;",
+                 "const int cluster = (n + p.per_cta - 1) / p.per_cta;",
+                 "attr[0].val.clusterDim.z = cluster;",
+                 "cfg.gridDim = dim3(BH, tiles, cluster);",
+                 "cfg.blockDim = dim3(kClThreads);",
+                 "cfg.dynamicSmemBytes = ClLayout<T>::bytes(which == 2);"):
+        assert line in run, line
+    # no CTA asks for more than the portable cluster: no non-portable attribute
+    assert "NonPortableClusterSizeAllowed" not in src
+    assert tatt.wide_bwd_plan(torch.bfloat16, 512)["smem"] == {"dq": 149_504, "dkdv": 158_720}
+    assert tatt.wide_bwd_plan(torch.float32, 512)["smem"] == {"dq": 163_840, "dkdv": 173_056}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_bwd_plan_covers_every_width_once(dtype):
+    """Every width 257..2048: the slices cover [0, dh) exactly once, each
+    CTA's shared memory fits the card, the cluster is within the portable
+    limit, and a CTA owns more than one slice only past the cluster's
+    reach (8 slices of 128: dh 1024)."""
+    for dh in range(257, 2049):
+        plan = tatt.wide_bwd_plan(dtype, dh)
+        spans = [span for cta in plan["columns"] for span in cta]
+        assert spans[0][0] == 0 and spans[-1][1] == dh, dh
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:])), dh
+        assert len(plan["columns"]) == plan["cluster"] <= tatt.CLUSTER_MAX
+        assert all(1 <= len(cta) <= plan["per_cta"] for cta in plan["columns"])
+        assert len(spans) == plan["slices"] == -(-dh // tatt.CLUSTER_SLICE)
+        assert (plan["per_cta"] > 1) == (dh > tatt.CLUSTER_SLICE * tatt.CLUSTER_MAX)
+        assert max(plan["smem"].values()) <= tatt.SMEM_LIMIT
+    with pytest.raises(ValueError, match="not past"):
+        tatt.wide_bwd_plan(dtype, 256)
+
+
+def test_wide_backward_is_the_cluster_design_only():
+    """The loop design's dQ and dK/dV are gone; its forward stays."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "flash_dq_wide_kernel" not in src and "flash_dkdv_wide_kernel" not in src
+    assert "__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel" in src
+    for kernel in ("flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"):
+        assert f"__global__ void __launch_bounds__(kClThreads, 1) {kernel}" in src
+    assert "cudaLaunchKernelEx" in src and "cudaOccupancyMaxActiveClusters" in src
 
 
 def test_sm90_launches_all_three_kernels_and_never_falls_back():

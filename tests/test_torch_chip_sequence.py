@@ -58,14 +58,25 @@ def test_coverage_checks_float32_128_and_wide_grid(cs):
     assert shapes["f32_dh128_ragged"][1:3] == (1000, 1100)
     # every (dtype, built width, design) that run_dtype can reach is checked
     # on the card, and B * H past the grid's y limit on each design
-    def triple(dt, dh):
-        return (dt, tatt.kernel_width(dh), tatt.KERNEL_DESIGNS[(dt, dh)])
+    def triple(dt, dh):  # KERNEL_DESIGNS' design, at every width
+        return (dt, tatt.kernel_width(dh), tatt.pass_design("fwd", dt, dh))
 
     reachable = {triple(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS}
     assert len(reachable) == 12  # the wide instance in both dtypes included
     covered = {triple(getattr(torch, c[6]), c[5])
                for c in cs.FLASH_COVERAGE_CHECKS + cs.FLASH_WIDE_CHECKS}
     assert covered == reachable
+    # pass by pass: the backward's cluster design past 256 in both dtypes too
+    def quad(which, dt, dh):
+        return (which, dt, tatt.kernel_width(dh), tatt.pass_design(which, dt, dh))
+
+    passes = ("fwd", "dq", "dkdv")
+    reachable = {quad(w, dt, dh) for w in passes for dt, dh in tatt.KERNEL_DESIGNS}
+    assert {q for q in reachable if q[3] == "cluster"} == {
+        (w, dt, tatt.WIDE, "cluster") for w in ("dq", "dkdv")
+        for dt in (torch.bfloat16, torch.float32)}
+    assert {quad(w, getattr(torch, c[6]), c[5]) for w in passes
+            for c in cs.FLASH_COVERAGE_CHECKS + cs.FLASH_WIDE_CHECKS} == reachable
     # the Hopper instance at 64 with a width narrower than its TMA box
     assert any(tatt.KERNEL_DESIGNS[(getattr(torch, c[6]), c[5])] == "sm90" and c[5] % 64
                and tatt.kernel_width(c[5]) == 64 for c in cs.FLASH_COVERAGE_CHECKS)
@@ -94,6 +105,46 @@ def test_wide_checks_square_and_ragged(cs, dtype, dh):
     assert {(c[1], c[2], c[3], c[4]) for c in cases} == {(2, 1024, 1024, 2), (2, 1000, 1100, 2)}
     assert tatt.kernel_width(dh) == tatt.WIDE
     assert len(cs.FLASH_COVERAGE_CHECKS) == 40
+
+
+def test_wide_checks_rows_and_reach(cs):
+    """Two more cases past 256: bf16 dh 300, whose rows are not whole
+    16-byte groups (the cluster kernels' plain loads), at q_offset 100, and
+    float32 dh 1100, past the cluster's reach (5 CTAs of 2 slices, each
+    sweeping twice), at kv_offset 100 (masked rows, and clusters that sweep
+    nothing); both at phase 43's (2, 1024, 2, dh) size."""
+    rows = [c for c in cs.FLASH_WIDE_CHECKS if c[5] == 300]
+    reach = [c for c in cs.FLASH_WIDE_CHECKS if c[5] == 1100]
+    assert [c[1:] for c in rows] == [(2, 1024, 1024, 2, 300, "bfloat16", 100, 0)]
+    assert [c[1:] for c in reach] == [(2, 1024, 1024, 2, 1100, "float32", 0, 100)]
+    # kv_offset 100: the first 64-row query tile and the last 64-key tile
+    # (keys 960-1023 need queries past 1059) have no tile to sweep
+    lq, ko = reach[0][2], reach[0][8]
+    assert ko > 64 and 960 + ko > lq - 1
+    assert len(cs.FLASH_WIDE_CHECKS) == 11
+    q = torch.zeros((2, 16, 2, 300), dtype=torch.bfloat16)
+    assert not tatt._rows_of_16(q)
+    assert tatt.kernel_design(q, q, q, q, which="dq") == "cluster"
+    plan = tatt.wide_bwd_plan(torch.float32, 1100)
+    assert (plan["slices"], plan["per_cta"], plan["cluster"]) == (9, 2, 5)
+    assert plan["columns"][-1] == [(1024, 1100)]
+    for dt, dh in ((torch.bfloat16, 320), (torch.float32, 512), (torch.float32, 1100)):
+        assert tatt.wide_bwd_plan(dt, dh)["cluster"] <= tatt.CLUSTER_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_expected_kernels_by_pass(cs, dtype):
+    """The kernel phase 8's and 43's timing checks each pass launched:
+    past 256 the cluster design's dQ and dK/dV and the wide forward."""
+    names = ("flash_fwd", "flash_dq", "flash_dkdv")
+    for dh in (320, 512, 1100):
+        assert [cs.expected_kernel(tatt, n, dtype, dh) for n in names] == [
+            "flash_fwd_wide_kernel", "flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"]
+    assert [cs.expected_kernel(tatt, n, dtype, 256) for n in names] == [
+        "flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel"]
+    hopper = [f"{n}_sm90_kernel" for n in names] if dtype == torch.bfloat16 else \
+        [f"{n}_kernel" for n in names]
+    assert [cs.expected_kernel(tatt, n, dtype, 128) for n in names] == hopper
 
 
 def test_misaligned_case_runs_mma_on_the_cpu_views(cs):
