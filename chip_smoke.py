@@ -414,11 +414,11 @@ Phases (any failure raises and the script exits nonzero without a result):
                  float32 (square and ragged); and B * H = 131,072 on each
                  design (32,768 x 64 x 4: bf16 dh 64 sm90, float32 dh 8
                  mma; the twin in batch chunks); then FLASH_WIDE_CHECKS
-                 with their own readings: past 256 (the wide forward, the
-                 cluster design's dQ and dK/dV) dh 320 and 512 in both
+                 with their own readings: past 256 (the cluster design's
+                 forward, dQ and dK/dV) dh 320 and 512 in both
                  dtypes (2 x 1024 x 2, and ragged 1000/1100), bf16 dh 300
                  (rows not whole 16-byte groups) and float32 dh 1100 (past
-                 the cluster's 8 slices), each backward run twice and
+                 the cluster's 8 slices), each pass run twice and
                  bitwise equal; and a bf16 dh-128 case whose views are 2
                  bytes off 16-byte alignment (it must run mma.sync): every
                  (pass, dtype, built width, design) run_dtype reaches, each
@@ -1347,17 +1347,23 @@ def run_flash_checks(torch, attention, cases, worst, readings, label, seed0=0):
             out, lse = attention.flash_attention(q, k, v, causal, qo, ko, return_lse=True)
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(b * h, lq).contiguous()
             dq, dk, dv = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
-            torch.cuda.synchronize()
-            want = collections.Counter(designs.values())
-            got = {d: attention.design_launches[d] - by_design[d] for d in attention.design_launches}
-            check(all(got[d] == want.get(d, 0) for d in got),
-                  f"{name}: the passes launched {got} by design, not {dict(want)} ({designs})")
-            if attention.kernel_width(dh) == attention.WIDE:
-                # one order of summation, no atomics: a second run is bitwise the first
+            wide = attention.kernel_width(dh) == attention.WIDE
+            if wide:
+                # one order of summation, no atomics: a second run of each
+                # pass is bitwise the first
+                again = attention.flash_attention(q, k, v, causal, qo, ko, return_lse=True)
+                check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                      f"{name} causal={causal}: a second forward run differs from the first")
                 again = attention.flash_attention_bwd(q, k, v, g, lse, delta, causal, qo, ko)
                 check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
                       f"{name} causal={causal}: a second backward run differs from the first")
                 del again
+            torch.cuda.synchronize()
+            runs = 2 if wide else 1
+            want = {d: runs * c for d, c in collections.Counter(designs.values()).items()}
+            got = {d: attention.design_launches[d] - by_design[d] for d in attention.design_launches}
+            check(all(got[d] == want.get(d, 0) for d in got),
+                  f"{name}: the passes launched {got} by design, not {dict(want)} ({designs})")
             rq, rk, rv, rg, lse2, delta2 = reference_inputs(
                 dtype, q, k, v, g, lse.reshape(b, h, lq), delta.reshape(b, h, lq))
             if b * h <= 64:
@@ -1560,12 +1566,12 @@ def sdpa_backends(torch, q, k, v):
 def expected_kernel(attention, name, dtype, dh):
     """The kernel a pass (``name``: flash_fwd, flash_dq or flash_dkdv)
     launches at (dtype, dh) on views the Hopper design takes, as run_dtype
-    dispatches: the sm90 kernel, the cluster design's past 256 (dQ, dK/dV),
-    the wide forward past 256, else the mma.sync instance."""
+    dispatches: the sm90 kernel, the cluster design's past 256, else the
+    mma.sync instance."""
     design = attention.pass_design(name[len("flash_"):], dtype, dh)
     if design in ("sm90", "cluster"):
         return f"{name}_{design}_kernel"
-    return f"{name}_wide_kernel" if attention.kernel_width(dh) == attention.WIDE else f"{name}_kernel"
+    return f"{name}_kernel"
 
 
 def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5, detail=True):
@@ -1634,20 +1640,26 @@ def flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=100, plain_reps=5,
         }
         tflops = flash_flops(name, b, lq, lq, h, dh, True) / (times[name] * 1e-3) / 1e12
         if designs[name] == "cluster":
-            plan = attention.wide_bwd_plan(getattr(torch, dtype), dh)
-            # the launch as the trace records it: wide_bwd_plan's grid z and shared memory
+            dt = getattr(torch, dtype)
+            plan = attention.wide_fwd_plan(dt, dh) if name == "flash_fwd" else \
+                attention.wide_bwd_plan(dt, dh)
+            smem = plan["smem"] if name == "flash_fwd" else plan["smem"][name[6:]]
+            exchange = plan["exchange"] if name == "flash_fwd" else plan["exchange"][name[6:]]
+            # the launch as the trace records it: the plan's grid z and shared memory
             for kernel, attrs in _launch_attrs(torch, calls[name][1]).items():
                 if "cluster_kernel" in kernel and "grid" in attrs and "shared memory" in attrs:
-                    check(attrs["grid"][2] == plan["cluster"]
-                          and attrs["shared memory"] == plan["smem"][name[6:]],
-                          f"{name} at {(b, lq, h, dh)} launched {attrs}, not wide_bwd_plan's "
-                          f"{plan['cluster']} CTAs of {plan['smem'][name[6:]]} bytes")
+                    check(attrs["grid"][2] == plan["cluster"] and attrs["shared memory"] == smem,
+                          f"{name} at {(b, lq, h, dh)} launched {attrs}, not the plan's "
+                          f"{plan['cluster']} CTAs of {smem} bytes")
+            rows = (f", {plan['tile']}-key tiles, rows owned {plan['rows']}, {plan['sweeps']} "
+                    f"sweep(s)" if name == "flash_fwd" else "")
             log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} (cluster): {plan['cluster']} "
-                f"CTAs a cluster of {plan['per_cta']} {plan['slice']}-column slice(s) each, "
-                f"{plan['smem'][name[6:]]} bytes of shared memory a CTA; the exchange reads "
-                f"{plan['exchange'][name[6:]]:.0f} bytes a CTA a tile from its peers; "
+                f"CTAs a cluster of {plan['per_cta']} {plan['slice']}-column slice(s) each{rows}, "
+                f"{smem} bytes of shared memory a CTA; the exchange reads {exchange:.0f} bytes "
+                f"a CTA a tile from its peers; {tflops:.1f} TFLOP/s, "
                 f"{flash_bound_ms(name, b, lq, lq, h, dh, True, dtype)[0] / times[name]:.4f} "
-                f"of the bound")
+                f"of the bound, {times[name] / lib:.3f}x "
+                f"{'SDPA backward' if bwd else 'SDPA forward'}")
         log(f"flash-time: {name} at {(b, lq, h, dh)} {tag} ({designs[name]}): kernel "
             f"{times[name]:.6f} ms, {tflops:.1f} TFLOP/s, bound {bound:.6f} ms ({by}), "
             f"{bound / times[name]:.4f} of the bound; plain "
@@ -1837,18 +1849,17 @@ FLASH_COVERAGE_CHECKS = [
     ("bh131072", 32768, 64, 64, 4, 64, "bfloat16", 0, 0),
     ("bh131072_mma", 32768, 64, 64, 4, 8, "float32", 0, 0),
 ]
-# past head width 256 (the wide forward, the cluster design's dQ and
-# dK/dV): dh 320 (a ragged last chunk and slice in both types) and 512 in
-# both dtypes, square and ragged, each causal and not; a bf16 dh-128 case
-# whose views are 2 bytes off 16-byte alignment (the Hopper width on
-# mma.sync); bf16 dh 300, whose rows are not whole 16-byte groups (plain
-# loads in place of cp.async), at q_offset 100 (causal: each query sees
-# 100 keys more, and each key tile's first query tile moves); and float32
-# dh 1100, past the cluster's reach (9 slices: 5 CTAs of 2 slices, each
-# sweeping twice), at kv_offset 100 (causal: queries 0-99 see no key; the
-# clusters of the first query tile and of the last key tile sweep nothing
-# and store zeros). Every case past 256 runs its backward twice, and the
-# runs must be bitwise equal.
+# past head width 256 (the cluster design's forward, dQ and dK/dV): dh 320
+# (a ragged last slice in both types) and 512 in both dtypes, square and
+# ragged, each causal and not; a bf16 dh-128 case whose views are 2 bytes
+# off 16-byte alignment (the Hopper width on mma.sync); bf16 dh 300, whose
+# rows are not whole 16-byte groups (plain loads in place of cp.async), at
+# q_offset 100 (causal: each query sees 100 keys more, and each key tile's
+# first query tile moves); and float32 dh 1100, past the cluster's reach (9
+# slices: 5 CTAs of 2 slices, each sweeping once a slice), at kv_offset 100
+# (causal: queries 0-99 see no key; the clusters of the first query tile
+# and of the last key tile sweep nothing and store zeros). Every case past
+# 256 runs each pass twice, and the runs must be bitwise equal.
 FLASH_WIDE_CHECKS = [
     *[(f"{dtype}_dh{dh}{tag}", 2, lq, lk, 2, dh, dtype, 0, 0)
       for dtype in ("bfloat16", "float32") for dh in (320, 512)
@@ -1877,7 +1888,7 @@ LOSS_PARITY_ATOL = 1e-5
 def phase_flash_coverage(torch, attention):
     """Phase 43: the forward, dQ and dK/dV kernels against their plain twins
     at every (dtype, head width) design of FLASH_COVERAGE_CHECKS and at
-    B * H = 131,072, then at the wide instance's widths and on a misaligned
+    B * H = 131,072, then at the cluster design's widths and on a misaligned
     view (FLASH_WIDE_CHECKS), each set with its own largest readings; then
     device times at FLASH_COVERAGE_TIME."""
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkdv": 0.0}
@@ -1888,17 +1899,18 @@ def phase_flash_coverage(torch, attention):
             attention.launches[name] = 0
         before = attention.design_launches["cluster"]
         n = run_flash_checks(torch, attention, cases, worst, readings, label, seed0=seed0)
-        # each case causal and not; a case past 256 runs its backward twice
+        # each case causal and not; a case past 256 runs each pass twice
         wide = sum(attention.kernel_width(c[5]) == attention.WIDE for c in cases)
-        want = {"flash_fwd": 2 * len(cases), "flash_dq": 2 * len(cases) + 2 * wide,
-                "flash_dkdv": 2 * len(cases) + 2 * wide}
+        want = {name: 2 * len(cases) + 2 * wide for name in ("flash_fwd", "flash_dq", "flash_dkdv")}
         check(attention.launches == want, f"{label}: launches {attention.launches}, expected {want}")
         ran = attention.design_launches["cluster"] - before
-        check(ran == 8 * wide, f"{label}: the cluster design ran {ran} passes, not {8 * wide}")
+        # the cluster design: each case past 256 causal and not, its forward,
+        # dQ and dK/dV each twice
+        check(ran == 12 * wide, f"{label}: the cluster design ran {ran} passes, not {12 * wide}")
         log(f"{label}: {n} cases pass; largest readings (rel L2, worst element, lse) "
             f"{readings} against the limits {FLASH_TOL}; float32 worst element "
-            f"{readings['float32'][1]:.4e}; the cluster design ran {ran} passes (dQ and "
-            f"dK/dV of {wide} cases, each causal and not, twice)")
+            f"{readings['float32'][1]:.4e}; the cluster design ran {ran} passes (the forward, "
+            f"dQ and dK/dV of {wide} cases, each causal and not, twice)")
     times = {}
     for b, lq, h, dh, dtype in FLASH_COVERAGE_TIME:
         for key, val in flash_time_at(torch, attention, b, lq, h, dh, dtype, reps=20,

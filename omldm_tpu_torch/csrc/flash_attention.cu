@@ -1,7 +1,7 @@
 // Flash attention for Hopper: forward, dQ and dK/dV, CUDA C++ for sm_90a.
 //
 // Replaces the three TPU kernels of omldm_tpu/ops/attention.py:
-//   flash_fwd_sm90_kernel,  flash_fwd_kernel,  flash_fwd_wide_kernel     <- _flash_kernel
+//   flash_fwd_sm90_kernel,  flash_fwd_kernel,  flash_fwd_cluster_kernel  <- _flash_kernel
 //                                                                           (wrapper flash_attention_pallas)
 //   flash_dq_sm90_kernel,   flash_dq_kernel,   flash_dq_cluster_kernel   <- _flash_bwd_dq_kernel
 //                                                                           (wrapper _flash_diff_bwd)
@@ -17,9 +17,8 @@
 // with no instance of its own runs the next built one with Q, K, V and dO
 // zero-padded in shared memory (zero columns change neither S nor dP), the
 // padded output columns never stored, and the softmax scale 1/sqrt(Dh) of
-// the true width (the caller passes it). Past 256 the forward runs the wide
-// instance, which loops over Dh at run time, and dQ and dK/dV the cluster
-// design, which splits Dh across the CTAs of a thread-block cluster.
+// the true width (the caller passes it). Past 256 all three passes run the
+// cluster design, which splits Dh across the CTAs of a thread-block cluster.
 // run_dtype says which design runs each pass of each (dtype, Dh) and view.
 //
 //   forward: S = Q K^T * scale, online softmax over K tiles with f32 running
@@ -88,9 +87,9 @@
 //   - The grid's slow axis runs over the tiles, longest causal sweeps first,
 //     so the first wave holds the heaviest CTAs of every head.
 //
-// mma.sync design (float32 at every width; bfloat16 at Dh 1 to 32, at
+// mma.sync design (float32 at Dh 1 to 256; bfloat16 at Dh 1 to 32, at
 // widths whose rows are not whole 16-byte groups, at a Hopper width whose
-// view the tensor maps cannot take, and from 129 up; all three passes):
+// view the tensor maps cannot take, and from 129 to 256; all three passes):
 // warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) with plain
 // synchronous tile copies.
 //   - The TPU's sequential K grid axis becomes a loop inside the block. One
@@ -120,52 +119,63 @@
 //     as zeros, are masked, and are never stored. Rows that are whole
 //     16-byte groups (every base, stride and the width) load 16 bytes a
 //     thread; others, such as Dh 12 in bf16, one element at a time.
-//   - The wide instance (the forward at every Dh past 256, one instance a
-//     type): a 64-row float32 K tile of 512 columns alone would take ~132 KB
-//     of shared memory, so its tiles hold one column chunk of a row -- 64
-//     columns in float32, 128 in bf16 -- and a loop over Dh at run time
-//     accumulates S chunk after chunk into the same registers, each score
-//     one ascending chain over Dh as in the built instances. Each CTA owns
-//     one output column chunk on grid z, and its product with P reads only
-//     that chunk of V. Every CTA of a row recomputes S over the whole width
-//     (Dh / 64 recomputations in float32): the next redesign.
 //
-// Cluster design (dQ and dK/dV at every Dh past 256, bfloat16 and float32):
-// the wide loop's backward recomputed S and dP in each of its Dh / 64 (or
-// 128) column-chunk CTAs (4.5-5.7x the products at Dh 512) and reloaded
-// the operands that stay fixed through its sweep every tile. At Dh 512 the
+// Cluster design (all three passes at every Dh past 256, bfloat16 and
+// float32): a CTA cannot hold a whole row of a tile, and column chunks as
+// in the mma.sync design would recompute S (and dP) in each of Dh / 64 (or
+// 128) CTAs (4.5-5.7x the products at Dh 512). At Dh 512 the
 // function is bound by its operations (bf16 tensor cores, float32 FFMA at
 // 67 TFLOP/s), not its bytes: the design does each product once, and pays
-// for it with an exchange a tile -- (C - 1) / C of the f32 S and dP
-// partials and of P and dS read from the cluster's other C - 1 CTAs, and
-// two cluster barriers. The width is split, not repeated:
-//   - One cluster of CTAs per (b*h, 64-row tile): query rows in dQ, keys in
-//     dK/dV. CTA r owns slice r of Dh (kSlice = 128 columns; the last one
-//     ragged, its columns past Dh loaded as zeros and never stored); the
-//     slices on grid z form the cluster, its size set at launch. Past 8
-//     slices (Dh 1024) a CTA owns ceil(slices / 8) of them and sweeps once
-//     for each, so a cluster never exceeds the portable 8 CTAs.
-//   - A CTA's fixed tiles (Q and dO in dQ, K and V in dK/dV) load once; the
-//     sweep's tiles (K and V, or Q, dO and their lse and delta rows) stream
-//     through a 2-stage cp.async ring, the next tile's copies beside this
-//     tile's products (plain loads where the rows are not whole 16-byte
-//     groups, such as bf16 Dh 300).
-//   - Each CTA computes the partial S and dP (S^T and dP^T) of its slice in
-//     f32 into its own shared memory. The cluster sums them through
-//     distributed shared memory: after a cluster barrier each CTA sums its
-//     share of the tile's elements (shared out in rank order) over every
-//     CTA's partial in rank order, slice 0 first, all its peers' loads in
-//     flight at once; applies the mask and P = exp(scale S - lse), dS =
-//     P (dP - delta); and writes P and dS, rounded to the operand type,
-//     into its shared memory. After a second barrier every CTA gathers the
-//     others' shares. Every element is summed once in one order: all CTAs
-//     hold the same P and dS, no atomics, two runs are bitwise equal.
-//   - Each CTA then applies its slice only: dQ += dS K[:, slice], or
-//     dV += P^T dO[:, slice] and dK += dS^T Q[:, slice]. bf16 products run
-//     on mma.sync (8 warps, each 16 rows and half the columns); float32 on
-//     exact FFMA register micro-tiles read from shared memory as float4
-//     (no TF32), each score of S and dP four chains of a quarter of the
-//     slice, summed pairwise (the float32 worst element at dh 1100).
+// for it with an exchange a tile through distributed shared memory and two
+// cluster barriers. The width is split, not repeated:
+//   - One cluster of CTAs per (b*h, 64-row tile): query rows in the forward
+//     and dQ, keys in dK/dV. CTA r owns slice r of Dh (kSlice = 128 columns;
+//     the last one ragged, its columns past Dh loaded as zeros and never
+//     stored); the slices on grid z form the cluster, its size set at
+//     launch. Past 8 slices (Dh 1024) a CTA owns ceil(slices / 8) of them,
+//     so a cluster never exceeds the portable 8 CTAs. The grid's slow axis
+//     runs the longest causal sweeps first.
+//   - A CTA's fixed tiles (Q in the forward, Q and dO in dQ, K and V in
+//     dK/dV) load once; the sweep's tiles (K and V, or Q, dO and their lse
+//     and delta rows) stream through a 2-stage cp.async ring, the next
+//     tile's copies beside this tile's products (plain loads where the rows
+//     are not whole 16-byte groups, such as bf16 Dh 300).
+//   - Each CTA computes the partial S (and dP; S^T and dP^T in dK/dV) of its
+//     slice in f32 into its own shared memory; the cluster sums them. Every
+//     element is summed once in one order -- over every CTA's partial in
+//     rank order, slice 0 first, all the peers' loads in flight at once --
+//     so the forward's S is bit for bit the S from which dQ recomputes P,
+//     no atomics are needed and two runs are bitwise equal.
+//   - Backward: after a cluster barrier each CTA sums its share of the
+//     tile's elements (shared out in rank order), applies the mask and P =
+//     exp(scale S - lse), dS = P (dP - delta), and writes P and dS, rounded
+//     to the operand type, into its shared memory; after a second barrier
+//     every CTA gathers the others' shares and applies its slice only: dQ
+//     += dS K[:, slice], or dV += P^T dO[:, slice] and dK += dS^T Q[:, slice].
+//   - Forward: a row's max and sum need the whole row, so the tile is
+//     shared out by whole rows (64 / C a CTA, ragged where C does not
+//     divide 64). After the first barrier the owner of a row sums it,
+//     applies the scale and the mask, updates its running max m and
+//     denominator l (f32, kept by the owner), and writes alpha = exp(m_old -
+//     m_new) and P = exp(s - m_new), rounded to the operand type, into its
+//     shared memory. After the second barrier every CTA gathers P, alpha
+//     and l of the other rows, rescales its O slice by alpha and adds P
+//     V[:, slice]. At the end each CTA divides its O slice by max(l, 1e-30)
+//     and stores its columns below Dh; the owners write their rows' lse =
+//     m + log(max(l, 1e-30)). Past 8 slices a CTA sums its partial over all
+//     its slices before the exchange and holds an O accumulator for each,
+//     so S is still computed once a tile in bf16 (float32 sweeps once a
+//     slice: a second accumulator beside its S engine spilled).
+//   - Every CTA of a cluster takes the same barriers (sweep bounds from the
+//     cluster's (b*h, tile), never from the slice; clusters whose rows see
+//     no key sweep nothing, store zeros and write an lse near NEG_INF), and
+//     a last cluster barrier keeps each CTA's shared memory alive until no
+//     peer reads it.
+//   - bf16 products run on mma.sync fed by ldmatrix (8 warps, each 16 rows
+//     and half the columns); float32 on exact FFMA register micro-tiles
+//     read from shared memory as float4 (no TF32), each score of S and dP
+//     four chains of a quarter of the slice, summed pairwise (the float32
+//     worst element at dh 1100).
 //
 // Every design: inputs by strides ([B, L, H, Dh] with unit stride on Dh;
 // the Hopper design also needs 16-byte aligned rows for its tensor maps);
@@ -703,158 +713,23 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Params p) {
   store_rows<T, DC>(static_cast<T*>(p.dv), dv, b, h, k0 + warp * 16, p.Lk, p, c0, 1.f);
 }
 
-// ---- the wide instance: every head width past 256 ---------------------------
-
-template <typename T> struct WideChunk;
-template <> struct WideChunk<bf16> { static constexpr int value = 128; };
-template <> struct WideChunk<float> { static constexpr int value = 64; };
-
-template <int N>
-__device__ __forceinline__ void clear(float (&c)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-}
-
-// W columns from col0 of rows [row0, row0 + ROWS) of one (b, h) slice into
-// shared memory (row stride LDW + kPad); rows at or past `rows` and columns
-// at or past p.dh are zeros. col0 is a multiple of 64, so where every row is
-// whole 16-byte groups (p.vec) so is every chunk of it.
-template <typename T, int W, int LDW, int ROWS>
-__device__ __forceinline__ void load_chunk(T* s, const T* src, long long row_stride, int row0, int rows,
-                                           int col0, const Params& p) {
-  constexpr int LD = LDW + kPad;
-  const int cols = p.dh - col0;
-  src += col0;
-  if (p.vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kPerRow = W / kVec;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
-      const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < rows && c < cols)
-        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-      *reinterpret_cast<uint4*>(s + r * LD + c) = val;
-    }
-  } else {
-#pragma unroll 4
-    for (int i = threadIdx.x; i < ROWS * W; i += kThreads) {
-      const int r = i / W, c = i % W;
-      s[r * LD + c] = row0 + r < rows && c < cols ? src[(long long)(row0 + r) * row_stride + c] : zero<T>();
-    }
-  }
-}
-
-// c[16 x N] += sA[row0 .. row0+15, :W] . sB[:N, :W]^T (both tiles row-major,
-// row stride W + kPad): the next W terms of each output's one chain over dh.
-template <typename T, int W, int N>
-__device__ __forceinline__ void gemm_abt_add(float (&c)[N / 8][4], const T* sA, int row0, const T* sB) {
-  constexpr int LD = W + kPad;
-#pragma unroll(sizeof(T) == 4 ? 1 : W / 16)
-  for (int kk = 0; kk < W; kk += 16) {
-    FragA<T> a;
-    load_a(a, sA, LD, row0, kk);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      FragB<T> b;
-      load_b_nk(b, sB, LD, j * 8, kk);
-      mma(c[j], a, b);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(const Params p) {
-  constexpr int CH = WideChunk<T>::value;
-  constexpr int LD = CH + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kBlockQ * LD;
-  T* sV = sK + kBlockK * LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest causal sweeps first
-  const int c0 = blockIdx.z * CH;                          // this CTA's output columns
-  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const int n_c = (p.dh + CH - 1) / CH;
-
-  float o[CH / 8][4];
-  clear(o);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int n_k = k_tiles_needed(p, q0, kBlockQ, kBlockK);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kBlockK;
-    float s[kBlockK / 8][4];
-    clear(s);
-    for (int c = 0; c < n_c; ++c) {  // S = Q K^T, chunk after chunk of dh
-      __syncthreads();  // every warp is done with the previous chunks (and V tile)
-      load_chunk<T, CH, CH, kBlockQ>(sQ, Q, p.q_sl, q0, p.Lq, c * CH, p);
-      load_chunk<T, CH, CH, kBlockK>(sK, K, p.k_sl, k0, p.Lk, c * CH, p);
-      if (c == 0) load_chunk<T, CH, CH, kBlockK>(sV, V, p.v_sl, k0, p.Lk, c0, p);
-      __syncthreads();
-      gemm_abt_add<T, CH, kBlockK>(s, sQ, warp * 16, sK);
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[j][i] = masked(s[j][i] * p.scale, row0 + 8 * (i >> 1), k0 + j * 8 + 2 * t + (i & 1), p);
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(fminf(m[r] - mn, 0.f));
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[j][i] = weight(s[j][i], m[i >> 1]);
-        rs[i >> 1] += s[j][i];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
-#pragma unroll
-    for (int n = 0; n < CH / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[n][i] *= alpha[i >> 1];
-    gemm_pb<T, CH, CH, kBlockK>(o, s, sV);  // O += P V[:, chunk]
-  }
-
-  float den[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    den[r] = fmaxf(l[r], 1e-30f);
-    const int row = row0 + 8 * r;
-    if (blockIdx.z == 0 && t == 0 && row < p.Lq) p.lse[(long long)bh * p.Lq + row] = m[r] + logf(den[r]);
-  }
-#pragma unroll
-  for (int n = 0; n < CH / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] /= den[i >> 1];
-  store_rows<T, CH>(static_cast<T*>(p.out), o, b, h, q0 + warp * 16, p.Lq, p, c0, 1.f);
-}
-
-// ---- the cluster design: dQ and dK/dV past head width 256 -------------------
+// ---- the cluster design: all three passes past head width 256 ---------------
 //
 // (the design: see the head of this file)
 
 constexpr int kSlice = 128;        // head-width columns of one slice
 constexpr int kClusterMax = 8;     // CTAs of a cluster (the portable limit)
-constexpr int kClRows = 64;        // the CTA's fixed rows: queries (dQ), keys (dK/dV)
+constexpr int kClRows = 64;        // the CTA's fixed rows: queries (forward, dQ), keys (dK/dV)
 constexpr int kClThreads = 256;    // 8 warps
 template <typename T> struct ClTile;  // rows of the sweep's tiles: keys (dQ), queries (dK/dV)
 template <> struct ClTile<bf16> { static constexpr int value = 64; };
 template <> struct ClTile<float> { static constexpr int value = 32; };
+template <typename T> struct ClFwdTile;  // keys of the forward's tiles
+template <> struct ClFwdTile<bf16> { static constexpr int value = 128; };
+template <> struct ClFwdTile<float> { static constexpr int value = 64; };
+template <typename T> struct ClFwdAcc;  // forward: output slices a CTA accumulates in one sweep
+template <> struct ClFwdAcc<bf16> { static constexpr int value = 2; };
+template <> struct ClFwdAcc<float> { static constexpr int value = 1; };  // a second beside the S engine spilled
 
 // Shared memory of one CTA: the two fixed tiles (Q and dO in dQ, K and V in
 // dK/dV), a 2-stage ring of the two streamed tiles, the two f32 partials,
@@ -873,6 +748,23 @@ struct ClLayout {
   static constexpr size_t bytes(bool kv) {
     return 2 * kFixed + 4 * kStream + 2 * kPartial + (kv ? 2 : 1) * kOperand + kRows;
   }
+};
+
+// The forward's: Q's slice, a 2-stage ring of K and V, the f32 partial S,
+// P in the operand type, and three rows of f32 row state (alpha, the
+// running max m and denominator l).
+template <typename T>
+struct ClFwdLayout {
+  static constexpr int N = ClFwdTile<T>::value;
+  static constexpr int LD = ClLayout<T>::LD;
+  static constexpr int LDF = N + 4;
+  static constexpr int LDP = N + 16 / sizeof(T);
+  static constexpr size_t kFixed = (size_t)kClRows * LD * sizeof(T);
+  static constexpr size_t kStream = (size_t)N * LD * sizeof(T);
+  static constexpr size_t kPartial = (size_t)kClRows * LDF * 4;
+  static constexpr size_t kOperand = (size_t)kClRows * LDP * sizeof(T);
+  static constexpr size_t kRows = 3 * kClRows * 4;
+  static constexpr size_t bytes() { return kFixed + 4 * kStream + kPartial + kOperand + kRows; }
 };
 
 // Per-dtype product engines. bf16: mma.sync m16n8k16, warp w owning rows
@@ -961,6 +853,27 @@ __device__ __forceinline__ void parts_add(float (&c)[8][4], const bf16* A0, cons
   }
 }
 
+// The forward's: c += the next kSlice terms of the partial S = A . B^T (A:
+// Q's 64 x kSlice slice, B: K's N x kSlice), warp w owning rows 16 (w % 4)
+// and columns 64 (w / 4) .. + 63 of the 64 x 128 tile. Each score is the
+// chain parts_add gives it: the same k steps in the same order.
+__device__ __forceinline__ void s_add(float (&c)[8][4], const bf16* A, const bf16* B) {
+  constexpr int LD = ClLayout<bf16>::LD;
+  const int warp = threadIdx.x >> 5, wr = warp & 3, wc = warp >> 2;
+#pragma unroll 2
+  for (int kk = 0; kk < kSlice; kk += 16) {
+    FragA<bf16> a;
+    ldsm_a(a, A, LD, 16 * wr, kk);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      FragB<bf16> b[2];
+      ldsm_b_nk(b, B, LD, 64 * wc + 8 * j, kk);
+      mma(c[j], a, b[0]);
+      mma(c[j + 1], a, b[1]);
+    }
+  }
+}
+
 // float32: warp w computes partial w / 4 (S or dP) at columns 8 (w % 4) ..
 // + 7 and every row; lane 4 rb + q owns rows rb + 8 i over a quarter of the
 // slice's columns (float4 groups g with g % 8 in {2q, 2q + 1}: 16
@@ -968,12 +881,11 @@ __device__ __forceinline__ void parts_add(float (&c)[8][4], const bf16* A0, cons
 // chains of 32 terms a score, are summed pairwise by parts_store: short
 // chains keep the rounding of S and dP (and of dS = P (dP - delta), where
 // dP and delta nearly cancel) within FLASH_TOL's float32 limit at dh 1100.
-__device__ __forceinline__ void parts_add(float (&c)[8][8], const float* A0, const float* A1, const float* B0,
-                                          const float* B1) {
+// ffma_add is the step both passes share: A points at the lane's row rb of
+// the fixed tile, B at the warp's first column of the streamed one.
+__device__ __forceinline__ void ffma_add(float (&c)[8][8], const float* A, const float* B) {
   constexpr int LD = ClLayout<float>::LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane & 3;
-  const float* A = (warp >> 2 ? A1 : A0) + (lane >> 2) * LD;
-  const float* B = (warp >> 2 ? B1 : B0) + 8 * (warp & 3) * LD;
+  const int q = threadIdx.x & 3;
 #pragma unroll 1
   for (int st = 0; st < kSlice / 16; ++st) {
     const int k = 4 * (8 * (st >> 1) + 2 * q + (st & 1));
@@ -989,6 +901,20 @@ __device__ __forceinline__ void parts_add(float (&c)[8][8], const float* A0, con
         for (int e = 0; e < 4; ++e) c[i][j] = fmaf(lane4(x, e), lane4(y[j], e), c[i][j]);
     }
   }
+}
+
+__device__ __forceinline__ void parts_add(float (&c)[8][8], const float* A0, const float* A1, const float* B0,
+                                          const float* B1) {
+  constexpr int LD = ClLayout<float>::LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  ffma_add(c, (warp >> 2 ? A1 : A0) + (lane >> 2) * LD, (warp >> 2 ? B1 : B0) + 8 * (warp & 3) * LD);
+}
+
+// The forward's (N = 64 keys): warp w computes S at columns 8 w .. + 7.
+__device__ __forceinline__ void s_add(float (&c)[8][8], const float* A, const float* B) {
+  constexpr int LD = ClLayout<float>::LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  ffma_add(c, A + (lane >> 2) * LD, B + 8 * warp * LD);
 }
 
 // Stores this thread's share of the partial S and dP into this CTA's
@@ -1009,11 +935,13 @@ __device__ __forceinline__ void parts_store(float (&c)[8][4], float* part0, floa
   }
 }
 
-__device__ __forceinline__ void parts_store(float (&c)[8][8], float* part0, float* part1) {
-  constexpr int LDF = ClLayout<float>::LDF;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane & 3;
-  // the quarters' sums, (q0 + q1) + (q2 + q3) in every lane of the four
-  // (addition commutes: each lane gets the same bits)
+// The quarters' sums, (q0 + q1) + (q2 + q3) in every lane of the four
+// (addition commutes: each lane gets the same bits); lane q stores rows
+// rb + 8 i for i = 2q, 2q + 1 from `part` (at the lane's row rb and the
+// warp's first column, row stride LDF).
+template <int LDF>
+__device__ __forceinline__ void quarters_store(float (&c)[8][8], float* part) {
+  const int q = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1021,18 +949,43 @@ __device__ __forceinline__ void parts_store(float (&c)[8][8], float* part0, floa
       c[i][j] += __shfl_xor_sync(kFull, c[i][j], 1);
       c[i][j] += __shfl_xor_sync(kFull, c[i][j], 2);
     }
-  float* part = (warp >> 2 ? part1 : part0) + (lane >> 2) * LDF + 8 * (warp & 3);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    if (i >> 1 != q) continue;  // lane q stores rows rb + 8 i for i = 2q, 2q + 1
+    if (i >> 1 != q) continue;
     *reinterpret_cast<float4*>(part + 8 * i * LDF) = make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
     *reinterpret_cast<float4*>(part + 8 * i * LDF + 4) = make_float4(c[i][4], c[i][5], c[i][6], c[i][7]);
   }
 }
 
-// acc[64 x kSlice] += Pm[64 x N] . B[N x kSlice] (Pm: P or dS in the operand type).
+__device__ __forceinline__ void parts_store(float (&c)[8][8], float* part0, float* part1) {
+  constexpr int LDF = ClLayout<float>::LDF;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  quarters_store<LDF>(c, (warp >> 2 ? part1 : part0) + (lane >> 2) * LDF + 8 * (warp & 3));
+}
+
+// The forward's partial S into this CTA's shared memory (row stride LDF).
+__device__ __forceinline__ void s_store(float (&c)[8][4], float* part) {
+  constexpr int LDF = ClFwdLayout<bf16>::LDF;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 16 * (warp & 3) + (lane >> 2), col = 64 * (warp >> 2) + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(part + row * LDF + col + 8 * j) = make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(part + (row + 8) * LDF + col + 8 * j) = make_float2(c[j][2], c[j][3]);
+  }
+}
+
+__device__ __forceinline__ void s_store(float (&c)[8][8], float* part) {
+  constexpr int LDF = ClFwdLayout<float>::LDF;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  quarters_store<LDF>(c, part + (lane >> 2) * LDF + 8 * warp);
+}
+
+// acc[64 x kSlice] += Pm[64 x N] . B[N x kSlice] (Pm: P or dS in the operand
+// type, row stride LDP): the backward's tiles by default, the forward's given.
+template <int N = ClLayout<bf16>::N, int LDP = ClLayout<bf16>::LDP>
 __device__ __forceinline__ void acc_add(float (&acc)[8][4], const bf16* Pm, const bf16* B) {
-  constexpr int N = ClLayout<bf16>::N, LD = ClLayout<bf16>::LD, LDP = ClLayout<bf16>::LDP;
+  constexpr int LD = ClLayout<bf16>::LD;
   const int warp = threadIdx.x >> 5, wr = warp & 3, wc = warp >> 2;
 #pragma unroll
   for (int kk = 0; kk < N; kk += 16) {
@@ -1048,8 +1001,9 @@ __device__ __forceinline__ void acc_add(float (&acc)[8][4], const bf16* Pm, cons
   }
 }
 
+template <int N = ClLayout<float>::N, int LDP = ClLayout<float>::LDP>
 __device__ __forceinline__ void acc_add(float (&acc)[4][8], const float* Pm, const float* B) {
-  constexpr int N = ClLayout<float>::N, LD = ClLayout<float>::LD, LDP = ClLayout<float>::LDP;
+  constexpr int LD = ClLayout<float>::LD;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll 1
   for (int n = 0; n < N; n += 4) {
@@ -1096,6 +1050,34 @@ __device__ __forceinline__ void acc_store(float* out, const float (&acc)[4][8], 
       store_cols(dst, col, p.dh, acc[i][4 * half] * mul, acc[i][4 * half + 1] * mul);
       store_cols(dst, col + 2, p.dh, acc[i][4 * half + 2] * mul, acc[i][4 * half + 3] * mul);
     }
+  }
+}
+
+// The forward's row-wise steps on a CTA's accumulator: each row times v[row]
+// (the online softmax's rescale alpha) or, with DIV, over max(v[row], 1e-30)
+// (the end's division by the denominator l).
+template <bool DIV>
+__device__ __forceinline__ void acc_rows(float (&acc)[8][4], const float* v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 16 * (warp & 3) + (lane >> 2);
+  const float v0 = v[row], v1 = v[row + 8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = i >> 1 ? v1 : v0;
+      acc[n][i] = DIV ? acc[n][i] / fmaxf(x, 1e-30f) : acc[n][i] * x;
+    }
+}
+
+template <bool DIV>
+__device__ __forceinline__ void acc_rows(float (&acc)[4][8], const float* v) {
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = v[ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = DIV ? acc[i][j] / fmaxf(x, 1e-30f) : acc[i][j] * x;
   }
 }
 
@@ -1165,6 +1147,30 @@ __device__ __forceinline__ void sum_peers(const cg::cluster_group& cluster, floa
     if (q < C)
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[e] += lane4(a[q], e);
+}
+
+// The CTA of C that owns x of [0, total) shared out in rank order: CTA q
+// owns [q total / C, (q + 1) total / C).
+__device__ __forceinline__ int share_owner(int x, int total, int C) {
+  int q = x * C / total;
+  if ((q + 1) * total / C <= x) ++q;
+  if (q * total / C > x) --q;
+  return q;
+}
+
+// The max and sum of v over each aligned group of G lanes (a score row).
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
 // The dQ (KV false) and dK/dV (KV true) passes of the cluster design. The
@@ -1259,9 +1265,7 @@ __device__ __forceinline__ void cluster_bwd(const Params& p) {
 #pragma unroll
     for (int i = 0; i < G / kClThreads; ++i) {
       const int g = i * kClThreads + threadIdx.x;
-      int q = g * C / G;  // the owner: q G / C <= g < (q + 1) G / C
-      if ((q + 1) * G / C <= g) ++q;
-      if (q * G / C > g) --q;
+      const int q = share_owner(g, G, C);
       if (q == r) continue;
       const int off = (4 * g / N) * LDP + 4 * g % N;
       copy4(pm0 + off, cluster.map_shared_rank(pm0, q) + off);
@@ -1365,6 +1369,203 @@ __global__ void __launch_bounds__(kClThreads, 1) flash_dq_cluster_kernel(const P
 template <typename T>
 __global__ void __launch_bounds__(kClThreads, 1) flash_dkdv_cluster_kernel(const Params p) {
   cluster_bwd<T, true>(p);
+}
+
+// The forward of the cluster design: one cluster a (b*h, 64-row query tile),
+// CTA r owning slice r of Dh (the first per_cta slices from r per_cta past
+// kClusterMax slices). A key tile's step: every CTA's partial S over its
+// slices into its own shared memory; a cluster barrier; each CTA, for the
+// rows it owns (shared out in rank order, whole rows, as share_owner), sums
+// the row over every CTA's partial in rank order (slice 0 first, as
+// cluster_bwd's dQ sums it: the same S, bit for bit), applies the scale and
+// the mask, updates the row's m and l, and writes P in the operand type and
+// alpha = exp(m_old - m_new) into its own shared memory; a second barrier;
+// each CTA gathers P, alpha and l of the rows it does not own from their
+// owners, rescales its O slice by alpha and adds P V[:, slice]. At the end
+// each CTA divides its O slice by max(l, 1e-30) and stores it; the owners
+// write their rows' lse. Sweep bounds come from the cluster's (b*h, tile):
+// every CTA takes the same barriers. MULTI: a CTA owns more than one slice
+// (per_cta > 1), an instance of its own so that its registers do not
+// weigh on the one-slice sweep's (one kernel holding both spilled).
+template <typename T, bool MULTI>
+__global__ void __launch_bounds__(kClThreads, 1) flash_fwd_cluster_kernel(const Params p) {
+  using Ly = ClFwdLayout<T>;
+  constexpr int R = kClRows, N = Ly::N, LD = Ly::LD, LDF = Ly::LDF, LDP = Ly::LDP;
+  constexpr int G = N / 4;                 // float4 groups of a score row: the lanes that own it
+  constexpr int kRowsPass = kClThreads / G;
+  constexpr int U = N * (int)sizeof(T) / 16;  // 16-byte units of a row of P
+  static_assert(R * U % kClThreads == 0, "P's gather: whole units a thread");
+  static_assert(N == (sizeof(T) == 2 ? 128 : 64), "s_add's 8 warps cover the tile's keys");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* fix = reinterpret_cast<T*>(smem);                         // Q's slice
+  T* ring = fix + R * LD;                                      // [stage][K, V]
+  float* part = reinterpret_cast<float*>(ring + 4 * N * LD);  // this CTA's partial S
+  T* pm = reinterpret_cast<T*>(part + R * LDF);               // P
+  float* alpha = reinterpret_cast<float*>(pm + R * LDP);      // O's rescale this tile, by row
+  float* mrow = alpha + R;                                     // the running max (owned rows)
+  float* lrow = mrow + R;                                      // the running denominator
+  auto stream = [&](int stage, int i) { return ring + (2 * stage + i) * N * LD; };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+  const int m = p.per_cta, n_chunks = (p.dh + kSlice - 1) / kSlice;
+  const int first = r * m, last = min(first + m, n_chunks);
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;  // longest causal sweeps first
+  const int n_k = k_tiles_needed(p, q0, R, N);
+  const int own0 = r * R / C, own1 = (r + 1) * R / C;  // the rows this CTA owns
+  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  for (int i = threadIdx.x; i < R; i += kClThreads) {
+    mrow[i] = kNegInf;
+    lrow[i] = 0.f;
+  }
+
+  // The exchange of key tile k0, every partial stored; `fresh`: the first
+  // tile of a sweep (m and l start anew). The owner's reads of m and l come
+  // before the row's shuffles, its writes after them.
+  auto exchange = [&](int k0, bool fresh) {
+    cluster.sync();  // every CTA's partial of this tile is written
+    for (int i0 = own0; i0 < own1; i0 += kRowsPass) {
+      const int i = i0 + threadIdx.x / G, g = threadIdx.x % G;
+      const bool own = i < own1;
+      const float m_old = own && !fresh ? mrow[i] : kNegInf;
+      const float l_old = own && !fresh ? lrow[i] : 0.f;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (own) sum_peers(cluster, x, part + i * LDF + 4 * g, C);
+      float mx = kNegInf;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = own ? masked(x[e] * p.scale, q0 + i, k0 + 4 * g + e, p) : kNegInf;
+        mx = fmaxf(mx, x[e]);
+      }
+      const float mn = fmaxf(m_old, group_max<G>(mx));
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = weight(x[e], mn);
+        rs += x[e];
+      }
+      rs = group_sum<G>(rs);
+      if (own) {
+        store4(pm + i * LDP + 4 * g, x);  // P rounded to the operand type
+        if (g == 0) {
+          const float a = expf(fminf(m_old - mn, 0.f));
+          alpha[i] = a;
+          mrow[i] = mn;
+          lrow[i] = a * l_old + rs;
+        }
+      }
+    }
+    cluster.sync();  // every owner's rows are written; no partial is read any more
+    // the gather: every row outside this CTA's share, from its owner; these
+    // reads end before this CTA arrives at the next tile's first barrier
+#pragma unroll
+    for (int k = 0; k < R * U / kClThreads; ++k) {
+      const int u = k * kClThreads + threadIdx.x, i = u / U;
+      const int q = share_owner(i, R, C);
+      if (q == r) continue;
+      const int off = i * LDP + (u % U) * (16 / (int)sizeof(T));
+      *reinterpret_cast<uint4*>(pm + off) = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(pm, q) + off);
+    }
+    if (threadIdx.x < R) {
+      const int q = share_owner(threadIdx.x, R, C);
+      if (q != r) {
+        alpha[threadIdx.x] = *cluster.map_shared_rank(alpha + threadIdx.x, q);
+        lrow[threadIdx.x] = *cluster.map_shared_rank(lrow + threadIdx.x, q);
+      }
+    }
+    __syncthreads();
+  };
+
+  typename ClFrag<T>::Parts sc;  // this thread's share of the partial S
+  typename ClFrag<T>::Acc acc[ClFwdAcc<T>::value];
+  // O of slice `chunk` over max(l, 1e-30), its columns below p.dh stored
+  auto finish = [&](typename ClFrag<T>::Acc& o, int chunk) {
+    acc_rows<true>(o, lrow);
+    acc_store(static_cast<T*>(p.out), o, b, h, q0, p.Lq, p, chunk * kSlice, 1.f);
+  };
+
+  if constexpr (!MULTI) {
+    // one slice a CTA: Q's slice loads once, K and V stream through a
+    // 2-stage ring (the next tile's copies run beside this tile's work)
+    fill0(acc[0]);
+    load_slice<T, R>(fix, Q, p.q_sl, q0, p.Lq, r, p);
+    if (n_k > 0) {
+      load_slice<T, N>(stream(0, 0), K, p.k_sl, 0, p.Lk, r, p);
+      load_slice<T, N>(stream(0, 1), V, p.v_sl, 0, p.Lk, r, p);
+    }
+    cp_async_commit();
+    for (int t = 0; t < n_k; ++t) {
+      const int s = t & 1;
+      if (t + 1 < n_k) {
+        load_slice<T, N>(stream(s ^ 1, 0), K, p.k_sl, (t + 1) * N, p.Lk, r, p);
+        load_slice<T, N>(stream(s ^ 1, 1), V, p.v_sl, (t + 1) * N, p.Lk, r, p);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      fill0(sc);
+      s_add(sc, fix, stream(s, 0));
+      s_store(sc, part);
+      exchange(t * N, t == 0);
+      acc_rows<false>(acc[0], alpha);
+      acc_add<N, LDP>(acc[0], pm, stream(s, 1));  // O += P V[:, slice]
+      __syncthreads();  // stage s is free for the copies of tile t + 2
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every row's l is in lrow (0 where no tile was swept)
+    finish(acc[0], r);
+  } else {
+    // per_cta slices a CTA (past kClusterMax slices): each tile's partial
+    // summed over all its slices (their Q and K slices loaded one after
+    // another through the fixed tile and stage 0), so S is computed once a
+    // tile for up to A output slices (in stage 1's V tiles); a CTA with
+    // more sweeps the keys once for each A of them, m and l anew each
+    // time. Every CTA takes the cluster's number of sweeps.
+    constexpr int A = ClFwdAcc<T>::value;
+    const int sweeps = (m + A - 1) / A;
+    for (int sw = 0; sw < sweeps; ++sw) {
+      const int a0 = first + sw * A;
+#pragma unroll
+      for (int j = 0; j < A; ++j) fill0(acc[j]);
+      for (int t = 0; t < n_k; ++t) {
+        __syncthreads();  // every warp is done with the last tile's stages
+#pragma unroll
+        for (int j = 0; j < A; ++j)
+          if (a0 + j < last) load_slice<T, N>(stream(1, j), V, p.v_sl, t * N, p.Lk, a0 + j, p);
+        fill0(sc);
+        for (int c = first; c < last; ++c) {
+          if (c > first) __syncthreads();
+          load_slice<T, R>(fix, Q, p.q_sl, q0, p.Lq, c, p);
+          load_slice<T, N>(stream(0, 0), K, p.k_sl, t * N, p.Lk, c, p);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          s_add(sc, fix, stream(0, 0));
+        }
+        s_store(sc, part);
+        exchange(t * N, t == 0);
+#pragma unroll
+        for (int j = 0; j < A; ++j)
+          if (a0 + j < last) {
+            acc_rows<false>(acc[j], alpha);
+            acc_add<N, LDP>(acc[j], pm, stream(1, j));
+          }
+      }
+      __syncthreads();  // every row's l is in lrow
+#pragma unroll
+      for (int j = 0; j < A; ++j)
+        if (a0 + j < last) finish(acc[j], a0 + j);
+    }
+  }
+  for (int i = own0 + threadIdx.x; i < own1; i += kClThreads)
+    if (q0 + i < p.Lq) p.lse[(long long)bh * p.Lq + q0 + i] = mrow[i] + logf(fmaxf(lrow[i], 1e-30f));
+  cluster.sync();  // no CTA leaves while a peer may still read its shared memory
 }
 
 // ---- Hopper kernels: bfloat16 at Dh 64 and 128 (and the widths padded to them) ----
@@ -1918,33 +2119,21 @@ int run_sm90(int which, const Params& p, int B, cudaStream_t stream) {
   return launch(flash_dkdv_sm90_kernel<DH>, grid, kSm90Threads, smem, args, stream);
 }
 
-// The wide instance's forward: (b*h, tile, column chunk) grids as in
-// run_mma, every chunk of the true width its own CTA.
-template <typename T>
-int run_wide(const Params& p, int BH, cudaStream_t stream) {
-  constexpr int CH = WideChunk<T>::value;
-  constexpr size_t row = (CH + kPad) * sizeof(T);
-  const int n_q = (p.Lq + kBlockQ - 1) / kBlockQ;
-  if (n_q > 65535) return (int)cudaErrorInvalidValue;
-  return launch(flash_fwd_wide_kernel<T>, dim3(BH, n_q, (p.dh + CH - 1) / CH), kThreads,
-                (kBlockQ + 2 * kBlockK) * row, p, stream);
-}
-
-// The cluster design's dQ (which 1) and dK/dV (which 2): a (b*h, 64-row
-// tile, slice) grid whose slices on z form one cluster. n slices of kSlice
-// columns cover dh; a CTA owns per_cta = ceil(n / kClusterMax) of them (1
-// up to dh 1024), so a cluster is ceil(n / per_cta) <= kClusterMax CTAs.
-// Returns the occupancy query's error, or cudaErrorInvalidConfiguration
-// where no such cluster fits on the card, rather than launch a grid that
-// cannot be scheduled.
+// The cluster design, all three passes: the forward (which 0), dQ (1) and
+// dK/dV (2) on a (b*h, 64-row tile, slice) grid whose slices on z form one
+// cluster. n slices of kSlice columns cover dh; a CTA owns per_cta =
+// ceil(n / kClusterMax) of them (1 up to dh 1024), so a cluster is
+// ceil(n / per_cta) <= kClusterMax CTAs. Returns the occupancy query's
+// error, or cudaErrorInvalidConfiguration where no such cluster fits on the
+// card, rather than launch a grid that cannot be scheduled.
 template <typename T>
 int run_cluster(int which, const Params& p0, int BH, cudaStream_t stream) {
-  if (which != 1 && which != 2) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
   Params p = p0;
   const int n = (p.dh + kSlice - 1) / kSlice;
   p.per_cta = (n + kClusterMax - 1) / kClusterMax;
   const int cluster = (n + p.per_cta - 1) / p.per_cta;
-  const int tiles = ((which == 1 ? p.Lq : p.Lk) + kClRows - 1) / kClRows;
+  const int tiles = ((which == 2 ? p.Lk : p.Lq) + kClRows - 1) / kClRows;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1954,10 +2143,13 @@ int run_cluster(int which, const Params& p0, int BH, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(BH, tiles, cluster);
   cfg.blockDim = dim3(kClThreads);
-  cfg.dynamicSmemBytes = ClLayout<T>::bytes(which == 2);
+  cfg.dynamicSmemBytes = which == 0 ? ClFwdLayout<T>::bytes() : ClLayout<T>::bytes(which == 2);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (which == 0)
+    return p.per_cta > 1 ? launch_cluster(flash_fwd_cluster_kernel<T, true>, cfg, p)
+                         : launch_cluster(flash_fwd_cluster_kernel<T, false>, cfg, p);
   return which == 1 ? launch_cluster(flash_dq_cluster_kernel<T>, cfg, p)
                     : launch_cluster(flash_dkdv_cluster_kernel<T>, cfg, p);
 }
@@ -1974,11 +2166,11 @@ bool tma_fits(const Params& p) {
 }
 
 // Which design and instance run each (dtype, head width) and view: the next
-// built width of 32, 64, 128 and 256 at or above dh, and the wide instance
-// past 256; bfloat16 rows of whole 16-byte groups (dh % 8 == 0) at 64 and
-// 128 take the Hopper design where the views fit its tensor maps
-// (tma_fits), every other width and view the mma.sync design at the same
-// width. ops/attention.py restates this as kernel_width, KERNEL_DESIGNS
+// built width of 32, 64, 128 and 256 at or above dh, and the cluster design
+// past 256 (all three passes); bfloat16 rows of whole 16-byte groups (dh % 8
+// == 0) at 64 and 128 take the Hopper design where the views fit its tensor
+// maps (tma_fits), every other width and view the mma.sync design at the
+// same width. ops/attention.py restates this as kernel_width, KERNEL_DESIGNS
 // and kernel_design; the CPU tests pin them together.
 int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t stream) {
   const int BH = B * p.H;
@@ -1988,15 +2180,13 @@ int run_dtype(int which, int dtype, int dh, const Params& p, int B, cudaStream_t
     if (dh <= 64) return dh % 8 == 0 && tma ? run_sm90<64>(which, p, B, stream) : run_mma<bf16, 64>(which, p, BH, stream);
     if (dh <= 128) return dh % 8 == 0 && tma ? run_sm90<128>(which, p, B, stream) : run_mma<bf16, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<bf16, 256>(which, p, BH, stream);
-    if (which != 0) return run_cluster<bf16>(which, p, BH, stream);
-    return run_wide<bf16>(p, BH, stream);
+    return run_cluster<bf16>(which, p, BH, stream);
   } else if (dtype == 0) {
     if (dh <= 32) return run_mma<float, 32>(which, p, BH, stream);
     if (dh <= 64) return run_mma<float, 64>(which, p, BH, stream);
     if (dh <= 128) return run_mma<float, 128>(which, p, BH, stream);
     if (dh <= 256) return run_mma<float, 256>(which, p, BH, stream);
-    if (which != 0) return run_cluster<float>(which, p, BH, stream);
-    return run_wide<float>(p, BH, stream);
+    return run_cluster<float>(which, p, BH, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -19,15 +19,18 @@ Counterpart of ``omldm_tpu/ops/attention.py``, with the same contract
 - ``attention``            the entry point the transformer calls.
 
 The kernels take any head width from 1 up in float32 or bfloat16, and any
-B * H: ``kernel_width`` gives the built width a head width runs at (the
-wide instance past 256), ``KERNEL_DESIGNS`` which CUDA design runs a
-(dtype, head width) up to 256 and the forward past it, ``pass_design``
-which one each pass runs (dQ and dK/dV past 256: the cluster design), and
-``kernel_design`` which one runs a call's views (a Hopper width whose views
-the tensor maps cannot take runs mma.sync); ``sm90_tile_plan``,
-``tensor_map_geometry`` and ``wide_bwd_plan`` restate on the host what the
-Hopper design's loops visit, which TMA tensor map it encodes, and how the
-cluster design splits a head width.
+B * H: ``kernel_width`` gives the built width a head width runs at (WIDE
+past 256), ``KERNEL_DESIGNS`` and ``pass_design`` which CUDA design runs a
+(dtype, head width) -- past 256 all three passes run the cluster design,
+the width split across the CTAs of a thread-block cluster, each score
+computed once a tile and summed in distributed shared memory (the forward
+shares a tile out by whole rows, whose owners take the online softmax from
+the summed S) -- and ``kernel_design`` which one runs a call's views (a
+Hopper width whose views the tensor maps cannot take runs mma.sync);
+``sm90_tile_plan``, ``tensor_map_geometry``, ``wide_fwd_plan`` and
+``wide_bwd_plan`` restate on the host what the Hopper design's loops visit,
+which TMA tensor map it encodes, and how the cluster design splits a head
+width in each pass.
 
 A CUDA tensor the kernels cannot take (dtype, layout) raises; nothing falls
 back to the plain version. Every kernel launch counts in :data:`launches`,
@@ -54,13 +57,12 @@ design_launches = {"sm90": 0, "mma": 0, "cluster": 0}
 #: the widths instances are built at; a head width with none of its own runs
 #: the next of them, zero-padded in shared memory (``kernel_width``)
 KERNEL_WIDTHS = (32, 64, 128, 256)
-#: the instance every head width past 256 runs: its tiles hold one column
-#: chunk of a row (64 float32, 128 bf16) and it loops over the width (the
-#: forward); dQ and dK/dV there run the cluster design (``wide_bwd_plan``)
+#: the width class of every head width past 256, which no built instance
+#: holds: all three passes run the cluster design there
 WIDE = "wide"
-#: the design of dQ and dK/dV past 256: the head width split into slices
-#: across a thread-block cluster, S and dP summed once in distributed
-#: shared memory
+#: the design of every pass past 256: the head width split into slices
+#: across a thread-block cluster, S (and dP) summed once a tile in
+#: distributed shared memory (``wide_fwd_plan``, ``wide_bwd_plan``)
 CLUSTER = "cluster"
 
 
@@ -73,9 +75,13 @@ def kernel_width(dh: int):
 
 
 def _design(dtype: torch.dtype, dh: int) -> str:
-    # bf16 rows of whole 16-byte groups fit the TMA boxes of the Hopper
-    # instances at 64 and 128; everything else runs mma.sync
-    if dtype == torch.bfloat16 and kernel_width(dh) in (64, 128) and dh % 8 == 0:
+    # past 256 the cluster design; bf16 rows of whole 16-byte groups fit the
+    # TMA boxes of the Hopper instances at 64 and 128; everything else runs
+    # mma.sync
+    width = kernel_width(dh)
+    if width == WIDE:
+        return CLUSTER
+    if dtype == torch.bfloat16 and width in (64, 128) and dh % 8 == 0:
         return "sm90"
     return "mma"
 
@@ -83,8 +89,9 @@ def _design(dtype: torch.dtype, dh: int) -> str:
 #: which design runs all three passes (forward, dQ, dK/dV) for each (dtype,
 #: head width) on views that are whole 16-byte groups, as ``run_dtype`` in
 #: csrc/flash_attention.cu dispatches: "sm90" (TMA ring, warp-specialised
-#: wgmma) or "mma" (mma.sync, synchronous copies, column chunks). Listed to
-#: 512: every width past 256 runs the wide instance as 257..512 do.
+#: wgmma), "mma" (mma.sync, synchronous copies, column chunks) or
+#: "cluster" (past 256). Listed to 512: every width past 256 runs the
+#: cluster design as 257..512 do.
 KERNEL_DESIGNS = {(dtype, dh): _design(dtype, dh)
                   for dtype in (torch.bfloat16, torch.float32)
                   for dh in range(1, 2 * KERNEL_WIDTHS[-1] + 1)}
@@ -96,24 +103,27 @@ _PASSES = ("fwd", "dq", "dkdv")
 def pass_design(which: str, dtype: torch.dtype, dh: int) -> str:
     """The design ``run_dtype`` dispatches one pass ("fwd", "dq" or "dkdv")
     of (dtype, head width) to on views that are whole 16-byte groups:
-    ``KERNEL_DESIGNS``' design, except dQ and dK/dV past 256, which run the
-    cluster design."""
+    ``KERNEL_DESIGNS``' design, the same for the three passes (past 256 the
+    cluster design)."""
     if which not in _PASSES:
         raise ValueError(f"pass_design: which is 'fwd', 'dq' or 'dkdv', not {which!r}")
-    if which != "fwd" and kernel_width(dh) == WIDE:
-        return CLUSTER
     return _design(dtype, dh)
 
 
 #: the cluster design (csrc/flash_attention.cu kSlice, kClusterMax,
 #: kClRows, kClThreads, ClTile): head-width columns of a slice, CTAs of a
-#: cluster at most, a CTA's fixed rows (queries in dQ, keys in dK/dV), its
-#: threads, and the rows of the sweep's tiles by dtype
+#: cluster at most, a CTA's fixed rows (queries in the forward and dQ, keys
+#: in dK/dV), its threads, and the rows of the backward sweep's tiles by
+#: dtype
 CLUSTER_SLICE = 128
 CLUSTER_MAX = 8
 CLUSTER_ROWS = 64
 CLUSTER_THREADS = 256
 CLUSTER_TILE = {torch.bfloat16: 64, torch.float32: 32}
+#: the forward's key tiles by dtype (ClFwdTile), and the output slices a
+#: forward CTA accumulates in one sweep (ClFwdAcc)
+CLUSTER_FWD_TILE = {torch.bfloat16: 128, torch.float32: 64}
+CLUSTER_FWD_ACC = {torch.bfloat16: 2, torch.float32: 1}
 #: shared memory a CTA may take on an H100
 SMEM_LIMIT = 232_448
 
@@ -132,36 +142,75 @@ def _cluster_smem(dtype: torch.dtype, kv: bool) -> int:
     return 2 * fixed + 4 * streamed + 2 * partial + (2 if kv else 1) * operand + 2 * 2 * CLUSTER_ROWS * 4
 
 
-def wide_bwd_plan(dtype: torch.dtype, dh: int) -> dict:
-    """How the cluster design runs dQ and dK/dV at a head width past 256,
-    as ``run_cluster`` and ``cluster_bwd`` split it: ``slices`` slices of
-    ``slice`` columns cover [0, dh) (the last one ragged); a CTA owns
-    ``per_cta`` of them (more than one only past ``CLUSTER_MAX`` slices,
-    and then it sweeps once for each); ``cluster`` CTAs a (b*h, 64-row
-    tile); ``columns[r]`` the [start, end) column ranges CTA r owns;
-    ``smem`` each CTA's shared-memory bytes by pass; ``exchange`` the bytes
-    a CTA reads from its peers' shared memory a tile by pass (their f32 S
-    and dP partials of the elements it owns, then their shares of dS, or P
-    and dS, in the operand type), averaged over the cluster's CTAs."""
+def _cluster_fwd_smem(dtype: torch.dtype) -> int:
+    """ClFwdLayout<T>::bytes: Q's slice, a 2-stage ring of K and V, the f32
+    partial S, P in the operand type, three rows of f32 row state."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    n, pad = CLUSTER_FWD_TILE[dtype], 16 // size
+    ld = CLUSTER_SLICE + pad
+    return (CLUSTER_ROWS * ld * size + 4 * n * ld * size + CLUSTER_ROWS * (n + 4) * 4
+            + CLUSTER_ROWS * (n + pad) * size + 3 * CLUSTER_ROWS * 4)
+
+
+def _cluster_split(fn: str, dtype: torch.dtype, dh: int) -> dict:
+    """run_cluster's split of a head width past 256, the same in every
+    pass: ``slices`` slices of ``slice`` columns cover [0, dh) (the last one
+    ragged); a CTA owns ``per_cta`` of them (more than one only past
+    ``CLUSTER_MAX`` slices); ``cluster`` CTAs a (b*h, 64-row tile);
+    ``columns[r]`` the [start, end) column ranges CTA r owns."""
     if kernel_width(dh) != WIDE:
-        raise ValueError(f"wide_bwd_plan: head width {dh} is not past {KERNEL_WIDTHS[-1]}")
+        raise ValueError(f"{fn}: head width {dh} is not past {KERNEL_WIDTHS[-1]}")
     if dtype not in CLUSTER_TILE:
-        raise ValueError(f"wide_bwd_plan: dtype {dtype} is not float32 or bfloat16")
+        raise ValueError(f"{fn}: dtype {dtype} is not float32 or bfloat16")
     n = -(-dh // CLUSTER_SLICE)
     per_cta = -(-n // CLUSTER_MAX)
     cluster = -(-n // per_cta)
     columns = [[(c * CLUSTER_SLICE, min(dh, (c + 1) * CLUSTER_SLICE))
                 for c in range(r * per_cta, min(n, (r + 1) * per_cta))] for r in range(cluster)]
+    return {"slice": CLUSTER_SLICE, "slices": n, "per_cta": per_cta, "cluster": cluster,
+            "columns": columns}
+
+
+def wide_bwd_plan(dtype: torch.dtype, dh: int) -> dict:
+    """How the cluster design runs dQ and dK/dV at a head width past 256,
+    as ``run_cluster`` and ``cluster_bwd`` split it: ``_cluster_split``'s
+    keys (a CTA owning more than one slice sweeps once for each); ``smem``
+    each CTA's shared-memory bytes by pass; ``exchange`` the bytes a CTA
+    reads from its peers' shared memory a tile by pass (their f32 S and dP
+    partials of the elements it owns, then their shares of dS, or P and
+    dS, in the operand type), averaged over the cluster's CTAs."""
+    plan = _cluster_split("wide_bwd_plan", dtype, dh)
     size = 2 if dtype == torch.bfloat16 else 4
     cells = CLUSTER_ROWS * CLUSTER_TILE[dtype]
-    share = (cluster - 1) / cluster
-    return {
-        "slice": CLUSTER_SLICE, "slices": n, "per_cta": per_cta, "cluster": cluster,
-        "columns": columns,
-        "smem": {"dq": _cluster_smem(dtype, False), "dkdv": _cluster_smem(dtype, True)},
-        "exchange": {"dq": share * cells * (2 * 4 + size),
-                     "dkdv": share * cells * (2 * 4 + 2 * size)},
-    }
+    share = (plan["cluster"] - 1) / plan["cluster"]
+    plan["smem"] = {"dq": _cluster_smem(dtype, False), "dkdv": _cluster_smem(dtype, True)}
+    plan["exchange"] = {"dq": share * cells * (2 * 4 + size),
+                        "dkdv": share * cells * (2 * 4 + 2 * size)}
+    return plan
+
+
+def wide_fwd_plan(dtype: torch.dtype, dh: int) -> dict:
+    """How the cluster design runs the forward at a head width past 256, as
+    ``run_cluster`` and ``flash_fwd_cluster_kernel`` split it:
+    ``_cluster_split``'s keys; ``tile`` keys a tile; ``sweeps`` the sweeps
+    over the keys a CTA makes (one for each ``CLUSTER_FWD_ACC`` of its
+    slices: S computed once a tile up to dh 2048 in bf16, 1024 in
+    float32); ``rows[r]`` the [start, end) rows of
+    the 64-row tile CTA r owns (whole rows, for the online softmax);
+    ``smem`` each CTA's shared-memory bytes; ``exchange`` the bytes a CTA
+    reads from its peers' shared memory a tile (their f32 partials of the
+    rows it owns, then P, alpha and l of the other rows), averaged over the
+    cluster's CTAs."""
+    plan = _cluster_split("wide_fwd_plan", dtype, dh)
+    size = 2 if dtype == torch.bfloat16 else 4
+    n, c = CLUSTER_FWD_TILE[dtype], plan["cluster"]
+    share = (c - 1) / c
+    plan["tile"] = n
+    plan["sweeps"] = -(-plan["per_cta"] // CLUSTER_FWD_ACC[dtype])
+    plan["rows"] = [(r * CLUSTER_ROWS // c, (r + 1) * CLUSTER_ROWS // c) for r in range(c)]
+    plan["smem"] = _cluster_fwd_smem(dtype)
+    plan["exchange"] = share * CLUSTER_ROWS * (n * (4 + size) + 2 * 4)
+    return plan
 
 
 def _rows_of_16(t: torch.Tensor) -> bool:

@@ -245,8 +245,8 @@ def test_kernel_input_checks_take_every_width_to_256(dtype, dh):
 
 def test_kernel_widths_and_designs():
     """Every width 1..256 runs the next built instance and every wider one
-    the wide instance; bf16 rows of whole 16-byte groups inside 33..128 take
-    the Hopper design, the rest mma.sync."""
+    the cluster design (the WIDE class); bf16 rows of whole 16-byte groups
+    inside 33..128 take the Hopper design, the rest up to 256 mma.sync."""
     assert [tatt.kernel_width(d) for d in (1, 8, 32, 33, 64, 65, 80, 128, 129, 256)] == \
         [32, 32, 32, 64, 64, 128, 128, 128, 256, 256]
     assert [tatt.kernel_width(d) for d in (257, 320, 512, 1000)] == [tatt.WIDE] * 4
@@ -255,8 +255,8 @@ def test_kernel_widths_and_designs():
     designs = tatt.KERNEL_DESIGNS
     assert len(designs) == 2 * 512
     assert {dh for (dt, dh), d in designs.items() if d == "sm90"} == set(range(40, 129, 8))
-    assert all(d == "mma" for (dt, _), d in designs.items() if dt == torch.float32)
-    assert all(d == "mma" for (_, dh), d in designs.items() if dh > 256)
+    assert all(d == "mma" for (dt, dh), d in designs.items() if dt == torch.float32 and dh <= 256)
+    assert all(d == "cluster" for (_, dh), d in designs.items() if dh > 256)
     assert designs[(torch.bfloat16, 12)] == designs[(torch.bfloat16, 36)] == "mma"
 
 
@@ -281,9 +281,8 @@ def test_sm90_widths_still_need_aligned_rows():
     assert tatt.kernel_design(off12, off12, off12) == "mma"
 
 
-# head widths past the widest built instance: the wide instance's chunk
-# loop (float32 64 columns, bf16 128) with a ragged last chunk (320) and
-# without (512)
+# head widths past the widest built instance: the cluster design's
+# 128-column slices with a ragged last slice (320) and without (512)
 WIDE_DH = [320, 512]
 
 
@@ -322,6 +321,25 @@ def test_grads_match_pallas_backward_at_wide_widths(dh, causal):
 # (float32 dh 1100, past the cluster's reach of 8 slices of 128)
 WIDE_OFFSETS = [(300, 12, 0), (1100, 0, 12)]
 
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,qo,ko", WIDE_OFFSETS, ids=["dh300_q_offset", "dh1100_kv_offset"])
+def test_forward_matches_pallas_interpret_at_wide_offsets(dh, qo, ko, causal):
+    """float32 out and lse at a width past 256 with a query or key offset,
+    against the Pallas forward in interpret mode at atol 1e-5, as at the
+    other wide widths; rows that see no key get exactly zero output and an
+    lse at or below NEG_INF / 2."""
+    q, k, v, _ = _inputs(1, 40, 40, 2, dh, seed=11 * dh)
+    jo, jl = jatt.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, q_offset=qo,
+        kv_offset=ko, block_q=16, block_k=16, interpret=True, return_lse=True)
+    to, tl = tatt.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal, qo, ko, return_lse=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, :40], atol=1e-5, rtol=1e-6)
+    if causal and ko > qo:
+        assert to[:, :ko - qo].abs().max().item() == 0.0
+        assert tl.reshape(2, 40)[:, :ko - qo].max().item() <= tatt.NEG_INF / 2
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dh,qo,ko", WIDE_OFFSETS, ids=["dh300_q_offset", "dh1100_kv_offset"])

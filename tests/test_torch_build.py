@@ -6,13 +6,14 @@ attention source dispatches, checked on the CPU without nvcc.
   stale library.
 - ``run_dtype`` in ``csrc/flash_attention.cu`` dispatches every (dtype,
   head width) pair of ``KERNEL_DESIGNS`` (widths 1..512), pass by pass, to
-  the design ``pass_design`` names at ``kernel_width`` (past 256 the wide
-  forward and the cluster design's dQ and dK/dV), takes the Hopper
+  the design ``pass_design`` names at ``kernel_width`` (past 256 the
+  cluster design's forward, dQ and dK/dV), takes the Hopper
   design only where the views fit its tensor maps (as ``kernel_design``
   does), the Hopper dispatch launches a Hopper kernel for
   each of the three passes, and the source's sm90 tile sizes are the ones
-  ``sm90_tile_plan`` models; ``wide_bwd_plan`` restates the cluster
-  design's constants, shared memory and split of the width.
+  ``sm90_tile_plan`` models; ``wide_fwd_plan`` and ``wide_bwd_plan``
+  restate the cluster design's constants, shared memory and split of the
+  width.
 """
 
 import re
@@ -96,9 +97,8 @@ def _run_dtype_table(top=512):
     width 1..top and each pass ("fwd", "dq", "dkdv"), read from run_dtype's
     `if (dh <= W) return ...` lines (every pass): the mma.sync instance at
     W, or the Hopper one where `dh % 8 == 0 && tma ?` picks it (for views
-    that fit its tensor maps); then, for every wider width, its `if (which
-    != 0) return run_cluster<...>` line (dQ and dK/dV) and its closing
-    `return run_wide<...>` (the forward)."""
+    that fit its tensor maps); then, for every wider width, its closing
+    `return run_cluster<...>` line (all three passes)."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     body = src[src.index("int run_dtype("):]
     body = body[:body.index("\n}\n")]
@@ -117,11 +117,9 @@ def _run_dtype_table(top=512):
         t = "bf16" if code == "1" else "float"
         rest = block[block.rindex("if (dh <= "):].split("\n", 1)[1]
         assert [line.strip() for line in rest.strip().splitlines()] == [
-            f"if (which != 0) return run_cluster<{t}>(which, p, BH, stream);",
-            f"return run_wide<{t}>(p, BH, stream);"], rest
+            f"return run_cluster<{t}>(which, p, BH, stream);"], rest
         for dh in range(lo, top + 1):
-            table[(int(code), dh)] = {"fwd": ("mma", tatt.WIDE), "dq": ("cluster", tatt.WIDE),
-                                      "dkdv": ("cluster", tatt.WIDE)}
+            table[(int(code), dh)] = {w: ("cluster", tatt.WIDE) for w in ("fwd", "dq", "dkdv")}
     return table
 
 
@@ -138,10 +136,11 @@ def test_dispatch_matches_kernel_head_dims_and_designs():
     # whose rows are whole 16-byte groups; float32 keeps its exact emulation
     assert {k for k, v in tatt.KERNEL_DESIGNS.items() if v == "sm90"} == {
         (torch.bfloat16, dh) for dh in range(40, 129, 8)}
-    # past 256 the backward passes run the cluster design, in both dtypes
-    assert {(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS
-            if tatt.pass_design("dq", dt, dh) == "cluster"} == {
-        (dt, dh) for dt in (torch.bfloat16, torch.float32) for dh in range(257, 513)}
+    # past 256 every pass runs the cluster design, in both dtypes
+    for which in ("fwd", "dq", "dkdv"):
+        assert {(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS
+                if tatt.pass_design(which, dt, dh) == "cluster"} == {
+            (dt, dh) for dt in (torch.bfloat16, torch.float32) for dh in range(257, 513)}
 
 
 def _cluster_source():
@@ -178,7 +177,8 @@ def test_wide_bwd_plan_is_the_source_constants():
                  "attr[0].val.clusterDim.z = cluster;",
                  "cfg.gridDim = dim3(BH, tiles, cluster);",
                  "cfg.blockDim = dim3(kClThreads);",
-                 "cfg.dynamicSmemBytes = ClLayout<T>::bytes(which == 2);"):
+                 "cfg.dynamicSmemBytes = which == 0 ? ClFwdLayout<T>::bytes() : "
+                 "ClLayout<T>::bytes(which == 2);"):
         assert line in run, line
     # no CTA asks for more than the portable cluster: no non-portable attribute
     assert "NonPortableClusterSizeAllowed" not in src
@@ -206,12 +206,91 @@ def test_wide_bwd_plan_covers_every_width_once(dtype):
         tatt.wide_bwd_plan(dtype, 256)
 
 
+def test_wide_fwd_plan_is_the_source_constants():
+    """wide_fwd_plan restates the cluster forward's key tiles, its
+    accumulators a sweep by dtype, its shared memory layout and run_cluster's
+    forward branch: the same split of the width and grid as the backward,
+    the cluster on grid z, ClFwdLayout's bytes, flash_fwd_cluster_kernel."""
+    src, consts, _ = _cluster_source()
+    tiles = dict(re.findall(r"struct ClFwdTile<(bf16|float)> \{ static constexpr int value = (\d+); \}", src))
+    assert {k: int(v) for k, v in tiles.items()} == {
+        "bf16": tatt.CLUSTER_FWD_TILE[torch.bfloat16], "float": tatt.CLUSTER_FWD_TILE[torch.float32]}
+    acc = dict(re.findall(r"struct ClFwdAcc<(bf16|float)> \{ static constexpr int value = (\d+); \}", src))
+    assert {k: int(v) for k, v in acc.items()} == {
+        "bf16": tatt.CLUSTER_FWD_ACC[torch.bfloat16], "float": tatt.CLUSTER_FWD_ACC[torch.float32]}
+    layout = src[src.index("struct ClFwdLayout {"):]
+    layout = layout[:layout.index("\n};\n")]
+    for line in ("N = ClFwdTile<T>::value;", "LD = ClLayout<T>::LD;", "LDF = N + 4;",
+                 "LDP = N + 16 / sizeof(T);",
+                 "kFixed = (size_t)kClRows * LD * sizeof(T);",
+                 "kStream = (size_t)N * LD * sizeof(T);",
+                 "kPartial = (size_t)kClRows * LDF * 4;",
+                 "kOperand = (size_t)kClRows * LDP * sizeof(T);",
+                 "kRows = 3 * kClRows * 4;",
+                 "return kFixed + 4 * kStream + kPartial + kOperand + kRows;"):
+        assert line in layout, line
+    run = src[src.index("int run_cluster("):]
+    run = run[:run.index("\n}\n")]
+    for line in ("if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;",
+                 "const int tiles = ((which == 2 ? p.Lk : p.Lq) + kClRows - 1) / kClRows;",
+                 "attr[0].val.clusterDim.z = cluster;",
+                 "cfg.gridDim = dim3(BH, tiles, cluster);",
+                 "cfg.dynamicSmemBytes = which == 0 ? ClFwdLayout<T>::bytes() : "
+                 "ClLayout<T>::bytes(which == 2);",
+                 "return p.per_cta > 1 ? launch_cluster(flash_fwd_cluster_kernel<T, true>, cfg, p)",
+                 ": launch_cluster(flash_fwd_cluster_kernel<T, false>, cfg, p);"):
+        assert line in run, line
+    # the forward's sweep bounds are the cluster's query tile's, as in dQ
+    kernel = src[src.index("flash_fwd_cluster_kernel(const Params p) {"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert "const int n_k = k_tiles_needed(p, q0, R, N);" in kernel
+    assert kernel.rstrip().endswith("cluster.sync();  // no CTA leaves while a peer may still read its shared memory")
+    assert tatt.wide_fwd_plan(torch.bfloat16, 512)["smem"] == 208_640
+    assert tatt.wide_fwd_plan(torch.float32, 512)["smem"] == 204_544
+    for dt in (torch.bfloat16, torch.float32):
+        fwd, bwd = tatt.wide_fwd_plan(dt, 1100), tatt.wide_bwd_plan(dt, 1100)
+        assert {k: fwd[k] for k in ("slice", "slices", "per_cta", "cluster", "columns")} == \
+            {k: bwd[k] for k in ("slice", "slices", "per_cta", "cluster", "columns")}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_fwd_plan_covers_every_width_once(dtype):
+    """Every width 257..2048: the slices cover [0, dh) exactly once, the
+    rows of the 64-row tile are shared out whole and exactly once, each
+    CTA's shared memory fits the card, the cluster is within the portable
+    limit, and a CTA sweeps once for each CLUSTER_FWD_ACC of its slices
+    (bf16: once up to 2048, S computed once a tile; float32: once a
+    slice, twice past 1024)."""
+    for dh in range(257, 2049):
+        plan = tatt.wide_fwd_plan(dtype, dh)
+        spans = [span for cta in plan["columns"] for span in cta]
+        assert spans[0][0] == 0 and spans[-1][1] == dh, dh
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:])), dh
+        assert len(plan["columns"]) == plan["cluster"] <= tatt.CLUSTER_MAX
+        assert len(spans) == plan["slices"] == -(-dh // tatt.CLUSTER_SLICE)
+        assert plan["sweeps"] == -(-plan["per_cta"] // tatt.CLUSTER_FWD_ACC[dtype])
+        assert plan["sweeps"] == (1 if dtype == torch.bfloat16 or dh <= 1024 else 2)
+        rows = plan["rows"]
+        assert len(rows) == plan["cluster"] and rows[0][0] == 0
+        assert rows[-1][1] == tatt.CLUSTER_ROWS
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(rows, rows[1:])), dh
+        assert plan["smem"] <= tatt.SMEM_LIMIT
+        assert 0 < plan["exchange"] < plan["smem"]
+    assert tatt.wide_fwd_plan(dtype, 2049)["sweeps"] == (2 if dtype == torch.bfloat16 else 3)
+    with pytest.raises(ValueError, match="not past"):
+        tatt.wide_fwd_plan(dtype, 256)
+
+
 def test_wide_backward_is_the_cluster_design_only():
-    """The loop design's dQ and dK/dV are gone; its forward stays."""
+    """The loop design is gone in all three passes (its kernels, run_wide
+    and what only they used); the three cluster kernels run past 256, one
+    CTA of kClThreads an SM, launched with the cluster dimension after the
+    occupancy query."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    assert "flash_dq_wide_kernel" not in src and "flash_dkdv_wide_kernel" not in src
-    assert "__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel" in src
-    for kernel in ("flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"):
+    for gone in ("flash_dq_wide_kernel", "flash_dkdv_wide_kernel", "flash_fwd_wide_kernel",
+                 "run_wide", "WideChunk", "load_chunk", "gemm_abt_add"):
+        assert gone not in src, gone
+    for kernel in ("flash_fwd_cluster_kernel", "flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"):
         assert f"__global__ void __launch_bounds__(kClThreads, 1) {kernel}" in src
     assert "cudaLaunchKernelEx" in src and "cudaOccupancyMaxActiveClusters" in src
 

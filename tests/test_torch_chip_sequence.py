@@ -62,18 +62,18 @@ def test_coverage_checks_float32_128_and_wide_grid(cs):
         return (dt, tatt.kernel_width(dh), tatt.pass_design("fwd", dt, dh))
 
     reachable = {triple(dt, dh) for dt, dh in tatt.KERNEL_DESIGNS}
-    assert len(reachable) == 12  # the wide instance in both dtypes included
+    assert len(reachable) == 12  # the cluster design past 256 in both dtypes included
     covered = {triple(getattr(torch, c[6]), c[5])
                for c in cs.FLASH_COVERAGE_CHECKS + cs.FLASH_WIDE_CHECKS}
     assert covered == reachable
-    # pass by pass: the backward's cluster design past 256 in both dtypes too
+    # pass by pass: the cluster design past 256 in all three passes and both dtypes
     def quad(which, dt, dh):
         return (which, dt, tatt.kernel_width(dh), tatt.pass_design(which, dt, dh))
 
     passes = ("fwd", "dq", "dkdv")
     reachable = {quad(w, dt, dh) for w in passes for dt, dh in tatt.KERNEL_DESIGNS}
     assert {q for q in reachable if q[3] == "cluster"} == {
-        (w, dt, tatt.WIDE, "cluster") for w in ("dq", "dkdv")
+        (w, dt, tatt.WIDE, "cluster") for w in passes
         for dt in (torch.bfloat16, torch.float32)}
     assert {quad(w, getattr(torch, c[6]), c[5]) for w in passes
             for c in cs.FLASH_COVERAGE_CHECKS + cs.FLASH_WIDE_CHECKS} == reachable
@@ -98,7 +98,7 @@ def test_coverage_time_shapes(cs):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("dh", [320, 512])
 def test_wide_checks_square_and_ragged(cs, dtype, dh):
-    """The wide instance is checked at (2, 1024, 2, dh) and ragged
+    """The widths past 256 are checked at (2, 1024, 2, dh) and ragged
     1000/1100 in both dtypes; the earlier 40 cases (80 checks) are kept as
     they were."""
     cases = [c for c in cs.FLASH_WIDE_CHECKS if c[5] == dh and c[6] == dtype]
@@ -135,17 +135,33 @@ def test_wide_checks_rows_and_reach(cs):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_expected_kernels_by_pass(cs, dtype):
     """The kernel phase 8's and 43's timing checks each pass launched:
-    past 256 the cluster design's dQ and dK/dV and the wide forward."""
+    past 256 the cluster design's forward, dQ and dK/dV."""
     names = ("flash_fwd", "flash_dq", "flash_dkdv")
     for dh in (320, 512, 1100):
         assert [cs.expected_kernel(tatt, n, dtype, dh) for n in names] == [
-            "flash_fwd_wide_kernel", "flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"]
+            "flash_fwd_cluster_kernel", "flash_dq_cluster_kernel", "flash_dkdv_cluster_kernel"]
     assert [cs.expected_kernel(tatt, n, dtype, 256) for n in names] == [
         "flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel"]
     hopper = [f"{n}_sm90_kernel" for n in names] if dtype == torch.bfloat16 else \
         [f"{n}_kernel" for n in names]
     assert [cs.expected_kernel(tatt, n, dtype, 128) for n in names] == hopper
 
+
+def test_phase43_runs_each_cluster_pass_twice(cs):
+    """Phase 43 counts 12 cluster launches a case past 256: the forward,
+    dQ and dK/dV each run twice (the second bitwise the first), causal and
+    not. The ten such cases of FLASH_WIDE_CHECKS make 120."""
+    wide = [c for c in cs.FLASH_WIDE_CHECKS if tatt.kernel_width(c[5]) == tatt.WIDE]
+    per_case = [2 * 2 * sum(tatt.pass_design(w, getattr(torch, c[6]), c[5]) == "cluster"
+                            for w in ("fwd", "dq", "dkdv")) for c in wide]
+    assert len(wide) == 10 and per_case == [12] * 10
+    assert 12 * len(wide) == sum(per_case) == 120
+    coverage = (ROOT / "chip_smoke.py").read_text().split("def phase_flash_coverage")[1]
+    coverage = coverage.split("\ndef ")[0]
+    assert "check(ran == 12 * wide," in coverage
+    checks = (ROOT / "chip_smoke.py").read_text().split("def run_flash_checks")[1].split("\ndef ")[0]
+    assert "a second forward run differs from the first" in checks
+    assert "a second backward run differs from the first" in checks
 
 def test_misaligned_case_runs_mma_on_the_cpu_views(cs):
     """The misaligned case's views (built here on the CPU as chip_smoke
